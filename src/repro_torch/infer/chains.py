@@ -1,0 +1,366 @@
+"""Chain container, MCMC diagnostics, and the multi-chain runner.
+
+Three layers:
+
+* ``Chain`` + ``effective_sample_size`` / ``split_rhat`` — posterior draw
+  storage with a leading chain axis and the standard mixing diagnostics
+  (NumPy, identical to the JAX package's).
+* ``TransitionKernel`` — the protocol every MCMC sampler exposes through
+  ``make_kernel(logdensity, dim)``: ``init``/``warm``/``finalize``/``step``
+  functions over a flat unconstrained state written out as
+  ``(num_chains, dim)``, drawing their noise from an explicit
+  ``torch.Generator``.
+* ``run_chains`` — the many-chains-on-one-device runner: builds the
+  model's fused flat log-density ONCE, advances all chains in lockstep
+  (one kernel launch per density family per step for the whole chain
+  axis), and packages the stacked draws back through the typed trace.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+
+__all__ = ["Chain", "TransitionKernel", "drive_chains",
+           "effective_sample_size", "package_draws", "run_chains",
+           "split_rhat"]
+
+
+def _fmt(v, width: int, prec: int) -> str:
+    """Fixed-width float cell; non-finite renders as an explicit marker
+    (``n/a``) instead of a bare ``nan`` so degenerate diagnostics are
+    visible at a glance."""
+    v = float(v)
+    if np.isnan(v):
+        return f"{'n/a':>{width}}"
+    return f"{v:>{width}.{prec}f}"
+
+
+class Chain:
+    """Posterior draws: dict name -> (num_chains, num_samples, ...) arrays.
+
+    Single-chain results are stored with a leading chain axis of 1.
+    """
+
+    def __init__(self, draws: Dict[str, Any],
+                 stats: Optional[Dict[str, Any]] = None):
+        self.draws = {k: np.asarray(v) for k, v in draws.items()}
+        self.stats = {k: np.asarray(v) for k, v in (stats or {}).items()}
+        first = next(iter(self.draws.values()))
+        self.num_chains, self.num_samples = first.shape[0], first.shape[1]
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.draws[name]
+
+    def names(self):
+        return list(self.draws)
+
+    def flat(self, name: str) -> np.ndarray:
+        """(num_chains*num_samples, ...) view of a variable."""
+        v = self.draws[name]
+        return v.reshape((-1,) + v.shape[2:])
+
+    def mean(self, name: str):
+        return self.flat(name).mean(axis=0)
+
+    def std(self, name: str):
+        return self.flat(name).std(axis=0)
+
+    def to_dict_of_flat(self) -> Dict[str, np.ndarray]:
+        return {n: self.flat(n) for n in self.names()}
+
+    def summary(self) -> str:
+        has_div = "diverging" in self.stats
+        n_div = int(np.sum(self.stats["diverging"])) if has_div else 0
+        header = f"{'param':<18}{'mean':>12}{'std':>12}{'ess':>10}{'rhat':>8}"
+        if has_div:
+            header += f"{'div':>6}"
+        lines = [header]
+        for n in self.names():
+            v = self.draws[n]
+            scalar = v.reshape(v.shape[0], v.shape[1], -1)[..., 0]
+            ess = effective_sample_size(scalar)
+            rhat = split_rhat(scalar)
+            row = (f"{n:<18}{_fmt(self.mean(n).ravel()[0], 12, 4)}"
+                   f"{_fmt(self.std(n).ravel()[0], 12, 4)}"
+                   f"{_fmt(ess, 10, 1)}{_fmt(rhat, 8, 3)}")
+            if has_div:
+                row += f"{n_div:>6d}"
+            lines.append(row)
+        return "\n".join(lines)
+
+    def __repr__(self):
+        return (f"Chain(chains={self.num_chains}, samples={self.num_samples}, "
+                f"vars={self.names()})")
+
+
+def _autocov(x: np.ndarray) -> np.ndarray:
+    n = x.shape[-1]
+    x = x - x.mean(axis=-1, keepdims=True)
+    nfft = int(2 ** np.ceil(np.log2(2 * n)))
+    f = np.fft.rfft(x, nfft, axis=-1)
+    acov = np.fft.irfft(f * np.conj(f), nfft, axis=-1)[..., :n].real
+    return acov / n
+
+
+def effective_sample_size(x: np.ndarray) -> float:
+    """Geyer initial-monotone ESS for (chains, samples) scalar draws.
+
+    Degenerate inputs — fewer than 4 draws per chain, or zero variance
+    (a constant / fully stuck chain) — have no defined ESS; those cases
+    return ``nan`` WITH an explicit ``RuntimeWarning`` naming the cause
+    rather than silently propagating ``nan`` arithmetic."""
+    x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+    m, n = x.shape
+    if n < 4:
+        warnings.warn(
+            f"effective_sample_size is undefined for {n} draws per chain "
+            "(need >= 4); returning nan", RuntimeWarning, stacklevel=2)
+        return float("nan")
+    acov = _autocov(x)
+    mean_var = acov[:, 0].mean() * n / (n - 1.0)
+    var_plus = mean_var * (n - 1.0) / n
+    if m > 1:
+        var_plus += x.mean(axis=1).var(ddof=1)
+    if not np.isfinite(var_plus) or var_plus <= 1e-300:
+        warnings.warn(
+            "effective_sample_size is undefined for zero-variance or "
+            "non-finite draws (constant / stuck chain?); returning nan",
+            RuntimeWarning, stacklevel=2)
+        return float("nan")
+    rho = 1.0 - (mean_var - acov.mean(axis=0)) / var_plus
+    # Geyer initial-positive-monotone sequence over lag pairs
+    prev_pair = np.inf
+    tau = 1.0
+    t = 1
+    while t + 1 < n:
+        pair = rho[t] + rho[t + 1]
+        if pair < 0:
+            break
+        pair = min(pair, prev_pair)  # initial monotone
+        prev_pair = pair
+        tau += 2.0 * pair
+        t += 2
+    return float(m * n / max(tau, 1e-12))
+
+
+def split_rhat(x: np.ndarray) -> float:
+    """Split-chain potential scale reduction factor.
+
+    Degenerate inputs warn explicitly instead of silently returning a
+    bare ``nan``: fewer than 4 draws per chain -> ``nan``; zero variance
+    everywhere (all chains constant at one point) -> ``nan``; zero
+    within-chain variance but distinct chain means (chains stuck at
+    DIFFERENT points — the worst possible mixing) -> ``inf``."""
+    x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+    m, n = x.shape
+    half = n // 2
+    if half < 2:
+        warnings.warn(
+            f"split_rhat is undefined for {n} draws per chain (need >= 4 "
+            "to split); returning nan", RuntimeWarning, stacklevel=2)
+        return float("nan")
+    halves = np.concatenate([x[:, :half], x[:, half:2 * half]], axis=0)
+    m2, n2 = halves.shape
+    chain_means = halves.mean(axis=1)
+    chain_vars = halves.var(axis=1, ddof=1)
+    w = chain_vars.mean()
+    b = n2 * chain_means.var(ddof=1)
+    if not np.isfinite(w) or w <= 1e-300:
+        if not np.isfinite(b) or b <= 1e-300:
+            warnings.warn(
+                "split_rhat is undefined for zero-variance draws (all "
+                "chains constant); returning nan",
+                RuntimeWarning, stacklevel=2)
+            return float("nan")
+        warnings.warn(
+            "split_rhat: zero within-chain variance with distinct chain "
+            "means (chains stuck at different points); returning inf",
+            RuntimeWarning, stacklevel=2)
+        return float("inf")
+    var_plus = (n2 - 1.0) / n2 * w + b / n2
+    return float(np.sqrt(var_plus / w))
+
+
+# ---------------------------------------------------------------------------
+# multi-chain runner
+# ---------------------------------------------------------------------------
+class TransitionKernel(NamedTuple):
+    """MCMC transition kernel over a flat unconstrained state.
+
+    Samplers build one via ``make_kernel(logdensity, dim)``. Every state
+    tensor carries the chain axis first: positions are ``(num_chains, dim)``.
+
+    Attributes
+    ----------
+    init : callable
+        ``q0 (num_chains, dim) -> state``; evaluates whatever the sampler
+        caches (log-density, gradient, adaptation state).
+    warm : callable
+        ``(state, t, generator) -> state``; one warmup transition at
+        iteration ``t`` (a float), including any step-size adaptation.
+    finalize : callable
+        ``state -> state``; freezes adapted quantities before sampling.
+        ``run_chains`` calls it only after a non-empty warmup.
+    step : callable
+        ``(state, generator) -> (state, out)`` with ``out`` a dict of
+        per-draw tensors, each ``(num_chains, ...)``, that MUST contain
+        ``"q"`` and ``"logp"``; extra keys become ``Chain.stats``.
+    """
+
+    init: Callable
+    warm: Callable
+    finalize: Callable
+    step: Callable
+
+
+def package_draws(tvi_linked, qs: torch.Tensor,
+                  stats: Optional[Dict[str, Any]] = None) -> Chain:
+    """Map flat unconstrained draws back to constrained named arrays.
+
+    Parameters
+    ----------
+    tvi_linked : TypedVarInfo
+        Linked typed trace fixing the flat layout of ``qs``.
+    qs : tensor, shape ``(num_chains, num_samples, num_flat)``
+        Unconstrained draws.
+    stats : dict of tensors, optional
+        Per-draw sampler statistics, each ``(num_chains, num_samples, ...)``.
+
+    Returns
+    -------
+    Chain
+        NumPy draws keyed by site symbol, each
+        ``(num_chains, num_samples) + site.shape`` on the constrained
+        support (a double ``vmap`` of ``replace_flat().invlink()``).
+    """
+    def to_constrained(q):
+        return tvi_linked.replace_flat(q).invlink().as_dict()
+
+    draws = torch.func.vmap(torch.func.vmap(to_constrained))(qs)
+
+    def host(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    return Chain({k: host(v) for k, v in draws.items()},
+                 stats={k: host(v) for k, v in (stats or {}).items()})
+
+
+_NOT_PORTED_OPTIONS = {
+    "mesh": "ROADMAP.md Queue 1 item 8 (sharding)",
+    "checkpoint_dir": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
+    "checkpoint_every": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
+    "preemption": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
+}
+
+
+def run_chains(seed: int, model, kernel, num_samples: int, *,
+               num_warmup: int = 0, num_chains: int = 4, init_varinfo=None,
+               init_jitter: float = 1.0, backend: str = "fused", ctx=None,
+               device=None, mesh=None, checkpoint_dir: Optional[str] = None,
+               checkpoint_every: Optional[int] = None, preemption=None) -> Chain:
+    """Run ``num_chains`` MCMC chains in lockstep on one device.
+
+    The model's log-density is built once from the typed trace (fused
+    flat-buffer backend by default) and shared by every chain. Each
+    transition advances the whole ``(num_chains, dim)`` state: the
+    density's value and gradient run under ``torch.func.vmap`` over the
+    chain axis, so each density family is one kernel launch for all
+    chains.
+
+    Parameters
+    ----------
+    seed : int
+        Seeds the ONE ``torch.Generator`` (on ``device``) that draws the
+        discovery trace, the init jitter, and every momentum and accept
+        uniform. Same seed, same device: the same chains.
+    model : repro_torch.core.model.Model
+        Bound model to sample from; its data must live on ``device``.
+    kernel : HMC
+        Any sampler exposing ``make_kernel(logdensity, dim)``.
+    num_samples, num_warmup : int
+        Post-warmup draws per chain, and discarded warmup iterations.
+    num_chains : int
+        Number of chains (the leading axis of every result).
+    init_varinfo : TypedVarInfo, optional
+        Typed trace to initialise from; discovered from the prior if absent.
+    init_jitter : float
+        Half-width of the per-chain Uniform jitter around the discovery
+        draw in UNCONSTRAINED space. ``0.0`` starts every chain at the same
+        point.
+    backend : {"fused", "reference"}
+        Log-density backend (see ``Model.make_logdensity_fn``).
+    ctx : Context, optional
+        Evaluation context for the log-density (default: the joint).
+    device : str or torch.device, optional
+        Where the chains run; ``None`` means ``"cuda"`` and raises when
+        CUDA is missing. Pass ``"cpu"`` to run on the CPU.
+    mesh, checkpoint_dir, checkpoint_every, preemption :
+        Not ported yet; anything but ``None`` raises
+        ``NotImplementedError`` naming the ROADMAP item.
+
+    Returns
+    -------
+    Chain
+        Draws of shape ``(num_chains, num_samples) + site.shape`` per site;
+        ``stats`` holds ``logp`` and the kernel's extras (accept_prob,
+        diverging).
+    """
+    from repro_torch.core.varinfo import assert_continuous_supports
+
+    given = {"mesh": mesh, "checkpoint_dir": checkpoint_dir,
+             "checkpoint_every": checkpoint_every, "preemption": preemption}
+    for name, value in given.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"run_chains({name}=...) is not ported yet: "
+                f"{_NOT_PORTED_OPTIONS[name]}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    tvi = (init_varinfo if init_varinfo is not None
+           else model.typed_varinfo(gen))
+    assert_continuous_supports(tvi, type(kernel).__name__)
+    tvi = tvi.link()
+    logdensity = model.make_logdensity_fn(tvi, ctx=ctx, backend=backend)
+    dim = int(tvi.num_flat)
+    kern = kernel.make_kernel(logdensity, dim)
+
+    q0s = tvi.flat().to(dev).expand(num_chains, dim)
+    if init_jitter:
+        u = torch.rand((num_chains, dim), generator=gen, device=dev)
+        q0s = q0s + (2.0 * u - 1.0) * init_jitter
+    qs, stats = drive_chains(kern, q0s, gen, num_warmup=num_warmup,
+                             num_samples=num_samples)
+    return package_draws(tvi, qs, stats=stats)
+
+
+def drive_chains(kern: TransitionKernel, q0s: torch.Tensor,
+                 generator: torch.Generator, *, num_warmup: int,
+                 num_samples: int):
+    """Run warmup then sampling for all chains of ``q0s (num_chains, dim)``.
+
+    Returns ``(qs, stats)``: ``qs (num_chains, num_samples, dim)`` and each
+    per-draw stat stacked to ``(num_chains, num_samples, ...)``. Nothing in
+    the loop waits for the device: draws stay on it until packaging.
+    """
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    state = kern.init(q0s)
+    for t in range(num_warmup):
+        state = kern.warm(state, float(t), generator)
+    if num_warmup > 0:
+        # freeze adapted quantities only when adaptation actually ran:
+        # dual averaging's smoothed iterate starts at exp(0) = 1.0
+        state = kern.finalize(state)
+    outs = []
+    for _ in range(num_samples):
+        state, out = kern.step(state, generator)
+        outs.append(out)
+    stats = {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
+    return stats.pop("q"), stats

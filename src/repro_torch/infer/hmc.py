@@ -1,0 +1,273 @@
+"""Static HMC — the paper's benchmark algorithm (§4: 4 leapfrog steps).
+
+The state of every chain is written out as ``(num_chains, dim)``. The
+log-density's value and gradient run under
+``torch.func.vmap(torch.func.grad_and_value(...))`` over the chain axis,
+so each density family in the fused log-joint is ONE kernel launch for
+all chains per leapfrog step. Momentum and accept-uniform draws come from
+one explicit ``torch.Generator`` on the chains' device (they will never
+equal the JAX package's threefry draws; the tests inject the same NumPy
+momentum into both packages' ``_leapfrog`` instead).
+
+Both ``leapfrog="auto"`` and ``"reference"`` run the autodiff integrator,
+which is what the JAX package runs for every model this slice supports
+(its separable-potential compiler rejects them as coupled). The fused
+n-step integrator is the next slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core.contexts import Context
+from repro_torch.core.model import Model
+from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+
+__all__ = ["HMC", "DualAveraging", "hmc_transition", "make_chain_fn",
+           "value_and_grad"]
+
+
+def value_and_grad(logdensity: Callable) -> Callable:
+    """``q -> (logp, grad)`` for ``q (dim,)`` or a chain batch
+    ``q (num_chains, dim)``; the batch runs under ``torch.func.vmap``."""
+    g_and_v = torch.func.grad_and_value(logdensity)
+
+    def single(q):
+        grad, val = g_and_v(q)
+        return val, grad
+
+    batched = torch.func.vmap(single)
+
+    def f(q):
+        if q.dim() == 1:
+            return single(q)
+        if q.dim() == 2:
+            return batched(q)
+        raise ValueError(f"expected q of shape (dim,) or (chains, dim), "
+                         f"got {tuple(q.shape)}")
+
+    return f
+
+
+@dataclasses.dataclass(frozen=True)
+class DualAveraging:
+    """Nesterov dual-averaging step-size adaptation (Stan warmup), applied
+    elementwise to per-chain tensors."""
+
+    target_accept: float = 0.8
+    gamma: float = 0.05
+    t0: float = 10.0
+    kappa: float = 0.75
+
+    def init(self, step_size):
+        eps = torch.as_tensor(step_size, dtype=torch.float32)
+        zero = torch.zeros_like(eps)
+        return (torch.log(eps), zero, zero, torch.log(10.0 * eps))
+
+    def update(self, state, accept_prob, t: float):
+        log_eps, log_eps_bar, h_bar, mu = state
+        t = t + 1.0
+        eta = 1.0 / (t + self.t0)
+        h_bar = (1.0 - eta) * h_bar + eta * (self.target_accept - accept_prob)
+        log_eps = mu - math.sqrt(t) / self.gamma * h_bar
+        w = t ** (-self.kappa)
+        log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
+        return (log_eps, log_eps_bar, h_bar, mu)
+
+
+def _per_coord(step_size, q: torch.Tensor):
+    """A per-chain step size ``(num_chains,)`` broadcast over ``dim``."""
+    if torch.is_tensor(step_size) and step_size.dim() == q.dim() - 1:
+        return step_size.unsqueeze(-1)
+    return step_size
+
+
+def _leapfrog(logdensity_and_grad: Callable, q, p, grad, step_size,
+              n_steps: int, inv_mass=None):
+    """n_steps leapfrog updates. Returns (q, p, logp, grad).
+
+    ``q``, ``p`` and ``grad`` are ``(dim,)`` or ``(num_chains, dim)``;
+    ``step_size`` is a number or a per-chain tensor. ``inv_mass`` is an
+    optional DIAGONAL inverse mass (a flat vector); ``None`` keeps the unit
+    metric. The velocity is ``inv_mass * p``.
+    """
+    eps = _per_coord(step_size, q)
+    logp = None
+    for _ in range(n_steps):
+        p_half = p + 0.5 * eps * grad
+        vel = p_half if inv_mass is None else inv_mass * p_half
+        q = q + eps * vel
+        logp, grad = logdensity_and_grad(q)
+        p = p_half + 0.5 * eps * grad
+    return q, p, logp, grad
+
+
+def hmc_transition(ld_and_grad: Callable, q, logp, grad, step_size,
+                   generator: torch.Generator, n_leapfrog: int, *,
+                   inv_mass=None):
+    """One Metropolis-corrected HMC transition for every chain in ``q``.
+
+    Returns ``(q, logp, grad, accept_prob, accepted, diverging)``, each with
+    the chain axis first. ``diverging`` is the Stan criterion: the energy
+    error exceeds 1000 (or is NaN). ``inv_mass`` (diagonal flat vector or
+    None) shapes both the momentum draw (``p ~ N(0, M)``) and the kinetic
+    energy. Draws: one normal ``q.shape`` momentum, then one uniform per
+    chain, both from ``generator``.
+    """
+    noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
+                        device=q.device)
+    p0 = noise if inv_mass is None else noise / torch.sqrt(inv_mass)
+    q_new, p_new, logp_new, grad_new = _leapfrog(
+        ld_and_grad, q, p0, grad, step_size, n_leapfrog, inv_mass=inv_mass)
+
+    def kinetic(p):
+        if inv_mass is None:
+            return 0.5 * torch.sum(p * p, dim=-1)
+        return 0.5 * torch.sum(p * p * inv_mass, dim=-1)
+
+    h0 = -logp + kinetic(p0)
+    h1 = -logp_new + kinetic(p_new)
+    delta = h0 - h1
+    diverging = torch.isnan(delta) | (-delta > 1000.0)
+    log_accept = torch.clamp(delta, max=0.0)
+    log_accept = torch.where(torch.isnan(log_accept), -math.inf, log_accept)
+    u = torch.rand(logp.shape, generator=generator, dtype=q.dtype,
+                   device=q.device)
+    accept = torch.log(u) < log_accept
+    q = torch.where(accept.unsqueeze(-1), q_new, q)
+    logp = torch.where(accept, logp_new, logp)
+    grad = torch.where(accept.unsqueeze(-1), grad_new, grad)
+    return q, logp, grad, torch.exp(log_accept), accept, diverging
+
+
+def make_chain_fn(logdensity: Callable, num_samples: int, step_size: float,
+                  n_leapfrog: int, collect: bool = True) -> Callable:
+    """Build ``f(generator, q0) -> (qs, logps, accept_probs)`` for a RAW flat
+    log-density, so the typed-DSL path and a hand-written density run the
+    exact same HMC program. ``q0`` is ``(dim,)`` or ``(num_chains, dim)``;
+    the draws axis is inserted after the chain axis. With
+    ``collect=False`` it returns ``(q_final, logps, accept_probs)``."""
+    ld_and_grad = value_and_grad(logdensity)
+
+    def chain(generator, q0):
+        q = q0
+        logp, grad = ld_and_grad(q0)
+        outs = []
+        for _ in range(num_samples):
+            q, logp, grad, acc, _, _ = hmc_transition(
+                ld_and_grad, q, logp, grad, step_size, generator, n_leapfrog)
+            outs.append((q, logp, acc) if collect else (logp, acc))
+        axis = q0.dim() - 1
+        stacked = tuple(torch.stack(o, dim=axis) for o in zip(*outs))
+        return stacked if collect else (q,) + stacked
+
+    return chain
+
+
+@dataclasses.dataclass
+class HMC:
+    """Static HMC with a fixed number of leapfrog steps (paper setup).
+
+    ``leapfrog``: ``"auto"`` and ``"reference"`` run the autodiff
+    integrator; ``"fused"`` (the fused n-step integrator) is not ported
+    yet and raises. ``inv_mass`` is an optional DIAGONAL inverse mass
+    (flat vector over the unconstrained state).
+    """
+
+    step_size: float = 0.1
+    n_leapfrog: int = 4
+    adapt_step_size: bool = False
+    target_accept: float = 0.8
+    backend: str = "fused"  # log-density backend (see make_logdensity_fn)
+    leapfrog: str = "auto"  # "auto" | "reference"; "fused" not ported yet
+    inv_mass: Optional[Any] = None  # diagonal inverse mass (flat vector)
+
+    def run(self, seed: int, m: Model, num_samples: int,
+            num_warmup: int = 0,
+            init_varinfo: Optional[TypedVarInfo] = None,
+            ctx: Optional[Context] = None,
+            num_chains: int = 1, device=None) -> Chain:
+        """Sample ``num_chains`` chains of ``m`` on ``device`` (``None``
+        means CUDA) through :func:`run_chains`. With several chains, each
+        starts from a Uniform(-1, 1) jitter around the discovery draw in
+        unconstrained space."""
+        return run_chains(seed, m, self, num_samples, num_warmup=num_warmup,
+                          num_chains=num_chains, init_varinfo=init_varinfo,
+                          init_jitter=1.0 if num_chains > 1 else 0.0,
+                          backend=self.backend, ctx=ctx, device=device)
+
+    def make_kernel(self, logdensity: Callable, dim: int) -> TransitionKernel:
+        """Build the HMC :class:`TransitionKernel` for ``run_chains``.
+
+        Parameters
+        ----------
+        logdensity : callable
+            Flat unconstrained log-density ``(dim,) -> scalar`` (usually
+            ``Model.make_logdensity_fn`` output — the fused hot path).
+        dim : int
+            Length of the flat unconstrained state.
+
+        Returns
+        -------
+        TransitionKernel
+            State ``(q, logp, grad, da_state, eps)`` with the chain axis
+            first; ``step`` emits ``{"q", "logp", "accept_prob",
+            "diverging"}`` per draw. Warmup runs dual-averaging adaptation
+            when ``adapt_step_size``.
+        """
+        del dim  # the state shape is carried by q itself
+        if self.leapfrog not in ("auto", "fused", "reference"):
+            raise ValueError(f"unknown leapfrog mode {self.leapfrog!r}")
+        if self.leapfrog == "fused":
+            raise NotImplementedError(
+                "leapfrog='fused' is not ported yet (ROADMAP.md Queue 1 "
+                "item 1: separable potential and fused leapfrog); use "
+                "leapfrog='auto' for the autodiff integrator")
+        ld_and_grad = value_and_grad(logdensity)
+        da = DualAveraging(target_accept=self.target_accept)
+        inv_mass_on = {}  # device -> inv_mass tensor, moved there once
+
+        def inv_mass(q):
+            if self.inv_mass is None:
+                return None
+            if q.device not in inv_mass_on:
+                inv_mass_on[q.device] = torch.as_tensor(
+                    self.inv_mass, dtype=q.dtype, device=q.device)
+            return inv_mass_on[q.device]
+
+        def init(q0):
+            logp0, grad0 = ld_and_grad(q0)
+            eps = torch.full(logp0.shape, float(self.step_size),
+                             device=q0.device)
+            return (q0, logp0, grad0, da.init(eps), eps)
+
+        def warm(state, t, generator):
+            q, logp, grad, da_state, eps = state
+            cur = torch.exp(da_state[0]) if self.adapt_step_size else eps
+            q, logp, grad, acc, _, _ = hmc_transition(
+                ld_and_grad, q, logp, grad, cur, generator, self.n_leapfrog,
+                inv_mass=inv_mass(q))
+            if self.adapt_step_size:
+                da_state = da.update(da_state, acc, t)
+            return (q, logp, grad, da_state, eps)
+
+        def finalize(state):
+            q, logp, grad, da_state, eps = state
+            if self.adapt_step_size:
+                eps = torch.exp(da_state[1])
+            return (q, logp, grad, da_state, eps)
+
+        def step(state, generator):
+            q, logp, grad, da_state, eps = state
+            q, logp, grad, acc, _, div = hmc_transition(
+                ld_and_grad, q, logp, grad, eps, generator, self.n_leapfrog,
+                inv_mass=inv_mass(q))
+            out = {"q": q, "logp": logp, "accept_prob": acc,
+                   "diverging": div}
+            return (q, logp, grad, da_state, eps), out
+
+        return TransitionKernel(init, warm, finalize, step)

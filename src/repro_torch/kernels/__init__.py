@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version.
+
+  fused_logpdf/  fused elementwise log-density + row reduction for the
+                 flat-buffer log-joint (``site_block_sum``): the
+                 std_normal and bernoulli_logits families.
+
+The kernels are built with ``nvcc`` at first use (``_build.py``); on a
+CPU tensor every wrapper runs the plain version instead.
+"""
