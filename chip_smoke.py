@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-Drives the port's main path — the paper's Table-1 loop: typed trace ->
+Drives the port's main paths — the paper's Table-1 loop: typed trace ->
 fused flat log-joint -> static HMC with 4 leapfrog steps over 4 chains —
 for ``logreg`` (10,000 x 100) and ``naive_bayes`` (1,000 x 40, 10 classes)
-at full width, through the hand-written CUDA kernels of
-``src/repro_torch/kernels/fused_logpdf/csrc``. Phases, in order:
+through the hand-written CUDA kernels of
+``src/repro_torch/kernels/fused_logpdf/csrc``, and for ``gaussian_10k``
+(10,000-D) through the separable-potential compiler and the fused n-step
+leapfrog of ``src/repro_torch/kernels/fused_leapfrog/csrc``, all at full
+width and 2000 draws. Phases, in order:
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. builds the kernel source with ``nvcc`` and prints the build time;
-3. holds each kernel against its plain PyTorch version on the card
-   (rtol 1e-6; ragged sizes, 1/4/16 rows, a stride-0 ``y``), checks that
-   two runs are bit-identical and that the backward works through
-   ``vmap(grad)`` with one launch for the whole chain axis;
+2. builds both kernel sources with ``nvcc``, in parallel, and prints each
+   build time;
+3. holds each kernel against its plain PyTorch version on the card and
+   checks that two runs are bit-identical: the fused_logpdf sums at rtol
+   1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``) and their backward
+   through ``vmap(grad)`` with one launch for the whole chain axis; the
+   fused leapfrog and fused potential for every opcode alone and a mixed
+   table, with and without an inverse mass, 1/4/16 chains with distinct
+   step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
+   rtol 1e-5 plus atol 1e-5 * max|plain|, the potential at
+   1e-5 * sum_i |v_i|);
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
-   num_chains=4, num_samples=2000)`` with the launch counts set to 0 just
-   before and read just after; checks finite draws and logp, the mean
-   acceptance, and the fused density at the final draws against the
-   per-site reference density and the hand-written twin (rtol 1e-5);
+   num_chains=4, num_samples=2000)`` with every launch count set to 0 just
+   before and read just after; the counts must equal the autodiff
+   integrator's evaluations plus the potential compiler's 5 probe
+   evaluations (which reject the model); checks finite draws and logp,
+   the mean acceptance, and the fused density at the final draws against
+   the per-site reference density and the hand-written twin (rtol 1e-5);
 5. the same for ``naive_bayes`` (step 0.01);
-6. times each kernel at the main path's shapes beside its bound, its plain
-   version and one PyTorch library call (device time from the profiler,
-   and the time the host takes to issue each call), and profiles a window
-   of ``logreg`` transitions for the device's busy share.
+6. ``gaussian_10k`` (step 0.1): the same call compiles a separable spec
+   (uniform NORMAL opcode, dim 10,000) and runs one ``fused_leapfrog``
+   launch per draw and one ``fused_potential_vg`` at chain init, besides
+   the compiler's 5 probe evaluations; checks the posterior mean and
+   variance of every coordinate against 0 and 1 within 5.5 Monte-Carlo
+   standard errors from its ESS; then runs the same seed with
+   ``leapfrog="reference"`` for 300 draws and holds the first 10 draws of
+   both integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp);
+7. times each kernel at the main paths' shapes beside its bound, its plain
+   version and, where one exists, one PyTorch library call (device time
+   from the profiler, and the time the host takes to issue each call), and
+   profiles a window of transitions of logreg and of gaussian_10k under
+   both integrators for the device's busy share.
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -52,10 +72,28 @@ FP32_FLOPS_PER_S = 67e12
 # float ops per element, as written in the .cu source
 STD_NORMAL_OPS = 4      # two multiplies, a subtract, the add into the sum
 BERNOULLI_OPS = 11      # max, fabs, 2 negations, exp, log1p, add, 1-y, mul, sub, sum
-KERNEL_SOURCE = "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu"
+# fused leapfrog, uniform NORMAL table (gaussian_10k): per element and step
+# two half-kicks and a drift (three multiply-adds) and the gradient
+# -(u - c0) * (c1 * c1) (three); at the final q the value
+# -0.5 ((u - c0) c1)^2 (four) and its add into the sum
+LEAPFROG_STEP_OPS = 6 + 3
+NORMAL_VALUE_OPS = 4 + 1
+SOURCES = {
+    "std_normal_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
+    "bernoulli_logit_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
+    "fused_leapfrog": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
+    "fused_potential_vg": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
+}
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
     "bernoulli_logit_sum": "src/repro/kernels/fused_logpdf/kernel.py:97",
+    "fused_leapfrog": "src/repro/kernels/fused_leapfrog/kernel.py:38",
+    "fused_potential_vg": "src/repro/kernels/fused_leapfrog/kernel.py:130",
+}
+NO_LIBRARY = {
+    "fused_leapfrog": "no single PyTorch call computes an n-step integrator",
+    "fused_potential_vg": "no single PyTorch call computes a potential's "
+                          "value and its gradient",
 }
 
 
@@ -141,29 +179,153 @@ def check_kernels(torch, ops, ref):
     return worst
 
 
+LF_OPS = (None, 0, 1, 2, 3, 4)  # None: a mixed table (any-opcode kernel)
+LF_CHAINS = (1, 4, 16)
+LF_DIMS = (1, 127, 129, 10000, 1_000_003)
+LF_STEPS = (1, 4, 8)
+LF_MAIN = (1, 4, 10000, 4)  # (opcode, chains, dim, n_steps) of gaussian_10k
+
+
+def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
+    """Both fused_leapfrog kernels against their plain versions: q, p, g at
+    rtol 1e-5 + atol 1e-5 * max|plain| (nvcc contracts the updates into
+    FMAs and torch does not; the difference compounds over the steps), the
+    potential at 1e-5 * sum_i |v_i| (a float32 sum in another order), and
+    bit-identical reruns. Returns the worst abs error at the main path's
+    shape for each kernel."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    worst = {"fused_leapfrog": 0.0, "fused_potential_vg": 0.0}
+    n_cases = 0
+
+    def close(name, got, want):
+        check(bool(torch.isfinite(want).all()), f"{name}: plain version "
+              "not finite (inputs out of range)")
+        err = (got - want).abs()
+        tol = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        check(bool((err <= tol).all()), f"{name}: max abs err "
+              f"{float(err.max()):.3e} beyond rtol 1e-5 + atol 1e-5*max")
+        return float(err.max())
+
+    def close_potential(name, spec, q, got, want):
+        op, c0, c1, c2, c3 = spec.coeff_arrays(dev)
+        abs_sum = spec_mod.potential_elem_value(
+            op, c0, c1, c2, c3, q, uniform_op=spec.uniform_op).abs().sum(-1)
+        err = (got - want).abs()
+        check(bool((err <= 1e-5 * abs_sum + 1e-6).all()),
+              f"{name}: potential err {float(err.max()):.3e} beyond "
+              "1e-5 * sum|v|")
+        return float(err.max())
+
+    for uop in LF_OPS:
+        for dim in LF_DIMS:
+            spec = lf_ref.random_spec(dim, uop, seed=dim)
+            for rows in LF_CHAINS:
+                q = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
+                p = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
+                eps = 0.01 + 0.04 * torch.rand(rows, generator=gen, device=dev)
+                im = 0.5 + torch.rand(dim, generator=gen, device=dev)
+                tag = f"op {uop} {rows}x{dim}"
+                lp, g = lf_ops.potential_value_and_grad(spec, q)
+                lp2, g2 = lf_ops.potential_value_and_grad(spec, q)
+                want_lp, want_g = lf_ref.potential_value_and_grad_ref(spec, q)
+                torch.cuda.synchronize()
+                check(torch.equal(lp, lp2) and torch.equal(g, g2),
+                      f"fused_potential_vg {tag}: two runs differ")
+                errs = [close(f"fused_potential_vg {tag} grad", g, want_g),
+                        close_potential(f"fused_potential_vg {tag}", spec, q,
+                                        lp, want_lp)]
+                if (uop, rows, dim) == LF_MAIN[:3]:
+                    worst["fused_potential_vg"] = max(errs)
+                n_cases += 1
+                for mass in (None, im):
+                    for n_steps in LF_STEPS:
+                        got = lf_ops.fused_leapfrog(spec, q, p, g, eps,
+                                                    n_steps, inv_mass=mass)
+                        again = lf_ops.fused_leapfrog(spec, q, p, g, eps,
+                                                      n_steps, inv_mass=mass)
+                        want = lf_ref.leapfrog_ref(spec, q, p, g, eps,
+                                                   n_steps, inv_mass=mass)
+                        torch.cuda.synchronize()
+                        t = f"fused_leapfrog {tag} n={n_steps} " \
+                            f"mass={mass is not None}"
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+                              f"{t}: two runs differ")
+                        errs = [close(f"{t} {k}", got[i], want[i])
+                                for k, i in (("q", 0), ("p", 1), ("g", 3))]
+                        errs.append(close_potential(t, spec, want[0],
+                                                    got[2], want[2]))
+                        if (uop, rows, dim, n_steps) == LF_MAIN \
+                                and mass is None:
+                            worst["fused_leapfrog"] = max(errs)
+                        n_cases += 1
+    log(f"fused_leapfrog kernels vs plain: {n_cases} cases (6 opcode "
+        f"tables x {len(LF_DIMS)} dims x {len(LF_CHAINS)} chain counts; "
+        "with and without inverse mass; 1/4/8 steps), bit-identical "
+        f"reruns: ok; worst abs err at 4x10,000: {worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the main path
+# phases 4-6: the main paths
 # ---------------------------------------------------------------------------
-def run_model(torch, name, num_samples, seed=0):
+# launches of each fused_logpdf kernel per log-density evaluation (the
+# fused evaluators send one block per family and per observed/unobserved)
+PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
+            "naive_bayes": {"std_normal_sum": 2},
+            "gaussian_10k": {"std_normal_sum": 1}}
+# the potential compiler's log-density evaluations (core/potential.py
+# _build): the value at the recorded point, then a value and a gradient at
+# each of two probe points, whatever the verdict. Each runs the fused
+# forward once; the gradient's backward launches nothing.
+PROBE_EVALS = 1 + 2 * 2
+SEPARABLE = ("gaussian_10k",)  # the paper models the compiler accepts
+
+
+def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
+    """Drive one main path through ``run_chains`` with every launch count
+    set to 0 just before and read just after, and check the counts
+    exactly: the compiler's probes, then one launch per density block per
+    evaluation (autodiff integrator) or one fused leapfrog per transition
+    and one fused potential at init (fused integrator, which
+    ``leapfrog="auto"`` must pick for the separable models and only for
+    them)."""
     import numpy as np
 
     from repro_torch.infer import HMC, run_chains
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
     from repro_torch.kernels.fused_logpdf import ops
     from repro_torch.models import build
 
     pm = build(name, device=DEVICE)
-    kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog)
+    kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+                 leapfrog=leapfrog)
     num_chains = 4
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    lf_ops.reset_launch_counts()
     t0 = time.perf_counter()
     chain = run_chains(seed, pm.model, kernel, num_samples,
                        num_chains=num_chains, device=DEVICE)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = {**ops.LAUNCHES, **lf_ops.LAUNCHES}
 
     evals = num_samples * pm.n_leapfrog + 1  # + the initial gradient
+    fused = kernel.uses_potential_spec and name in SEPARABLE
+    want = dict.fromkeys(launches, 0)
+    probes = PROBE_EVALS if kernel.uses_potential_spec else 0
+    for k, per in PER_EVAL[name].items():
+        want[k] += per * (probes + (0 if fused else evals))
+    if fused:
+        want["fused_leapfrog"] = num_samples  # no warmup in Table 1
+        want["fused_potential_vg"] = 1
+    check(launches == want,
+          f"{name} ({leapfrog}): launches {launches}, expected {want} "
+          f"({probes} compiler probe evaluations, "
+          f"{'fused' if fused else 'autodiff'} integrator)")
+
     logp = chain.stats["logp"]
     acc = float(chain.stats["accept_prob"].mean())
     for site in chain.names():
@@ -175,23 +337,26 @@ def run_model(torch, name, num_samples, seed=0):
     # the fused density at the final draws vs the per-site reference and
     # the hand-written twin, on the card (all sites are real-valued, so the
     # constrained draws are the unconstrained flat state)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    tvi = pm.model.typed_varinfo(gen).link()
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(seed)).link()
     q = torch.cat([torch.as_tensor(chain[s.name][:, -1]).reshape(num_chains, -1)
                    for s in tvi.layout.sites], dim=1).to(DEVICE)
-    fused = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
+    fused_d = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
     refd = torch.func.vmap(pm.model.make_logdensity_fn(
         tvi, backend="reference"))(q)
     hand = torch.func.vmap(pm.handwritten)(q)
-    torch.testing.assert_close(fused, refd, rtol=1e-5, atol=0)
-    torch.testing.assert_close(fused, hand, rtol=1e-5, atol=0)
-    torch.testing.assert_close(fused.cpu(), torch.as_tensor(logp[:, -1]),
+    torch.testing.assert_close(fused_d, refd, rtol=1e-5, atol=0)
+    torch.testing.assert_close(fused_d, hand, rtol=1e-5, atol=0)
+    torch.testing.assert_close(fused_d.cpu(), torch.as_tensor(logp[:, -1]),
                                rtol=1e-5, atol=0)
-    rel = float(((fused - refd).abs() / refd.abs()).max())
+    rel = float(((fused_d - refd).abs() / refd.abs()).max())
 
     summary = chain.summary().splitlines()
     result = {
-        "model": name, "num_chains": num_chains, "num_samples": num_samples,
+        "model": name, "leapfrog": leapfrog,
+        "integrator": "fused" if fused else "autodiff",
+        "compiler_probe_evals": probes,
+        "num_chains": num_chains, "num_samples": num_samples,
         "step_size": pm.step_size, "n_leapfrog": pm.n_leapfrog,
         "seconds": secs, "seconds_per_draw": secs / num_samples,
         "grad_evals_per_s": num_chains * evals / secs,
@@ -199,18 +364,64 @@ def run_model(torch, name, num_samples, seed=0):
         "mean_accept": acc, "fused_vs_reference_max_rel": rel,
         "summary_head": summary[:4],
     }
-    log(f"{name}: {num_chains} chains x {num_samples} draws in {secs:.2f} s: "
+    log(f"{name} ({leapfrog}: {result['integrator']} integrator): "
+        f"{num_chains} chains x {num_samples} draws in {secs:.2f} s: "
         f"{secs / num_samples * 1e3:.3f} ms/draw, "
         f"{result['grad_evals_per_s']:.0f} grad evals/s, mean accept "
-        f"{acc:.3f}, launches {launches}, fused vs reference max rel "
-        f"{rel:.2e}")
+        f"{acc:.3f}, launches {launches}, fused vs reference density max "
+        f"rel {rel:.2e}")
     for line in summary[:4]:
         log("   ", line)
-    return result, pm, kernel
+    return result, pm, kernel, chain
+
+
+def check_gaussian(np, chain, ref_chain, first=10):
+    """gaussian_10k: every coordinate's posterior mean within 5.5 Monte-Carlo
+    standard errors of 0 (sd 1/sqrt(ESS of x)) and its variance within 5.5
+    of 1 (sd sqrt(2/ESS of x^2)); and the first draws of the fused and the
+    reference integrator (same seed, same generator draws) together."""
+    from repro_torch.infer import effective_sample_size
+
+    x = chain["x"].astype(np.float64)  # (chains, draws, dim)
+    dim = x.shape[-1]
+    mean = x.mean(axis=(0, 1))
+    var = x.var(axis=(0, 1))
+    ess = np.array([effective_sample_size(x[:, :, i]) for i in range(dim)])
+    ess2 = np.array([effective_sample_size(x[:, :, i] ** 2)
+                     for i in range(dim)])
+    z_mean = mean * np.sqrt(ess)
+    z_var = (var - 1.0) / np.sqrt(2.0 / ess2)
+    out = {"ess_median": float(np.median(ess)),
+           "ess_min": float(ess.min()),
+           "ess_sq_median": float(np.median(ess2)),
+           "max_abs_z_mean": float(np.abs(z_mean).max()),
+           "max_abs_z_var": float(np.abs(z_var).max()),
+           "mean_abs_mean": float(np.abs(mean).mean()),
+           "mean_var": float(var.mean())}
+    check(np.isfinite(ess).all() and np.isfinite(ess2).all(),
+          "gaussian_10k: ESS not finite")
+    check(out["max_abs_z_mean"] < 5.5 and out["max_abs_z_var"] < 5.5,
+          f"gaussian_10k: posterior moments off: {out}")
+    d = np.abs(chain["x"][:, :first] - ref_chain["x"][:, :first]).max()
+    lp, lp_ref = chain.stats["logp"][:, :first], ref_chain.stats["logp"][:, :first]
+    lp_rel = float((np.abs(lp - lp_ref) / np.abs(lp_ref)).max())
+    out.update(first_draws=first, fused_vs_reference_draws_max_abs=float(d),
+               fused_vs_reference_logp_max_rel=lp_rel)
+    check(d <= 1e-4 and lp_rel <= 1e-5,
+          f"gaussian_10k: first {first} draws of the fused and reference "
+          f"integrators differ: max abs {d:.3e} (atol 1e-4), logp max rel "
+          f"{lp_rel:.3e} (rtol 1e-5)")
+    log(f"gaussian_10k moments: ESS median {out['ess_median']:.0f} (min "
+        f"{out['ess_min']:.0f}, x^2 median {out['ess_sq_median']:.0f}); max "
+        f"|z| of the 10,000 means {out['max_abs_z_mean']:.2f}, of the "
+        f"variances {out['max_abs_z_var']:.2f} (limit 5.5); first {first} "
+        f"draws fused vs reference: max abs {d:.2e}, logp max rel "
+        f"{lp_rel:.2e}")
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 7: timing
 # ---------------------------------------------------------------------------
 def time_ms(torch, fn, iters=200, warmup=20):
     for _ in range(warmup):
@@ -317,13 +528,88 @@ def time_kernels(torch, F, ops, ref):
     return rows
 
 
-def profile_transitions(torch, pm, kernel, steps=20):
-    """Device busy share and top kernels over ``steps`` logreg transitions."""
+# coefficient arrays (of c0..c3) each opcode's kernel reads, as
+# kCoeffsRead in fused_leapfrog.cu
+COEFFS_READ = {0: 0, 1: 2, 2: 3, 3: 2, 4: 4}
+
+
+def table_read_bytes(spec) -> int:
+    """Bytes of the opcode table one fused_leapfrog call reads, once for
+    every chain: 4 B per coordinate for each coefficient array the opcode
+    uses; the any-opcode kernel reads op and all four."""
+    if spec.uniform_op is None:
+        return (4 + 4 * 4) * spec.dim
+    return 4 * COEFFS_READ[spec.uniform_op] * spec.dim
+
+
+def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
+    """Both fused_leapfrog kernels at the main path's shapes (gaussian_10k's
+    spec, 4 chains, 4 steps) beside their plain versions, timed as in
+    :func:`time_kernels`. No library call computes either function."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    dim = spec.dim
+    q = torch.randn(rows, dim, generator=gen, device=dev)
+    p = torch.randn(rows, dim, generator=gen, device=dev)
+    eps = torch.full((rows,), 0.1, device=dev)
+    _, g = lf_ops.potential_value_and_grad(spec, q)
+    table_bytes = table_read_bytes(spec)
+    state = 4 * rows * dim
+    cases = {
+        "fused_leapfrog": (
+            lambda: lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps),
+            lambda: lf_ref.leapfrog_ref(spec, q, p, g, eps, n_steps),
+            # q, p, g and eps in; q, p, g and the potential out
+            6 * state + table_bytes + 8 * rows,
+            rows * dim * (n_steps * LEAPFROG_STEP_OPS + NORMAL_VALUE_OPS)),
+        "fused_potential_vg": (
+            lambda: lf_ops.potential_value_and_grad(spec, q),
+            lambda: lf_ref.potential_value_and_grad_ref(spec, q),
+            2 * state + table_bytes + 4 * rows,
+            rows * dim * (3 + NORMAL_VALUE_OPS)),
+    }
+    out = []
+    for name, (kern, plain, nbytes, nops) in cases.items():
+        row = {"name": name, "shape": [rows, dim] + (
+            [n_steps] if name == "fused_leapfrog" else []),
+               "ms_from": "torch.profiler device time"}
+        calls = {"": kern, "plain_": plain}
+        for prefix in ("plain_", "", "", "plain_"):
+            row.setdefault(f"{prefix}issued_ms_runs", []).append(
+                time_ms(torch, calls[prefix]))
+        for prefix, fn in calls.items():
+            row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
+            row[f"{prefix}ms"] = device_ms(torch, fn)
+            if row[f"{prefix}ms"] is None:
+                row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
+                row["ms_from"] = "cuda events (no device time traced)"
+        row.update(library_ms=None, library_issued_ms=None,
+                   library_none_because=NO_LIBRARY[name])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_FLOPS_PER_S * 1e3
+        row.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out.append(row)
+        log(f"time {name} {'x'.join(map(str, row['shape']))} "
+            f"({row['ms_from']} / issued from the host), us: kernel "
+            f"{row['ms'] * 1e3:.2f} / {row['issued_ms'] * 1e3:.2f}, plain "
+            f"{row['plain_ms'] * 1e3:.2f} / {row['plain_issued_ms'] * 1e3:.2f}"
+            f", bound {row['bound_ms'] * 1e3:.4f} ({row['bound_by']}); "
+            f"library: none ({NO_LIBRARY[name]})")
+    return out
+
+
+def profile_transitions(torch, pm, kernel, spec=None, steps=20):
+    """Device busy share and top kernels over ``steps`` transitions of one
+    model; ``spec`` (a compiled PotentialSpec) selects the fused
+    integrator."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     tvi = pm.model.typed_varinfo(gen).link()
-    kern = kernel.make_kernel(pm.model.make_logdensity_fn(tvi), tvi.num_flat)
+    kern = kernel.make_kernel(pm.model.make_logdensity_fn(tvi), tvi.num_flat,
+                              spec=spec)
+    label = f"{pm.name} ({'fused' if spec is not None else 'autodiff'})"
     state = kern.init(tvi.flat().expand(4, tvi.num_flat).contiguous())
     for _ in range(5):
         state, _ = kern.step(state, gen)
@@ -343,7 +629,7 @@ def profile_transitions(torch, pm, kernel, steps=20):
                   key=lambda e: -e.self_cpu_time_total)
     syncs = sum(e.count for e in events
                 if "Synchronize" in e.key or "Memcpy" in e.key)
-    out = {"model": pm.name, "transitions": steps,
+    out = {"model": pm.name, "integrator": label, "transitions": steps,
            "wall_ms_per_transition": wall * 1e3 / steps,
            "device_ms_per_transition": busy_us / 1e3 / steps,
            "busy_share": busy_us / 1e6 / wall if busy_us else None,
@@ -354,7 +640,7 @@ def profile_transitions(torch, pm, kernel, steps=20):
            "top_host_ops": [{"name": e.key, "self_cpu_us": e.self_cpu_time_total,
                              "count": e.count} for e in host[:12]]}
     if busy_us:
-        log(f"profile {pm.name}: {out['wall_ms_per_transition']:.3f} ms wall "
+        log(f"profile {label}: {out['wall_ms_per_transition']:.3f} ms wall "
             f"per transition, {out['device_ms_per_transition']:.3f} ms on the "
             f"device, busy share {out['busy_share']:.3f}")
         log(f"    {out['kernel_launches_per_transition']:.0f} kernel launches "
@@ -373,6 +659,24 @@ def profile_transitions(torch, pm, kernel, steps=20):
 
 
 # ---------------------------------------------------------------------------
+REFERENCE_SAMPLES = 300  # gaussian_10k under the autodiff integrator
+
+
+def build_all(sources):
+    """Build every kernel source at once (one nvcc each, started
+    together); returns seconds per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(mod):
+        t0 = time.perf_counter()
+        mod._lib()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {path: pool.submit(one, mod) for path, mod in sources.items()}
+        return {path: f.result() for path, f in futures.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--samples", type=int, default=2000,
@@ -381,6 +685,7 @@ def main() -> int:
                     help="where to write the full results as JSON")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -388,6 +693,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.core.potential import compile_potential
+        from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+        from repro_torch.kernels.fused_leapfrog import ref as lf_ref
+        from repro_torch.kernels.fused_leapfrog import spec as spec_mod
         from repro_torch.kernels.fused_logpdf import ops, ref
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {exc}",
@@ -405,46 +714,67 @@ def main() -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    ops._lib()
-    build_s = time.perf_counter() - t0
-    log(f"built and loaded {ops.kernel_source().relative_to(ROOT)} in "
-        f"{build_s:.2f} s")
+    build_s = build_all({SOURCES["std_normal_sum"]: ops,
+                         SOURCES["fused_leapfrog"]: lf_ops})
+    for path, secs in build_s.items():
+        log(f"built and loaded {path} in {secs:.2f} s")
+    log(f"both sources built in {time.perf_counter() - t0:.2f} s")
 
     # phase 3
     worst = check_kernels(torch, ops, ref)
+    worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
 
-    # phases 4-5: the main path, counts zeroed just before each model
-    runs = {}
-    for name in ("logreg", "naive_bayes"):
-        runs[name], pm, kernel = run_model(torch, name, args.samples)
-        if name == "logreg":
-            logreg_pm, logreg_kernel = pm, kernel
-    per_eval = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
-                "naive_bayes": {"std_normal_sum": 2, "bernoulli_logit_sum": 0}}
-    for name, run in runs.items():
-        for k, per in per_eval[name].items():
-            want = per * run["evals_per_chain"]
-            check(run["launches"][k] == want,
-                  f"{name}: {k} launched {run['launches'][k]} times, "
-                  f"expected {want} (one per density family block per "
-                  "evaluation, all chains in one launch)")
-        check(sum(run["launches"].values()) > 0, f"{name}: no kernel launched")
+    # phases 4-6: the main paths, every count zeroed just before each run
+    # and read just after it (run_model)
+    runs, models = {}, {}
+    for name in ("logreg", "naive_bayes", "gaussian_10k"):
+        runs[name], pm, kernel, chain = run_model(torch, name, args.samples)
+        models[name] = (pm, kernel, chain)
     check(runs["logreg"]["launches"]["bernoulli_logit_sum"] > 0
           and runs["logreg"]["launches"]["std_normal_sum"] > 0,
           "logreg did not launch both kernels")
+    # the spec run_chains compiled for gaussian_10k, compiled again on the
+    # same trace (same seed) for the timing phase, outside the counted runs
+    g_pm = models["gaussian_10k"][0]
+    g_tvi = g_pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(0)).link()
+    g_comp = compile_potential(g_pm.model, g_tvi)
+    check(g_comp.kind == "separable" and g_comp.spec is not None
+          and g_comp.spec.uniform_op == spec_mod.OP_NORMAL
+          and g_comp.spec.dim == 10_000,
+          f"gaussian_10k did not compile to a uniform NORMAL spec of dim "
+          f"10,000: {g_comp}")
+    ref_run, _, _, ref_chain = run_model(
+        torch, "gaussian_10k", min(REFERENCE_SAMPLES, args.samples),
+        leapfrog="reference")
+    runs["gaussian_10k_reference"] = ref_run
+    gaussian = check_gaussian(np, models["gaussian_10k"][2], ref_chain)
+    speedup = ref_run["seconds_per_draw"] / runs["gaussian_10k"]["seconds_per_draw"]
+    log(f"gaussian_10k: fused {runs['gaussian_10k']['seconds_per_draw'] * 1e3:.3f}"
+        f" ms/draw vs autodiff {ref_run['seconds_per_draw'] * 1e3:.3f} ms/draw "
+        f"({speedup:.1f}x)")
 
-    # phase 6
+    # phase 7
     timings = time_kernels(torch, F, ops, ref)
-    prof = profile_transitions(torch, logreg_pm, logreg_kernel)
+    timings += time_leapfrog_kernels(torch, lf_ops, lf_ref, g_comp.spec)
+    g_kernel = models["gaussian_10k"][1]
+    prof = {
+        "logreg": profile_transitions(torch, *models["logreg"][:2]),
+        "gaussian_10k": profile_transitions(torch, g_pm, g_kernel,
+                                            spec=g_comp.spec, steps=100),
+        "gaussian_10k_reference": profile_transitions(torch, g_pm, g_kernel,
+                                                      steps=20),
+    }
 
+    main_paths = ("logreg", "naive_bayes", "gaussian_10k")
     kernels = []
-    for name in MAIN_SHAPES:
+    for name in SOURCES:
         main = max((t for t in timings if t["name"] == name),
                    key=lambda t: t["bytes"])
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches": sum(runs[r]["launches"][name] for r in main_paths),
             "max_abs_err": worst[name], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -453,9 +783,11 @@ def main() -> int:
             "library_issued_ms": main["library_issued_ms"],
             "ms_from": main["ms_from"], "shape": main["shape"],
         })
+        check(kernels[-1]["launches"] > 0,
+              f"{name} was never launched on the main paths")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
-              "runs": runs, "timings": timings, "profile": prof,
-              "kernels": kernels}
+              "runs": runs, "gaussian_10k": gaussian, "timings": timings,
+              "profile": prof, "kernels": kernels}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

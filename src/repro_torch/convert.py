@@ -11,6 +11,12 @@ A signature for a JAX-side trace is built the same way from its
 
     tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
           for s in tvi.layout.sites)
+
+``spec_from_reference`` does the same for a compiled separable potential:
+the JAX package's ``PotentialSpec`` is plain NumPy data, so its fields
+carry across as they are::
+
+    spec_from_reference(s.op, s.c0, s.c1, s.c2, s.c3, s.const, s.dim)
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
 
-__all__ = ["layout_signature", "state_from_reference"]
+__all__ = ["layout_signature", "state_from_reference", "spec_from_reference"]
 
 Signature = Tuple[Tuple[str, Tuple[int, ...], int, int], ...]
 
@@ -59,3 +66,20 @@ def state_from_reference(tvi: TypedVarInfo, flat_np,
         raise ValueError(f"flat vector has shape {flat.shape}, the trace "
                          f"expects ({tvi.num_flat},)")
     return tvi.replace_flat(torch.as_tensor(flat, device=tvi.device))
+
+
+def spec_from_reference(op, c0, c1, c2, c3, const, dim) -> PotentialSpec:
+    """The port's :class:`PotentialSpec` from the NumPy fields of one
+    compiled by the JAX package (``repro.core.potential``).
+
+    Raises ``ValueError`` when an array's length is not ``dim``.
+    """
+    dim = int(dim)
+    arrays = {"op": op, "c0": c0, "c1": c1, "c2": c2, "c3": c3}
+    for name, a in arrays.items():
+        if np.shape(a) != (dim,):
+            raise ValueError(f"{name} has shape {np.shape(a)}, expected "
+                             f"({dim},)")
+    return PotentialSpec(op=np.asarray(op), c0=np.asarray(c0),
+                         c1=np.asarray(c1), c2=np.asarray(c2),
+                         c3=np.asarray(c3), const=float(const), dim=dim)

@@ -1,5 +1,6 @@
-"""Univariate continuous distributions. This slice ports ``Normal``; the
-other 14 continuous families of the JAX package are listed in ROADMAP.md."""
+"""Univariate continuous distributions. The port has ``Normal`` and
+``Flat``; the other 13 continuous families of the JAX package are listed
+in ROADMAP.md."""
 from __future__ import annotations
 
 import math
@@ -8,7 +9,7 @@ import torch
 
 from repro_torch.dists.base import Distribution, register_dist
 
-__all__ = ["Normal"]
+__all__ = ["Normal", "Flat"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -29,3 +30,19 @@ class Normal(Distribution):
         eps = torch.randn(shape, generator=generator, dtype=self.dtype,
                           device=generator.device)
         return self.loc + self.scale * eps
+
+
+@register_dist
+class Flat(Distribution):
+    """Improper flat prior on the reals: log p = 0 everywhere."""
+
+    shape_hint: torch.Tensor = 0.0  # array whose shape defines the RV's shape
+    support = "real"
+
+    def log_prob(self, x):
+        return torch.zeros_like(torch.as_tensor(x), dtype=self.dtype)
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.shape
+        return torch.randn(shape, generator=generator, dtype=self.dtype,
+                           device=generator.device)  # arbitrary init draw

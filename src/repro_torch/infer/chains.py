@@ -11,9 +11,11 @@ Three layers:
   ``(num_chains, dim)``, drawing their noise from an explicit
   ``torch.Generator``.
 * ``run_chains`` — the many-chains-on-one-device runner: builds the
-  model's fused flat log-density ONCE, advances all chains in lockstep
-  (one kernel launch per density family per step for the whole chain
-  axis), and packages the stacked draws back through the typed trace.
+  model's fused flat log-density ONCE (and, for a sampler that asks, its
+  separable ``PotentialSpec``), advances all chains in lockstep (one
+  kernel launch per density family per step, or one fused leapfrog per
+  transition, for the whole chain axis), and packages the stacked draws
+  back through the typed trace.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.potential import compile_potential
 
 __all__ = ["Chain", "TransitionKernel", "drive_chains",
            "effective_sample_size", "package_draws", "run_chains",
@@ -210,12 +213,18 @@ class TransitionKernel(NamedTuple):
         ``(state, generator) -> (state, out)`` with ``out`` a dict of
         per-draw tensors, each ``(num_chains, ...)``, that MUST contain
         ``"q"`` and ``"logp"``; extra keys become ``Chain.stats``.
+    spec_reason : str, optional
+        Why the fused-integrator PotentialSpec could NOT be compiled for
+        this kernel (``None`` when a spec is in use or was never wanted):
+        the diagnosis from ``repro_torch.core.potential``, so that a
+        ``leapfrog="auto"`` fallback is explained instead of silent.
     """
 
     init: Callable
     warm: Callable
     finalize: Callable
     step: Callable
+    spec_reason: Optional[str] = None
 
 
 def package_draws(tvi_linked, qs: torch.Tensor,
@@ -266,22 +275,28 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     """Run ``num_chains`` MCMC chains in lockstep on one device.
 
     The model's log-density is built once from the typed trace (fused
-    flat-buffer backend by default) and shared by every chain. Each
-    transition advances the whole ``(num_chains, dim)`` state: the
+    flat-buffer backend by default) and shared by every chain. A kernel
+    with ``uses_potential_spec`` also gets the model's separable
+    ``PotentialSpec`` (or the compiler's reason why there is none). Each
+    transition advances the whole ``(num_chains, dim)`` state: either the
     density's value and gradient run under ``torch.func.vmap`` over the
     chain axis, so each density family is one kernel launch for all
-    chains.
+    chains, or the whole n-step leapfrog is one ``fused_leapfrog`` launch.
 
     Parameters
     ----------
     seed : int
         Seeds the ONE ``torch.Generator`` (on ``device``) that draws the
         discovery trace, the init jitter, and every momentum and accept
-        uniform. Same seed, same device: the same chains.
+        uniform. Same seed, same device: the same chains. The potential
+        compiler's probes draw from a generator of their own, so
+        ``leapfrog="auto"`` and ``"reference"`` consume the same draws.
     model : repro_torch.core.model.Model
         Bound model to sample from; its data must live on ``device``.
     kernel : HMC
-        Any sampler exposing ``make_kernel(logdensity, dim)``.
+        Any sampler exposing ``make_kernel(logdensity, dim)``; one whose
+        ``uses_potential_spec`` is true is called with ``spec=`` and
+        ``spec_reason=`` too.
     num_samples, num_warmup : int
         Post-warmup draws per chain, and discarded warmup iterations.
     num_chains : int
@@ -329,7 +344,12 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     tvi = tvi.link()
     logdensity = model.make_logdensity_fn(tvi, ctx=ctx, backend=backend)
     dim = int(tvi.num_flat)
-    kern = kernel.make_kernel(logdensity, dim)
+    if getattr(kernel, "uses_potential_spec", False):
+        res = compile_potential(model, tvi, ctx=ctx, backend=backend)
+        kern = kernel.make_kernel(logdensity, dim, spec=res.spec,
+                                  spec_reason=res.reason)
+    else:
+        kern = kernel.make_kernel(logdensity, dim)
 
     q0s = tvi.flat().to(dev).expand(num_chains, dim)
     if init_jitter:

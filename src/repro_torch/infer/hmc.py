@@ -9,10 +9,14 @@ one explicit ``torch.Generator`` on the chains' device (they will never
 equal the JAX package's threefry draws; the tests inject the same NumPy
 momentum into both packages' ``_leapfrog`` instead).
 
-Both ``leapfrog="auto"`` and ``"reference"`` run the autodiff integrator,
-which is what the JAX package runs for every model this slice supports
-(its separable-potential compiler rejects them as coupled). The fused
-n-step integrator is the next slice of the port.
+``leapfrog="auto"`` compiles the model's linked density to a separable
+``PotentialSpec`` (``core/potential.py``) and, when that succeeds
+(gaussian_10k), runs the fused integrator: one ``fused_leapfrog`` launch
+per transition for all chains, analytic gradients, no autodiff. When the
+compiler rejects the model (logreg, naive_bayes, any coupled model) it
+runs the autodiff integrator and keeps the compiler's reason on
+``TransitionKernel.spec_reason``. ``"fused"`` demands the spec and raises
+``ValueError`` with that reason; ``"reference"`` always runs autodiff.
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ import torch
 from repro_torch.core.contexts import Context
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
 from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+from repro_torch.kernels.fused_leapfrog.ops import (fused_leapfrog,
+                                                    potential_value_and_grad)
 
 __all__ = ["HMC", "DualAveraging", "hmc_transition", "make_chain_fn",
            "value_and_grad"]
@@ -108,21 +115,29 @@ def _leapfrog(logdensity_and_grad: Callable, q, p, grad, step_size,
 
 def hmc_transition(ld_and_grad: Callable, q, logp, grad, step_size,
                    generator: torch.Generator, n_leapfrog: int, *,
-                   inv_mass=None):
+                   inv_mass=None, leapfrog_fn: Optional[Callable] = None):
     """One Metropolis-corrected HMC transition for every chain in ``q``.
 
     Returns ``(q, logp, grad, accept_prob, accepted, diverging)``, each with
     the chain axis first. ``diverging`` is the Stan criterion: the energy
     error exceeds 1000 (or is NaN). ``inv_mass`` (diagonal flat vector or
     None) shapes both the momentum draw (``p ~ N(0, M)``) and the kinetic
-    energy. Draws: one normal ``q.shape`` momentum, then one uniform per
-    chain, both from ``generator``.
+    energy. ``leapfrog_fn(q, p, grad, step_size, n_steps)`` swaps in a
+    fused integrator (which must already close over the same
+    ``inv_mass``); ``None`` runs :func:`_leapfrog`. The MH correction is
+    the same either way. Draws: one normal ``q.shape`` momentum, then one
+    uniform per chain, both from ``generator``.
     """
     noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
                         device=q.device)
     p0 = noise if inv_mass is None else noise / torch.sqrt(inv_mass)
-    q_new, p_new, logp_new, grad_new = _leapfrog(
-        ld_and_grad, q, p0, grad, step_size, n_leapfrog, inv_mass=inv_mass)
+    if leapfrog_fn is None:
+        q_new, p_new, logp_new, grad_new = _leapfrog(
+            ld_and_grad, q, p0, grad, step_size, n_leapfrog,
+            inv_mass=inv_mass)
+    else:
+        q_new, p_new, logp_new, grad_new = leapfrog_fn(
+            q, p0, grad, step_size, n_leapfrog)
 
     def kinetic(p):
         if inv_mass is None:
@@ -172,10 +187,11 @@ def make_chain_fn(logdensity: Callable, num_samples: int, step_size: float,
 class HMC:
     """Static HMC with a fixed number of leapfrog steps (paper setup).
 
-    ``leapfrog``: ``"auto"`` and ``"reference"`` run the autodiff
-    integrator; ``"fused"`` (the fused n-step integrator) is not ported
-    yet and raises. ``inv_mass`` is an optional DIAGONAL inverse mass
-    (flat vector over the unconstrained state).
+    ``leapfrog``: ``"auto"`` runs the fused n-step integrator when the
+    model compiles to a separable ``PotentialSpec`` and the autodiff
+    integrator otherwise; ``"fused"`` requires the spec; ``"reference"``
+    always runs autodiff. ``inv_mass`` is an optional DIAGONAL inverse
+    mass (flat vector over the unconstrained state).
     """
 
     step_size: float = 0.1
@@ -183,8 +199,14 @@ class HMC:
     adapt_step_size: bool = False
     target_accept: float = 0.8
     backend: str = "fused"  # log-density backend (see make_logdensity_fn)
-    leapfrog: str = "auto"  # "auto" | "reference"; "fused" not ported yet
+    leapfrog: str = "auto"  # "auto" | "fused" | "reference"
     inv_mass: Optional[Any] = None  # diagonal inverse mass (flat vector)
+
+    @property
+    def uses_potential_spec(self) -> bool:
+        """Whether drivers should try to compile a PotentialSpec for this
+        sampler (``run_chains`` checks this before ``make_kernel``)."""
+        return self.leapfrog != "reference"
 
     def run(self, seed: int, m: Model, num_samples: int,
             num_warmup: int = 0,
@@ -200,7 +222,9 @@ class HMC:
                           init_jitter=1.0 if num_chains > 1 else 0.0,
                           backend=self.backend, ctx=ctx, device=device)
 
-    def make_kernel(self, logdensity: Callable, dim: int) -> TransitionKernel:
+    def make_kernel(self, logdensity: Callable, dim: int,
+                    spec: Optional[PotentialSpec] = None,
+                    spec_reason: Optional[str] = None) -> TransitionKernel:
         """Build the HMC :class:`TransitionKernel` for ``run_chains``.
 
         Parameters
@@ -210,6 +234,16 @@ class HMC:
             ``Model.make_logdensity_fn`` output — the fused hot path).
         dim : int
             Length of the flat unconstrained state.
+        spec : PotentialSpec, optional
+            Compiled separable potential (``repro_torch.core.potential``).
+            When given (and ``leapfrog != "reference"``) the kernel runs
+            the fused integrator: chain init through
+            ``potential_value_and_grad`` and each transition's whole n-step
+            leapfrog as one ``fused_leapfrog`` launch for all chains.
+        spec_reason : str, optional
+            Compiler diagnosis when ``spec`` is ``None`` — carried on the
+            returned kernel (``TransitionKernel.spec_reason``) and quoted
+            by the ``leapfrog="fused"`` error.
 
         Returns
         -------
@@ -222,13 +256,13 @@ class HMC:
         del dim  # the state shape is carried by q itself
         if self.leapfrog not in ("auto", "fused", "reference"):
             raise ValueError(f"unknown leapfrog mode {self.leapfrog!r}")
-        if self.leapfrog == "fused":
-            raise NotImplementedError(
-                "leapfrog='fused' is not ported yet (ROADMAP.md Queue 1 "
-                "item 1: separable potential and fused leapfrog); use "
-                "leapfrog='auto' for the autodiff integrator")
-        ld_and_grad = value_and_grad(logdensity)
-        da = DualAveraging(target_accept=self.target_accept)
+        if self.leapfrog == "fused" and spec is None:
+            why = f": {spec_reason}" if spec_reason else \
+                " (PotentialSpec compilation failed or was not attempted)"
+            raise ValueError(
+                f"leapfrog='fused' requires a separable model{why}; use "
+                "leapfrog='auto' to fall back to the autodiff integrator")
+        use_fused = spec is not None and self.leapfrog != "reference"
         inv_mass_on = {}  # device -> inv_mass tensor, moved there once
 
         def inv_mass(q):
@@ -238,6 +272,19 @@ class HMC:
                 inv_mass_on[q.device] = torch.as_tensor(
                     self.inv_mass, dtype=q.dtype, device=q.device)
             return inv_mass_on[q.device]
+
+        if use_fused:
+            def ld_and_grad(q):
+                return potential_value_and_grad(spec, q)
+
+            def leapfrog_fn(q, p, grad, eps, n):
+                return fused_leapfrog(spec, q, p, grad, eps, n,
+                                      inv_mass=inv_mass(q))
+        else:
+            ld_and_grad = value_and_grad(logdensity)
+            leapfrog_fn = None
+
+        da = DualAveraging(target_accept=self.target_accept)
 
         def init(q0):
             logp0, grad0 = ld_and_grad(q0)
@@ -250,7 +297,7 @@ class HMC:
             cur = torch.exp(da_state[0]) if self.adapt_step_size else eps
             q, logp, grad, acc, _, _ = hmc_transition(
                 ld_and_grad, q, logp, grad, cur, generator, self.n_leapfrog,
-                inv_mass=inv_mass(q))
+                inv_mass=inv_mass(q), leapfrog_fn=leapfrog_fn)
             if self.adapt_step_size:
                 da_state = da.update(da_state, acc, t)
             return (q, logp, grad, da_state, eps)
@@ -265,9 +312,11 @@ class HMC:
             q, logp, grad, da_state, eps = state
             q, logp, grad, acc, _, div = hmc_transition(
                 ld_and_grad, q, logp, grad, eps, generator, self.n_leapfrog,
-                inv_mass=inv_mass(q))
+                inv_mass=inv_mass(q), leapfrog_fn=leapfrog_fn)
             out = {"q": q, "logp": logp, "accept_prob": acc,
                    "diverging": div}
             return (q, logp, grad, da_state, eps), out
 
-        return TransitionKernel(init, warm, finalize, step)
+        return TransitionKernel(init, warm, finalize, step,
+                                spec_reason=None if use_fused
+                                else spec_reason)

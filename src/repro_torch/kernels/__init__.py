@@ -4,6 +4,9 @@ version.
   fused_logpdf/  fused elementwise log-density + row reduction for the
                  flat-buffer log-joint (``site_block_sum``): the
                  std_normal and bernoulli_logits families.
+  fused_leapfrog/ the whole n-step leapfrog for a separable potential
+                 (an opcode table) in one launch for all chains, and the
+                 one-shot potential value plus gradient.
 
 The kernels are built with ``nvcc`` at first use (``_build.py``); on a
 CPU tensor every wrapper runs the plain version instead.

@@ -7,7 +7,9 @@ the root of the checkout (listed in ``.gitignore``), keyed by a hash of the
 source and the compiler flags, so an edited source rebuilds and an
 unchanged one is loaded as it is. Nothing here runs at import time.
 
-A missing ``nvcc`` or a failed build raises.
+A missing ``nvcc``, a failed build or a failed launch raises
+:class:`KernelError`, so callers can tell a kernel's failure from their
+own.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library", "find_nvcc",
-           "library_path"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "KernelError", "load_library",
+           "find_nvcc", "library_path"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -29,6 +31,10 @@ BUILD_DIR = _PACKAGE.parents[1] / "build" / "repro_torch_kernels"
 
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel could not be built, loaded or launched."""
 
 
 def find_nvcc() -> str:
@@ -44,8 +50,8 @@ def find_nvcc() -> str:
     for c in cands:
         if c.is_file():
             return str(c)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                      "the CUDA kernels cannot be built")
 
 
 def library_path(source: Path) -> Path:
@@ -67,9 +73,12 @@ def load_library(source: Path) -> ctypes.CDLL:
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {Path(source).name} (exit "
-                               f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            raise KernelError(f"nvcc failed for {Path(source).name} (exit "
+                              f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)  # atomic: a reader never sees half a library
     if lib not in _LOADED:
-        _LOADED[lib] = ctypes.CDLL(str(lib))
+        try:
+            _LOADED[lib] = ctypes.CDLL(str(lib))
+        except OSError as e:
+            raise KernelError(f"cannot load {lib}: {e}") from e
     return _LOADED[lib]

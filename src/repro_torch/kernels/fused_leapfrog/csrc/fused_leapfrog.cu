@@ -1,0 +1,328 @@
+// The whole n-step leapfrog, and a one-shot potential value + gradient, for
+// a separable potential given as an opcode table.
+//
+// Replaces the Pallas TPU kernels in src/repro/kernels/fused_leapfrog/kernel.py:
+//   fused_leapfrog      <- _make_leapfrog_kernel (:38) / leapfrog_2d (:92)
+//   fused_potential_vg  <- _make_potential_vg_kernel (:130) / potential_vg_2d (:159)
+//
+// What each computes, for every chain c of a (C, dim) float32 state, with
+// the opcode table op, c0..c3 of length dim shared by every chain (read
+// with stride 0 over chains, never copied per chain):
+//   fused_leapfrog:     n_steps of velocity Verlet in the order of
+//                       repro_torch.infer.hmc._leapfrog,
+//                         p_half = p + 0.5 eps[c] g
+//                         q      = q + eps[c] (inv_mass * p_half)
+//                         g      = dv/du at q       (analytic, elementwise)
+//                         p      = p_half + 0.5 eps[c] g
+//                       then out[c] = sum_i v_op(q_i) + const at the
+//                       final q.
+//   fused_potential_vg: g = dv/du at q and out[c] = sum_i v_op(q_i) + const.
+// The spec's const is added in float32 after the sum, as the JAX package's
+// wrappers add it (fused_leapfrog/ops.py:127,164).
+// The opcode forms are those of kernels/fused_leapfrog/spec.py, with the
+// overflow-safe softplus and logistic.
+//
+// What bounds them on an H100: bytes. The leapfrog reads q, p, g and writes
+// them back (24 B per element) and reads the table once: 4 B per
+// coordinate for each coefficient array the opcode uses, plus 4 B for op
+// in the any-opcode kernel (kCoeffsRead below). For gaussian_10k (uniform
+// NORMAL: c0, c1) at 4 x 10,000 that is ~1.04 MB, ~0.31 us at 3.35 TB/s,
+// against ~40 float ops per element (~0.02 us at 67 TFLOP/s). The potential
+// moves ~0.40 MB, ~0.12 us. At the main path's shapes both are far below a
+// launch's latency, so launch latency is their real bound.
+//
+// Design. The gradient is elementwise, so no coordinate ever reads another:
+// each thread owns one coordinate of one chain and keeps q, p, g in
+// registers through all n_steps (the property that makes the TPU kernel a
+// single launch; here it also needs no shared memory). The ragged end is
+// masked by index: the TPU kernel pads to (R, 128) tiles with zero
+// coefficients, a TPU layout rule with no use here. The opcode and the
+// inverse mass are template parameters: a table with one opcode runs an
+// instantiation without the per-element switch, and a table with several
+// switches per element (the Pallas kernel evaluates every branch under
+// `where` instead). The potential is reduced in two deterministic stages,
+// as in fused_logpdf.cu: grid (nparts, C) writes per-block partial sums
+// (warp shuffles, then one shared-memory step), and one block per chain
+// sums its partials in a fixed order. No float atomics, so reruns are
+// bit-identical. Built without --use_fast_math: expf and log1pf are the
+// accurate versions.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kAnyOp = -1;
+constexpr int kZero = 0, kNormal = 1, kExp = 2, kSoftplus = 3, kTlog = 4;
+
+__device__ __forceinline__ float softplus(float x) {
+  return log1pf(expf(-fabsf(x))) + fmaxf(x, 0.0f);
+}
+
+__device__ __forceinline__ float logistic(float x) {
+  const float e = expf(-fabsf(x));
+  return x >= 0.0f ? 1.0f / (1.0f + e) : e / (1.0f + e);
+}
+
+// v_op(u) and dv/du. With OP fixed at compile time the switch folds away
+// and the unused coefficient loads are dropped.
+template <int OP>
+__device__ __forceinline__ float elem_value(int op, float u, float c0, float c1,
+                                            float c2, float c3) {
+  switch (OP == kAnyOp ? op : OP) {
+    case kNormal: {
+      const float z = (u - c0) * c1;
+      return -0.5f * z * z;
+    }
+    case kExp:
+      return c0 * u - c1 * expf(c2 * u);
+    case kSoftplus:
+      return -c0 * softplus(-u) - c1 * softplus(u);
+    case kTlog: {
+      const float zt = (u - c2) * c3;
+      return -c0 * log1pf(c1 * zt * zt);
+    }
+    default:
+      return 0.0f;
+  }
+}
+
+template <int OP>
+__device__ __forceinline__ float elem_grad(int op, float u, float c0, float c1,
+                                           float c2, float c3) {
+  switch (OP == kAnyOp ? op : OP) {
+    case kNormal:
+      return -(u - c0) * (c1 * c1);
+    case kExp:
+      return c0 - c1 * c2 * expf(c2 * u);
+    case kSoftplus:
+      return c0 * logistic(-u) - c1 * logistic(u);
+    case kTlog: {
+      const float zt = (u - c2) * c3;
+      return -2.0f * c0 * c1 * zt * c3 / (1.0f + c1 * zt * zt);
+    }
+    default:
+      return 0.0f;
+  }
+}
+
+// Sum over the block; the result is valid in thread 0. Fixed order.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = (threadIdx.x < kThreads / 32) ? warp_sums[threadIdx.x] : 0.0f;
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+struct Table {
+  const int* op;
+  const float* c0;
+  const float* c1;
+  const float* c2;
+  const float* c3;
+};
+
+struct Coeffs {
+  int op;
+  float c0, c1, c2, c3;
+};
+
+// Coefficient arrays each opcode reads: NORMAL and SOFTPLUS c0 c1, EXP
+// c0..c2, TLOG c0..c3, ZERO none; the any-opcode kernel reads all four.
+template <int OP>
+constexpr int kCoeffsRead = OP == kAnyOp || OP == kTlog ? 4
+                            : OP == kExp                ? 3
+                            : OP == kZero               ? 0
+                                                        : 2;
+
+// A table with one opcode reads neither op nor the arrays it does not use.
+template <int OP>
+__device__ __forceinline__ Coeffs load_coeffs(const Table& t, long long i) {
+  constexpr int n = kCoeffsRead<OP>;
+  Coeffs c;
+  c.op = OP == kAnyOp ? t.op[i] : OP;
+  c.c0 = n > 0 ? t.c0[i] : 0.0f;
+  c.c1 = n > 1 ? t.c1[i] : 0.0f;
+  c.c2 = n > 2 ? t.c2[i] : 0.0f;
+  c.c3 = n > 3 ? t.c3[i] : 0.0f;
+  return c;
+}
+
+struct LeapfrogArgs {
+  const float* q;
+  long long q_rs;  // row strides, in elements (0: one row for every chain)
+  const float* p;
+  long long p_rs;
+  const float* g;
+  long long g_rs;
+  const float* eps;       // (C,)
+  const float* inv_mass;  // (dim,) or null
+  Table table;
+  long long dim;
+  int n_steps;
+  float* q_out;  // (C, dim), dense
+  float* p_out;
+  float* g_out;
+  float* partials;  // (C, gridDim.x)
+};
+
+template <int OP, bool WITH_MASS>
+__global__ void __launch_bounds__(kThreads) leapfrog_kernel(LeapfrogArgs a) {
+  const long long c = blockIdx.y;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float v = 0.0f;
+  if (i < a.dim) {
+    const Coeffs k = load_coeffs<OP>(a.table, i);
+    const float eps = a.eps[c];
+    const float half_eps = 0.5f * eps;
+    const float im = WITH_MASS ? a.inv_mass[i] : 1.0f;
+    float q = a.q[c * a.q_rs + i];
+    float p = a.p[c * a.p_rs + i];
+    float g = a.g[c * a.g_rs + i];
+    for (int s = 0; s < a.n_steps; ++s) {
+      const float p_half = p + half_eps * g;
+      const float vel = WITH_MASS ? im * p_half : p_half;
+      q = q + eps * vel;
+      g = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+      p = p_half + half_eps * g;
+    }
+    v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+    const long long o = c * a.dim + i;
+    a.q_out[o] = q;
+    a.p_out[o] = p;
+    a.g_out[o] = g;
+  }
+  v = block_sum(v);
+  if (threadIdx.x == 0) a.partials[c * gridDim.x + blockIdx.x] = v;
+}
+
+struct PotentialArgs {
+  const float* q;
+  long long q_rs;
+  Table table;
+  long long dim;
+  float* g_out;  // (C, dim), dense
+  float* partials;
+};
+
+template <int OP>
+__global__ void __launch_bounds__(kThreads) potential_vg_kernel(PotentialArgs a) {
+  const long long c = blockIdx.y;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float v = 0.0f;
+  if (i < a.dim) {
+    const Coeffs k = load_coeffs<OP>(a.table, i);
+    const float q = a.q[c * a.q_rs + i];
+    a.g_out[c * a.dim + i] = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+    v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+  }
+  v = block_sum(v);
+  if (threadIdx.x == 0) a.partials[c * gridDim.x + blockIdx.x] = v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+finish_rows(const float* __restrict__ partials, int nparts, float addend,
+            float* __restrict__ out) {
+  const float* row = partials + static_cast<long long>(blockIdx.x) * nparts;
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < nparts; i += kThreads) acc += row[i];
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = acc + addend;
+}
+
+template <bool WITH_MASS>
+void launch_leapfrog(int uniform_op, dim3 grid, cudaStream_t s, const LeapfrogArgs& a) {
+  switch (uniform_op) {
+    case kZero: leapfrog_kernel<kZero, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    case kNormal: leapfrog_kernel<kNormal, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    case kExp: leapfrog_kernel<kExp, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    case kSoftplus: leapfrog_kernel<kSoftplus, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    case kTlog: leapfrog_kernel<kTlog, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    default: leapfrog_kernel<kAnyOp, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+  }
+}
+
+void launch_potential_vg(int uniform_op, dim3 grid, cudaStream_t s, const PotentialArgs& a) {
+  switch (uniform_op) {
+    case kZero: potential_vg_kernel<kZero><<<grid, kThreads, 0, s>>>(a); break;
+    case kNormal: potential_vg_kernel<kNormal><<<grid, kThreads, 0, s>>>(a); break;
+    case kExp: potential_vg_kernel<kExp><<<grid, kThreads, 0, s>>>(a); break;
+    case kSoftplus: potential_vg_kernel<kSoftplus><<<grid, kThreads, 0, s>>>(a); break;
+    case kTlog: potential_vg_kernel<kTlog><<<grid, kThreads, 0, s>>>(a); break;
+    default: potential_vg_kernel<kAnyOp><<<grid, kThreads, 0, s>>>(a); break;
+  }
+}
+
+// The grid's x extent: one thread per coordinate.
+long long parts_for(long long dim) { return (dim + kThreads - 1) / kThreads; }
+
+bool bad_shape(int rows, long long dim, int nparts, int uniform_op) {
+  return rows <= 0 || rows > 65535 || dim <= 0 || nparts != parts_for(dim) ||
+         uniform_op < kAnyOp || uniform_op > kTlog;
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. Each returns a cudaError_t (0 = success);
+// launches go on the caller's stream and do not synchronise. The caller
+// allocates the dense (rows, dim) outputs, `partials` (rows * nparts floats,
+// nparts = ceil(dim / 256)) and `out` (rows floats). `uniform_op` is the
+// table's one opcode, or -1 when it holds several; `const_term` is the
+// spec's const in float32.
+extern "C" int repro_fused_leapfrog(const float* q, long long q_rs, const float* p,
+                                    long long p_rs, const float* g, long long g_rs,
+                                    const float* eps, const int* op, const float* c0,
+                                    const float* c1, const float* c2, const float* c3,
+                                    const float* inv_mass, int uniform_op, int rows,
+                                    long long dim, int n_steps, float* q_out,
+                                    float* p_out, float* g_out, float* partials,
+                                    int nparts, float const_term, float* out,
+                                    void* stream) {
+  if (bad_shape(rows, dim, nparts, uniform_op) || n_steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LeapfrogArgs a{q, q_rs, p, p_rs, g, g_rs, eps, inv_mass, Table{op, c0, c1, c2, c3},
+                 dim, n_steps, q_out, p_out, g_out, partials};
+  const dim3 grid(nparts, rows);
+  if (inv_mass != nullptr) {
+    launch_leapfrog<true>(uniform_op, grid, s, a);
+  } else {
+    launch_leapfrog<false>(uniform_op, grid, s, a);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, const_term, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_fused_potential_vg(const float* q, long long q_rs, const int* op,
+                                        const float* c0, const float* c1,
+                                        const float* c2, const float* c3,
+                                        int uniform_op, int rows, long long dim,
+                                        float* g_out, float* partials, int nparts,
+                                        float const_term, float* out,
+                                        void* stream) {
+  if (bad_shape(rows, dim, nparts, uniform_op)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  PotentialArgs a{q, q_rs, Table{op, c0, c1, c2, c3}, dim, g_out, partials};
+  launch_potential_vg(uniform_op, dim3(nparts, rows), s, a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, const_term, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* repro_fused_leapfrog_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

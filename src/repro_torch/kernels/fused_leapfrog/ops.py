@@ -1,0 +1,231 @@
+"""Public entry points for the fused leapfrog and the fused potential.
+
+``fused_leapfrog(spec, q, p, grad, step_size, n_steps)`` runs the whole
+n-step integrator as one unit and ``potential_value_and_grad(spec, u)``
+one analytic evaluation. On a CUDA tensor each launches its hand-written
+kernel in ``csrc/fused_leapfrog.cu`` (or raises); on a CPU tensor each
+runs its plain version in ``ref.py``. Nothing falls back. Launches are
+counted in ``LAUNCHES``.
+
+Both take ``(dim,)`` or ``(num_chains, dim)`` states and return
+``repro_torch.infer.hmc._leapfrog``'s ``(q, p, logp, grad)`` contract
+(``(logp, grad)`` for the potential), so the HMC transition swaps
+integrators without touching the MH correction. ``logp`` includes
+``spec.const``, added in float32 after the sum. The state already carries
+the chain axis, so there is no ``vmap`` rule; and no
+``torch.autograd.Function``, since MCMC transitions are never
+differentiated through.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels.fused_leapfrog import ref
+from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "fused_leapfrog",
+           "potential_value_and_grad", "kernel_source"]
+
+# kernel name -> launches since the last reset (one per wrapper call that
+# reached the card; the CPU path does not count)
+LAUNCHES = {"fused_leapfrog": 0, "fused_potential_vg": 0}
+
+_THREADS = 256
+_ANY_OP = -1
+
+_LIB = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kernel_source() -> Path:
+    return Path(__file__).resolve().parent / "csrc" / "fused_leapfrog.cu"
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = load_library(kernel_source())
+        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_float)
+        lib.repro_fused_leapfrog.argtypes = (
+            [p, i64, p, i64, p, i64, p] + [p] * 5
+            + [p, i32, i32, i64, i32, p, p, p, p, i32, f32, p, p])
+        lib.repro_fused_leapfrog.restype = i32
+        lib.repro_fused_potential_vg.argtypes = (
+            [p, i64] + [p] * 5 + [i32, i32, i64, p, p, i32, f32, p, p])
+        lib.repro_fused_potential_vg.restype = i32
+        lib.repro_fused_leapfrog_error_string.argtypes = [i32]
+        lib.repro_fused_leapfrog_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        msg = _lib().repro_fused_leapfrog_error_string(err).decode()
+        raise KernelError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+
+
+def _device_kind(*ts: torch.Tensor) -> str:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
+    kind = ts[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no fused_leapfrog kernel for device '{kind}'")
+    return kind
+
+
+def _check_state(name: str, t: torch.Tensor, shape) -> None:
+    """A state input: float32 of ``shape`` (the card also needs a unit
+    inner stride, which :func:`_row_stride` checks)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _row_stride(name: str, t: torch.Tensor) -> int:
+    rows, dim = t.shape
+    if dim > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: inner stride must be 1, got {t.stride()}")
+    return t.stride(0) if rows > 1 else dim
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dim() == 2 else t.unsqueeze(0)
+
+
+def _check_spec(spec: PotentialSpec, q: torch.Tensor) -> None:
+    if not isinstance(spec, PotentialSpec):
+        raise TypeError(f"expected a PotentialSpec, got {type(spec).__name__}")
+    if q.dim() not in (1, 2) or q.shape[-1] != spec.dim:
+        raise ValueError(f"expected a state of shape ({spec.dim},) or "
+                         f"(num_chains, {spec.dim}), got {tuple(q.shape)}")
+
+
+def _eps_rows(step_size, rows: int, device) -> torch.Tensor:
+    """The step size as a dense float32 ``(rows,)`` tensor on ``device``."""
+    if torch.is_tensor(step_size):
+        if step_size.device != device:
+            raise ValueError(f"step_size on {step_size.device}, state on "
+                             f"{device}")
+        eps = step_size.to(torch.float32)
+        if eps.dim() == 0:
+            return eps.expand(rows).contiguous()
+        if tuple(eps.shape) != (rows,):
+            raise ValueError(f"step_size: expected a number or shape "
+                             f"({rows},), got {tuple(eps.shape)}")
+        return eps.contiguous()
+    return torch.full((rows,), float(step_size), dtype=torch.float32,
+                      device=device)
+
+
+def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
+                   grad: torch.Tensor, step_size, n_steps: int, *,
+                   inv_mass: Optional[torch.Tensor] = None):
+    """n-step leapfrog on a separable potential; returns
+    ``(q, p, logp, grad)``.
+
+    Parameters
+    ----------
+    spec : PotentialSpec
+        Compiled separable potential (``repro_torch.core.potential``).
+    q, p, grad : torch.Tensor, float32, ``(dim,)`` or ``(num_chains, dim)``
+        Position, momentum and the potential gradient at ``q``.
+    step_size : float, 0-d tensor or ``(num_chains,)`` tensor
+        Leapfrog step size, per chain when a vector.
+    n_steps : int
+        Number of leapfrog steps.
+    inv_mass : torch.Tensor, optional
+        Diagonal inverse mass ``(dim,)`` (velocity = inv_mass * momentum);
+        ``None`` = identity metric.
+
+    Returns
+    -------
+    (q, p, logp, grad)
+        Final state; ``logp`` is the full potential (with ``spec.const``)
+        at the final position, ``()`` or ``(num_chains,)``.
+    """
+    _check_spec(spec, q)
+    for name, t in (("q", q), ("p", p), ("grad", grad)):
+        _check_state(name, t, q.shape)
+    if inv_mass is not None:
+        _check_state("inv_mass", inv_mass, (spec.dim,))
+    n_steps = int(n_steps)
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    extra = () if inv_mass is None else (inv_mass,)
+    if _device_kind(q, p, grad, *extra) == "cpu":
+        return ref.leapfrog_ref(spec, q, p, grad, step_size, n_steps,
+                                inv_mass=inv_mass)
+    q2, p2, g2 = _rows(q), _rows(p), _rows(grad)
+    rows, dim = q2.shape
+    strides = [_row_stride(n, t)
+               for n, t in (("q", q2), ("p", p2), ("grad", g2))]
+    if inv_mass is not None:
+        inv_mass = inv_mass.contiguous()
+    eps = _eps_rows(step_size, rows, q.device)
+    op, c0, c1, c2, c3 = spec.coeff_arrays(q.device)
+    nparts = -(-dim // _THREADS)
+    q_out, p_out, g_out = (torch.empty((rows, dim), dtype=torch.float32,
+                                       device=q.device) for _ in range(3))
+    partials = torch.empty(rows * nparts, dtype=torch.float32, device=q.device)
+    out = torch.empty(rows, dtype=torch.float32, device=q.device)
+    uop = _ANY_OP if spec.uniform_op is None else spec.uniform_op
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().repro_fused_leapfrog(
+            q2.data_ptr(), strides[0], p2.data_ptr(), strides[1],
+            g2.data_ptr(), strides[2], eps.data_ptr(), op.data_ptr(),
+            c0.data_ptr(), c1.data_ptr(), c2.data_ptr(), c3.data_ptr(),
+            None if inv_mass is None else inv_mass.data_ptr(), uop, rows,
+            dim, n_steps, q_out.data_ptr(), p_out.data_ptr(),
+            g_out.data_ptr(), partials.data_ptr(), nparts, ref._const(spec),
+            out.data_ptr(), stream)
+    _raise_on(err, "fused_leapfrog")
+    LAUNCHES["fused_leapfrog"] += 1
+    if q.dim() == 1:
+        return q_out[0], p_out[0], out[0], g_out[0]
+    return q_out, p_out, out, g_out
+
+
+def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor):
+    """Fused analytic ``(logp, grad)`` of the compiled potential at ``u``
+    (``(dim,)`` or ``(num_chains, dim)``); used for chain init. ``logp``
+    includes ``spec.const``."""
+    _check_spec(spec, u)
+    _check_state("u", u, u.shape)
+    if _device_kind(u) == "cpu":
+        return ref.potential_value_and_grad_ref(spec, u)
+    u2 = _rows(u)
+    rows, dim = u2.shape
+    stride = _row_stride("u", u2)
+    op, c0, c1, c2, c3 = spec.coeff_arrays(u.device)
+    nparts = -(-dim // _THREADS)
+    g_out = torch.empty((rows, dim), dtype=torch.float32, device=u.device)
+    partials = torch.empty(rows * nparts, dtype=torch.float32, device=u.device)
+    out = torch.empty(rows, dtype=torch.float32, device=u.device)
+    uop = _ANY_OP if spec.uniform_op is None else spec.uniform_op
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = _lib().repro_fused_potential_vg(
+            u2.data_ptr(), stride, op.data_ptr(), c0.data_ptr(),
+            c1.data_ptr(), c2.data_ptr(), c3.data_ptr(), uop, rows, dim,
+            g_out.data_ptr(), partials.data_ptr(), nparts, ref._const(spec),
+            out.data_ptr(), stream)
+    _raise_on(err, "fused_potential_vg")
+    LAUNCHES["fused_potential_vg"] += 1
+    if u.dim() == 1:
+        return out[0], g_out[0]
+    return out, g_out

@@ -23,6 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels._build import KernelError, load_library
 from repro_torch.kernels.fused_logpdf import ref
 
 __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
@@ -66,7 +67,6 @@ _LIB = None
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        from repro_torch.kernels._build import load_library
         lib = load_library(kernel_source())
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_std_normal_sum.argtypes = [p, i64, i32, i64, p, i32, p, p]
@@ -108,7 +108,7 @@ def _row_stride(t: torch.Tensor) -> int:
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
         msg = _lib().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
 def _device_kind(*ts: torch.Tensor) -> str:

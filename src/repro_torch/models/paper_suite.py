@@ -10,6 +10,7 @@ Each constructor returns a ``PaperModel`` with:
 * the static-HMC settings (4 leapfrog steps; per-model step sizes).
 
 Ported so far (the rest are listed in ROADMAP.md):
+  gaussian_10k   : 10,000-D standard normal (separable: fused integrator)
   naive_bayes    : 1,000 obs of MNIST->PCA-40 (synthetic stand-in), 10 classes
   logreg         : 10,000 obs x 100 dims
 
@@ -48,6 +49,24 @@ class PaperModel:
 def _norm_lp(x, loc, scale):
     z = (x - loc) / scale
     return -0.5 * z * z - math.log(scale) - 0.5 * _LOG_2PI
+
+
+# ---------------------------------------------------------------------------
+# 1. 10,000-D Gaussian
+# ---------------------------------------------------------------------------
+def gaussian_10k(dim: int = 10_000, device=None) -> PaperModel:
+    dev = resolve_device(device)
+    loc = torch.zeros(dim, device=dev)
+    scale = torch.ones(dim, device=dev)
+
+    @model
+    def gauss10k():
+        sample("x", MvNormalDiag(loc, scale))
+
+    def handwritten(q):  # x: (dim,), identity transform
+        return torch.sum(-0.5 * q * q - 0.5 * _LOG_2PI)
+
+    return PaperModel("gaussian_10k", gauss10k(), handwritten, step_size=0.1)
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +136,10 @@ def logreg(n: int = 10_000, dim: int = 100, seed: int = 2,
                       data={"X": X, "y": y})
 
 
-MODEL_NAMES = ("naive_bayes", "logreg")
+MODEL_NAMES = ("gaussian_10k", "naive_bayes", "logreg")
 
 _CONSTRUCTORS = {
+    "gaussian_10k": gaussian_10k,
     "naive_bayes": naive_bayes,
     "logreg": logreg,
 }

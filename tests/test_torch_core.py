@@ -210,7 +210,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     assert _device.resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsuite.build("gaussian_10k", device="cpu")
+        tsuite.build("gauss_unknown", device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -172,7 +172,7 @@ def test_make_chain_fn_on_the_handwritten_twin():
 
 def test_unported_options_raise():
     tm = tsuite.build("logreg", device="cpu", n=16, dim=2)
-    with pytest.raises(NotImplementedError, match="fused"):
+    with pytest.raises(ValueError, match="fused"):  # no spec given
         HMC(leapfrog="fused").make_kernel(lambda q: q.sum(), 3)
     with pytest.raises(ValueError):
         HMC(leapfrog="bogus").make_kernel(lambda q: q.sum(), 3)

@@ -5,12 +5,20 @@ port, so it runs on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: rtol 1e-6 against the plain version (float32 sums in another
-order); reruns must be bit-identical (no float atomics).
+Tolerances: the fused_logpdf sums at rtol 1e-6 against the plain version
+(float32 sums in another order). The fused leapfrog's q, p and gradient at
+rtol 1e-5 plus atol 1e-5 * max|plain| (nvcc contracts the updates into
+FMAs, torch does not; the difference compounds over the steps), its
+potential at 1e-5 * sum|v_i| (a float32 sum of up to 10^6 terms in
+another order). Reruns must be bit-identical (no float atomics).
 """
 import pytest
 import torch
 
+from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+from repro_torch.kernels.fused_leapfrog import ref as lf_ref
+from repro_torch.kernels.fused_leapfrog.spec import (OP_NORMAL,
+                                                     potential_elem_value)
 from repro_torch.kernels.fused_logpdf import ops, ref
 
 
@@ -52,3 +60,51 @@ def test_cuda_vmap_grad_is_one_launch_for_all_chains(cuda_device):
     assert ops.LAUNCHES == {"std_normal_sum": 1, "bernoulli_logit_sum": 1}
     torch.testing.assert_close(g, -z, rtol=1e-6, atol=0)
     torch.testing.assert_close(gl, y - torch.sigmoid(z), rtol=1e-6, atol=1e-7)
+
+
+def _assert_state_close(got, want):
+    atol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform_op", [None, 0, 1, 2, 3, 4])
+@pytest.mark.parametrize("rows,dim", [(1, 1), (4, 127), (16, 129),
+                                      (4, 10000), (1, 1_000_003)])
+@pytest.mark.parametrize("mass", [False, True])
+def test_cuda_fused_leapfrog_matches_plain_version(cuda_device, uniform_op,
+                                                   rows, dim, mass):
+    spec = lf_ref.random_spec(dim, uniform_op)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = 0.5 * torch.randn(rows, dim, generator=gen, device=cuda_device)
+    p = torch.randn(rows, dim, generator=gen, device=cuda_device)
+    eps = 0.02 + 0.06 * torch.rand(rows, generator=gen, device=cuda_device)
+    im = (0.5 + torch.rand(dim, generator=gen, device=cuda_device)
+          if mass else None)
+    _, g = lf_ops.potential_value_and_grad(spec, q)
+    lp0, g0 = lf_ref.potential_value_and_grad_ref(spec, q)
+    _assert_state_close(g, g0)
+    for n_steps in (1, 4, 8):
+        got = lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps, inv_mass=im)
+        want = lf_ref.leapfrog_ref(spec, q, p, g, eps, n_steps, inv_mass=im)
+        for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+            _assert_state_close(a, b)
+        op, c0, c1, c2, c3 = spec.coeff_arrays(cuda_device)
+        abs_sum = potential_elem_value(op, c0, c1, c2, c3, want[0],
+                                       uniform_op=spec.uniform_op).abs().sum(-1)
+        assert bool(((got[2] - want[2]).abs() <= 1e-5 * abs_sum + 1e-6).all())
+        again = lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps,
+                                      inv_mass=im)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_leapfrog_counts_one_launch_per_call(cuda_device):
+    spec = lf_ref.random_spec(10000, OP_NORMAL)
+    q = torch.zeros(10000, device=cuda_device).expand(4, 10000)  # stride 0
+    lf_ops.reset_launch_counts()
+    lp, g = lf_ops.potential_value_and_grad(spec, q)
+    lf_ops.fused_leapfrog(spec, q, q, g, 0.1, 4)
+    assert lf_ops.LAUNCHES == {"fused_leapfrog": 1, "fused_potential_vg": 1}
+    assert lp.shape == (4,)
