@@ -3,12 +3,13 @@
 
 Drives the port's main paths — the paper's Table-1 loop: typed trace ->
 fused flat log-joint -> static HMC with 4 leapfrog steps over 4 chains —
-for ``logreg`` (10,000 x 100) and ``naive_bayes`` (1,000 x 40, 10 classes)
-through the hand-written CUDA kernels of
-``src/repro_torch/kernels/fused_logpdf/csrc``, and for ``gaussian_10k``
-(10,000-D) through the separable-potential compiler and the fused n-step
-leapfrog of ``src/repro_torch/kernels/fused_leapfrog/csrc``, all at full
-width and 2000 draws. Phases, in order:
+for ``logreg`` (10,000 x 100), ``naive_bayes`` (1,000 x 40, 10 classes),
+``hier_poisson`` (50 obs, 10 groups), ``hmm_semisup`` (K=5, V=20, T=300)
+and ``lda`` (V=100, K=5, 10 docs, 10,176 words) through the hand-written
+CUDA kernels of ``src/repro_torch/kernels/fused_logpdf/csrc``, and for
+``gaussian_10k`` (10,000-D) through the separable-potential compiler and
+the fused n-step leapfrog of ``src/repro_torch/kernels/fused_leapfrog/csrc``,
+all at full width (draws per model in ``DRAWS``). Phases, in order:
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
@@ -16,20 +17,25 @@ width and 2000 draws. Phases, in order:
    build time;
 3. holds each kernel against its plain PyTorch version on the card and
    checks that two runs are bit-identical: the fused_logpdf sums at rtol
-   1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``) and their backward
-   through ``vmap(grad)`` with one launch for the whole chain axis; the
+   1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``; categorical over
+   C = 1 to 4,096 classes and 1 to 100,000 items with labels shared and
+   per row, and at its edges: labels outside [0, C) and -inf logits;
+   gamma, whose terms change sign, at 1e-6 of the sum of their
+   magnitudes) and their backward through ``vmap(grad)`` with one launch
+   for the whole chain axis; the
    fused leapfrog and fused potential for every opcode alone and a mixed
    table, with and without an inverse mass, 1/4/16 chains with distinct
    step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
    rtol 1e-5 plus atol 1e-5 * max|plain|, the potential at
    1e-5 * sum_i |v_i|);
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
-   num_chains=4, num_samples=2000)`` with every launch count set to 0 just
-   before and read just after; the counts must equal the autodiff
-   integrator's evaluations plus the potential compiler's 5 probe
+   num_chains=4, num_samples=DRAWS["logreg"])`` with every launch count set
+   to 0 just before and read just after; the counts must equal the
+   autodiff integrator's evaluations plus the potential compiler's 5 probe
    evaluations (which reject the model); checks finite draws and logp,
-   the mean acceptance, and the fused density at the final draws against
-   the per-site reference density and the hand-written twin (rtol 1e-5);
+   the mean acceptance, and the fused density at the final draws (linked
+   back to the unconstrained space) against the per-site reference
+   density, the hand-written twin and the chain's own logp (rtol 1e-5);
 5. the same for ``naive_bayes`` (step 0.01);
 6. ``gaussian_10k`` (step 0.1): the same call compiles a separable spec
    (uniform NORMAL opcode, dim 10,000) and runs one ``fused_leapfrog``
@@ -39,15 +45,23 @@ width and 2000 draws. Phases, in order:
    standard errors from its ESS; then runs the same seed with
    ``leapfrog="reference"`` for 300 draws and holds the first 10 draws of
    both integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp);
+   then, as in phase 4, ``hier_poisson`` (step 0.02; std_normal_sum and
+   gamma_unnorm_sum once per evaluation, 5 compiler probes),
+   ``hmm_semisup`` (step 0.01; categorical_logits_sum twice per
+   evaluation, C = 5 and 20; no probes: the compiler stops at the simplex
+   sites) and ``lda`` (step 0.005; categorical_logits_sum once, 4 x 10,176
+   x 100; no probes), and their simplex draws: non-negative, rows summing
+   to 1 within 1e-5;
 7. times each kernel at the main paths' shapes beside its bound, its plain
    version and, where one exists, one PyTorch library call (device time
    from the profiler, and the time the host takes to issue each call), and
-   profiles a window of transitions of logreg and of gaussian_10k under
-   both integrators for the device's busy share.
+   profiles a window of transitions of logreg, of gaussian_10k under both
+   integrators, of hier_poisson, hmm_semisup and lda for the device's busy
+   share.
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU:
 
-    python3 chip_smoke.py [--samples 2000] [--out build/chip_smoke.json]
+    python3 chip_smoke.py [--samples N] [--out build/chip_smoke.json]
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero and
@@ -72,6 +86,11 @@ FP32_FLOPS_PER_S = 67e12
 # float ops per element, as written in the .cu source
 STD_NORMAL_OPS = 4      # two multiplies, a subtract, the add into the sum
 BERNOULLI_OPS = 11      # max, fabs, 2 negations, exp, log1p, add, 1-y, mul, sub, sum
+GAMMA_OPS = 5           # log, two multiplies, a subtract, the add into the sum
+# categorical, as log_softmax needs them: per class a max, a subtract, an
+# exp and an add; per item the log, two subtracts and the add into the sum
+CATEGORICAL_CLASS_OPS = 4
+CATEGORICAL_ITEM_OPS = 4
 # fused leapfrog, uniform NORMAL table (gaussian_10k): per element and step
 # two half-kicks and a drift (three multiply-adds) and the gradient
 # -(u - c0) * (c1 * c1) (three); at the final q the value
@@ -81,16 +100,23 @@ NORMAL_VALUE_OPS = 4 + 1
 SOURCES = {
     "std_normal_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
     "bernoulli_logit_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
+    "categorical_logits_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
+    "gamma_unnorm_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
     "fused_leapfrog": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
     "fused_potential_vg": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
     "bernoulli_logit_sum": "src/repro/kernels/fused_logpdf/kernel.py:97",
+    "categorical_logits_sum": "src/repro/kernels/fused_logpdf/kernel.py:120",
+    "gamma_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:154",
     "fused_leapfrog": "src/repro/kernels/fused_leapfrog/kernel.py:38",
     "fused_potential_vg": "src/repro/kernels/fused_leapfrog/kernel.py:130",
 }
 NO_LIBRARY = {
+    "gamma_unnorm_sum": "no single PyTorch call computes sum(am1 log x - "
+                        "rate x) (poisson_nll_loss adds 1e-8 inside the log "
+                        "and has no rate)",
     "fused_leapfrog": "no single PyTorch call computes an n-step integrator",
     "fused_potential_vg": "no single PyTorch call computes a potential's "
                           "value and its gradient",
@@ -125,8 +151,15 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-MAIN_SHAPES = {"std_normal_sum": [(4, 101), (4, 400), (4, 40000)],
-               "bernoulli_logit_sum": [(4, 10000)]}
+MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
+               "bernoulli_logit_sum": [(4, 10000)],
+               # (chains, items, classes): hmm_semisup's two blocks, lda's
+               "categorical_logits_sum": [(4, 99, 5), (4, 100, 20),
+                                          (4, 10176, 100)],
+               # hier_poisson's block, and a wide one for the timing phase
+               "gamma_unnorm_sum": [(4, 1), (4, 40000)]}
+FUSED_LOGPDF = ("std_normal_sum", "bernoulli_logit_sum",
+                "categorical_logits_sum", "gamma_unnorm_sum")
 CHECK_ROWS = (1, 4, 16)
 CHECK_N = (1, 101, 255, 257, 400, 10000, 40000, 40400, 1_000_003)
 
@@ -134,9 +167,9 @@ CHECK_N = (1, 101, 255, 257, 400, 10000, 40000, 40400, 1_000_003)
 def check_kernels(torch, ops, ref):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1234)
-    worst = {k: 0.0 for k in MAIN_SHAPES}
+    worst = {k: 0.0 for k in ("std_normal_sum", "bernoulli_logit_sum")}
     shapes = sorted({(r, n) for r in CHECK_ROWS for n in CHECK_N}
-                    | {s for v in MAIN_SHAPES.values() for s in v})
+                    | {s for k in worst for s in MAIN_SHAPES[k]})
     for rows, n in shapes:
         z = 2.0 * torch.randn(rows, n, generator=gen, device=dev)
         y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
@@ -170,12 +203,136 @@ def check_kernels(torch, ops, ref):
     gl = torch.func.vmap(torch.func.grad(ops.bernoulli_logits_logpmf_sum),
                          in_dims=(0, None))(z, y)
     torch.cuda.synchronize()
-    check(ops.LAUNCHES == {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
+    logits = torch.randn(4, 100, 20, generator=gen, device=dev)
+    labels = torch.randint(0, 20, (100,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    gc = torch.func.vmap(torch.func.grad(ops.categorical_logits_logpmf_sum),
+                         in_dims=(0, None))(logits, labels)
+    x = 0.1 + torch.rand(4, 11, generator=gen, device=dev)
+    am1 = torch.rand(11, generator=gen, device=dev)
+    rate = 0.5 + torch.rand(11, generator=gen, device=dev)
+    gx = torch.func.vmap(torch.func.grad(ops.gamma_unnorm_logpdf_sum),
+                         in_dims=(0, None, None))(x, am1, rate)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == dict.fromkeys(FUSED_LOGPDF, 1),
           f"vmap(grad) over 4 chains launched {ops.LAUNCHES}, expected one "
           "launch per kernel")
     torch.testing.assert_close(g, -z, rtol=1e-6, atol=0)
     torch.testing.assert_close(gl, y - torch.sigmoid(z), rtol=1e-6, atol=1e-7)
+    onehot = torch.nn.functional.one_hot(labels.long(), 20).float()
+    torch.testing.assert_close(gc, onehot - torch.softmax(logits, -1),
+                               rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(gx, am1 / x - rate, rtol=1e-6, atol=0)
     log("vmap(grad) backward: ok, one launch per kernel for 4 chains")
+    return worst
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit-identical, NaN included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+CAT_C = (1, 2, 5, 20, 31, 32, 33, 100, 4096)
+CAT_N = (1, 99, 100, 257, 10176, 100_000)
+CAT_MAX_ELEMS = 1 << 27  # 512 MB of logits: larger cases are left out
+
+
+def check_categorical_gamma_kernels(torch, ops, ref):
+    """categorical_logits_sum against its plain version at rtol 1e-6 (every
+    term is <= 0, so the sum does not cancel) over CAT_C x CAT_N x 1/4/16
+    rows with labels shared (row stride 0) and per row, up to
+    CAT_MAX_ELEMS logits, and at its edges (labels outside [0, C), -inf
+    logits, a row of -inf: the same NaN and -inf as the plain version);
+    gamma_unnorm_sum at 1e-6 of sum_i |am1_i log x_i| + |rate_i x_i| (its
+    terms change sign) with am1 and rate shared and per row. Both with
+    bit-identical reruns. Returns the worst abs error at the main paths'
+    shapes."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    worst = {"categorical_logits_sum": 0.0, "gamma_unnorm_sum": 0.0}
+    n_cat = skipped = 0
+    for c in CAT_C:
+        for n in CAT_N:
+            for rows in CHECK_ROWS:
+                if rows * n * c > CAT_MAX_ELEMS:
+                    skipped += 2
+                    continue
+                logits = 3.0 * torch.randn(rows, n, c, generator=gen,
+                                           device=dev)
+                for shared in (True, False):
+                    lab = torch.randint(0, c, (n,) if shared else (rows, n),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32).expand(rows, n)
+                    got = ops.categorical_logits_sum_rows(logits, lab)
+                    again = ops.categorical_logits_sum_rows(logits, lab)
+                    want = ref.categorical_logits_logpmf_sum_ref(logits, lab)
+                    torch.cuda.synchronize()
+                    tag = f"categorical_logits_sum {rows}x{n}x{c} " \
+                          f"{'shared' if shared else 'per-row'} labels"
+                    check(same_bits(torch, got, again), f"{tag}: two runs differ")
+                    err = (got - want).abs()
+                    check(bool((err <= 1e-6 * want.abs()).all()),
+                          f"{tag}: max rel err "
+                          f"{float((err / want.abs()).max()):.3e} > 1e-6")
+                    if (rows, n, c) in MAIN_SHAPES["categorical_logits_sum"]:
+                        worst["categorical_logits_sum"] = max(
+                            worst["categorical_logits_sum"], float(err.max()))
+                    n_cat += 1
+                del logits
+    # the edges, as the plain version defines them
+    ninf = float("-inf")
+    logits = torch.randn(2, 6, 40, generator=gen, device=dev)
+    logits[:, 1, ::3] = ninf
+    logits[:, 2, :] = ninf
+    logits[:, 3, 7] = ninf
+    edge_cases = [
+        (logits, torch.tensor([[0, 2, 5, 7, 1, 2], [0, 1, 5, 6, -1, 40]])),
+        (logits[:, [0, 1, 3, 4, 5]].contiguous(),
+         torch.tensor([[0, 1, 3, 4, 5], [0, 3, 7, 2, 2]])),
+        (logits[:, [0, 1, 4]].contiguous(), torch.tensor([[0, 1, 41]] * 2)),
+    ]
+    for lg, lab in edge_cases:
+        lab = lab.to(device=dev, dtype=torch.int32)
+        got = ops.categorical_logits_sum_rows(lg, lab)
+        want = ref.categorical_logits_logpmf_sum_ref(lg, lab)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                                   equal_nan=True)
+        check(same_bits(torch, got, ops.categorical_logits_sum_rows(lg, lab)),
+              "categorical_logits_sum edge case: two runs differ")
+    log(f"categorical_logits_sum vs plain: {n_cat} cases (C in {CAT_C}, "
+        f"n in {CAT_N}, {CHECK_ROWS} rows, labels shared and per row; "
+        f"{skipped} over {CAT_MAX_ELEMS} logits left out) and "
+        f"{len(edge_cases)} edge cases, rtol 1e-6, bit-identical reruns: ok")
+
+    n_gamma = 0
+    shapes = sorted({(r, n) for r in CHECK_ROWS for n in CHECK_N}
+                    | set(MAIN_SHAPES["gamma_unnorm_sum"]))
+    for rows, n in shapes:
+        x = 0.05 + 4.0 * torch.rand(rows, n, generator=gen, device=dev)
+        for shared in (True, False):
+            pshape = (n,) if shared else (rows, n)
+            am1 = -0.5 + 3.5 * torch.rand(pshape, generator=gen, device=dev)
+            rate = 0.2 + 3.0 * torch.rand(pshape, generator=gen, device=dev)
+            am1, rate = am1.expand(rows, n), rate.expand(rows, n)
+            got = ops.gamma_unnorm_sum_rows(x, am1, rate)
+            again = ops.gamma_unnorm_sum_rows(x, am1, rate)
+            want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
+            torch.cuda.synchronize()
+            tag = f"gamma_unnorm_sum {rows}x{n} " \
+                  f"{'shared' if shared else 'per-row'} parameters"
+            check(same_bits(torch, got, again), f"{tag}: two runs differ")
+            abs_sum = ((am1 * torch.log(x)).abs() + (rate * x).abs()).sum(-1)
+            err = (got - want).abs()
+            check(bool((err <= 1e-6 * abs_sum).all()),
+                  f"{tag}: err {float(err.max()):.3e} beyond 1e-6 * "
+                  "sum|terms|")
+            if (rows, n) in MAIN_SHAPES["gamma_unnorm_sum"]:
+                worst["gamma_unnorm_sum"] = max(worst["gamma_unnorm_sum"],
+                                                float(err.max()))
+            n_gamma += 1
+    log(f"gamma_unnorm_sum vs plain: {n_gamma} cases (n up to 1,000,003, "
+        f"{CHECK_ROWS} rows, parameters shared and per row), 1e-6 of "
+        "sum|terms|, bit-identical reruns: ok")
     return worst
 
 
@@ -274,13 +431,30 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
 # fused evaluators send one block per family and per observed/unobserved)
 PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
             "naive_bayes": {"std_normal_sum": 2},
-            "gaussian_10k": {"std_normal_sum": 1}}
+            "gaussian_10k": {"std_normal_sum": 1},
+            "hier_poisson": {"std_normal_sum": 1, "gamma_unnorm_sum": 1},
+            # one block per class count: C = 5 (transitions), 20 (emissions)
+            "hmm_semisup": {"categorical_logits_sum": 2},
+            "lda": {"categorical_logits_sum": 1}}
 # the potential compiler's log-density evaluations (core/potential.py
-# _build): the value at the recorded point, then a value and a gradient at
-# each of two probe points, whatever the verdict. Each runs the fused
-# forward once; the gradient's backward launches nothing.
-PROBE_EVALS = 1 + 2 * 2
+# _build): for a model whose sites all have opcodes, the value at the
+# recorded point, then a value and a gradient at each of two probe points,
+# whatever the verdict; a model with a simplex site is rejected before the
+# first. Each runs the fused forward once; the gradient's backward
+# launches nothing.
+PROBE_EVALS = {"logreg": 5, "naive_bayes": 5, "gaussian_10k": 5,
+               "hier_poisson": 5, "hmm_semisup": 0, "lda": 0}
 SEPARABLE = ("gaussian_10k",)  # the paper models the compiler accepts
+# draws per chain on each main path (Table 1: 2000). The whole script must
+# stay within 600 s; the cuts, and why, are in PERF.md section 4.
+# where the chains start (run_chains' init_varinfo): the prior draw, except
+# for hier_poisson, whose prior draw of a0 ~ Normal(0, 10) lands at
+# log-rates where every fixed-step transition diverges (no warmup in Table
+# 1); it starts at the unconstrained origin (Stan's init=0), with the
+# usual per-chain jitter
+START_AT_ORIGIN = ("hier_poisson",)
+DRAWS = {"logreg": 1000, "naive_bayes": 1000, "gaussian_10k": 2000,
+         "hier_poisson": 2000, "hmm_semisup": 500, "lda": 2000}
 
 
 def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
@@ -293,6 +467,7 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     them)."""
     import numpy as np
 
+    from repro_torch.bijectors import bijector_for
     from repro_torch.infer import HMC, run_chains
     from repro_torch.kernels.fused_leapfrog import ops as lf_ops
     from repro_torch.kernels.fused_logpdf import ops
@@ -306,8 +481,15 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     ops.reset_launch_counts()
     lf_ops.reset_launch_counts()
     t0 = time.perf_counter()
+    init = None
+    if name in START_AT_ORIGIN:
+        linked = pm.model.typed_varinfo(
+            torch.Generator(device=DEVICE).manual_seed(seed)).link()
+        init = linked.replace_flat(
+            torch.zeros(linked.num_flat, device=DEVICE)).invlink()
     chain = run_chains(seed, pm.model, kernel, num_samples,
-                       num_chains=num_chains, device=DEVICE)
+                       num_chains=num_chains, device=DEVICE,
+                       init_varinfo=init)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {**ops.LAUNCHES, **lf_ops.LAUNCHES}
@@ -315,7 +497,7 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     evals = num_samples * pm.n_leapfrog + 1  # + the initial gradient
     fused = kernel.uses_potential_spec and name in SEPARABLE
     want = dict.fromkeys(launches, 0)
-    probes = PROBE_EVALS if kernel.uses_potential_spec else 0
+    probes = PROBE_EVALS[name] if kernel.uses_potential_spec else 0
     for k, per in PER_EVAL[name].items():
         want[k] += per * (probes + (0 if fused else evals))
     if fused:
@@ -328,19 +510,35 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
 
     logp = chain.stats["logp"]
     acc = float(chain.stats["accept_prob"].mean())
+    acc_chains = [float(a) for a in chain.stats["accept_prob"].mean(axis=1)]
     for site in chain.names():
         check(np.isfinite(chain[site]).all(),
               f"{name}: non-finite draws of '{site}'")
     check(np.isfinite(logp).all(), f"{name}: non-finite logp")
     check(0.0 < acc <= 1.0, f"{name}: mean acceptance {acc} not in (0, 1]")
 
-    # the fused density at the final draws vs the per-site reference and
-    # the hand-written twin, on the card (all sites are real-valued, so the
-    # constrained draws are the unconstrained flat state)
+    simplex = {}
+    for s in pm.model.typed_varinfo(
+            torch.Generator(device=DEVICE).manual_seed(seed)).layout.sites:
+        if s.support == "simplex":
+            x = chain[s.name]
+            dev1 = float(np.abs(x.sum(-1, dtype=np.float64) - 1.0).max())
+            check(bool((x >= 0).all()) and dev1 <= 1e-5,
+                  f"{name}: simplex draws of '{s.name}' off the simplex "
+                  f"(min {float(x.min()):.3e}, max |row sum - 1| {dev1:.3e})")
+            simplex[s.name] = {"min": float(x.min()), "max_row_sum_dev": dev1}
+
+    # the fused density at the final draws vs the per-site reference, the
+    # hand-written twin and the chain's logp, on the card. The constrained
+    # draws are linked back through each site's bijector (the stick-breaking
+    # inverse for simplex rows) to the unconstrained flat state.
     tvi = pm.model.typed_varinfo(
         torch.Generator(device=DEVICE).manual_seed(seed)).link()
-    q = torch.cat([torch.as_tensor(chain[s.name][:, -1]).reshape(num_chains, -1)
-                   for s in tvi.layout.sites], dim=1).to(DEVICE)
+    q = torch.cat([
+        bijector_for(d).inverse(torch.as_tensor(chain[s.name][:, -1],
+                                                device=DEVICE))
+        .reshape(num_chains, -1) for s, d in zip(tvi.layout.sites, tvi.dists)],
+        dim=1)
     fused_d = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
     refd = torch.func.vmap(pm.model.make_logdensity_fn(
         tvi, backend="reference"))(q)
@@ -361,15 +559,17 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
         "seconds": secs, "seconds_per_draw": secs / num_samples,
         "grad_evals_per_s": num_chains * evals / secs,
         "launches": launches, "evals_per_chain": evals,
-        "mean_accept": acc, "fused_vs_reference_max_rel": rel,
-        "summary_head": summary[:4],
+        "mean_accept": acc, "accept_per_chain": acc_chains,
+        "start": "origin" if name in START_AT_ORIGIN else "prior draw",
+        "fused_vs_reference_max_rel": rel,
+        "simplex": simplex, "summary_head": summary[:4],
     }
     log(f"{name} ({leapfrog}: {result['integrator']} integrator): "
         f"{num_chains} chains x {num_samples} draws in {secs:.2f} s: "
         f"{secs / num_samples * 1e3:.3f} ms/draw, "
         f"{result['grad_evals_per_s']:.0f} grad evals/s, mean accept "
-        f"{acc:.3f}, launches {launches}, fused vs reference density max "
-        f"rel {rel:.2e}")
+        f"{acc:.3f} (per chain {', '.join(f'{a:.3f}' for a in acc_chains)}), "
+        f"launches {launches}, fused vs reference density max rel {rel:.2e}")
     for line in summary[:4]:
         log("   ", line)
     return result, pm, kernel, chain
@@ -444,87 +644,139 @@ def device_us(event) -> float:
     return 0.0
 
 
-def device_ms(torch, fn, iters=50):
+# launches per call of every hand-written kernel: the kernel and its
+# per-row finish
+KERNEL_LAUNCHES_PER_CALL = 2
+
+
+def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None):
     """Device time per call of every CUDA kernel that ``fn`` launches, from
-    torch.profiler; None when the trace shows none."""
+    torch.profiler. The profiler now and then records a window without
+    some of its device activity: a window that shows none, or (given
+    ``launches_per_call``) another number of kernels than ``iters`` times
+    that, is taken again. None when no attempt's trace is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages()
-                if e.device_type.name == "CUDA")
-    return total / 1e3 / iters if total > 0 else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and device_us(e) > 0]
+        total = sum(device_us(e) for e in events)
+        launches = sum(e.count for e in events)
+        if total > 0 and launches_per_call in (None, launches / iters):
+            return total / 1e3 / iters
+    return None
+
+
+def logpdf_case(torch, F, ops, ref, name, shape, gen):
+    """Inputs at ``shape``, the kernel's wrapper, its plain version, one
+    library call computing the same function, negated (a loss; None where
+    there is none), and the bytes and float operations the function
+    needs."""
+    dev = torch.device(DEVICE)
+    r, n = shape[:2]
+    z = torch.randn(r, n, generator=gen, device=dev)
+    if name == "std_normal_sum":
+        zeros, ones = torch.zeros_like(z), torch.ones_like(z)
+
+        def library():
+            return F.gaussian_nll_loss(z, zeros, ones, full=True,
+                                       reduction="none").sum(-1)
+
+        return ((z,), ops.std_normal_sum_rows, ref.std_normal_logpdf_sum_ref,
+                library, 4 * r * n + 4 * r, STD_NORMAL_OPS * r * n)
+    if name == "bernoulli_logit_sum":
+        y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        ys = y.expand(r, n)  # stride 0, as on the main path
+
+        def library():
+            return F.binary_cross_entropy_with_logits(
+                z, ys, reduction="none").sum(-1)
+
+        return ((z, ys), ops.bernoulli_logit_sum_rows,
+                ref.bernoulli_logits_logpmf_sum_ref, library,
+                4 * r * n + 4 * n + 4 * r,  # y read once
+                BERNOULLI_OPS * r * n)
+    if name == "gamma_unnorm_sum":
+        x = 0.05 + 4.0 * torch.rand(r, n, generator=gen, device=dev)
+        am1 = torch.rand(n, generator=gen, device=dev).expand(r, n)
+        rate = (0.5 + torch.rand(n, generator=gen, device=dev)).expand(r, n)
+        return ((x, am1, rate), ops.gamma_unnorm_sum_rows,
+                ref.gamma_unnorm_logpdf_sum_ref, None,
+                4 * r * n + 8 * n + 4 * r,  # am1, rate read once (stride 0)
+                GAMMA_OPS * r * n)
+    c = shape[2]
+    logits = 3.0 * torch.randn(r, n, c, generator=gen, device=dev)
+    labels = torch.randint(0, c, (n,), generator=gen, device=dev,
+                           dtype=torch.int32).expand(r, n)
+    targets = labels.reshape(-1).long()  # the library call's label type
+
+    def library():
+        return F.cross_entropy(logits.reshape(-1, c), targets,
+                               reduction="none").reshape(r, n).sum(-1)
+
+    return ((logits, labels), ops.categorical_logits_sum_rows,
+            ref.categorical_logits_logpmf_sum_ref, library,
+            4 * r * n * c + 4 * n + 4 * r,  # labels read once (stride 0)
+            r * n * (CATEGORICAL_CLASS_OPS * c + CATEGORICAL_ITEM_OPS))
 
 
 def time_kernels(torch, F, ops, ref):
-    """Each kernel at the main path's shapes beside its plain version and
-    one library call: device time from the profiler (``*_ms``) and
-    CUDA-event time over back-to-back calls from the host
+    """Each fused_logpdf kernel at the main paths' shapes beside its plain
+    version and one library call: device time from the profiler (``*_ms``)
+    and CUDA-event time over back-to-back calls from the host
     (``*_issued_ms``, the wrapper's host cost at these sizes)."""
-    dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(7)
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(7)
     rows = []
     for name, shapes in MAIN_SHAPES.items():
-        for r, n in shapes:
-            z = torch.randn(r, n, generator=gen, device=dev)
-            if name == "std_normal_sum":
-                args = (z,)
-                kern, plain = ops.std_normal_sum_rows, ref.std_normal_logpdf_sum_ref
-                zeros, ones = torch.zeros_like(z), torch.ones_like(z)
-
-                def library(z=z, zeros=zeros, ones=ones):
-                    return F.gaussian_nll_loss(z, zeros, ones, full=True,
-                                               reduction="none").sum(-1)
-
-                nbytes = 4 * r * n + 4 * r
-                nops = STD_NORMAL_OPS * r * n
-            else:
-                y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
-                ys = y.expand(r, n)  # stride 0, as on the main path
-                args = (z, ys)
-                kern = ops.bernoulli_logit_sum_rows
-                plain = ref.bernoulli_logits_logpmf_sum_ref
-
-                def library(z=z, ys=ys):
-                    return F.binary_cross_entropy_with_logits(
-                        z, ys, reduction="none").sum(-1)
-
-                nbytes = 4 * r * n + 4 * n + 4 * r  # y read once
-                nops = BERNOULLI_OPS * r * n
-            # the library call computes the negated sum: hold it to the kernel
-            torch.testing.assert_close(-library(), kern(*args),
-                                       rtol=1e-5, atol=0)
-            calls = {"": lambda: kern(*args), "plain_": lambda: plain(*args),
-                     "library_": library}
-            row = {"name": name, "shape": [r, n],
+        for shape in shapes:
+            args, kern, plain, library, nbytes, nops = logpdf_case(
+                torch, F, ops, ref, name, shape, gen)
+            calls = {"": lambda: kern(*args), "plain_": lambda: plain(*args)}
+            row = {"name": name, "shape": list(shape),
                    "ms_from": "torch.profiler device time"}
+            if library is not None:
+                # hold the library call (a loss: the negated sum) to the
+                # kernel before timing it
+                torch.testing.assert_close(-library(), kern(*args),
+                                           rtol=1e-5, atol=0)
+                calls["library_"] = library
             # plain, kernel, kernel, plain: compare within one call
             for prefix in ("plain_", "", "", "plain_"):
                 row.setdefault(f"{prefix}issued_ms_runs", []).append(
                     time_ms(torch, calls[prefix]))
-            row["library_issued_ms_runs"] = [time_ms(torch, library)]
+            if library is not None:
+                row["library_issued_ms_runs"] = [time_ms(torch, library)]
+            else:
+                row.update(library_ms=None, library_issued_ms=None,
+                           library_none_because=NO_LIBRARY[name])
             for prefix, fn in calls.items():
                 row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
-                row[f"{prefix}ms"] = device_ms(torch, fn)
-                if row[f"{prefix}ms"] is None:  # the trace shows no device time
+                row[f"{prefix}ms"] = device_ms(
+                    torch, fn, launches_per_call=KERNEL_LAUNCHES_PER_CALL
+                    if prefix == "" else None)
+                if row[f"{prefix}ms"] is None:  # no whole device trace
                     row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
-                    row["ms_from"] = "cuda events (no device time traced)"
+                    row["ms_from"] = "cuda events (no whole device trace)"
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / FP32_FLOPS_PER_S * 1e3
             row.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
             rows.append(row)
-
-            log(f"time {name} {r}x{n} ({row['ms_from']} / issued from the "
-                "host), us: " + ", ".join(
-                    f"{what} {row[f'{k}ms'] * 1e3:.2f} / "
-                    f"{row[f'{k}issued_ms'] * 1e3:.2f}" for what, k in
-                    (("kernel", ""), ("plain", "plain_"),
-                     ("library", "library_")))
-                + f", bound {row['bound_ms'] * 1e3:.4f} ({row['bound_by']})")
+            lib = (f"library {row['library_ms'] * 1e3:.2f} / "
+                   f"{row['library_issued_ms'] * 1e3:.2f}"
+                   if library is not None else "library: none")
+            log(f"time {name} {'x'.join(map(str, shape))} ({row['ms_from']} "
+                f"/ issued from the host), us: kernel {row['ms'] * 1e3:.2f} / "
+                f"{row['issued_ms'] * 1e3:.2f}, plain "
+                f"{row['plain_ms'] * 1e3:.2f} / "
+                f"{row['plain_issued_ms'] * 1e3:.2f}, {lib}, bound "
+                f"{row['bound_ms'] * 1e3:.4f} ({row['bound_by']})")
     return rows
 
 
@@ -579,10 +831,12 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
                 time_ms(torch, calls[prefix]))
         for prefix, fn in calls.items():
             row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
-            row[f"{prefix}ms"] = device_ms(torch, fn)
+            row[f"{prefix}ms"] = device_ms(
+                torch, fn, launches_per_call=KERNEL_LAUNCHES_PER_CALL
+                if prefix == "" else None)
             if row[f"{prefix}ms"] is None:
                 row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
-                row["ms_from"] = "cuda events (no device time traced)"
+                row["ms_from"] = "cuda events (no whole device trace)"
         row.update(library_ms=None, library_issued_ms=None,
                    library_none_because=NO_LIBRARY[name])
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -679,11 +933,13 @@ def build_all(sources):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--samples", type=int, default=2000,
-                    help="HMC draws per chain for each model (Table 1: 2000)")
+    ap.add_argument("--samples", type=int, default=None,
+                    help="HMC draws per chain for every model (default: "
+                         "DRAWS, Table 1's 2000 where the time allows)")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke.json"),
                     help="where to write the full results as JSON")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -722,13 +978,18 @@ def main() -> int:
 
     # phase 3
     worst = check_kernels(torch, ops, ref)
+    worst.update(check_categorical_gamma_kernels(torch, ops, ref))
     worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
+    log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
+
+    def draws(name):
+        return args.samples if args.samples is not None else DRAWS[name]
 
     # phases 4-6: the main paths, every count zeroed just before each run
     # and read just after it (run_model)
     runs, models = {}, {}
     for name in ("logreg", "naive_bayes", "gaussian_10k"):
-        runs[name], pm, kernel, chain = run_model(torch, name, args.samples)
+        runs[name], pm, kernel, chain = run_model(torch, name, draws(name))
         models[name] = (pm, kernel, chain)
     check(runs["logreg"]["launches"]["bernoulli_logit_sum"] > 0
           and runs["logreg"]["launches"]["std_normal_sum"] > 0,
@@ -745,7 +1006,7 @@ def main() -> int:
           f"gaussian_10k did not compile to a uniform NORMAL spec of dim "
           f"10,000: {g_comp}")
     ref_run, _, _, ref_chain = run_model(
-        torch, "gaussian_10k", min(REFERENCE_SAMPLES, args.samples),
+        torch, "gaussian_10k", min(REFERENCE_SAMPLES, draws("gaussian_10k")),
         leapfrog="reference")
     runs["gaussian_10k_reference"] = ref_run
     gaussian = check_gaussian(np, models["gaussian_10k"][2], ref_chain)
@@ -753,6 +1014,10 @@ def main() -> int:
     log(f"gaussian_10k: fused {runs['gaussian_10k']['seconds_per_draw'] * 1e3:.3f}"
         f" ms/draw vs autodiff {ref_run['seconds_per_draw'] * 1e3:.3f} ms/draw "
         f"({speedup:.1f}x)")
+    for name in ("hier_poisson", "hmm_semisup", "lda"):
+        runs[name], pm, kernel, chain = run_model(torch, name, draws(name))
+        models[name] = (pm, kernel, chain)
+    log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
     timings = time_kernels(torch, F, ops, ref)
@@ -764,9 +1029,17 @@ def main() -> int:
                                             spec=g_comp.spec, steps=100),
         "gaussian_10k_reference": profile_transitions(torch, g_pm, g_kernel,
                                                       steps=20),
+        "hier_poisson": profile_transitions(torch,
+                                            *models["hier_poisson"][:2]),
+        # one transition: ~16,000 launches, and the trace's processing
+        # grows with them
+        "hmm_semisup": profile_transitions(torch, *models["hmm_semisup"][:2],
+                                           steps=1),
+        "lda": profile_transitions(torch, *models["lda"][:2]),
     }
 
-    main_paths = ("logreg", "naive_bayes", "gaussian_10k")
+    main_paths = ("logreg", "naive_bayes", "gaussian_10k", "hier_poisson",
+                  "hmm_semisup", "lda")
     kernels = []
     for name in SOURCES:
         main = max((t for t in timings if t["name"] == name),
@@ -785,9 +1058,11 @@ def main() -> int:
         })
         check(kernels[-1]["launches"] > 0,
               f"{name} was never launched on the main paths")
+    total_s = time.perf_counter() - t_start
+    log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
               "runs": runs, "gaussian_10k": gaussian, "timings": timings,
-              "profile": prof, "kernels": kernels}
+              "profile": prof, "kernels": kernels, "seconds": total_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -11,7 +11,8 @@ dispatches to the innermost one. Modes:
                          per-site bijector and accumulates log|det J|
                          (Stan-style HMC space).
 * ``FusedEvaluator`` / ``FusedLinkedEvaluator`` — same semantics, but
-  fusible same-family sites (Normal/MvNormalDiag, BernoulliLogits) are
+  fusible same-family sites (Normal/MvNormalDiag, BernoulliLogits,
+  Categorical, Gamma) are
   GATHERED during the replay and evaluated afterwards as one flat block
   per family via ``kernels.fused_logpdf.site_block_sum`` — one kernel
   launch per family instead of one logpdf+reduce per site.
@@ -251,8 +252,9 @@ def _fusible_parts(dist, value):
     """Flatten one fusible tilde site into a family-tagged segment.
 
     Returns ``(family, family_key, segment, extra_lp)`` where ``segment``
-    is a tuple of equal-length 1-D tensors ready to be concatenated with
-    other segments of the same family, and ``extra_lp`` is an optional
+    is a tuple of equal-length 1-D tensors (``(N, C)`` logits and ``(N,)``
+    int32 labels for categorical, keyed by ``C``) ready to be concatenated
+    with other segments of the same family, and ``extra_lp`` is an optional
     scalar accumulated immediately (per-site analytic terms that must NOT
     enter the fused block). Returns ``None`` when this slice of the port
     has no kernel for the family (the site then evaluates through the
@@ -261,10 +263,11 @@ def _fusible_parts(dist, value):
 
     Normal/MvNormalDiag sites are STANDARDISED here: the block carries
     ``z = (x - loc) / scale`` and ``extra_lp`` carries ``-sum(log scale)``,
-    so the kernel streams one array instead of three.
+    so the kernel streams one array instead of three. Gamma sites carry
+    ``(x, a - 1, rate)`` and leave ``a log b - lgamma(a)`` in ``extra_lp``.
     """
-    from repro_torch.dists.continuous import Normal
-    from repro_torch.dists.discrete import BernoulliLogits
+    from repro_torch.dists.continuous import Gamma, Normal
+    from repro_torch.dists.discrete import BernoulliLogits, Categorical
     from repro_torch.dists.multivariate import MvNormalDiag
 
     t = type(dist)
@@ -287,7 +290,42 @@ def _fusible_parts(dist, value):
         seg = (torch.broadcast_to(logits, shape).reshape(-1),
                torch.broadcast_to(y, shape).to(torch.float32).reshape(-1))
         return ("bernoulli_logits", None, seg, None)
+    if t is Categorical:
+        logits = _f32(dist.logits)
+        if logits.dim() < 1:
+            return None
+        c = logits.shape[-1]
+        labels = torch.as_tensor(value)
+        if labels.dtype != torch.int32:
+            labels = labels.to(torch.int32)
+        bshape = torch.broadcast_shapes(logits.shape[:-1], labels.shape)
+        seg = (torch.broadcast_to(logits, bshape + (c,)).reshape(-1, c),
+               torch.broadcast_to(labels, bshape).reshape(-1))
+        return ("categorical_logits", c, seg, None)
+    if t is Gamma:
+        x = _f32(value)
+        a, b = _f32(dist.concentration), _f32(dist.rate)
+        shape = torch.broadcast_shapes(x.shape, a.shape, b.shape)
+        seg = (torch.broadcast_to(x, shape).reshape(-1),
+               _param_block(a - 1.0, shape, x), _param_block(b, shape, x))
+        # the kernel streams (a-1) log x - b x; the normaliser goes here
+        norm = torch.xlogy(a, b) - torch.lgamma(a)
+        if norm.dim() == 0:
+            extra = norm * math.prod(shape)
+        else:
+            extra = torch.sum(torch.broadcast_to(norm, shape))
+        return ("gamma", None, seg, extra)
     return None
+
+
+def _param_block(p: torch.Tensor, shape, like: torch.Tensor) -> torch.Tensor:
+    """A distribution parameter broadcast to ``shape`` and flattened, on
+    ``like``'s device. A CPU scalar (a Python number in the model) becomes
+    a device fill, not a host-to-device copy, so no evaluation waits for
+    the stream."""
+    if p.dim() == 0 and p.device != like.device:
+        return torch.full((math.prod(shape),), float(p), device=like.device)
+    return torch.broadcast_to(p, shape).reshape(-1)
 
 
 class _FusedAccumMixin:

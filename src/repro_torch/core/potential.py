@@ -52,7 +52,7 @@ from repro_torch.core.contexts import Context
 from repro_torch.core.interpreters import LinkedEvaluator
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo
-from repro_torch.dists.continuous import Flat, Normal
+from repro_torch.dists.continuous import Flat, Gamma, Normal
 from repro_torch.dists.multivariate import MvNormalDiag
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.fused_leapfrog.spec import (OP_EXP, OP_NORMAL,
@@ -125,6 +125,10 @@ def _compile_site(dist, shape):
         return OP_NORMAL, b(dist.loc), 1.0 / b(dist.scale), zeros, zeros
     if t is MvNormalDiag:
         return OP_NORMAL, b(dist.loc), 1.0 / b(dist.scale_diag), zeros, zeros
+    if t is Gamma:
+        # x = exp(u): a u - b exp(u)
+        return (OP_EXP, b(dist.concentration), b(dist.rate),
+                np.ones(shape, np.float64), zeros)
     raise _NotSeparable(f"no opcode for {t.__name__}")
 
 

@@ -1,6 +1,6 @@
-"""Univariate continuous distributions. The port has ``Normal`` and
-``Flat``; the other 13 continuous families of the JAX package are listed
-in ROADMAP.md."""
+"""Univariate continuous distributions. The port has ``Normal``,
+``Gamma`` and ``Flat``; the other 12 continuous families of the JAX
+package are listed in ROADMAP.md."""
 from __future__ import annotations
 
 import math
@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.dists.base import Distribution, register_dist
 
-__all__ = ["Normal", "Flat"]
+__all__ = ["Normal", "Gamma", "Flat"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -30,6 +30,30 @@ class Normal(Distribution):
         eps = torch.randn(shape, generator=generator, dtype=self.dtype,
                           device=generator.device)
         return self.loc + self.scale * eps
+
+
+@register_dist
+class Gamma(Distribution):
+    concentration: torch.Tensor = 1.0
+    rate: torch.Tensor = 1.0
+    support = "positive"
+
+    def log_prob(self, x):
+        a = torch.as_tensor(self.concentration, dtype=self.dtype)
+        b = torch.as_tensor(self.rate, dtype=self.dtype)
+        return (torch.xlogy(a, b) + torch.xlogy(a - 1.0, x) - b * x
+                - torch.lgamma(a))
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.shape
+        dev = generator.device
+        a = torch.as_tensor(self.concentration, dtype=self.dtype, device=dev)
+        g = torch._standard_gamma(a.expand(shape).contiguous(),
+                                  generator=generator)
+        return g / torch.as_tensor(self.rate, dtype=self.dtype, device=dev)
+
+    def in_support(self, x):
+        return torch.all(x > 0)
 
 
 @register_dist

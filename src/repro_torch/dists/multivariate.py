@@ -1,5 +1,6 @@
-"""Multivariate distributions. This slice ports ``MvNormalDiag``; the other
-four multivariate families of the JAX package are listed in ROADMAP.md."""
+"""Multivariate distributions. This slice ports ``MvNormalDiag`` and
+``Dirichlet``; the other three multivariate families of the JAX package
+are listed in ROADMAP.md."""
 from __future__ import annotations
 
 import math
@@ -8,7 +9,7 @@ import torch
 
 from repro_torch.dists.base import Distribution, register_dist
 
-__all__ = ["MvNormalDiag"]
+__all__ = ["MvNormalDiag", "Dirichlet"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -30,3 +31,33 @@ class MvNormalDiag(Distribution):
         eps = torch.randn(shape, generator=generator, dtype=self.dtype,
                           device=generator.device)
         return self.loc + self.scale_diag * eps
+
+
+@register_dist
+class Dirichlet(Distribution):
+    """Dirichlet over the last axis of ``concentration``; leading axes are
+    batch (one simplex per row)."""
+
+    concentration: torch.Tensor = None
+    event_ndims = 1
+    support = "simplex"
+
+    def log_prob(self, x):
+        a = torch.as_tensor(self.concentration, dtype=self.dtype)
+        norm = (torch.sum(torch.lgamma(a), dim=-1)
+                - torch.lgamma(torch.sum(a, dim=-1)))
+        return torch.sum(torch.xlogy(a - 1.0, x), dim=-1) - norm
+
+    def sample(self, generator, sample_shape=()):
+        # normalised Gamma(a_k, 1) draws
+        shape = tuple(sample_shape) + self.shape
+        a = torch.as_tensor(self.concentration, dtype=self.dtype,
+                            device=generator.device)
+        g = torch._standard_gamma(a.expand(shape).contiguous(),
+                                  generator=generator)
+        return g / torch.sum(g, dim=-1, keepdim=True)
+
+    def in_support(self, x):
+        row_ok = torch.all(x >= 0) & torch.all(x <= 1)
+        sums = torch.sum(x, dim=-1)
+        return row_ok & torch.all(torch.abs(sums - 1.0) < 1e-4)

@@ -3,7 +3,8 @@ version.
 
   fused_logpdf/  fused elementwise log-density + row reduction for the
                  flat-buffer log-joint (``site_block_sum``): the
-                 std_normal and bernoulli_logits families.
+                 std_normal, bernoulli_logits, categorical_logits and
+                 gamma families.
   fused_leapfrog/ the whole n-step leapfrog for a separable potential
                  (an opcode table) in one launch for all chains, and the
                  one-shot potential value plus gradient.

@@ -3,20 +3,28 @@
 // Replaces the Pallas TPU kernels in src/repro/kernels/fused_logpdf/kernel.py:
 //   std_normal_sum       <- _std_normal_kernel (:54) / std_normal_sum_2d (:266)
 //   bernoulli_logit_sum  <- _bernoulli_logit_kernel (:97) / bernoulli_logit_sum_2d (:283)
+//   categorical_logits_sum <- _categorical_kernel (:120) / categorical_sum_2d (:343)
+//   gamma_unnorm_sum     <- _gamma_kernel (:154) / gamma_sum_2d (:292)
 //
 // What each computes, for every row b of a (B, n) float32 input:
 //   std_normal_sum:      out[b] = sum_i (-z_i^2 / 2 - log(2 pi) / 2)
 //   bernoulli_logit_sum: out[b] = sum_i (-softplus(-l_i) - (1 - y_i) l_i)
+//   gamma_unnorm_sum:    out[b] = sum_i (am1_i log x_i - rate_i x_i)
+// and, for (B, n, C) float32 logits with int32 labels (B, n):
+//   categorical_logits_sum: out[b] = sum_i (l_i[y_i] - logsumexp_c l_i[c])
 // The B rows are HMC chains: torch.func.vmap over the chain axis hands the
 // whole batch to one launch. Each input carries its own row stride; a
 // stride of 0 reads one shared row for every b (logreg's observed y), so
 // unbatched data is never copied per chain.
 //
 // What bounds them on an H100: bytes. Each element is read once and costs
-// a handful of flops (bernoulli adds one expf and one log1pf), far below
-// the ~20 flops per byte where float32 arithmetic would be the limit. At
-// the main path's shapes (4 x 101, 4 x 10,000, 4 x 40,000) the data is
-// tens to hundreds of KB, so the time is launch latency, not bandwidth.
+// a handful of flops (bernoulli adds one expf and one log1pf, categorical
+// two expf per class), far below the ~20 flops per byte where float32
+// arithmetic would be the limit. At most of the main paths' shapes
+// (4 x 101, 4 x 10,000, 4 x 40,000; hier_poisson's gamma block is 4 x 1)
+// the data is bytes to hundreds of KB, so the time is launch latency, not
+// bandwidth; lda's categorical block (4 x 10,176 x 100, 16 MB) is the one
+// that can reach the bandwidth.
 //
 // Design. The TPU kernel walks an (R, 128) tiling of the input in a
 // sequential grid and carries a VMEM accumulator from step to step. Hopper
@@ -32,7 +40,24 @@
 // function of (n, nparts) alone, so two runs give bit-identical sums.
 // Loads are scalar and coalesced; 16-byte vector loads would need
 // row starts aligned to 4 floats, which a stride of n does not give.
+//
+// categorical_logits_sum reduces over items, not elements: one warp per
+// item (b, i). Its lanes stride over the C classes twice, the second time
+// from L1: first the max m (fmaxf, then xor shuffles), then
+// s = sum exp(l - m) (xor shuffles again), and lane 0 adds l[y] - m - log s
+// to the warp's sum; l[y] comes from the lane that read it, so no load
+// waits on the label. Two passes take one expf per class, where a running
+// (max, sum) merged across lanes takes two per class and two per shuffle
+// round. The butterflies are symmetric, so every lane holds the same m and
+// s and the order is fixed. The TPU's padding of C to 128 lanes with
+// -1e30 classes becomes the lane bound k < C. For small C (hmm_semisup's
+// C = 5 and 20) most lanes idle. The edges follow log_softmax's own
+// arithmetic: a label outside [0, C) gives NaN, a -inf logit adds
+// exp(-inf) = 0, a row of -inf logits gives NaN (-inf - -inf), and a +inf
+// or NaN logit gives NaN.
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
@@ -101,6 +126,68 @@ bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
 }
 
 __global__ void __launch_bounds__(kThreads)
+gamma_unnorm_partials(const float* __restrict__ x, long long x_row_stride,
+                      const float* __restrict__ am1, long long a_row_stride,
+                      const float* __restrict__ rate, long long r_row_stride,
+                      long long n, float* __restrict__ partials) {
+  const float* xrow = x + static_cast<long long>(blockIdx.y) * x_row_stride;
+  const float* arow = am1 + static_cast<long long>(blockIdx.y) * a_row_stride;
+  const float* rrow = rate + static_cast<long long>(blockIdx.y) * r_row_stride;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  float acc = 0.0f;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += step) {
+    acc += arow[i] * logf(xrow[i]) - rrow[i] * xrow[i];
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+categorical_partials(const float* __restrict__ logits, long long l_row_stride,
+                     const int* __restrict__ labels, long long y_row_stride,
+                     long long n, int c, float* __restrict__ partials) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  const float* lrow = logits + static_cast<long long>(blockIdx.y) * l_row_stride;
+  const int* yrow = labels + static_cast<long long>(blockIdx.y) * y_row_stride;
+  const int lane = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * kWarps;
+  float acc = 0.0f;
+  // the loop bound is uniform over a warp, so every lane reaches the shuffles
+  for (long long i = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       i < n; i += step) {
+    const float* item = lrow + i * c;
+    const int y = yrow[i];  // one broadcast load, in flight with the classes
+    float m = -INFINITY;
+    for (int k = lane; k < c; k += 32) m = fmaxf(m, item[k]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kAll, m, off));
+    // second pass from L1; the lane whose stride holds class y keeps l[y]
+    float s = 0.0f, picked = 0.0f;
+    for (int k = lane; k < c; k += 32) {
+      const float l = item[k];
+      if (k == y) picked = l;
+      s += expf(l - m);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kAll, s, off);
+    const bool valid = y >= 0 && y < c;
+    picked = __shfl_sync(kAll, picked, valid ? (y & 31) : 0);
+    if (lane == 0) {
+      // log_softmax's order: (l[y] - m) - log s
+      acc += valid ? (picked - m) - logf(s) : __int_as_float(0x7fc00000);
+    }
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
 finish_rows(const float* __restrict__ partials, int nparts,
             float* __restrict__ out) {
   const float* row = partials + static_cast<long long>(blockIdx.x) * nparts;
@@ -140,6 +227,41 @@ extern "C" int repro_bernoulli_logit_sum(const float* l, long long l_row_stride,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bernoulli_logit_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
       l, l_row_stride, y, y_row_stride, n, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
+                                     const float* am1, long long a_row_stride,
+                                     const float* rate, long long r_row_stride,
+                                     int rows, long long n, float* partials,
+                                     int nparts, float* out, void* stream) {
+  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  gamma_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
+      x, x_row_stride, am1, a_row_stride, rate, r_row_stride, n, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// logits (rows, n, c) with the class axis dense and items c apart; labels
+// (rows, n) with the item axis dense. Row strides may be 0 (shared).
+extern "C" int repro_categorical_logits_sum(const float* logits,
+                                            long long l_row_stride,
+                                            const int* labels,
+                                            long long y_row_stride, int rows,
+                                            long long n, int c, float* partials,
+                                            int nparts, float* out, void* stream) {
+  if (bad_shape(rows, n, nparts) || c <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  categorical_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
+      logits, l_row_stride, labels, y_row_stride, n, c, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

@@ -2,11 +2,13 @@
 
 Three layers:
 
-* Row wrappers ``std_normal_sum_rows`` / ``bernoulli_logit_sum_rows``: take
-  ``(B, n)`` float32 rows and return ``(B,)`` sums. On a CUDA tensor they
-  launch the hand-written kernel in ``csrc/fused_logpdf.cu`` (or raise);
-  on a CPU tensor they run the plain version in ``ref.py``. Each counts its
-  kernel launches in ``LAUNCHES``.
+* Row wrappers ``std_normal_sum_rows`` / ``bernoulli_logit_sum_rows`` /
+  ``gamma_unnorm_sum_rows``: take ``(B, n)`` float32 rows and return
+  ``(B,)`` sums; ``categorical_logits_sum_rows`` takes ``(B, n, C)``
+  logits and ``(B, n)`` int32 labels. On a CUDA tensor they launch the
+  hand-written kernel in ``csrc/fused_logpdf.cu`` (or raise); on a CPU
+  tensor they run the plain version in ``ref.py``. Each counts its kernel
+  launches in ``LAUNCHES``.
 * One ``torch.autograd.Function`` per family with the analytic backward of
   the JAX package's ``custom_vjp`` and a ``vmap`` rule: under
   ``torch.func.vmap`` over HMC chains the whole chain axis goes to ONE
@@ -28,16 +30,16 @@ from repro_torch.kernels.fused_logpdf import ref
 
 __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "reset_launch_counts", "std_normal_sum_rows",
-           "bernoulli_logit_sum_rows", "std_normal_logpdf_sum",
-           "bernoulli_logits_logpmf_sum", "site_block_sum", "kernel_source"]
+           "bernoulli_logit_sum_rows", "categorical_logits_sum_rows",
+           "gamma_unnorm_sum_rows", "std_normal_logpdf_sum",
+           "bernoulli_logits_logpmf_sum", "categorical_logits_logpmf_sum",
+           "gamma_unnorm_logpdf_sum", "site_block_sum", "kernel_source"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
                        "mvnormal_prec")
 _NOT_PORTED = {
-    "categorical_logits": "ROADMAP.md Queue 2 item 3 (categorical_sum_2d)",
     "normal": "ROADMAP.md Queue 2 item 9 (normal_sum_2d)",
-    "gamma": "ROADMAP.md Queue 2 item 6 (gamma_sum_2d)",
     "beta": "ROADMAP.md Queue 2 item 7 (beta_sum_2d)",
     "student_t": "ROADMAP.md Queue 2 item 8 (student_t_sum_2d)",
     "mvnormal_prec": "ROADMAP.md Queue 2 item 10 (mvn_quad_sum_2d)",
@@ -45,10 +47,12 @@ _NOT_PORTED = {
 
 # kernel name -> launches since the last reset (one per wrapper call that
 # reached the card; the CPU path does not count)
-LAUNCHES = {"std_normal_sum": 0, "bernoulli_logit_sum": 0}
+LAUNCHES = {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
+            "categorical_logits_sum": 0, "gamma_unnorm_sum": 0}
 
 _THREADS = 256
 _ITEMS_PER_THREAD = 8
+_WARPS = _THREADS // 32  # categorical: one warp per item
 _MAX_PARTS = 1024
 
 
@@ -74,23 +78,29 @@ def _lib() -> ctypes.CDLL:
         lib.repro_bernoulli_logit_sum.argtypes = [p, i64, p, i64, i32, i64,
                                                   p, i32, p, p]
         lib.repro_bernoulli_logit_sum.restype = i32
+        lib.repro_gamma_unnorm_sum.argtypes = [p, i64, p, i64, p, i64, i32,
+                                               i64, p, i32, p, p]
+        lib.repro_gamma_unnorm_sum.restype = i32
+        lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
+                                                     i32, p, i32, p, p]
+        lib.repro_categorical_logits_sum.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _num_parts(n: int) -> int:
+def _num_parts(n: int, per_block: int = _THREADS * _ITEMS_PER_THREAD) -> int:
     """Stage-1 blocks per row: a function of n alone (determinism)."""
-    per_block = _THREADS * _ITEMS_PER_THREAD
     return max(1, min(_MAX_PARTS, -(-n // per_block)))
 
 
-def _check_rows(name: str, t: torch.Tensor, rows: int, n: int) -> None:
-    """A kernel input: float32 ``(rows, n)``, unit inner stride, row stride
-    n (dense) or 0 (one row shared by every b)."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check_rows(name: str, t: torch.Tensor, rows: int, n: int,
+                dtype: torch.dtype = torch.float32) -> None:
+    """A kernel input: ``(rows, n)`` of ``dtype``, unit inner stride, row
+    stride n (dense) or 0 (one row shared by every b)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != 2 or tuple(t.shape) != (rows, n):
         raise ValueError(f"{name}: expected shape {(rows, n)}, got "
                          f"{tuple(t.shape)}")
@@ -168,15 +178,88 @@ def bernoulli_logit_sum_rows(logits: torch.Tensor,
     return out
 
 
+def gamma_unnorm_sum_rows(x: torch.Tensor, am1: torch.Tensor,
+                          rate: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_i(am1[b, i] log x[b, i] - rate[b, i] x[b, i])`` for
+    three ``(B, n)`` inputs; each may have row stride 0."""
+    rows, n = x.shape
+    for name, t in (("x", x), ("am1", am1), ("rate", rate)):
+        _check_rows(name, t, rows, n)
+    if _device_kind(x, am1, rate) == "cpu":
+        return ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
+    out = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out.zero_()
+    nparts = _num_parts(n)
+    partials = torch.empty(rows * nparts, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().repro_gamma_unnorm_sum(
+            x.data_ptr(), _row_stride(x), am1.data_ptr(), _row_stride(am1),
+            rate.data_ptr(), _row_stride(rate), rows, n, partials.data_ptr(),
+            nparts, out.data_ptr(), stream)
+    _raise_on(err, "gamma_unnorm_sum")
+    LAUNCHES["gamma_unnorm_sum"] += 1
+    return out
+
+
+def categorical_logits_sum_rows(logits: torch.Tensor,
+                                labels: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_i(logits[b, i, y] - logsumexp(logits[b, i]))`` with
+    ``y = labels[b, i]``, for float32 ``logits (B, n, C)`` (classes dense,
+    items C apart, row stride n*C or 0) and int32 ``labels (B, n)`` (row
+    stride n or 0). A label outside ``[0, C)`` gives NaN."""
+    if logits.dim() != 3:
+        raise ValueError(f"logits: expected (B, n, C), got "
+                         f"{tuple(logits.shape)}")
+    rows, n, c = logits.shape
+    if logits.dtype != torch.float32:
+        raise TypeError(f"logits: expected float32, got {logits.dtype}")
+    if c < 1:
+        raise ValueError("logits: need at least one class")
+    if ((c > 1 and logits.stride(2) != 1)
+            or (n > 1 and logits.stride(1) != c)
+            or (rows > 1 and logits.stride(0) not in (0, n * c))):
+        raise ValueError(f"logits: strides {logits.stride()} not (n*C or 0, "
+                         "C, 1)")
+    _check_rows("labels", labels, rows, n, dtype=torch.int32)
+    if _device_kind(logits, labels) == "cpu":
+        return ref.categorical_logits_logpmf_sum_ref(logits, labels)
+    out = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    if n == 0:
+        return out.zero_()
+    nparts = _num_parts(n, _WARPS)
+    partials = torch.empty(rows * nparts, dtype=torch.float32,
+                           device=logits.device)
+    l_stride = logits.stride(0) if rows > 1 else n * c
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        err = _lib().repro_categorical_logits_sum(
+            logits.data_ptr(), l_stride, labels.data_ptr(),
+            _row_stride(labels), rows, n, c, partials.data_ptr(), nparts,
+            out.data_ptr(), stream)
+    _raise_on(err, "categorical_logits_sum")
+    LAUNCHES["categorical_logits_sum"] += 1
+    return out
+
+
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """``t (rows, ...)`` as the kernels address it: each row dense and the
+    row stride dense or 0 (one row shared by every b); anything else is
+    made contiguous."""
+    row = t[0]
+    if row.is_contiguous() and (t.shape[0] == 1
+                                or t.stride(0) in (0, row.numel())):
+        return t
+    return t.contiguous()
+
+
 def _as_rows(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     """View ``t`` broadcast to ``shape`` as ``(B, n)`` rows: leading
     broadcast dims keep stride 0 (no copy); anything else the kernel cannot
     address is made contiguous."""
-    rows = t.to(torch.float32).expand(shape).reshape(-1, shape[-1])
-    if ((rows.shape[1] > 1 and rows.stride(1) != 1)
-            or (rows.shape[0] > 1 and rows.stride(0) not in (0, rows.shape[1]))):
-        rows = rows.contiguous()
-    return rows
+    return _addressable(t.to(torch.float32).expand(shape)
+                        .reshape(-1, shape[-1]))
 
 
 class _StdNormalSum(torch.autograd.Function):
@@ -240,6 +323,83 @@ class _BernoulliLogitSum(torch.autograd.Function):
         return _BernoulliLogitSum.apply(logits, y), 0
 
 
+class _GammaUnnormSum(torch.autograd.Function):
+    """``sum(am1 log x - rate x)`` over the last axis; analytic backward
+    ``dx = g (am1/x - rate)``, ``dam1 = g log x``, ``drate = -g x``
+    (the JAX package's ``ops.py:327``)."""
+
+    @staticmethod
+    def forward(x, am1, rate):
+        shape = torch.broadcast_shapes(x.shape, am1.shape, rate.shape)
+        out = gamma_unnorm_sum_rows(_as_rows(x, shape), _as_rows(am1, shape),
+                                    _as_rows(rate, shape))
+        return out.reshape(shape[:-1])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, am1, rate = ctx.saved_tensors
+        g = g.unsqueeze(-1)
+        dx = dam1 = drate = None
+        if ctx.needs_input_grad[0]:
+            dx = (g * (am1 / x - rate)).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            dam1 = (g * torch.log(x)).sum_to_size(am1.shape)
+        if ctx.needs_input_grad[2]:
+            drate = (-g * x).sum_to_size(rate.shape)
+        return dx, dam1, drate
+
+    @staticmethod
+    def vmap(info, in_dims, x, am1, rate):
+        args = [t if d is None else t.movedim(d, 0)
+                for t, d in zip((x, am1, rate), in_dims)]
+        return _GammaUnnormSum.apply(*args), 0
+
+
+class _CategoricalLogitsSum(torch.autograd.Function):
+    """``sum_n log_softmax(logits_n)[labels_n]`` over the item axis of
+    ``logits (..., N, C)``; analytic backward ``dl = g (onehot(labels) -
+    softmax(logits))`` and no gradient for the int labels (the JAX
+    package's ``ops.py:282``)."""
+
+    @staticmethod
+    def forward(logits, labels):
+        c = logits.shape[-1]
+        lead = torch.broadcast_shapes(logits.shape[:-1], labels.shape)
+        n = lead[-1]
+        out = categorical_logits_sum_rows(
+            _addressable(logits.expand(lead + (c,)).reshape(-1, n, c)),
+            _addressable(labels.expand(lead).reshape(-1, n)))
+        return out.reshape(lead[:-1])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        dl = None
+        if ctx.needs_input_grad[0]:
+            # one_hot as jax.nn.one_hot: all zeros for a label outside [0, C)
+            classes = torch.arange(logits.shape[-1], device=logits.device)
+            onehot = (labels.unsqueeze(-1) == classes).to(logits.dtype)
+            dl = g[..., None, None] * (onehot - torch.softmax(logits, dim=-1))
+            dl = dl.sum_to_size(logits.shape)
+        return dl, None
+
+    @staticmethod
+    def vmap(info, in_dims, logits, labels):
+        # the forward broadcasts the leading axes, so an unbatched input is
+        # read with row stride 0 and the batch axis comes out in front
+        args = [t if d is None else t.movedim(d, 0)
+                for t, d in zip((logits, labels), in_dims)]
+        return _CategoricalLogitsSum.apply(*args), 0
+
+
 def std_normal_logpdf_sum(z: torch.Tensor) -> torch.Tensor:
     """``sum(StdNormal.log_prob(z))`` over the last axis, differentiable."""
     return _StdNormalSum.apply(torch.as_tensor(z, dtype=torch.float32))
@@ -254,6 +414,28 @@ def bernoulli_logits_logpmf_sum(logits: torch.Tensor,
         torch.as_tensor(y, dtype=torch.float32))
 
 
+def gamma_unnorm_logpdf_sum(x: torch.Tensor, am1: torch.Tensor,
+                            rate: torch.Tensor) -> torch.Tensor:
+    """``sum(am1 log x - rate x)`` over the last axis (the Gamma normaliser
+    ``a log b - lgamma(a)`` stays with the caller), differentiable in all
+    three."""
+    return _GammaUnnormSum.apply(torch.as_tensor(x, dtype=torch.float32),
+                                 torch.as_tensor(am1, dtype=torch.float32),
+                                 torch.as_tensor(rate, dtype=torch.float32))
+
+
+def categorical_logits_logpmf_sum(logits: torch.Tensor,
+                                  labels: torch.Tensor) -> torch.Tensor:
+    """``sum_n log softmax(logits_n)[labels_n]`` over the item axis of
+    ``logits (..., N, C)`` with int32 ``labels (..., N)``, differentiable
+    in ``logits``."""
+    labels = torch.as_tensor(labels)
+    if labels.dtype != torch.int32:
+        labels = labels.to(torch.int32)
+    return _CategoricalLogitsSum.apply(
+        torch.as_tensor(logits, dtype=torch.float32), labels)
+
+
 def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     """Sum the log-densities of all same-family site segments in ONE launch.
 
@@ -262,9 +444,12 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     family : str
         ``"std_normal"`` — segments ``(z,)``, 1-D standardised values (the
         ``-sum(log scale)`` term stays with the caller); or
-        ``"bernoulli_logits"`` — segments ``(logits, y)``, each 1-D. The
-        JAX package's other families raise ``NotImplementedError`` naming
-        the ROADMAP item that ports them.
+        ``"bernoulli_logits"`` — segments ``(logits, y)``, each 1-D;
+        ``"categorical_logits"`` — segments ``(logits (N_i, C), labels
+        (N_i,))`` with int32 labels, all of one ``C``; or ``"gamma"`` —
+        segments ``(x, a - 1, rate)``, each 1-D (``a log b - lgamma(a)``
+        stays with the caller). The JAX package's other families raise
+        ``NotImplementedError`` naming the ROADMAP item that ports them.
     segments : sequence of tuples of tensors
         Per-site flattened blocks as above.
 
@@ -290,5 +475,9 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     if family == "std_normal":
         (z,) = cols
         return std_normal_logpdf_sum(z)
+    if family == "gamma":
+        return gamma_unnorm_logpdf_sum(*cols)
+    if family == "categorical_logits":
+        return categorical_logits_logpmf_sum(*cols)
     logits, y = cols
     return bernoulli_logits_logpmf_sum(logits, y)

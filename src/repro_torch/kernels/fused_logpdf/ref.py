@@ -3,7 +3,9 @@
 Each reduces over the LAST axis: a 1-D input gives a scalar (the JAX
 package's ``ref.py`` contract), a ``(B, n)`` input gives ``(B,)`` (the
 kernels' row layout). The CPU path of every wrapper in ``ops.py`` runs
-these, and ``chip_smoke.py`` holds each CUDA kernel against them.
+these, and ``chip_smoke.py`` holds each CUDA kernel against them. ``categorical_logits_logpmf_sum_ref``
+reduces the item axis in front of the class axis: ``(N, C)`` logits give a
+scalar, ``(B, N, C)`` give ``(B,)``.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import math
 
 import torch
 
-__all__ = ["std_normal_logpdf_sum_ref", "bernoulli_logits_logpmf_sum_ref"]
+__all__ = ["std_normal_logpdf_sum_ref", "bernoulli_logits_logpmf_sum_ref",
+           "categorical_logits_logpmf_sum_ref", "gamma_unnorm_logpdf_sum_ref"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -29,3 +32,31 @@ def bernoulli_logits_logpmf_sum_ref(logits: torch.Tensor,
     y = y.to(torch.float32)
     return torch.sum(-torch.logaddexp(torch.zeros_like(logits), -logits)
                      - (1.0 - y) * logits, dim=-1)
+
+
+def categorical_logits_logpmf_sum_ref(logits: torch.Tensor,
+                                      labels: torch.Tensor) -> torch.Tensor:
+    """``sum_n log_softmax(logits_n)[labels_n]`` over the item axis.
+
+    ``logits (..., N, C)``; ``labels`` int, broadcastable to ``(..., N)``. A
+    label outside ``[0, C)`` gives NaN (the JAX package's ``ref.py`` fills
+    NaN above ``C`` and wraps negative labels as NumPy does; the port has
+    no wrap-around)."""
+    logits = logits.to(torch.float32)
+    c = logits.shape[-1]
+    labels = torch.broadcast_to(labels, logits.shape[:-1])
+    valid = (labels >= 0) & (labels < c)
+    idx = torch.where(valid, labels, 0).to(torch.int64)
+    picked = torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                          idx.unsqueeze(-1)).squeeze(-1)
+    return torch.sum(torch.where(valid, picked, torch.nan), dim=-1)
+
+
+def gamma_unnorm_logpdf_sum_ref(x: torch.Tensor, am1: torch.Tensor,
+                                rate: torch.Tensor) -> torch.Tensor:
+    """``sum((a - 1) log x - b x)`` over the last axis: the part of the
+    Gamma log-density that depends on ``x`` (the ``a log b - lgamma(a)``
+    normaliser stays with the caller)."""
+    x = x.to(torch.float32)
+    return torch.sum(am1.to(torch.float32) * torch.log(x)
+                     - rate.to(torch.float32) * x, dim=-1)

@@ -13,6 +13,9 @@ Ported so far (the rest are listed in ROADMAP.md):
   gaussian_10k   : 10,000-D standard normal (separable: fused integrator)
   naive_bayes    : 1,000 obs of MNIST->PCA-40 (synthetic stand-in), 10 classes
   logreg         : 10,000 obs x 100 dims
+  hier_poisson   : 50 obs, 10 groups
+  hmm_semisup    : K=5 latent, V=20 symbols, T=300 (200 unsupervised)
+  lda            : V=100, K=5, D=10 docs, ~1,000 words each
 
 Every constructor takes ``device=`` (``None`` means CUDA) and puts the data
 there; the model's tensors never leave it.
@@ -28,8 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
-from repro_torch.core import model, observe, sample
-from repro_torch.dists import BernoulliLogits, MvNormalDiag, Normal
+from repro_torch.bijectors import StickBreaking
+from repro_torch.core import factor, model, observe, sample
+from repro_torch.dists import (BernoulliLogits, Categorical, Dirichlet, Gamma,
+                               MvNormalDiag, Normal, Poisson)
 
 __all__ = ["PaperModel", "build", "MODEL_NAMES"]
 
@@ -136,12 +141,184 @@ def logreg(n: int = 10_000, dim: int = 100, seed: int = 2,
                       data={"X": X, "y": y})
 
 
-MODEL_NAMES = ("gaussian_10k", "naive_bayes", "logreg")
+# ---------------------------------------------------------------------------
+# 5. Hierarchical Poisson — 50 obs, 10 groups
+# ---------------------------------------------------------------------------
+def hier_poisson(n: int = 50, n_groups: int = 10, seed: int = 3,
+                 device=None) -> PaperModel:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    groups = rng.integers(0, n_groups, size=n).astype(np.int32)
+    a0_true, a1_true = 1.0, rng.normal(0.0, 0.4, size=n_groups)
+    log_exposure = np.log(rng.uniform(0.5, 2.0, size=n)).astype(np.float32)
+    y = rng.poisson(np.exp(a0_true + a1_true[groups] + log_exposure)).astype(np.int32)
+
+    prior_loc = torch.zeros(n_groups, device=dev)
+    prior_scale = torch.ones(n_groups, device=dev)
+
+    @model
+    def hp(y, groups, log_exposure):
+        a0 = sample("a0", Normal(0.0, 10.0))
+        sigma = sample("sigma", Gamma(1.0, 1.0))
+        a1_std = sample("a1_std", MvNormalDiag(prior_loc, prior_scale))
+        a1 = a1_std * sigma  # non-centred
+        observe("y", Poisson(torch.exp(a0 + a1[groups] + log_exposure)), y)
+
+    yt = torch.as_tensor(y, device=dev)
+    gt = torch.as_tensor(groups, device=dev)
+    let = torch.as_tensor(log_exposure, device=dev)
+    yf = yt.to(torch.float32)
+    lgamma_y1 = torch.lgamma(yf + 1.0)
+
+    def handwritten(q):
+        a0, u_sig = q[0], q[1]
+        a1_std = q[2:]
+        sigma = torch.exp(u_sig)
+        lp = _norm_lp(a0, 0.0, 10.0)
+        lp = lp + (-sigma) + u_sig  # Gamma(1,1) logpdf + jacobian
+        lp = lp + torch.sum(_norm_lp(a1_std, 0.0, 1.0))
+        lam = torch.exp(a0 + (a1_std * sigma)[gt] + let)
+        return lp + torch.sum(torch.xlogy(yf, lam) - lam - lgamma_y1)
+
+    return PaperModel("hier_poisson", hp(yt, gt, let), handwritten,
+                      step_size=0.02, data={"y": y, "groups": groups})
+
+
+def _dirichlet_lp(x, conc):
+    """Dirichlet log-density of the rows of ``x``, summed (the twins')."""
+    return (torch.sum(torch.xlogy(conc - 1.0, x))
+            - torch.sum(torch.lgamma(conc))
+            + torch.sum(torch.lgamma(torch.sum(conc, -1))))
+
+
+def _hmm_forward(log_theta, emis, start):
+    """Forward algorithm over the unsupervised segment: ``emis (K, T)`` are
+    the emission log-probabilities of its words, ``start`` the last
+    supervised state; returns log p(words | theta, phi)."""
+    alpha = log_theta[start] + emis[:, 0]
+    for t in range(1, emis.shape[1]):
+        alpha = torch.logsumexp(alpha[:, None] + log_theta, dim=0) + emis[:, t]
+    return torch.logsumexp(alpha, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# 7. Semi-supervised HMM — K=5, V=20, T=300 (first 100 supervised)
+# ---------------------------------------------------------------------------
+def hmm_semisup(K: int = 5, V: int = 20, T: int = 300, T_sup: int = 100,
+                seed: int = 5, device=None) -> PaperModel:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    theta_t = rng.dirichlet(np.full(K, 2.0), size=K)   # transitions
+    phi_t = rng.dirichlet(np.full(V, 0.5), size=K)     # emissions
+    z = np.empty(T, dtype=np.int64)
+    w = np.empty(T, dtype=np.int64)
+    z[0] = rng.integers(K)
+    w[0] = rng.choice(V, p=phi_t[z[0]])
+    for t in range(1, T):
+        z[t] = rng.choice(K, p=theta_t[z[t - 1]])
+        w[t] = rng.choice(V, p=phi_t[z[t]])
+    w_sup, z_sup = w[:T_sup].astype(np.int32), z[:T_sup].astype(np.int32)
+    w_unsup = w[T_sup:].astype(np.int32)
+
+    alpha = torch.full((K, K), 2.0, device=dev)
+    beta = torch.full((K, V), 0.5, device=dev)
+    # int32 labels (the categorical kernel's type) and int64 indices, each
+    # built once, so no evaluation converts
+    ws_t, zs_t, wu_t = (torch.as_tensor(a, device=dev)
+                        for a in (w_sup, z_sup, w_unsup))
+    zs_idx, wu_idx = zs_t.long(), wu_t.long()
+    z_last = int(z_sup[-1])
+
+    @model
+    def hmm(w_sup, z_sup, w_unsup):
+        theta = sample("theta", Dirichlet(alpha))  # (K,K) rows
+        phi = sample("phi", Dirichlet(beta))       # (K,V) rows
+        log_theta, log_phi = torch.log(theta), torch.log(phi)
+        # supervised segment: categorical transitions + emissions
+        observe("z_sup", Categorical(log_theta[zs_idx[:-1]]), z_sup[1:])
+        observe("w_sup", Categorical(log_phi[zs_idx]), w_sup)
+        # unsupervised segment: forward algorithm marginalising z
+        factor("w_unsup", _hmm_forward(log_theta, log_phi[:, wu_idx], z_last))
+
+    def handwritten(q):
+        sb = StickBreaking()
+        u_theta = q[:K * (K - 1)].reshape(K, K - 1)
+        u_phi = q[K * (K - 1):K * (K - 1) + K * (V - 1)].reshape(K, V - 1)
+        theta, phi = sb.forward(u_theta), sb.forward(u_phi)
+        lp = (sb.forward_log_det_jacobian(u_theta)
+              + sb.forward_log_det_jacobian(u_phi))
+        lp = lp + _dirichlet_lp(theta, alpha) + _dirichlet_lp(phi, beta)
+        log_theta, log_phi = torch.log(theta), torch.log(phi)
+        lp = lp + torch.sum(torch.gather(
+            torch.log_softmax(log_theta[zs_idx[:-1]], -1), -1,
+            zs_idx[1:, None]))
+        lp = lp + torch.sum(torch.gather(
+            torch.log_softmax(log_phi[zs_idx], -1), -1, ws_t.long()[:, None]))
+        return lp + _hmm_forward(log_theta, log_phi[:, wu_idx], z_last)
+
+    return PaperModel("hmm_semisup", hmm(ws_t, zs_t, wu_t), handwritten,
+                      step_size=0.01,
+                      data={"w_sup": w_sup, "z_sup": z_sup, "w_unsup": w_unsup})
+
+
+# ---------------------------------------------------------------------------
+# 8. LDA — V=100, K=5, D=10, ~1,000 words per doc (collapsed z)
+# ---------------------------------------------------------------------------
+def lda(V: int = 100, K: int = 5, D: int = 10, avg_len: int = 1_000,
+        seed: int = 6, device=None) -> PaperModel:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    phi_t = rng.dirichlet(np.full(V, 0.1), size=K)
+    theta_t = rng.dirichlet(np.full(K, 0.5), size=D)
+    doc_ids, words = [], []
+    for d in range(D):
+        n_d = int(rng.poisson(avg_len))
+        zs = rng.choice(K, size=n_d, p=theta_t[d])
+        ws = np.array([rng.choice(V, p=phi_t[z]) for z in zs])
+        doc_ids.append(np.full(n_d, d)); words.append(ws)
+    doc_ids = np.concatenate(doc_ids).astype(np.int32)
+    words = np.concatenate(words).astype(np.int32)
+
+    alpha = torch.full((D, K), 1.0, device=dev)
+    beta = torch.full((K, V), 0.5, device=dev)
+    dt = torch.as_tensor(doc_ids, device=dev)
+    wt = torch.as_tensor(words, device=dev)  # int32: the kernel's labels
+    d_idx, w_idx = dt.long(), wt.long()
+
+    @model
+    def lda_m(doc_ids, words):
+        theta = sample("theta", Dirichlet(alpha))  # (D,K)
+        phi = sample("phi", Dirichlet(beta))       # (K,V)
+        # collapsed topic assignment: word ~ Categorical(theta[d] @ phi)
+        word_probs = theta[d_idx] @ phi            # (N,V)
+        observe("w", Categorical(torch.log(word_probs)), words)
+
+    def handwritten(q):
+        sb = StickBreaking()
+        u_theta = q[:D * (K - 1)].reshape(D, K - 1)
+        u_phi = q[D * (K - 1):D * (K - 1) + K * (V - 1)].reshape(K, V - 1)
+        theta, phi = sb.forward(u_theta), sb.forward(u_phi)
+        lp = (sb.forward_log_det_jacobian(u_theta)
+              + sb.forward_log_det_jacobian(u_phi))
+        lp = lp + _dirichlet_lp(theta, alpha) + _dirichlet_lp(phi, beta)
+        word_probs = theta[d_idx] @ phi
+        return lp + torch.sum(torch.log(torch.gather(
+            word_probs, -1, w_idx[:, None])))
+
+    return PaperModel("lda", lda_m(dt, wt), handwritten, step_size=0.005,
+                      data={"doc_ids": doc_ids, "words": words})
+
+
+MODEL_NAMES = ("gaussian_10k", "naive_bayes", "logreg", "hier_poisson",
+               "hmm_semisup", "lda")
 
 _CONSTRUCTORS = {
     "gaussian_10k": gaussian_10k,
     "naive_bayes": naive_bayes,
     "logreg": logreg,
+    "hier_poisson": hier_poisson,
+    "hmm_semisup": hmm_semisup,
+    "lda": lda,
 }
 
 

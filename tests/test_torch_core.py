@@ -1,8 +1,9 @@
 """PyTorch port: bijectors, distributions, typed traces and the fused flat
 log-density, held against the JAX package on the same NumPy inputs.
 
-Models are the paper's ``logreg`` and ``naive_bayes`` at small size; the
-data come from the same ``np.random.default_rng`` calls in both packages.
+Models are the paper's ``logreg``, ``naive_bayes``, ``hier_poisson``,
+``hmm_semisup`` and ``lda`` at small size; the data come from the same
+``np.random.default_rng`` calls in both packages.
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32, sums in another order). TF32 is off (``resolve_device``).
 """
@@ -29,7 +30,11 @@ from repro_torch.models import paper_suite as tsuite
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = {"logreg": dict(n=256, dim=8),
-         "naive_bayes": dict(n=64, n_classes=3, dim=4)}
+         "naive_bayes": dict(n=64, n_classes=3, dim=4),
+         "hier_poisson": dict(n=20, n_groups=4),
+         "hmm_semisup": dict(K=3, V=6, T=30, T_sup=10),
+         "lda": dict(V=12, K=3, D=4, avg_len=30)}
+MODELS = list(SMALL)
 
 
 def _close(got, want, rtol=1e-5, atol=1e-6):
@@ -109,7 +114,7 @@ def test_distribution_samples_have_the_declared_shape():
 # ---------------------------------------------------------------------------
 # paper-suite data, typed traces, flat layouts
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
+@pytest.mark.parametrize("name", MODELS)
 def test_paper_suite_data_equal_bit_for_bit(name):
     want = jsuite.build(name).data  # full Table-1 size
     got = tsuite.build(name, device="cpu").data
@@ -132,7 +137,7 @@ def _jax_signature(jtvi):
                  for s in jtvi.layout.sites)
 
 
-@pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
+@pytest.mark.parametrize("name", MODELS)
 def test_flat_link_roundtrip_and_layout_signature(name):
     _, _, jtvi, ttvi = _pair(name)
     assert layout_signature(ttvi) == _jax_signature(jtvi)
@@ -149,7 +154,7 @@ def test_flat_link_roundtrip_and_layout_signature(name):
     assert other.layout is ttvi.layout  # cached on the trace type
 
 
-@pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
+@pytest.mark.parametrize("name", MODELS)
 def test_logdensity_value_and_grad_match_jax(name):
     jm, tm, jtvi, ttvi = _pair(name)
     jlinked, tlinked = jtvi.link(), ttvi.link()
@@ -177,7 +182,7 @@ def test_logdensity_value_and_grad_match_jax(name):
     _close(gb[0], g, rtol=1e-6, atol=1e-6 * float(g.abs().max()))
 
 
-@pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
+@pytest.mark.parametrize("name", MODELS)
 def test_logjoint_fused_matches_reference_and_decomposes(name):
     _, tm, _, ttvi = _pair(name)
     m = tm.model

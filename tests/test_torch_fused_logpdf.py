@@ -17,12 +17,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_logpdf import ops, ref
 
 SIZES = [[1], [255, 257], [1000, 129, 1]]
+N_CLASSES = 7  # categorical segments: (n, C) logits and (n,) labels
+# the float columns of each family's segments (the labels get no gradient)
+DIFF_COLS = {"std_normal": (0,), "bernoulli_logits": (0, 1),
+             "categorical_logits": (0,), "gamma": (0, 1, 2)}
 
 
 def _segments(family, sizes, seed=0):
     rng = np.random.default_rng(seed)
     segs = []
     for n in sizes:
+        if family == "categorical_logits":
+            logits = rng.normal(0.0, 2.0, size=(n, N_CLASSES))
+            labels = rng.integers(0, N_CLASSES, size=n).astype(np.int32)
+            segs.append((logits.astype(np.float32), labels))
+            continue
+        if family == "gamma":
+            segs.append(tuple(rng.uniform(lo, hi, size=n).astype(np.float32)
+                              for lo, hi in ((0.05, 4.0), (-0.5, 3.0),
+                                             (0.2, 3.0))))
+            continue
         logits = rng.normal(0.0, 2.0, size=n).astype(np.float32)
         if family == "std_normal":
             segs.append((logits,))
@@ -38,32 +52,36 @@ def _assert_grad_close(got, want):
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=atol)
 
 
-@pytest.mark.parametrize("family", ["std_normal", "bernoulli_logits"])
+@pytest.mark.parametrize("family", ["std_normal", "bernoulli_logits",
+                                    "categorical_logits", "gamma"])
 @pytest.mark.parametrize("sizes", SIZES, ids=lambda s: "x".join(map(str, s)))
 def test_site_block_sum_matches_jax_pallas_and_ref(family, sizes):
     segs = _segments(family, sizes)
-    jsegs = [tuple(jnp.asarray(a) for a in s) for s in segs]
+    diff = DIFF_COLS[family]
 
-    def jfun(ss):
+    def jfun(floats):
+        ss = [tuple(f[diff.index(i)] if i in diff else jnp.asarray(a)
+                    for i, a in enumerate(s)) for s, f in zip(segs, floats)]
         return jops.site_block_sum(family, ss, use_pallas=True, interpret=True)
 
-    jval, jgrads = jax.value_and_grad(jfun)(jsegs)
-    tsegs = [tuple(torch.tensor(a, requires_grad=True) for a in s)
-             for s in segs]
+    jval, jgrads = jax.value_and_grad(jfun)(
+        [tuple(jnp.asarray(s[i]) for i in diff) for s in segs])
+    tsegs = [tuple(torch.tensor(a, requires_grad=i in diff)
+                   for i, a in enumerate(s)) for s in segs]
     val = ops.site_block_sum(family, tsegs)
     val.backward()
     val = val.detach()
     np.testing.assert_allclose(float(val), float(jval), rtol=1e-5)
     for tseg, jseg in zip(tsegs, jgrads):
-        for t, j in zip(tseg, jseg):
-            _assert_grad_close(t.grad.numpy(), j)
+        for i, j in zip(diff, jseg):
+            _assert_grad_close(tseg[i].grad.numpy(), j)
     # the plain version over the concatenated block agrees too
-    cols = [np.concatenate(c) for c in zip(*segs)]
-    if family == "std_normal":
-        want = ref.std_normal_logpdf_sum_ref(torch.tensor(cols[0]))
-    else:
-        want = ref.bernoulli_logits_logpmf_sum_ref(*map(torch.tensor, cols))
-    np.testing.assert_allclose(float(val), float(want), rtol=1e-5)
+    cols = [torch.tensor(np.concatenate(c)) for c in zip(*segs)]
+    plain = {"std_normal": ref.std_normal_logpdf_sum_ref,
+             "bernoulli_logits": ref.bernoulli_logits_logpmf_sum_ref,
+             "categorical_logits": ref.categorical_logits_logpmf_sum_ref,
+             "gamma": ref.gamma_unnorm_logpdf_sum_ref}[family]
+    np.testing.assert_allclose(float(val), float(plain(*cols)), rtol=1e-5)
 
 
 def test_std_normal_vmap_grad_matches_loop_over_chains():
@@ -98,6 +116,72 @@ def test_bernoulli_vmap_grad_matches_loop_over_chains(y_batched):
     np.testing.assert_allclose(g_v.numpy(), want, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("labels_batched", [False, True],
+                         ids=["shared_labels", "batched_labels"])
+def test_categorical_vmap_grad_matches_loop_over_chains(labels_batched):
+    rng = np.random.default_rng(3)
+    logits = torch.tensor(rng.normal(0.0, 2.0, size=(3, 129, 5)),
+                          dtype=torch.float32)
+    labels = torch.tensor(rng.integers(0, 5, size=(3, 129) if labels_batched
+                                       else 129), dtype=torch.int32)
+    f = ops.categorical_logits_logpmf_sum
+    in_dims = (0, 0 if labels_batched else None)
+    g_v, v_v = torch.func.vmap(torch.func.grad_and_value(f),
+                               in_dims=in_dims)(logits, labels)
+    for b in range(3):
+        lb = labels[b] if labels_batched else labels
+        g_b, v_b = torch.func.grad_and_value(f)(logits[b], lb)
+        np.testing.assert_allclose(float(v_v[b]), float(v_b), rtol=1e-6)
+        np.testing.assert_allclose(g_v[b].numpy(), g_b.numpy(), rtol=1e-6)
+    onehot = torch.nn.functional.one_hot(
+        labels.long().expand(3, 129), 5).float()
+    want = (onehot - torch.softmax(logits, dim=-1)).numpy()
+    np.testing.assert_allclose(g_v.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("params_batched", [False, True],
+                         ids=["shared_params", "batched_params"])
+def test_gamma_vmap_grad_matches_loop_over_chains(params_batched):
+    rng = np.random.default_rng(4)
+    shape = (3, 257) if params_batched else (257,)
+    x = torch.tensor(rng.uniform(0.05, 4.0, size=(3, 257)),
+                     dtype=torch.float32)
+    am1 = torch.tensor(rng.uniform(-0.5, 3.0, size=shape), dtype=torch.float32)
+    rate = torch.tensor(rng.uniform(0.2, 3.0, size=shape), dtype=torch.float32)
+    f = ops.gamma_unnorm_logpdf_sum
+    d = 0 if params_batched else None
+    g_v, v_v = torch.func.vmap(torch.func.grad_and_value(f),
+                               in_dims=(0, d, d))(x, am1, rate)
+    for b in range(3):
+        ab, rb = (am1[b], rate[b]) if params_batched else (am1, rate)
+        g_b, v_b = torch.func.grad_and_value(f)(x[b], ab, rb)
+        np.testing.assert_allclose(float(v_v[b]), float(v_b), rtol=1e-6)
+        np.testing.assert_allclose(g_v[b].numpy(), g_b.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(g_v.numpy(), (am1 / x - rate).numpy(),
+                               rtol=1e-6)
+
+
+def test_categorical_plain_version_edges():
+    """What the kernel must give at the edges, as the plain version defines
+    it: a label outside [0, C) gives NaN; a -inf logit adds nothing to the
+    normaliser; a row of -inf logits gives NaN."""
+    ninf = float("-inf")
+    logits = torch.tensor([[[0.0, ninf, 1.0], [2.0, 0.5, -1.0]]])
+    got = ref.categorical_logits_logpmf_sum_ref(
+        logits, torch.tensor([[0, 1]], dtype=torch.int32))
+    want = torch.log_softmax(torch.tensor([0.0, 1.0]), -1)[0] \
+        + torch.log_softmax(logits[0, 1], -1)[1]
+    torch.testing.assert_close(got, want.reshape(1))
+    assert ref.categorical_logits_logpmf_sum_ref(
+        logits, torch.tensor([1, 0], dtype=torch.int32)).item() == ninf
+    for bad in (-1, 3, 7):
+        lab = torch.tensor([0, bad], dtype=torch.int32)
+        assert torch.isnan(ref.categorical_logits_logpmf_sum_ref(logits, lab))
+    allninf = torch.full((1, 2, 3), ninf)
+    assert torch.isnan(ref.categorical_logits_logpmf_sum_ref(
+        allninf, torch.tensor([0, 2], dtype=torch.int32)))
+
+
 def test_row_wrappers_run_plain_version_on_cpu_without_counting():
     ops.reset_launch_counts()
     z = torch.randn(4, 101)
@@ -108,7 +192,19 @@ def test_row_wrappers_run_plain_version_on_cpu_without_counting():
     np.testing.assert_array_equal(
         ops.bernoulli_logit_sum_rows(logits, y).numpy(),
         ref.bernoulli_logits_logpmf_sum_ref(logits, y).numpy())
-    assert ops.LAUNCHES == {"std_normal_sum": 0, "bernoulli_logit_sum": 0}
+    cat = torch.randn(4, 100, 5)
+    labels = torch.randint(0, 5, (100,), dtype=torch.int32).expand(4, 100)
+    np.testing.assert_array_equal(
+        ops.categorical_logits_sum_rows(cat, labels).numpy(),
+        ref.categorical_logits_logpmf_sum_ref(cat, labels).numpy())
+    x = torch.rand(4, 100) + 0.1
+    a = torch.full((100,), 0.5).expand(4, 100)
+    np.testing.assert_array_equal(
+        ops.gamma_unnorm_sum_rows(x, a, a).numpy(),
+        ref.gamma_unnorm_logpdf_sum_ref(x, a, a).numpy())
+    assert ops.LAUNCHES == dict.fromkeys(
+        ("std_normal_sum", "bernoulli_logit_sum", "categorical_logits_sum",
+         "gamma_unnorm_sum"), 0)
 
 
 def test_row_wrappers_reject_what_the_kernel_cannot_take():
@@ -120,6 +216,15 @@ def test_row_wrappers_reject_what_the_kernel_cannot_take():
         ops.std_normal_sum_rows(torch.zeros(2, 8, device="meta"))
     with pytest.raises(ValueError, match="shape"):
         ops.bernoulli_logit_sum_rows(torch.zeros(2, 8), torch.zeros(2, 7))
+    with pytest.raises(TypeError, match="int32"):
+        ops.categorical_logits_sum_rows(torch.zeros(2, 8, 3),
+                                        torch.zeros(2, 8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="strides"):
+        ops.categorical_logits_sum_rows(torch.zeros(2, 3, 8).transpose(1, 2),
+                                        torch.zeros(2, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="shape"):
+        ops.gamma_unnorm_sum_rows(torch.ones(2, 8), torch.ones(2, 8),
+                                  torch.ones(1, 8))
 
 
 def test_site_block_sum_families():
@@ -127,8 +232,8 @@ def test_site_block_sum_families():
     with pytest.raises(ValueError):
         ops.site_block_sum("poisson", [(torch.zeros(3),)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.site_block_sum("categorical_logits",
-                           [(torch.zeros(3, 2), torch.zeros(3))])
+        ops.site_block_sum("beta", [(torch.full((3,), 0.5), torch.zeros(3),
+                                     torch.zeros(3))])
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):

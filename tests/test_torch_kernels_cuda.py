@@ -6,7 +6,8 @@ port, so it runs on a GPU machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the fused_logpdf sums at rtol 1e-6 against the plain version
-(float32 sums in another order). The fused leapfrog's q, p and gradient at
+(float32 sums in another order); gamma_unnorm_sum, whose terms change sign,
+at 1e-6 of the sum of the terms' magnitudes. The fused leapfrog's q, p and gradient at
 rtol 1e-5 plus atol 1e-5 * max|plain| (nvcc contracts the updates into
 FMAs, torch does not; the difference compounds over the steps), its
 potential at 1e-5 * sum|v_i| (a float32 sum of up to 10^6 terms in
@@ -57,9 +58,93 @@ def test_cuda_vmap_grad_is_one_launch_for_all_chains(cuda_device):
     g = torch.func.vmap(torch.func.grad(ops.std_normal_logpdf_sum))(z)
     gl = torch.func.vmap(torch.func.grad(ops.bernoulli_logits_logpmf_sum),
                          in_dims=(0, None))(z, y)
-    assert ops.LAUNCHES == {"std_normal_sum": 1, "bernoulli_logit_sum": 1}
+    assert ops.LAUNCHES == {"std_normal_sum": 1, "bernoulli_logit_sum": 1,
+                            "categorical_logits_sum": 0,
+                            "gamma_unnorm_sum": 0}
     torch.testing.assert_close(g, -z, rtol=1e-6, atol=0)
     torch.testing.assert_close(gl, y - torch.sigmoid(z), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 5, 20, 31, 32, 33, 100, 4096])
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 99), (16, 257), (4, 10176)])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+def test_cuda_categorical_matches_plain_version(cuda_device, c, rows, n,
+                                                shared):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    logits = 3.0 * torch.randn(rows, n, c, generator=gen, device=cuda_device)
+    labels = torch.randint(0, c, (n,) if shared else (rows, n), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    labels = labels.expand(rows, n)
+    got = ops.categorical_logits_sum_rows(logits, labels)
+    torch.testing.assert_close(
+        got, ref.categorical_logits_logpmf_sum_ref(logits, labels),
+        rtol=1e-6, atol=0)
+    assert torch.equal(ops.categorical_logits_sum_rows(logits, labels), got)
+
+
+@pytest.mark.cuda
+def test_cuda_categorical_edges_match_plain_version(cuda_device):
+    """Labels outside [0, C), -inf logits and a row of -inf: NaN and -inf
+    where the plain version gives them."""
+    ninf = float("-inf")
+    logits = torch.randn(2, 6, 40, device=cuda_device)
+    logits[:, 1, ::3] = ninf
+    logits[:, 2, :] = ninf
+    logits[:, 3, 7] = ninf
+    labels = torch.tensor([[0, 2, 5, 7, 1, 2], [0, 1, 5, 6, -1, 40]],
+                          dtype=torch.int32, device=cuda_device)
+    got = ops.categorical_logits_sum_rows(logits, labels)
+    want = ref.categorical_logits_logpmf_sum_ref(logits, labels)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, equal_nan=True)
+    keep = torch.tensor([0, 1, 3, 4, 5], device=cuda_device)
+    lab = torch.tensor([[0, 1, 3, 4, 5], [0, 3, 7, 2, 2]], dtype=torch.int32,
+                       device=cuda_device)
+    sub = logits[:, keep].contiguous()
+    torch.testing.assert_close(ops.categorical_logits_sum_rows(sub, lab),
+                               ref.categorical_logits_logpmf_sum_ref(sub, lab),
+                               rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 1), (4, 101), (16, 257),
+                                    (4, 40000), (1, 1_000_003)])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+def test_cuda_gamma_matches_plain_version(cuda_device, rows, n, shared):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = 0.05 + 4.0 * torch.rand(rows, n, generator=gen, device=cuda_device)
+    pshape = (n,) if shared else (rows, n)
+    am1 = -0.5 + 3.5 * torch.rand(pshape, generator=gen, device=cuda_device)
+    rate = 0.2 + 3.0 * torch.rand(pshape, generator=gen, device=cuda_device)
+    am1, rate = am1.expand(rows, n), rate.expand(rows, n)
+    got = ops.gamma_unnorm_sum_rows(x, am1, rate)
+    want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
+    abs_sum = (am1 * torch.log(x)).abs().sum(-1) + (rate * x).abs().sum(-1)
+    assert bool(((got - want).abs() <= 1e-6 * abs_sum).all())
+    assert torch.equal(ops.gamma_unnorm_sum_rows(x, am1, rate), got)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_one_launch_for_all_chains(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    logits = torch.randn(4, 100, 20, generator=gen, device=cuda_device)
+    labels = torch.randint(0, 20, (100,), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+    x = 0.1 + torch.rand(4, 11, generator=gen, device=cuda_device)
+    ops.reset_launch_counts()
+    gl = torch.func.vmap(torch.func.grad(ops.categorical_logits_logpmf_sum),
+                         in_dims=(0, None))(logits, labels)
+    gx = torch.func.vmap(torch.func.grad(ops.gamma_unnorm_logpdf_sum),
+                         in_dims=(0, None, None))(
+        x, torch.zeros(11, device=cuda_device),
+        torch.ones(11, device=cuda_device))
+    assert ops.LAUNCHES == {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
+                            "categorical_logits_sum": 1,
+                            "gamma_unnorm_sum": 1}
+    onehot = torch.nn.functional.one_hot(labels.long(), 20).float()
+    torch.testing.assert_close(gl, onehot - torch.softmax(logits, -1),
+                               rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(gx, -torch.ones_like(x), rtol=0, atol=0)
 
 
 def _assert_state_close(got, want):

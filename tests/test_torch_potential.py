@@ -6,9 +6,11 @@ port's trace set to the JAX trace's flat state. Tolerances: opcodes equal,
 coefficients at atol 1e-6 (both fold the same float32 parameters in
 float64), ``const`` at rtol 1e-5 (a float32 log-density at the recorded
 point, summed in another order). Models the port cannot compile: logreg
-and naive_bayes (likelihoods move with u) in both packages, and a coupled
-hierarchy, which the JAX package compiles to a ``CondPotentialSpec`` and
-the port rejects until its dependency graph lands.
+and naive_bayes (likelihoods move with u), hier_poisson (coupled through
+its likelihood), hmm_semisup and lda (simplex sites) in both packages, and
+a coupled hierarchy, which the JAX package compiles to a
+``CondPotentialSpec`` and the port rejects until its dependency graph
+lands.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import torch
 import repro
 from repro.core import potential as jpotential
 from repro.dists import Flat as JFlat
+from repro.dists import Gamma as JGamma
 from repro.dists import MvNormalDiag as JMvNormalDiag
 from repro.dists import Normal as JNormal
 from repro.kernels.fused_leapfrog import CondPotentialSpec
@@ -28,9 +31,9 @@ from repro_torch.convert import spec_from_reference, state_from_reference
 from repro_torch.core.potential import (COUPLED_NOTE, PotentialCompileResult,
                                         build_potential_spec,
                                         compile_potential)
-from repro_torch.dists import Flat, MvNormalDiag, Normal
+from repro_torch.dists import Flat, Gamma, MvNormalDiag, Normal
 from repro_torch.infer import HMC, run_chains
-from repro_torch.kernels.fused_leapfrog import OP_NORMAL, OP_ZERO
+from repro_torch.kernels.fused_leapfrog import OP_EXP, OP_NORMAL, OP_ZERO
 from repro_torch.models import paper_suite as tsuite
 
 
@@ -78,6 +81,24 @@ def _coupled_pair():
     return jchained(), tchained()
 
 
+def _lone_gamma_pair():
+    """One Gamma site with varied concentration and rate (the ``OP_EXP``
+    opcode through the log link)."""
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.5, 4.0, size=5).astype(np.float32)
+    b = rng.uniform(0.2, 3.0, size=5).astype(np.float32)
+
+    @repro.model
+    def jgamma():
+        repro.sample("s", JGamma(jnp.asarray(a), jnp.asarray(b)))
+
+    @repro_torch.model
+    def tgamma():
+        repro_torch.sample("s", Gamma(torch.tensor(a), torch.tensor(b)))
+
+    return jgamma(), tgamma()
+
+
 def _suite_pair(name, **kw):
     return (jsuite.build(name, **kw).model,
             tsuite.build(name, device="cpu", **kw).model)
@@ -90,6 +111,11 @@ PAIRS = {
     "naive_bayes": lambda: _suite_pair("naive_bayes", n=64, n_classes=3,
                                        dim=4),
     "coupled": _coupled_pair,
+    "lone_gamma": _lone_gamma_pair,
+    "hier_poisson": lambda: _suite_pair("hier_poisson", n=20, n_groups=4),
+    "hmm_semisup": lambda: _suite_pair("hmm_semisup", K=3, V=6, T=30,
+                                       T_sup=10),
+    "lda": lambda: _suite_pair("lda", V=12, K=3, D=4, avg_len=30),
 }
 
 
@@ -121,6 +147,32 @@ def test_separable_specs_equal_the_reference(name):
     else:
         assert ts.uniform_op is None
         assert set(np.unique(ts.op)) == {OP_ZERO, OP_NORMAL}
+
+
+def test_lone_gamma_spec_equals_the_reference():
+    jres, tres, _, _ = _compile_both("lone_gamma")
+    assert jres.kind == tres.kind == "separable"
+    js, ts = jres.spec, tres.spec
+    assert ts.uniform_op == js.uniform_op == OP_EXP and ts.dim == js.dim == 5
+    for f in ("c0", "c1", "c2", "c3"):
+        np.testing.assert_allclose(getattr(ts, f), getattr(js, f),
+                                   rtol=0, atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(ts.const, js.const, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["hier_poisson", "hmm_semisup", "lda"])
+def test_new_paper_models_compile_to_none_in_both(name):
+    """Both packages reject the three models, with reasons that differ (see
+    ROADMAP.md Queue 3): the port stops at the simplex sites of
+    hmm_semisup and lda before any probe, and finds hier_poisson's
+    coupling through its likelihood at probe point 1."""
+    jres, tres, _, _ = _compile_both(name)
+    assert jres.spec is None and tres.spec is None
+    if name == "hier_poisson":
+        assert "mismatch at probe point 1 of 2" in tres.reason
+        assert tres.reason.endswith(COUPLED_NOTE)
+    else:
+        assert tres.reason == "non-elementwise support simplex"
 
 
 @pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
@@ -167,13 +219,8 @@ def test_fused_leapfrog_on_logreg_raises_with_the_compilers_reason():
     assert np.isfinite(ch.stats["logp"]).all()
 
 
-@pytest.mark.parametrize("name", ["gaussian_10k", "logreg"])
-def test_compiler_always_makes_five_evaluations(name, monkeypatch):
-    """The value at the recorded point, then a value and a gradient at each
-    of two probe points, whatever the verdict (gaussian_10k compiles,
-    logreg fails at probe point 1)."""
-    kw = {"dim": 16} if name == "gaussian_10k" else {"n": 64, "dim": 4}
-    tm = tsuite.build(name, device="cpu", **kw)
+def _count_compiler_evaluations(tm, monkeypatch):
+    """(compile result, log-density evaluations the compiler made)."""
     ttvi = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     make = type(tm.model).make_logdensity_fn
     calls = []
@@ -187,9 +234,37 @@ def test_compiler_always_makes_five_evaluations(name, monkeypatch):
         return f
 
     monkeypatch.setattr(type(tm.model), "make_logdensity_fn", counted)
-    res = compile_potential(tm.model, ttvi)
+    return compile_potential(tm.model, ttvi), len(calls)
+
+
+@pytest.mark.parametrize("name", ["gaussian_10k", "logreg"])
+def test_compiler_always_makes_five_evaluations(name, monkeypatch):
+    """For a model whose every site has an opcode (here gaussian_10k and
+    logreg): the value at the recorded point, then a value and a gradient
+    at each of two probe points, whatever the verdict (gaussian_10k
+    compiles, logreg fails at probe point 1). A model with a simplex site
+    is rejected before any probe: see
+    ``test_compiler_probe_evaluations_per_paper_model``."""
+    kw = {"dim": 16} if name == "gaussian_10k" else {"n": 64, "dim": 4}
+    tm = tsuite.build(name, device="cpu", **kw)
+    res, calls = _count_compiler_evaluations(tm, monkeypatch)
     assert (res.spec is not None) == (name == "gaussian_10k")
-    assert len(calls) == 5
+    assert calls == 5
+
+
+@pytest.mark.parametrize("name,evals", [("hier_poisson", 5),
+                                        ("hmm_semisup", 0), ("lda", 0)])
+def test_compiler_probe_evaluations_per_paper_model(name, evals, monkeypatch):
+    """hier_poisson's sites all have opcodes, so the compiler makes its 5
+    evaluations and then finds the coupling; hmm_semisup's and lda's
+    simplex sites stop it before the first (so their runs launch no probe
+    kernels)."""
+    kw = {"hier_poisson": dict(n=20, n_groups=4),
+          "hmm_semisup": dict(K=3, V=6, T=30, T_sup=10),
+          "lda": dict(V=12, K=3, D=4, avg_len=30)}[name]
+    tm = tsuite.build(name, device="cpu", **kw)
+    res, calls = _count_compiler_evaluations(tm, monkeypatch)
+    assert res.spec is None and calls == evals
 
 
 def test_compiler_raises_a_kernel_failure(monkeypatch):
