@@ -3,26 +3,35 @@
 
 Drives the port's main paths — the paper's Table-1 loop: typed trace ->
 fused flat log-joint -> static HMC with 4 leapfrog steps over 4 chains —
-for ``logreg`` (10,000 x 100), ``naive_bayes`` (1,000 x 40, 10 classes),
-``hier_poisson`` (50 obs, 10 groups), ``hmm_semisup`` (K=5, V=20, T=300)
-and ``lda`` (V=100, K=5, 10 docs, 10,176 words) through the hand-written
-CUDA kernels of ``src/repro_torch/kernels/fused_logpdf/csrc``, and for
-``gaussian_10k`` (10,000-D) through the separable-potential compiler and
-the fused n-step leapfrog of ``src/repro_torch/kernels/fused_leapfrog/csrc``,
-all at full width (draws per model in ``DRAWS``). Phases, in order:
+for all eight Table-1 models at full width: ``logreg`` (10,000 x 100),
+``naive_bayes`` (1,000 x 40, 10 classes), ``hier_poisson`` (50 obs, 10
+groups), ``hmm_semisup`` (K=5, V=20, T=300), ``lda`` (V=100, K=5, 10 docs,
+10,176 words), ``gauss_unknown`` (10,000 obs; also on the per-site
+evaluator with the per-array switch on) and ``sto_volatility`` (T = 500)
+through the hand-written CUDA kernels of
+``src/repro_torch/kernels/fused_logpdf/csrc``, ``gaussian_10k`` (10,000-D)
+through the separable-potential compiler and the fused n-step leapfrog of
+``src/repro_torch/kernels/fused_leapfrog/csrc``; and two synthetic models
+of the JAX package that reach the other density families: ``family_mix_8k``
+(8,192-D, seven families: the fused leapfrog with a mixed opcode table,
+then the autodiff integrator) and ``mixed`` (a dense 5-D MvNormal among
+four other families). Draws per model are in ``DRAWS``. Phases, in order:
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. builds both kernel sources with ``nvcc``, in parallel, and prints each
-   build time;
+2. builds the three kernel sources with ``nvcc``, in parallel, and prints
+   each build time;
 3. holds each kernel against its plain PyTorch version on the card and
    checks that two runs are bit-identical: the fused_logpdf sums at rtol
    1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``; categorical over
    C = 1 to 4,096 classes and 1 to 100,000 items with labels shared and
    per row, and at its edges: labels outside [0, C) and -inf logits;
-   gamma, whose terms change sign, at 1e-6 of the sum of their
-   magnitudes) and their backward through ``vmap(grad)`` with one launch
-   for the whole chain axis; the
+   gamma, beta and normal, whose terms change sign, at 1e-6 of the sum of
+   their magnitudes, with parameters per row, shared by the rows (row
+   stride 0) and one per row (element stride 0); student_t at rtol 1e-6;
+   the dense quadratic form at rtol 1e-5 over D = 1 to 1,024 and N = 1 to
+   100,000 with the precision shared and per row) and their backward
+   through ``vmap(grad)`` with one launch for the whole chain axis; the
    fused leapfrog and fused potential for every opcode alone and a mixed
    table, with and without an inverse mass, 1/4/16 chains with distinct
    step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
@@ -31,11 +40,14 @@ all at full width (draws per model in ``DRAWS``). Phases, in order:
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
    num_chains=4, num_samples=DRAWS["logreg"])`` with every launch count set
    to 0 just before and read just after; the counts must equal the
-   autodiff integrator's evaluations plus the potential compiler's 5 probe
-   evaluations (which reject the model); checks finite draws and logp,
-   the mean acceptance, and the fused density at the final draws (linked
-   back to the unconstrained space) against the per-site reference
-   density, the hand-written twin and the chain's own logp (rtol 1e-5);
+   autodiff integrator's evaluations plus the potential compiler's probe
+   evaluations (5 for a model whose sites all have opcodes, 0 when a site
+   has none) plus, on the switch route, the two eager evaluations of the
+   discovery run and the compiler's recording replay; checks finite draws
+   and logp, the mean acceptance, and the density at the final draws
+   (linked back to the unconstrained space) on the fused and the per-site
+   evaluators, against the hand-written twin where there is one and the
+   chain's own logp (rtol 1e-5);
 5. the same for ``naive_bayes`` (step 0.01);
 6. ``gaussian_10k`` (step 0.1): the same call compiles a separable spec
    (uniform NORMAL opcode, dim 10,000) and runs one ``fused_leapfrog``
@@ -43,21 +55,36 @@ all at full width (draws per model in ``DRAWS``). Phases, in order:
    the compiler's 5 probe evaluations; checks the posterior mean and
    variance of every coordinate against 0 and 1 within 5.5 Monte-Carlo
    standard errors from its ESS; then runs the same seed with
-   ``leapfrog="reference"`` for 300 draws and holds the first 10 draws of
-   both integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp);
-   then, as in phase 4, ``hier_poisson`` (step 0.02; std_normal_sum and
+   ``leapfrog="reference"`` and holds the first 10 draws of both
+   integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp); then,
+   as in phase 4, ``hier_poisson`` (step 0.02; std_normal_sum and
    gamma_unnorm_sum once per evaluation, 5 compiler probes),
    ``hmm_semisup`` (step 0.01; categorical_logits_sum twice per
    evaluation, C = 5 and 20; no probes: the compiler stops at the simplex
    sites) and ``lda`` (step 0.005; categorical_logits_sum once, 4 x 10,176
    x 100; no probes), and their simplex draws: non-negative, rows summing
-   to 1 within 1e-5;
-7. times each kernel at the main paths' shapes beside its bound, its plain
-   version and, where one exists, one PyTorch library call (device time
-   from the profiler, and the time the host takes to issue each call), and
-   profiles a window of transitions of logreg, of gaussian_10k under both
-   integrators, of hier_poisson, hmm_semisup and lda for the device's busy
-   share.
+   to 1 within 1e-5; ``gauss_unknown`` (step 0.01; std_normal_sum twice
+   per evaluation, 5 probes; its posterior means of m and s against the
+   conjugate posterior's within 5.5 Monte-Carlo standard errors), then the
+   same model on the per-site evaluator inside ``use_fused_logpdf()``
+   (``normal_sum`` once per evaluation for all chains: shared data, one
+   mu and sigma per chain); ``sto_volatility`` (step 0.01; std_normal_sum
+   twice, no probes: HalfCauchy has no opcode); ``family_mix_8k`` (step
+   0.01: its mixed-opcode spec, whose opcodes, coefficients and const
+   equal a float64 fold of the model's parameters, and one
+   ``fused_leapfrog`` per draw; then
+   ``leapfrog="reference"`` with std_normal_sum, gamma_unnorm_sum,
+   beta_unnorm_sum and student_t_unnorm_sum once per evaluation, its first
+   10 draws held to the fused run's at atol 1e-4 + rtol 1e-5); ``mixed``
+   (step 0.1; mvn_quadform_sum, beta, student_t, gamma and std_normal once
+   per evaluation, no probes);
+7. times each kernel at the main paths' shapes (and a wide one) beside its
+   bound, its plain version and, where one exists, one PyTorch library
+   call (device time from the profiler, and the time the host takes to
+   issue each call), and profiles a window of transitions of logreg, of
+   gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
+   gauss_unknown (both routes), sto_volatility and family_mix_8k for the
+   device's busy share.
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -72,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -97,13 +125,26 @@ CATEGORICAL_ITEM_OPS = 4
 # -0.5 ((u - c0) c1)^2 (four) and its add into the sum
 LEAPFROG_STEP_OPS = 6 + 3
 NORMAL_VALUE_OPS = 4 + 1
+# normal: subtract, divide, two multiplies, log, two subtracts, the add
+NORMAL_OPS = 8
+# beta: log, log1p, a negation, two multiplies, an add, the add into the sum
+BETA_OPS = 7
+# student_t: z * z, a divide, log1p, df + 1, two multiplies, the add
+STUDENT_T_OPS = 7
+LOGPDF_CU = "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu"
+MVN_CU = "src/repro_torch/kernels/fused_logpdf/csrc/mvn_quad.cu"
+LEAPFROG_CU = "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu"
 SOURCES = {
-    "std_normal_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
-    "bernoulli_logit_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
-    "categorical_logits_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
-    "gamma_unnorm_sum": "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu",
-    "fused_leapfrog": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
-    "fused_potential_vg": "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu",
+    "std_normal_sum": LOGPDF_CU,
+    "bernoulli_logit_sum": LOGPDF_CU,
+    "categorical_logits_sum": LOGPDF_CU,
+    "gamma_unnorm_sum": LOGPDF_CU,
+    "fused_leapfrog": LEAPFROG_CU,
+    "fused_potential_vg": LEAPFROG_CU,
+    "normal_sum": LOGPDF_CU,
+    "beta_unnorm_sum": LOGPDF_CU,
+    "student_t_unnorm_sum": LOGPDF_CU,
+    "mvn_quadform_sum": MVN_CU,
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
@@ -112,11 +153,24 @@ REPLACES = {
     "gamma_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:154",
     "fused_leapfrog": "src/repro/kernels/fused_leapfrog/kernel.py:38",
     "fused_potential_vg": "src/repro/kernels/fused_leapfrog/kernel.py:130",
+    "normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:75",
+    "beta_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:174",
+    "student_t_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:194",
+    "mvn_quadform_sum": "src/repro/kernels/fused_logpdf/kernel.py:220",
 }
 NO_LIBRARY = {
     "gamma_unnorm_sum": "no single PyTorch call computes sum(am1 log x - "
                         "rate x) (poisson_nll_loss adds 1e-8 inside the log "
                         "and has no rate)",
+    "beta_unnorm_sum": "no single PyTorch call computes sum(am1 log x + bm1 "
+                       "log1p(-x)) (torch.distributions.Beta.log_prob is "
+                       "several calls and adds the normaliser; "
+                       "binary_cross_entropy clamps the logs at -100 and "
+                       "has one weight for both terms)",
+    "student_t_unnorm_sum": "no single PyTorch call computes sum(-(df + 1)/2 "
+                            "log1p(z^2/df)) (torch.distributions.StudentT."
+                            "log_prob is several calls and adds the "
+                            "normaliser)",
     "fused_leapfrog": "no single PyTorch call computes an n-step integrator",
     "fused_potential_vg": "no single PyTorch call computes a potential's "
                           "value and its gradient",
@@ -157,9 +211,18 @@ MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                "categorical_logits_sum": [(4, 99, 5), (4, 100, 20),
                                           (4, 10176, 100)],
                # hier_poisson's block, and a wide one for the timing phase
-               "gamma_unnorm_sum": [(4, 1), (4, 40000)]}
+               "gamma_unnorm_sum": [(4, 1), (4, 40000)],
+               # gauss_unknown's per-array route (shared x, one mu and one
+               # sigma per chain), and a wide one
+               "normal_sum": [(4, 10000), (4, 40000)],
+               # mixed's scalar site, family_mix_8k's block, a wide one
+               "beta_unnorm_sum": [(4, 1), (4, 1024), (4, 40000)],
+               "student_t_unnorm_sum": [(4, 8), (4, 2048), (4, 40000)],
+               # (chains, N, D): mixed's 5-D site, and a wide one
+               "mvn_quadform_sum": [(4, 1, 5), (4, 4096, 256)]}
 FUSED_LOGPDF = ("std_normal_sum", "bernoulli_logit_sum",
-                "categorical_logits_sum", "gamma_unnorm_sum")
+                "categorical_logits_sum", "gamma_unnorm_sum", "normal_sum",
+                "beta_unnorm_sum", "student_t_unnorm_sum", "mvn_quadform_sum")
 CHECK_ROWS = (1, 4, 16)
 CHECK_N = (1, 101, 255, 257, 400, 10000, 40000, 40400, 1_000_003)
 
@@ -214,7 +277,9 @@ def check_kernels(torch, ops, ref):
     gx = torch.func.vmap(torch.func.grad(ops.gamma_unnorm_logpdf_sum),
                          in_dims=(0, None, None))(x, am1, rate)
     torch.cuda.synchronize()
-    check(ops.LAUNCHES == dict.fromkeys(FUSED_LOGPDF, 1),
+    want = {**dict.fromkeys(FUSED_LOGPDF, 0),
+            **dict.fromkeys(FUSED_LOGPDF[:4], 1)}
+    check(ops.LAUNCHES == want,
           f"vmap(grad) over 4 chains launched {ops.LAUNCHES}, expected one "
           "launch per kernel")
     torch.testing.assert_close(g, -z, rtol=1e-6, atol=0)
@@ -336,6 +401,179 @@ def check_categorical_gamma_kernels(torch, ops, ref):
     return worst
 
 
+ELEMENTWISE = ("normal_sum", "beta_unnorm_sum", "student_t_unnorm_sum")
+# parameters dense per row, shared by the rows (row stride 0), or one value
+# per row (element stride 0: gauss_unknown's mu and sigma)
+ELEM_PARAMS = ("per_row", "shared", "scalar")
+
+
+def elementwise_case(torch, ops, ref, name, rows, n, params, gen, shared_x=False):
+    """(wrapper, inputs, plain version) of one per-element kernel."""
+    dev = torch.device(DEVICE)
+
+    def param(lo, hi):
+        shape = {"per_row": (rows, n), "shared": (n,),
+                 "scalar": (rows, 1)}[params]
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                            device=dev)).expand(rows, n)
+
+    def value(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if name == "normal_sum":
+        x = (value(n).expand(rows, n) if shared_x else value((rows, n)))
+        return (ops.normal_sum_rows, (2.0 * x, param(-1.0, 1.0),
+                                      param(0.3, 3.0)),
+                ref.normal_logpdf_sum_ref)
+    if name == "beta_unnorm_sum":
+        x = 0.01 + 0.98 * torch.rand(rows, n, generator=gen, device=dev)
+        return (ops.beta_unnorm_sum_rows, (x, param(-0.5, 3.0),
+                                           param(-0.5, 3.0)),
+                ref.beta_unnorm_logpdf_sum_ref)
+    return (ops.student_t_unnorm_sum_rows, (3.0 * value((rows, n)),
+                                            param(0.5, 30.0)),
+            ref.student_t_unnorm_logpdf_sum_ref)
+
+
+def abs_terms(torch, name, args):
+    """sum_i of the magnitudes of a sign-changing sum's terms."""
+    if name == "normal_sum":
+        x, loc, scale = args
+        z = (x - loc) / scale
+        return (0.5 * z * z + torch.log(scale).abs() + 0.9189385).sum(-1)
+    x, am1, bm1 = args
+    return ((am1 * torch.log(x)).abs() + (bm1 * torch.log1p(-x)).abs()).sum(-1)
+
+
+MVN_D = (1, 5, 24, 63, 64, 65, 127, 256, 1024)
+MVN_N = (1, 96, 4096, 100_000)
+MVN_MAX_ELEMS = 1 << 27  # 512 MB of xc: larger cases are left out
+
+
+def precision(torch, d, gen, rows=None):
+    """A symmetric positive definite ``a a^T / d + I`` (one or ``rows``)."""
+    dev = torch.device(DEVICE)
+    shape = (d, d) if rows is None else (rows, d, d)
+    a = torch.randn(shape, generator=gen, device=dev) / d ** 0.5
+    return a @ a.mT + torch.eye(d, device=dev)
+
+
+def check_density_kernels(torch, ops, ref):
+    """normal_sum and beta_unnorm_sum at 1e-6 of the sum of their terms'
+    magnitudes (their terms change sign), student_t_unnorm_sum at rtol 1e-6
+    (every term <= 0), each over CHECK_ROWS x CHECK_N with parameters per
+    row, shared by the rows and one per row; mvn_quadform_sum at rtol 1e-5
+    (a float32 product over D terms per entry, with a positive definite
+    precision) over MVN_D x MVN_N x CHECK_ROWS up to MVN_MAX_ELEMS, the
+    precision shared by the rows and per row; all with bit-identical
+    reruns; and the backward of all four through vmap(grad), one launch
+    each for 4 chains. Returns the worst abs error at the main paths'
+    shapes."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    worst = dict.fromkeys(ELEMENTWISE + ("mvn_quadform_sum",), 0.0)
+    n_elem = 0
+    for name in ELEMENTWISE:
+        shapes = sorted({(r, n) for r in CHECK_ROWS for n in CHECK_N}
+                        | set(MAIN_SHAPES[name]))
+        for rows, n in shapes:
+            for params in ELEM_PARAMS:
+                kern, args, plain = elementwise_case(
+                    torch, ops, ref, name, rows, n, params, gen,
+                    shared_x=params == "scalar")
+                got, again, want = kern(*args), kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                tag = f"{name} {rows}x{n} {params} parameters"
+                check(same_bits(torch, got, again), f"{tag}: two runs differ")
+                err = (got - want).abs()
+                if name == "student_t_unnorm_sum":
+                    check(bool((err <= 1e-6 * want.abs()).all()),
+                          f"{tag}: max rel err "
+                          f"{float((err / want.abs()).max()):.3e} > 1e-6")
+                else:
+                    check(bool((err <= 1e-6 * abs_terms(torch, name,
+                                                        args)).all()),
+                          f"{tag}: err {float(err.max()):.3e} beyond 1e-6 * "
+                          "sum|terms|")
+                if (rows, n) in MAIN_SHAPES[name]:
+                    worst[name] = max(worst[name], float(err.max()))
+                n_elem += 1
+    log(f"normal_sum, beta_unnorm_sum, student_t_unnorm_sum vs plain: "
+        f"{n_elem} cases (n up to 1,000,003, {CHECK_ROWS} rows, parameters "
+        "per row, shared and one per row), 1e-6 of sum|terms| (rtol 1e-6 "
+        "for student_t), bit-identical reruns: ok")
+
+    n_mvn = skipped = 0
+    for d in MVN_D:
+        for n in MVN_N:
+            for rows in CHECK_ROWS:
+                if rows * n * d > MVN_MAX_ELEMS:
+                    skipped += 2
+                    continue
+                xc = torch.randn(rows, n, d, generator=gen, device=dev)
+                for shared in (True, False):
+                    prec = (precision(torch, d, gen).expand(rows, d, d)
+                            if shared else precision(torch, d, gen, rows))
+                    got = ops.mvn_quadform_sum_rows(xc, prec)
+                    again = ops.mvn_quadform_sum_rows(xc, prec)
+                    want = ref.mvnormal_prec_quadform_sum_ref(xc, prec)
+                    torch.cuda.synchronize()
+                    tag = f"mvn_quadform_sum {rows}x{n}x{d} " \
+                          f"{'shared' if shared else 'per-row'} precision"
+                    check(same_bits(torch, got, again),
+                          f"{tag}: two runs differ")
+                    err = (got - want).abs()
+                    check(bool((err <= 1e-5 * want.abs()).all()),
+                          f"{tag}: max rel err "
+                          f"{float((err / want.abs()).max()):.3e} > 1e-5")
+                    if (rows, n, d) in MAIN_SHAPES["mvn_quadform_sum"]:
+                        worst["mvn_quadform_sum"] = max(
+                            worst["mvn_quadform_sum"], float(err.max()))
+                    n_mvn += 1
+                del xc
+    log(f"mvn_quadform_sum vs plain: {n_mvn} cases (D in {MVN_D}, N in "
+        f"{MVN_N}, {CHECK_ROWS} rows, precision shared and per row; "
+        f"{skipped} over {MVN_MAX_ELEMS} elements left out), rtol 1e-5, "
+        "bit-identical reruns: ok")
+
+    # backward through vmap(grad): one launch each for 4 chains
+    x = torch.randn(10000, generator=gen, device=dev)
+    mu = torch.randn(4, generator=gen, device=dev)
+    sig = 0.5 + torch.rand(4, generator=gen, device=dev)
+    xb = 0.05 + 0.9 * torch.rand(4, 1024, generator=gen, device=dev)
+    z = torch.randn(4, 2048, generator=gen, device=dev)
+    xc = torch.randn(4, 1, 5, generator=gen, device=dev)
+    prec = precision(torch, 5, gen)
+    ops.reset_launch_counts()
+    gm, gs = torch.func.vmap(torch.func.grad(ops.normal_logpdf_sum,
+                                             argnums=(1, 2)),
+                             in_dims=(None, 0, 0))(x, mu, sig)
+    gb = torch.func.vmap(torch.func.grad(ops.beta_unnorm_logpdf_sum),
+                         in_dims=(0, None, None))(xb, 1.0, 2.0)
+    gt = torch.func.vmap(torch.func.grad(ops.student_t_unnorm_logpdf_sum),
+                         in_dims=(0, None))(z, 4.0)
+    gq = torch.func.vmap(torch.func.grad(ops.mvnormal_prec_quadform_sum),
+                         in_dims=(0, None))(xc, prec)
+    torch.cuda.synchronize()
+    want = {**dict.fromkeys(FUSED_LOGPDF, 0),
+            **dict.fromkeys(ELEMENTWISE + ("mvn_quadform_sum",), 1)}
+    check(ops.LAUNCHES == want, f"vmap(grad) over 4 chains launched "
+          f"{ops.LAUNCHES}, expected one launch per kernel")
+    zz = (x - mu[:, None]) / sig[:, None]
+    torch.testing.assert_close(gm, (zz / sig[:, None]).sum(-1), rtol=1e-4,
+                               atol=1e-2)
+    torch.testing.assert_close(gs, ((zz * zz - 1) / sig[:, None]).sum(-1),
+                               rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(gb, 1.0 / xb - 2.0 / (1 - xb), rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(gt, -5.0 * z / (4.0 + z * z), rtol=1e-6,
+                               atol=1e-7)
+    torch.testing.assert_close(gq, -(xc @ prec), rtol=1e-5, atol=1e-6)
+    log("vmap(grad) backward of normal, beta, student_t and mvn_quadform: "
+        "ok, one launch per kernel for 4 chains")
+    return worst
+
+
 LF_OPS = (None, 0, 1, 2, 3, 4)  # None: a mixed table (any-opcode kernel)
 LF_CHAINS = (1, 4, 16)
 LF_DIMS = (1, 127, 129, 10000, 1_000_003)
@@ -435,7 +673,20 @@ PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
             "hier_poisson": {"std_normal_sum": 1, "gamma_unnorm_sum": 1},
             # one block per class count: C = 5 (transitions), 20 (emissions)
             "hmm_semisup": {"categorical_logits_sum": 2},
-            "lda": {"categorical_logits_sum": 1}}
+            "lda": {"categorical_logits_sum": 1},
+            # the prior block (m) and the likelihood block (y)
+            "gauss_unknown": {"std_normal_sum": 2},
+            # the per-site evaluator with the per-array switch on: the
+            # 10,000 observations, once for all chains
+            "gauss_unknown_switch": {"normal_sum": 1},
+            # the prior block (mu and h_std) and the likelihood block (y)
+            "sto_volatility": {"std_normal_sum": 2},
+            "family_mix_8k": {"std_normal_sum": 1, "gamma_unnorm_sum": 1,
+                              "beta_unnorm_sum": 1,
+                              "student_t_unnorm_sum": 1},
+            "mixed": {"std_normal_sum": 1, "gamma_unnorm_sum": 1,
+                      "beta_unnorm_sum": 1, "student_t_unnorm_sum": 1,
+                      "mvn_quadform_sum": 1}}
 # the potential compiler's log-density evaluations (core/potential.py
 # _build): for a model whose sites all have opcodes, the value at the
 # recorded point, then a value and a gradient at each of two probe points,
@@ -443,53 +694,101 @@ PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
 # first. Each runs the fused forward once; the gradient's backward
 # launches nothing.
 PROBE_EVALS = {"logreg": 5, "naive_bayes": 5, "gaussian_10k": 5,
-               "hier_poisson": 5, "hmm_semisup": 0, "lda": 0}
-SEPARABLE = ("gaussian_10k",)  # the paper models the compiler accepts
+               "hier_poisson": 5, "hmm_semisup": 0, "lda": 0,
+               "gauss_unknown": 5, "gauss_unknown_switch": 5,
+               # HalfCauchy and MvNormal have no opcode
+               "sto_volatility": 0, "mixed": 0, "family_mix_8k": 5}
+# on the switch route the observed block is also evaluated eagerly, once
+# by each eager replay of the model inside run_chains: the discovery run
+# (when run_chains draws the start itself) and the compiler's recording
+# replay (when it compiles)
+EAGER_EVALS = {"gauss_unknown_switch": 1}
+SEPARABLE = ("gaussian_10k", "family_mix_8k")  # the compiler accepts these
+# where the chains start (run_chains' init_varinfo and init_jitter): the
+# prior draw with jitter 1, except (no warmup in Table 1, so a start where
+# every fixed-step transition diverges never moves):
+# - hier_poisson, whose prior draw of a0 ~ Normal(0, 10) lands at such
+#   log-rates, and sto_volatility, whose prior draws of sigma (HalfCauchy)
+#   and phi near +-1 do: the unconstrained origin (Stan's init=0), with
+#   the usual jitter;
+# - gauss_unknown, whose 10,000 observations give a posterior sd of 0.007
+#   in m, below the fixed step 0.01 times the gradient anywhere else: the
+#   data's moments (s = var(y), m = mean(y)), with jitter 0.05
+START = {"hier_poisson": ("origin", 1.0), "sto_volatility": ("origin", 1.0),
+         "gauss_unknown": ("moments", 0.05)}
 # draws per chain on each main path (Table 1: 2000). The whole script must
 # stay within 600 s; the cuts, and why, are in PERF.md section 4.
-# where the chains start (run_chains' init_varinfo): the prior draw, except
-# for hier_poisson, whose prior draw of a0 ~ Normal(0, 10) lands at
-# log-rates where every fixed-step transition diverges (no warmup in Table
-# 1); it starts at the unconstrained origin (Stan's init=0), with the
-# usual per-chain jitter
-START_AT_ORIGIN = ("hier_poisson",)
-DRAWS = {"logreg": 1000, "naive_bayes": 1000, "gaussian_10k": 2000,
-         "hier_poisson": 2000, "hmm_semisup": 500, "lda": 2000}
+DRAWS = {"logreg": 300, "naive_bayes": 300, "gaussian_10k": 2000,
+         "hier_poisson": 500, "hmm_semisup": 100, "lda": 500,
+         "gauss_unknown": 1000, "gauss_unknown_switch": 1000,
+         "sto_volatility": 1000, "family_mix_8k": 1000, "mixed": 1000}
 
 
-def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
+def run_model(torch, name, num_samples, seed=0, leapfrog="auto",
+              route="fused"):
     """Drive one main path through ``run_chains`` with every launch count
     set to 0 just before and read just after, and check the counts
-    exactly: the compiler's probes, then one launch per density block per
-    evaluation (autodiff integrator) or one fused leapfrog per transition
-    and one fused potential at init (fused integrator, which
-    ``leapfrog="auto"`` must pick for the separable models and only for
-    them)."""
+    exactly: the compiler's probes, the switch route's eager evaluations,
+    then one launch per density block per evaluation (autodiff integrator)
+    or one fused leapfrog per transition and one fused potential at init
+    (fused integrator, which ``leapfrog="auto"`` must pick for the
+    separable models and only for them). ``route="switch"`` runs the
+    per-site evaluator (``backend="reference"``) inside
+    ``use_fused_logpdf()``."""
+    import contextlib
+
+    from repro_torch.kernels import use_fused_logpdf
+
+    with (use_fused_logpdf() if route == "switch"
+          else contextlib.nullcontext()):
+        return _run_model(torch, name, num_samples, seed, leapfrog, route)
+
+
+def build_model(name):
+    """A paper model, or one of ``repro_torch.models.family_mix``'s."""
+    from repro_torch.models import SYNTHETIC_NAMES, build, build_synthetic
+    return (build_synthetic if name in SYNTHETIC_NAMES else build)(
+        name, device=DEVICE)
+
+
+def start_point(torch, np, pm, seed):
+    """(init_varinfo, init_jitter) for ``run_chains``, as START says."""
+    how, jitter = START.get(pm.name, ("prior", 1.0))
+    if how == "prior":
+        return None, jitter
+    linked = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(seed)).link()
+    if how == "origin":
+        flat = torch.zeros(linked.num_flat, device=DEVICE)
+    else:  # gauss_unknown's layout: u_s = log s, then m
+        y = pm.data["y"].astype(np.float64)
+        flat = torch.tensor([np.log(y.var()), y.mean()], dtype=torch.float32,
+                            device=DEVICE)
+    return linked.replace_flat(flat).invlink(), jitter
+
+
+def _run_model(torch, name, num_samples, seed, leapfrog, route):
     import numpy as np
 
     from repro_torch.bijectors import bijector_for
     from repro_torch.infer import HMC, run_chains
     from repro_torch.kernels.fused_leapfrog import ops as lf_ops
     from repro_torch.kernels.fused_logpdf import ops
-    from repro_torch.models import build
 
-    pm = build(name, device=DEVICE)
+    pm = build_model(name)
+    key = name if route == "fused" else f"{name}_{route}"
+    backend = "reference" if route == "switch" else "fused"
     kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
                  leapfrog=leapfrog)
     num_chains = 4
+    init, jitter = start_point(torch, np, pm, seed)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     lf_ops.reset_launch_counts()
     t0 = time.perf_counter()
-    init = None
-    if name in START_AT_ORIGIN:
-        linked = pm.model.typed_varinfo(
-            torch.Generator(device=DEVICE).manual_seed(seed)).link()
-        init = linked.replace_flat(
-            torch.zeros(linked.num_flat, device=DEVICE)).invlink()
     chain = run_chains(seed, pm.model, kernel, num_samples,
                        num_chains=num_chains, device=DEVICE,
-                       init_varinfo=init)
+                       init_varinfo=init, init_jitter=jitter, backend=backend)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {**ops.LAUNCHES, **lf_ops.LAUNCHES}
@@ -497,15 +796,17 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     evals = num_samples * pm.n_leapfrog + 1  # + the initial gradient
     fused = kernel.uses_potential_spec and name in SEPARABLE
     want = dict.fromkeys(launches, 0)
-    probes = PROBE_EVALS[name] if kernel.uses_potential_spec else 0
-    for k, per in PER_EVAL[name].items():
-        want[k] += per * (probes + (0 if fused else evals))
+    probes = PROBE_EVALS[key] if kernel.uses_potential_spec else 0
+    eager = EAGER_EVALS.get(key, 0) * (
+        (init is None) + bool(kernel.uses_potential_spec))
+    for k, per in PER_EVAL[key].items():
+        want[k] += per * (eager + probes + (0 if fused else evals))
     if fused:
         want["fused_leapfrog"] = num_samples  # no warmup in Table 1
         want["fused_potential_vg"] = 1
     check(launches == want,
-          f"{name} ({leapfrog}): launches {launches}, expected {want} "
-          f"({probes} compiler probe evaluations, "
+          f"{key} ({leapfrog}): launches {launches}, expected {want} "
+          f"({probes} compiler probe evaluations, {eager} eager, "
           f"{'fused' if fused else 'autodiff'} integrator)")
 
     logp = chain.stats["logp"]
@@ -513,9 +814,9 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     acc_chains = [float(a) for a in chain.stats["accept_prob"].mean(axis=1)]
     for site in chain.names():
         check(np.isfinite(chain[site]).all(),
-              f"{name}: non-finite draws of '{site}'")
-    check(np.isfinite(logp).all(), f"{name}: non-finite logp")
-    check(0.0 < acc <= 1.0, f"{name}: mean acceptance {acc} not in (0, 1]")
+              f"{key}: non-finite draws of '{site}'")
+    check(np.isfinite(logp).all(), f"{key}: non-finite logp")
+    check(0.0 < acc <= 1.0, f"{key}: mean acceptance {acc} not in (0, 1]")
 
     simplex = {}
     for s in pm.model.typed_varinfo(
@@ -524,14 +825,16 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
             x = chain[s.name]
             dev1 = float(np.abs(x.sum(-1, dtype=np.float64) - 1.0).max())
             check(bool((x >= 0).all()) and dev1 <= 1e-5,
-                  f"{name}: simplex draws of '{s.name}' off the simplex "
+                  f"{key}: simplex draws of '{s.name}' off the simplex "
                   f"(min {float(x.min()):.3e}, max |row sum - 1| {dev1:.3e})")
             simplex[s.name] = {"min": float(x.min()), "max_row_sum_dev": dev1}
 
-    # the fused density at the final draws vs the per-site reference, the
-    # hand-written twin and the chain's logp, on the card. The constrained
-    # draws are linked back through each site's bijector (the stick-breaking
-    # inverse for simplex rows) to the unconstrained flat state.
+    # the density at the final draws on the fused and the per-site
+    # evaluators (the per-site one through the per-array kernel on the
+    # switch route) vs the hand-written twin and the chain's logp, on the
+    # card. The constrained draws are linked back through each site's
+    # bijector (the stick-breaking inverse for simplex rows) to the
+    # unconstrained flat state.
     tvi = pm.model.typed_varinfo(
         torch.Generator(device=DEVICE).manual_seed(seed)).link()
     q = torch.cat([
@@ -542,37 +845,56 @@ def run_model(torch, name, num_samples, seed=0, leapfrog="auto"):
     fused_d = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
     refd = torch.func.vmap(pm.model.make_logdensity_fn(
         tvi, backend="reference"))(q)
-    hand = torch.func.vmap(pm.handwritten)(q)
     torch.testing.assert_close(fused_d, refd, rtol=1e-5, atol=0)
-    torch.testing.assert_close(fused_d, hand, rtol=1e-5, atol=0)
+    if pm.handwritten is not None:
+        hand = torch.func.vmap(pm.handwritten)(q)
+        torch.testing.assert_close(fused_d, hand, rtol=1e-5, atol=0)
     torch.testing.assert_close(fused_d.cpu(), torch.as_tensor(logp[:, -1]),
                                rtol=1e-5, atol=0)
     rel = float(((fused_d - refd).abs() / refd.abs()).max())
 
     summary = chain.summary().splitlines()
     result = {
-        "model": name, "leapfrog": leapfrog,
+        "model": name, "route": route, "backend": backend,
+        "leapfrog": leapfrog,
         "integrator": "fused" if fused else "autodiff",
-        "compiler_probe_evals": probes,
+        "compiler_probe_evals": probes, "eager_evals": eager,
         "num_chains": num_chains, "num_samples": num_samples,
         "step_size": pm.step_size, "n_leapfrog": pm.n_leapfrog,
         "seconds": secs, "seconds_per_draw": secs / num_samples,
         "grad_evals_per_s": num_chains * evals / secs,
         "launches": launches, "evals_per_chain": evals,
         "mean_accept": acc, "accept_per_chain": acc_chains,
-        "start": "origin" if name in START_AT_ORIGIN else "prior draw",
+        "start": START.get(name, ("prior draw", 1.0))[0],
         "fused_vs_reference_max_rel": rel,
         "simplex": simplex, "summary_head": summary[:4],
     }
-    log(f"{name} ({leapfrog}: {result['integrator']} integrator): "
-        f"{num_chains} chains x {num_samples} draws in {secs:.2f} s: "
-        f"{secs / num_samples * 1e3:.3f} ms/draw, "
+    log(f"{key} ({leapfrog}: {result['integrator']} integrator, {backend} "
+        f"evaluator): {num_chains} chains x {num_samples} draws in "
+        f"{secs:.2f} s: {secs / num_samples * 1e3:.3f} ms/draw, "
         f"{result['grad_evals_per_s']:.0f} grad evals/s, mean accept "
         f"{acc:.3f} (per chain {', '.join(f'{a:.3f}' for a in acc_chains)}), "
         f"launches {launches}, fused vs reference density max rel {rel:.2e}")
     for line in summary[:4]:
         log("   ", line)
     return result, pm, kernel, chain
+
+
+def check_first_draws(np, name, chain, ref_chain, first=10, rtol=0.0):
+    """The first draws of the fused and the reference integrator (same
+    seed, same generator draws) together: every draw within 1e-4 + rtol *
+    |draw| (atol 1e-4 alone for gaussian_10k), logp at rtol 1e-5."""
+    d = max(float((np.abs(chain[s][:, :first] - ref_chain[s][:, :first])
+                   - rtol * np.abs(ref_chain[s][:, :first])).max())
+            for s in chain.names())
+    lp, lp_ref = chain.stats["logp"][:, :first], ref_chain.stats["logp"][:, :first]
+    lp_rel = float((np.abs(lp - lp_ref) / np.abs(lp_ref)).max())
+    check(d <= 1e-4 and lp_rel <= 1e-5,
+          f"{name}: first {first} draws of the fused and reference "
+          f"integrators differ: max abs {d:.3e} beyond 1e-4 + {rtol} * "
+          f"|draw|, logp max rel {lp_rel:.3e} (rtol 1e-5)")
+    return {"first_draws": first, "fused_vs_reference_draws_max_abs": d,
+            "fused_vs_reference_logp_max_rel": lp_rel}
 
 
 def check_gaussian(np, chain, ref_chain, first=10):
@@ -602,21 +924,116 @@ def check_gaussian(np, chain, ref_chain, first=10):
           "gaussian_10k: ESS not finite")
     check(out["max_abs_z_mean"] < 5.5 and out["max_abs_z_var"] < 5.5,
           f"gaussian_10k: posterior moments off: {out}")
-    d = np.abs(chain["x"][:, :first] - ref_chain["x"][:, :first]).max()
-    lp, lp_ref = chain.stats["logp"][:, :first], ref_chain.stats["logp"][:, :first]
-    lp_rel = float((np.abs(lp - lp_ref) / np.abs(lp_ref)).max())
-    out.update(first_draws=first, fused_vs_reference_draws_max_abs=float(d),
-               fused_vs_reference_logp_max_rel=lp_rel)
-    check(d <= 1e-4 and lp_rel <= 1e-5,
-          f"gaussian_10k: first {first} draws of the fused and reference "
-          f"integrators differ: max abs {d:.3e} (atol 1e-4), logp max rel "
-          f"{lp_rel:.3e} (rtol 1e-5)")
+    out.update(check_first_draws(np, "gaussian_10k", chain, ref_chain,
+                                 first))
+    d = out["fused_vs_reference_draws_max_abs"]
+    lp_rel = out["fused_vs_reference_logp_max_rel"]
     log(f"gaussian_10k moments: ESS median {out['ess_median']:.0f} (min "
         f"{out['ess_min']:.0f}, x^2 median {out['ess_sq_median']:.0f}); max "
         f"|z| of the 10,000 means {out['max_abs_z_mean']:.2f}, of the "
         f"variances {out['max_abs_z_var']:.2f} (limit 5.5); first {first} "
         f"draws fused vs reference: max abs {d:.2e}, logp max rel "
         f"{lp_rel:.2e}")
+    return out
+
+
+def check_gauss_unknown(np, pm, chain):
+    """gauss_unknown's conjugate posterior: with s ~ InvGamma(2, 3), m | s ~
+    N(0, s) and y_i | m, s ~ N(m, s), E[m | y] = n ybar / (n + 1) and s | y
+    ~ InvGamma(2 + n/2, 3 + (sum y^2 - (n ybar)^2 / (n + 1)) / 2). The
+    draws' means of m and s within 5.5 Monte-Carlo standard errors (sd of
+    the draws over sqrt(ESS)) of those."""
+    from repro_torch.infer import effective_sample_size
+
+    y = pm.data["y"].astype(np.float64)
+    n = y.size
+    a_post = 2.0 + n / 2.0
+    b_post = 3.0 + 0.5 * (np.sum(y * y) - (n * y.mean()) ** 2 / (n + 1))
+    exact = {"m": n * y.mean() / (n + 1), "s": b_post / (a_post - 1.0)}
+    out = {}
+    for site, want in exact.items():
+        x = chain[site].astype(np.float64)
+        ess = effective_sample_size(x)
+        z = (x.mean() - want) / (x.std() / np.sqrt(ess))
+        out[site] = {"mean": float(x.mean()), "exact": float(want),
+                     "ess": float(ess), "z": float(z)}
+        check(np.isfinite(z) and abs(z) < 5.5,
+              f"gauss_unknown: posterior mean of {site} {x.mean():.6f}, "
+              f"exact {want:.6f}: {z:.2f} Monte-Carlo standard errors "
+              f"(ESS {ess:.0f}), limit 5.5")
+    log("gauss_unknown posterior means vs the conjugate posterior: "
+        + ", ".join(f"{k} {v['mean']:.5f} (exact {v['exact']:.5f}, "
+                    f"{v['z']:+.2f} se, ESS {v['ess']:.0f})"
+                    for k, v in out.items()))
+    return out
+
+
+# family_mix_8k's sites in their flat order, each one's opcode and
+# coefficients as a float64 fold of the model's parameters gives them (the
+# link's log-Jacobian folded in, as core/potential.py _compile_site), and
+# the u-independent rest of one element's log-density: Normal(0, 2) -log 2
+# - log(2 pi)/2; Gamma(2, 1.5) 2 log 1.5 - lgamma(2); Beta(2, 3) lgamma(5)
+# - lgamma(2) - lgamma(3); StudentT(4, 0, 1) lgamma(5/2) - lgamma(2) -
+# log(4 pi)/2; Cauchy(0, 2) -log(2 pi); Uniform(-1, 1) -log 2 + log 2 (the
+# link's width); LogNormal(0, 1) -log(2 pi)/2
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+FAMILY_MIX_TABLE = (  # (site, size, opcode name, c0, c1, c2, c3, rest)
+    ("n", 2048, "OP_NORMAL", 0.0, 1.0 / 2.0, 0.0, 0.0,
+     -math.log(2.0) - _HALF_LOG_2PI),
+    ("g", 1024, "OP_EXP", 2.0, 1.5, 1.0, 0.0,
+     2.0 * math.log(1.5) - math.lgamma(2.0)),
+    ("b", 1024, "OP_SOFTPLUS", 2.0, 3.0, 0.0, 0.0,
+     math.lgamma(5.0) - math.lgamma(2.0) - math.lgamma(3.0)),
+    ("t", 2048, "OP_TLOG", (4.0 + 1.0) / 2.0, 1.0 / 4.0, 0.0, 1.0,
+     math.lgamma(2.5) - math.lgamma(2.0) - 0.5 * math.log(4.0 * math.pi)),
+    ("c", 1024, "OP_TLOG", 1.0, 1.0, 0.0, 1.0 / 2.0,
+     -math.log(2.0 * math.pi)),
+    ("u", 512, "OP_SOFTPLUS", 1.0, 1.0, 0.0, 0.0, 0.0),
+    ("l", 512, "OP_NORMAL", 0.0, 1.0, 0.0, 0.0, -_HALF_LOG_2PI))
+
+
+def check_family_mix_spec(torch, np, spec_mod, lf_ops, spec, pm, chain):
+    """The spec run_chains compiled for family_mix_8k against
+    FAMILY_MIX_TABLE: opcodes equal, coefficients at atol 1e-6, const at
+    rtol 1e-5; and its value (the fused potential, const included) at the
+    final draws equal to the fused log-density at rtol 1e-5."""
+    check(spec is not None and spec.uniform_op is None and spec.dim == 8192,
+          f"family_mix_8k did not compile to a mixed spec of dim 8,192: "
+          f"{spec}")
+    op = np.concatenate([np.full(size, getattr(spec_mod, code), np.int32)
+                         for _, size, code, *_ in FAMILY_MIX_TABLE])
+    coeffs = [np.concatenate([np.full(size, c[k])
+                              for _, size, _, *c in FAMILY_MIX_TABLE])
+              for k in range(4)]
+    const = sum(size * rest for _, size, *_, rest in FAMILY_MIX_TABLE)
+    check(abs(spec.const - const) <= 1e-5 * abs(const),
+          f"family_mix_8k: const {spec.const:.6f}, the model's {const:.6f}")
+    check(np.array_equal(spec.op, op), "family_mix_8k: opcodes differ "
+          "from the model's")
+    for name, got, exp in zip(("c0", "c1", "c2", "c3"),
+                              (spec.c0, spec.c1, spec.c2, spec.c3), coeffs):
+        err = float(np.abs(np.asarray(got, np.float64) - exp).max())
+        check(err <= 1e-6, f"family_mix_8k: {name} off by {err:.3e}")
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(0)).link()
+    names = [s.name for s in tvi.layout.sites]
+    check(names == [t[0] for t in FAMILY_MIX_TABLE],
+          f"family_mix_8k: flat order {names}")
+    from repro_torch.bijectors import bijector_for
+    q = torch.cat([bijector_for(d).inverse(torch.as_tensor(
+        chain[s.name][:, -1], device=DEVICE)).reshape(4, -1)
+        for s, d in zip(tvi.layout.sites, tvi.dists)], dim=1)
+    lp, _ = lf_ops.potential_value_and_grad(spec, q)
+    dens = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
+    torch.testing.assert_close(lp, dens, rtol=1e-5, atol=0)
+    out = {"dim": spec.dim, "const": float(spec.const),
+           "const_from_the_model": const,
+           "spec_vs_density_max_rel": float(
+               ((lp - dens).abs() / dens.abs()).max())}
+    log(f"family_mix_8k spec: opcodes and coefficients as the model's, "
+        f"const {spec.const:.6f} (the model's {const:.6f}); spec vs density "
+        f"at the final draws max "
+        f"rel {out['spec_vs_density_max_rel']:.2e}")
     return out
 
 
@@ -710,6 +1127,52 @@ def logpdf_case(torch, F, ops, ref, name, shape, gen):
                 ref.gamma_unnorm_logpdf_sum_ref, None,
                 4 * r * n + 8 * n + 4 * r,  # am1, rate read once (stride 0)
                 GAMMA_OPS * r * n)
+    if name == "normal_sum":
+        if n == 10000:  # gauss_unknown: shared x, one mu and sigma per chain
+            x = (1.5 + 0.7 * z[0]).expand(r, n)
+            mu = (1.5 + 0.1 * torch.randn(r, 1, generator=gen, device=dev))
+            sig = 0.5 + torch.rand(r, 1, generator=gen, device=dev)
+            nbytes = 4 * n + 8 * r + 4 * r
+        else:  # x per row, mu and sigma shared by the rows
+            x = z
+            mu = torch.randn(n, generator=gen, device=dev)
+            sig = 0.5 + torch.rand(n, generator=gen, device=dev)
+            nbytes = 4 * r * n + 8 * n + 4 * r
+        mu, sig = mu.expand(r, n), sig.expand(r, n)
+        var = sig * sig  # the library call's parameter, made once
+
+        def library():  # one call; the sum over every row
+            return F.gaussian_nll_loss(mu, x, var, full=True,
+                                       reduction="sum")
+
+        return ((x, mu, sig), ops.normal_sum_rows, ref.normal_logpdf_sum_ref,
+                library, nbytes, NORMAL_OPS * r * n)
+    if name == "beta_unnorm_sum":
+        x = 0.01 + 0.98 * torch.rand(r, n, generator=gen, device=dev)
+        am1 = torch.rand(n, generator=gen, device=dev).expand(r, n)
+        bm1 = (2.0 * torch.rand(n, generator=gen, device=dev)).expand(r, n)
+        return ((x, am1, bm1), ops.beta_unnorm_sum_rows,
+                ref.beta_unnorm_logpdf_sum_ref, None,
+                4 * r * n + 8 * n + 4 * r,  # am1, bm1 read once (stride 0)
+                BETA_OPS * r * n)
+    if name == "student_t_unnorm_sum":
+        df = (0.5 + 30.0 * torch.rand(n, generator=gen, device=dev))
+        return ((3.0 * z, df.expand(r, n)), ops.student_t_unnorm_sum_rows,
+                ref.student_t_unnorm_logpdf_sum_ref, None,
+                4 * r * n + 4 * n + 4 * r,  # df read once (stride 0)
+                STUDENT_T_OPS * r * n)
+    if name == "mvn_quadform_sum":
+        d = shape[2]
+        xc = torch.randn(r, n, d, generator=gen, device=dev)
+        prec = precision(torch, d, gen)
+
+        def library():  # one call: sum_n xc_n^T P xc_n per row
+            return torch.einsum("bnd,de,bne->b", xc, prec, xc)
+
+        return ((xc, prec.expand(r, d, d)), ops.mvn_quadform_sum_rows,
+                ref.mvnormal_prec_quadform_sum_ref, library,
+                4 * r * n * d + 4 * d * d + 4 * r,  # P read once (stride 0)
+                2 * r * n * d * d + 2 * r * n * d)
     c = shape[2]
     logits = 3.0 * torch.randn(r, n, c, generator=gen, device=dev)
     labels = torch.randint(0, c, (n,), generator=gen, device=dev,
@@ -724,6 +1187,13 @@ def logpdf_case(torch, F, ops, ref, name, shape, gen):
             ref.categorical_logits_logpmf_sum_ref, library,
             4 * r * n * c + 4 * n + 4 * r,  # labels read once (stride 0)
             r * n * (CATEGORICAL_CLASS_OPS * c + CATEGORICAL_ITEM_OPS))
+
+
+# how a library call's result compares with the kernel's: the negated loss
+# per row, except gaussian_nll_loss summed over every row and the einsum's
+# quadratic form, which the kernel halves and negates
+LIBRARY_HOLD = {"normal_sum": lambda lib, k: (-lib, k.sum()),
+                "mvn_quadform_sum": lambda lib, k: (-0.5 * lib, k)}
 
 
 def time_kernels(torch, F, ops, ref):
@@ -741,10 +1211,10 @@ def time_kernels(torch, F, ops, ref):
             row = {"name": name, "shape": list(shape),
                    "ms_from": "torch.profiler device time"}
             if library is not None:
-                # hold the library call (a loss: the negated sum) to the
-                # kernel before timing it
-                torch.testing.assert_close(-library(), kern(*args),
-                                           rtol=1e-5, atol=0)
+                # hold the library call to the kernel before timing it
+                torch.testing.assert_close(
+                    *LIBRARY_HOLD.get(name, lambda lib, k: (-lib, k))(
+                        library(), kern(*args)), rtol=1e-5, atol=0)
                 calls["library_"] = library
             # plain, kernel, kernel, plain: compare within one call
             for prefix in ("plain_", "", "", "plain_"):
@@ -853,17 +1323,33 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
     return out
 
 
-def profile_transitions(torch, pm, kernel, spec=None, steps=20):
+def profile_transitions(torch, pm, kernel, spec=None, steps=20,
+                        route="fused"):
     """Device busy share and top kernels over ``steps`` transitions of one
     model; ``spec`` (a compiled PotentialSpec) selects the fused
-    integrator."""
+    integrator, ``route="switch"`` the per-site evaluator with the
+    per-array switch on."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import use_fused_logpdf
+
+    switch = route == "switch"
+    with use_fused_logpdf() if switch else contextlib.nullcontext():
+        return _profile_transitions(torch, pm, kernel, spec, steps, switch,
+                                    ProfilerActivity, profile)
+
+
+def _profile_transitions(torch, pm, kernel, spec, steps, switch,
+                         ProfilerActivity, profile):
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     tvi = pm.model.typed_varinfo(gen).link()
-    kern = kernel.make_kernel(pm.model.make_logdensity_fn(tvi), tvi.num_flat,
-                              spec=spec)
-    label = f"{pm.name} ({'fused' if spec is not None else 'autodiff'})"
+    kern = kernel.make_kernel(pm.model.make_logdensity_fn(
+        tvi, backend="reference" if switch else "fused"), tvi.num_flat,
+        spec=spec)
+    label = (f"{pm.name} ({'fused' if spec is not None else 'autodiff'}"
+             f"{', switch route' if switch else ''})")
     state = kern.init(tvi.flat().expand(4, tvi.num_flat).contiguous())
     for _ in range(5):
         state, _ = kern.step(state, gen)
@@ -913,21 +1399,23 @@ def profile_transitions(torch, pm, kernel, spec=None, steps=20):
 
 
 # ---------------------------------------------------------------------------
-REFERENCE_SAMPLES = 300  # gaussian_10k under the autodiff integrator
+REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integrator
 
 
-def build_all(sources):
+def build_all(loaders):
     """Build every kernel source at once (one nvcc each, started
-    together); returns seconds per source."""
+    together); ``loaders`` maps a source to the function that builds and
+    loads it. Returns seconds per source."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(mod):
+    def one(load):
         t0 = time.perf_counter()
-        mod._lib()
+        load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        futures = {path: pool.submit(one, mod) for path, mod in sources.items()}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {path: pool.submit(one, load)
+                   for path, load in loaders.items()}
         return {path: f.result() for path, f in futures.items()}
 
 
@@ -970,20 +1458,21 @@ def main() -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_s = build_all({SOURCES["std_normal_sum"]: ops,
-                         SOURCES["fused_leapfrog"]: lf_ops})
+    build_s = build_all({LOGPDF_CU: ops._lib, MVN_CU: ops._mvn_lib,
+                         LEAPFROG_CU: lf_ops._lib})
     for path, secs in build_s.items():
         log(f"built and loaded {path} in {secs:.2f} s")
-    log(f"both sources built in {time.perf_counter() - t0:.2f} s")
+    log(f"{len(build_s)} sources built in {time.perf_counter() - t0:.2f} s")
 
     # phase 3
     worst = check_kernels(torch, ops, ref)
     worst.update(check_categorical_gamma_kernels(torch, ops, ref))
+    worst.update(check_density_kernels(torch, ops, ref))
     worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
-    def draws(name):
-        return args.samples if args.samples is not None else DRAWS[name]
+    def draws(key):
+        return args.samples if args.samples is not None else DRAWS[key]
 
     # phases 4-6: the main paths, every count zeroed just before each run
     # and read just after it (run_model)
@@ -1009,14 +1498,44 @@ def main() -> int:
         torch, "gaussian_10k", min(REFERENCE_SAMPLES, draws("gaussian_10k")),
         leapfrog="reference")
     runs["gaussian_10k_reference"] = ref_run
-    gaussian = check_gaussian(np, models["gaussian_10k"][2], ref_chain)
+    checks = {"gaussian_10k": check_gaussian(np, models["gaussian_10k"][2],
+                                             ref_chain)}
     speedup = ref_run["seconds_per_draw"] / runs["gaussian_10k"]["seconds_per_draw"]
     log(f"gaussian_10k: fused {runs['gaussian_10k']['seconds_per_draw'] * 1e3:.3f}"
         f" ms/draw vs autodiff {ref_run['seconds_per_draw'] * 1e3:.3f} ms/draw "
         f"({speedup:.1f}x)")
-    for name in ("hier_poisson", "hmm_semisup", "lda"):
+    for name in ("hier_poisson", "hmm_semisup", "lda", "gauss_unknown"):
         runs[name], pm, kernel, chain = run_model(torch, name, draws(name))
         models[name] = (pm, kernel, chain)
+    checks["gauss_unknown"] = check_gauss_unknown(
+        np, models["gauss_unknown"][0], models["gauss_unknown"][2])
+    key = "gauss_unknown_switch"
+    runs[key], pm, kernel, chain = run_model(
+        torch, "gauss_unknown", draws(key), route="switch")
+    models[key] = (pm, kernel, chain)
+    checks[key] = check_gauss_unknown(np, pm, chain)
+    for name in ("sto_volatility", "family_mix_8k"):
+        runs[name], pm, kernel, chain = run_model(torch, name, draws(name))
+        models[name] = (pm, kernel, chain)
+    f_pm, f_kernel, f_chain = models["family_mix_8k"]
+    f_comp = compile_potential(f_pm.model, f_pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(0)).link())
+    checks["family_mix_8k"] = check_family_mix_spec(
+        torch, np, spec_mod, lf_ops, f_comp.spec, f_pm, f_chain)
+    ref_run, _, _, ref_chain = run_model(
+        torch, "family_mix_8k",
+        min(REFERENCE_SAMPLES, draws("family_mix_8k")), leapfrog="reference")
+    runs["family_mix_8k_reference"] = ref_run
+    checks["family_mix_8k"].update(check_first_draws(
+        np, "family_mix_8k", f_chain, ref_chain, rtol=1e-5))
+    log(f"family_mix_8k: first 10 draws of the fused and the autodiff "
+        f"integrator agree (max |d| - 1e-5 |draw| "
+        f"{checks['family_mix_8k']['fused_vs_reference_draws_max_abs']:.2e})"
+        f"; fused {runs['family_mix_8k']['seconds_per_draw'] * 1e3:.3f} "
+        f"ms/draw vs autodiff {ref_run['seconds_per_draw'] * 1e3:.3f}")
+    runs["mixed"], pm, kernel, chain = run_model(torch, "mixed",
+                                                 draws("mixed"))
+    models["mixed"] = (pm, kernel, chain)
     log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
@@ -1036,10 +1555,19 @@ def main() -> int:
         "hmm_semisup": profile_transitions(torch, *models["hmm_semisup"][:2],
                                            steps=1),
         "lda": profile_transitions(torch, *models["lda"][:2]),
+        "gauss_unknown": profile_transitions(torch,
+                                             *models["gauss_unknown"][:2]),
+        "gauss_unknown_switch": profile_transitions(
+            torch, *models["gauss_unknown_switch"][:2], route="switch"),
+        "sto_volatility": profile_transitions(torch,
+                                              *models["sto_volatility"][:2]),
+        "family_mix_8k": profile_transitions(torch, f_pm, f_kernel,
+                                             spec=f_comp.spec, steps=100),
+        "family_mix_8k_reference": profile_transitions(torch, f_pm, f_kernel,
+                                                       steps=20),
+        "mixed": profile_transitions(torch, *models["mixed"][:2]),
     }
 
-    main_paths = ("logreg", "naive_bayes", "gaussian_10k", "hier_poisson",
-                  "hmm_semisup", "lda")
     kernels = []
     for name in SOURCES:
         main = max((t for t in timings if t["name"] == name),
@@ -1047,7 +1575,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(runs[r]["launches"][name] for r in main_paths),
+            "launches": sum(r["launches"][name] for r in runs.values()),
             "max_abs_err": worst[name], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1061,7 +1589,7 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
-              "runs": runs, "gaussian_10k": gaussian, "timings": timings,
+              "runs": runs, "checks": checks, "timings": timings,
               "profile": prof, "kernels": kernels, "seconds": total_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,7 @@ dispatches to the innermost one. Modes:
                          (Stan-style HMC space).
 * ``FusedEvaluator`` / ``FusedLinkedEvaluator`` — same semantics, but
   fusible same-family sites (Normal/MvNormalDiag, BernoulliLogits,
-  Categorical, Gamma) are
+  Categorical, Gamma, Beta, StudentT, MvNormal) are
   GATHERED during the replay and evaluated afterwards as one flat block
   per family via ``kernels.fused_logpdf.site_block_sum`` — one kernel
   launch per family instead of one logpdf+reduce per site.
@@ -253,22 +253,24 @@ def _fusible_parts(dist, value):
 
     Returns ``(family, family_key, segment, extra_lp)`` where ``segment``
     is a tuple of equal-length 1-D tensors (``(N, C)`` logits and ``(N,)``
-    int32 labels for categorical, keyed by ``C``) ready to be concatenated
-    with other segments of the same family, and ``extra_lp`` is an optional
-    scalar accumulated immediately (per-site analytic terms that must NOT
-    enter the fused block). Returns ``None`` when this slice of the port
-    has no kernel for the family (the site then evaluates through the
-    per-site reference path, as the JAX package does for its own
-    unfused families).
+    int32 labels for categorical, keyed by ``C``; ``(N, D)`` centred rows
+    and a ``(D, D)`` precision for mvnormal_prec, keyed by ``D``) ready to
+    be concatenated with other segments of the same family, and
+    ``extra_lp`` is an optional scalar accumulated immediately (per-site
+    analytic terms that must NOT enter the fused block). Returns ``None``
+    when the family has no kernel (the site then evaluates through the
+    per-site reference path, as in the JAX package).
 
     Normal/MvNormalDiag sites are STANDARDISED here: the block carries
     ``z = (x - loc) / scale`` and ``extra_lp`` carries ``-sum(log scale)``,
-    so the kernel streams one array instead of three. Gamma sites carry
-    ``(x, a - 1, rate)`` and leave ``a log b - lgamma(a)`` in ``extra_lp``.
+    so the kernel streams one array instead of three; StudentT sites too,
+    with ``df`` beside ``z``. Gamma and Beta sites carry ``(x, a - 1, rate
+    or b - 1)``. Each leaves its lgamma normaliser in ``extra_lp``: the
+    kernels stream only the terms that depend on the value.
     """
-    from repro_torch.dists.continuous import Gamma, Normal
+    from repro_torch.dists.continuous import Beta, Gamma, Normal, StudentT
     from repro_torch.dists.discrete import BernoulliLogits, Categorical
-    from repro_torch.dists.multivariate import MvNormalDiag
+    from repro_torch.dists.multivariate import MvNormal, MvNormalDiag
 
     t = type(dist)
     if t is Normal or t is MvNormalDiag:
@@ -277,12 +279,8 @@ def _fusible_parts(dist, value):
         scale = _f32(dist.scale if t is Normal else dist.scale_diag)
         shape = torch.broadcast_shapes(x.shape, loc.shape, scale.shape)
         z = torch.broadcast_to((x - loc) / scale, shape).reshape(-1)
-        log_scale = torch.log(scale)
-        if log_scale.dim() == 0:  # the fold XLA applies to the broadcast sum
-            extra = -log_scale * math.prod(shape)
-        else:
-            extra = -torch.sum(torch.broadcast_to(log_scale, shape))
-        return ("std_normal", None, (z,), extra)
+        return ("std_normal", None, (z,),
+                -_broadcast_sum(torch.log(scale), shape))
     if t is BernoulliLogits:
         y = torch.as_tensor(value)
         logits = _f32(dist.logits)
@@ -310,12 +308,52 @@ def _fusible_parts(dist, value):
                _param_block(a - 1.0, shape, x), _param_block(b, shape, x))
         # the kernel streams (a-1) log x - b x; the normaliser goes here
         norm = torch.xlogy(a, b) - torch.lgamma(a)
-        if norm.dim() == 0:
-            extra = norm * math.prod(shape)
-        else:
-            extra = torch.sum(torch.broadcast_to(norm, shape))
-        return ("gamma", None, seg, extra)
+        return ("gamma", None, seg, _broadcast_sum(norm, shape))
+    if t is Beta:
+        x = _f32(value)
+        a, b = _f32(dist.concentration1), _f32(dist.concentration0)
+        shape = torch.broadcast_shapes(x.shape, a.shape, b.shape)
+        seg = (torch.broadcast_to(x, shape).reshape(-1),
+               _param_block(a - 1.0, shape, x),
+               _param_block(b - 1.0, shape, x))
+        norm = torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b)
+        return ("beta", None, seg, _broadcast_sum(norm, shape))
+    if t is StudentT:
+        x = _f32(value)
+        df, loc = _f32(dist.df), _f32(dist.loc)
+        scale = _f32(dist.scale)
+        shape = torch.broadcast_shapes(x.shape, df.shape, loc.shape,
+                                       scale.shape)
+        z = torch.broadcast_to((x - loc) / scale, shape).reshape(-1)
+        seg = (z, _param_block(df, shape, x))
+        norm = (torch.lgamma(0.5 * (df + 1.0)) - torch.lgamma(0.5 * df)
+                - 0.5 * torch.log(df * math.pi) - torch.log(scale))
+        return ("student_t", None, seg, _broadcast_sum(norm, shape))
+    if t is MvNormal:
+        tril = _f32(dist.scale_tril)
+        if tril.dim() != 2:
+            return None  # a batched Cholesky factor: the per-site path
+        d = tril.shape[-1]
+        x, loc = _f32(value), _f32(dist.loc)
+        bshape = torch.broadcast_shapes(x.shape[:-1], loc.shape[:-1]
+                                        if loc.dim() >= 1 else ())
+        xc = torch.broadcast_to(x - loc, bshape + (d,)).reshape(-1, d)
+        linv = torch.linalg.solve_triangular(
+            tril, torch.eye(d, dtype=torch.float32, device=tril.device),
+            upper=False)
+        prec = linv.mT @ linv
+        extra = xc.shape[0] * (-torch.sum(torch.log(torch.diagonal(tril)))
+                               - 0.5 * d * math.log(2.0 * math.pi))
+        return ("mvnormal_prec", d, (xc, prec), extra)
     return None
+
+
+def _broadcast_sum(v: torch.Tensor, shape) -> torch.Tensor:
+    """``sum(broadcast_to(v, shape))``; a scalar folds to ``v * numel``, the
+    fold XLA applies to the broadcast sum."""
+    if v.dim() == 0:
+        return v * math.prod(shape)
+    return torch.sum(torch.broadcast_to(v, shape))
 
 
 def _param_block(p: torch.Tensor, shape, like: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,10 @@ from repro_torch.core.contexts import Context
 from repro_torch.core.interpreters import LinkedEvaluator
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo
-from repro_torch.dists.continuous import Flat, Gamma, Normal
+from repro_torch.dists.continuous import (Beta, Cauchy, Exponential, Flat,
+                                          Gamma, HalfNormal, InverseGamma,
+                                          LogNormal, Normal, StudentT,
+                                          Uniform)
 from repro_torch.dists.multivariate import MvNormalDiag
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.fused_leapfrog.spec import (OP_EXP, OP_NORMAL,
@@ -110,14 +113,14 @@ def _compile_site(dist, shape):
 
     The opcode potential INCLUDES the link-transform log-jacobian; every
     u-independent piece of the site's density is left out (it lands in the
-    probed const). The port has opcodes for the families it has ported;
-    the JAX package's other branches land with their distributions
-    (ROADMAP.md Queue 1 item 3).
+    probed const). The coefficients are folded in float64 from the float32
+    parameters, as in the JAX package.
     """
     def b(v):
         return np.broadcast_to(_concrete(v), shape).astype(np.float64)
 
     zeros = np.zeros(shape, np.float64)
+    ones = np.ones(shape, np.float64)
     t = type(dist)
     if t is Flat:
         return OP_ZERO, zeros, zeros, zeros, zeros
@@ -125,10 +128,34 @@ def _compile_site(dist, shape):
         return OP_NORMAL, b(dist.loc), 1.0 / b(dist.scale), zeros, zeros
     if t is MvNormalDiag:
         return OP_NORMAL, b(dist.loc), 1.0 / b(dist.scale_diag), zeros, zeros
+    if t is LogNormal:
+        # x = exp(u): -0.5((u-loc)/s)^2 - u + jacobian u => pure Normal in u
+        return OP_NORMAL, b(dist.loc), 1.0 / b(dist.scale), zeros, zeros
+    if t is HalfNormal:
+        # x = exp(u): u - exp(2u)/(2 s^2)
+        s = b(dist.scale)
+        return OP_EXP, ones, 0.5 / (s * s), 2.0 * ones, zeros
     if t is Gamma:
         # x = exp(u): a u - b exp(u)
-        return (OP_EXP, b(dist.concentration), b(dist.rate),
-                np.ones(shape, np.float64), zeros)
+        return OP_EXP, b(dist.concentration), b(dist.rate), ones, zeros
+    if t is InverseGamma:
+        # x = exp(u): -a u - b exp(-u)
+        return OP_EXP, -b(dist.concentration), b(dist.rate), -ones, zeros
+    if t is Exponential:
+        # x = exp(u): u - rate exp(u)
+        return OP_EXP, ones, b(dist.rate), ones, zeros
+    if t is Beta:
+        # x = sigmoid(u): -a softplus(-u) - b softplus(u)
+        return (OP_SOFTPLUS, b(dist.concentration1), b(dist.concentration0),
+                zeros, zeros)
+    if t is Uniform:
+        # x = low + w sigmoid(u): density + jacobian = -sp(u) - sp(-u)
+        return OP_SOFTPLUS, ones, ones, zeros, zeros
+    if t is StudentT:
+        return (OP_TLOG, (b(dist.df) + 1.0) / 2.0, 1.0 / b(dist.df),
+                b(dist.loc), 1.0 / b(dist.scale))
+    if t is Cauchy:
+        return OP_TLOG, ones, ones, b(dist.loc), 1.0 / b(dist.scale)
     raise _NotSeparable(f"no opcode for {t.__name__}")
 
 

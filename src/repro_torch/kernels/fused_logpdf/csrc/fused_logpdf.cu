@@ -5,23 +5,40 @@
 //   bernoulli_logit_sum  <- _bernoulli_logit_kernel (:97) / bernoulli_logit_sum_2d (:283)
 //   categorical_logits_sum <- _categorical_kernel (:120) / categorical_sum_2d (:343)
 //   gamma_unnorm_sum     <- _gamma_kernel (:154) / gamma_sum_2d (:292)
+//   normal_sum           <- _normal_kernel (:75) / normal_sum_2d (:274)
+//   beta_unnorm_sum      <- _beta_kernel (:174) / beta_sum_2d (:301)
+//   student_t_unnorm_sum <- _student_t_kernel (:194) / student_t_sum_2d (:310)
+// (mvn_quadform_sum, the dense quadratic form, is in mvn_quad.cu.)
 //
 // What each computes, for every row b of a (B, n) float32 input:
 //   std_normal_sum:      out[b] = sum_i (-z_i^2 / 2 - log(2 pi) / 2)
 //   bernoulli_logit_sum: out[b] = sum_i (-softplus(-l_i) - (1 - y_i) l_i)
 //   gamma_unnorm_sum:    out[b] = sum_i (am1_i log x_i - rate_i x_i)
+//   normal_sum:          out[b] = sum_i (-z_i^2 / 2 - log sig_i - log(2 pi) / 2),
+//                        z_i = (x_i - mu_i) / sig_i
+//   beta_unnorm_sum:     out[b] = sum_i (am1_i log x_i + bm1_i log1p(-x_i))
+//   student_t_unnorm_sum: out[b] = sum_i (-(df_i + 1) / 2 log1p(z_i^2 / df_i))
 // and, for (B, n, C) float32 logits with int32 labels (B, n):
 //   categorical_logits_sum: out[b] = sum_i (l_i[y_i] - logsumexp_c l_i[c])
 // The B rows are HMC chains: torch.func.vmap over the chain axis hands the
 // whole batch to one launch. Each input carries its own row stride; a
 // stride of 0 reads one shared row for every b (logreg's observed y), so
-// unbatched data is never copied per chain.
+// unbatched data is never copied per chain. The normal, beta and student_t
+// kernels also take an element stride per input, 0 or 1: gauss_unknown's
+// per-array route hands normal_sum the shared data x (row stride 0) and
+// one mu and one sigma per chain (element stride 0), so neither the data
+// nor the parameters are materialised as 4 x 10,000 arrays. The TPU
+// kernels pad x with 0.5 (beta), df and sigma with 1 to keep the padded
+// lanes finite; here the ragged end is masked by index and never read.
 //
 // What bounds them on an H100: bytes. Each element is read once and costs
 // a handful of flops (bernoulli adds one expf and one log1pf, categorical
-// two expf per class), far below the ~20 flops per byte where float32
+// one expf per class, normal a divide and a logf, beta a logf and a log1pf,
+// student_t a divide and a log1pf), far below the ~20 flops per byte where float32
 // arithmetic would be the limit. At most of the main paths' shapes
-// (4 x 101, 4 x 10,000, 4 x 40,000; hier_poisson's gamma block is 4 x 1)
+// (4 x 101, 4 x 10,000, 4 x 40,000; hier_poisson's gamma block is 4 x 1,
+// family_mix_8k's beta and student_t blocks 4 x 1,024 and 4 x 2,048,
+// gauss_unknown's normal 4 x 10,000 of which it reads 10,000 + 8 floats)
 // the data is bytes to hundreds of KB, so the time is launch latency, not
 // bandwidth; lda's categorical block (4 x 10,176 x 100, 16 MB) is the one
 // that can reach the bandwidth.
@@ -138,6 +155,76 @@ gamma_unnorm_partials(const float* __restrict__ x, long long x_row_stride,
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += step) {
     acc += arow[i] * logf(xrow[i]) - rrow[i] * xrow[i];
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
+// One input of the per-element kernels: base pointer, row stride, element
+// stride (0 reads one value for the whole row).
+struct Strided {
+  const float* p;
+  long long row_stride;
+  long long elem_stride;
+  __device__ __forceinline__ const float* row(int b) const {
+    return p + static_cast<long long>(b) * row_stride;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+normal_partials(Strided x, Strided mu, Strided sig, long long n,
+                float* __restrict__ partials) {
+  const float* xrow = x.row(blockIdx.y);
+  const float* mrow = mu.row(blockIdx.y);
+  const float* srow = sig.row(blockIdx.y);
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  float acc = 0.0f;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += step) {
+    const float s = srow[i * sig.elem_stride];
+    const float z = (xrow[i * x.elem_stride] - mrow[i * mu.elem_stride]) / s;
+    acc += (-0.5f * z * z - logf(s)) - kHalfLog2Pi;
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+beta_unnorm_partials(Strided x, Strided am1, Strided bm1, long long n,
+                     float* __restrict__ partials) {
+  const float* xrow = x.row(blockIdx.y);
+  const float* arow = am1.row(blockIdx.y);
+  const float* brow = bm1.row(blockIdx.y);
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  float acc = 0.0f;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += step) {
+    const float xi = xrow[i * x.elem_stride];
+    acc += arow[i * am1.elem_stride] * logf(xi)
+         + brow[i * bm1.elem_stride] * log1pf(-xi);
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+student_t_unnorm_partials(Strided z, Strided df, long long n,
+                          float* __restrict__ partials) {
+  const float* zrow = z.row(blockIdx.y);
+  const float* drow = df.row(blockIdx.y);
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  float acc = 0.0f;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += step) {
+    const float zi = zrow[i * z.elem_stride];
+    const float d = drow[i * df.elem_stride];
+    acc += -0.5f * (d + 1.0f) * log1pf(zi * zi / d);
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) {
@@ -262,6 +349,55 @@ extern "C" int repro_categorical_logits_sum(const float* logits,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   categorical_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
       logits, l_row_stride, labels, y_row_stride, n, c, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-element kernels below take (pointer, row stride, element stride)
+// for each input; an element stride is 0 or 1.
+extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
+                                const float* mu, long long mu_rs, long long mu_es,
+                                const float* sig, long long sig_rs, long long sig_es,
+                                int rows, long long n, float* partials, int nparts,
+                                float* out, void* stream) {
+  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  normal_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
+      Strided{x, x_rs, x_es}, Strided{mu, mu_rs, mu_es},
+      Strided{sig, sig_rs, sig_es}, n, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_beta_unnorm_sum(const float* x, long long x_rs, long long x_es,
+                                     const float* am1, long long a_rs, long long a_es,
+                                     const float* bm1, long long b_rs, long long b_es,
+                                     int rows, long long n, float* partials,
+                                     int nparts, float* out, void* stream) {
+  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  beta_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
+      Strided{x, x_rs, x_es}, Strided{am1, a_rs, a_es}, Strided{bm1, b_rs, b_es},
+      n, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_student_t_unnorm_sum(const float* z, long long z_rs,
+                                          long long z_es, const float* df,
+                                          long long d_rs, long long d_es,
+                                          int rows, long long n, float* partials,
+                                          int nparts, float* out, void* stream) {
+  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  student_t_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
+      Strided{z, z_rs, z_es}, Strided{df, d_rs, d_es}, n, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

@@ -3,12 +3,14 @@
 Three layers:
 
 * Row wrappers ``std_normal_sum_rows`` / ``bernoulli_logit_sum_rows`` /
-  ``gamma_unnorm_sum_rows``: take ``(B, n)`` float32 rows and return
+  ``gamma_unnorm_sum_rows`` / ``normal_sum_rows`` / ``beta_unnorm_sum_rows``
+  / ``student_t_unnorm_sum_rows``: take ``(B, n)`` float32 rows and return
   ``(B,)`` sums; ``categorical_logits_sum_rows`` takes ``(B, n, C)``
-  logits and ``(B, n)`` int32 labels. On a CUDA tensor they launch the
-  hand-written kernel in ``csrc/fused_logpdf.cu`` (or raise); on a CPU
-  tensor they run the plain version in ``ref.py``. Each counts its kernel
-  launches in ``LAUNCHES``.
+  logits and ``(B, n)`` int32 labels, ``mvn_quadform_sum_rows`` centred
+  rows ``(B, N, D)`` and a precision ``(B, D, D)``. On a CUDA tensor they
+  launch the hand-written kernel in ``csrc/fused_logpdf.cu`` or
+  ``csrc/mvn_quad.cu`` (or raise); on a CPU tensor they run the plain
+  version in ``ref.py``. Each counts its kernel launches in ``LAUNCHES``.
 * One ``torch.autograd.Function`` per family with the analytic backward of
   the JAX package's ``custom_vjp`` and a ``vmap`` rule: under
   ``torch.func.vmap`` over HMC chains the whole chain axis goes to ONE
@@ -31,29 +33,30 @@ from repro_torch.kernels.fused_logpdf import ref
 __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "reset_launch_counts", "std_normal_sum_rows",
            "bernoulli_logit_sum_rows", "categorical_logits_sum_rows",
-           "gamma_unnorm_sum_rows", "std_normal_logpdf_sum",
+           "gamma_unnorm_sum_rows", "normal_sum_rows", "beta_unnorm_sum_rows",
+           "student_t_unnorm_sum_rows", "mvn_quadform_sum_rows",
+           "std_normal_logpdf_sum", "normal_logpdf_sum",
            "bernoulli_logits_logpmf_sum", "categorical_logits_logpmf_sum",
-           "gamma_unnorm_logpdf_sum", "site_block_sum", "kernel_source"]
+           "gamma_unnorm_logpdf_sum", "beta_unnorm_logpdf_sum",
+           "student_t_unnorm_logpdf_sum", "mvnormal_prec_quadform_sum",
+           "site_block_sum", "kernel_source", "mvn_kernel_source"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
                        "mvnormal_prec")
-_NOT_PORTED = {
-    "normal": "ROADMAP.md Queue 2 item 9 (normal_sum_2d)",
-    "beta": "ROADMAP.md Queue 2 item 7 (beta_sum_2d)",
-    "student_t": "ROADMAP.md Queue 2 item 8 (student_t_sum_2d)",
-    "mvnormal_prec": "ROADMAP.md Queue 2 item 10 (mvn_quad_sum_2d)",
-}
 
 # kernel name -> launches since the last reset (one per wrapper call that
 # reached the card; the CPU path does not count)
 LAUNCHES = {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
-            "categorical_logits_sum": 0, "gamma_unnorm_sum": 0}
+            "categorical_logits_sum": 0, "gamma_unnorm_sum": 0,
+            "normal_sum": 0, "beta_unnorm_sum": 0, "student_t_unnorm_sum": 0,
+            "mvn_quadform_sum": 0}
 
 _THREADS = 256
 _ITEMS_PER_THREAD = 8
 _WARPS = _THREADS // 32  # categorical: one warp per item
 _MAX_PARTS = 1024
+_MVN_TILE = 64  # rows of xc and columns of P per block (mvn_quad.cu kTile)
 
 
 def reset_launch_counts() -> None:
@@ -65,7 +68,12 @@ def kernel_source() -> Path:
     return Path(__file__).resolve().parent / "csrc" / "fused_logpdf.cu"
 
 
+def mvn_kernel_source() -> Path:
+    return Path(__file__).resolve().parent / "csrc" / "mvn_quad.cu"
+
+
 _LIB = None
+_MVN_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -84,10 +92,32 @@ def _lib() -> ctypes.CDLL:
         lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
                                                      i32, p, i32, p, p]
         lib.repro_categorical_logits_sum.restype = i32
+        strided = [p, i64, i64]  # pointer, row stride, element stride
+        tail = [i32, i64, p, i32, p, p]
+        lib.repro_normal_sum.argtypes = 3 * strided + tail
+        lib.repro_beta_unnorm_sum.argtypes = 3 * strided + tail
+        lib.repro_student_t_unnorm_sum.argtypes = 2 * strided + tail
+        for f in (lib.repro_normal_sum, lib.repro_beta_unnorm_sum,
+                  lib.repro_student_t_unnorm_sum):
+            f.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _mvn_lib() -> ctypes.CDLL:
+    global _MVN_LIB
+    if _MVN_LIB is None:
+        lib = load_library(mvn_kernel_source())
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_mvn_quadform_sum.argtypes = [p, i64, p, i64, i32, i32, i32,
+                                               p, i32, p, p]
+        lib.repro_mvn_quadform_sum.restype = i32
+        lib.repro_mvn_cuda_error_string.argtypes = [i32]
+        lib.repro_mvn_cuda_error_string.restype = ctypes.c_char_p
+        _MVN_LIB = lib
+    return _MVN_LIB
 
 
 def _num_parts(n: int, per_block: int = _THREADS * _ITEMS_PER_THREAD) -> int:
@@ -117,7 +147,9 @@ def _row_stride(t: torch.Tensor) -> int:
 
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
-        msg = _lib().repro_cuda_error_string(err).decode()
+        msg = (_mvn_lib().repro_mvn_cuda_error_string(err)
+               if kernel == "mvn_quadform_sum"
+               else _lib().repro_cuda_error_string(err)).decode()
         raise KernelError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
@@ -243,6 +275,116 @@ def categorical_logits_sum_rows(logits: torch.Tensor,
     return out
 
 
+def _check_strided(name: str, t: torch.Tensor, rows: int, n: int) -> None:
+    """An input of the per-element kernels: ``(rows, n)`` float32 with any
+    row stride and an element stride of 1 or 0 (one value for the row)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected {torch.float32}, got {t.dtype}")
+    if t.dim() != 2 or tuple(t.shape) != (rows, n):
+        raise ValueError(f"{name}: expected shape {(rows, n)}, got "
+                         f"{tuple(t.shape)}")
+    if n > 1 and t.stride(1) not in (0, 1):
+        raise ValueError(f"{name}: element stride must be 0 or 1, got "
+                         f"{t.stride()}")
+
+
+def _strided_sum(kernel: str, plain, names, *ins: torch.Tensor) -> torch.Tensor:
+    """Launch one per-element row-sum kernel of ``fused_logpdf.cu`` on
+    ``(B, n)`` inputs, each passed as (pointer, row stride, element
+    stride); on CPU tensors run ``plain``."""
+    rows, n = ins[0].shape
+    for name, t in zip(names, ins):
+        _check_strided(name, t, rows, n)
+    if _device_kind(*ins) == "cpu":
+        return plain(*ins)
+    out = torch.empty(rows, dtype=torch.float32, device=ins[0].device)
+    if n == 0:
+        return out.zero_()
+    nparts = _num_parts(n)
+    partials = torch.empty(rows * nparts, dtype=torch.float32,
+                           device=ins[0].device)
+    args = []
+    for t in ins:
+        args += [t.data_ptr(), t.stride(0) if rows > 1 else 0,
+                 t.stride(1) if n > 1 else 1]
+    with torch.cuda.device(ins[0].device):
+        stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+        err = getattr(_lib(), f"repro_{kernel}")(
+            *args, rows, n, partials.data_ptr(), nparts, out.data_ptr(),
+            stream)
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def normal_sum_rows(x: torch.Tensor, loc: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_i(-z^2/2 - log scale[b, i] - log(2 pi)/2)`` with
+    ``z = (x[b, i] - loc[b, i]) / scale[b, i]``, for three ``(B, n)``
+    inputs; each may have row stride 0 and element stride 0."""
+    return _strided_sum("normal_sum", ref.normal_logpdf_sum_ref,
+                        ("x", "loc", "scale"), x, loc, scale)
+
+
+def beta_unnorm_sum_rows(x: torch.Tensor, am1: torch.Tensor,
+                         bm1: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_i(am1[b, i] log x[b, i] + bm1[b, i] log1p(-x[b, i]))``
+    for three ``(B, n)`` inputs; each may have row and element stride 0."""
+    return _strided_sum("beta_unnorm_sum", ref.beta_unnorm_logpdf_sum_ref,
+                        ("x", "am1", "bm1"), x, am1, bm1)
+
+
+def student_t_unnorm_sum_rows(z: torch.Tensor,
+                              df: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_i(-(df[b, i] + 1)/2 log1p(z[b, i]^2 / df[b, i]))`` for
+    two ``(B, n)`` inputs; each may have row and element stride 0."""
+    return _strided_sum("student_t_unnorm_sum",
+                        ref.student_t_unnorm_logpdf_sum_ref, ("z", "df"),
+                        z, df)
+
+
+def mvn_quadform_sum_rows(xc: torch.Tensor, prec: torch.Tensor) -> torch.Tensor:
+    """``out[b] = -1/2 sum_n xc[b, n]^T prec[b] xc[b, n]`` for float32
+    ``xc (B, N, D)`` (rows dense, batch stride N*D or 0) and ``prec (B, D,
+    D)`` (row-major, batch stride D*D or 0: one precision shared by every
+    b, or one per b)."""
+    if xc.dim() != 3 or prec.dim() != 3:
+        raise ValueError(f"expected xc (B, N, D) and prec (B, D, D), got "
+                         f"{tuple(xc.shape)} and {tuple(prec.shape)}")
+    rows, n, d = xc.shape
+    if tuple(prec.shape) != (rows, d, d):
+        raise ValueError(f"prec: expected shape {(rows, d, d)}, got "
+                         f"{tuple(prec.shape)}")
+    for name, t in (("xc", xc), ("prec", prec)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        inner = t.shape[1] * t.shape[2]
+        if ((t.shape[2] > 1 and t.stride(2) != 1)
+                or (t.shape[1] > 1 and t.stride(1) != t.shape[2])
+                or (rows > 1 and t.stride(0) not in (0, inner))):
+            raise ValueError(f"{name}: strides {t.stride()} not (dense or "
+                             "0, D, 1)")
+    if _device_kind(xc, prec) == "cpu":
+        return ref.mvnormal_prec_quadform_sum_ref(xc, prec)
+    if n >= 2 ** 31:
+        raise ValueError(f"xc: {n} rows, more than the kernel indexes")
+    out = torch.empty(rows, dtype=torch.float32, device=xc.device)
+    if n == 0 or d == 0:
+        return out.zero_()
+    tiles = -(-n // _MVN_TILE) * -(-d // _MVN_TILE)
+    partials = torch.empty(rows * tiles, dtype=torch.float32,
+                           device=xc.device)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
+        err = _mvn_lib().repro_mvn_quadform_sum(
+            xc.data_ptr(), xc.stride(0) if rows > 1 else 0, prec.data_ptr(),
+            prec.stride(0) if rows > 1 else 0, rows, n, d,
+            partials.data_ptr(), tiles, out.data_ptr(), stream)
+    _raise_on(err, "mvn_quadform_sum")
+    LAUNCHES["mvn_quadform_sum"] += 1
+    return out
+
+
 def _addressable(t: torch.Tensor) -> torch.Tensor:
     """``t (rows, ...)`` as the kernels address it: each row dense and the
     row stride dense or 0 (one row shared by every b); anything else is
@@ -317,10 +459,7 @@ class _BernoulliLogitSum(torch.autograd.Function):
     def vmap(info, in_dims, logits, y):
         # an unbatched input keeps its logical shape and broadcasts over the
         # batch axis inside forward, which the kernel reads with row stride 0
-        ld, yd = in_dims
-        logits = logits if ld is None else logits.movedim(ld, 0)
-        y = y if yd is None else y.movedim(yd, 0)
-        return _BernoulliLogitSum.apply(logits, y), 0
+        return _BernoulliLogitSum.apply(*_batch_front((logits, y), in_dims)), 0
 
 
 class _GammaUnnormSum(torch.autograd.Function):
@@ -354,9 +493,7 @@ class _GammaUnnormSum(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, am1, rate):
-        args = [t if d is None else t.movedim(d, 0)
-                for t, d in zip((x, am1, rate), in_dims)]
-        return _GammaUnnormSum.apply(*args), 0
+        return _GammaUnnormSum.apply(*_batch_front((x, am1, rate), in_dims)), 0
 
 
 class _CategoricalLogitsSum(torch.autograd.Function):
@@ -400,6 +537,189 @@ class _CategoricalLogitsSum(torch.autograd.Function):
         return _CategoricalLogitsSum.apply(*args), 0
 
 
+def _strided_rows(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:
+    """View ``t`` broadcast to ``shape`` as ``(B, n)`` rows for the
+    per-element kernels, which read any row stride and an element stride of
+    0 or 1: a broadcast scalar per row (one mu per chain) stays a view."""
+    shape = shape if len(shape) else torch.Size([1])
+    rows = t.to(torch.float32).expand(shape).reshape(-1, shape[-1])
+    if shape[-1] > 1 and rows.stride(1) not in (0, 1):
+        rows = rows.contiguous()
+    return rows
+
+
+def _batch_front(args, in_dims):
+    """A ``vmap`` rule's inputs with the batch axis in front and each
+    batched input's logical rank padded with 1s up to the largest logical
+    rank, so that it broadcasts against the unbatched ones as its logical
+    shape would: a per-chain scalar ``mu`` beside shared data ``x (n,)``
+    becomes ``(B, 1)``."""
+    rank = max(t.dim() - (d is not None) for t, d in zip(args, in_dims))
+    out = []
+    for t, d in zip(args, in_dims):
+        if d is not None:
+            t = t.movedim(d, 0)
+            t = t.reshape(t.shape[:1] + (1,) * (rank + 1 - t.dim())
+                          + t.shape[1:])
+        out.append(t)
+    return out
+
+
+def _elementwise_forward(rows_fn, *ins):
+    shape = torch.broadcast_shapes(*(t.shape for t in ins))
+    out = rows_fn(*(_strided_rows(t, shape) for t in ins))
+    return out.reshape(shape[:-1])
+
+
+class _NormalSum(torch.autograd.Function):
+    """``sum(-z^2/2 - log scale - log(2 pi)/2)``, ``z = (x - loc)/scale``,
+    over the last axis; analytic backward ``dx = -g z/scale``, ``dloc = g
+    z/scale``, ``dscale = g (z^2 - 1)/scale`` (the JAX package's
+    ``ops.py:166``)."""
+
+    @staticmethod
+    def forward(x, loc, scale):
+        return _elementwise_forward(normal_sum_rows, x, loc, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, loc, scale = ctx.saved_tensors
+        g = g.unsqueeze(-1)
+        z = (x - loc) / scale
+        dx = dloc = dscale = None
+        if ctx.needs_input_grad[0]:
+            dx = (g * (-z / scale)).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            dloc = (g * (z / scale)).sum_to_size(loc.shape)
+        if ctx.needs_input_grad[2]:
+            dscale = (g * ((z * z - 1.0) / scale)).sum_to_size(scale.shape)
+        return dx, dloc, dscale
+
+    @staticmethod
+    def vmap(info, in_dims, x, loc, scale):
+        return _NormalSum.apply(*_batch_front((x, loc, scale), in_dims)), 0
+
+
+class _BetaUnnormSum(torch.autograd.Function):
+    """``sum(am1 log x + bm1 log1p(-x))`` over the last axis; analytic
+    backward ``dx = g (am1/x - bm1/(1 - x))``, ``dam1 = g log x``, ``dbm1
+    = g log1p(-x)`` (the JAX package's ``ops.py:376``)."""
+
+    @staticmethod
+    def forward(x, am1, bm1):
+        return _elementwise_forward(beta_unnorm_sum_rows, x, am1, bm1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, am1, bm1 = ctx.saved_tensors
+        g = g.unsqueeze(-1)
+        dx = dam1 = dbm1 = None
+        if ctx.needs_input_grad[0]:
+            dx = (g * (am1 / x - bm1 / (1.0 - x))).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            dam1 = (g * torch.log(x)).sum_to_size(am1.shape)
+        if ctx.needs_input_grad[2]:
+            dbm1 = (g * torch.log1p(-x)).sum_to_size(bm1.shape)
+        return dx, dam1, dbm1
+
+    @staticmethod
+    def vmap(info, in_dims, x, am1, bm1):
+        return _BetaUnnormSum.apply(*_batch_front((x, am1, bm1), in_dims)), 0
+
+
+class _StudentTUnnormSum(torch.autograd.Function):
+    """``sum(-(df + 1)/2 log1p(z^2/df))`` over the last axis; analytic
+    backward ``dz = -g (df + 1) z/(df + z^2)``, ``ddf = g (-log1p(z^2/df)/2
+    + (df + 1) z^2 / (2 df (df + z^2)))`` (the JAX package's
+    ``ops.py:426``)."""
+
+    @staticmethod
+    def forward(z, df):
+        return _elementwise_forward(student_t_unnorm_sum_rows, z, df)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, df = ctx.saved_tensors
+        g = g.unsqueeze(-1)
+        z2 = z * z
+        dz = ddf = None
+        if ctx.needs_input_grad[0]:
+            dz = (g * (-(df + 1.0) * z / (df + z2))).sum_to_size(z.shape)
+        if ctx.needs_input_grad[1]:
+            ddf = (g * (-0.5 * torch.log1p(z2 / df)
+                        + 0.5 * (df + 1.0) * z2 / (df * (df + z2))))
+            ddf = ddf.sum_to_size(df.shape)
+        return dz, ddf
+
+    @staticmethod
+    def vmap(info, in_dims, z, df):
+        return _StudentTUnnormSum.apply(*_batch_front((z, df), in_dims)), 0
+
+
+class _MvnQuadformSum(torch.autograd.Function):
+    """``-1/2 sum_n xc_n^T P xc_n`` over the last two axes of ``xc (..., N,
+    D)`` with ``P (..., D, D)``; analytic backward ``dxc = -g/2 xc (P +
+    P^T)``, ``dP = -g/2 xc^T xc`` (the JAX package's ``ops.py:485``; the
+    two products are plain matmuls, as there)."""
+
+    @staticmethod
+    def forward(xc, prec):
+        n, d = xc.shape[-2:]
+        lead = torch.broadcast_shapes(xc.shape[:-2], prec.shape[:-2])
+        out = mvn_quadform_sum_rows(
+            _addressable(xc.to(torch.float32).expand(lead + (n, d))
+                         .reshape(-1, n, d)),
+            _addressable(prec.to(torch.float32).expand(lead + (d, d))
+                         .reshape(-1, d, d)))
+        return out.reshape(lead)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, prec = ctx.saved_tensors
+        g = -0.5 * g[..., None, None]
+        dxc = dprec = None
+        if ctx.needs_input_grad[0]:
+            dxc = (g * (xc @ (prec + prec.mT))).sum_to_size(xc.shape)
+        if ctx.needs_input_grad[1]:
+            dprec = (g * (xc.mT @ xc)).sum_to_size(prec.shape)
+        return dxc, dprec
+
+    @staticmethod
+    def vmap(info, in_dims, xc, prec):
+        # P shared by the chains stays unbatched and is read at stride 0
+        return _MvnQuadformSum.apply(*_batch_front((xc, prec), in_dims)), 0
+
+
+def _like(v, x: torch.Tensor) -> torch.Tensor:
+    """A parameter as float32 on ``x``'s device. A Python number (or a CPU
+    scalar beside a CUDA ``x``) becomes a device fill, not a host-to-device
+    copy, so no evaluation waits for the stream."""
+    if not torch.is_tensor(v):
+        return torch.full((), float(v), dtype=torch.float32, device=x.device)
+    if v.device == x.device:
+        return v.to(torch.float32)
+    if (v.dim() == 0 and not v.requires_grad
+            and not torch._C._functorch.is_functorch_wrapped_tensor(v)):
+        return torch.full((), float(v), dtype=torch.float32, device=x.device)
+    return v.to(device=x.device, dtype=torch.float32)
+
+
 def std_normal_logpdf_sum(z: torch.Tensor) -> torch.Tensor:
     """``sum(StdNormal.log_prob(z))`` over the last axis, differentiable."""
     return _StdNormalSum.apply(torch.as_tensor(z, dtype=torch.float32))
@@ -436,20 +756,63 @@ def categorical_logits_logpmf_sum(logits: torch.Tensor,
         torch.as_tensor(logits, dtype=torch.float32), labels)
 
 
+def normal_logpdf_sum(x: torch.Tensor, loc, scale) -> torch.Tensor:
+    """``sum(Normal(loc, scale).log_prob(x))`` over the last axis of the
+    broadcast shape, differentiable in all three. ``loc`` and ``scale`` may
+    be Python numbers or tensors broadcastable against ``x``; a scalar per
+    chain under ``vmap`` is read at element stride 0, not materialised."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return _NormalSum.apply(x, _like(loc, x), _like(scale, x))
+
+
+def beta_unnorm_logpdf_sum(x: torch.Tensor, am1, bm1) -> torch.Tensor:
+    """``sum(am1 log x + bm1 log1p(-x))`` over the last axis (the log-beta
+    normaliser stays with the caller), differentiable in all three; ``x``
+    must lie in (0, 1)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return _BetaUnnormSum.apply(x, _like(am1, x), _like(bm1, x))
+
+
+def student_t_unnorm_logpdf_sum(z: torch.Tensor, df) -> torch.Tensor:
+    """``sum(-(df + 1)/2 log1p(z^2/df))`` over the last axis on standardised
+    ``z`` (the lgamma and log-scale normaliser stays with the caller),
+    differentiable in both."""
+    z = torch.as_tensor(z, dtype=torch.float32)
+    return _StudentTUnnormSum.apply(z, _like(df, z))
+
+
+def mvnormal_prec_quadform_sum(xc: torch.Tensor,
+                               prec: torch.Tensor) -> torch.Tensor:
+    """``-1/2 sum_n xc_n^T P xc_n`` for centred rows ``xc (..., N, D)`` and
+    a dense precision ``P (..., D, D)`` (assumed symmetric), one launch;
+    the ``-N (sum log diag L + D/2 log 2 pi)`` normaliser stays with the
+    caller. Differentiable in both."""
+    xc = torch.as_tensor(xc, dtype=torch.float32)
+    return _MvnQuadformSum.apply(xc, _like(prec, xc))
+
+
 def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     """Sum the log-densities of all same-family site segments in ONE launch.
 
     Parameters
     ----------
     family : str
-        ``"std_normal"`` — segments ``(z,)``, 1-D standardised values (the
-        ``-sum(log scale)`` term stays with the caller); or
-        ``"bernoulli_logits"`` — segments ``(logits, y)``, each 1-D;
-        ``"categorical_logits"`` — segments ``(logits (N_i, C), labels
-        (N_i,))`` with int32 labels, all of one ``C``; or ``"gamma"`` —
-        segments ``(x, a - 1, rate)``, each 1-D (``a log b - lgamma(a)``
-        stays with the caller). The JAX package's other families raise
-        ``NotImplementedError`` naming the ROADMAP item that ports them.
+        One of ``SITE_BLOCK_FAMILIES``:
+
+        * ``"std_normal"`` — segments ``(z,)``, 1-D standardised values
+          (the ``-sum(log scale)`` term stays with the caller);
+        * ``"normal"`` — segments ``(x, loc, scale)``, each 1-D;
+        * ``"bernoulli_logits"`` — segments ``(logits, y)``, each 1-D;
+        * ``"categorical_logits"`` — segments ``(logits (N_i, C), labels
+          (N_i,))`` with int32 labels, all of one ``C``;
+        * ``"gamma"`` — segments ``(x, a - 1, rate)``, each 1-D (``a log b
+          - lgamma(a)`` stays with the caller);
+        * ``"beta"`` — segments ``(x, a - 1, b - 1)``, each 1-D (the
+          log-beta normaliser stays with the caller);
+        * ``"student_t"`` — segments ``(z, df)``, 1-D standardised values
+          (the lgamma and log-scale normaliser stays with the caller);
+        * ``"mvnormal_prec"`` — segments ``(xc (N_i, D), prec (D, D))``;
+          each keeps its own precision, so each segment is one launch.
     segments : sequence of tuples of tensors
         Per-site flattened blocks as above.
 
@@ -462,12 +825,13 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     if family not in SITE_BLOCK_FAMILIES:
         raise ValueError(f"unknown site-block family '{family}'; "
                          f"expected one of {SITE_BLOCK_FAMILIES}")
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"site-block family '{family}' has no CUDA kernel in the port "
-            f"yet: {_NOT_PORTED[family]}")
     if not segments:
         return torch.zeros((), dtype=torch.float32)
+    if family == "mvnormal_prec":
+        total = mvnormal_prec_quadform_sum(*segments[0])
+        for xc, prec in segments[1:]:
+            total = total + mvnormal_prec_quadform_sum(xc, prec)
+        return total
     if len(segments) == 1:
         cols = segments[0]
     else:
@@ -475,8 +839,14 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
     if family == "std_normal":
         (z,) = cols
         return std_normal_logpdf_sum(z)
+    if family == "normal":
+        return normal_logpdf_sum(*cols)
     if family == "gamma":
         return gamma_unnorm_logpdf_sum(*cols)
+    if family == "beta":
+        return beta_unnorm_logpdf_sum(*cols)
+    if family == "student_t":
+        return student_t_unnorm_logpdf_sum(*cols)
     if family == "categorical_logits":
         return categorical_logits_logpmf_sum(*cols)
     logits, y = cols

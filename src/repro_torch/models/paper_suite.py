@@ -1,4 +1,5 @@
-"""The paper's Table-1 models ported so far, with hand-written analogues.
+"""The paper's 8 Table-1 models (and eight schools), with hand-written
+analogues.
 
 Each constructor returns a ``PaperModel`` with:
 * ``model``        — the DSL version (typed-trace path),
@@ -9,13 +10,18 @@ Each constructor returns a ``PaperModel`` with:
   constructors, so the data are equal bit for bit,
 * the static-HMC settings (4 leapfrog steps; per-model step sizes).
 
-Ported so far (the rest are listed in ROADMAP.md):
+Table 1 sizes:
   gaussian_10k   : 10,000-D standard normal (separable: fused integrator)
+  gauss_unknown  : 10,000 1-D observations, unknown mean+variance
   naive_bayes    : 1,000 obs of MNIST->PCA-40 (synthetic stand-in), 10 classes
   logreg         : 10,000 obs x 100 dims
   hier_poisson   : 50 obs, 10 groups
+  sto_volatility : 500 obs (its AR(1) path as one matrix product)
   hmm_semisup    : K=5 latent, V=20 symbols, T=300 (200 unsupervised)
   lda            : V=100, K=5, D=10 docs, ~1,000 words each
+and eight_schools (not in Table 1: the conditionally separable hierarchy;
+the port runs it under the autodiff integrator until the conditional
+spec lands, ROADMAP.md Queue 1 item 5).
 
 Every constructor takes ``device=`` (``None`` means CUDA) and puts the data
 there; the model's tensors never leave it.
@@ -34,7 +40,8 @@ from repro_torch._device import resolve_device
 from repro_torch.bijectors import StickBreaking
 from repro_torch.core import factor, model, observe, sample
 from repro_torch.dists import (BernoulliLogits, Categorical, Dirichlet, Gamma,
-                               MvNormalDiag, Normal, Poisson)
+                               HalfCauchy, HalfNormal, InverseGamma,
+                               MvNormalDiag, Normal, Poisson, Uniform)
 
 __all__ = ["PaperModel", "build", "MODEL_NAMES"]
 
@@ -53,7 +60,8 @@ class PaperModel:
 
 def _norm_lp(x, loc, scale):
     z = (x - loc) / scale
-    return -0.5 * z * z - math.log(scale) - 0.5 * _LOG_2PI
+    log_scale = torch.log(scale) if torch.is_tensor(scale) else math.log(scale)
+    return -0.5 * z * z - log_scale - 0.5 * _LOG_2PI
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +80,36 @@ def gaussian_10k(dim: int = 10_000, device=None) -> PaperModel:
         return torch.sum(-0.5 * q * q - 0.5 * _LOG_2PI)
 
     return PaperModel("gaussian_10k", gauss10k(), handwritten, step_size=0.1)
+
+
+# ---------------------------------------------------------------------------
+# 2. Gaussian with unknown mean and variance, 10,000 observations
+# ---------------------------------------------------------------------------
+def gauss_unknown(n: int = 10_000, seed: int = 0, device=None) -> PaperModel:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    y = rng.normal(1.5, 0.7, size=n).astype(np.float32)
+
+    @model
+    def gdemo(y):
+        s = sample("s", InverseGamma(2.0, 3.0))
+        m = sample("m", Normal(0.0, torch.sqrt(s)))
+        observe("y", Normal(m, torch.sqrt(s)), y)
+
+    yt = torch.as_tensor(y, device=dev)
+
+    def handwritten(q):
+        u_s, m = q[0], q[1]
+        s = torch.exp(u_s)
+        a, b = 2.0, 3.0
+        lp = (a * math.log(b) - (a + 1.0) * torch.log(s) - b / s
+              - math.lgamma(a)) + u_s  # + log|d s/d u|
+        sd = torch.sqrt(s)
+        lp = lp + _norm_lp(m, 0.0, sd)
+        return lp + torch.sum(_norm_lp(yt, m, sd))
+
+    return PaperModel("gauss_unknown", gdemo(yt), handwritten, step_size=0.01,
+                      data={"y": y})
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +220,73 @@ def hier_poisson(n: int = 50, n_groups: int = 10, seed: int = 3,
 
     return PaperModel("hier_poisson", hp(yt, gt, let), handwritten,
                       step_size=0.02, data={"y": y, "groups": groups})
+
+
+def _ar1_path(T: int, device):
+    """``(mu, phi, sigma, h_std) -> h`` for the non-centred AR(1) latent
+    log-volatility: ``h_0 = mu + sigma / sqrt(1 - phi^2) h_std_0`` and
+    ``h_t = mu + phi (h_{t-1} - mu) + sigma h_std_t``. The JAX package
+    runs the 499-step recurrence as a ``lax.scan``; here it is its closed
+    form ``h_t - mu = sigma sum_{s <= t} phi^(t-s) e_s`` (``e_0 = h_std_0 /
+    sqrt(1 - phi^2)``, ``e_s = h_std_s``): one (T, T) power matrix and one
+    matrix-vector product, a few launches per evaluation where a Python
+    loop under ``torch.func`` would take thousands."""
+    t = torch.arange(T, device=device, dtype=torch.float32)
+    lag = t[:, None] - t[None, :]
+    lower = (lag >= 0).to(torch.float32)
+    lag = lag.clamp(min=0.0)  # phi^0 above the diagonal, masked to 0
+
+    def path(mu, phi, sigma, h_std):
+        e = torch.cat([h_std[:1] / torch.sqrt(1.0 - phi * phi), h_std[1:]])
+        return mu + sigma * ((torch.pow(phi, lag) * lower) @ e)
+
+    return path
+
+
+# ---------------------------------------------------------------------------
+# 6. Stochastic Volatility — 500 obs (non-centred AR(1) latent log-vol)
+# ---------------------------------------------------------------------------
+def sto_volatility(T: int = 500, seed: int = 4, device=None) -> PaperModel:
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    phi_t, sig_t, mu_t = 0.95, 0.25, -1.0
+    h = np.empty(T)
+    h[0] = rng.normal(mu_t, sig_t / np.sqrt(1 - phi_t ** 2))
+    for t in range(1, T):
+        h[t] = mu_t + phi_t * (h[t - 1] - mu_t) + rng.normal(0, sig_t)
+    y = (rng.normal(size=T) * np.exp(h / 2)).astype(np.float32)
+
+    path = _ar1_path(T, dev)
+    loc0, scale1 = torch.zeros(T, device=dev), torch.ones(T, device=dev)
+
+    @model
+    def sv(y):
+        phi = sample("phi", Uniform(-1.0, 1.0))
+        sigma = sample("sigma", HalfCauchy(1.0))
+        mu = sample("mu", Normal(-1.0, 1.0))
+        h_std = sample("h_std", MvNormalDiag(loc0, scale1))
+        h = path(mu, phi, sigma, h_std)
+        observe("y", Normal(0.0, torch.exp(h / 2.0)), y)
+
+    yt = torch.as_tensor(y, device=dev)
+
+    def handwritten(q):
+        u_phi, u_sig, mu = q[0], q[1], q[2]
+        h_std = q[3:]
+        # phi: sigmoid to (-1,1) + jacobian
+        phi = -1.0 + 2.0 * torch.sigmoid(u_phi)
+        lp = -math.log(2.0)  # Uniform(-1,1) density
+        lp = lp + (math.log(2.0) - F.softplus(u_phi) - F.softplus(-u_phi))
+        sigma = torch.exp(u_sig)
+        lp = lp + (math.log(2.0) - math.log(math.pi)
+                   - torch.log1p(sigma ** 2)) + u_sig
+        lp = lp + _norm_lp(mu, -1.0, 1.0)
+        lp = lp + torch.sum(_norm_lp(h_std, 0.0, 1.0))
+        h = path(mu, phi, sigma, h_std)
+        return lp + torch.sum(_norm_lp(yt, 0.0, torch.exp(h / 2.0)))
+
+    return PaperModel("sto_volatility", sv(yt), handwritten, step_size=0.01,
+                      data={"y": y})
 
 
 def _dirichlet_lp(x, conc):
@@ -309,23 +414,58 @@ def lda(V: int = 100, K: int = 5, D: int = 10, avg_len: int = 1_000,
                       data={"doc_ids": doc_ids, "words": words})
 
 
-MODEL_NAMES = ("gaussian_10k", "naive_bayes", "logreg", "hier_poisson",
-               "hmm_semisup", "lda")
+# ---------------------------------------------------------------------------
+# Eight schools (Rubin 1981) — the canonical conditionally separable
+# hierarchy: (mu, tau) couple every theta_i, but GIVEN (mu, tau) the thetas
+# are independent Normals with a Normal likelihood attached. Not a Table-1
+# model; the JAX package runs it through its conditional potential spec.
+# ---------------------------------------------------------------------------
+def eight_schools(device=None) -> PaperModel:
+    dev = resolve_device(device)
+    y = np.asarray([28., 8., -3., 7., -1., 1., 18., 12.], dtype=np.float32)
+    sigma = np.asarray([15., 10., 16., 11., 9., 11., 10., 18.],
+                       dtype=np.float32)
+    ones = torch.ones(8, device=dev)
 
-_CONSTRUCTORS = {
+    @model
+    def schools(y, sigma):
+        mu = sample("mu", Normal(0.0, 5.0))
+        tau = sample("tau", HalfNormal(5.0))
+        theta = sample("theta", Normal(mu * ones, tau))
+        observe("y", Normal(theta, sigma), y)
+
+    yt, st = torch.as_tensor(y, device=dev), torch.as_tensor(sigma, device=dev)
+
+    def handwritten(q):  # layout: mu, u_tau = log tau, theta[0:8]
+        mu, u_tau, theta = q[0], q[1], q[2:10]
+        tau = torch.exp(u_tau)
+        lp = _norm_lp(mu, 0.0, 5.0)
+        lp = lp + (0.5 * math.log(2.0 / math.pi) - math.log(5.0)
+                   - 0.5 * (tau / 5.0) ** 2 + u_tau)
+        lp = lp + torch.sum(_norm_lp(theta, mu, tau))
+        return lp + torch.sum(_norm_lp(yt, theta, st))
+
+    return PaperModel("eight_schools", schools(yt, st), handwritten,
+                      step_size=0.1, data={"y": y, "sigma": sigma})
+
+
+MODEL_NAMES = ("gaussian_10k", "gauss_unknown", "naive_bayes", "logreg",
+               "hier_poisson", "sto_volatility", "hmm_semisup", "lda")
+
+_BUILDERS = {
+    "eight_schools": eight_schools,
     "gaussian_10k": gaussian_10k,
+    "gauss_unknown": gauss_unknown,
     "naive_bayes": naive_bayes,
     "logreg": logreg,
     "hier_poisson": hier_poisson,
+    "sto_volatility": sto_volatility,
     "hmm_semisup": hmm_semisup,
     "lda": lda,
 }
 
 
 def build(name: str, device=None, **overrides) -> PaperModel:
-    """Build a ported Table-1 model on ``device`` (``None`` means CUDA)."""
-    if name not in _CONSTRUCTORS:
-        raise NotImplementedError(
-            f"paper model '{name}' is not ported yet (ported: "
-            f"{', '.join(MODEL_NAMES)}); see ROADMAP.md Queue 1")
-    return _CONSTRUCTORS[name](device=device, **overrides)
+    """Build a paper model on ``device`` (``None`` means CUDA); an unknown
+    name raises ``KeyError``, as the JAX package's ``build`` does."""
+    return _BUILDERS[name](device=device, **overrides)

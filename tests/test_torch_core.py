@@ -2,7 +2,8 @@
 log-density, held against the JAX package on the same NumPy inputs.
 
 Models are the paper's ``logreg``, ``naive_bayes``, ``hier_poisson``,
-``hmm_semisup`` and ``lda`` at small size; the data come from the same
+``hmm_semisup``, ``lda``, ``gauss_unknown``, ``sto_volatility`` and
+``eight_schools`` at small size; the data come from the same
 ``np.random.default_rng`` calls in both packages.
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32, sums in another order). TF32 is off (``resolve_device``).
@@ -33,7 +34,10 @@ SMALL = {"logreg": dict(n=256, dim=8),
          "naive_bayes": dict(n=64, n_classes=3, dim=4),
          "hier_poisson": dict(n=20, n_groups=4),
          "hmm_semisup": dict(K=3, V=6, T=30, T_sup=10),
-         "lda": dict(V=12, K=3, D=4, avg_len=30)}
+         "lda": dict(V=12, K=3, D=4, avg_len=30),
+         "gauss_unknown": dict(n=64),
+         "sto_volatility": dict(T=40),
+         "eight_schools": {}}
 MODELS = list(SMALL)
 
 
@@ -192,6 +196,68 @@ def test_logjoint_fused_matches_reference_and_decomposes(name):
            atol=0)
 
 
+def test_model_names_and_builders_match_jax():
+    assert tsuite.MODEL_NAMES == jsuite.MODEL_NAMES
+    assert sorted(tsuite._BUILDERS) == sorted(jsuite._BUILDERS)
+
+
+@pytest.mark.parametrize("phi", [-0.95, 0.0, 0.5, 0.99])
+def test_sto_volatility_ar1_path_matches_the_jax_scan(phi):
+    """The closed-form AR(1) path (one power matrix, one product) against
+    the JAX package's 499-step ``lax.scan`` at Table 1's T = 500: density
+    at rtol 1e-5, gradient at rtol 1e-5 plus atol 1e-5 * max|g|."""
+    jm = jsuite.build("sto_volatility")
+    tm = tsuite.build("sto_volatility", device="cpu")
+    jlinked = jm.model.typed_varinfo(jax.random.PRNGKey(0)).link()
+    rng = np.random.default_rng(int(1000 * phi) % 97)
+    u = (0.5 * rng.normal(size=jlinked.num_flat)).astype(np.float32)
+    p = (phi + 1.0) / 2.0
+    u[0] = np.log(p) - np.log1p(-p)  # phi = -1 + 2 sigmoid(u_phi)
+    u[1] = np.log(0.3)               # sigma
+    jv, jg = jax.jit(jax.value_and_grad(
+        jm.model.make_logdensity_fn(jlinked)))(jnp.asarray(u))
+    tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
+    ut = torch.tensor(u)
+    assert abs(float(tlinked.replace_flat(ut).invlink().values[0]) - phi) < 1e-6
+    for backend in ("fused", "reference"):
+        v, g = value_and_grad(tm.model.make_logdensity_fn(
+            tlinked, backend=backend))(ut)
+        _close(v, jv, atol=0)
+        _grad_close(g, jg)
+    _close(tm.handwritten(ut), jv, atol=0)
+    _grad_close(torch.func.grad(tm.handwritten)(ut), jg)
+
+
+def test_gauss_unknown_switch_route_equals_the_fused_route():
+    """``backend="reference"`` inside ``use_fused_logpdf()`` sends the
+    10,000 observations through ``normal_logpdf_sum`` (its plain version on
+    the CPU); value and gradient equal the fused backend's, and the JAX
+    package's with its switch on (Pallas in interpret mode)."""
+    import repro.kernels as jk
+    from repro_torch import kernels as tk
+
+    jm, tm = jsuite.build("gauss_unknown"), tsuite.build("gauss_unknown",
+                                                         device="cpu")
+    jlinked = jm.model.typed_varinfo(jax.random.PRNGKey(0)).link()
+    tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
+    u = np.array([0.1, 1.4], np.float32)
+    with jk.use_fused_logpdf():
+        jv, jg = jax.value_and_grad(jm.model.make_logdensity_fn(
+            jlinked, backend="reference"))(jnp.asarray(u))
+    fused = value_and_grad(tm.model.make_logdensity_fn(tlinked))
+    switched = value_and_grad(tm.model.make_logdensity_fn(
+        tlinked, backend="reference"))
+    batch = torch.tensor(np.stack([u, u + 0.2]))
+    with tk.use_fused_logpdf():
+        v, g = switched(torch.tensor(u))
+        vb, gb = switched(batch)
+    _close(v, jv, atol=0)
+    _grad_close(g, jg)
+    fv, fg = fused(batch)
+    _close(vb, fv, atol=0)
+    _grad_close(gb, fg)
+
+
 def test_state_from_reference_rejects_other_layouts():
     _, _, jtvi, ttvi = _pair("logreg")
     linked = ttvi.link()
@@ -214,8 +280,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
         _device.resolve_device(None)
     assert _device.resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsuite.build("gauss_unknown", device="cpu")
+    # every builder of the JAX package is ported: an unknown name raises
+    # the KeyError the JAX package's build raises
+    with pytest.raises(KeyError):
+        jsuite.build("no_such_model")
+    with pytest.raises(KeyError):
+        tsuite.build("no_such_model", device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

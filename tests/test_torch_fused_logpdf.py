@@ -1,7 +1,8 @@
 """PyTorch port: fused_logpdf ``site_block_sum`` and its autograd Functions.
 
 Inputs come from a NumPy seed and go through the JAX package's
-``site_block_sum`` (its Pallas kernels in interpret mode) and the port's.
+``site_block_sum`` and per-array functions (its Pallas kernels in interpret
+mode) and the port's, for all eight families.
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32 sums taken in a different order). The CUDA kernels themselves
 run only on a GPU: ``test_torch_kernels_cuda.py`` holds them.
@@ -18,15 +19,44 @@ from repro_torch.kernels.fused_logpdf import ops, ref
 
 SIZES = [[1], [255, 257], [1000, 129, 1]]
 N_CLASSES = 7  # categorical segments: (n, C) logits and (n,) labels
+MVN_D = 6      # mvnormal_prec segments: (n, D) centred rows, (D, D) precision
+FAMILIES = ["std_normal", "normal", "bernoulli_logits", "categorical_logits",
+            "gamma", "beta", "student_t", "mvnormal_prec"]
 # the float columns of each family's segments (the labels get no gradient)
-DIFF_COLS = {"std_normal": (0,), "bernoulli_logits": (0, 1),
-             "categorical_logits": (0,), "gamma": (0, 1, 2)}
+DIFF_COLS = {"std_normal": (0,), "normal": (0, 1, 2),
+             "bernoulli_logits": (0, 1), "categorical_logits": (0,),
+             "gamma": (0, 1, 2), "beta": (0, 1, 2), "student_t": (0, 1),
+             "mvnormal_prec": (0, 1)}
+PLAIN = {"std_normal": ref.std_normal_logpdf_sum_ref,
+         "normal": ref.normal_logpdf_sum_ref,
+         "bernoulli_logits": ref.bernoulli_logits_logpmf_sum_ref,
+         "categorical_logits": ref.categorical_logits_logpmf_sum_ref,
+         "gamma": ref.gamma_unnorm_logpdf_sum_ref,
+         "beta": ref.beta_unnorm_logpdf_sum_ref,
+         "student_t": ref.student_t_unnorm_logpdf_sum_ref,
+         "mvnormal_prec": ref.mvnormal_prec_quadform_sum_ref}
+
+
+def _precision(rng, d):
+    a = rng.normal(0.0, 0.3, size=(d, d))
+    return (a @ a.T + np.eye(d)).astype(np.float32)
 
 
 def _segments(family, sizes, seed=0):
     rng = np.random.default_rng(seed)
     segs = []
     for n in sizes:
+        if family == "mvnormal_prec":
+            segs.append((rng.normal(size=(n, MVN_D)).astype(np.float32),
+                         _precision(rng, MVN_D)))
+            continue
+        uniform = {"normal": ((-2.0, 2.0), (-1.0, 1.0), (0.3, 3.0)),
+                   "beta": ((0.02, 0.98), (-0.5, 3.0), (-0.5, 3.0)),
+                   "student_t": ((-6.0, 6.0), (0.5, 30.0))}
+        if family in uniform:
+            segs.append(tuple(rng.uniform(lo, hi, size=n).astype(np.float32)
+                              for lo, hi in uniform[family]))
+            continue
         if family == "categorical_logits":
             logits = rng.normal(0.0, 2.0, size=(n, N_CLASSES))
             labels = rng.integers(0, N_CLASSES, size=n).astype(np.int32)
@@ -52,8 +82,7 @@ def _assert_grad_close(got, want):
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=atol)
 
 
-@pytest.mark.parametrize("family", ["std_normal", "bernoulli_logits",
-                                    "categorical_logits", "gamma"])
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("sizes", SIZES, ids=lambda s: "x".join(map(str, s)))
 def test_site_block_sum_matches_jax_pallas_and_ref(family, sizes):
     segs = _segments(family, sizes)
@@ -75,13 +104,70 @@ def test_site_block_sum_matches_jax_pallas_and_ref(family, sizes):
     for tseg, jseg in zip(tsegs, jgrads):
         for i, j in zip(diff, jseg):
             _assert_grad_close(tseg[i].grad.numpy(), j)
-    # the plain version over the concatenated block agrees too
-    cols = [torch.tensor(np.concatenate(c)) for c in zip(*segs)]
-    plain = {"std_normal": ref.std_normal_logpdf_sum_ref,
-             "bernoulli_logits": ref.bernoulli_logits_logpmf_sum_ref,
-             "categorical_logits": ref.categorical_logits_logpmf_sum_ref,
-             "gamma": ref.gamma_unnorm_logpdf_sum_ref}[family]
-    np.testing.assert_allclose(float(val), float(plain(*cols)), rtol=1e-5)
+    # the plain version over the concatenated block (per segment for
+    # mvnormal_prec, whose segments keep their own precision) agrees too
+    if family == "mvnormal_prec":
+        plain = sum(float(PLAIN[family](*map(torch.tensor, sg)))
+                    for sg in segs)
+    else:
+        cols = [torch.tensor(np.concatenate(c)) for c in zip(*segs)]
+        plain = float(PLAIN[family](*cols))
+    np.testing.assert_allclose(float(val), plain, rtol=1e-5)
+
+
+def _rel(a, b):
+    """The JAX package's ``tests/test_kernel_families.py`` measure."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.max(np.abs(a - b) / (1.0 + np.abs(b)))
+
+
+def _kernel_family_inputs(family):
+    """The inputs of ``tests/test_kernel_families.py`` for each new family
+    (N = 4,096; mvn 96 x 24), drawn from a NumPy seed."""
+    rng = np.random.default_rng(42)
+    n = 4096
+    if family == "normal":
+        return (rng.normal(size=n).astype(np.float32), np.float32(0.3),
+                np.float32(1.7))
+    if family == "beta":
+        x = 1.0 / (1.0 + np.exp(-rng.normal(size=n)))
+        return (x.astype(np.float32),
+                rng.uniform(0.2, 3.0, n).astype(np.float32),
+                rng.uniform(0.2, 3.0, n).astype(np.float32))
+    if family == "student_t":
+        return ((2.0 * rng.normal(size=n)).astype(np.float32),
+                rng.uniform(2.0, 30.0, n).astype(np.float32))
+    return (rng.normal(size=(96, 24)).astype(np.float32),
+            _precision(rng, 24))
+
+
+JAX_OPS = {"normal": jops.normal_logpdf_sum,
+           "beta": jops.beta_unnorm_logpdf_sum,
+           "student_t": jops.student_t_unnorm_logpdf_sum,
+           "mvnormal_prec": jops.mvnormal_prec_quadform_sum}
+TORCH_OPS = {"normal": ops.normal_logpdf_sum,
+             "beta": ops.beta_unnorm_logpdf_sum,
+             "student_t": ops.student_t_unnorm_logpdf_sum,
+             "mvnormal_prec": ops.mvnormal_prec_quadform_sum}
+
+
+@pytest.mark.parametrize("family", list(JAX_OPS))
+def test_new_family_sums_and_grads_match_jax_pallas(family):
+    """Each new family's per-array function against the JAX package's
+    Pallas kernel in interpret mode, value and gradient in every float
+    input, at that file's 1e-5."""
+    args = _kernel_family_inputs(family)
+    wrt = tuple(range(len(args)))
+    jfun = JAX_OPS[family]
+    jval, jgrads = jax.value_and_grad(
+        lambda *a: jfun(*a, interpret=True), argnums=wrt)(
+        *map(jnp.asarray, args))
+    targs = [torch.tensor(a, requires_grad=True) for a in args]
+    val = TORCH_OPS[family](*targs)
+    val.backward()
+    assert _rel(float(val.detach()), float(jval)) < 1e-5
+    for t, jg in zip(targs, jgrads):
+        assert _rel(t.grad.numpy(), jg) < 1e-5
 
 
 def test_std_normal_vmap_grad_matches_loop_over_chains():
@@ -161,6 +247,72 @@ def test_gamma_vmap_grad_matches_loop_over_chains(params_batched):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("family", ["normal", "beta", "student_t"])
+@pytest.mark.parametrize("params_batched", [False, True],
+                         ids=["shared_params", "batched_params"])
+def test_new_elementwise_vmap_grad_matches_loop_over_chains(family,
+                                                            params_batched):
+    (x, *params), = _segments(family, [3 * 257], seed=5)
+    x = torch.tensor(x.reshape(3, 257))
+    params = [torch.tensor(p.reshape(3, 257) if params_batched
+                           else p[:257]) for p in params]
+    f = TORCH_OPS[family]
+    d = 0 if params_batched else None
+    in_dims = (0,) + (d,) * len(params)
+    g_v, v_v = torch.func.vmap(torch.func.grad_and_value(f),
+                               in_dims=in_dims)(x, *params)
+    for b in range(3):
+        pb = [p[b] for p in params] if params_batched else params
+        g_b, v_b = torch.func.grad_and_value(f)(x[b], *pb)
+        np.testing.assert_allclose(float(v_v[b]), float(v_b), rtol=1e-6)
+        np.testing.assert_allclose(g_v[b].numpy(), g_b.numpy(), rtol=1e-6)
+
+
+def test_normal_vmap_per_chain_scalars_beside_shared_data():
+    """gauss_unknown's per-array route: shared data x (n,) and one mu and
+    one sigma per chain; the gradients in mu and sigma sum over x."""
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(1.5, 0.7, size=2000), dtype=torch.float32)
+    mu = torch.tensor([1.0, 1.5, 2.0, -0.5])
+    sig = torch.tensor([0.5, 0.7, 1.0, 2.0])
+    f = ops.normal_logpdf_sum
+    g_v, v_v = torch.func.vmap(torch.func.grad_and_value(f, argnums=(1, 2)),
+                               in_dims=(None, 0, 0))(x, mu, sig)
+    for b in range(4):
+        want = torch.distributions.Normal(mu[b], sig[b]).log_prob(x).sum()
+        np.testing.assert_allclose(float(v_v[b]), float(want), rtol=1e-5)
+        z = (x - mu[b]) / sig[b]
+        np.testing.assert_allclose(float(g_v[0][b]), float((z / sig[b]).sum()),
+                                   rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(float(g_v[1][b]),
+                                   float(((z * z - 1) / sig[b]).sum()),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("prec_batched", [False, True],
+                         ids=["shared_prec", "per_chain_prec"])
+def test_mvn_vmap_grad_matches_loop_over_chains(prec_batched):
+    rng = np.random.default_rng(7)
+    xc = torch.tensor(rng.normal(size=(3, 10, 5)), dtype=torch.float32)
+    precs = np.stack([_precision(rng, 5) for _ in range(3)])
+    prec = torch.tensor(precs if prec_batched else precs[0])
+    f = ops.mvnormal_prec_quadform_sum
+    d = 0 if prec_batched else None
+    g_v, v_v = torch.func.vmap(torch.func.grad_and_value(f, argnums=(0, 1)),
+                               in_dims=(0, d))(xc, prec)
+    for b in range(3):
+        pb = prec[b] if prec_batched else prec
+        g_b, v_b = torch.func.grad_and_value(f, argnums=(0, 1))(xc[b], pb)
+        np.testing.assert_allclose(float(v_v[b]), float(v_b), rtol=1e-6)
+        np.testing.assert_allclose(g_v[0][b].numpy(), g_b[0].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    if not prec_batched:  # the shared precision's gradient sums the chains
+        want = sum(torch.func.grad(f, argnums=1)(xc[b], prec)
+                   for b in range(3))
+        np.testing.assert_allclose(g_v[1].sum(0).numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_categorical_plain_version_edges():
     """What the kernel must give at the edges, as the plain version defines
     it: a label outside [0, C) gives NaN; a -inf logit adds nothing to the
@@ -202,9 +354,26 @@ def test_row_wrappers_run_plain_version_on_cpu_without_counting():
     np.testing.assert_array_equal(
         ops.gamma_unnorm_sum_rows(x, a, a).numpy(),
         ref.gamma_unnorm_logpdf_sum_ref(x, a, a).numpy())
+    s = torch.tensor([[0.5], [1.0], [2.0], [3.0]]).expand(4, 100)  # stride 0
+    np.testing.assert_array_equal(
+        ops.normal_sum_rows(x, a, s).numpy(),
+        ref.normal_logpdf_sum_ref(x, a, s).numpy())
+    xb = x / 1.2
+    np.testing.assert_array_equal(
+        ops.beta_unnorm_sum_rows(xb, a, a).numpy(),
+        ref.beta_unnorm_logpdf_sum_ref(xb, a, a).numpy())
+    np.testing.assert_array_equal(
+        ops.student_t_unnorm_sum_rows(logits, s).numpy(),
+        ref.student_t_unnorm_logpdf_sum_ref(logits, s).numpy())
+    xc = torch.randn(4, 30, 6)
+    prec = torch.eye(6).expand(4, 6, 6)  # one precision for every row
+    np.testing.assert_array_equal(
+        ops.mvn_quadform_sum_rows(xc, prec).numpy(),
+        ref.mvnormal_prec_quadform_sum_ref(xc, prec).numpy())
     assert ops.LAUNCHES == dict.fromkeys(
         ("std_normal_sum", "bernoulli_logit_sum", "categorical_logits_sum",
-         "gamma_unnorm_sum"), 0)
+         "gamma_unnorm_sum", "normal_sum", "beta_unnorm_sum",
+         "student_t_unnorm_sum", "mvn_quadform_sum"), 0)
 
 
 def test_row_wrappers_reject_what_the_kernel_cannot_take():
@@ -225,15 +394,29 @@ def test_row_wrappers_reject_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="shape"):
         ops.gamma_unnorm_sum_rows(torch.ones(2, 8), torch.ones(2, 8),
                                   torch.ones(1, 8))
+    with pytest.raises(ValueError, match="element stride"):
+        ops.normal_sum_rows(torch.ones(2, 8), torch.ones(8, 2).t(),
+                            torch.ones(2, 8))
+    with pytest.raises(TypeError):
+        ops.student_t_unnorm_sum_rows(torch.ones(2, 8),
+                                      torch.ones(2, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="prec"):
+        ops.mvn_quadform_sum_rows(torch.ones(2, 8, 3), torch.ones(2, 4, 4))
+    with pytest.raises(ValueError, match="strides"):
+        ops.mvn_quadform_sum_rows(torch.ones(2, 3, 8).transpose(1, 2),
+                                  torch.ones(2, 3, 3))
 
 
 def test_site_block_sum_families():
     assert float(ops.site_block_sum("std_normal", [])) == 0.0
     with pytest.raises(ValueError):
         ops.site_block_sum("poisson", [(torch.zeros(3),)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.site_block_sum("beta", [(torch.full((3,), 0.5), torch.zeros(3),
-                                     torch.zeros(3))])
+    # every family of the JAX package has its kernel: beta at x = 1/2 with
+    # a - 1 = b - 1 = 0 sums to zero
+    assert set(ops.SITE_BLOCK_FAMILIES) == set(jops.SITE_BLOCK_FAMILIES)
+    assert float(ops.site_block_sum("beta", [(torch.full((3,), 0.5),
+                                              torch.zeros(3),
+                                              torch.zeros(3))])) == 0.0
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):

@@ -6,8 +6,10 @@ port, so it runs on a GPU machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the fused_logpdf sums at rtol 1e-6 against the plain version
-(float32 sums in another order); gamma_unnorm_sum, whose terms change sign,
-at 1e-6 of the sum of the terms' magnitudes. The fused leapfrog's q, p and gradient at
+(float32 sums in another order); gamma_unnorm_sum, beta_unnorm_sum and
+normal_sum, whose terms change sign, at 1e-6 of the sum of the terms'
+magnitudes; mvn_quadform_sum (a float32 product over D terms per entry,
+with a positive definite precision) at rtol 1e-5. The fused leapfrog's q, p and gradient at
 rtol 1e-5 plus atol 1e-5 * max|plain| (nvcc contracts the updates into
 FMAs, torch does not; the difference compounds over the steps), its
 potential at 1e-5 * sum|v_i| (a float32 sum of up to 10^6 terms in
@@ -58,9 +60,8 @@ def test_cuda_vmap_grad_is_one_launch_for_all_chains(cuda_device):
     g = torch.func.vmap(torch.func.grad(ops.std_normal_logpdf_sum))(z)
     gl = torch.func.vmap(torch.func.grad(ops.bernoulli_logits_logpmf_sum),
                          in_dims=(0, None))(z, y)
-    assert ops.LAUNCHES == {"std_normal_sum": 1, "bernoulli_logit_sum": 1,
-                            "categorical_logits_sum": 0,
-                            "gamma_unnorm_sum": 0}
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "std_normal_sum": 1, "bernoulli_logit_sum": 1}
     torch.testing.assert_close(g, -z, rtol=1e-6, atol=0)
     torch.testing.assert_close(gl, y - torch.sigmoid(z), rtol=1e-6, atol=1e-7)
 
@@ -138,13 +139,131 @@ def test_cuda_new_kernels_one_launch_for_all_chains(cuda_device):
                          in_dims=(0, None, None))(
         x, torch.zeros(11, device=cuda_device),
         torch.ones(11, device=cuda_device))
-    assert ops.LAUNCHES == {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
                             "categorical_logits_sum": 1,
                             "gamma_unnorm_sum": 1}
     onehot = torch.nn.functional.one_hot(labels.long(), 20).float()
     torch.testing.assert_close(gl, onehot - torch.softmax(logits, -1),
                                rtol=1e-6, atol=1e-7)
     torch.testing.assert_close(gx, -torch.ones_like(x), rtol=0, atol=0)
+
+
+def _elementwise_case(family, rows, n, params, gen, dev):
+    """Inputs of one per-element kernel: ``params`` is "per_row" (dense),
+    "shared" (row stride 0) or "scalar" (one value per row: element
+    stride 0, gauss_unknown's mu and sigma)."""
+    def param(lo, hi):
+        shape = {"per_row": (rows, n), "shared": (n,),
+                 "scalar": (rows, 1)}[params]
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                            device=dev)).expand(rows, n)
+
+    if family == "normal":
+        x = 2.0 * torch.randn(rows, n, generator=gen, device=dev)
+        args = (x, param(-1.0, 1.0), param(0.3, 3.0))
+        terms = ref.normal_logpdf_sum_ref
+        return ops.normal_sum_rows, args, terms
+    if family == "beta":
+        x = 0.01 + 0.98 * torch.rand(rows, n, generator=gen, device=dev)
+        return (ops.beta_unnorm_sum_rows,
+                (x, param(-0.5, 3.0), param(-0.5, 3.0)),
+                ref.beta_unnorm_logpdf_sum_ref)
+    z = 3.0 * torch.randn(rows, n, generator=gen, device=dev)
+    return (ops.student_t_unnorm_sum_rows, (z, param(0.5, 30.0)),
+            ref.student_t_unnorm_logpdf_sum_ref)
+
+
+def _abs_terms(family, args):
+    """sum_i of each term's magnitude, the scale a sign-changing sum is
+    held at."""
+    if family == "normal":
+        x, loc, scale = args
+        z = (x - loc) / scale
+        return (0.5 * z * z).sum(-1) + torch.log(scale).abs().sum(-1) \
+            + 0.9189385 * x.shape[-1]
+    x, am1, bm1 = args
+    return ((am1 * torch.log(x)).abs() + (bm1 * torch.log1p(-x)).abs()).sum(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["normal", "beta", "student_t"])
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 1), (4, 1024), (4, 2048),
+                                    (4, 10000), (16, 257), (1, 1_000_003)])
+@pytest.mark.parametrize("params", ["per_row", "shared", "scalar"])
+def test_cuda_elementwise_families_match_plain_versions(cuda_device, family,
+                                                        rows, n, params):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    kern, args, plain = _elementwise_case(family, rows, n, params, gen,
+                                          cuda_device)
+    got = kern(*args)
+    want = plain(*args)
+    if family == "student_t":  # every term <= 0: no cancellation
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert bool(((got - want).abs()
+                     <= 1e-6 * _abs_terms(family, args)).all())
+    assert torch.equal(kern(*args), got)
+
+
+def _precision(d, gen, dev, rows=None):
+    shape = (d, d) if rows is None else (rows, d, d)
+    a = torch.randn(shape, generator=gen, device=dev) / d ** 0.5
+    return a @ a.mT + torch.eye(d, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 24, 63, 64, 65, 256, 1024])
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 1), (4, 96), (4, 4096),
+                                    (16, 257)])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+def test_cuda_mvn_quadform_matches_plain_version(cuda_device, d, rows, n,
+                                                 shared):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    xc = torch.randn(rows, n, d, generator=gen, device=cuda_device)
+    prec = (_precision(d, gen, cuda_device).expand(rows, d, d) if shared
+            else _precision(d, gen, cuda_device, rows))
+    got = ops.mvn_quadform_sum_rows(xc, prec)
+    torch.testing.assert_close(
+        got, ref.mvnormal_prec_quadform_sum_ref(xc, prec), rtol=1e-5, atol=0)
+    assert torch.equal(ops.mvn_quadform_sum_rows(xc, prec), got)
+
+
+@pytest.mark.cuda
+def test_cuda_slice_four_kernels_one_launch_for_all_chains(cuda_device):
+    """Under vmap(grad) over 4 chains each of the four kernels launches once;
+    gauss_unknown's normal route (shared x, one mu and sigma per chain) and
+    a precision shared by the chains included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(10000, generator=gen, device=cuda_device)
+    mu = torch.randn(4, generator=gen, device=cuda_device)
+    sig = 0.5 + torch.rand(4, generator=gen, device=cuda_device)
+    xb = 0.05 + 0.9 * torch.rand(4, 1024, generator=gen, device=cuda_device)
+    z = torch.randn(4, 2048, generator=gen, device=cuda_device)
+    xc = torch.randn(4, 1, 5, generator=gen, device=cuda_device)
+    prec = _precision(5, gen, cuda_device)
+    ops.reset_launch_counts()
+    gm, gs = torch.func.vmap(torch.func.grad(ops.normal_logpdf_sum,
+                                             argnums=(1, 2)),
+                             in_dims=(None, 0, 0))(x, mu, sig)
+    gb = torch.func.vmap(torch.func.grad(ops.beta_unnorm_logpdf_sum),
+                         in_dims=(0, None, None))(xb, 1.0, 2.0)
+    gt = torch.func.vmap(torch.func.grad(ops.student_t_unnorm_logpdf_sum),
+                         in_dims=(0, None))(z, 4.0)
+    gq = torch.func.vmap(torch.func.grad(ops.mvnormal_prec_quadform_sum),
+                         in_dims=(0, None))(xc, prec)
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "normal_sum": 1, "beta_unnorm_sum": 1,
+                            "student_t_unnorm_sum": 1, "mvn_quadform_sum": 1}
+    zz = (x - mu[:, None]) / sig[:, None]
+    torch.testing.assert_close(gm, (zz / sig[:, None]).sum(-1), rtol=1e-4,
+                               atol=1e-2)
+    torch.testing.assert_close(gs, ((zz * zz - 1) / sig[:, None]).sum(-1),
+                               rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(gb, 1.0 / xb - 2.0 / (1 - xb), rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(gt, -5.0 * z / (4.0 + z * z), rtol=1e-6,
+                               atol=1e-7)
+    torch.testing.assert_close(gq, -(xc @ prec), rtol=1e-5, atol=1e-6)
 
 
 def _assert_state_close(got, want):

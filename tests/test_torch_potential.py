@@ -5,12 +5,14 @@ The same models, built from the same NumPy arrays, go through
 port's trace set to the JAX trace's flat state. Tolerances: opcodes equal,
 coefficients at atol 1e-6 (both fold the same float32 parameters in
 float64), ``const`` at rtol 1e-5 (a float32 log-density at the recorded
-point, summed in another order). Models the port cannot compile: logreg
-and naive_bayes (likelihoods move with u), hier_poisson (coupled through
-its likelihood), hmm_semisup and lda (simplex sites) in both packages, and
-a coupled hierarchy, which the JAX package compiles to a
-``CondPotentialSpec`` and the port rejects until its dependency graph
-lands.
+point, summed in another order). Separable: gaussian_10k, family_mix_8k
+(every opcode in one table) and one site of each opcode family. Models the
+port cannot compile: logreg, naive_bayes and gauss_unknown (likelihoods
+move with u), hier_poisson (coupled through its likelihood), hmm_semisup
+and lda (simplex sites), sto_volatility (HalfCauchy has no opcode) in both
+packages, and a coupled hierarchy and eight_schools, which the JAX package
+compiles to a ``CondPotentialSpec`` and the port rejects until its
+dependency graph lands.
 """
 import jax
 import jax.numpy as jnp
@@ -33,7 +35,9 @@ from repro_torch.core.potential import (COUPLED_NOTE, PotentialCompileResult,
                                         compile_potential)
 from repro_torch.dists import Flat, Gamma, MvNormalDiag, Normal
 from repro_torch.infer import HMC, run_chains
-from repro_torch.kernels.fused_leapfrog import OP_EXP, OP_NORMAL, OP_ZERO
+from repro_torch.kernels.fused_leapfrog import (OP_EXP, OP_NORMAL,
+                                                OP_SOFTPLUS, OP_TLOG, OP_ZERO)
+from repro_torch.models import family_mix
 from repro_torch.models import paper_suite as tsuite
 
 
@@ -99,6 +103,60 @@ def _lone_gamma_pair():
     return jgamma(), tgamma()
 
 
+def _family_mix_pair():
+    """``family_mix_8k`` of ``benchmarks/leapfrog_bench.py``: every opcode
+    but ZERO in one 8,192-D table."""
+    from repro.dists import (Beta as JBeta, Cauchy as JCauchy,
+                             LogNormal as JLogNormal, StudentT as JStudentT,
+                             Uniform as JUniform)
+
+    @repro.model
+    def family_mix_8k():
+        repro.sample("n", JNormal(jnp.zeros(2048), 2.0))
+        repro.sample("g", JGamma(2.0 * jnp.ones(1024), 1.5))
+        repro.sample("b", JBeta(2.0 * jnp.ones(1024), 3.0))
+        repro.sample("t", JStudentT(4.0, jnp.zeros(2048), 1.0))
+        repro.sample("c", JCauchy(jnp.zeros(1024), 2.0))
+        repro.sample("u", JUniform(-jnp.ones(512), 1.0))
+        repro.sample("l", JLogNormal(jnp.zeros(512), 1.0))
+
+    return family_mix_8k(), family_mix.family_mix_8k(device="cpu").model
+
+
+# one site per opcode family of this slice, parameters varied per element
+# (the last tuple entry is a scalar parameter where the family has one)
+LONE_FAMILIES = {
+    "LogNormal": ("real", "pos"), "HalfNormal": ("pos",),
+    "InverseGamma": ("pos", "pos"), "Exponential": ("pos",),
+    "Beta": ("pos", "pos"), "Uniform": ("low", "high"),
+    "StudentT": ("df", "real", "pos"), "Cauchy": ("real", "pos"),
+}
+
+
+def _lone_pair(family):
+    import repro.dists as jd
+    import repro_torch.dists as td
+
+    rng = np.random.default_rng(len(family))
+    draw = {"real": lambda: rng.normal(size=6),
+            "pos": lambda: rng.uniform(0.3, 3.0, size=6),
+            "df": lambda: rng.uniform(1.0, 20.0, size=6),
+            "low": lambda: rng.uniform(-2.0, -0.5, size=6),
+            "high": lambda: rng.uniform(0.5, 2.0, size=6)}
+    params = [draw[k]().astype(np.float32) for k in LONE_FAMILIES[family]]
+
+    @repro.model
+    def jlone():
+        repro.sample("s", getattr(jd, family)(*map(jnp.asarray, params)))
+
+    @repro_torch.model
+    def tlone():
+        repro_torch.sample("s", getattr(td, family)(*map(torch.tensor,
+                                                         params)))
+
+    return jlone(), tlone()
+
+
 def _suite_pair(name, **kw):
     return (jsuite.build(name, **kw).model,
             tsuite.build(name, device="cpu", **kw).model)
@@ -116,6 +174,11 @@ PAIRS = {
     "hmm_semisup": lambda: _suite_pair("hmm_semisup", K=3, V=6, T=30,
                                        T_sup=10),
     "lda": lambda: _suite_pair("lda", V=12, K=3, D=4, avg_len=30),
+    "family_mix_8k": _family_mix_pair,
+    "gauss_unknown": lambda: _suite_pair("gauss_unknown", n=64),
+    "sto_volatility": lambda: _suite_pair("sto_volatility", T=40),
+    "eight_schools": lambda: _suite_pair("eight_schools"),
+    **{f"lone_{f}": (lambda f=f: _lone_pair(f)) for f in LONE_FAMILIES},
 }
 
 
@@ -147,6 +210,57 @@ def test_separable_specs_equal_the_reference(name):
     else:
         assert ts.uniform_op is None
         assert set(np.unique(ts.op)) == {OP_ZERO, OP_NORMAL}
+
+
+def _assert_specs_equal(js, ts):
+    """Opcodes equal, coefficients at atol 1e-6, const at rtol 1e-5."""
+    assert ts.dim == js.dim and ts.uniform_op == js.uniform_op
+    np.testing.assert_array_equal(ts.op, js.op)
+    for f in ("c0", "c1", "c2", "c3"):
+        np.testing.assert_allclose(getattr(ts, f), getattr(js, f),
+                                   rtol=0, atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(ts.const, js.const, rtol=1e-5)
+
+
+def test_family_mix_8k_spec_equals_the_reference():
+    jres, tres, _, _ = _compile_both("family_mix_8k")
+    assert jres.kind == tres.kind == "separable"
+    _assert_specs_equal(jres.spec, tres.spec)
+    assert tres.spec.dim == 8192 and tres.spec.uniform_op is None
+    assert set(np.unique(tres.spec.op)) == {OP_NORMAL, OP_EXP, OP_SOFTPLUS,
+                                            OP_TLOG}
+
+
+@pytest.mark.parametrize("family", sorted(LONE_FAMILIES))
+def test_each_new_opcode_family_spec_equals_the_reference(family):
+    jres, tres, _, _ = _compile_both(f"lone_{family}")
+    assert jres.kind == tres.kind == "separable"
+    _assert_specs_equal(jres.spec, tres.spec)
+
+
+@pytest.mark.parametrize("name,reason,evals", [
+    ("gauss_unknown", "mismatch at probe point 1 of 2", 5),
+    ("sto_volatility", "no opcode for HalfCauchy", 0),
+    ("eight_schools", "mismatch at probe point 1 of 2", 5)])
+def test_this_slices_paper_models_compile_to_none(name, reason, evals,
+                                                  monkeypatch):
+    """sto_volatility's HalfCauchy has no opcode in either package.
+    gauss_unknown (m's scale depends on s) and eight_schools are coupled
+    hierarchies that the JAX package compiles to a ``CondPotentialSpec``
+    and the port rejects until its dependency graph lands (ROADMAP.md
+    Queue 1 item 5). The compiler's log-density evaluations are what a
+    run's launch counts include."""
+    jres, tres, _, _ = _compile_both(name)
+    assert tres.spec is None and reason in tres.reason
+    if name == "sto_volatility":
+        assert jres.spec is None
+    else:
+        assert isinstance(jres.spec, CondPotentialSpec)
+    kw = {"gauss_unknown": dict(n=64), "sto_volatility": dict(T=40),
+          "eight_schools": {}}[name]
+    res, calls = _count_compiler_evaluations(
+        tsuite.build(name, device="cpu", **kw), monkeypatch)
+    assert res.spec is None and calls == evals
 
 
 def test_lone_gamma_spec_equals_the_reference():
