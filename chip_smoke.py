@@ -15,11 +15,21 @@ through the separable-potential compiler and the fused n-step leapfrog of
 of the JAX package that reach the other density families: ``family_mix_8k``
 (8,192-D, seven families: the fused leapfrog with a mixed opcode table,
 then the autodiff integrator) and ``mixed`` (a dense 5-D MvNormal among
-four other families). Draws per model are in ``DRAWS``. Phases, in order:
+four other families). Then the LM substrate, through the entry points a
+user calls (``launch.serve.serve_batch``, ``models.bayes_lm``), with
+random weights from a seed and ``attn_impl="flash"``: serving
+``smollm-360m`` at full width and depth and ``gemma2-27b`` at full width
+with its depth cut to one (local, global) block, through the hand-written
+``flash_attention`` kernel; scoring 4 x 2,048 tokens under the Bayesian
+``mamba2-1.3b`` at full width and depth, through ``ssd_scan`` and
+``categorical_logits_sum``; and serving ``mamba2-1.3b`` briefly (its
+prefill runs the plain scan, its decode the O(1) update, as in the JAX
+package: no kernel of this slice). Draws per model are in ``DRAWS``.
+Phases, in order:
 
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
-2. builds the three kernel sources with ``nvcc``, in parallel, and prints
+2. builds the five kernel sources with ``nvcc``, in parallel, and prints
    each build time;
 3. holds each kernel against its plain PyTorch version on the card and
    checks that two runs are bit-identical: the fused_logpdf sums at rtol
@@ -36,7 +46,16 @@ four other families). Draws per model are in ``DRAWS``. Phases, in order:
    table, with and without an inverse mass, 1/4/16 chains with distinct
    step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
    rtol 1e-5 plus atol 1e-5 * max|plain|, the potential at
-   1e-5 * sum_i |v_i|);
+   1e-5 * sum_i |v_i|); flash_attention by max|kernel - plain| / max|plain|
+   (2e-5 in float32, 3e-2 in bf16: tests/test_kernels.py's) over that
+   file's cases in both types, a ring with holes and a fully masked row
+   (exact zeros) and every call of the LM paths (``LM_FLASH``, the large
+   ones on their first and last 128 query rows), and its backward through
+   the ``autograd.Function`` at 2e-5; ssd_scan the same way (2e-4 and
+   5e-2) over that file's cases and mamba2's 4 x 2,048 x 64 heads, chunk
+   32 against chunk 64 at 1e-4, and its backward; categorical_logits_sum
+   again at C = 49,152 and 50,280 over 8,192 items; all bit-identical on
+   a rerun;
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
    num_chains=4, num_samples=DRAWS["logreg"])`` with every launch count set
    to 0 just before and read just after; the counts must equal the
@@ -77,14 +96,34 @@ four other families). Draws per model are in ``DRAWS``. Phases, in order:
    beta_unnorm_sum and student_t_unnorm_sum once per evaluation, its first
    10 draws held to the fused run's at atol 1e-4 + rtol 1e-5); ``mixed``
    (step 0.1; mvn_quadform_sum, beta, student_t, gamma and std_normal once
-   per evaluation, no probes);
+   per evaluation, no probes); then the LM paths (``LM_SERVE``,
+   ``LM_SCORE``): for each serving path with attention, in float32 on the
+   same weights, the flash route against the dense route over the prefill
+   and every decode step fed the same tokens, and prefill(S - 1) plus
+   decode(1) against ``forward_train``'s last logits (both within 2e-3;
+   for gemma2 the prompt passes the 4,096-slot ring, so this is the ring
+   repair at real size); then the timed bf16 ``serve_batch`` with every
+   count zeroed just before and read just after (flash_attention once per
+   attention layer in the prefill and in each decode step, nothing else),
+   and the dense route's bf16 greedy tokens for agreement (reported, not
+   gated); for the scoring path, in float32, the log-likelihood with
+   ``ssd_scan`` against the plain scan's (rtol 1e-4) and logjoint =
+   logprior + loglikelihood (rtol 1e-5), then two timed bf16 evaluations,
+   counted (ssd_scan once per layer, categorical_logits_sum once, per
+   evaluation);
 7. times each kernel at the main paths' shapes (and a wide one) beside its
    bound, its plain version and, where one exists, one PyTorch library
    call (device time from the profiler, and the time the host takes to
    issue each call), and profiles a window of transitions of logreg, of
    gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
    gauss_unknown (both routes), sto_volatility and family_mix_8k for the
-   device's busy share.
+   device's busy share; flash_attention at the LM paths' bf16 calls
+   (``FLASH_TIMED``; the library call is ``scaled_dot_product_attention``
+   with a boolean mask and ``enable_gqa``, none where gemma2's softcap
+   applies) and ssd_scan at mamba2's, their bounds at the bf16
+   tensor-core peak (and at the FP32 rate, ``bound_fp32_ms``); and
+   profiles of each serving path's prefill and decode steps and of one
+   scoring evaluation.
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -134,6 +173,8 @@ STUDENT_T_OPS = 7
 LOGPDF_CU = "src/repro_torch/kernels/fused_logpdf/csrc/fused_logpdf.cu"
 MVN_CU = "src/repro_torch/kernels/fused_logpdf/csrc/mvn_quad.cu"
 LEAPFROG_CU = "src/repro_torch/kernels/fused_leapfrog/csrc/fused_leapfrog.cu"
+FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_CU = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SOURCES = {
     "std_normal_sum": LOGPDF_CU,
     "bernoulli_logit_sum": LOGPDF_CU,
@@ -145,6 +186,8 @@ SOURCES = {
     "beta_unnorm_sum": LOGPDF_CU,
     "student_t_unnorm_sum": LOGPDF_CU,
     "mvn_quadform_sum": MVN_CU,
+    "flash_attention": FLASH_CU,
+    "ssd_scan": SSD_CU,
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
@@ -157,6 +200,8 @@ REPLACES = {
     "beta_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:174",
     "student_t_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:194",
     "mvn_quadform_sum": "src/repro/kernels/fused_logpdf/kernel.py:220",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:34",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:31",
 }
 NO_LIBRARY = {
     "gamma_unnorm_sum": "no single PyTorch call computes sum(am1 log x - "
@@ -174,6 +219,9 @@ NO_LIBRARY = {
     "fused_leapfrog": "no single PyTorch call computes an n-step integrator",
     "fused_potential_vg": "no single PyTorch call computes a potential's "
                           "value and its gradient",
+    "ssd_scan": "no single PyTorch call computes a chunked state-space scan "
+                "(PyTorch has no selective-scan operator; its plain version "
+                "is a dozen einsums and a loop over chunks)",
 }
 
 
@@ -209,7 +257,9 @@ MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                "bernoulli_logit_sum": [(4, 10000)],
                # (chains, items, classes): hmm_semisup's two blocks, lda's
                "categorical_logits_sum": [(4, 99, 5), (4, 100, 20),
-                                          (4, 10176, 100)],
+                                          (4, 10176, 100),
+                                          # mamba2-1.3b scoring's tokens
+                                          (1, 8192, 50280)],
                # hier_poisson's block, and a wide one for the timing phase
                "gamma_unnorm_sum": [(4, 1), (4, 40000)],
                # gauss_unknown's per-array route (shared x, one mu and one
@@ -1399,6 +1449,714 @@ def _profile_transitions(torch, pm, kernel, spec, steps, switch,
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (continued): flash_attention and ssd_scan against their plain
+# versions, categorical_logits_sum at the LM vocabularies
+# ---------------------------------------------------------------------------
+def rel_err(a, b) -> float:
+    """max|a - b| / max|b|: tests/test_kernels.py's measure."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+# tests/test_kernels.py's FLASH_CASES (B, Sq, Sk, KV, G, hd, causal, window,
+# cap), each in float32 and bf16, and head dims 16 and 20
+FLASH_CASES = [(2, 128, 128, 2, 2, 64, True, None, None),
+               (1, 256, 256, 1, 4, 128, True, None, 50.0),
+               (2, 100, 100, 2, 1, 64, True, 64, None),
+               (1, 64, 64, 4, 1, 128, False, None, None),
+               (1, 1, 96, 2, 2, 64, True, None, None),
+               (1, 8, 160, 1, 2, 256, True, 32, 30.0),
+               (2, 40, 40, 2, 3, 16, True, None, None),
+               (2, 33, 70, 1, 3, 20, True, 9, None)]
+# the LM paths' calls, with the positions and validity the paths give them
+# (smollm-360m: 8 requests, prompt 1,024, 64 new tokens, a 1,088-slot
+# cache; gemma2-27b: 2 requests, prompt 4,160, 32 new, a 4,096-slot ring
+# on the local layer, 4,192 slots on the global one). The prefill's last
+# query is at position prompt - 1; the decode's at the last step.
+LM_FLASH = {
+    "smollm_prefill": dict(B=8, KV=5, G=3, hd=64, window=None, cap=None,
+                           kind="prefill", S=1024, T=1088),
+    "smollm_decode": dict(B=8, KV=5, G=3, hd=64, window=None, cap=None,
+                          kind="decode", pos=1086, T=1088),
+    "gemma2_prefill_local": dict(B=2, KV=16, G=2, hd=128, window=4096,
+                                 cap=50.0, kind="ring_prefill", S=4160,
+                                 T=4096),
+    "gemma2_prefill_global": dict(B=2, KV=16, G=2, hd=128, window=None,
+                                  cap=50.0, kind="prefill", S=4160, T=4192),
+    "gemma2_decode_local": dict(B=2, KV=16, G=2, hd=128, window=4096,
+                                cap=50.0, kind="ring_decode", pos=4190,
+                                T=4096),
+    "gemma2_decode_global": dict(B=2, KV=16, G=2, hd=128, window=None,
+                                 cap=50.0, kind="decode", pos=4190, T=4192),
+}
+# (b, s, h, p, g, n, chunk): tests/test_kernels.py's SSD_CASES, a ragged
+# grouped one, and mamba2-1.3b's scoring call (4 x 2,048 tokens)
+SSD_CASES = [(2, 256, 4, 64, 1, 128, 128), (1, 200, 8, 64, 2, 128, 64),
+             (1, 256, 4, 64, 4, 32, 128), (2, 64, 2, 32, 1, 16, 32),
+             (1, 77, 4, 32, 2, 16, 32)]
+SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 128)
+LM_VOCABS = (49_152, 50_280)  # smollm-360m's and mamba2-1.3b's
+
+
+def flash_call(torch, spec, dtype, gen):
+    """q, k, v and the keyword arguments of one LM path's flash call."""
+    dev = torch.device(DEVICE)
+    B, KV, G, hd, T = (spec[k] for k in ("B", "KV", "G", "hd", "T"))
+    i32 = dict(dtype=torch.int32, device=dev)
+    if spec["kind"] == "prefill":         # plain cache, prompt written
+        S = spec["S"]
+        qp = torch.arange(S, **i32)
+        kp = torch.arange(T, **i32)
+        ok = kp < S
+    elif spec["kind"] == "decode":        # plain cache, one new token
+        S = 1
+        qp = torch.tensor([spec["pos"]], **i32)
+        kp = torch.arange(T, **i32)
+        ok = kp <= spec["pos"]
+    elif spec["kind"] == "ring_prefill":  # the old ring (empty) + new keys
+        S = spec["S"]
+        qp = torch.arange(S, **i32)
+        slot = torch.arange(T, **i32)
+        kp = torch.cat([slot - T, qp])
+        ok = torch.cat([torch.zeros(T, dtype=torch.bool, device=dev),
+                        torch.ones(S, dtype=torch.bool, device=dev)])
+    else:                                 # ring decode
+        S = 1
+        last = spec["pos"]
+        qp = torch.tensor([last], **i32)
+        kp = last - torch.remainder(last - torch.arange(T, **i32), T)
+        ok = kp >= 0
+    Sk = kp.numel()
+    q = torch.randn(B, S, KV, G, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+    kw = dict(q_positions=qp[None].expand(B, S),
+              kv_positions=kp[None].expand(B, Sk),
+              kv_mask=ok[None].expand(B, Sk), causal=True,
+              window=spec["window"], cap=spec["cap"])
+    return q, k, v, kw
+
+
+def _row_subset(torch, S, keep=128):
+    """Query rows held to the plain version at a large Sq: the first and
+    last ``keep`` (rows are independent, so the kernel runs all of them)."""
+    if S <= 2 * keep:
+        return torch.arange(S)
+    return torch.cat([torch.arange(keep), torch.arange(S - keep, S)])
+
+
+def flash_vs_plain(torch, fops, fref, q, k, v, kw):
+    """(kernel output, rel err, max abs err) against the plain version on
+    a subset of the query rows; checks a bit-identical rerun."""
+    got = fops.flash_attention_gqa(q, k, v, **kw)
+    again = fops.flash_attention_gqa(q, k, v, **kw)
+    rows = _row_subset(torch, q.shape[1]).to(q.device)
+    sub = dict(kw, q_positions=kw["q_positions"][:, rows])
+    want = fref.attention_ref(q[:, rows], k, v, **sub)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "flash_attention: two runs differ")
+    part = got[:, rows]
+    return got, rel_err(part, want), float((part.float() - want.float())
+                                           .abs().max())
+
+
+def check_flash_kernel(torch, fops, fref):
+    """flash_attention against its plain version by rel err (2e-5 float32,
+    3e-2 bf16): FLASH_CASES in both types with a partly filled cache, a
+    ring with holes and a fully masked row (exact zeros), every LM path's
+    call in both types; bit-identical reruns; the backward through the
+    autograd.Function against autograd of the plain version. Returns the
+    worst abs error at the LM paths' bf16 calls."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 0
+    for case in FLASH_CASES:
+        B, Sq, Sk, KV, G, hd, causal, window, cap = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                       for s in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                                 (B, Sk, KV, hd)))
+            kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+            kw = dict(q_positions=(kp[Sk - Sq:])[None].expand(B, Sq),
+                      kv_positions=kp[None].expand(B, Sk),
+                      kv_mask=(kp < Sk - 3)[None].expand(B, Sk),
+                      causal=causal, window=window, cap=cap)
+            _, err, _ = flash_vs_plain(torch, fops, fref, q, k, v, kw)
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            check(err < tol, f"flash_attention {case} {dtype}: rel err "
+                  f"{err:.3e} >= {tol}")
+            n += 1
+    # ring positions, holes, and a query before every key
+    B, Sk, KV, G, hd, last = 2, 64, 2, 2, 64, 100
+    q = torch.randn(B, 3, KV, G, hd, generator=gen, device=dev)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
+    slot = torch.arange(Sk, dtype=torch.int32, device=dev)
+    ok = torch.ones(B, Sk, dtype=torch.bool, device=dev)
+    ok[:, 5:40:4] = False
+    kw = dict(q_positions=torch.tensor([[last, last - 1, -7]] * B,
+                                       dtype=torch.int32, device=dev),
+              kv_positions=(last - torch.remainder(last - slot, Sk))[None]
+              .expand(B, Sk), kv_mask=ok, causal=True, window=48, cap=None)
+    got, err, _ = flash_vs_plain(torch, fops, fref, q, k, v, kw)
+    check(err < 2e-5, f"flash_attention ring case: rel err {err:.3e}")
+    check(bool((got[:, 2] == 0).all()),
+          "flash_attention: a fully masked row is not exactly zero")
+    # backward through the autograd.Function
+    w = torch.randn(q.shape, generator=gen, device=dev)
+    grads = []
+    for fn in (fops.flash_attention_gqa, fref.attention_ref):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*ins, **kw) * w).sum().backward()
+        grads.append([t.grad for t in ins])
+    for name, a, b in zip("qkv", *grads):
+        e = rel_err(a, b)
+        check(e < 2e-5, f"flash_attention backward d{name}: rel err {e:.3e}")
+    worst = 0.0
+    for name, spec in LM_FLASH.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kw = flash_call(torch, spec, dtype, gen)
+            _, err, abs_err = flash_vs_plain(torch, fops, fref, q, k, v, kw)
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            check(err < tol, f"flash_attention {name} {dtype}: rel err "
+                  f"{err:.3e} >= {tol}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, abs_err)
+            n += 1
+            del q, k, v
+    log(f"flash_attention vs plain: {n} cases (test_kernels.py's cases and "
+        f"every LM path's call, float32 at rel 2e-5 and bf16 at 3e-2), a "
+        "ring with holes, an exactly-zero masked row, the backward at "
+        "2e-5, bit-identical reruns: ok")
+    return {"flash_attention": worst}
+
+
+def ssd_inputs(torch, case, dtype, gen):
+    b, s, h, p, g, n, _ = case
+    dev = torch.device(DEVICE)
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen,
+                                                  device=dev))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    B = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    C = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    return x, dt, A, B, C
+
+
+def check_ssd_kernel(torch, sops, sref):
+    """ssd_scan against its plain version by rel err (2e-4 float32, 5e-2
+    bf16) over SSD_CASES and mamba2's call in both types, bit-identical
+    reruns, chunk 32 against chunk 64 (1e-4) and the backward (2e-4).
+    Returns the worst abs error at mamba2's bf16 call."""
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(12)
+    worst = 0.0
+    for case in SSD_CASES + [SSD_MAMBA2]:
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_inputs(torch, case, dtype, gen)
+            got = sops.ssd_scan(*ins, chunk=case[-1])
+            again = sops.ssd_scan(*ins, chunk=case[-1])
+            want = sref.ssd_scan_ref(*ins, chunk=case[-1])
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"ssd_scan {case}: two runs differ")
+            err = rel_err(got, want)
+            tol = SSD_TOL[str(dtype).split(".")[1]]
+            check(err < tol, f"ssd_scan {case} {dtype}: rel err {err:.3e} "
+                  f">= {tol}")
+            if case == SSD_MAMBA2 and dtype == torch.bfloat16:
+                worst = float((got.float() - want.float()).abs().max())
+    ins = ssd_inputs(torch, (1, 128, 2, 32, 1, 64, 32), torch.float32, gen)
+    e = rel_err(sops.ssd_scan(*ins, chunk=32), sops.ssd_scan(*ins, chunk=64))
+    check(e < 1e-4, f"ssd_scan chunk 32 vs 64: rel err {e:.3e}")
+    w = torch.randn(ins[0].shape, generator=gen, device=ins[0].device)
+    grads = []
+    for fn in (sops.ssd_scan, sref.ssd_scan_ref):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        (fn(*xs, chunk=32) * w).sum().backward()
+        grads.append([t.grad for t in xs])
+    for name, a, b in zip(("x", "dt", "A", "B", "C"), *grads):
+        e = rel_err(a, b)
+        check(e < 2e-4, f"ssd_scan backward d{name}: rel err {e:.3e}")
+    log(f"ssd_scan vs plain: {2 * (len(SSD_CASES) + 1)} cases (test_kernels"
+        ".py's, a ragged grouped one and mamba2's 4 x 2,048 x 64 heads, "
+        "float32 at rel 2e-4 and bf16 at 5e-2), chunk 32 vs 64 at 1e-4, "
+        "the backward at 2e-4, bit-identical reruns: ok")
+    return {"ssd_scan": worst}
+
+
+def check_categorical_lm(torch, ops, ref):
+    """categorical_logits_sum at the LM vocabularies, N = 8,192 items (the
+    scoring path's 4 x 2,048 tokens), at rtol 1e-6 with a bit-identical
+    rerun. Returns the abs error at mamba2's."""
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(13)
+    err = {}
+    for c in LM_VOCABS:
+        logits = 3.0 * torch.randn(1, 8192, c, generator=gen, device=DEVICE)
+        lab = torch.randint(0, c, (1, 8192), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+        got = ops.categorical_logits_sum_rows(logits, lab)
+        again = ops.categorical_logits_sum_rows(logits, lab)
+        want = ref.categorical_logits_logpmf_sum_ref(logits, lab)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, again),
+              f"categorical_logits_sum 1x8192x{c}: two runs differ")
+        err[c] = float((got - want).abs().max())
+        check(err[c] <= 1e-6 * float(want.abs().max()),
+              f"categorical_logits_sum 1x8192x{c}: err {err[c]:.3e}")
+        del logits
+    log(f"categorical_logits_sum at C = {LM_VOCABS}, N = 8,192: rtol 1e-6, "
+        f"bit-identical reruns: ok (abs err {err})")
+    return err[LM_VOCABS[-1]]
+
+
+# ---------------------------------------------------------------------------
+# the LM paths: serving smollm-360m and gemma2-27b, scoring mamba2-1.3b
+# ---------------------------------------------------------------------------
+# (arch, requests, prompt, new tokens, depth: None for the config's own)
+LM_SERVE = {"smollm-360m": (8, 1024, 64, None),
+            "gemma2-27b": (2, 4160, 32, 2),   # one (local, global) block
+            "mamba2-1.3b": (4, 1024, 32, None)}
+LM_SCORE = ("mamba2-1.3b", 4, 2048)           # (arch, sequences, tokens)
+LM_GATE = 2e-3  # tests/test_archs.py's tolerance for decode vs forward
+
+
+def lm_counts(mods) -> dict:
+    return {k: v for m in mods for k, v in m.LAUNCHES.items()}
+
+
+def lm_reset(mods) -> None:
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def greedy_run(torch, lm, bayes_lm, cfg, params, prompts, max_new,
+               feed=None):
+    """Prefill and ``max_new - 1`` greedy decode steps through the serving
+    step functions; returns the logits of every step (the prefill's last
+    and each decode's) and the tokens. ``feed`` (B, max_new) replaces the
+    greedy tokens fed back (to hold two routes on the same sequence)."""
+    B, S = prompts.shape
+    cache = lm.init_cache(cfg, B, S + max_new, device=DEVICE)
+    prefill = bayes_lm.make_prefill_step(cfg)
+    decode = bayes_lm.make_serve_step(cfg)
+    with torch.no_grad():
+        logits, cache = prefill(params, prompts, cache)
+        steps = [logits[:, -1].float()]
+        token = torch.argmax(steps[0], -1).to(torch.int32)[:, None]
+        tokens = [token]
+        pos = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+        for i in range(max_new - 1):
+            fed = token if feed is None else feed[:, i:i + 1]
+            token, logits, cache = decode(params, fed, cache, pos + i)
+            steps.append(logits[:, -1].float())
+            tokens.append(token)
+    return steps, torch.cat(tokens, dim=1)
+
+
+def close_within(torch, a, b, tol=LM_GATE) -> float:
+    """max(|a - b| - tol |b|): within tol (rtol and atol) iff <= tol."""
+    return float(((a - b).abs() - tol * b.abs()).max())
+
+
+def lm_serve_path(torch, arch, mods):
+    """One serving path at full width: the float32 gates (the flash route
+    against the dense route over every step on the same tokens; prefill(S -
+    1) plus decode(1) against forward_train's last logits), then the timed
+    bf16 serve_batch with the kernels' counts zeroed just before and read
+    just after, then the dense route's bf16 tokens for agreement."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    batch, prompt_len, max_new, depth = LM_SERVE[arch]
+    cfg = dataclasses.replace(configs.get_config(arch), attn_impl="flash")
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "layers": cfg.n_layers, "requests": batch,
+           "prompt": prompt_len, "new_tokens": max_new,
+           "params": lm.count_params(params),
+           "init_s": time.perf_counter() - t0}
+    n_attn = sum(b in ("global", "local") for b in
+                 (cfg.layer_pattern * cfg.n_layers)[:cfg.n_layers])
+
+    # float32 gates, on the same weights upcast
+    if n_attn:
+        p32 = lm.tree_map(lambda t: t.float(), params)
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        flash, ftok = greedy_run(torch, lm, bayes_lm, c32, p32, prompts,
+                                 max_new)
+        dense, _ = greedy_run(torch, lm, bayes_lm, dataclasses.replace(
+            c32, attn_impl="xla"), p32, prompts, max_new, feed=ftok)
+        out["flash_vs_dense"] = max(close_within(torch, a, b)
+                                    for a, b in zip(flash, dense))
+        check(out["flash_vs_dense"] <= LM_GATE,
+              f"{arch}: flash and dense routes differ beyond {LM_GATE} "
+              f"({out['flash_vs_dense']:.3e})")
+        del flash, dense
+        with torch.no_grad():
+            full = lm.forward_train(c32, p32, prompts)[:, -1]
+            cache = lm.init_cache(c32, batch, prompt_len, device=DEVICE)
+            _, cache = lm.prefill(c32, p32, prompts[:, :-1], cache)
+            dec, _ = lm.decode_step(c32, p32, prompts[:, -1:], cache,
+                                    torch.full((batch,), prompt_len - 1,
+                                               dtype=torch.int32,
+                                               device=DEVICE))
+        out["decode_vs_forward"] = close_within(torch, dec[:, 0], full)
+        check(out["decode_vs_forward"] <= LM_GATE,
+              f"{arch}: prefill(S-1) + decode(1) differs from forward_train "
+              f"beyond {LM_GATE} ({out['decode_vs_forward']:.3e})")
+        del p32, full, cache, dec
+        torch.cuda.empty_cache()
+
+    # the timed bf16 run, counted
+    serve_batch(arch, cfg=cfg, params=params, prompts=prompts[:, :16],
+                max_new=2, device=DEVICE)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    lm_reset(mods)
+    gen_tokens, stats = serve_batch(arch, cfg=cfg, params=params,
+                                    prompts=prompts, max_new=max_new,
+                                    device=DEVICE)
+    torch.cuda.synchronize()
+    out["launches"] = lm_counts(mods)
+    want_flash = n_attn * max_new  # the prefill and each decode step
+    check(out["launches"]["flash_attention"] == want_flash,
+          f"{arch}: flash_attention launched "
+          f"{out['launches']['flash_attention']} times, expected {want_flash}")
+    check(sum(out["launches"].values()) == want_flash,
+          f"{arch}: other kernels launched: {out['launches']}")
+    check(gen_tokens.shape == (batch, max_new)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab)).all()),
+          f"{arch}: generated tokens {tuple(gen_tokens.shape)} out of range")
+    out.update(prefill_ms=stats["prefill_s"] * 1e3,
+               decode_ms_per_token=stats["decode_s_per_token"] * 1e3,
+               tokens_per_s=stats["tokens_per_s"])
+    if n_attn:  # greedy agreement with the dense route in bf16 (reported)
+        dense_tokens, _ = serve_batch(
+            arch, cfg=dataclasses.replace(cfg, attn_impl="xla"),
+            params=params, prompts=prompts, max_new=max_new, device=DEVICE)
+        same = (dense_tokens == gen_tokens).float()
+        out["bf16_greedy_agreement"] = float(same.mean())
+        first_diff = (same.cumprod(1).sum(1)).tolist()
+        out["bf16_tokens_before_first_difference"] = first_diff
+    log(f"{arch} serving ({cfg.n_layers} layers, {out['params'] / 1e9:.3f} B "
+        f"parameters, {batch} requests x prompt {prompt_len} + {max_new} "
+        f"new, bf16): prefill {out['prefill_ms']:.2f} ms, decode "
+        f"{out['decode_ms_per_token']:.3f} ms/token, "
+        f"{out['tokens_per_s']:.1f} tokens/s; launches {out['launches']}"
+        + (f"; float32 gates: flash vs dense {out['flash_vs_dense']:.2e}, "
+           f"decode vs forward {out['decode_vs_forward']:.2e} (<= 0 within "
+           f"{LM_GATE}); bf16 greedy agreement with dense "
+           f"{out['bf16_greedy_agreement']:.3f}" if n_attn else
+           " (prefill: the plain scan; decode: the O(1) update)"))
+    return out, (cfg, params, prompts)
+
+
+def lm_score_path(torch, mods):
+    """mamba2-1.3b scoring at full width and depth: the Bayesian LM's
+    log-likelihood and log-joint of 4 x 2,048 tokens. Float32 gates: the
+    kernel route's log-likelihood against the plain scan's (rtol 1e-4),
+    logjoint = logprior + loglikelihood (rtol 1e-5). Then the timed bf16
+    evaluations, counted."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.contexts import LikelihoodContext, PriorContext
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    arch, nseq, ntok = LM_SCORE
+    cfg = dataclasses.replace(configs.get_config(arch), attn_impl="flash")
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (nseq, ntok), generator=gen,
+                           device=DEVICE)
+    labels = torch.randint(0, cfg.vocab, (nseq, ntok), generator=gen,
+                           device=DEVICE)
+    out = {"arch": arch, "layers": cfg.n_layers, "tokens": [nseq, ntok],
+           "params": lm.count_params(params)}
+    with torch.no_grad():
+        p32 = lm.tree_map(lambda t: t.float(), params)
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        m = bayes_lm.make_lm_model(c32)(tokens=tokens, labels=labels,
+                                        params=p32)
+        ll = float(m.logp_with_context({}, LikelihoodContext()))
+        lp = float(m.logp_with_context({}, PriorContext()))
+        lj = float(m.logjoint({}))
+        ll_plain = float(bayes_lm.make_lm_model(dataclasses.replace(
+            c32, attn_impl="xla"))(tokens=tokens, labels=labels,
+                                   params=p32).logp_with_context(
+            {}, LikelihoodContext()))
+        del m, p32
+        torch.cuda.empty_cache()
+    out.update(loglik_f32=ll, loglik_plain_scan_f32=ll_plain, logprior_f32=lp,
+               logjoint_f32=lj,
+               kernel_vs_plain_rel=abs(ll - ll_plain) / abs(ll_plain),
+               joint_vs_parts_rel=abs(lj - (lp + ll)) / abs(lj))
+    check(all(math.isfinite(x) for x in (ll, lp, lj, ll_plain)),
+          f"{arch}: non-finite densities {out}")
+    check(out["kernel_vs_plain_rel"] <= 1e-4,
+          f"{arch}: log-likelihood with the kernel {ll} vs the plain scan "
+          f"{ll_plain} (rel {out['kernel_vs_plain_rel']:.2e} > 1e-4)")
+    check(out["joint_vs_parts_rel"] <= 1e-5,
+          f"{arch}: logjoint {lj} != logprior + loglikelihood {lp + ll}")
+
+    with torch.no_grad():
+        m = bayes_lm.make_lm_model(cfg)(tokens=tokens, labels=labels,
+                                        params=params)
+        m.logp_with_context({}, LikelihoodContext())  # warm-up
+        torch.cuda.synchronize()
+        lm_reset(mods)
+        t0 = time.perf_counter()
+        ll16 = m.logp_with_context({}, LikelihoodContext())
+        lj16 = m.logjoint({})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    out["launches"] = lm_counts(mods)
+    want = {**dict.fromkeys(out["launches"], 0),
+            "ssd_scan": 2 * cfg.n_layers, "categorical_logits_sum": 2}
+    check(out["launches"] == want, f"{arch} scoring: launches "
+          f"{out['launches']}, expected {want}")
+    out.update(loglik_bf16=float(ll16), logjoint_bf16=float(lj16),
+               ms_per_evaluation=secs * 1e3 / 2,
+               tokens_per_s=2 * nseq * ntok / secs)
+    check(math.isfinite(out["loglik_bf16"]) and math.isfinite(
+        out["logjoint_bf16"]), f"{arch}: non-finite bf16 densities")
+    log(f"{arch} scoring ({cfg.n_layers} layers, {out['params'] / 1e9:.3f} B "
+        f"parameters, {nseq} x {ntok} tokens): float32 log-likelihood "
+        f"{ll:.3f} with the kernel, {ll_plain:.3f} with the plain scan (rel "
+        f"{out['kernel_vs_plain_rel']:.2e}); logjoint - (logprior + "
+        f"loglikelihood) rel {out['joint_vs_parts_rel']:.2e}; bf16 "
+        f"{out['ms_per_evaluation']:.2f} ms per evaluation "
+        f"({out['tokens_per_s']:.0f} tokens/s), launches {out['launches']}")
+    return out, (cfg, params, tokens, labels)
+
+
+# ---------------------------------------------------------------------------
+# phase 7 (continued): the LM kernels' times, profiles of the LM paths
+# ---------------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak (NVIDIA data sheet)
+
+
+def flash_pairs(torch, kw, heads: int) -> int:
+    """(query, key) pairs the masks keep, over every query head."""
+    qp = kw["q_positions"][:, :, None].long()
+    kp = kw["kv_positions"][:, None, :].long()
+    keep = kw["kv_mask"][:, None, :] & (kp <= qp)
+    if kw["window"] is not None:
+        keep &= qp - kp < kw["window"]
+    return int(keep.sum()) * heads
+
+
+def sdpa_call(torch, F, q, k, v, kw):
+    """One PyTorch call computing the same attention (no softcap): SDPA
+    with a boolean mask and enable_gqa."""
+    B, Sq, KV, G, hd = q.shape
+    qp = kw["q_positions"][:, None, :, None]
+    kp = kw["kv_positions"][:, None, None, :]
+    mask = kw["kv_mask"][:, None, None, :] & (kp <= qp)
+    if kw["window"] is not None:
+        mask = mask & (qp - kp < kw["window"])
+    qh = q.reshape(B, Sq, KV * G, hd).transpose(1, 2)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def as_ours(o):
+        return o.transpose(1, 2).reshape(B, Sq, KV, G, hd)
+
+    return library, as_ours
+
+
+def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
+             why_none=None, launches=1):
+    """A timing row: device ms (profiler) and issued ms (CUDA events) of
+    the kernel, its plain version and the library call, beside the bound
+    from ``nbytes`` and ``nops`` at ``peak`` operations per second."""
+    calls = {"": kern, "plain_": plain}
+    if library is not None:
+        calls["library_"] = library
+    row = {"name": name, "shape": shape, "ms_from": "torch.profiler device "
+           "time"}
+    for prefix in ("plain_", "", "", "plain_"):
+        row.setdefault(f"{prefix}issued_ms_runs", []).append(
+            time_ms(torch, calls[prefix], iters=10, warmup=2))
+    if library is not None:
+        row["library_issued_ms_runs"] = [time_ms(torch, library, iters=10,
+                                                 warmup=2)]
+    else:
+        row.update(library_ms=None, library_issued_ms=None,
+                   library_none_because=why_none)
+    for prefix, fn in calls.items():
+        row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
+        row[f"{prefix}profiler_ms"] = device_ms(
+            torch, fn, iters=10,
+            launches_per_call=launches if prefix == "" else None)
+        row[f"{prefix}ms"] = row[f"{prefix}profiler_ms"]
+    # a call of 50 us or more keeps the device busy back to back, so CUDA
+    # events time it; the profiler has shown such a kernel at half its
+    # event time while its count was whole
+    if row["issued_ms"] >= 0.05 or any(row[f"{p}ms"] is None for p in calls):
+        row["ms_from"] = "cuda events"
+        for prefix in calls:
+            row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / peak * 1e3
+    row.update(bytes=nbytes, ops=nops, peak_ops_per_s=peak,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_fp32_ms=max(t_bytes, nops / FP32_FLOPS_PER_S * 1e3))
+    lib = (f"library {row['library_ms'] * 1e3:.2f}" if library is not None
+           else "library: none")
+    log(f"time {name} {'x'.join(map(str, shape))} (device / issued), us: "
+        f"kernel {row['ms'] * 1e3:.2f} / {row['issued_ms'] * 1e3:.2f}, plain "
+        f"{row['plain_ms'] * 1e3:.2f} / {row['plain_issued_ms'] * 1e3:.2f}, "
+        f"{lib}, bound {row['bound_ms'] * 1e3:.2f} ({row['bound_by']}, "
+        f"{peak / 1e12:.0f} TFLOP/s; at the FP32 rate "
+        f"{row['bound_fp32_ms'] * 1e3:.2f})")
+    return row
+
+
+FLASH_TIMED = ("smollm_prefill", "smollm_decode", "gemma2_prefill_local",
+               "gemma2_decode_local")
+
+
+def time_lm_kernels(torch, F, fops, fref, sops, sref):
+    """flash_attention at the LM paths' bf16 calls and ssd_scan at
+    mamba2's: bound from the bytes (q, k, v, out, positions and validity
+    read or written once) and the products' flops (4 hd per kept (query,
+    key) pair; the SSD's causal halves) at the bf16 tensor-core peak."""
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(14)
+    rows = []
+    for name in FLASH_TIMED:
+        spec = LM_FLASH[name]
+        q, k, v, kw = flash_call(torch, spec, torch.bfloat16, gen)
+        B, Sq, KV, G, hd = q.shape
+        Sk = k.shape[1]
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 9 * B * Sk \
+            + 4 * B * Sq
+        nops = 4 * hd * flash_pairs(torch, kw, KV * G)
+        kern = lambda: fops.flash_attention_gqa(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fref.attention_ref(q, k, v, **kw)  # noqa: E731
+        library, why = None, None
+        if spec["cap"] is None:
+            library, as_ours = sdpa_call(torch, F, q, k, v, kw)
+            e = rel_err(as_ours(library()), kern())
+            check(e < 3e-2, f"SDPA vs flash_attention {name}: rel {e:.3e}")
+        else:
+            why = ("scaled_dot_product_attention has no softcap (gemma2's "
+                   "cap * tanh(s / cap)), so no single PyTorch call "
+                   "computes this attention")
+        # the key split's combine is a second launch within the call
+        launches = 1 + (fops.plan(B, Sq, Sk, KV, G)[1] > 1)
+        rows.append(time_row(torch, "flash_attention", [B, Sq, Sk, KV, G, hd],
+                             kern, plain, library, nbytes, nops,
+                             BF16_FLOPS_PER_S, why, launches))
+        rows[-1]["call"] = name
+        del q, k, v
+    b, s, h, p, g, n, L = SSD_MAMBA2
+    ins = ssd_inputs(torch, SSD_MAMBA2, torch.bfloat16, gen)
+    nbytes = 2 * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h + h)
+    nc = -(-s // L)
+    causal = L * (L + 1) // 2
+    nops = 2 * b * h * nc * (causal * n + causal * p + 2 * L * n * p)
+    rows.append(time_row(
+        torch, "ssd_scan", list(SSD_MAMBA2),
+        lambda: sops.ssd_scan(*ins, chunk=L),
+        lambda: sref.ssd_scan_ref(*ins, chunk=L), None, nbytes, nops,
+        BF16_FLOPS_PER_S, NO_LIBRARY["ssd_scan"]))
+    rows[-1]["call"] = "mamba2_scoring"
+    return rows
+
+
+def profile_window(torch, label, fn, steps):
+    """Device busy share and top kernels over ``steps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = sorted(((e.key, device_us(e), e.count) for e in events
+                      if device_us(e) > 0 and e.device_type.name == "CUDA"),
+                     key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    out = {"window": label, "calls": steps,
+           "wall_ms_per_call": wall * 1e3 / steps,
+           "device_ms_per_call": busy_us / 1e3 / steps,
+           "busy_share": busy_us / 1e6 / wall if busy_us else None,
+           "kernel_launches_per_call": sum(k[2] for k in kernels) / steps,
+           "top_kernels": [{"name": k, "device_us": us, "count": c}
+                           for k, us, c in kernels[:10]]}
+    if busy_us:
+        log(f"profile {label}: {out['wall_ms_per_call']:.3f} ms wall per "
+            f"call, {out['device_ms_per_call']:.3f} ms on the device, busy "
+            f"share {out['busy_share']:.3f}, "
+            f"{out['kernel_launches_per_call']:.0f} launches per call; top:")
+        for k in out["top_kernels"][:6]:
+            log(f"    {k['device_us'] / steps:10.2f} us/call "
+                f"x{k['count'] // steps:<4d} {k['name'][:90]}")
+    else:
+        log(f"profile {label}: the trace shows no device time (not measured)")
+    return out
+
+
+def profile_lm(torch, serve_state, score_state):
+    """A window of decode steps of each serving path (its prefill once)
+    and one scoring evaluation."""
+    from repro_torch.core.contexts import LikelihoodContext
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+    out = {}
+    for arch, (cfg, params, prompts) in serve_state.items():
+        B, S = prompts.shape
+        steps = 8
+        cache = lm.init_cache(cfg, B, S + steps + 2, device=DEVICE)
+        prefill = bayes_lm.make_prefill_step(cfg)
+        decode = bayes_lm.make_serve_step(cfg)
+        with torch.no_grad():
+            out[f"{arch}_prefill"] = profile_window(
+                torch, f"{arch} prefill", lambda: prefill(
+                    params, prompts, lm.init_cache(cfg, B, S, device=DEVICE)),
+                1)
+            prefill(params, prompts, cache)
+            pos = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+            token = prompts[:, -1:].to(torch.int32)
+            state = {"i": 0}
+
+            def step():
+                decode(params, token, cache, pos + state["i"])
+                state["i"] += 1
+
+            out[f"{arch}_decode"] = profile_window(
+                torch, f"{arch} decode step", step, steps)
+    cfg, params, tokens, labels = score_state
+    with torch.no_grad():
+        m = bayes_lm.make_lm_model(cfg)(tokens=tokens, labels=labels,
+                                        params=params)
+        out["mamba2-1.3b_scoring"] = profile_window(
+            torch, "mamba2-1.3b scoring (log-likelihood)",
+            lambda: m.logp_with_context({}, LikelihoodContext()), 2)
+    return out
+
+
+# ---------------------------------------------------------------------------
 REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integrator
 
 
@@ -1441,7 +2199,11 @@ def main() -> int:
         from repro_torch.kernels.fused_leapfrog import ops as lf_ops
         from repro_torch.kernels.fused_leapfrog import ref as lf_ref
         from repro_torch.kernels.fused_leapfrog import spec as spec_mod
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.flash_attention import ref as fref
         from repro_torch.kernels.fused_logpdf import ops, ref
+        from repro_torch.kernels.ssd_scan import ops as sops
+        from repro_torch.kernels.ssd_scan import ref as sref
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {exc}",
               file=sys.stderr)
@@ -1459,7 +2221,8 @@ def main() -> int:
     # phase 2
     t0 = time.perf_counter()
     build_s = build_all({LOGPDF_CU: ops._lib, MVN_CU: ops._mvn_lib,
-                         LEAPFROG_CU: lf_ops._lib})
+                         LEAPFROG_CU: lf_ops._lib, FLASH_CU: fops._lib,
+                         SSD_CU: sops._lib})
     for path, secs in build_s.items():
         log(f"built and loaded {path} in {secs:.2f} s")
     log(f"{len(build_s)} sources built in {time.perf_counter() - t0:.2f} s")
@@ -1469,6 +2232,10 @@ def main() -> int:
     worst.update(check_categorical_gamma_kernels(torch, ops, ref))
     worst.update(check_density_kernels(torch, ops, ref))
     worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
+    worst.update(check_flash_kernel(torch, fops, fref))
+    worst.update(check_ssd_kernel(torch, sops, sref))
+    worst["categorical_logits_sum"] = max(worst["categorical_logits_sum"],
+                                          check_categorical_lm(torch, ops, ref))
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     def draws(key):
@@ -1536,6 +2303,15 @@ def main() -> int:
     runs["mixed"], pm, kernel, chain = run_model(torch, "mixed",
                                                  draws("mixed"))
     models["mixed"] = (pm, kernel, chain)
+    # the LM paths, each with every count zeroed just before its timed run
+    # and read just after it
+    lm_mods = (ops, lf_ops, fops, sops)
+    lm_runs, serve_state = {}, {}
+    for arch in LM_SERVE:
+        lm_runs[f"{arch}_serving"], serve_state[arch] = lm_serve_path(
+            torch, arch, lm_mods)
+    lm_runs["mamba2-1.3b_scoring"], score_state = lm_score_path(torch,
+                                                                lm_mods)
     log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
@@ -1568,14 +2344,21 @@ def main() -> int:
         "mixed": profile_transitions(torch, *models["mixed"][:2]),
     }
 
+    timings += time_lm_kernels(torch, F, fops, fref, sops, sref)
+    prof.update(profile_lm(torch, serve_state, score_state))
+
     kernels = []
     for name in SOURCES:
+        # the row of the main path's call: the widest one, or for
+        # flash_attention smollm-360m's prefill (the one with a library call)
         main = max((t for t in timings if t["name"] == name),
-                   key=lambda t: t["bytes"])
+                   key=lambda t: (t.get("call") == "smollm_prefill",
+                                  t["bytes"]))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches": sum(r["launches"].get(name, 0) for r in
+                            list(runs.values()) + list(lm_runs.values())),
             "max_abs_err": worst[name], "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1589,7 +2372,8 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
-              "runs": runs, "checks": checks, "timings": timings,
+              "runs": runs, "lm_runs": lm_runs, "checks": checks,
+              "timings": timings,
               "profile": prof, "kernels": kernels, "seconds": total_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of the typed-trace PPL.
 
 Mirrors ``repro``'s module tree and public names. Plain tensor code is
-PyTorch; the log-density kernels the JAX package wrote in Pallas are CUDA
-kernels written for Hopper (``kernels/fused_logpdf/csrc``). Entry points
+PyTorch; the kernels the JAX package wrote in Pallas are CUDA kernels
+written for Hopper (``kernels/*/csrc``). Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """
 from repro_torch.core import (DefaultContext, LikelihoodContext,

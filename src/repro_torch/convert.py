@@ -12,6 +12,14 @@ A signature for a JAX-side trace is built the same way from its
     tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
           for s in tvi.layout.sites)
 
+``params_from_reference`` carries an LM's weights across: the JAX
+package's ``lm.init_params`` pytree, as NumPy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``), becomes the port's dict
+of tensors, every key and shape checked against the port's own
+``init_params`` for the same config. (The JAX package keys its
+initialiser on Python's salted ``hash``, so its weights differ from
+process to process and cannot be re-derived from a seed.)
+
 ``spec_from_reference`` does the same for a compiled separable potential:
 the JAX package's ``PotentialSpec`` is plain NumPy data, so its fields
 carry across as they are::
@@ -20,7 +28,7 @@ carry across as they are::
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +36,8 @@ import torch
 from repro_torch.core.varinfo import TypedVarInfo
 from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
 
-__all__ = ["layout_signature", "state_from_reference", "spec_from_reference"]
+__all__ = ["layout_signature", "state_from_reference", "spec_from_reference",
+           "params_from_reference"]
 
 Signature = Tuple[Tuple[str, Tuple[int, ...], int, int], ...]
 
@@ -83,3 +92,40 @@ def spec_from_reference(op, c0, c1, c2, c3, const, dim) -> PotentialSpec:
     return PotentialSpec(op=np.asarray(op), c0=np.asarray(c0),
                          c1=np.asarray(c1), c2=np.asarray(c2),
                          c3=np.asarray(c3), const=float(const), dim=dim)
+
+
+def params_from_reference(tree, cfg, device=None) -> Any:
+    """The port's LM parameters from the JAX package's for ``cfg`` (a
+    ``repro_torch.nn.lm.ArchConfig``): ``tree`` is the JAX pytree of
+    nested dicts and lists with NumPy arrays at the leaves. Each array is
+    checked against the shape the port's ``init_params`` gives its key and
+    takes that parameter's type (``cfg.dtype``), on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    Raises ``ValueError`` naming the first key or shape that differs.
+    """
+    from repro_torch._device import resolve_device
+    from repro_torch.nn.lm import init_params
+    return _carry(tree, init_params(cfg, device="meta"),
+                  resolve_device(device), "params")
+
+
+def _carry(ref, like, dev, path: str):
+    if isinstance(like, dict):
+        if not isinstance(ref, dict) or set(ref) != set(like):
+            got = sorted(ref) if isinstance(ref, dict) else type(ref).__name__
+            raise ValueError(f"{path}: keys {got}, the port expects "
+                             f"{sorted(like)}")
+        return {k: _carry(ref[k], v, dev, f"{path}/{k}")
+                for k, v in like.items()}
+    if isinstance(like, list):
+        if not isinstance(ref, (list, tuple)) or len(ref) != len(like):
+            raise ValueError(f"{path}: expected a list of {len(like)}, got "
+                             f"{type(ref).__name__}")
+        return [_carry(r, v, dev, f"{path}/{i}")
+                for i, (r, v) in enumerate(zip(ref, like))]
+    arr = np.array(ref, dtype=np.float32)  # a writable copy
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"{path}: shape {arr.shape}, the port expects "
+                         f"{tuple(like.shape)}")
+    return torch.as_tensor(arr, device=dev).to(like.dtype)

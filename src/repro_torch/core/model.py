@@ -11,7 +11,8 @@ Model evaluation methods mirror the paper's phases:
 * ``untyped_trace``  — eager discovery run filling an UntypedVarInfo.
 * ``typed_varinfo``  — discovery + ``typify``: the typed trace that every
                         density evaluation specialises on.
-* ``logjoint / logprior / loglikelihood`` — context-dispatched densities.
+* ``logjoint / logprior / loglikelihood / logp_with_context`` —
+                        context-dispatched densities.
 * ``make_logdensity_fn`` — flat unconstrained R^n -> log density (HMC).
 
 PyTorch runs eagerly, so there is no compiled-program cache here: the
@@ -139,6 +140,12 @@ class Model:
 
     def loglikelihood(self, values, backend: str = "fused") -> torch.Tensor:
         return self._eval_logp(values, LikelihoodContext(), backend=backend)
+
+    def logp_with_context(self, values, ctx: Context,
+                          backend: str = "fused") -> torch.Tensor:
+        """The density of ``values`` under any context (a
+        ``MiniBatchContext``'s likelihood scaling, say)."""
+        return self._eval_logp(values, ctx, backend=backend)
 
     # -- flat log-density for gradient-based inference -----------------------
     def make_logdensity_fn(self, tvi_linked: TypedVarInfo,

@@ -9,6 +9,11 @@ version.
   fused_leapfrog/ the whole n-step leapfrog for a separable potential
                  (an opcode table) in one launch for all chains, and the
                  one-shot potential value plus gradient.
+  flash_attention/ GQA online-softmax attention over position arrays
+                 (causal, sliding window, validity, softcap) for the LM
+                 substrate's ``attn_impl="flash"`` route.
+  ssd_scan/      the Mamba-2 chunked SSD scan, on the Bayesian LM's
+                 scoring path.
 
 The kernels are built with ``nvcc`` at first use (``_build.py``); on a
 CPU tensor every wrapper runs the plain version instead.

@@ -1,0 +1,146 @@
+"""Public wrapper of the SSD scan kernel.
+
+``ssd_scan(x, dt, A, B, C, chunk)`` takes the JAX package's layout. On a
+CUDA tensor it launches the hand-written kernel in ``csrc/ssd_scan.cu``
+(or raises); on a CPU tensor it runs the plain version in ``ref.py``.
+Nothing falls back. Launches are counted in ``LAUNCHES``.
+
+The kernel reads x, B and C through their strides (the last axis must be
+dense: the mixer's split views of the convolution output go in as they
+are) and treats the positions past the sequence as dt = 0, as the JAX
+wrapper's padding does, so nothing is padded or copied. The
+``torch.autograd.Function``'s backward recomputes through the plain
+version, as the JAX package's ``_ssd_bwd`` does.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "ssd_scan", "kernel_source",
+           "CHUNKS", "HEAD_DIMS", "smem_bytes", "MAX_SMEM_BYTES"]
+
+LAUNCHES = {"ssd_scan": 0}
+CHUNKS = (32, 64, 128)      # the kernel's chunk lengths
+HEAD_DIMS = (32, 64, 128)   # and head dims p
+MAX_SMEM_BYTES = 232_448    # shared memory one block may use on Hopper
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LIB = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kernel_source() -> Path:
+    return Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+
+
+def smem_bytes(chunk: int, n: int, p: int) -> int:
+    """Shared memory of one block (``smem_floats`` in the source): C and B
+    ``[chunk][n + 1]``, x ``[chunk][p]``, S ``[n][p]``, one 32-row weight
+    tile ``[32][chunk + 1]`` and three chunk vectors, in float32."""
+    return 4 * (2 * chunk * (n + 1) + chunk * p + n * p + 32 * (chunk + 1)
+                + 3 * chunk + 1)
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = load_library(kernel_source())
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_ssd_scan.argtypes = [p] * 6 + [i32] + [i64] * 14 + \
+            [i32] * 7 + [p]
+        lib.repro_ssd_scan.restype = i32
+        lib.repro_ssd_cuda_error_string.argtypes = [i32]
+        lib.repro_ssd_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x, B, C must share float32 or bfloat16, "
+                        f"got {x.dtype}, {B.dtype}, {C.dtype}")
+    if chunk not in CHUNKS or p not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} and "
+                         f"head dim in {HEAD_DIMS}, got {chunk} and {p}")
+    if h % g:
+        raise ValueError(f"ssd_scan: {h} heads over {g} groups")
+    if smem_bytes(chunk, n, p) > MAX_SMEM_BYTES:
+        raise ValueError(f"ssd_scan: chunk {chunk}, d_state {n}, head dim "
+                         f"{p} need {smem_bytes(chunk, n, p)} B of shared "
+                         f"memory, more than {MAX_SMEM_BYTES}")
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    if s == 0 or b == 0:
+        return y
+    dt = dt.to(torch.float32)
+    A = A.to(torch.float32).contiguous()
+    for name, t in (("x", x), ("B", B), ("C", C), ("dt", dt)):
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"ssd_scan: {name}'s last axis must be dense, "
+                             f"strides {t.stride()}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().repro_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1),
+            B.stride(0), B.stride(1), B.stride(2),
+            C.stride(0), C.stride(1), C.stride(2),
+            y.stride(0), y.stride(1), y.stride(2),
+            b, s, h, g, n, p, chunk, stream)
+    if err != 0:
+        msg = _lib().repro_ssd_cuda_error_string(err).decode()
+        raise KernelError(f"ssd_scan launch failed: CUDA error {err} ({msg}) "
+                          f"for x {tuple(x.shape)}, B {tuple(B.shape)}")
+    LAUNCHES["ssd_scan"] += 1
+    return y
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward through the kernel (the plain version on a CPU tensor);
+    backward by recomputing the plain version, as ``_ssd_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        if x.device.type == "cpu":
+            return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+        if x.device.type != "cuda":
+            raise ValueError(f"no ssd_scan kernel for device "
+                             f"'{x.device.type}'")
+        return _launch(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, ctx.needs_input_grad[:5])]
+            out = ssd_scan_ref(*ins, chunk=ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None,)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """Chunked SSD scan. x: (b,s,h,p); dt: (b,s,h) float32; A: (h,)
+    float32; B, C: (b,s,g,n) -> y (b,s,h,p) in x's type.
+
+    A sequence that is not a chunk multiple is scanned as if padded with
+    dt = 0 (zero decay and zero state update); the padding is not
+    returned."""
+    return _SSDScan.apply(x, dt, A, B, C, chunk)

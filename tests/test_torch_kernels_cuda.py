@@ -13,7 +13,11 @@ with a positive definite precision) at rtol 1e-5. The fused leapfrog's q, p and 
 rtol 1e-5 plus atol 1e-5 * max|plain| (nvcc contracts the updates into
 FMAs, torch does not; the difference compounds over the steps), its
 potential at 1e-5 * sum|v_i| (a float32 sum of up to 10^6 terms in
-another order). Reruns must be bit-identical (no float atomics).
+another order). The flash-attention and SSD-scan kernels by
+``tests/test_kernels.py``'s measure, max|kernel - plain| / max|plain|:
+flash 2e-5 in float32 and 3e-2 in bf16, ssd_scan 2e-4 and 5e-2 (float32
+math in another order; bf16 outputs round). Reruns must be bit-identical
+(no float atomics).
 """
 import pytest
 import torch
@@ -22,7 +26,11 @@ from repro_torch.kernels.fused_leapfrog import ops as lf_ops
 from repro_torch.kernels.fused_leapfrog import ref as lf_ref
 from repro_torch.kernels.fused_leapfrog.spec import (OP_NORMAL,
                                                      potential_elem_value)
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_logpdf import ops, ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 
 @pytest.fixture
@@ -312,3 +320,139 @@ def test_cuda_fused_leapfrog_counts_one_launch_per_call(cuda_device):
     lf_ops.fused_leapfrog(spec, q, q, g, 0.1, 4)
     assert lf_ops.LAUNCHES == {"fused_leapfrog": 1, "fused_potential_vg": 1}
     assert lp.shape == (4,)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+FLASH_CASES = [
+    # B, Sq, Sk, KV, G, hd, causal, window, cap (tests/test_kernels.py's,
+    # head dims 16 and 20, and the serving paths' shapes)
+    (2, 128, 128, 2, 2, 64, True, None, None),
+    (1, 256, 256, 1, 4, 128, True, None, 50.0),
+    (2, 100, 100, 2, 1, 64, True, 64, None),
+    (1, 64, 64, 4, 1, 128, False, None, None),
+    (1, 1, 96, 2, 2, 64, True, None, None),
+    (1, 8, 160, 1, 2, 256, True, 32, 30.0),
+    (2, 40, 40, 2, 3, 16, True, None, None),
+    (2, 33, 70, 1, 3, 20, True, 9, None),
+    (8, 1, 1088, 5, 3, 64, True, None, None),
+    (2, 1, 4096, 16, 2, 128, True, 4096, 50.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, case,
+                                                    dtype):
+    B, Sq, Sk, KV, G, hd, causal, window, cap = case
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+               for shape in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                             (B, Sk, KV, hd)))
+    qp = torch.arange(Sk - Sq, Sk, dtype=torch.int32,
+                      device=cuda_device)[None].expand(B, Sq)
+    kp = torch.arange(Sk, dtype=torch.int32, device=cuda_device)[None]
+    kp = kp.expand(B, Sk)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal, window=window,
+              cap=cap, kv_mask=kp < Sk - 3)
+    flash_ops.reset_launch_counts()
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    again = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert flash_ops.LAUNCHES == {"flash_attention": 2}
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert _rel_err(got, attention_ref(q, k, v, **kw)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_ring_masks_and_backward(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    B, Sk, KV, G, hd = 2, 64, 2, 2, 64
+    q = torch.randn(B, 3, KV, G, hd, generator=gen, device=cuda_device)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda_device)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda_device)
+    last = 100
+    slot = torch.arange(Sk, dtype=torch.int32, device=cuda_device)
+    kp = (last - torch.remainder(last - slot, Sk))[None].expand(B, Sk)
+    qp = torch.tensor([[last, last - 1, -7]] * B, dtype=torch.int32,
+                      device=cuda_device)
+    mask = torch.ones(B, Sk, dtype=torch.bool, device=cuda_device)
+    mask[:, 5:40:4] = False
+    kw = dict(q_positions=qp, kv_positions=kp, causal=True, window=48,
+              cap=None, kv_mask=mask)
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert _rel_err(got, attention_ref(q, k, v, **kw)) < 2e-5
+    assert bool((got[:, 2] == 0).all())  # a row before every key
+    # backward: the autograd.Function against autograd of the plain version
+    w = torch.randn(q.shape, generator=gen, device=cuda_device)
+    grads = []
+    for fn in (flash_ops.flash_attention_gqa, attention_ref):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*ins, **kw) * w).sum().backward()
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) < 2e-5
+
+
+SSD_CASES = [
+    # b, s, h, p, g, n, chunk (tests/test_kernels.py's and mamba2-1.3b's)
+    (2, 256, 4, 64, 1, 128, 128),
+    (1, 200, 8, 64, 2, 128, 64),
+    (1, 256, 4, 64, 4, 32, 128),
+    (2, 64, 2, 32, 1, 16, 32),
+    (1, 77, 4, 32, 2, 16, 32),
+    (4, 2048, 64, 64, 1, 128, 128),
+]
+
+
+def _ssd_inputs(case, dtype, dev, seed=7):
+    b, s, h, p, g, n, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen,
+                                                  device=dev))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    B = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    C = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_ssd_scan_matches_plain_version(cuda_device, case, dtype):
+    ins = _ssd_inputs(case, dtype, cuda_device)
+    chunk = case[-1]
+    ssd_ops.reset_launch_counts()
+    got = ssd_ops.ssd_scan(*ins, chunk=chunk)
+    again = ssd_ops.ssd_scan(*ins, chunk=chunk)
+    assert ssd_ops.LAUNCHES == {"ssd_scan": 2}
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2e-4 if dtype == torch.float32 else 5e-2
+    assert _rel_err(got, ssd_scan_ref(*ins, chunk=chunk)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_chunk_invariance_and_backward(cuda_device):
+    ins = _ssd_inputs((1, 128, 2, 32, 1, 64, 32), torch.float32, cuda_device)
+    y32 = ssd_ops.ssd_scan(*ins, chunk=32)
+    y64 = ssd_ops.ssd_scan(*ins, chunk=64)
+    assert _rel_err(y32, y64) < 1e-4
+    w = torch.randn_like(y32)
+    grads = []
+    for fn in (ssd_ops.ssd_scan, ssd_scan_ref):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        (fn(*xs, chunk=32) * w).sum().backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) < 2e-4
