@@ -20,8 +20,10 @@ user calls (``launch.serve.serve_batch``, ``models.bayes_lm``), with
 random weights from a seed and ``attn_impl="flash"``: serving
 ``smollm-360m`` at full width and depth and ``gemma2-27b`` at full width
 with its depth cut to one (local, global) block, through the hand-written
-``flash_attention`` kernel; scoring 4 x 2,048 tokens under the Bayesian
-``mamba2-1.3b`` at full width and depth, through ``ssd_scan`` and
+flash-attention kernels (``flash_fwd_tc``, the bf16 prefill on the tensor
+cores; ``flash_decode``, every decode step; ``flash_fwd``, the FP32
+prefill of the float32 serving run); scoring 4 x 2,048 tokens under the
+Bayesian ``mamba2-1.3b`` at full width and depth, through ``ssd_scan`` and
 ``categorical_logits_sum``; and serving ``mamba2-1.3b`` briefly (its
 prefill runs the plain scan, its decode the O(1) update, as in the JAX
 package: no kernel of this slice). Draws per model are in ``DRAWS``.
@@ -30,7 +32,8 @@ Phases, in order:
 1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
 2. builds the five kernel sources with ``nvcc``, in parallel, and prints
-   each build time;
+   each build time, and (compiled beside them) ``nvcc -Xptxas -v``'s
+   registers, shared memory and spills of this slice's kernels;
 3. holds each kernel against its plain PyTorch version on the card and
    checks that two runs are bit-identical: the fused_logpdf sums at rtol
    1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``; categorical over
@@ -46,12 +49,15 @@ Phases, in order:
    table, with and without an inverse mass, 1/4/16 chains with distinct
    step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
    rtol 1e-5 plus atol 1e-5 * max|plain|, the potential at
-   1e-5 * sum_i |v_i|); flash_attention by max|kernel - plain| / max|plain|
-   (2e-5 in float32, 3e-2 in bf16: tests/test_kernels.py's) over that
-   file's cases in both types, a ring with holes and a fully masked row
-   (exact zeros) and every call of the LM paths (``LM_FLASH``, the large
-   ones on their first and last 128 query rows), and its backward through
-   the ``autograd.Function`` at 2e-5; ssd_scan the same way (2e-4 and
+   1e-5 * sum_i |v_i|); flash_attention's three kernels by max|kernel -
+   plain| / max|plain| (2e-5 in float32, 3e-2 in bf16: tests/
+   test_kernels.py's) over that file's cases in both types, each kernel
+   at its edges (``FLASH_KERNEL_CASES``: decode at G 1 to 8, odd Sk and
+   holes; the tensor-core prefill at hd 64 and 128, ragged, windowed and
+   softcapped), rings with holes and fully masked rows (exact zeros)
+   through each kernel and every call of the LM paths (``LM_FLASH``, the
+   large ones on their first and last 128 query rows), each kernel
+   reached, and the backward through the ``autograd.Function`` at 2e-5; ssd_scan the same way (2e-4 and
    5e-2) over that file's cases and mamba2's 4 x 2,048 x 64 heads, chunk
    32 against chunk 64 at 1e-4, and its backward; categorical_logits_sum
    again at C = 49,152 and 50,280 over 8,192 items; all bit-identical on
@@ -78,10 +84,10 @@ Phases, in order:
    integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp); then,
    as in phase 4, ``hier_poisson`` (step 0.02; std_normal_sum and
    gamma_unnorm_sum once per evaluation, 5 compiler probes),
-   ``hmm_semisup`` (step 0.01; categorical_logits_sum twice per
-   evaluation, C = 5 and 20; no probes: the compiler stops at the simplex
-   sites) and ``lda`` (step 0.005; categorical_logits_sum once, 4 x 10,176
-   x 100; no probes), and their simplex draws: non-negative, rows summing
+   ``hmm_semisup`` (step 0.01; the small-C categorical_logits_sum twice
+   per evaluation, C = 5 and 20; no probes: the compiler stops at the
+   simplex sites) and ``lda`` (step 0.005; the small-C path once, 4 x
+   10,176 x 100; no probes), and their simplex draws: non-negative, rows summing
    to 1 within 1e-5; ``gauss_unknown`` (step 0.01; std_normal_sum twice
    per evaluation, 5 probes; its posterior means of m and s against the
    conjugate posterior's within 5.5 Monte-Carlo standard errors), then the
@@ -102,9 +108,12 @@ Phases, in order:
    and every decode step fed the same tokens, and prefill(S - 1) plus
    decode(1) against ``forward_train``'s last logits (both within 2e-3;
    for gemma2 the prompt passes the 4,096-slot ring, so this is the ring
-   repair at real size); then the timed bf16 ``serve_batch`` with every
-   count zeroed just before and read just after (flash_attention once per
-   attention layer in the prefill and in each decode step, nothing else),
+   repair at real size; the float32 flash run is counted: flash_fwd once
+   per attention layer in the prefill, flash_decode in each decode step);
+   then the timed bf16 ``serve_batch`` with every count zeroed just before
+   and read just after (flash_fwd_tc once per attention layer in the
+   prefill, flash_decode once per layer in each decode step, nothing
+   else),
    and the dense route's bf16 greedy tokens for agreement (reported, not
    gated); for the scoring path, in float32, the log-likelihood with
    ``ssd_scan`` against the plain scan's (rtol 1e-4) and logjoint =
@@ -117,11 +126,12 @@ Phases, in order:
    issue each call), and profiles a window of transitions of logreg, of
    gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
    gauss_unknown (both routes), sto_volatility and family_mix_8k for the
-   device's busy share; flash_attention at the LM paths' bf16 calls
-   (``FLASH_TIMED``; the library call is ``scaled_dot_product_attention``
-   with a boolean mask and ``enable_gqa``, none where gemma2's softcap
-   applies) and ssd_scan at mamba2's, their bounds at the bf16
-   tensor-core peak (and at the FP32 rate, ``bound_fp32_ms``); and
+   device's busy share; the flash kernels at the LM paths' calls
+   (``FLASH_TIMED``: the bf16 serving calls and the float32 prefill; the
+   library call is ``scaled_dot_product_attention`` with a boolean mask
+   and ``enable_gqa``, none where gemma2's softcap applies) and ssd_scan
+   at mamba2's, their bounds at the peak for the inputs' type (the bf16
+   tensor cores or FP32; at the FP32 rate also ``bound_fp32_ms``); and
    profiles of each serving path's prefill and decode steps and of one
    scoring evaluation.
 
@@ -179,6 +189,7 @@ SOURCES = {
     "std_normal_sum": LOGPDF_CU,
     "bernoulli_logit_sum": LOGPDF_CU,
     "categorical_logits_sum": LOGPDF_CU,
+    "categorical_logits_sum_small": LOGPDF_CU,
     "gamma_unnorm_sum": LOGPDF_CU,
     "fused_leapfrog": LEAPFROG_CU,
     "fused_potential_vg": LEAPFROG_CU,
@@ -186,13 +197,17 @@ SOURCES = {
     "beta_unnorm_sum": LOGPDF_CU,
     "student_t_unnorm_sum": LOGPDF_CU,
     "mvn_quadform_sum": MVN_CU,
-    "flash_attention": FLASH_CU,
+    "flash_fwd": FLASH_CU,
+    "flash_fwd_tc": FLASH_CU,
+    "flash_decode": FLASH_CU,
     "ssd_scan": SSD_CU,
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
     "bernoulli_logit_sum": "src/repro/kernels/fused_logpdf/kernel.py:97",
     "categorical_logits_sum": "src/repro/kernels/fused_logpdf/kernel.py:120",
+    "categorical_logits_sum_small":
+        "src/repro/kernels/fused_logpdf/kernel.py:120",
     "gamma_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:154",
     "fused_leapfrog": "src/repro/kernels/fused_leapfrog/kernel.py:38",
     "fused_potential_vg": "src/repro/kernels/fused_leapfrog/kernel.py:130",
@@ -200,7 +215,9 @@ REPLACES = {
     "beta_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:174",
     "student_t_unnorm_sum": "src/repro/kernels/fused_logpdf/kernel.py:194",
     "mvn_quadform_sum": "src/repro/kernels/fused_logpdf/kernel.py:220",
-    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:34",
+    "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:34",
+    "flash_fwd_tc": "src/repro/kernels/flash_attention/kernel.py:34",
+    "flash_decode": "src/repro/kernels/flash_attention/kernel.py:34",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:31",
 }
 NO_LIBRARY = {
@@ -256,10 +273,10 @@ def nvidia_smi() -> str:
 MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                "bernoulli_logit_sum": [(4, 10000)],
                # (chains, items, classes): hmm_semisup's two blocks, lda's
-               "categorical_logits_sum": [(4, 99, 5), (4, 100, 20),
-                                          (4, 10176, 100),
-                                          # mamba2-1.3b scoring's tokens
-                                          (1, 8192, 50280)],
+               "categorical_logits_sum_small": [(4, 99, 5), (4, 100, 20),
+                                                (4, 10176, 100)],
+               # mamba2-1.3b scoring's tokens
+               "categorical_logits_sum": [(1, 8192, 50280)],
                # hier_poisson's block, and a wide one for the timing phase
                "gamma_unnorm_sum": [(4, 1), (4, 40000)],
                # gauss_unknown's per-array route (shared x, one mu and one
@@ -271,8 +288,9 @@ MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                # (chains, N, D): mixed's 5-D site, and a wide one
                "mvn_quadform_sum": [(4, 1, 5), (4, 4096, 256)]}
 FUSED_LOGPDF = ("std_normal_sum", "bernoulli_logit_sum",
-                "categorical_logits_sum", "gamma_unnorm_sum", "normal_sum",
-                "beta_unnorm_sum", "student_t_unnorm_sum", "mvn_quadform_sum")
+                "categorical_logits_sum", "categorical_logits_sum_small",
+                "gamma_unnorm_sum", "normal_sum", "beta_unnorm_sum",
+                "student_t_unnorm_sum", "mvn_quadform_sum")
 CHECK_ROWS = (1, 4, 16)
 CHECK_N = (1, 101, 255, 257, 400, 10000, 40000, 40400, 1_000_003)
 
@@ -328,7 +346,9 @@ def check_kernels(torch, ops, ref):
                          in_dims=(0, None, None))(x, am1, rate)
     torch.cuda.synchronize()
     want = {**dict.fromkeys(FUSED_LOGPDF, 0),
-            **dict.fromkeys(FUSED_LOGPDF[:4], 1)}
+            **dict.fromkeys(("std_normal_sum", "bernoulli_logit_sum",
+                             "categorical_logits_sum_small",
+                             "gamma_unnorm_sum"), 1)}
     check(ops.LAUNCHES == want,
           f"vmap(grad) over 4 chains launched {ops.LAUNCHES}, expected one "
           "launch per kernel")
@@ -364,7 +384,8 @@ def check_categorical_gamma_kernels(torch, ops, ref):
     shapes."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(99)
-    worst = {"categorical_logits_sum": 0.0, "gamma_unnorm_sum": 0.0}
+    worst = {"categorical_logits_sum": 0.0,
+             "categorical_logits_sum_small": 0.0, "gamma_unnorm_sum": 0.0}
     n_cat = skipped = 0
     for c in CAT_C:
         for n in CAT_N:
@@ -389,9 +410,11 @@ def check_categorical_gamma_kernels(torch, ops, ref):
                     check(bool((err <= 1e-6 * want.abs()).all()),
                           f"{tag}: max rel err "
                           f"{float((err / want.abs()).max()):.3e} > 1e-6")
-                    if (rows, n, c) in MAIN_SHAPES["categorical_logits_sum"]:
-                        worst["categorical_logits_sum"] = max(
-                            worst["categorical_logits_sum"], float(err.max()))
+                    name = ("categorical_logits_sum_small"
+                            if ops.categorical_group(c)
+                            else "categorical_logits_sum")
+                    if (rows, n, c) in MAIN_SHAPES[name]:
+                        worst[name] = max(worst[name], float(err.max()))
                     n_cat += 1
                 del logits
     # the edges, as the plain version defines them
@@ -722,8 +745,9 @@ PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
             "gaussian_10k": {"std_normal_sum": 1},
             "hier_poisson": {"std_normal_sum": 1, "gamma_unnorm_sum": 1},
             # one block per class count: C = 5 (transitions), 20 (emissions)
-            "hmm_semisup": {"categorical_logits_sum": 2},
-            "lda": {"categorical_logits_sum": 1},
+            # (both C <= 256: the small-C path)
+            "hmm_semisup": {"categorical_logits_sum_small": 2},
+            "lda": {"categorical_logits_sum_small": 1},
             # the prior block (m) and the likelihood block (y)
             "gauss_unknown": {"std_normal_sum": 2},
             # the per-site evaluator with the per-array switch on: the
@@ -1116,10 +1140,12 @@ def device_us(event) -> float:
 KERNEL_LAUNCHES_PER_CALL = 2
 
 
-def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None):
+def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
+              names=None):
     """Device time per call of every CUDA kernel that ``fn`` launches, from
-    torch.profiler. The profiler now and then records a window without
-    some of its device activity: a window that shows none, or (given
+    torch.profiler (only those whose name holds one of ``names``, when
+    given). The profiler now and then records a window without some of
+    its device activity: a window that shows none, or (given
     ``launches_per_call``) another number of kernels than ``iters`` times
     that, is taken again. None when no attempt's trace is whole."""
     from torch.profiler import ProfilerActivity, profile
@@ -1132,7 +1158,8 @@ def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA" and device_us(e) > 0]
+                  if e.device_type.name == "CUDA" and device_us(e) > 0
+                  and (names is None or any(n in e.key for n in names))]
         total = sum(device_us(e) for e in events)
         launches = sum(e.count for e in events)
         if total > 0 and launches_per_call in (None, launches / iters):
@@ -1562,18 +1589,42 @@ def flash_vs_plain(torch, fops, fref, q, k, v, kw):
                                            .abs().max())
 
 
+def flash_kernel_of(fops, q, k):
+    """The kernel ``plan`` picks for this call."""
+    B, Sq, KV, G, hd = q.shape
+    return fops.plan(B, Sq, k.shape[1], KV, G, q.dtype, hd).kernel
+
+
+# (B, Sq, Sk, KV, G, hd, window, cap, holes): flash_decode at G 1 to 8,
+# odd Sk and holes in the cache; flash_fwd_tc at hd 64 and 128 with ragged
+# Sq and Sk, a window, a softcap and holes
+FLASH_KERNEL_CASES = [(3, 1, 77, 2, 1, 64, None, None, True),
+                      (2, 1, 301, 3, 2, 128, 50, 30.0, True),
+                      (1, 1, 1023, 1, 4, 64, None, None, False),
+                      (2, 1, 513, 2, 5, 128, None, 50.0, True),
+                      (1, 3, 99, 2, 7, 64, 40, None, True),
+                      (1, 1, 4097, 1, 8, 128, None, None, True),
+                      (2, 333, 517, 2, 3, 64, None, None, True),
+                      (1, 190, 1000, 3, 2, 128, 128, 50.0, True),
+                      (1, 64, 65, 1, 1, 64, None, None, False),
+                      (2, 97, 97, 1, 2, 128, 17, None, True)]
+
+
 def check_flash_kernel(torch, fops, fref):
-    """flash_attention against its plain version by rel err (2e-5 float32,
-    3e-2 bf16): FLASH_CASES in both types with a partly filled cache, a
-    ring with holes and a fully masked row (exact zeros), every LM path's
-    call in both types; bit-identical reruns; the backward through the
-    autograd.Function against autograd of the plain version. Returns the
-    worst abs error at the LM paths' bf16 calls."""
+    """flash_attention's three kernels against the plain version by rel err
+    (2e-5 float32, 3e-2 bf16): FLASH_CASES in both types with a partly
+    filled cache, FLASH_KERNEL_CASES (each kernel at its edges), a ring
+    with holes and fully masked rows (exact zeros) through each kernel,
+    every LM path's call in both types; bit-identical reruns; the backward
+    through the autograd.Function against autograd of the plain version.
+    Checks that every kernel ran, and returns each kernel's worst abs error
+    at the LM paths' calls of the main path's type (bf16; float32 for
+    flash_fwd, the float32 gates' prefill)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(11)
+    fops.reset_launch_counts()
     n = 0
-    for case in FLASH_CASES:
-        B, Sq, Sk, KV, G, hd, causal, window, cap = case
+    for B, Sq, Sk, KV, G, hd, causal, window, cap in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
                        for s in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
@@ -1585,26 +1636,62 @@ def check_flash_kernel(torch, fops, fref):
                       causal=causal, window=window, cap=cap)
             _, err, _ = flash_vs_plain(torch, fops, fref, q, k, v, kw)
             tol = FLASH_TOL[str(dtype).split(".")[1]]
-            check(err < tol, f"flash_attention {case} {dtype}: rel err "
+            check(err < tol, f"flash_attention {(B, Sq, Sk, KV, G, hd)} "
+                  f"{dtype} ({flash_kernel_of(fops, q, k)}): rel err "
                   f"{err:.3e} >= {tol}")
             n += 1
-    # ring positions, holes, and a query before every key
+    for case in FLASH_KERNEL_CASES:
+        B, Sq, Sk, KV, G, hd, window, cap, holes = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                       for s in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                                 (B, Sk, KV, hd)))
+            kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+            ok = kp < Sk - 1
+            if holes:
+                ok = ok & (torch.remainder(kp, 13) != 5)
+            kw = dict(q_positions=(kp[Sk - Sq:])[None].expand(B, Sq),
+                      kv_positions=kp[None].expand(B, Sk),
+                      kv_mask=ok[None].expand(B, Sk), causal=True,
+                      window=window, cap=cap)
+            _, err, _ = flash_vs_plain(torch, fops, fref, q, k, v, kw)
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            check(err < tol, f"flash_attention {case} {dtype} "
+                  f"({flash_kernel_of(fops, q, k)}): rel err {err:.3e} >= "
+                  f"{tol}")
+            n += 1
+    # ring positions, holes, and a query before every key: through
+    # flash_decode (3 rows of queries) and, with 70 query rows, the two
+    # prefill kernels; the rows before every key must be exactly zero
     B, Sk, KV, G, hd, last = 2, 64, 2, 2, 64, 100
-    q = torch.randn(B, 3, KV, G, hd, generator=gen, device=dev)
     k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
     v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
     slot = torch.arange(Sk, dtype=torch.int32, device=dev)
     ok = torch.ones(B, Sk, dtype=torch.bool, device=dev)
     ok[:, 5:40:4] = False
-    kw = dict(q_positions=torch.tensor([[last, last - 1, -7]] * B,
-                                       dtype=torch.int32, device=dev),
-              kv_positions=(last - torch.remainder(last - slot, Sk))[None]
-              .expand(B, Sk), kv_mask=ok, causal=True, window=48, cap=None)
-    got, err, _ = flash_vs_plain(torch, fops, fref, q, k, v, kw)
-    check(err < 2e-5, f"flash_attention ring case: rel err {err:.3e}")
-    check(bool((got[:, 2] == 0).all()),
-          "flash_attention: a fully masked row is not exactly zero")
+    ring = dict(kv_positions=(last - torch.remainder(last - slot, Sk))[None]
+                .expand(B, Sk), kv_mask=ok, causal=True, window=48, cap=None)
+    for dtype, sq in ((torch.float32, 3), (torch.bfloat16, 3),
+                      (torch.float32, 35), (torch.bfloat16, 35)):
+        qpos = torch.tensor([last, last - 1, -7] + [last - 2 - i for i in
+                                                    range(sq - 3)],
+                            dtype=torch.int32, device=dev)
+        q = torch.randn(B, sq, KV, G, hd, generator=gen, device=dev)
+        kw = dict(ring, q_positions=qpos[None].expand(B, sq))
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        got, err, _ = flash_vs_plain(torch, fops, fref, qd, kd, vd, kw)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        name = flash_kernel_of(fops, qd, kd)
+        check(err < tol, f"flash_attention ring case ({name}, {dtype}): rel "
+              f"err {err:.3e}")
+        check(bool((got[:, 2] == 0).all()),
+              f"flash_attention ({name}): a fully masked row is not exactly "
+              "zero")
+        n += 1
     # backward through the autograd.Function
+    q = torch.randn(B, 3, KV, G, hd, generator=gen, device=dev)
+    kw = dict(ring, q_positions=torch.tensor([[last, last - 1, -7]] * B,
+                                             dtype=torch.int32, device=dev))
     w = torch.randn(q.shape, generator=gen, device=dev)
     grads = []
     for fn in (fops.flash_attention_gqa, fref.attention_ref):
@@ -1614,23 +1701,29 @@ def check_flash_kernel(torch, fops, fref):
     for name, a, b in zip("qkv", *grads):
         e = rel_err(a, b)
         check(e < 2e-5, f"flash_attention backward d{name}: rel err {e:.3e}")
-    worst = 0.0
+    worst = dict.fromkeys(fops.KERNELS, 0.0)
     for name, spec in LM_FLASH.items():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kw = flash_call(torch, spec, dtype, gen)
             _, err, abs_err = flash_vs_plain(torch, fops, fref, q, k, v, kw)
             tol = FLASH_TOL[str(dtype).split(".")[1]]
-            check(err < tol, f"flash_attention {name} {dtype}: rel err "
-                  f"{err:.3e} >= {tol}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, abs_err)
+            kern = flash_kernel_of(fops, q, k)
+            check(err < tol, f"flash_attention {name} {dtype} ({kern}): rel "
+                  f"err {err:.3e} >= {tol}")
+            if (dtype == torch.bfloat16) == (kern != "flash_fwd"):
+                worst[kern] = max(worst[kern], abs_err)
             n += 1
             del q, k, v
-    log(f"flash_attention vs plain: {n} cases (test_kernels.py's cases and "
-        f"every LM path's call, float32 at rel 2e-5 and bf16 at 3e-2), a "
-        "ring with holes, an exactly-zero masked row, the backward at "
-        "2e-5, bit-identical reruns: ok")
-    return {"flash_attention": worst}
+    torch.cuda.synchronize()
+    ran = dict(fops.LAUNCHES)
+    check(all(ran[k] > 0 for k in fops.KERNELS),
+          f"flash_attention checks did not reach every kernel: {ran}")
+    log(f"flash_attention vs plain: {n} cases (test_kernels.py's cases, each "
+        f"kernel at its edges and every LM path's call, float32 at rel 2e-5 "
+        f"and bf16 at 3e-2), rings with holes and exactly-zero masked rows "
+        f"through each kernel, the backward at 2e-5, bit-identical reruns: "
+        f"ok; launches {ran}")
+    return worst
 
 
 def ssd_inputs(torch, case, dtype, gen):
@@ -1790,11 +1883,23 @@ def lm_serve_path(torch, arch, mods):
                  (cfg.layer_pattern * cfg.n_layers)[:cfg.n_layers])
 
     # float32 gates, on the same weights upcast
+    out["f32_launches"] = {}
     if n_attn:
         p32 = lm.tree_map(lambda t: t.float(), params)
         c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        # the float32 serving run is counted too: its prefill is the FP32
+        # flash_fwd's main-path call, its decode steps flash_decode's
+        torch.cuda.synchronize()
+        lm_reset(mods)
         flash, ftok = greedy_run(torch, lm, bayes_lm, c32, p32, prompts,
                                  max_new)
+        torch.cuda.synchronize()
+        out["f32_launches"] = lm_counts(mods)
+        want32 = {**dict.fromkeys(out["f32_launches"], 0),
+                  "flash_fwd": n_attn, "flash_decode": n_attn * (max_new - 1)}
+        check(out["f32_launches"] == want32,
+              f"{arch} float32 serving: launches {out['f32_launches']}, "
+              f"expected {want32}")
         dense, _ = greedy_run(torch, lm, bayes_lm, dataclasses.replace(
             c32, attn_impl="xla"), p32, prompts, max_new, feed=ftok)
         out["flash_vs_dense"] = max(close_within(torch, a, b)
@@ -1828,12 +1933,12 @@ def lm_serve_path(torch, arch, mods):
                                     device=DEVICE)
     torch.cuda.synchronize()
     out["launches"] = lm_counts(mods)
-    want_flash = n_attn * max_new  # the prefill and each decode step
-    check(out["launches"]["flash_attention"] == want_flash,
-          f"{arch}: flash_attention launched "
-          f"{out['launches']['flash_attention']} times, expected {want_flash}")
-    check(sum(out["launches"].values()) == want_flash,
-          f"{arch}: other kernels launched: {out['launches']}")
+    # bf16: the prefill on the tensor cores, each decode step's call on
+    # flash_decode, once per attention layer; nothing else
+    want = {**dict.fromkeys(out["launches"], 0), "flash_fwd_tc": n_attn,
+            "flash_decode": n_attn * (max_new - 1)}
+    check(out["launches"] == want, f"{arch}: launches {out['launches']}, "
+          f"expected {want}")
     check(gen_tokens.shape == (batch, max_new)
           and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab)).all()),
           f"{arch}: generated tokens {tuple(gen_tokens.shape)} out of range")
@@ -1980,7 +2085,7 @@ def sdpa_call(torch, F, q, k, v, kw):
 
 
 def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
-             why_none=None, launches=1):
+             why_none=None, launches=1, names=None):
     """A timing row: device ms (profiler) and issued ms (CUDA events) of
     the kernel, its plain version and the library call, beside the bound
     from ``nbytes`` and ``nops`` at ``peak`` operations per second."""
@@ -2002,12 +2107,14 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
         row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
         row[f"{prefix}profiler_ms"] = device_ms(
             torch, fn, iters=10,
-            launches_per_call=launches if prefix == "" else None)
+            launches_per_call=launches if prefix == "" else None,
+            names=names if prefix == "" else None)
         row[f"{prefix}ms"] = row[f"{prefix}profiler_ms"]
-    # a call of 50 us or more keeps the device busy back to back, so CUDA
-    # events time it; the profiler has shown such a kernel at half its
-    # event time while its count was whole
-    if row["issued_ms"] >= 0.05 or any(row[f"{p}ms"] is None for p in calls):
+    # a kernel of 50 us or more keeps the device busy back to back, so CUDA
+    # events time its row (the profiler has shown such a kernel at half its
+    # event time while its count was whole); a shorter one is issued slower
+    # than it runs, and the profiler's device times are the row's times
+    if any(row[f"{p}ms"] is None for p in calls) or row["ms"] >= 0.05:
         row["ms_from"] = "cuda events"
         for prefix in calls:
             row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
@@ -2028,24 +2135,52 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
     return row
 
 
-FLASH_TIMED = ("smollm_prefill", "smollm_decode", "gemma2_prefill_local",
-               "gemma2_decode_local")
+# the LM paths' flash calls that are timed, each in the type the main path
+# runs it in: the bf16 serving calls (flash_fwd_tc, flash_decode) and the
+# float32 gates' prefill (flash_fwd)
+# kernels whose line has a row for each timed call, not only the widest
+PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
+                 "categorical_logits_sum_small")
+FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
+               ("gemma2_prefill_local", "bfloat16"),
+               ("gemma2_decode_local", "bfloat16"),
+               ("smollm_prefill", "float32"))
+
+
+def read_bytes(t) -> int:
+    """Bytes of ``t`` counted once: an axis of stride 0 (one row shared by
+    the batch) is read once."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
+def flash_launches_per_call(fops, q, k) -> int:
+    """Kernels one call launches: flash_fwd_tc's pre-pass, the kernel, and
+    a prefill kernel's split combine (flash_decode merges its own)."""
+    B, Sq, KV, G, hd = q.shape
+    kernel, _, nsplit = fops.plan(B, Sq, k.shape[1], KV, G, q.dtype, hd)
+    return ((kernel == "flash_fwd_tc") + 1
+            + (nsplit > 1 and kernel != "flash_decode"))
 
 
 def time_lm_kernels(torch, F, fops, fref, sops, sref):
-    """flash_attention at the LM paths' bf16 calls and ssd_scan at
-    mamba2's: bound from the bytes (q, k, v, out, positions and validity
-    read or written once) and the products' flops (4 hd per kept (query,
-    key) pair; the SSD's causal halves) at the bf16 tensor-core peak."""
+    """flash_attention's kernels at the LM paths' calls (FLASH_TIMED) and
+    ssd_scan at mamba2's: bound from the bytes (q, k, v, out, positions and
+    validity read or written once) and the products' flops (4 hd per kept
+    (query, key) pair; the SSD's causal halves) at the peak for the
+    inputs' type (the bf16 tensor cores; FP32 for a float32 call)."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(14)
     rows = []
-    for name in FLASH_TIMED:
+    for name, dt in FLASH_TIMED:
         spec = LM_FLASH[name]
-        q, k, v, kw = flash_call(torch, spec, torch.bfloat16, gen)
+        dtype = getattr(torch, dt)
+        q, k, v, kw = flash_call(torch, spec, dtype, gen)
         B, Sq, KV, G, hd = q.shape
         Sk = k.shape[1]
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 9 * B * Sk \
-            + 4 * B * Sq
+        nbytes = sum(read_bytes(t) for t in (
+            q, q, k, v, kw["q_positions"], kw["kv_positions"], kw["kv_mask"]))
         nops = 4 * hd * flash_pairs(torch, kw, KV * G)
         kern = lambda: fops.flash_attention_gqa(q, k, v, **kw)  # noqa: E731
         plain = lambda: fref.attention_ref(q, k, v, **kw)  # noqa: E731
@@ -2053,17 +2188,19 @@ def time_lm_kernels(torch, F, fops, fref, sops, sref):
         if spec["cap"] is None:
             library, as_ours = sdpa_call(torch, F, q, k, v, kw)
             e = rel_err(as_ours(library()), kern())
-            check(e < 3e-2, f"SDPA vs flash_attention {name}: rel {e:.3e}")
+            check(e < FLASH_TOL[dt], f"SDPA vs flash_attention {name} {dt}: "
+                  f"rel {e:.3e}")
         else:
             why = ("scaled_dot_product_attention has no softcap (gemma2's "
                    "cap * tanh(s / cap)), so no single PyTorch call "
                    "computes this attention")
-        # the key split's combine is a second launch within the call
-        launches = 1 + (fops.plan(B, Sq, Sk, KV, G)[1] > 1)
-        rows.append(time_row(torch, "flash_attention", [B, Sq, Sk, KV, G, hd],
-                             kern, plain, library, nbytes, nops,
-                             BF16_FLOPS_PER_S, why, launches))
-        rows[-1]["call"] = name
+        kernel = flash_kernel_of(fops, q, k)
+        rows.append(time_row(
+            torch, kernel, [B, Sq, Sk, KV, G, hd], kern, plain, library,
+            nbytes, nops,
+            BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S,
+            why, flash_launches_per_call(fops, q, k), names=("flash_",)))
+        rows[-1].update(call=name, dtype=dt)
         del q, k, v
     b, s, h, p, g, n, L = SSD_MAMBA2
     ins = ssd_inputs(torch, SSD_MAMBA2, torch.bfloat16, gen)
@@ -2160,6 +2297,33 @@ def profile_lm(torch, serve_state, score_state):
 REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integrator
 
 
+# the kernels whose registers, shared memory and spills phase 2 reports
+PTXAS_REPORTED = ("flash_fwd_tc", "flash_tiles", "flash_decode",
+                  "flash_combine", "categorical_small_partials")
+
+
+def ptxas_report(path: str) -> list:
+    """``nvcc -Xptxas -v``'s lines for the PTXAS_REPORTED kernels of one
+    source: (kernel, its properties) pairs. A separate compile whose output
+    is discarded: the library phase 2 loads is built without -v."""
+    from repro_torch.kernels._build import BUILD_DIR, NVCC_FLAGS, find_nvcc
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(BUILD_DIR / f"ptxas-{Path(path).stem}.so"), str(ROOT / path)],
+        capture_output=True, text=True, check=False)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {path}:\n"
+          f"{proc.stderr[-4000:]}")
+    out, kernel = [], None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+            kernel = name if any(k in name for k in PTXAS_REPORTED) else None
+        elif kernel is not None and ("spill" in line or "Used" in line):
+            out.append((kernel, line.split(":", 1)[-1].strip()))
+    return out
+
+
 def build_all(loaders):
     """Build every kernel source at once (one nvcc each, started
     together); ``loaders`` maps a source to the function that builds and
@@ -2220,12 +2384,20 @@ def main() -> int:
 
     # phase 2
     t0 = time.perf_counter()
-    build_s = build_all({LOGPDF_CU: ops._lib, MVN_CU: ops._mvn_lib,
-                         LEAPFROG_CU: lf_ops._lib, FLASH_CU: fops._lib,
-                         SSD_CU: sops._lib})
+    reports = {}
+    build_s = build_all({
+        LOGPDF_CU: ops._lib, MVN_CU: ops._mvn_lib, LEAPFROG_CU: lf_ops._lib,
+        FLASH_CU: fops._lib, SSD_CU: sops._lib,
+        # the -Xptxas -v compiles of the sources with this slice's kernels,
+        # started with the builds
+        **{f"{path} (-Xptxas -v)": (lambda p=path: reports.__setitem__(
+            p, ptxas_report(p))) for path in (FLASH_CU, LOGPDF_CU)}})
     for path, secs in build_s.items():
         log(f"built and loaded {path} in {secs:.2f} s")
-    log(f"{len(build_s)} sources built in {time.perf_counter() - t0:.2f} s")
+    log(f"{len(build_s)} compiles in {time.perf_counter() - t0:.2f} s")
+    for path, lines in reports.items():
+        for kernel, props in lines:
+            log(f"ptxas {Path(path).name} {kernel}: {props}")
 
     # phase 3
     worst = check_kernels(torch, ops, ref)
@@ -2348,30 +2520,37 @@ def main() -> int:
     prof.update(profile_lm(torch, serve_state, score_state))
 
     kernels = []
+    # every counted run's launches: the PPL paths, the LM paths (bf16) and
+    # the LM paths' float32 serving runs
+    counted = ([r["launches"] for r in runs.values()]
+               + [r["launches"] for r in lm_runs.values()]
+               + [r.get("f32_launches", {}) for r in lm_runs.values()])
     for name in SOURCES:
-        # the row of the main path's call: the widest one, or for
-        # flash_attention smollm-360m's prefill (the one with a library call)
-        main = max((t for t in timings if t["name"] == name),
-                   key=lambda t: (t.get("call") == "smollm_prefill",
-                                  t["bytes"]))
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": sum(r["launches"].get(name, 0) for r in
-                            list(runs.values()) + list(lm_runs.values())),
-            "max_abs_err": worst[name], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "issued_ms": main["issued_ms"],
-            "plain_issued_ms": main["plain_issued_ms"],
-            "library_issued_ms": main["library_issued_ms"],
-            "ms_from": main["ms_from"], "shape": main["shape"],
-        })
-        check(kernels[-1]["launches"] > 0,
-              f"{name} was never launched on the main paths")
+        # one row per call for the kernels this slice redesigned; for the
+        # others the row of the main path's widest call
+        timed = [t for t in timings if t["name"] == name]
+        if name not in PER_CALL_ROWS:
+            timed = [max(timed, key=lambda t: t["bytes"])]
+        launches = sum(c.get(name, 0) for c in counted)
+        for main in timed:
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": worst[name], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"],
+                "issued_ms": main["issued_ms"],
+                "plain_issued_ms": main["plain_issued_ms"],
+                "library_issued_ms": main["library_issued_ms"],
+                "ms_from": main["ms_from"], "shape": main["shape"],
+                "call": main.get("call"),
+            })
+        check(launches > 0, f"{name} was never launched on the main paths")
     total_s = time.perf_counter() - t_start
     log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
+              "ptxas": {p: lines for p, lines in reports.items()},
               "runs": runs, "lm_runs": lm_runs, "checks": checks,
               "timings": timings,
               "profile": prof, "kernels": kernels, "seconds": total_s}

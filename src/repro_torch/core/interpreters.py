@@ -174,9 +174,11 @@ class Sampler(Interpreter):
 class Evaluator(Interpreter):
     """Replay with given CONSTRAINED values (dict / Untyped / TypedVarInfo)."""
 
-    def __init__(self, values, ctx: Optional[Context] = None):
+    def __init__(self, values, ctx: Optional[Context] = None,
+                 eager: bool = False):
         super().__init__(ctx)
         self.values = values
+        self.eager = eager
 
     def _lookup(self, vn: VarName):
         if isinstance(self.values, TypedVarInfo):
@@ -210,11 +212,13 @@ class LinkedEvaluator(Interpreter):
     The bijector is built from the RUNTIME dist instance.
     """
 
-    def __init__(self, tvi: TypedVarInfo, ctx: Optional[Context] = None):
+    def __init__(self, tvi: TypedVarInfo, ctx: Optional[Context] = None,
+                 eager: bool = False):
         if not tvi.linked:
             raise ValueError("LinkedEvaluator requires a linked TypedVarInfo")
         super().__init__(ctx)
         self.tvi = tvi
+        self.eager = eager
 
     def tilde(self, vn: VarName, dist, value, observed: bool):
         if observed:

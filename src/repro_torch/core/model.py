@@ -80,6 +80,13 @@ class Model:
     def name(self) -> str:
         return self.gen.name
 
+    def bind(self, **updates) -> "Model":
+        """A new ``Model`` of the same model function, with ``updates``
+        replacing the bound data of those names."""
+        new = dict(self.data)
+        new.update(updates)
+        return Model(self.gen, new)
+
     # -- raw execution under an interpreter ------------------------------------
     def _run(self, interpreter) -> Tuple[Any, Any]:
         push_interpreter(interpreter)
@@ -111,17 +118,17 @@ class Model:
                                          init_strategy=init_strategy))
 
     # -- densities ----------------------------------------------------------------
-    def _eval_logp(self, values, ctx: Context,
+    def _eval_logp(self, values, ctx: Context, eager: bool = False,
                    backend: str = "fused") -> torch.Tensor:
         if backend not in ("fused", "reference"):
             raise ValueError(f"unknown density backend '{backend}'; "
                              "expected 'fused' or 'reference'")
-        fused = backend == "fused"
+        fused = backend == "fused" and not eager
         if isinstance(values, TypedVarInfo) and values.linked:
             cls = FusedLinkedEvaluator if fused else LinkedEvaluator
         else:
             cls = FusedEvaluator if fused else Evaluator
-        it = cls(values, ctx=ctx)
+        it = cls(values, ctx=ctx, eager=eager)
         _, it = self._run(it)
         return it.logp
 
@@ -146,6 +153,15 @@ class Model:
         """The density of ``values`` under any context (a
         ``MiniBatchContext``'s likelihood scaling, say)."""
         return self._eval_logp(values, ctx, backend=backend)
+
+    # -- eager (UNTYPED) density: the paper's slow general path ---------------
+    def logjoint_untyped(self, values_dict: Dict[str, Any]) -> float:
+        """Eager evaluation op by op, the UntypedVarInfo execution mode:
+        dispatches on whatever the dict holds, ``reject()`` short-circuits
+        the run, and the result is a Python float."""
+        it = Evaluator(values_dict, ctx=DefaultContext(), eager=True)
+        _, it = self._run(it)
+        return float(torch.as_tensor(it.logp))
 
     # -- flat log-density for gradient-based inference -----------------------
     def make_logdensity_fn(self, tvi_linked: TypedVarInfo,
@@ -185,6 +201,19 @@ class Model:
             return self._eval_logp(tvi, ctx, backend=backend)
 
         return logdensity
+
+    # -- predictive / posterior draws -----------------------------------------
+    def sample_prior(self, seed_or_generator) -> Dict[str, Any]:
+        """One draw of every parameter site from the prior, by site name.
+        Takes a ``torch.Generator`` or an integer seed where the JAX package
+        takes a key; a seed draws on the device of the model's tensor data
+        (the CPU when it has none)."""
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            dev = next((v.device for v in self.data.values()
+                        if torch.is_tensor(v)), torch.device("cpu"))
+            gen = torch.Generator(device=dev).manual_seed(int(gen))
+        return self.untyped_trace(gen).as_dict()
 
     def __repr__(self):
         bound = {k: ("missing" if v is missing or v is None else "<data>")

@@ -202,6 +202,17 @@ class TypedVarInfo:
     def site_index(self, sym: str) -> int:
         return self._index[sym]
 
+    def __contains__(self, name) -> bool:
+        vn = name if isinstance(name, VarName) else VarName.parse(str(name))
+        return vn.sym in self._index
+
+    def raw_value(self, sym: str):
+        """The stored value of a site: unconstrained when linked."""
+        return self.values[self._index[sym]]
+
+    def dist_of(self, sym: str):
+        return self.dists[self._index[sym]]
+
     @property
     def device(self) -> torch.device:
         return self.values[0].device if self.values else torch.device("cpu")
@@ -288,6 +299,17 @@ class TypedVarInfo:
                 out.append(vec[off:off + n].reshape(shape)
                            .to(getattr(torch, s.dtype)))
         return TypedVarInfo(tuple(out), self.dists, self.metas, self.linked)
+
+    def replace_values(self, values: Tuple) -> "TypedVarInfo":
+        """The same trace type with every site's stored value replaced."""
+        return TypedVarInfo(tuple(values), self.dists, self.metas, self.linked)
+
+    def replace_site(self, sym: str, value) -> "TypedVarInfo":
+        """The same trace with one site's stored value replaced."""
+        i = self._index[sym]
+        vals = list(self.values)
+        vals[i] = value
+        return TypedVarInfo(tuple(vals), self.dists, self.metas, self.linked)
 
     def __repr__(self):
         inner = ", ".join(f"{m.name}:{m.shape}{'~' + m.support}" for m in self.metas)

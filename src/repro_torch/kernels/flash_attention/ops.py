@@ -1,44 +1,65 @@
-"""Public wrapper of the flash-attention kernel.
+"""Public wrapper of the flash-attention kernels.
 
 ``flash_attention_gqa`` takes the JAX package's layout, q (B,Sq,KV,G,hd)
 and k, v (B,Sk,KV,hd), with absolute positions for both and an optional
-kv validity mask. On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (or raises); on a CPU tensor it runs the plain
-version in ``ref.py``. Nothing falls back. Launches are counted in
-``LAUNCHES``.
+kv validity mask. On a CUDA tensor it launches one of the hand-written
+kernels in ``csrc/flash_attention.cu`` (or raises); on a CPU tensor, or
+when the caller passes ``interpret=True``, it runs the plain version in
+``ref.py``. Nothing falls back. ``plan`` picks the kernel from the shapes,
+the type and the head dim alone:
 
-The kernel reads q, k and v through their strides (the last axis must be
-dense) and masks ragged lengths itself, so the wrapper pads and copies
-nothing. A call with few blocks (decode) splits its keys (``plan``): the
-wrapper then allocates the partials' scratch and the source's combine
-kernel merges them, a second launch within the same call. The
-``torch.autograd.Function``'s backward recomputes attention through the
-plain version, as the JAX package's ``_flash_bwd`` does (no attention
-matrix is kept from the forward).
+* ``flash_decode`` when there are fewer than 64 rows (Sq * G, decode), in
+  either type: bound by the cache's bytes;
+* ``flash_fwd_tc`` for bf16 prefill at hd 64 or 128: the tensor cores;
+* ``flash_fwd`` for everything else (float32 prefill, other head dims up
+  to 256): FP32 on the CUDA cores.
+
+Each launch is counted in ``LAUNCHES`` under its kernel's name.
+
+The kernels read q, k and v through their strides (the last axis must be
+dense) and mask ragged lengths themselves, so the wrapper pads and copies
+nothing, except that ``flash_fwd_tc``'s 16-byte copies need 16-byte
+aligned rows (a view that breaks that is copied first). A call with few
+blocks splits its keys (``plan``): the wrapper then allocates the
+partials' scratch, and the splits are merged in a fixed order, by the
+source's combine kernel (a second launch within the same call) after the
+prefill kernels, and by the last split to finish inside ``flash_decode``
+(integer counts kept per device and stream, zero between calls). The ``torch.autograd.Function``'s backward
+recomputes attention through the plain version, as the JAX package's
+``_flash_bwd`` does (no attention matrix is kept from the forward).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention_gqa",
-           "kernel_source", "plan", "MAX_HEAD_DIM"]
+           "kernel_source", "plan", "Plan", "KERNELS", "MAX_HEAD_DIM",
+           "decode_pass_keys"]
 
-# launches since the last reset (one per call that reached the card)
-LAUNCHES = {"flash_attention": 0}
+KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_decode")
+# launches since the last reset, by kernel (one per call that reached the
+# card; a split's combine is part of the same call)
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 MAX_HEAD_DIM = 256
 _SMS = 132        # streaming multiprocessors of an H100 SXM
-_KEY_TILE = 64    # keys per tile (kBK in the source)
+_KEY_TILE = 64    # keys per tile of flash_fwd and flash_fwd_tc
+_DECODE_ROWS = 64  # fewer rows than this (Sq * G) go to flash_decode
+_TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None
+# flash_decode's split counts, by (device, stream): zero between calls (the
+# kernel sets each back to zero), so they are allocated once and grown
+_COUNTS = {}
 
 
 def reset_launch_counts() -> None:
@@ -57,8 +78,8 @@ def _lib() -> ctypes.CDLL:
         p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_float)
         lib.repro_flash_attention.argtypes = (
-            [p] * 4 + [i32] + [p] * 3 + [i64] * 15 + [i32] * 8 + [f32, f32]
-            + [i32, i32, p, p, p])
+            [i32] + [p] * 4 + [i32] + [p] * 3 + [i64] * 15 + [i32] * 8
+            + [f32, f32] + [i32, i32] + [p] * 6)
         lib.repro_flash_attention.restype = i32
         lib.repro_flash_cuda_error_string.argtypes = [i32]
         lib.repro_flash_cuda_error_string.restype = ctypes.c_char_p
@@ -66,18 +87,85 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def plan(batch: int, sq: int, sk: int, kv_heads: int, group: int):
-    """(rows per block, key splits per row tile) for one call: 16 rows when
-    there are fewer than 64 (decode), else 64; when the (batch, kv head,
-    row tile) blocks are fewer than the card's 132 SMs, the key tiles are
-    split so that about 4 blocks per SM run, at most one split per tile.
-    A function of the shapes alone, so reruns take the same path."""
+class Plan(NamedTuple):
+    kernel: str   # one of KERNELS
+    rows: int     # rows (query position x query head) per block
+    nsplit: int   # key splits per row tile (> 1: a combine launch follows)
+
+
+def plan(batch: int, sq: int, sk: int, kv_heads: int, group: int,
+         dtype: torch.dtype = torch.bfloat16, head_dim: int = 64) -> Plan:
+    """The kernel, rows per block and key splits of one call, from the
+    shapes, type and head dim alone (so reruns take the same path).
+
+    Fewer than 64 rows (Sq * G): ``flash_decode``, R rows per block (the
+    power of two >= the rows, at most 8), the keys split into as many
+    blocks as the card holds at once (three an SM, two at R = 8: one
+    wave, which fills the 132 SMs at least twice) but no more splits than
+    give each block two passes of its key groups (``decode_pass_keys``).
+    Otherwise bf16 at hd 64 or 128: ``flash_fwd_tc``, else
+    ``flash_fwd``, 64 rows per block, and when those blocks are fewer than
+    the SMs the key tiles are split so that about 4 blocks per SM run, at
+    most one split per tile."""
     rows = sq * group
-    bm = 16 if rows < 64 else 64
-    blocks = -(-rows // bm) * kv_heads * batch
+    if rows < _DECODE_ROWS:
+        r = 1
+        while r < min(rows, 8):
+            r *= 2
+        blocks = -(-rows // r) * kv_heads * batch
+        resident = (3 if r <= 4 else 2) * _SMS
+        passes = -(-sk // (2 * decode_pass_keys(r, head_dim, dtype)))
+        return Plan("flash_decode", r,
+                    max(1, min(passes, resident // blocks)))
+    kernel = ("flash_fwd_tc" if dtype == torch.bfloat16
+              and head_dim in _TC_HEAD_DIMS else "flash_fwd")
+    blocks = -(-rows // 64) * kv_heads * batch
     if blocks >= _SMS:
-        return bm, 1
-    return bm, max(1, min(-(-sk // _KEY_TILE), -(-4 * _SMS // blocks)))
+        return Plan(kernel, 64, 1)
+    return Plan(kernel, 64, max(1, min(-(-sk // _KEY_TILE),
+                                       -(-4 * _SMS // blocks))))
+
+
+def _strides(t: torch.Tensor, group: Optional[int] = None):
+    """(batch, sequence, head) strides as the kernels read them: q and out
+    (B,Sq,KV,G,hd) as (B,Sq,KV*G,hd) with head h = kv * G + g (the caller
+    makes (KV, G) one axis), k and v (B,Sk,KV,hd). A stride of an axis of
+    size 1 is given as 0: its index is always 0."""
+    head = 2 if group is None or group == 1 else 3
+    size = (t.shape[0], t.shape[1],
+            t.shape[2] * (1 if group is None else group))
+    return tuple(t.stride(i) if n > 1 else 0
+                 for i, n in zip((0, 1, head), size))
+
+
+def decode_pass_keys(rows: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Keys one ``flash_decode`` block reads in one pass: its 4 warps'
+    groups of lanes (a key row in 16-byte pieces, at most 32 lanes) times
+    the keys each group has in flight (8 up to 2 rows, 4 at 4, 2 at 8,
+    halved where a lane holds 8 words of a row), as the kernel's template
+    constants give them."""
+    pad = 64 if head_dim <= 64 else (128 if head_dim <= 128 else 256)
+    size = torch.empty((), dtype=dtype).element_size()
+    lanes = min(32, pad * size // 16)
+    words = pad * size // (4 * lanes)  # 32-bit words a lane holds of a row
+    in_flight = (8 if rows <= 2 else (4 if rows == 4 else 2)) * 4 // words
+    return 4 * (32 // lanes) * in_flight
+
+
+def _aligned(t: torch.Tensor, strides) -> bool:
+    """16-byte aligned base and strides of whole 16-byte chunks (8 bf16)."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in strides)
+
+
+def _split_counts(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counts for flash_decode's last-split merge
+    on this device and stream (calls on one stream run one at a time)."""
+    key = (device, stream)
+    counts = _COUNTS.get(key)
+    if counts is None or counts.numel() < n:
+        counts = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTS[key] = counts
+    return counts
 
 
 def _inner_dense(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -112,8 +200,16 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap) -> torch.Tensor:
     if mask is not None:
         mask = mask.to(torch.bool)
         mask = mask if Sk == 1 or mask.stride(1) == 1 else mask.contiguous()
-    bm, nsplit = plan(B, Sq, Sk, KV, G)
-    part_acc = part_ml = None
+    kernel, bm, nsplit = plan(B, Sq, Sk, KV, G, q.dtype, hd)
+    if kernel == "flash_fwd_tc":
+        q, k, v = (t if _aligned(t, _strides(t, G if t is q else None))
+                   else t.contiguous() for t in (q, k, v))
+    part_acc = part_ml = kpm = tsum = None
+    if kernel == "flash_fwd_tc":  # the pre-pass's key positions, summaries
+        ktiles = -(-Sk // _KEY_TILE)
+        kpm = torch.empty(B * ktiles * _KEY_TILE, dtype=torch.int32,
+                          device=q.device)
+        tsum = torch.empty(B * ktiles * 4, dtype=torch.int32, device=q.device)
     if nsplit > 1:
         n_rows = B * KV * -(-(Sq * G) // bm) * nsplit * bm
         part_acc = torch.empty(n_rows * hd, dtype=torch.float32,
@@ -122,27 +218,31 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap) -> torch.Tensor:
                               device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counts = None
+        if kernel == "flash_decode" and nsplit > 1:
+            counts = _split_counts(B * KV * -(-(Sq * G) // bm), q.device,
+                                   stream)
         err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            KERNELS.index(kernel), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            q.stride(0), q.stride(1), q.stride(3),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(3),
+            *_strides(q, G), *_strides(k), *_strides(v), *_strides(out, G),
             qp.stride(0) if B > 1 else 0, kp.stride(0) if B > 1 else 0,
             (mask.stride(0) if B > 1 else 0) if mask is not None else 0,
             B, Sq, Sk, KV, G, hd, int(causal),
             0 if window is None else int(window),
             0.0 if cap is None else float(cap), 1.0 / math.sqrt(hd), bm,
             nsplit, None if part_acc is None else part_acc.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(), stream)
+            None if part_ml is None else part_ml.data_ptr(),
+            None if kpm is None else kpm.data_ptr(),
+            None if tsum is None else tsum.data_ptr(),
+            None if counts is None else counts.data_ptr(), stream)
     if err != 0:
         msg = _lib().repro_flash_cuda_error_string(err).decode()
-        raise KernelError(f"flash_attention launch failed: CUDA error {err} "
-                          f"({msg}) for q {tuple(q.shape)}, k "
+        raise KernelError(f"{kernel} launch failed: CUDA error {err} "
+                          f"({msg}) for q {tuple(q.shape)} {q.dtype}, k "
                           f"{tuple(k.shape)}")
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES[kernel] += 1
     return out
 
 
@@ -181,7 +281,9 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_gqa(q, k, v, *, q_positions, kv_positions,
                         causal: bool = True, window: Optional[int] = None,
-                        cap: Optional[float] = None, kv_mask=None):
+                        cap: Optional[float] = None, kv_mask=None,
+                        block_q: int = 128, block_k: int = 128,
+                        interpret: Optional[bool] = None):
     """q: (B,Sq,KV,G,hd); k, v: (B,Sk,KV,hd) -> (B,Sq,KV,G,hd).
 
     ``q_positions`` (B,Sq) and ``kv_positions`` (B,Sk) are absolute token
@@ -189,10 +291,16 @@ def flash_attention_gqa(q, k, v, *, q_positions, kv_positions,
     stride of 0 is read as it is). ``kv_mask`` (B,Sk) marks valid cache
     slots; keys past Sk and rows past Sq are masked by the kernel itself.
     q, k and v are float32 or bfloat16, all of one type; the math is
-    float32 and the output has q's type.
+    float32 and the output has q's type. ``block_q`` and ``block_k`` are
+    accepted and ignored (``plan`` picks the tiles); ``interpret=True``
+    runs the plain version (``kernels._dispatch``).
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if plain_requested(interpret=interpret):
+        return attention_ref(q, k, v, q_positions=q_positions,
+                             kv_positions=kv_positions, causal=causal,
+                             window=window, cap=cap, kv_mask=kv_mask)
     return _FlashAttention.apply(q, k, v, q_positions, kv_positions, kv_mask,
                                  causal, window, cap)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels.fused_leapfrog import ref
 from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
 
@@ -133,7 +134,9 @@ def _eps_rows(step_size, rows: int, device) -> torch.Tensor:
 
 def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
                    grad: torch.Tensor, step_size, n_steps: int, *,
-                   inv_mass: Optional[torch.Tensor] = None):
+                   inv_mass: Optional[torch.Tensor] = None,
+                   use_pallas: Optional[bool] = None,
+                   interpret: Optional[bool] = None, block_rows: int = 256):
     """n-step leapfrog on a separable potential; returns
     ``(q, p, logp, grad)``.
 
@@ -150,6 +153,10 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
     inv_mass : torch.Tensor, optional
         Diagonal inverse mass ``(dim,)`` (velocity = inv_mass * momentum);
         ``None`` = identity metric.
+    use_pallas, interpret, block_rows
+        The JAX package's switches: ``use_pallas=False`` or
+        ``interpret=True`` runs the plain version (``kernels._dispatch``);
+        ``block_rows`` is ignored.
 
     Returns
     -------
@@ -166,7 +173,8 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
     extra = () if inv_mass is None else (inv_mass,)
-    if _device_kind(q, p, grad, *extra) == "cpu":
+    if (plain_requested(use_pallas, interpret)
+            or _device_kind(q, p, grad, *extra) == "cpu"):
         return ref.leapfrog_ref(spec, q, p, grad, step_size, n_steps,
                                 inv_mass=inv_mass)
     q2, p2, g2 = _rows(q), _rows(p), _rows(grad)
@@ -200,13 +208,17 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
     return q_out, p_out, out, g_out
 
 
-def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor):
+def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
+                             use_pallas: Optional[bool] = None,
+                             interpret: Optional[bool] = None,
+                             block_rows: int = 256):
     """Fused analytic ``(logp, grad)`` of the compiled potential at ``u``
     (``(dim,)`` or ``(num_chains, dim)``); used for chain init. ``logp``
-    includes ``spec.const``."""
+    includes ``spec.const``. ``use_pallas=False`` or ``interpret=True``
+    runs the plain version; ``block_rows`` is ignored."""
     _check_spec(spec, u)
     _check_state("u", u, u.shape)
-    if _device_kind(u) == "cpu":
+    if plain_requested(use_pallas, interpret) or _device_kind(u) == "cpu":
         return ref.potential_value_and_grad_ref(spec, u)
     u2 = _rows(u)
     rows, dim = u2.shape

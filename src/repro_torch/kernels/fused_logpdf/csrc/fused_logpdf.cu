@@ -58,8 +58,8 @@
 // Loads are scalar and coalesced; 16-byte vector loads would need
 // row starts aligned to 4 floats, which a stride of n does not give.
 //
-// categorical_logits_sum reduces over items, not elements: one warp per
-// item (b, i). Its lanes stride over the C classes twice, the second time
+// categorical_logits_sum reduces over items, not elements. Above 256
+// classes (the LM vocabularies) one warp serves each item (b, i). Its lanes stride over the C classes twice, the second time
 // from L1: first the max m (fmaxf, then xor shuffles), then
 // s = sum exp(l - m) (xor shuffles again), and lane 0 adds l[y] - m - log s
 // to the warp's sum; l[y] comes from the lane that read it, so no load
@@ -67,8 +67,13 @@
 // (max, sum) merged across lanes takes two per class and two per shuffle
 // round. The butterflies are symmetric, so every lane holds the same m and
 // s and the order is fixed. The TPU's padding of C to 128 lanes with
-// -1e30 classes becomes the lane bound k < C. For small C (hmm_semisup's
-// C = 5 and 20) most lanes idle. The edges follow log_softmax's own
+// -1e30 classes becomes the lane bound k < C. At most 256 classes (lda's
+// 100, hmm_semisup's 5 and 20) a warp-per-item would idle most lanes and
+// read the row twice, so categorical_small_partials gives each item a
+// group of 4 to 32 lanes and reads the row once into registers, several
+// items in flight per warp; its time at lda's 4 x 10,176 x 100 (16.3 MB)
+// is bound by those bytes. The
+// edges follow log_softmax's own
 // arithmetic: a label outside [0, C) gives NaN, a -inf logit adds
 // exp(-inf) = 0, a row of -inf logits gives NaN (-inf - -inf), and a +inf
 // or NaN logit gives NaN.
@@ -274,6 +279,111 @@ categorical_partials(const float* __restrict__ logits, long long l_row_stride,
   }
 }
 
+// C <= 256 classes: a group of GS lanes (4 up to C = 32, then 8, 16 and
+// 32: at most 8 classes a lane) serves one item, so a warp has 32 / GS
+// items in flight. The row is read once into registers and each class's
+// exp is taken once. The order of the sum is log_softmax's own on the card
+// (ATen's softmax_warp_forward for rows of at most 1,024 classes): "torch
+// lane" j of WS = min(NP2, 32) lanes (NP2 the power of two >= C) sums the
+// classes j, j + WS, ... in order, then an xor butterfly over the WS lanes.
+// Real lane s holds torch lanes s, s + GS, ... and takes the butterfly's
+// steps of offset >= GS in its registers, the rest by shuffles inside the
+// group; so every item's term equals the plain version's bit for bit,
+// which the rtol 1e-6 gate needs at one item (where l[y] - m - log s
+// cancels). Loads are 4 bytes, strided by lane: coalesced over a group
+// (16-byte loads would give each lane 4 adjacent classes, not torch's
+// order). Same edges as categorical_partials.
+template <int NP2>
+__global__ void __launch_bounds__(kThreads)
+categorical_small_partials(const float* __restrict__ logits,
+                           long long l_row_stride,
+                           const int* __restrict__ labels,
+                           long long y_row_stride, long long n, int c,
+                           float* __restrict__ partials) {
+  constexpr int WS = NP2 < 32 ? NP2 : 32;     // torch's lanes
+  constexpr int IT = NP2 / WS;                // classes a torch lane sums
+  constexpr int GS = NP2 <= 32 ? 4 : NP2 / 8; // lanes an item
+  constexpr int KJ = WS >= GS ? WS / GS : 1;  // torch lanes a real lane
+  constexpr int kGroups = kThreads / GS;      // items a block has in flight
+  constexpr unsigned kAll = 0xffffffffu;
+  const float* lrow = logits + static_cast<long long>(blockIdx.y) * l_row_stride;
+  const int* yrow = labels + static_cast<long long>(blockIdx.y) * y_row_stride;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % GS;
+  const int gbase = lane - sub;               // the group's first lane
+  const long long step = static_cast<long long>(gridDim.x) * kGroups;
+  float acc = 0.0f;
+  // the loop bound is uniform over a warp (its groups start together), so
+  // every lane reaches the shuffles; an item past n adds nothing
+  const long long first = static_cast<long long>(blockIdx.x) * kGroups +
+                          (threadIdx.x - lane) / GS;
+  for (long long i0 = first; i0 < n; i0 += step) {
+    const long long i = i0 + lane / GS;
+    const bool real = i < n;
+    const float* item = lrow + (real ? i : 0) * c;
+    const int y = real ? yrow[i] : -1;
+    float x[KJ][IT];
+    bool mine = false;  // this lane holds class y
+#pragma unroll
+    for (int k = 0; k < KJ; ++k) {
+      const int j = sub + GS * k;
+#pragma unroll
+      for (int t = 0; t < IT; ++t) {
+        const int cls = j + WS * t;
+        const bool in = j < WS && cls < c;
+        x[k][t] = in ? item[cls] : -INFINITY;
+        mine = mine || (in && cls == y);
+      }
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < KJ; ++k)
+#pragma unroll
+      for (int t = 0; t < IT; ++t) m = m > x[k][t] ? m : x[k][t];
+#pragma unroll
+    for (int off = 1; off < GS; off <<= 1) {
+      const float o = __shfl_xor_sync(kAll, m, off);
+      m = m > o ? m : o;
+    }
+    float sum[KJ], picked = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KJ; ++k) {
+      sum[k] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < IT; ++t) {
+        sum[k] += expf(x[k][t] - m);
+        if (sub + GS * k + WS * t == y) picked = x[k][t];
+      }
+    }
+    // the butterfly: offsets >= GS pair torch lanes held by this lane
+#pragma unroll
+    for (int off = WS / 2; off >= GS; off >>= 1) {
+      float nxt[KJ];
+#pragma unroll
+      for (int k = 0; k < KJ; ++k) nxt[k] = sum[k] + sum[k ^ (off / GS)];
+#pragma unroll
+      for (int k = 0; k < KJ; ++k) sum[k] = nxt[k];
+    }
+    float s = sum[0];
+#pragma unroll
+    for (int off = (WS < GS ? WS : GS) / 2; off > 0; off >>= 1)
+      s = s + __shfl_xor_sync(kAll, s, off);
+    // the group's lane holding class y (none when y is outside [0, C))
+    const unsigned holders = __ballot_sync(kAll, mine) >> gbase;
+    const unsigned own = GS == 32 ? holders : holders & ((1u << GS) - 1u);
+    picked = __shfl_sync(kAll, picked, gbase + (own ? __ffs(own) - 1 : 0));
+    if (sub == 0 && real) {
+      const bool valid = y >= 0 && y < c;
+      // log_softmax's order: (l[y] - m) - log s
+      acc += valid ? (picked - m) - logf(s) : __int_as_float(0x7fc00000);
+    }
+  }
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 finish_rows(const float* __restrict__ partials, int nparts,
             float* __restrict__ out) {
@@ -349,6 +459,47 @@ extern "C" int repro_categorical_logits_sum(const float* logits,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   categorical_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
       logits, l_row_stride, labels, y_row_stride, n, c, partials);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The C <= 256 path; `group` is the lanes an item takes (ops.py
+// categorical_group), checked against the kernel's own choice.
+extern "C" int repro_categorical_logits_sum_small(
+    const float* logits, long long l_row_stride, const int* labels,
+    long long y_row_stride, int rows, long long n, int c, int group,
+    float* partials, int nparts, float* out, void* stream) {
+  if (bad_shape(rows, n, nparts) || c <= 0 || c > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int np2 = 1;
+  while (np2 < c) np2 <<= 1;
+  if (group != (np2 <= 32 ? 4 : np2 / 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nparts, rows);
+#define REPRO_CAT_SMALL(N)                                                 \
+  case N:                                                                 \
+    categorical_small_partials<N><<<grid, kThreads, 0, s>>>(              \
+        logits, l_row_stride, labels, y_row_stride, n, c, partials);      \
+    break;
+  switch (np2) {
+    REPRO_CAT_SMALL(1)
+    REPRO_CAT_SMALL(2)
+    REPRO_CAT_SMALL(4)
+    REPRO_CAT_SMALL(8)
+    REPRO_CAT_SMALL(16)
+    REPRO_CAT_SMALL(32)
+    REPRO_CAT_SMALL(64)
+    REPRO_CAT_SMALL(128)
+    REPRO_CAT_SMALL(256)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_CAT_SMALL
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

@@ -23,11 +23,12 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels.fused_logpdf import ref
 
 __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
@@ -39,7 +40,8 @@ __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "bernoulli_logits_logpmf_sum", "categorical_logits_logpmf_sum",
            "gamma_unnorm_logpdf_sum", "beta_unnorm_logpdf_sum",
            "student_t_unnorm_logpdf_sum", "mvnormal_prec_quadform_sum",
-           "site_block_sum", "kernel_source", "mvn_kernel_source"]
+           "site_block_sum", "kernel_source", "mvn_kernel_source",
+           "categorical_group", "SMALL_C"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
@@ -48,13 +50,15 @@ SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
 # kernel name -> launches since the last reset (one per wrapper call that
 # reached the card; the CPU path does not count)
 LAUNCHES = {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
-            "categorical_logits_sum": 0, "gamma_unnorm_sum": 0,
+            "categorical_logits_sum": 0, "categorical_logits_sum_small": 0,
+            "gamma_unnorm_sum": 0,
             "normal_sum": 0, "beta_unnorm_sum": 0, "student_t_unnorm_sum": 0,
             "mvn_quadform_sum": 0}
 
 _THREADS = 256
 _ITEMS_PER_THREAD = 8
-_WARPS = _THREADS // 32  # categorical: one warp per item
+_WARPS = _THREADS // 32  # categorical above SMALL_C: one warp per item
+SMALL_C = 256  # categorical: at most this many classes take the group path
 _MAX_PARTS = 1024
 _MVN_TILE = 64  # rows of xc and columns of P per block (mvn_quad.cu kTile)
 
@@ -92,6 +96,9 @@ def _lib() -> ctypes.CDLL:
         lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
                                                      i32, p, i32, p, p]
         lib.repro_categorical_logits_sum.restype = i32
+        lib.repro_categorical_logits_sum_small.argtypes = [
+            p, i64, p, i64, i32, i64, i32, i32, p, i32, p, p]
+        lib.repro_categorical_logits_sum_small.restype = i32
         strided = [p, i64, i64]  # pointer, row stride, element stride
         tail = [i32, i64, p, i32, p, p]
         lib.repro_normal_sum.argtypes = 3 * strided + tail
@@ -235,6 +242,16 @@ def gamma_unnorm_sum_rows(x: torch.Tensor, am1: torch.Tensor,
     return out
 
 
+def categorical_group(c: int) -> int:
+    """Lanes per item of the categorical kernel for ``c`` classes: the
+    smallest of 4, 8, 16 and 32 that holds at most 8 classes a lane, or 0
+    above ``SMALL_C`` (one warp per item, the classes in strides)."""
+    for group in (4, 8, 16, 32):
+        if c <= 8 * group:
+            return group
+    return 0
+
+
 def categorical_logits_sum_rows(logits: torch.Tensor,
                                 labels: torch.Tensor) -> torch.Tensor:
     """``out[b] = sum_i(logits[b, i, y] - logsumexp(logits[b, i]))`` with
@@ -260,18 +277,28 @@ def categorical_logits_sum_rows(logits: torch.Tensor,
     out = torch.empty(rows, dtype=torch.float32, device=logits.device)
     if n == 0:
         return out.zero_()
-    nparts = _num_parts(n, _WARPS)
+    group = categorical_group(c)
+    # items a block has in flight: one per warp, or one per group of lanes
+    nparts = _num_parts(n, _THREADS // group if group else _WARPS)
     partials = torch.empty(rows * nparts, dtype=torch.float32,
                            device=logits.device)
     l_stride = logits.stride(0) if rows > 1 else n * c
+    kernel = ("categorical_logits_sum_small" if group
+              else "categorical_logits_sum")
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = _lib().repro_categorical_logits_sum(
-            logits.data_ptr(), l_stride, labels.data_ptr(),
-            _row_stride(labels), rows, n, c, partials.data_ptr(), nparts,
-            out.data_ptr(), stream)
-    _raise_on(err, "categorical_logits_sum")
-    LAUNCHES["categorical_logits_sum"] += 1
+        if group:
+            err = _lib().repro_categorical_logits_sum_small(
+                logits.data_ptr(), l_stride, labels.data_ptr(),
+                _row_stride(labels), rows, n, c, group, partials.data_ptr(),
+                nparts, out.data_ptr(), stream)
+        else:
+            err = _lib().repro_categorical_logits_sum(
+                logits.data_ptr(), l_stride, labels.data_ptr(),
+                _row_stride(labels), rows, n, c, partials.data_ptr(), nparts,
+                out.data_ptr(), stream)
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
     return out
 
 
@@ -720,78 +747,121 @@ def _like(v, x: torch.Tensor) -> torch.Tensor:
     return v.to(device=x.device, dtype=torch.float32)
 
 
-def std_normal_logpdf_sum(z: torch.Tensor) -> torch.Tensor:
-    """``sum(StdNormal.log_prob(z))`` over the last axis, differentiable."""
-    return _StdNormalSum.apply(torch.as_tensor(z, dtype=torch.float32))
+def std_normal_logpdf_sum(z: torch.Tensor, *, block_rows: int = 256,
+                          interpret: Optional[bool] = None) -> torch.Tensor:
+    """``sum(StdNormal.log_prob(z))`` over the last axis, differentiable.
+    ``block_rows`` is ignored; ``interpret=True`` runs the plain version
+    (``kernels._dispatch``)."""
+    z = torch.as_tensor(z, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.std_normal_logpdf_sum_ref(z)
+    return _StdNormalSum.apply(z)
 
 
-def bernoulli_logits_logpmf_sum(logits: torch.Tensor,
-                                y: torch.Tensor) -> torch.Tensor:
+def bernoulli_logits_logpmf_sum(logits: torch.Tensor, y: torch.Tensor, *,
+                                block_rows: int = 256,
+                                interpret: Optional[bool] = None
+                                ) -> torch.Tensor:
     """``sum(y log sigmoid(l) + (1-y) log sigmoid(-l))`` over the last
-    axis, differentiable in ``logits`` and ``y``."""
-    return _BernoulliLogitSum.apply(
-        torch.as_tensor(logits, dtype=torch.float32),
-        torch.as_tensor(y, dtype=torch.float32))
+    axis, differentiable in ``logits`` and ``y``. ``block_rows`` is
+    ignored; ``interpret=True`` runs the plain version."""
+    logits = torch.as_tensor(logits, dtype=torch.float32)
+    y = torch.as_tensor(y, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.bernoulli_logits_logpmf_sum_ref(logits, y)
+    return _BernoulliLogitSum.apply(logits, y)
 
 
 def gamma_unnorm_logpdf_sum(x: torch.Tensor, am1: torch.Tensor,
-                            rate: torch.Tensor) -> torch.Tensor:
+                            rate: torch.Tensor, *, block_rows: int = 256,
+                            interpret: Optional[bool] = None
+                            ) -> torch.Tensor:
     """``sum(am1 log x - rate x)`` over the last axis (the Gamma normaliser
     ``a log b - lgamma(a)`` stays with the caller), differentiable in all
-    three."""
-    return _GammaUnnormSum.apply(torch.as_tensor(x, dtype=torch.float32),
-                                 torch.as_tensor(am1, dtype=torch.float32),
-                                 torch.as_tensor(rate, dtype=torch.float32))
+    three. ``block_rows`` is ignored; ``interpret=True`` runs the plain
+    version."""
+    ins = tuple(torch.as_tensor(t, dtype=torch.float32)
+                for t in (x, am1, rate))
+    if plain_requested(interpret=interpret):
+        return ref.gamma_unnorm_logpdf_sum_ref(*ins)
+    return _GammaUnnormSum.apply(*ins)
 
 
-def categorical_logits_logpmf_sum(logits: torch.Tensor,
-                                  labels: torch.Tensor) -> torch.Tensor:
+def categorical_logits_logpmf_sum(logits: torch.Tensor, labels: torch.Tensor,
+                                  *, block_rows: int = 128,
+                                  interpret: Optional[bool] = None
+                                  ) -> torch.Tensor:
     """``sum_n log softmax(logits_n)[labels_n]`` over the item axis of
     ``logits (..., N, C)`` with int32 ``labels (..., N)``, differentiable
-    in ``logits``."""
+    in ``logits``. ``block_rows`` is ignored; ``interpret=True`` runs the
+    plain version."""
     labels = torch.as_tensor(labels)
     if labels.dtype != torch.int32:
         labels = labels.to(torch.int32)
-    return _CategoricalLogitsSum.apply(
-        torch.as_tensor(logits, dtype=torch.float32), labels)
+    logits = torch.as_tensor(logits, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.categorical_logits_logpmf_sum_ref(logits, labels)
+    return _CategoricalLogitsSum.apply(logits, labels)
 
 
-def normal_logpdf_sum(x: torch.Tensor, loc, scale) -> torch.Tensor:
+def normal_logpdf_sum(x: torch.Tensor, loc, scale, *, block_rows: int = 256,
+                      interpret: Optional[bool] = None) -> torch.Tensor:
     """``sum(Normal(loc, scale).log_prob(x))`` over the last axis of the
     broadcast shape, differentiable in all three. ``loc`` and ``scale`` may
     be Python numbers or tensors broadcastable against ``x``; a scalar per
-    chain under ``vmap`` is read at element stride 0, not materialised."""
+    chain under ``vmap`` is read at element stride 0, not materialised.
+    ``block_rows`` is ignored; ``interpret=True`` runs the plain version."""
     x = torch.as_tensor(x, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.normal_logpdf_sum_ref(x, _like(loc, x), _like(scale, x))
     return _NormalSum.apply(x, _like(loc, x), _like(scale, x))
 
 
-def beta_unnorm_logpdf_sum(x: torch.Tensor, am1, bm1) -> torch.Tensor:
+def beta_unnorm_logpdf_sum(x: torch.Tensor, am1, bm1, *,
+                           block_rows: int = 256,
+                           interpret: Optional[bool] = None) -> torch.Tensor:
     """``sum(am1 log x + bm1 log1p(-x))`` over the last axis (the log-beta
     normaliser stays with the caller), differentiable in all three; ``x``
-    must lie in (0, 1)."""
+    must lie in (0, 1). ``block_rows`` is ignored; ``interpret=True`` runs
+    the plain version."""
     x = torch.as_tensor(x, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.beta_unnorm_logpdf_sum_ref(x, _like(am1, x), _like(bm1, x))
     return _BetaUnnormSum.apply(x, _like(am1, x), _like(bm1, x))
 
 
-def student_t_unnorm_logpdf_sum(z: torch.Tensor, df) -> torch.Tensor:
+def student_t_unnorm_logpdf_sum(z: torch.Tensor, df, *,
+                                block_rows: int = 256,
+                                interpret: Optional[bool] = None
+                                ) -> torch.Tensor:
     """``sum(-(df + 1)/2 log1p(z^2/df))`` over the last axis on standardised
     ``z`` (the lgamma and log-scale normaliser stays with the caller),
-    differentiable in both."""
+    differentiable in both. ``block_rows`` is ignored; ``interpret=True``
+    runs the plain version."""
     z = torch.as_tensor(z, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.student_t_unnorm_logpdf_sum_ref(z, _like(df, z))
     return _StudentTUnnormSum.apply(z, _like(df, z))
 
 
-def mvnormal_prec_quadform_sum(xc: torch.Tensor,
-                               prec: torch.Tensor) -> torch.Tensor:
+def mvnormal_prec_quadform_sum(xc: torch.Tensor, prec: torch.Tensor, *,
+                               block_rows: int = 256,
+                               interpret: Optional[bool] = None
+                               ) -> torch.Tensor:
     """``-1/2 sum_n xc_n^T P xc_n`` for centred rows ``xc (..., N, D)`` and
     a dense precision ``P (..., D, D)`` (assumed symmetric), one launch;
     the ``-N (sum log diag L + D/2 log 2 pi)`` normaliser stays with the
-    caller. Differentiable in both."""
+    caller. Differentiable in both. ``block_rows`` is ignored;
+    ``interpret=True`` runs the plain version."""
     xc = torch.as_tensor(xc, dtype=torch.float32)
+    if plain_requested(interpret=interpret):
+        return ref.mvnormal_prec_quadform_sum_ref(xc, _like(prec, xc))
     return _MvnQuadformSum.apply(xc, _like(prec, xc))
 
 
-def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
+def site_block_sum(family: str, segments: Sequence[Tuple], *,
+                   use_pallas: Optional[bool] = None,
+                   interpret: Optional[bool] = None) -> torch.Tensor:
     """Sum the log-densities of all same-family site segments in ONE launch.
 
     Parameters
@@ -815,6 +885,10 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
           each keeps its own precision, so each segment is one launch.
     segments : sequence of tuples of tensors
         Per-site flattened blocks as above.
+    use_pallas, interpret : bool, optional
+        The JAX package's switches: ``use_pallas=False`` or
+        ``interpret=True`` runs the plain version (``kernels._dispatch``);
+        ``None`` launches the kernel on a CUDA tensor.
 
     Returns
     -------
@@ -827,10 +901,11 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
                          f"expected one of {SITE_BLOCK_FAMILIES}")
     if not segments:
         return torch.zeros((), dtype=torch.float32)
+    kw = {"interpret": plain_requested(use_pallas, interpret)}
     if family == "mvnormal_prec":
-        total = mvnormal_prec_quadform_sum(*segments[0])
+        total = mvnormal_prec_quadform_sum(*segments[0], **kw)
         for xc, prec in segments[1:]:
-            total = total + mvnormal_prec_quadform_sum(xc, prec)
+            total = total + mvnormal_prec_quadform_sum(xc, prec, **kw)
         return total
     if len(segments) == 1:
         cols = segments[0]
@@ -838,16 +913,16 @@ def site_block_sum(family: str, segments: Sequence[Tuple]) -> torch.Tensor:
         cols = tuple(torch.cat(parts, dim=0) for parts in zip(*segments))
     if family == "std_normal":
         (z,) = cols
-        return std_normal_logpdf_sum(z)
+        return std_normal_logpdf_sum(z, **kw)
     if family == "normal":
-        return normal_logpdf_sum(*cols)
+        return normal_logpdf_sum(*cols, **kw)
     if family == "gamma":
-        return gamma_unnorm_logpdf_sum(*cols)
+        return gamma_unnorm_logpdf_sum(*cols, **kw)
     if family == "beta":
-        return beta_unnorm_logpdf_sum(*cols)
+        return beta_unnorm_logpdf_sum(*cols, **kw)
     if family == "student_t":
-        return student_t_unnorm_logpdf_sum(*cols)
+        return student_t_unnorm_logpdf_sum(*cols, **kw)
     if family == "categorical_logits":
-        return categorical_logits_logpmf_sum(*cols)
+        return categorical_logits_logpmf_sum(*cols, **kw)
     logits, y = cols
-    return bernoulli_logits_logpmf_sum(logits, y)
+    return bernoulli_logits_logpmf_sum(logits, y, **kw)

@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels._build import KernelError, load_library
+from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "ssd_scan", "kernel_source",
@@ -136,11 +138,15 @@ class _SSDScan(torch.autograd.Function):
                      for t in ins) + (None,)
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128,
+             interpret: Optional[bool] = None):
     """Chunked SSD scan. x: (b,s,h,p); dt: (b,s,h) float32; A: (h,)
     float32; B, C: (b,s,g,n) -> y (b,s,h,p) in x's type.
 
     A sequence that is not a chunk multiple is scanned as if padded with
     dt = 0 (zero decay and zero state update); the padding is not
-    returned."""
+    returned. ``interpret=True`` runs the plain version
+    (``kernels._dispatch``)."""
+    if plain_requested(interpret=interpret):
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
     return _SSDScan.apply(x, dt, A, B, C, chunk)

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "apply_rope", "softcap", "swiglu", "geglu",
+__all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm", "rope", "apply_rope", "softcap", "swiglu", "geglu",
            "relu2_mlp", "Initializer"]
 
 
@@ -62,11 +62,34 @@ class Initializer:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
 
 
+def dense_init(gen: torch.Generator, shape, dtype=torch.bfloat16):
+    """Fan-in-scaled normal weights, ``N(0, 1 / shape[0])``, drawn in
+    float32 from ``gen`` (on its device) and cast to ``dtype``."""
+    std = 1.0 / math.sqrt(max(shape[0], 1))
+    return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                        device=gen.device) * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16):
+    """Standard normal embeddings drawn in float32 from ``gen``, cast to
+    ``dtype``."""
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=gen.device).to(dtype)
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     normed = x32 * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, unbiased=False, keepdim=True)
+    normed = (x32 - mu) * torch.rsqrt(var + eps)
+    return (normed * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope(positions, head_dim: int, base: float = 10000.0):

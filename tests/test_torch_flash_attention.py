@@ -151,3 +151,57 @@ def test_dense_route_equals_flash_route():
     dense = attention_core(t(q), t(k), t(v), impl="xla", **kw)
     flash = attention_core(t(q), t(k), t(v), impl="flash", **kw)
     assert _rel_err(flash.numpy(), dense.numpy()) < 2e-5
+
+
+def test_interpret_and_block_sizes_run_the_plain_version():
+    B, Sq, Sk, KV, G, hd = 1, 8, 40, 2, 2, 16
+    q, k, v, qpos, kpos = _inputs(B, Sq, Sk, KV, G, hd, seed=3)
+    kw = dict(causal=True, window=None, cap=None)
+    want = jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kpos),
+                kv_mask=None, **kw)
+    ops.reset_launch_counts()
+    for extra in (dict(interpret=True), dict(block_q=16, block_k=32),
+                  dict(block_q=8, block_k=8, interpret=None)):
+        got = _port(q, k, v, qpos, kpos, None, **kw, **extra)
+        assert _rel_err(got, want) < 1e-5
+    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+
+
+# (B, Sq, Sk, KV, G, dtype, hd) of the LM paths' calls and what plan gives
+PLANS = [
+    # smollm-360m serving: prefill, then decode
+    ((8, 1024, 1088, 5, 3, torch.bfloat16, 64), ("flash_fwd_tc", 64, 1)),
+    ((8, 1, 1088, 5, 3, torch.bfloat16, 64), ("flash_decode", 4, 9)),
+    # gemma2-27b: the local layer's ring prefill and both decodes
+    ((2, 4160, 8256, 16, 2, torch.bfloat16, 128), ("flash_fwd_tc", 64, 1)),
+    ((2, 1, 4096, 16, 2, torch.bfloat16, 128), ("flash_decode", 2, 12)),
+    ((2, 1, 4192, 16, 2, torch.bfloat16, 128), ("flash_decode", 2, 12)),
+    # the float32 gates: FP32 prefill, the decode kernel in float32
+    ((8, 1024, 1088, 5, 3, torch.float32, 64), ("flash_fwd", 64, 1)),
+    ((8, 1, 1088, 5, 3, torch.float32, 64), ("flash_decode", 4, 9)),
+    # other head dims in bf16 go to flash_fwd; a small prefill splits
+    ((2, 40, 40, 2, 3, torch.bfloat16, 16), ("flash_fwd", 64, 1)),
+    ((1, 256, 256, 1, 4, torch.bfloat16, 128), ("flash_fwd_tc", 64, 4)),
+    # G rows in registers: R the power of two >= rows, at most 8
+    ((1, 1, 96, 2, 8, torch.bfloat16, 64), ("flash_decode", 8, 2)),
+    ((1, 7, 96, 1, 9, torch.bfloat16, 64), ("flash_decode", 8, 2)),
+    ((3, 1, 50, 1, 1, torch.float32, 100), ("flash_decode", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_plan_picks_the_kernel_from_shapes_alone(shape, want):
+    got = ops.plan(*shape[:5], dtype=shape[5], head_dim=shape[6])
+    assert tuple(got) == want
+    assert got.kernel in ops.KERNELS
+    B, Sq, Sk, KV, G = shape[:5]
+    rows = Sq * G
+    if got.kernel == "flash_decode":
+        assert rows < 64 and got.rows >= min(rows, 8)
+        # the blocks run in one wave and fill the card at least twice,
+        # unless each already reads its keys in two passes
+        blocks = -(-rows // got.rows) * KV * B * got.nsplit
+        assert blocks <= (3 if got.rows <= 4 else 2) * 132
+        two_passes = 2 * ops.decode_pass_keys(got.rows, shape[6], shape[5])
+        assert blocks >= 2 * 132 or got.nsplit * two_passes >= Sk

@@ -224,3 +224,37 @@ def test_run_chains_auto_runs_fused_and_matches_reference():
                                      adapt_step_size=True),
                     5, num_warmup=5, num_chains=2, device="cpu")
     assert np.isfinite(ch["x"]).all()
+
+
+@pytest.mark.parametrize("switch", [dict(use_pallas=False),
+                                    dict(interpret=True, block_rows=64)])
+def test_wrappers_take_the_jax_switches(spec_pair, switch, monkeypatch):
+    """``use_pallas=False`` or ``interpret=True`` runs the plain version
+    even where the kernel would launch (a CUDA tensor, stood in for here
+    by the device check), equal to the JAX package's; ``block_rows`` is
+    accepted and ignored; the default takes the kernel route."""
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    js, ts, u0 = spec_pair
+    q, p, _ = _states(u0, seed=13)
+    _, g = potential_value_and_grad(ts, torch.tensor(q))
+
+    def no_kernel():
+        raise AssertionError("the kernel route was taken")
+
+    monkeypatch.setattr(lf_ops, "_device_kind", lambda *ts_: "cuda")
+    monkeypatch.setattr(lf_ops, "_lib", no_kernel)
+    before = dict(LAUNCHES)
+    lp, gg = potential_value_and_grad(ts, torch.tensor(q[0]), **switch)
+    out = fused_leapfrog(ts, torch.tensor(q[0]), torch.tensor(p[0]), g[0],
+                         float(EPS[0]), 4, **switch)
+    assert LAUNCHES == before
+    wlp, wg = jfl.potential_value_and_grad(js, jnp.asarray(q[0]),
+                                           use_pallas=False)
+    assert _rel(lp, wlp) < TOL and _max_abs(gg, wg) < TOL
+    want = jfl.fused_leapfrog(js, jnp.asarray(q[0]), jnp.asarray(p[0]),
+                              jnp.asarray(g[0].numpy()), float(EPS[0]), 4,
+                              use_pallas=False)
+    assert _max_abs(out[0], want[0]) < TOL and _rel(out[2], want[2]) < TOL
+    # the default takes the kernel route, which cannot run on this tensor
+    with pytest.raises((AssertionError, ValueError, RuntimeError)):
+        potential_value_and_grad(ts, torch.tensor(q[0]))

@@ -372,8 +372,8 @@ def test_row_wrappers_run_plain_version_on_cpu_without_counting():
         ref.mvnormal_prec_quadform_sum_ref(xc, prec).numpy())
     assert ops.LAUNCHES == dict.fromkeys(
         ("std_normal_sum", "bernoulli_logit_sum", "categorical_logits_sum",
-         "gamma_unnorm_sum", "normal_sum", "beta_unnorm_sum",
-         "student_t_unnorm_sum", "mvn_quadform_sum"), 0)
+         "categorical_logits_sum_small", "gamma_unnorm_sum", "normal_sum",
+         "beta_unnorm_sum", "student_t_unnorm_sum", "mvn_quadform_sum"), 0)
 
 
 def test_row_wrappers_reject_what_the_kernel_cannot_take():
@@ -437,3 +437,94 @@ def test_library_path_is_keyed_by_source_content(tmp_path, monkeypatch):
     src.write_text("// b")
     assert _build.library_path(src) != a
     assert a.name == "libk.so" and a.parent.parent == tmp_path
+
+
+# each per-array function, its autograd Function, and its inputs (1-D, or
+# (N, C) logits and (N, D) centred rows)
+PER_ARRAY = {
+    "std_normal_logpdf_sum": ("_StdNormalSum", ("z",)),
+    "normal_logpdf_sum": ("_NormalSum", ("x", "loc", "scale")),
+    "bernoulli_logits_logpmf_sum": ("_BernoulliLogitSum", ("l", "y")),
+    "categorical_logits_logpmf_sum": ("_CategoricalLogitsSum",
+                                      ("logits", "labels")),
+    "gamma_unnorm_logpdf_sum": ("_GammaUnnormSum", ("x", "am1", "rate")),
+    "beta_unnorm_logpdf_sum": ("_BetaUnnormSum", ("u", "am1", "bm1")),
+    "student_t_unnorm_logpdf_sum": ("_StudentTUnnormSum", ("z", "df")),
+    "mvnormal_prec_quadform_sum": ("_MvnQuadformSum", ("xc", "prec")),
+}
+
+
+def _per_array_inputs(seed=9, n=300):
+    rng = np.random.default_rng(seed)
+    return {"z": rng.normal(size=n), "x": rng.uniform(0.2, 3.0, n),
+            "loc": rng.normal(size=n), "scale": rng.uniform(0.5, 2.0, n),
+            "l": rng.normal(size=n), "y": (rng.uniform(size=n) < 0.4) * 1.0,
+            "logits": rng.normal(size=(n, 5)),
+            "labels": rng.integers(0, 5, n).astype(np.int32),
+            "am1": rng.uniform(-0.5, 2.0, n), "rate": rng.uniform(0.5, 2, n),
+            "u": rng.uniform(0.05, 0.95, n), "bm1": rng.uniform(-0.5, 2, n),
+            "df": rng.uniform(1.0, 9.0, n),
+            "xc": rng.normal(size=(n, MVN_D)), "prec": _precision(rng, MVN_D)}
+
+
+def _as(t, v, torch_side):
+    if v.dtype == np.int32:
+        return torch.as_tensor(v) if torch_side else jnp.asarray(v)
+    v = v.astype(np.float32)
+    return torch.as_tensor(v) if torch_side else jnp.asarray(v)
+
+
+@pytest.mark.parametrize("name", sorted(PER_ARRAY))
+def test_per_array_functions_take_the_jax_keywords(name, monkeypatch):
+    """block_rows is accepted and ignored; interpret=True runs the plain
+    version (never the kernel's autograd Function) and equals the JAX
+    package's Pallas kernel in interpret mode."""
+    fn_cls, cols = PER_ARRAY[name]
+    ins = _per_array_inputs()
+    want = getattr(jops, name)(*(_as(None, ins[c], False) for c in cols),
+                               block_rows=8, interpret=True)
+    t_ins = [_as(None, ins[c], True) for c in cols]
+    fn = getattr(ops, name)
+    default = fn(*t_ins, block_rows=8)
+    ops.reset_launch_counts()
+
+    def kernel_route(*args, **kw):
+        raise AssertionError(f"{fn_cls} ran under interpret=True")
+
+    monkeypatch.setattr(getattr(ops, fn_cls), "apply", kernel_route)
+    got = fn(*t_ins, block_rows=8, interpret=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert float(got) == float(default)
+    assert sum(ops.LAUNCHES.values()) == 0
+    with pytest.raises(AssertionError, match="ran under"):
+        fn(*t_ins, interpret=None)  # the default keeps the kernel route
+
+
+@pytest.mark.parametrize("switch", [dict(use_pallas=False),
+                                    dict(interpret=True),
+                                    dict(use_pallas=True, interpret=True)])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_site_block_sum_takes_the_jax_switches(family, switch, monkeypatch):
+    segs = _segments(family, [129, 3])
+    want = jops.site_block_sum(
+        family, [tuple(jnp.asarray(c) for c in s) for s in segs],
+        use_pallas=False)
+    t_segs = [tuple(torch.as_tensor(c) for c in s) for s in segs]
+    for fn_cls, _ in PER_ARRAY.values():
+        monkeypatch.setattr(getattr(ops, fn_cls), "apply",
+                            lambda *a, **k: pytest.fail("kernel route"))
+    got = ops.site_block_sum(family, t_segs, **switch)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_categorical_group_by_class_count():
+    """Lanes per item: the smallest group holding at most 8 classes a
+    lane, none (one warp per item) above 256 classes."""
+    want = {1: 4, 3: 4, 4: 4, 5: 4, 20: 4, 32: 4, 33: 8, 64: 8, 65: 16,
+            99: 16, 100: 16, 128: 16, 129: 32, 256: 32, 257: 0, 50_280: 0}
+    assert {c: ops.categorical_group(c) for c in want} == want
+    assert ops.SMALL_C == 256
+    for c in range(1, 300):
+        g = ops.categorical_group(c)
+        assert (g == 0) == (c > ops.SMALL_C)
+        assert g == 0 or -(-c // g) <= 8

@@ -148,7 +148,7 @@ def test_cuda_new_kernels_one_launch_for_all_chains(cuda_device):
         x, torch.zeros(11, device=cuda_device),
         torch.ones(11, device=cuda_device))
     assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
-                            "categorical_logits_sum": 1,
+                            "categorical_logits_sum_small": 1,
                             "gamma_unnorm_sum": 1}
     onehot = torch.nn.functional.one_hot(labels.long(), 20).float()
     torch.testing.assert_close(gl, onehot - torch.softmax(logits, -1),
@@ -366,7 +366,9 @@ def test_cuda_flash_attention_matches_plain_version(cuda_device, case,
     flash_ops.reset_launch_counts()
     got = flash_ops.flash_attention_gqa(q, k, v, **kw)
     again = flash_ops.flash_attention_gqa(q, k, v, **kw)
-    assert flash_ops.LAUNCHES == {"flash_attention": 2}
+    kernel = flash_ops.plan(B, Sq, Sk, KV, G, dtype, hd).kernel
+    assert flash_ops.LAUNCHES == {**dict.fromkeys(flash_ops.KERNELS, 0),
+                                  kernel: 2}
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.equal(got, again)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -401,6 +403,98 @@ def test_cuda_flash_attention_ring_masks_and_backward(cuda_device):
         grads.append([t.grad for t in ins])
     for a, b in zip(*grads):
         assert _rel_err(a, b) < 2e-5
+
+
+def _flash_inputs(dev, B, Sq, Sk, KV, G, hd, dtype, holes, seed):
+    """q, k, v and a cache of Sk slots whose last Sq keys are the queries'
+    own, every 13th slot a hole when ``holes``, the last slot invalid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((B, Sq, KV, G, hd), (B, Sk, KV, hd),
+                             (B, Sk, KV, hd)))
+    kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+    ok = kp < Sk - 1
+    if holes:
+        ok = ok & (torch.remainder(kp, 13) != 5)
+    return q, k, v, kp, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,window,cap", [
+    (2, 100, 100, 2, 1, None, None),       # ragged rows, self-attention
+    (1, 333, 517, 2, 3, None, 50.0),       # ragged Sq and Sk, softcap
+    (2, 190, 1000, 1, 2, 128, 30.0),       # window and softcap
+    (1, 64, 65, 4, 1, 7, None),            # one row tile, a narrow window
+])
+def test_cuda_flash_fwd_tc_matches_plain_version(cuda_device, hd, B, Sq, Sk,
+                                                 KV, G, window, cap):
+    q, k, v, kp, ok = _flash_inputs(cuda_device, B, Sq, Sk, KV, G, hd,
+                                    torch.bfloat16, True, 8)
+    # the first three queries come before every key: fully masked rows
+    qp = torch.cat([torch.full((3,), -5, dtype=torch.int32,
+                               device=cuda_device), kp[Sk - Sq + 3:]])
+    kw = dict(q_positions=qp[None].expand(B, Sq),
+              kv_positions=kp[None].expand(B, Sk), kv_mask=ok[None].expand(
+                  B, Sk), causal=True, window=window, cap=cap)
+    assert flash_ops.plan(B, Sq, Sk, KV, G, torch.bfloat16,
+                          hd).kernel == "flash_fwd_tc"
+    flash_ops.reset_launch_counts()
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    again = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert flash_ops.LAUNCHES["flash_fwd_tc"] == 2
+    assert torch.equal(got, again)
+    assert bool((got[:, :3] == 0).all())
+    assert _rel_err(got, attention_ref(q, k, v, **kw)) < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("Sq,Sk,hd,window,cap", [
+    (1, 77, 64, None, None),               # odd Sk
+    (1, 1089, 128, 512, 50.0),             # split keys, window, softcap
+    (2, 301, 64, None, 30.0),              # two query positions
+])
+def test_cuda_flash_decode_matches_plain_version(cuda_device, dtype, G, Sq,
+                                                 Sk, hd, window, cap):
+    B, KV = 2, 2
+    q, k, v, kp, ok = _flash_inputs(cuda_device, B, Sq, Sk, KV, G, hd, dtype,
+                                    True, 9)
+    kw = dict(q_positions=kp[Sk - Sq:][None].expand(B, Sq),
+              kv_positions=kp[None].expand(B, Sk),
+              kv_mask=ok[None].expand(B, Sk), causal=True, window=window,
+              cap=cap)
+    assert flash_ops.plan(B, Sq, Sk, KV, G, dtype,
+                          hd).kernel == "flash_decode"
+    flash_ops.reset_launch_counts()
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    again = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert flash_ops.LAUNCHES["flash_decode"] == 2
+    assert torch.equal(got, again)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert _rel_err(got, attention_ref(q, k, v, **kw)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 20, 99, 100, 256, 257])
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 99), (4, 10176)])
+def test_cuda_categorical_small_c_path_matches_plain_version(cuda_device, c,
+                                                             rows, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    logits = 3.0 * torch.randn(rows, n, c, generator=gen, device=cuda_device)
+    labels = torch.randint(0, c, (rows, n), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    ops.reset_launch_counts()
+    got = ops.categorical_logits_sum_rows(logits, labels)
+    path = ("categorical_logits_sum_small" if c <= 256
+            else "categorical_logits_sum")
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0), path: 1}
+    torch.testing.assert_close(
+        got, ref.categorical_logits_logpmf_sum_ref(logits, labels),
+        rtol=1e-6, atol=0)
+    assert torch.equal(ops.categorical_logits_sum_rows(logits, labels), got)
 
 
 SSD_CASES = [

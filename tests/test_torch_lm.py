@@ -308,3 +308,37 @@ def test_lm_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
                  lambda: serve_batch("smollm-360m", max_new=2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_nn_common_inits_and_layer_norm_match_reference():
+    from repro.nn import common as jcommon
+    from repro_torch.nn import common as tcommon
+    for name in ("dense_init", "embed_init", "layer_norm"):
+        assert name in tcommon.__all__ and name in jcommon.__all__
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 5, 48)).astype(np.float32) * 2.0 + 0.5
+    scale = rng.standard_normal(48).astype(np.float32)
+    bias = rng.standard_normal(48).astype(np.float32)
+    want = jcommon.layer_norm(jnp.asarray(x), jnp.asarray(scale),
+                              jnp.asarray(bias))
+    got = tcommon.layer_norm(torch.as_tensor(x), torch.as_tensor(scale),
+                             torch.as_tensor(bias))
+    assert got.dtype == torch.float32
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    xb = torch.as_tensor(x).to(torch.bfloat16)
+    assert tcommon.layer_norm(xb, torch.as_tensor(scale),
+                              torch.as_tensor(bias)).dtype == torch.bfloat16
+    # the inits: the reference's shapes, types and laws (Philox, not
+    # threefry, so the draws themselves differ)
+    shape = (256, 512)
+    wj = jcommon.dense_init(jax.random.PRNGKey(0), shape)
+    wt = tcommon.dense_init(torch.Generator().manual_seed(0), shape)
+    et = tcommon.embed_init(torch.Generator().manual_seed(0), shape,
+                            dtype=torch.float32)
+    assert tuple(wt.shape) == tuple(wj.shape) == shape
+    assert wt.dtype == torch.bfloat16 and et.dtype == torch.float32
+    assert abs(float(wt.float().std()) - 1 / 16) < 2e-3
+    assert abs(float(et.std()) - 1.0) < 2e-2
+    assert abs(float(et.mean())) < 2e-2
+    again = tcommon.dense_init(torch.Generator().manual_seed(0), shape)
+    assert torch.equal(wt, again)

@@ -92,3 +92,13 @@ def test_chunked_scan_state_matches_reference():
                              return_final=True)
     assert _rel_err(gy.numpy(), wy) < 2e-4
     assert _rel_err(gs.numpy(), ws) < 2e-4
+
+
+def test_interpret_runs_the_plain_version(monkeypatch):
+    ins = _inputs(1, 64, 2, 32, 1, 16, seed=4)
+    want = jref(*map(jnp.asarray, ins), chunk=32)
+    monkeypatch.setattr(ops._SSDScan, "apply",
+                        lambda *a: pytest.fail("the kernel route was taken"))
+    got = ops.ssd_scan(*map(torch.as_tensor, ins), chunk=32, interpret=True)
+    assert _rel_err(got.numpy(), want) < 2e-4
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
