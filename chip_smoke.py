@@ -23,7 +23,8 @@ with its depth cut to one (local, global) block, through the hand-written
 flash-attention kernels (``flash_fwd_tc``, the bf16 prefill on the tensor
 cores; ``flash_decode``, every decode step; ``flash_fwd``, the FP32
 prefill of the float32 serving run); scoring 4 x 2,048 tokens under the
-Bayesian ``mamba2-1.3b`` at full width and depth, through ``ssd_scan`` and
+Bayesian ``mamba2-1.3b`` at full width and depth, through ``ssd_scan_tc``
+(bf16 on the tensor cores; the FP32 ``ssd_scan`` on the float32 gate) and
 ``categorical_logits_sum``; and serving ``mamba2-1.3b`` briefly (its
 prefill runs the plain scan, its decode the O(1) update, as in the JAX
 package: no kernel of this slice). Draws per model are in ``DRAWS``.
@@ -57,9 +58,13 @@ Phases, in order:
    softcapped), rings with holes and fully masked rows (exact zeros)
    through each kernel and every call of the LM paths (``LM_FLASH``, the
    large ones on their first and last 128 query rows), each kernel
-   reached, and the backward through the ``autograd.Function`` at 2e-5; ssd_scan the same way (2e-4 and
-   5e-2) over that file's cases and mamba2's 4 x 2,048 x 64 heads, chunk
-   32 against chunk 64 at 1e-4, and its backward; categorical_logits_sum
+   reached, and the backward through the ``autograd.Function`` at 2e-5;
+   the two SSD kernels the same way (2e-4 and 5e-2) over that file's
+   cases, ``ssd_scan_tc``'s shapes (``SSD_TC_CASES``) and mamba2's 4 x
+   2,048 x 64 heads: the kernel ``plan`` picks, and on every bf16 call it
+   sends to ``ssd_scan_tc`` the FP32 kernel as well, the mixer's strided
+   views through ``ssd_scan_tc``, chunk 32 against chunk 64 at 1e-4, and
+   the backward; categorical_logits_sum
    again at C = 49,152 and 50,280 over 8,192 items; all bit-identical on
    a rerun;
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
@@ -116,9 +121,11 @@ Phases, in order:
    else),
    and the dense route's bf16 greedy tokens for agreement (reported, not
    gated); for the scoring path, in float32, the log-likelihood with
-   ``ssd_scan`` against the plain scan's (rtol 1e-4) and logjoint =
-   logprior + loglikelihood (rtol 1e-5), then two timed bf16 evaluations,
-   counted (ssd_scan once per layer, categorical_logits_sum once, per
+   ``ssd_scan`` (counted: once per layer) against the plain scan's (rtol
+   1e-4) and logjoint = logprior + loglikelihood (rtol 1e-5); in bf16 the
+   log-likelihood through ``ssd_scan_tc`` against the plain scan's on the
+   same weights (``LM_SCORE_BF16_TOL``); then two timed bf16 evaluations,
+   counted (ssd_scan_tc once per layer, categorical_logits_sum once, per
    evaluation);
 7. times each kernel at the main paths' shapes (and a wide one) beside its
    bound, its plain version and, where one exists, one PyTorch library
@@ -129,9 +136,11 @@ Phases, in order:
    device's busy share; the flash kernels at the LM paths' calls
    (``FLASH_TIMED``: the bf16 serving calls and the float32 prefill; the
    library call is ``scaled_dot_product_attention`` with a boolean mask
-   and ``enable_gqa``, none where gemma2's softcap applies) and ssd_scan
-   at mamba2's, their bounds at the peak for the inputs' type (the bf16
-   tensor cores or FP32; at the FP32 rate also ``bound_fp32_ms``); and
+   and ``enable_gqa``, none where gemma2's softcap applies) and both SSD
+   kernels at mamba2's bf16 call (the FP32 kernel also at the float32
+   gate's), their bounds at the peak for the inputs' type (the bf16
+   tensor cores or FP32; at the FP32 rate also ``bound_fp32_ms``;
+   mvn_quadform_sum's at the TF32 rate of its three products); and
    profiles of each serving path's prefill and decode steps and of one
    scoring evaluation.
 
@@ -160,6 +169,7 @@ DEVICE = "cuda"
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense TF32 on the tensor cores
 # float ops per element, as written in the .cu source
 STD_NORMAL_OPS = 4      # two multiplies, a subtract, the add into the sum
 BERNOULLI_OPS = 11      # max, fabs, 2 negations, exp, log1p, add, 1-y, mul, sub, sum
@@ -201,6 +211,7 @@ SOURCES = {
     "flash_fwd_tc": FLASH_CU,
     "flash_decode": FLASH_CU,
     "ssd_scan": SSD_CU,
+    "ssd_scan_tc": SSD_CU,
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
@@ -219,6 +230,7 @@ REPLACES = {
     "flash_fwd_tc": "src/repro/kernels/flash_attention/kernel.py:34",
     "flash_decode": "src/repro/kernels/flash_attention/kernel.py:34",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:31",
+    "ssd_scan_tc": "src/repro/kernels/ssd_scan/kernel.py:31",
 }
 NO_LIBRARY = {
     "gamma_unnorm_sum": "no single PyTorch call computes sum(am1 log x - "
@@ -240,6 +252,7 @@ NO_LIBRARY = {
                 "(PyTorch has no selective-scan operator; its plain version "
                 "is a dozen einsums and a loop over chunks)",
 }
+NO_LIBRARY["ssd_scan_tc"] = NO_LIBRARY["ssd_scan"]
 
 
 class SmokeFailure(RuntimeError):
@@ -1136,8 +1149,10 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish
+# per-row finish, except mvn_quadform_sum, whose last block of a row sums
+# the row's partials inside the one launch
 KERNEL_LAUNCHES_PER_CALL = 2
+LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1}
 
 
 def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
@@ -1305,7 +1320,8 @@ def time_kernels(torch, F, ops, ref):
             for prefix, fn in calls.items():
                 row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
                 row[f"{prefix}ms"] = device_ms(
-                    torch, fn, launches_per_call=KERNEL_LAUNCHES_PER_CALL
+                    torch, fn, launches_per_call=LAUNCHES_PER_CALL.get(
+                        name, KERNEL_LAUNCHES_PER_CALL)
                     if prefix == "" else None)
                 if row[f"{prefix}ms"] is None:  # no whole device trace
                     row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
@@ -1313,7 +1329,17 @@ def time_kernels(torch, F, ops, ref):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / FP32_FLOPS_PER_S * 1e3
             row.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bound_fp32_ms=max(t_bytes, t_ops))
+            if name == "mvn_quadform_sum":
+                # the kernel's products: three TF32 passes (3xTF32) of
+                # 2 N D^2 flops a row at the tensor cores' TF32 rate
+                r_, n_, d_ = shape
+                t_tc = 3 * 2 * r_ * n_ * d_ * d_ / TF32_FLOPS_PER_S * 1e3
+                row.update(tf32_ops=3 * 2 * r_ * n_ * d_ * d_,
+                           bound_ms=max(t_bytes, t_tc),
+                           bound_by="bytes" if t_bytes >= t_tc
+                           else "operations")
             rows.append(row)
             lib = (f"library {row['library_ms'] * 1e3:.2f} / "
                    f"{row['library_issued_ms'] * 1e3:.2f}"
@@ -1323,7 +1349,8 @@ def time_kernels(torch, F, ops, ref):
                 f"{row['issued_ms'] * 1e3:.2f}, plain "
                 f"{row['plain_ms'] * 1e3:.2f} / "
                 f"{row['plain_issued_ms'] * 1e3:.2f}, {lib}, bound "
-                f"{row['bound_ms'] * 1e3:.4f} ({row['bound_by']})")
+                f"{row['bound_ms'] * 1e3:.4f} ({row['bound_by']}; FP32 "
+                f"{row['bound_fp32_ms'] * 1e3:.4f})")
     return rows
 
 
@@ -1524,6 +1551,9 @@ SSD_CASES = [(2, 256, 4, 64, 1, 128, 128), (1, 200, 8, 64, 2, 128, 64),
              (1, 256, 4, 64, 4, 32, 128), (2, 64, 2, 32, 1, 16, 32),
              (1, 77, 4, 32, 2, 16, 32)]
 SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 128)
+# ssd_scan_tc's other shapes: p 128, n 64, chunk 64, ragged lengths
+SSD_TC_CASES = [(1, 77, 2, 128, 1, 64, 128), (2, 300, 4, 128, 2, 128, 64),
+                (1, 130, 4, 64, 2, 64, 64)]
 LM_VOCABS = (49_152, 50_280)  # smollm-360m's and mamba2-1.3b's
 
 
@@ -1739,26 +1769,66 @@ def ssd_inputs(torch, case, dtype, gen):
 
 
 def check_ssd_kernel(torch, sops, sref):
-    """ssd_scan against its plain version by rel err (2e-4 float32, 5e-2
-    bf16) over SSD_CASES and mamba2's call in both types, bit-identical
-    reruns, chunk 32 against chunk 64 (1e-4) and the backward (2e-4).
-    Returns the worst abs error at mamba2's bf16 call."""
+    """Both SSD kernels against the plain version by rel err (2e-4
+    float32, 5e-2 bf16) over SSD_CASES, SSD_TC_CASES and mamba2's call in
+    both types: ``ssd_scan`` (through ``plan``) everywhere, and where
+    ``plan`` picks ``ssd_scan_tc`` the FP32 kernel on the same bf16 call
+    too (``launch_kernel``); the mixer's strided views through
+    ``ssd_scan_tc``; each with a bit-identical rerun; chunk 32 against
+    chunk 64 (1e-4) and the backward (2e-4) on the FP32 kernel. Returns the
+    worst abs error of each kernel at mamba2's bf16 call."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(12)
-    worst = 0.0
-    for case in SSD_CASES + [SSD_MAMBA2]:
+    worst = {"ssd_scan": 0.0, "ssd_scan_tc": 0.0}
+    ran = dict.fromkeys(sops.KERNELS, 0)
+    n_cases = 0
+    for case in SSD_CASES + SSD_TC_CASES + [SSD_MAMBA2]:
+        b, s, h, p, g, n, chunk = case
         for dtype in (torch.float32, torch.bfloat16):
             ins = ssd_inputs(torch, case, dtype, gen)
-            got = sops.ssd_scan(*ins, chunk=case[-1])
-            again = sops.ssd_scan(*ins, chunk=case[-1])
-            want = sref.ssd_scan_ref(*ins, chunk=case[-1])
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"ssd_scan {case}: two runs differ")
-            err = rel_err(got, want)
-            tol = SSD_TOL[str(dtype).split(".")[1]]
-            check(err < tol, f"ssd_scan {case} {dtype}: rel err {err:.3e} "
-                  f">= {tol}")
-            if case == SSD_MAMBA2 and dtype == torch.bfloat16:
-                worst = float((got.float() - want.float()).abs().max())
+            want = sref.ssd_scan_ref(*ins, chunk=chunk)
+            chosen = sops.plan(h, g, p, n, chunk, dtype)
+            kernels = ([chosen] if chosen == "ssd_scan"
+                       else list(sops.KERNELS))
+            for kernel in kernels:
+                sops.reset_launch_counts()
+                if kernel == chosen:
+                    got = sops.ssd_scan(*ins, chunk=chunk)
+                    again = sops.ssd_scan(*ins, chunk=chunk)
+                else:
+                    got = sops.launch_kernel(kernel, *ins, chunk=chunk)
+                    again = sops.launch_kernel(kernel, *ins, chunk=chunk)
+                torch.cuda.synchronize()
+                check(sops.LAUNCHES[kernel] == 2, f"{kernel} {case}: "
+                      f"launches {sops.LAUNCHES}")
+                ran[kernel] += 1
+                check(torch.equal(got, again),
+                      f"{kernel} {case}: two runs differ")
+                err = rel_err(got, want)
+                tol = SSD_TOL[str(dtype).split(".")[1]]
+                check(err < tol, f"{kernel} {case} {dtype}: rel err "
+                      f"{err:.3e} >= {tol}")
+                if case == SSD_MAMBA2 and dtype == torch.bfloat16:
+                    worst[kernel] = float((got.float() - want.float())
+                                          .abs().max())
+                n_cases += 1
+    # the mixer's views of the convolution output, read through strides
+    b, s, h, p, g, n, chunk = SSD_MAMBA2[0], 512, 8, 64, 1, 128, 128
+    dev = torch.device(DEVICE)
+    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    x, B, C = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
+               Cc.reshape(b, s, g, n))
+    _, dt, A, _, _ = ssd_inputs(torch, (b, s, h, p, g, n, chunk),
+                                torch.float32, gen)
+    sops.reset_launch_counts()
+    got = sops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    check(sops.LAUNCHES == {"ssd_scan": 0, "ssd_scan_tc": 1},
+          f"ssd_scan on the mixer's views: launches {sops.LAUNCHES}")
+    err = rel_err(got, sref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk))
+    check(err < SSD_TOL["bfloat16"], f"ssd_scan_tc on the mixer's views: "
+          f"rel err {err:.3e}")
+    check(all(ran.values()), f"an SSD kernel was not reached: {ran}")
     ins = ssd_inputs(torch, (1, 128, 2, 32, 1, 64, 32), torch.float32, gen)
     e = rel_err(sops.ssd_scan(*ins, chunk=32), sops.ssd_scan(*ins, chunk=64))
     check(e < 1e-4, f"ssd_scan chunk 32 vs 64: rel err {e:.3e}")
@@ -1771,11 +1841,13 @@ def check_ssd_kernel(torch, sops, sref):
     for name, a, b in zip(("x", "dt", "A", "B", "C"), *grads):
         e = rel_err(a, b)
         check(e < 2e-4, f"ssd_scan backward d{name}: rel err {e:.3e}")
-    log(f"ssd_scan vs plain: {2 * (len(SSD_CASES) + 1)} cases (test_kernels"
-        ".py's, a ragged grouped one and mamba2's 4 x 2,048 x 64 heads, "
-        "float32 at rel 2e-4 and bf16 at 5e-2), chunk 32 vs 64 at 1e-4, "
-        "the backward at 2e-4, bit-identical reruns: ok")
-    return {"ssd_scan": worst}
+    log(f"ssd_scan and ssd_scan_tc vs plain: {n_cases} kernel runs "
+        f"({ran}) over test_kernels.py's cases, a ragged grouped one, "
+        "ssd_scan_tc's shapes and mamba2's 4 x 2,048 x 64 heads (float32 at "
+        "rel 2e-4, bf16 at 5e-2), the mixer's strided views, chunk 32 vs 64 "
+        "at 1e-4, the backward at 2e-4, bit-identical reruns: ok (mamba2 "
+        f"bf16 abs err {worst})")
+    return worst
 
 
 def check_categorical_lm(torch, ops, ref):
@@ -1812,6 +1884,15 @@ LM_SERVE = {"smollm-360m": (8, 1024, 64, None),
             "mamba2-1.3b": (4, 1024, 32, None)}
 LM_SCORE = ("mamba2-1.3b", 4, 2048)           # (arch, sequences, tokens)
 LM_GATE = 2e-3  # tests/test_archs.py's tolerance for decode vs forward
+# bf16 scoring: the log-likelihood through ssd_scan_tc against the plain
+# scan's, same bf16 weights and tokens. The two differ only inside the
+# scan: the kernel rounds W, S and B o segdt to bf16 (2^-9 relative each)
+# where the plain scan keeps float32 (the float32 gate above holds the
+# scan itself to 1e-4). Those roundings pass through 48 residual layers
+# into logits that random weights make sharp (about -290 nats a token), so
+# the total moves by a few 1e-4 of itself: 2.95e-4 on an H100 at this
+# seed; 1e-3 leaves three times that
+LM_SCORE_BF16_TOL = 1e-3
 
 
 def lm_counts(mods) -> dict:
@@ -1969,9 +2050,11 @@ def lm_serve_path(torch, arch, mods):
 def lm_score_path(torch, mods):
     """mamba2-1.3b scoring at full width and depth: the Bayesian LM's
     log-likelihood and log-joint of 4 x 2,048 tokens. Float32 gates: the
-    kernel route's log-likelihood against the plain scan's (rtol 1e-4),
-    logjoint = logprior + loglikelihood (rtol 1e-5). Then the timed bf16
-    evaluations, counted."""
+    kernel route's log-likelihood (the FP32 ``ssd_scan``, counted) against
+    the plain scan's (rtol 1e-4), logjoint = logprior + loglikelihood (rtol
+    1e-5). The bf16 gate: the log-likelihood through ``ssd_scan_tc``
+    against the plain scan's on the same bf16 weights and tokens
+    (LM_SCORE_BF16_TOL). Then the timed bf16 evaluations, counted."""
     import dataclasses
 
     from repro_torch import configs
@@ -1994,7 +2077,9 @@ def lm_score_path(torch, mods):
         c32 = dataclasses.replace(cfg, dtype=torch.float32)
         m = bayes_lm.make_lm_model(c32)(tokens=tokens, labels=labels,
                                         params=p32)
+        lm_reset(mods)
         ll = float(m.logp_with_context({}, LikelihoodContext()))
+        out["f32_launches"] = lm_counts(mods)
         lp = float(m.logp_with_context({}, PriorContext()))
         lj = float(m.logjoint({}))
         ll_plain = float(bayes_lm.make_lm_model(dataclasses.replace(
@@ -2014,6 +2099,28 @@ def lm_score_path(torch, mods):
           f"{ll_plain} (rel {out['kernel_vs_plain_rel']:.2e} > 1e-4)")
     check(out["joint_vs_parts_rel"] <= 1e-5,
           f"{arch}: logjoint {lj} != logprior + loglikelihood {lp + ll}")
+    want32 = {**dict.fromkeys(out["f32_launches"], 0),
+              "ssd_scan": cfg.n_layers, "categorical_logits_sum": 1}
+    check(out["f32_launches"] == want32, f"{arch} float32 scoring: launches "
+          f"{out['f32_launches']}, expected {want32}")
+
+    # bf16: the tensor-core scan against the plain scan, same weights
+    with torch.no_grad():
+        ll_tc = float(bayes_lm.make_lm_model(cfg)(
+            tokens=tokens, labels=labels,
+            params=params).logp_with_context({}, LikelihoodContext()))
+        ll_plain16 = float(bayes_lm.make_lm_model(dataclasses.replace(
+            cfg, attn_impl="xla"))(tokens=tokens, labels=labels,
+                                   params=params).logp_with_context(
+            {}, LikelihoodContext()))
+    out.update(loglik_bf16_tc=ll_tc, loglik_bf16_plain_scan=ll_plain16,
+               bf16_kernel_vs_plain_rel=abs(ll_tc - ll_plain16)
+               / abs(ll_plain16))
+    check(math.isfinite(ll_tc) and math.isfinite(ll_plain16)
+          and out["bf16_kernel_vs_plain_rel"] <= LM_SCORE_BF16_TOL,
+          f"{arch}: bf16 log-likelihood through ssd_scan_tc {ll_tc} vs the "
+          f"plain scan {ll_plain16} (rel "
+          f"{out['bf16_kernel_vs_plain_rel']:.2e} > {LM_SCORE_BF16_TOL})")
 
     with torch.no_grad():
         m = bayes_lm.make_lm_model(cfg)(tokens=tokens, labels=labels,
@@ -2028,7 +2135,7 @@ def lm_score_path(torch, mods):
         secs = time.perf_counter() - t0
     out["launches"] = lm_counts(mods)
     want = {**dict.fromkeys(out["launches"], 0),
-            "ssd_scan": 2 * cfg.n_layers, "categorical_logits_sum": 2}
+            "ssd_scan_tc": 2 * cfg.n_layers, "categorical_logits_sum": 2}
     check(out["launches"] == want, f"{arch} scoring: launches "
           f"{out['launches']}, expected {want}")
     out.update(loglik_bf16=float(ll16), logjoint_bf16=float(lj16),
@@ -2039,7 +2146,9 @@ def lm_score_path(torch, mods):
     log(f"{arch} scoring ({cfg.n_layers} layers, {out['params'] / 1e9:.3f} B "
         f"parameters, {nseq} x {ntok} tokens): float32 log-likelihood "
         f"{ll:.3f} with the kernel, {ll_plain:.3f} with the plain scan (rel "
-        f"{out['kernel_vs_plain_rel']:.2e}); logjoint - (logprior + "
+        f"{out['kernel_vs_plain_rel']:.2e}); bf16 {ll_tc:.3f} through "
+        f"ssd_scan_tc, {ll_plain16:.3f} with the plain scan (rel "
+        f"{out['bf16_kernel_vs_plain_rel']:.2e}); logjoint - (logprior + "
         f"loglikelihood) rel {out['joint_vs_parts_rel']:.2e}; bf16 "
         f"{out['ms_per_evaluation']:.2f} ms per evaluation "
         f"({out['tokens_per_s']:.0f} tokens/s), launches {out['launches']}")
@@ -2140,7 +2249,7 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
 # float32 gates' prefill (flash_fwd)
 # kernels whose line has a row for each timed call, not only the widest
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
-                 "categorical_logits_sum_small")
+                 "categorical_logits_sum_small", "ssd_scan")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),
@@ -2163,6 +2272,10 @@ def flash_launches_per_call(fops, q, k) -> int:
     kernel, _, nsplit = fops.plan(B, Sq, k.shape[1], KV, G, q.dtype, hd)
     return ((kernel == "flash_fwd_tc") + 1
             + (nsplit > 1 and kernel != "flash_decode"))
+
+
+# the SSD kernels' device functions, as the profiler names them
+SSD_DEVICE_NAMES = {"ssd_scan": "ssd_scan_kernel<", "ssd_scan_tc": "ssd_scan_tc<"}
 
 
 def time_lm_kernels(torch, F, fops, fref, sops, sref):
@@ -2203,17 +2316,26 @@ def time_lm_kernels(torch, F, fops, fref, sops, sref):
         rows[-1].update(call=name, dtype=dt)
         del q, k, v
     b, s, h, p, g, n, L = SSD_MAMBA2
-    ins = ssd_inputs(torch, SSD_MAMBA2, torch.bfloat16, gen)
-    nbytes = 2 * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h + h)
     nc = -(-s // L)
     causal = L * (L + 1) // 2
-    nops = 2 * b * h * nc * (causal * n + causal * p + 2 * L * n * p)
-    rows.append(time_row(
-        torch, "ssd_scan", list(SSD_MAMBA2),
-        lambda: sops.ssd_scan(*ins, chunk=L),
-        lambda: sref.ssd_scan_ref(*ins, chunk=L), None, nbytes, nops,
-        BF16_FLOPS_PER_S, NO_LIBRARY["ssd_scan"]))
-    rows[-1]["call"] = "mamba2_scoring"
+    # the products with C B^T formed once for a group's heads
+    nops = 2 * b * nc * (g * causal * n + h * (causal * p + 2 * L * n * p))
+    for dt_name in ("bfloat16", "float32"):
+        ins = ssd_inputs(torch, SSD_MAMBA2, getattr(torch, dt_name), gen)
+        nbytes = sum(read_bytes(t) for t in ins) + read_bytes(ins[0])  # + y
+        peak = BF16_FLOPS_PER_S if dt_name == "bfloat16" else FP32_FLOPS_PER_S
+        # at the bf16 call both kernels, in turns; the float32 gate's call
+        # (the FP32 kernel's main path) once
+        for kernel in (sops.KERNELS if dt_name == "bfloat16"
+                       else ("ssd_scan",)):
+            rows.append(time_row(
+                torch, kernel, list(SSD_MAMBA2),
+                lambda k=kernel, i=ins: sops.launch_kernel(k, *i, chunk=L),
+                lambda i=ins: sref.ssd_scan_ref(*i, chunk=L), None, nbytes,
+                nops, peak, NO_LIBRARY[kernel],
+                names=(SSD_DEVICE_NAMES[kernel],)))
+            rows[-1].update(call=f"mamba2_scoring_{dt_name}", dtype=dt_name)
+        del ins
     return rows
 
 
@@ -2299,7 +2421,8 @@ REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integr
 
 # the kernels whose registers, shared memory and spills phase 2 reports
 PTXAS_REPORTED = ("flash_fwd_tc", "flash_tiles", "flash_decode",
-                  "flash_combine", "categorical_small_partials")
+                  "flash_combine", "categorical_small_partials",
+                  "mvn_quad_tc", "ssd_scan_tc")
 
 
 def ptxas_report(path: str) -> list:
@@ -2391,7 +2514,8 @@ def main() -> int:
         # the -Xptxas -v compiles of the sources with this slice's kernels,
         # started with the builds
         **{f"{path} (-Xptxas -v)": (lambda p=path: reports.__setitem__(
-            p, ptxas_report(p))) for path in (FLASH_CU, LOGPDF_CU)}})
+            p, ptxas_report(p)))
+           for path in (FLASH_CU, LOGPDF_CU, MVN_CU, SSD_CU)}})
     for path, secs in build_s.items():
         log(f"built and loaded {path} in {secs:.2f} s")
     log(f"{len(build_s)} compiles in {time.perf_counter() - t0:.2f} s")

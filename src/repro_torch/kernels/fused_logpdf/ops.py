@@ -41,7 +41,8 @@ __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "gamma_unnorm_logpdf_sum", "beta_unnorm_logpdf_sum",
            "student_t_unnorm_logpdf_sum", "mvnormal_prec_quadform_sum",
            "site_block_sum", "kernel_source", "mvn_kernel_source",
-           "categorical_group", "SMALL_C"]
+           "categorical_group", "SMALL_C", "mvn_tiles", "mvn_smem_bytes",
+           "MAX_SMEM_BYTES"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
@@ -59,8 +60,12 @@ _THREADS = 256
 _ITEMS_PER_THREAD = 8
 _WARPS = _THREADS // 32  # categorical above SMALL_C: one warp per item
 SMALL_C = 256  # categorical: at most this many classes take the group path
+MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _MAX_PARTS = 1024
-_MVN_TILE = 64  # rows of xc and columns of P per block (mvn_quad.cu kTile)
+_MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
+# mvn_quadform_sum's last-block counts, by (device, stream): zero between
+# calls (the kernel sets each back to zero), so they are allocated once
+_MVN_COUNTS = {}
 
 
 def reset_launch_counts() -> None:
@@ -119,7 +124,7 @@ def _mvn_lib() -> ctypes.CDLL:
         lib = load_library(mvn_kernel_source())
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_mvn_quadform_sum.argtypes = [p, i64, p, i64, i32, i32, i32,
-                                               p, i32, p, p]
+                                               p, i32, p, p, p]
         lib.repro_mvn_quadform_sum.restype = i32
         lib.repro_mvn_cuda_error_string.argtypes = [i32]
         lib.repro_mvn_cuda_error_string.restype = ctypes.c_char_p
@@ -398,18 +403,49 @@ def mvn_quadform_sum_rows(xc: torch.Tensor, prec: torch.Tensor) -> torch.Tensor:
     out = torch.empty(rows, dtype=torch.float32, device=xc.device)
     if n == 0 or d == 0:
         return out.zero_()
-    tiles = -(-n // _MVN_TILE) * -(-d // _MVN_TILE)
+    tiles = mvn_tiles(n, d)
     partials = torch.empty(rows * tiles, dtype=torch.float32,
                            device=xc.device)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
+        counts = _mvn_counts(rows, xc.device, stream)
         err = _mvn_lib().repro_mvn_quadform_sum(
             xc.data_ptr(), xc.stride(0) if rows > 1 else 0, prec.data_ptr(),
             prec.stride(0) if rows > 1 else 0, rows, n, d,
-            partials.data_ptr(), tiles, out.data_ptr(), stream)
+            partials.data_ptr(), tiles, counts.data_ptr(), out.data_ptr(),
+            stream)
     _raise_on(err, "mvn_quadform_sum")
     LAUNCHES["mvn_quadform_sum"] += 1
     return out
+
+
+def mvn_tiles(n: int, d: int) -> int:
+    """Blocks of one row of ``mvn_quadform_sum``: 128 rows of xc by 128
+    columns of the precision (64 when ``d <= 64``), as ``mvn_quad.cu``
+    cuts them."""
+    width = 64 if d <= 64 else 128
+    return -(-n // _MVN_ROWS) * -(-d // width)
+
+
+def mvn_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one ``mvn_quadform_sum`` block (``Tile``'s
+    kSmem in the source): three stages of a 128 x 36 xc tile and a width x
+    36 tile of the precision's rows, float32."""
+    width = 64 if d <= 64 else 128
+    return 3 * (_MVN_ROWS + width) * 36 * 4
+
+
+def _mvn_counts(rows: int, device: torch.device, stream: int) -> torch.Tensor:
+    """At least ``rows`` zero int32 counts for mvn_quadform_sum's last-block
+    sum on this device and stream (calls on one stream run one at a
+    time)."""
+    key = (device, stream)
+    counts = _MVN_COUNTS.get(key)
+    if counts is None or counts.numel() < rows:
+        counts = torch.zeros(max(rows, 1024), dtype=torch.int32,
+                             device=device)
+        _MVN_COUNTS[key] = counts
+    return counts
 
 
 def _addressable(t: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-// Mamba-2 chunked SSD scan for Hopper (sm_90a), with a plain C interface
-// for ctypes.
+// Mamba-2 chunked SSD scan for Hopper (sm_90a), two kernels with a plain C
+// interface for ctypes: ssd_scan_tc, bf16 on the tensor cores, and
+// ssd_scan_kernel, float32 on the CUDA cores for every other call (the
+// wrapper's plan picks).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
 // _ssd_kernel (:31), reached through ssd_scan_bh (:77, the pallas_call at
@@ -9,11 +11,40 @@
 //   y   = [(C B^T) o exp(cum_i - cum_j)|causal o dt_j] x + (e^{cum} o C) S
 //   S  <- e^{cum_L} S + B^T (e^{cum_L - cum} dt o x)
 //
-// B and C are grouped: head h reads group h / (H / G). All arithmetic is
-// float32; x, B, C and y are float32 or bf16, dt and A float32.
+// B and C are grouped: head h reads group h / (H / G). x, B, C and y are
+// float32 or bf16, dt and A float32.
 //
-// What bounds it. At mamba2-1.3b's shape (L 128, n 128, p 64) a chunk is
-// about 4 M multiply-adds on 80 KB of inputs: operations, not bytes.
+// ssd_scan_tc (bf16 x, B, C; chunk, n and p each 64 or 128). What bounds
+// it: at mamba2-1.3b's call (4 x 2,048 tokens, 64 heads of 64, n 128, L
+// 128) the inputs and output are 140.5 MB, 42 us at 3.35 TB/s, against
+// about 11 GFLOP of bf16 products (11 us on the tensor cores): bytes. The
+// TPU kernel fed the same four products to its MXU in bf16 passes. Design:
+// one block (8 warps) per (batch, group, 128 output columns: two heads at
+// p 64, one at p 128) walks the chunks in order, so B and C are read once
+// for both heads. The next chunk's C, B and x come in by 16-byte cp.async
+// into the other stage of a two-stage ring while this one computes (dt a
+// chunk ahead in registers), all tiles XOR-swizzled so ldmatrix and the
+// fragment stores are free of bank conflicts. Per chunk one warp per head
+// scans cum (kept in log2 units); then each warp takes the row tiles m
+// and L/16 - 1 - m (equal causal work for all) over its 64 (or 32)
+// columns of one head: acc = C S (S in bf16 from shared memory) scaled by
+// e^{cum_i}, then over the causal 16-column tiles G = C B^T (exact: bf16
+// inputs, float32 sums), W = G o exp(cum_i - cum_j) o dt_j with the mask
+// inside the exponent (anticausal differences are positive and overflow),
+// rounded to bf16 as the A operand of acc += W x; y is stored in bf16.
+// Then S <- e^{cum_L} S + (B o segdt)^T x, with S held in float32 in the
+// registers of the warps that own its rows and columns (the segdt scaling
+// folded into the B^T fragments, rounded to bf16) and written to shared
+// memory in bf16 for the next chunk. G is formed once per warp's head,
+// not once per chunk: sharing it between the heads would need an L x L
+// tile beside the ring (there is about 1 KB left at L = n = 128) or one
+// warp per row tile for both heads, which unbalances the causal work.
+// mma.sync m16n8k16 bf16 with float32 accumulation; no atomics: reruns
+// are bit-identical.
+//
+// ssd_scan_kernel (float32, and every call ssd_scan_tc does not take).
+// What bounds it: at mamba2-1.3b's shape a chunk is about 4 M
+// multiply-adds on 80 KB of inputs: operations, not bytes.
 //
 // Design. One block (256 threads) per (batch, head) walks the chunks in
 // order with S resident in shared memory: the loop takes the place of the
@@ -29,10 +60,10 @@
 // INSIDE the exponent (anticausal differences are positive and overflow),
 // then y += W x over the causal columns only; y is written; then each
 // thread updates its own elements of S. No atomics: reruns are
-// bit-identical. Later work: bf16 tensor-core products, several heads of
-// a group per block so B and C are read once, double-buffered loads.
+// bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -275,6 +306,391 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Params a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// ssd_scan_tc: bf16 x, B and C on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 256;
+constexpr int kTcCols = 128;  // output columns a block: 128 / p heads
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int L, int N>
+struct TcShape {
+  static constexpr int kMT = L / 16;                // row tiles of a chunk
+  static constexpr int kPairs = kMT / 2;            // pairs (m, kMT - 1 - m)
+  static constexpr int kGroups = 8 / kPairs;        // column groups, y phase
+  static constexpr int kYCols = kTcCols / kGroups;  // a warp's y columns
+  static constexpr int kYN = kYCols / 8;            // and their n-tiles
+  static constexpr int kKS = N / 16;                // k-steps over the state
+  static constexpr int kSM = N / 64;                // S row tiles a warp
+  static constexpr int kStage = 2 * L * N + L * kTcCols;  // bf16 a stage
+  // two stages of C, B [L][N] and x [L][128]; S [N][128] in bf16; cum
+  // (log2 units) and dt [2][L] in float32
+  static constexpr size_t kSmem =
+      (2ull * kStage + static_cast<size_t>(N) * kTcCols) * 2 +
+      2ull * 2 * L * sizeof(float);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  // src_bytes 0 fills the 16 bytes with zeros (positions past the sequence)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// a bf16 pair times (lo, hi), rounded back to bf16
+__device__ __forceinline__ uint32_t scale_bf16(uint32_t v, float lo, float hi) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  return pack_bf16(f.x * lo, f.y * hi);
+}
+__device__ __forceinline__ float ex2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// element offset of (row, col) in a [rows][cols] bf16 tile whose 16-byte
+// chunks are XOR-swizzled by the row: ldmatrix's 8 row addresses and the
+// fragment stores fall on 32 distinct banks
+template <int kCols>
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kCols + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+}
+
+// cp.async of chunk ch's C, B [L][N] and the block's heads' x [L][128]
+template <int L, int N, int P>
+__device__ __forceinline__ void tc_load_chunk(const Params& a, long long bi,
+                                              int gi, int h0, int ch,
+                                              __nv_bfloat16* cs, int tid) {
+  const __nv_bfloat16* Cg = static_cast<const __nv_bfloat16*>(a.C);
+  const __nv_bfloat16* Bg = static_cast<const __nv_bfloat16*>(a.B);
+  const __nv_bfloat16* xg = static_cast<const __nv_bfloat16*>(a.x);
+  __nv_bfloat16* bs = cs + L * N;
+  __nv_bfloat16* xs = bs + L * N;
+  const long long s0 = static_cast<long long>(ch) * L;
+  constexpr int kNC = N / 8;  // 16-byte copies a row of C or B
+#pragma unroll 4
+  for (int idx = tid; idx < L * kNC; idx += kTcThreads) {
+    const int i = idx / kNC, c = idx - i * kNC;
+    const bool in = s0 + i < a.s;
+    const long long si = in ? s0 + i : 0;
+    const int o = swz<N>(i, 8 * c);
+    cp_async16(smem_addr(cs + o), Cg + bi * a.c_sb + si * a.c_ss + gi * a.c_sg + 8 * c,
+               in ? 16 : 0);
+    cp_async16(smem_addr(bs + o), Bg + bi * a.b_sb + si * a.b_ss + gi * a.b_sg + 8 * c,
+               in ? 16 : 0);
+  }
+  constexpr int kXC = kTcCols / 8;  // 16-byte copies a row of x
+  constexpr int kPC = P / 8;        // of them a head
+#pragma unroll 4
+  for (int idx = tid; idx < L * kXC; idx += kTcThreads) {
+    const int j = idx / kXC, c = idx - j * kXC;
+    const int hl = c / kPC, pc = c - hl * kPC;
+    const bool in = s0 + j < a.s;
+    const long long sj = in ? s0 + j : 0;
+    cp_async16(smem_addr(xs + swz<kTcCols>(j, 8 * c)),
+               xg + bi * a.x_sb + sj * a.x_ss +
+                   static_cast<long long>(h0 + hl) * a.x_sh + 8 * pc,
+               in ? 16 : 0);
+  }
+}
+
+// grid (h / (128 / P), batch): one block a (batch, group, head pair at P
+// 64 or head at P 128), walking the chunks in order
+template <int L, int N, int P>
+__global__ void __launch_bounds__(kTcThreads, 1) ssd_scan_tc(Params a) {
+  using S = TcShape<L, N>;
+  constexpr int kHB = kTcCols / P;  // heads a block
+  constexpr int kPer = L / 32;      // positions a lane scans
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ss = ring + 2 * S::kStage;  // S [N][128], bf16
+  float* cum2 = reinterpret_cast<float*>(ss + N * kTcCols);  // [2][L]
+  float* dtv = cum2 + 2 * L;                                 // [2][L]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;    // fragment row, column pair
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix matrix, its row
+  const int h0 = blockIdx.x * kHB;
+  const long long bi = blockIdx.y;
+  const int gi = h0 / (a.h / a.g);
+  const int nchunks = (a.s + L - 1) / L;
+  __nv_bfloat16* __restrict__ y = static_cast<__nv_bfloat16*>(a.y);
+
+  // y phase: row tiles pr and kMT - 1 - pr (equal causal work in all),
+  // columns yc0 .. yc0 + kYCols of head yh
+  const int pr = warp / S::kGroups;
+  const int yc0 = (warp % S::kGroups) * S::kYCols;
+  const int yh = yc0 / P;
+  // state phase: rows sr0 .. sr0 + N / 4 of S, columns sc0 .. sc0 + 64
+  const int sr0 = (warp >> 1) * (N / 4);
+  const int sc0 = (warp & 1) * 64;
+  const int sh = sc0 / P;
+
+  // warp w < kHB scans head h0 + w: its dt, kPer positions a lane, one
+  // chunk ahead
+  float dreg[kPer];
+  float av = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dreg[e] = 0.0f;
+  if (warp < kHB) {
+    av = a.A[h0 + warp];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const long long si = lane * kPer + e;
+      if (si < a.s) dreg[e] = a.dt[bi * a.dt_sb + si * a.dt_ss + h0 + warp];
+    }
+  }
+  float sacc[S::kSM][8][4];
+#pragma unroll
+  for (int m = 0; m < S::kSM; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[m][n][e] = 0.0f;
+
+  tc_load_chunk<L, N, P>(a, bi, gi, h0, 0, ring, tid);
+  cp_async_commit();
+
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const long long s0 = static_cast<long long>(ch) * L;
+    const __nv_bfloat16* cs = ring + (ch & 1) * S::kStage;
+    const __nv_bfloat16* bs = cs + L * N;
+    const __nv_bfloat16* xs = bs + L * N;
+    if (ch + 1 < nchunks) {
+      tc_load_chunk<L, N, P>(a, bi, gi, h0, ch + 1,
+                             ring + ((ch + 1) & 1) * S::kStage, tid);
+    }
+    cp_async_commit();
+
+    if (warp < kHB) {  // cum = cumsum(dt * a), kept in log2 units
+      float local[kPer];
+      float run = 0.0f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        run += dreg[e] * av;
+        local[e] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float other = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += other;
+      }
+      const float before = incl - run;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int i = lane * kPer + e;
+        cum2[warp * L + i] = (before + local[e]) * kLog2e;
+        dtv[warp * L + i] = dreg[e];
+      }
+      if (ch + 1 < nchunks) {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const long long si = s0 + L + lane * kPer + e;
+          dreg[e] = si < a.s ? a.dt[bi * a.dt_sb + si * a.dt_ss + h0 + warp]
+                             : 0.0f;
+        }
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // the chunk's tiles, cum and dt, and S are in place
+
+    // y = e^{cum_i} (C S)_i + (W x)_i, W = (C B^T) o exp(cum_i - cum_j) o
+    // dt_j over the causal tiles, on the warp's two row tiles
+    const float* cy = cum2 + yh * L;
+    const float* dy = dtv + yh * L;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int m = half == 0 ? pr : S::kMT - 1 - pr;
+      const int i0 = 16 * m;
+      uint32_t cf[S::kKS][4];  // C's A fragments, rows i0 .. i0 + 15
+#pragma unroll
+      for (int ks = 0; ks < S::kKS; ++ks) {
+        const int row = i0 + (mat & 1) * 8 + mrow;
+        ldsm_x4(smem_addr(cs + swz<N>(row, ks * 16 + (mat >> 1) * 8)), cf[ks]);
+      }
+      float acc[S::kYN][4];
+#pragma unroll
+      for (int n = 0; n < S::kYN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+      const float ci0 = cy[i0 + gr], ci1 = cy[i0 + gr + 8];
+      if (ch > 0) {  // y_inter (S is zero before the first chunk)
+#pragma unroll
+        for (int ks = 0; ks < S::kKS; ++ks) {
+#pragma unroll
+          for (int np = 0; np < S::kYN / 2; ++np) {
+            const int krow = ks * 16 + (mat & 1) * 8 + mrow;
+            uint32_t b[4];
+            ldsm_x4_t(smem_addr(ss + swz<kTcCols>(krow, yc0 + np * 16 + (mat >> 1) * 8)), b);
+            mma_bf16(acc[2 * np], cf[ks], b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], cf[ks], b[2], b[3]);
+          }
+        }
+        const float e0 = ex2_fast(ci0), e1 = ex2_fast(ci1);
+#pragma unroll
+        for (int n = 0; n < S::kYN; ++n) {
+          acc[n][0] *= e0;
+          acc[n][1] *= e0;
+          acc[n][2] *= e1;
+          acc[n][3] *= e1;
+        }
+      }
+#pragma unroll 1
+      for (int kb = 0; kb <= m; ++kb) {  // y_intra over the causal tiles
+        const int j0 = 16 * kb;
+        float g[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) g[t][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < S::kKS; ++ks) {
+          const int jrow = j0 + (mat >> 1) * 8 + mrow;
+          uint32_t b[4];
+          ldsm_x4(smem_addr(bs + swz<N>(jrow, ks * 16 + (mat & 1) * 8)), b);
+          mma_bf16(g[0], cf[ks], b[0], b[1]);
+          mma_bf16(g[1], cf[ks], b[2], b[3]);
+        }
+        // the causal mask inside the exponent: anticausal differences are
+        // positive and overflow
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + t * 8 + 2 * gc + e;
+            const float cj = cy[j], dj = dy[j];
+            const bool k0 = i0 + gr >= j, k1 = i0 + gr + 8 >= j;
+            const float d0 = ex2_fast(k0 ? ci0 - cj : 0.0f);
+            const float d1 = ex2_fast(k1 ? ci1 - cj : 0.0f);
+            g[t][e] = k0 ? g[t][e] * d0 * dj : 0.0f;
+            g[t][2 + e] = k1 ? g[t][2 + e] * d1 * dj : 0.0f;
+          }
+        }
+        const uint32_t wa[4] = {pack_bf16(g[0][0], g[0][1]),
+                                pack_bf16(g[0][2], g[0][3]),
+                                pack_bf16(g[1][0], g[1][1]),
+                                pack_bf16(g[1][2], g[1][3])};
+#pragma unroll
+        for (int np = 0; np < S::kYN / 2; ++np) {
+          const int jrow = j0 + (mat & 1) * 8 + mrow;
+          uint32_t b[4];
+          ldsm_x4_t(smem_addr(xs + swz<kTcCols>(jrow, yc0 + np * 16 + (mat >> 1) * 8)), b);
+          mma_bf16(acc[2 * np], wa, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], wa, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < S::kYN; ++n) {
+        const int col = yc0 + n * 8 + 2 * gc;
+        const int hl = col / P, pc = col - hl * P;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long si = s0 + i0 + gr + 8 * r;
+          if (si >= a.s) continue;
+          *reinterpret_cast<uint32_t*>(
+              y + bi * a.y_sb + si * a.y_ss +
+              static_cast<long long>(h0 + hl) * a.y_sh + pc) =
+              pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+        }
+      }
+    }
+
+    // S <- e^{cum_L} S + B^T (segdt o x) on the warp's rows and columns,
+    // segdt_j = exp(cum_L - cum_j) dt_j folded into the B^T fragments
+    {
+      const float* cz = cum2 + sh * L;
+      const float* dz = dtv + sh * L;
+      const float cl = cz[L - 1];
+      const float dl = ex2_fast(cl);
+#pragma unroll
+      for (int m = 0; m < S::kSM; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[m][n][e] *= dl;
+#pragma unroll 2
+      for (int ks = 0; ks < L / 16; ++ks) {
+        float sd[4];  // j = 16 ks + 2 gc, + 1, + 8, + 9
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = ks * 16 + 2 * gc + (q & 1) + (q >> 1) * 8;
+          sd[q] = ex2_fast(cl - cz[j]) * dz[j];
+        }
+        uint32_t af[S::kSM][4];
+#pragma unroll
+        for (int m = 0; m < S::kSM; ++m) {
+          const int jrow = ks * 16 + (mat >> 1) * 8 + mrow;
+          ldsm_x4_t(smem_addr(bs + swz<N>(jrow, sr0 + 16 * m + (mat & 1) * 8)), af[m]);
+          af[m][0] = scale_bf16(af[m][0], sd[0], sd[1]);
+          af[m][1] = scale_bf16(af[m][1], sd[0], sd[1]);
+          af[m][2] = scale_bf16(af[m][2], sd[2], sd[3]);
+          af[m][3] = scale_bf16(af[m][3], sd[2], sd[3]);
+        }
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          const int jrow = ks * 16 + (mat & 1) * 8 + mrow;
+          uint32_t b[4];
+          ldsm_x4_t(smem_addr(xs + swz<kTcCols>(jrow, sc0 + np * 16 + (mat >> 1) * 8)), b);
+#pragma unroll
+          for (int m = 0; m < S::kSM; ++m) {
+            mma_bf16(sacc[m][2 * np], af[m], b[0], b[1]);
+            mma_bf16(sacc[m][2 * np + 1], af[m], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // S, cum, dt and this stage are no longer read
+    if (ch + 1 < nchunks) {  // S in bf16 for the next chunk's y_inter
+#pragma unroll
+      for (int m = 0; m < S::kSM; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = sr0 + 16 * m + gr + 8 * r;
+            *reinterpret_cast<uint32_t*>(ss + swz<kTcCols>(row, sc0 + n * 8 + 2 * gc)) =
+                pack_bf16(sacc[m][n][2 * r], sacc[m][n][2 * r + 1]);
+          }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 template <typename T, int L, int P>
 int launch(const Params& a, int batch, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(L, a.n, P);
@@ -306,6 +722,31 @@ int launch_l(const Params& a, int chunk, int p, int batch, cudaStream_t stream) 
   }
 }
 
+template <int L, int N, int P>
+int launch_tc(const Params& a, int batch, cudaStream_t stream) {
+  constexpr size_t smem = TcShape<L, N>::kSmem;
+  static_assert(smem <= 232448, "ssd_scan_tc: more shared memory than a block has");
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_tc<L, N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_tc<L, N, P><<<dim3(a.h / (kTcCols / P), batch), kTcThreads, smem,
+                         stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, int N>
+int launch_tc_p(const Params& a, int p, int batch, cudaStream_t stream) {
+  return p == 64 ? launch_tc<L, N, 64>(a, batch, stream)
+                 : launch_tc<L, N, 128>(a, batch, stream);
+}
+
+template <int L>
+int launch_tc_n(const Params& a, int p, int batch, cudaStream_t stream) {
+  return a.n == 64 ? launch_tc_p<L, 64>(a, p, batch, stream)
+                   : launch_tc_p<L, 128>(a, p, batch, stream);
+}
+
 }  // namespace
 
 // dtype (of x, B, C and y): 0 float32, 1 bfloat16. chunk in {32, 64, 128},
@@ -328,6 +769,38 @@ extern "C" int repro_ssd_scan(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_l<float>(a, chunk, p, batch, st)
                     : launch_l<__nv_bfloat16>(a, chunk, p, batch, st);
+}
+
+// ssd_scan_tc: bf16 x, B, C and y; chunk, n and p each 64 or 128; the
+// block's 128 / p heads in one group ((h / g) a multiple of 128 / p); x, B
+// and C 16-byte aligned with strides of whole 16-byte chunks (8 elements).
+// Returns a cudaError_t.
+extern "C" int repro_ssd_scan_tc(
+    const void* x, const float* dt, const float* A, const void* B,
+    const void* C, void* y,
+    long long x_sb, long long x_ss, long long x_sh,
+    long long dt_sb, long long dt_ss,
+    long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg,
+    long long y_sb, long long y_ss, long long y_sh,
+    int batch, int s, int h, int g, int n, int p, int chunk, void* stream) {
+  const auto aligned = [](const void* ptr, long long s0, long long s1,
+                          long long s2) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s0 % 8 == 0 &&
+           s1 % 8 == 0 && s2 % 8 == 0;
+  };
+  if (batch <= 0 || batch > 65535 || s <= 0 || h <= 0 || g <= 0 ||
+      h % g != 0 || (p != 64 && p != 128) || (n != 64 && n != 128) ||
+      (chunk != 64 && chunk != 128) || (h / g) % (kTcCols / p) != 0 ||
+      !aligned(x, x_sb, x_ss, x_sh) || !aligned(B, b_sb, b_ss, b_sg) ||
+      !aligned(C, c_sb, c_ss, c_sg) || !aligned(y, y_sb, y_ss, y_sh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params a{x, dt, A, B, C, y, x_sb, x_ss, x_sh, dt_sb, dt_ss,
+           b_sb, b_ss, b_sg, c_sb, c_ss, c_sg, y_sb, y_ss, y_sh, s, h, g, n};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return chunk == 64 ? launch_tc_n<64>(a, p, batch, st)
+                     : launch_tc_n<128>(a, p, batch, st);
 }
 
 extern "C" const char* repro_ssd_cuda_error_string(int err) {

@@ -1,13 +1,23 @@
-"""Public wrapper of the SSD scan kernel.
+"""Public wrapper of the SSD scan kernels.
 
 ``ssd_scan(x, dt, A, B, C, chunk)`` takes the JAX package's layout. On a
-CUDA tensor it launches the hand-written kernel in ``csrc/ssd_scan.cu``
-(or raises); on a CPU tensor it runs the plain version in ``ref.py``.
-Nothing falls back. Launches are counted in ``LAUNCHES``.
+CUDA tensor it launches one of the hand-written kernels in
+``csrc/ssd_scan.cu`` (or raises); on a CPU tensor it runs the plain
+version in ``ref.py``. Nothing falls back. ``plan`` picks the kernel from
+the shapes, the type and the alignment alone, so reruns take the same
+path:
 
-The kernel reads x, B and C through their strides (the last axis must be
+* ``ssd_scan_tc`` for bf16 x, B and C with chunk, d_state and head dim
+  each 64 or 128, the block's 128 / p heads in one group, and 16-byte
+  aligned rows: the four chunk products on the tensor cores;
+* ``ssd_scan`` for everything else (float32, other shapes): FP32 on the
+  CUDA cores.
+
+Each launch is counted in ``LAUNCHES`` under its kernel's name.
+
+The kernels read x, B and C through their strides (the last axis must be
 dense: the mixer's split views of the convolution output go in as they
-are) and treats the positions past the sequence as dt = 0, as the JAX
+are) and treat the positions past the sequence as dt = 0, as the JAX
 wrapper's padding does, so nothing is padded or copied. The
 ``torch.autograd.Function``'s backward recomputes through the plain
 version, as the JAX package's ``_ssd_bwd`` does.
@@ -25,11 +35,20 @@ from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "ssd_scan", "kernel_source",
-           "CHUNKS", "HEAD_DIMS", "smem_bytes", "MAX_SMEM_BYTES"]
+           "CHUNKS", "HEAD_DIMS", "smem_bytes", "MAX_SMEM_BYTES", "KERNELS",
+           "plan", "tc_aligned", "launch_kernel", "TC_CHUNKS",
+           "TC_HEAD_DIMS", "TC_STATE_DIMS"]
 
-LAUNCHES = {"ssd_scan": 0}
-CHUNKS = (32, 64, 128)      # the kernel's chunk lengths
+KERNELS = ("ssd_scan", "ssd_scan_tc")
+# launches since the last reset, by kernel (one per call that reached the
+# card)
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+CHUNKS = (32, 64, 128)      # the FP32 kernel's chunk lengths
 HEAD_DIMS = (32, 64, 128)   # and head dims p
+TC_CHUNKS = (64, 128)       # ssd_scan_tc's chunk lengths,
+TC_HEAD_DIMS = (64, 128)    # head dims p
+TC_STATE_DIMS = (64, 128)   # and state dims n
+_TC_COLS = 128              # ssd_scan_tc's output columns a block (heads x p)
 MAX_SMEM_BYTES = 232_448    # shared memory one block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,12 +64,45 @@ def kernel_source() -> Path:
     return Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
 
-def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """Shared memory of one block (``smem_floats`` in the source): C and B
-    ``[chunk][n + 1]``, x ``[chunk][p]``, S ``[n][p]``, one 32-row weight
-    tile ``[32][chunk + 1]`` and three chunk vectors, in float32."""
+def smem_bytes(chunk: int, n: int, p: int, kernel: str = "ssd_scan") -> int:
+    """Shared memory of one block of ``kernel``.
+
+    ``ssd_scan`` (``smem_floats`` in the source): C and B ``[chunk][n +
+    1]``, x ``[chunk][p]``, S ``[n][p]``, one 32-row weight tile ``[32][chunk
+    + 1]`` and three chunk vectors, in float32. ``ssd_scan_tc``
+    (``TcShape::kSmem``): two stages of C and B ``[chunk][n]`` and x
+    ``[chunk][128]`` and S ``[n][128]`` in bf16, cum and dt ``[2][chunk]`` in
+    float32 (its 128 columns are 128 / p heads)."""
+    if kernel == "ssd_scan_tc":
+        return 2 * (2 * (2 * chunk * n + chunk * _TC_COLS) + n * _TC_COLS) \
+            + 4 * 2 * 2 * chunk
     return 4 * (2 * chunk * (n + 1) + chunk * p + n * p + 32 * (chunk + 1)
                 + 3 * chunk + 1)
+
+
+def plan(h: int, g: int, p: int, n: int, chunk: int,
+         dtype: torch.dtype = torch.bfloat16, aligned: bool = True) -> str:
+    """The kernel (one of ``KERNELS``) of one call from its shapes, type
+    and alignment alone, so reruns take the same path: ``ssd_scan_tc`` for
+    bf16 at chunk, n and p in (64, 128), with a block's 128 / p heads in
+    one group and ``aligned`` rows (``tc_aligned``); else the FP32
+    ``ssd_scan``."""
+    if (dtype == torch.bfloat16 and aligned and chunk in TC_CHUNKS
+            and p in TC_HEAD_DIMS and n in TC_STATE_DIMS and g > 0
+            and h % g == 0 and (h // g) % (_TC_COLS // p) == 0):
+        return "ssd_scan_tc"
+    return "ssd_scan"
+
+
+def tc_aligned(*ts: torch.Tensor) -> bool:
+    """Whether ``ssd_scan_tc``'s 16-byte copies can read each tensor: a
+    16-byte aligned base, a dense last axis and every other stride a whole
+    number of 16-byte chunks (8 bf16)."""
+    return all(t.data_ptr() % 16 == 0
+               and (t.shape[-1] <= 1 or t.stride(-1) == 1)
+               and all(st % 8 == 0 for size, st in
+                       zip(t.shape[:-1], t.stride()[:-1]) if size > 1)
+               for t in ts)
 
 
 def _lib() -> ctypes.CDLL:
@@ -61,24 +113,50 @@ def _lib() -> ctypes.CDLL:
         lib.repro_ssd_scan.argtypes = [p] * 6 + [i32] + [i64] * 14 + \
             [i32] * 7 + [p]
         lib.repro_ssd_scan.restype = i32
+        lib.repro_ssd_scan_tc.argtypes = [p] * 6 + [i64] * 14 + [i32] * 7 \
+            + [p]
+        lib.repro_ssd_scan_tc.restype = i32
         lib.repro_ssd_cuda_error_string.argtypes = [i32]
         lib.repro_ssd_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+def launch_kernel(kernel: str, x, dt, A, B, C, *, chunk: int = 128
+                  ) -> torch.Tensor:
+    """Run one named kernel of ``KERNELS`` on CUDA tensors, whatever
+    ``plan`` would pick (raises where that kernel does not take the call):
+    for holding both kernels against the plain version and against each
+    other. The model path goes through ``ssd_scan``, which follows
+    ``plan``. No autograd."""
+    if kernel not in KERNELS:
+        raise ValueError(f"ssd_scan: no kernel {kernel!r}; one of {KERNELS}")
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: {kernel} runs on a CUDA tensor, got "
+                         f"'{x.device.type}'")
+    return _launch(x, dt, A, B, C, chunk, kernel)
+
+
+def _launch(x, dt, A, B, C, chunk: int,
+            kernel: Optional[str] = None) -> torch.Tensor:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B, C must share float32 or bfloat16, "
                         f"got {x.dtype}, {B.dtype}, {C.dtype}")
-    if chunk not in CHUNKS or p not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} and "
-                         f"head dim in {HEAD_DIMS}, got {chunk} and {p}")
     if h % g:
         raise ValueError(f"ssd_scan: {h} heads over {g} groups")
-    if smem_bytes(chunk, n, p) > MAX_SMEM_BYTES:
+    chosen = plan(h, g, p, n, chunk, x.dtype, tc_aligned(x, B, C))
+    if kernel is None:
+        kernel = chosen
+    elif kernel == "ssd_scan_tc" and chosen != kernel:
+        raise ValueError(f"ssd_scan_tc does not take this call: {x.dtype}, "
+                         f"chunk {chunk}, h {h}, g {g}, p {p}, n {n}, "
+                         f"aligned {tc_aligned(x, B, C)}")
+    if kernel == "ssd_scan" and (chunk not in CHUNKS or p not in HEAD_DIMS):
+        raise ValueError(f"ssd_scan: the kernel takes chunk in {CHUNKS} and "
+                         f"head dim in {HEAD_DIMS}, got {chunk} and {p}")
+    if kernel == "ssd_scan" and smem_bytes(chunk, n, p) > MAX_SMEM_BYTES:
         raise ValueError(f"ssd_scan: chunk {chunk}, d_state {n}, head dim "
                          f"{p} need {smem_bytes(chunk, n, p)} B of shared "
                          f"memory, more than {MAX_SMEM_BYTES}")
@@ -91,22 +169,26 @@ def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"ssd_scan: {name}'s last axis must be dense, "
                              f"strides {t.stride()}")
+    strides = (x.stride(0), x.stride(1), x.stride(2),
+               dt.stride(0), dt.stride(1),
+               B.stride(0), B.stride(1), B.stride(2),
+               C.stride(0), C.stride(1), C.stride(2),
+               y.stride(0), y.stride(1), y.stride(2))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
-            x.stride(0), x.stride(1), x.stride(2),
-            dt.stride(0), dt.stride(1),
-            B.stride(0), B.stride(1), B.stride(2),
-            C.stride(0), C.stride(1), C.stride(2),
-            y.stride(0), y.stride(1), y.stride(2),
-            b, s, h, g, n, p, chunk, stream)
+        ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), y.data_ptr())
+        if kernel == "ssd_scan_tc":
+            err = _lib().repro_ssd_scan_tc(*ptrs, *strides, b, s, h, g, n, p,
+                                           chunk, stream)
+        else:
+            err = _lib().repro_ssd_scan(*ptrs, _DTYPES[x.dtype], *strides,
+                                        b, s, h, g, n, p, chunk, stream)
     if err != 0:
         msg = _lib().repro_ssd_cuda_error_string(err).decode()
-        raise KernelError(f"ssd_scan launch failed: CUDA error {err} ({msg}) "
+        raise KernelError(f"{kernel} launch failed: CUDA error {err} ({msg}) "
                           f"for x {tuple(x.shape)}, B {tuple(B.shape)}")
-    LAUNCHES["ssd_scan"] += 1
+    LAUNCHES[kernel] += 1
     return y
 
 

@@ -528,3 +528,83 @@ def test_categorical_group_by_class_count():
         g = ops.categorical_group(c)
         assert (g == 0) == (c > ops.SMALL_C)
         assert g == 0 or -(-c // g) <= 8
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: ``cvt.rna.tf32.f32``. The sign-magnitude bits take the
+    half unit of the dropped 13 bits, then lose them."""
+    bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    sign = bits & 0x80000000
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    out = (sign | mag) - ((sign | mag) >> 31 << 32)  # back to signed 32-bit
+    return out.to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(a: torch.Tensor) -> torch.Tensor:
+    """float32 as the TF32 mma reads it: the low 13 bits dropped."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mvn_3xtf32_emulation(xc: torch.Tensor, prec: torch.Tensor
+                          ) -> torch.Tensor:
+    """``mvn_quad.cu``'s arithmetic in plain torch: each operand split into
+    a TF32 high part (rounded) and the rest (as the mma reads it:
+    truncated to TF32), (xc P^T) taken as lo hi + hi lo + hi hi in float32
+    (the kernel reads P's rows: the form is the same for P and P^T), then
+    -1/2 sum(xc P^T o xc)."""
+    pt = prec.mT
+    xh, ph = _tf32_rna(xc), _tf32_rna(pt)
+    xl, pl = _tf32_trunc(xc - xh), _tf32_trunc(pt - ph)
+    xp = xl @ ph + xh @ pl + xh @ ph
+    return -0.5 * (xp * xc).sum(dim=(-2, -1))
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 3.0, 2.0 ** -30, 1.0 - 2.0 ** -12],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 3.0, 2.0 ** -30, 1.0],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32_rna(a), want)
+    x = torch.randn(1000)
+    hi = _tf32_rna(x)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("d", [5, 64, 256])
+def test_mvn_3xtf32_emulation_matches_jax_at_rtol_1e5(d):
+    """The kernel's 3xTF32 rounding, emulated in plain torch, against the
+    JAX package's mvnormal_prec_quadform_sum (its Pallas kernel in
+    interpret mode) on the same NumPy inputs, at the chip gate's rtol
+    1e-5; a single TF32 product lands further off (1e-5 to 3e-5 here),
+    which is what the low parts are for."""
+    rng = np.random.default_rng(d)
+    xc = rng.normal(size=(96, d)).astype(np.float32)
+    a = rng.normal(size=(d, d)) / np.sqrt(d)
+    prec = (a @ a.T + np.eye(d)).astype(np.float32)
+    want = float(jops.mvnormal_prec_quadform_sum(jnp.asarray(xc),
+                                                 jnp.asarray(prec)))
+    xt, pt = torch.as_tensor(xc)[None], torch.as_tensor(prec)[None]
+    got = float(_mvn_3xtf32_emulation(xt, pt)[0])
+    assert abs(got - want) <= 1e-5 * abs(want)
+    one_pass = float(-0.5 * ((_tf32_rna(xt) @ _tf32_rna(pt)) * xt).sum())
+    assert abs(one_pass - want) > abs(got - want)
+
+
+def test_mvn_tiles_and_shared_memory():
+    """mvn_quad.cu's tiling (128 rows by 128 columns of P, 64 when D <= 64)
+    and its three-stage ring: two blocks fit on an SM (228 KB, 1 KB kept
+    per block) at every width, so 4 x 4,096 x 256 is one wave."""
+    assert ops.mvn_tiles(1, 5) == 1
+    assert ops.mvn_tiles(4096, 256) == 32 * 2
+    assert ops.mvn_tiles(100_000, 1024) == 782 * 8
+    assert ops.mvn_tiles(129, 65) == 2 * 1
+    for d in (1, 5, 64, 65, 256, 1024):
+        smem = ops.mvn_smem_bytes(d)
+        assert smem <= ops.MAX_SMEM_BYTES
+        assert 2 * (smem + 1024) <= 228 * 1024
+    assert ops.mvn_smem_bytes(256) == 3 * (128 + 128) * 36 * 4
+    assert 4 * ops.mvn_tiles(4096, 256) <= 2 * 132

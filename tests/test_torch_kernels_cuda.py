@@ -16,8 +16,9 @@ potential at 1e-5 * sum|v_i| (a float32 sum of up to 10^6 terms in
 another order). The flash-attention and SSD-scan kernels by
 ``tests/test_kernels.py``'s measure, max|kernel - plain| / max|plain|:
 flash 2e-5 in float32 and 3e-2 in bf16, ssd_scan 2e-4 and 5e-2 (float32
-math in another order; bf16 outputs round). Reruns must be bit-identical
-(no float atomics).
+math in another order; bf16 outputs round, and ssd_scan_tc rounds W, S and
+B o segdt to bf16 for the tensor cores). Reruns must be bit-identical (no
+float atomics).
 """
 import pytest
 import torch
@@ -222,7 +223,7 @@ def _precision(d, gen, dev, rows=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 5, 24, 63, 64, 65, 256, 1024])
 @pytest.mark.parametrize("rows,n", [(1, 1), (4, 1), (4, 96), (4, 4096),
-                                    (16, 257)])
+                                    (16, 257), (1, 100_000)])
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
 def test_cuda_mvn_quadform_matches_plain_version(cuda_device, d, rows, n,
                                                  shared):
@@ -230,10 +231,31 @@ def test_cuda_mvn_quadform_matches_plain_version(cuda_device, d, rows, n,
     xc = torch.randn(rows, n, d, generator=gen, device=cuda_device)
     prec = (_precision(d, gen, cuda_device).expand(rows, d, d) if shared
             else _precision(d, gen, cuda_device, rows))
+    ops.reset_launch_counts()
     got = ops.mvn_quadform_sum_rows(xc, prec)
     torch.testing.assert_close(
         got, ref.mvnormal_prec_quadform_sum_ref(xc, prec), rtol=1e-5, atol=0)
     assert torch.equal(ops.mvn_quadform_sum_rows(xc, prec), got)
+    assert ops.LAUNCHES["mvn_quadform_sum"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 63, 65, 256, 1024])
+@pytest.mark.parametrize("n", [1, 100_000])
+def test_cuda_mvn_quadform_stride0_rows_and_precision(cuda_device, d, n):
+    """xc and P both at batch stride 0 (one data block and one precision
+    shared by 4 chains): every row equals the one-row call, at rtol 1e-5
+    against the plain version, bit-identical on a rerun."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    xc = torch.randn(1, n, d, generator=gen, device=cuda_device)
+    prec = _precision(d, gen, cuda_device)[None]
+    xs, ps = xc.expand(4, n, d), prec.expand(4, d, d)
+    assert xs.stride(0) == 0 and ps.stride(0) == 0
+    got = ops.mvn_quadform_sum_rows(xs, ps)
+    torch.testing.assert_close(
+        got, ref.mvnormal_prec_quadform_sum_ref(xs, ps), rtol=1e-5, atol=0)
+    assert torch.equal(ops.mvn_quadform_sum_rows(xs, ps), got)
+    assert torch.equal(got, ops.mvn_quadform_sum_rows(xc, prec).expand(4))
 
 
 @pytest.mark.cuda
@@ -505,6 +527,10 @@ SSD_CASES = [
     (2, 64, 2, 32, 1, 16, 32),
     (1, 77, 4, 32, 2, 16, 32),
     (4, 2048, 64, 64, 1, 128, 128),
+    # ssd_scan_tc at p 128, n 64, chunk 64 and ragged lengths
+    (1, 77, 2, 128, 1, 64, 128),
+    (2, 300, 4, 128, 2, 128, 64),
+    (1, 130, 4, 64, 2, 64, 64),
 ]
 
 
@@ -527,13 +553,55 @@ def _ssd_inputs(case, dtype, dev, seed=7):
 def test_cuda_ssd_scan_matches_plain_version(cuda_device, case, dtype):
     ins = _ssd_inputs(case, dtype, cuda_device)
     chunk = case[-1]
+    b, s, h, p, g, n, _ = case
+    kernel = ssd_ops.plan(h, g, p, n, chunk, dtype)
     ssd_ops.reset_launch_counts()
     got = ssd_ops.ssd_scan(*ins, chunk=chunk)
     again = ssd_ops.ssd_scan(*ins, chunk=chunk)
-    assert ssd_ops.LAUNCHES == {"ssd_scan": 2}
+    assert ssd_ops.LAUNCHES == {**dict.fromkeys(ssd_ops.KERNELS, 0),
+                                kernel: 2}
     assert got.dtype == dtype and torch.equal(got, again)
     tol = 2e-4 if dtype == torch.float32 else 5e-2
     assert _rel_err(got, ssd_scan_ref(*ins, chunk=chunk)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in SSD_CASES
+                                  if ssd_ops.plan(c[2], c[4], c[3], c[5],
+                                                  c[6]) == "ssd_scan_tc"])
+def test_cuda_ssd_scan_both_kernels_on_bf16(cuda_device, case):
+    """Where plan picks ssd_scan_tc, the FP32 kernel takes the same bf16
+    call too: both within 5e-2 of the plain version, each bit-identical on
+    a rerun."""
+    ins = _ssd_inputs(case, torch.bfloat16, cuda_device)
+    want = ssd_scan_ref(*ins, chunk=case[-1])
+    for kernel in ssd_ops.KERNELS:
+        got = ssd_ops.launch_kernel(kernel, *ins, chunk=case[-1])
+        assert torch.equal(ssd_ops.launch_kernel(kernel, *ins,
+                                                 chunk=case[-1]), got)
+        assert _rel_err(got, want) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,g", [(64, 1), (128, 2)])
+def test_cuda_ssd_scan_tc_reads_the_mixers_views(cuda_device, p, g):
+    """x, B and C as the mixer passes them: views of one convolution
+    output (row stride h p + 2 g n), read through their strides by
+    ssd_scan_tc, nothing copied."""
+    b, s, h, n = 2, 200, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    x, B, C = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
+               Cc.reshape(b, s, g, n))
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen,
+                                                  device=cuda_device))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda_device))
+    ssd_ops.reset_launch_counts()
+    got = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=128)
+    assert ssd_ops.LAUNCHES == {"ssd_scan": 0, "ssd_scan_tc": 1}
+    assert _rel_err(got, ssd_scan_ref(x, dt, A, B, C, chunk=128)) < 5e-2
 
 
 @pytest.mark.cuda

@@ -102,3 +102,107 @@ def test_interpret_runs_the_plain_version(monkeypatch):
     got = ops.ssd_scan(*map(torch.as_tensor, ins), chunk=32, interpret=True)
     assert _rel_err(got.numpy(), want) < 2e-4
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("call,want", [
+    # (h, g, p, n, chunk, dtype, aligned) -> kernel
+    ((64, 1, 64, 128, 128, torch.bfloat16, True), "ssd_scan_tc"),  # mamba2
+    ((64, 1, 64, 128, 128, torch.float32, True), "ssd_scan"),
+    ((64, 1, 64, 128, 32, torch.bfloat16, True), "ssd_scan"),
+    ((8, 1, 32, 64, 64, torch.bfloat16, True), "ssd_scan"),
+    ((64, 1, 64, 128, 128, torch.bfloat16, False), "ssd_scan"),
+    ((8, 2, 64, 128, 64, torch.bfloat16, True), "ssd_scan_tc"),
+    ((4, 4, 64, 128, 128, torch.bfloat16, True), "ssd_scan"),
+    ((4, 2, 128, 64, 128, torch.bfloat16, True), "ssd_scan_tc"),
+    ((4, 1, 64, 32, 128, torch.bfloat16, True), "ssd_scan"),
+], ids=["mamba2", "float32", "chunk32", "p32", "unaligned", "g2",
+        "one_head_a_group", "p128", "n32"])
+def test_plan_picks_the_kernel(call, want):
+    assert ops.plan(*call) == want
+    assert want in ops.KERNELS
+
+
+def test_tc_aligned_takes_the_mixers_views():
+    """The mixer's x, B and C are views of the convolution output (row
+    stride d_inner + 2 g n): 16-byte aligned at mamba2's widths, not when a
+    view starts one element in or the row stride is not whole chunks."""
+    b, s, h, p, g, n = 2, 8, 4, 64, 1, 128
+    conv = torch.zeros(b, s, h * p + 2 * g * n, dtype=torch.bfloat16)
+    xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    views = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
+             Cc.reshape(b, s, g, n))
+    assert conv.data_ptr() % 16 == 0
+    assert ops.tc_aligned(*views)
+    odd = torch.zeros(b * s * (h * p + 2 * g * n) + 1, dtype=torch.bfloat16)
+    shifted = odd[1:].view(b, s, -1)[..., :h * p].reshape(b, s, h, p)
+    assert not ops.tc_aligned(shifted)
+    ragged = torch.zeros(b, s, h * p + 4, dtype=torch.bfloat16)
+    assert not ops.tc_aligned(ragged[..., :h * p].reshape(b, s, h, p))
+
+
+def test_shared_memory_of_both_kernels_fits_a_block():
+    """Every (chunk, n, p) that plan sends to each kernel fits the 227 KB a
+    block may use; mamba2's call: 231,424 B for ssd_scan_tc (two stages of
+    C, B and x, S in bf16, cum and dt) and 215,684 B for the FP32 kernel."""
+    for chunk in ops.TC_CHUNKS:
+        for n in ops.TC_STATE_DIMS:
+            for p in ops.TC_HEAD_DIMS:
+                assert ops.smem_bytes(chunk, n, p, "ssd_scan_tc") \
+                    <= ops.MAX_SMEM_BYTES
+    assert ops.smem_bytes(128, 128, 64, "ssd_scan_tc") == 231_424
+    assert ops.smem_bytes(128, 128, 64) == 215_684
+    for chunk in ops.CHUNKS:
+        for p in ops.HEAD_DIMS:
+            assert ops.smem_bytes(chunk, 64, p) <= ops.MAX_SMEM_BYTES
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _ssd_tc_emulation(x, dt, A, B, C, chunk):
+    """``ssd_scan_tc``'s rounding in plain float32 torch: bf16 inputs;
+    G = C B^T exact; W = G o exp(cum_i - cum_j) o dt_j rounded to bf16;
+    y = e^{cum} (C bf16(S)) + W x, rounded to bf16; S <- e^{cum_L} S +
+    bf16(B o segdt)^T x with S kept in float32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    x, B, C = _bf16(x), _bf16(B), _bf16(C)
+    y = torch.zeros(b, s, h, p)
+    S = torch.zeros(b, h, n, p)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        xc, dtc = x[:, sl], dt[:, sl]
+        Bc = B[:, sl].repeat_interleave(h // g, dim=2)
+        Cc = C[:, sl].repeat_interleave(h // g, dim=2)
+        cum = torch.cumsum(dtc * A, dim=1)                      # (b,l,h)
+        G = torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+        diff = (cum[:, :, None, :] - cum[:, None, :, :]).permute(0, 3, 1, 2)
+        causal = torch.ones(xc.shape[1], xc.shape[1]).tril().bool()
+        W = torch.where(causal, G * torch.exp(torch.where(causal, diff, 0.0))
+                        * dtc.permute(0, 2, 1)[:, :, None, :], 0.0)
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "bihn,bhnp->bihp", Cc, _bf16(S))
+        y[:, sl] = y_inter + torch.einsum("bhij,bjhp->bihp", _bf16(W), xc)
+        cl = cum[:, -1]
+        segdt = torch.exp(cl[:, None] - cum) * dtc
+        S = torch.exp(cl)[..., None, None] * S + torch.einsum(
+            "bjhn,bjhp->bhnp", _bf16(Bc * segdt[..., None]), xc)
+    return _bf16(y)
+
+
+def test_ssd_tc_rounding_matches_jax_pallas():
+    """The tensor-core kernel's bf16 rounding of W, S and B o segdt,
+    emulated in plain torch, against the JAX package's Pallas kernel in
+    interpret mode (float32 on the same bf16-rounded inputs) on a 2-group
+    case whose length is no chunk multiple: rel 5e-2, the chip gate's
+    bf16 tolerance."""
+    ins = _inputs(1, 200, 4, 64, 2, 64, seed=11)
+    ins = tuple(_bf16(torch.as_tensor(a)).numpy() if i in (0, 3, 4)
+                else a for i, a in enumerate(ins))
+    want = jssd(*map(jnp.asarray, ins), chunk=64, interpret=True)
+    got = _ssd_tc_emulation(*map(torch.as_tensor, ins), chunk=64)
+    assert _rel_err(got.numpy(), want) < 5e-2
+    # the float32 plain version of the port, for scale, is far closer
+    plain = ops.ssd_scan(*map(torch.as_tensor, ins), chunk=64).numpy()
+    assert _rel_err(plain, want) < 2e-4
