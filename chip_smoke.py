@@ -42,7 +42,11 @@ Phases, in order:
    per row, and at its edges: labels outside [0, C) and -inf logits;
    gamma, beta and normal, whose terms change sign, at 1e-6 of the sum of
    their magnitudes, with parameters per row, shared by the rows (row
-   stride 0) and one per row (element stride 0); student_t at rtol 1e-6;
+   stride 0) and one per row (element stride 0); std_normal_sum and
+   gamma_unnorm_sum (one launch a call) where a row takes several blocks,
+   with 16- and 4-byte loads: 1,000 back-to-back calls bit-identical with
+   the last-block counts read back at 0, and calls alternating between
+   two streams equal to them; student_t at rtol 1e-6;
    the dense quadratic form at rtol 1e-5 over D = 1 to 1,024 and N = 1 to
    100,000 with the precision shared and per row) and their backward
    through ``vmap(grad)`` with one launch for the whole chain axis; the
@@ -127,11 +131,12 @@ Phases, in order:
    same weights (``LM_SCORE_BF16_TOL``); then two timed bf16 evaluations,
    counted (ssd_scan_tc once per layer, categorical_logits_sum once, per
    evaluation);
-7. times each kernel at the main paths' shapes (and a wide one) beside its
-   bound, its plain version and, where one exists, one PyTorch library
-   call (device time from the profiler, and the time the host takes to
-   issue each call), and profiles a window of transitions of logreg, of
-   gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
+7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
+   kernels are); times each kernel at the main paths' shapes (and a wide
+   one) beside its bound, its plain version and, where one exists, one
+   PyTorch library call (device time from the profiler, and the time the
+   host takes to issue each call), and profiles a window of transitions
+   of logreg, of gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
    gauss_unknown (both routes), sto_volatility and family_mix_8k for the
    device's busy share; the flash kernels at the LM paths' calls
    (``FLASH_TIMED``: the bf16 serving calls and the float32 prefill; the
@@ -305,7 +310,9 @@ FUSED_LOGPDF = ("std_normal_sum", "bernoulli_logit_sum",
                 "gamma_unnorm_sum", "normal_sum", "beta_unnorm_sum",
                 "student_t_unnorm_sum", "mvn_quadform_sum")
 CHECK_ROWS = (1, 4, 16)
-CHECK_N = (1, 101, 255, 257, 400, 10000, 40000, 40400, 1_000_003)
+# (2,047 and 2,049: either side of one block's share of a row in the
+# one-launch std_normal_sum and gamma_unnorm_sum)
+CHECK_N = (1, 101, 255, 257, 400, 2047, 2049, 10000, 40000, 40400, 1_000_003)
 
 
 def check_kernels(torch, ops, ref):
@@ -485,6 +492,98 @@ def check_categorical_gamma_kernels(torch, ops, ref):
         f"{CHECK_ROWS} rows, parameters shared and per row), 1e-6 of "
         "sum|terms|, bit-identical reruns: ok")
     return worst
+
+
+ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum")
+ONE_LAUNCH_SHAPES = ((4, 40000), (1, 1_000_003))  # more than one block a row
+ONE_LAUNCH_RERUNS = 1000
+
+
+def one_launch_case(torch, ops, ref, name, rows, n, offset, gen):
+    """(wrapper, inputs, plain result, the gate's scale) of std_normal_sum
+    or gamma_unnorm_sum: rows 16-byte aligned, or (``offset``) one float
+    past a 16-byte boundary, which takes the 4-byte loads; gamma's am1 and
+    rate at row stride 0, as on the main paths."""
+    dev = torch.device(DEVICE)
+
+    def rows_of(lo, scale, draw):
+        if offset:
+            flat = lo + scale * draw(rows * n + 1, generator=gen, device=dev)
+            return flat[1:].view(rows, n)
+        return lo + scale * draw(rows, n, generator=gen, device=dev)
+
+    if name == "std_normal_sum":
+        z = rows_of(0.0, 2.0, torch.randn)
+        want = ref.std_normal_logpdf_sum_ref(z)
+        return ops.std_normal_sum_rows, (z,), want, want.abs()
+    x = rows_of(0.05, 4.0, torch.rand)
+    am1 = -0.5 + 3.5 * torch.rand(n, generator=gen, device=dev)
+    rate = 0.2 + 3.0 * torch.rand(n, generator=gen, device=dev)
+    am1, rate = am1.expand(rows, n), rate.expand(rows, n)
+    want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
+    terms = ((am1 * torch.log(x)).abs() + (rate * x).abs()).sum(-1)
+    return ops.gamma_unnorm_sum_rows, (x, am1, rate), want, terms
+
+
+def counts_at_zero(torch, ops, stream) -> bool:
+    """The one-launch reductions' last-block counts of ``stream``, read
+    back: there, and all 0."""
+    torch.cuda.synchronize()
+    entry = ops._SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
+    return entry is not None and not bool(entry[1].any())
+
+
+def check_one_launch(torch, ops, ref):
+    """std_normal_sum and gamma_unnorm_sum where a row takes more than one
+    block (the last block of a row merges): ONE_LAUNCH_RERUNS back-to-back
+    calls bit-identical with every count read back at 0, and calls
+    alternating between two streams equal to them with both streams'
+    counts at 0; with 16-byte loads and with 4-byte ones. Gates as in
+    check_kernels and check_categorical_gamma_kernels."""
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(18)
+    n_cases = 0
+    for name in ONE_LAUNCH:
+        for rows, n in ONE_LAUNCH_SHAPES:
+            for offset in (False, True):
+                kern, args, want, scale = one_launch_case(
+                    torch, ops, ref, name, rows, n, offset, gen)
+                width = "4-byte" if offset else "16-byte"
+                tag = f"{name} {rows}x{n} {width} loads"
+                plan = ops.reduce_plan(n, [
+                    (t.data_ptr(), t.stride(0) if rows > 1 else 0)
+                    for t in args])
+                check(plan.nparts > 1 and plan.vec == (not offset),
+                      f"{tag}: plan {plan}")
+                main = torch.cuda.current_stream()
+                first = kern(*args)
+                again = torch.stack([kern(*args)
+                                     for _ in range(ONE_LAUNCH_RERUNS)])
+                torch.cuda.synchronize()
+                check(bool(((first - want).abs() <= 1e-6 * scale).all()),
+                      f"{tag}: err {float((first - want).abs().max()):.3e} "
+                      "beyond 1e-6")
+                check(same_bits(torch, again, first.expand_as(again)),
+                      f"{tag}: {ONE_LAUNCH_RERUNS} reruns not bit-identical")
+                check(counts_at_zero(torch, ops, main),
+                      f"{tag}: counts not back at 0")
+                streams = (torch.cuda.Stream(), torch.cuda.Stream())
+                for s in streams:
+                    s.wait_stream(main)
+                alt = []
+                for i in range(20):
+                    with torch.cuda.stream(streams[i % 2]):
+                        alt.append(kern(*args))
+                for s in streams:
+                    main.wait_stream(s)
+                check(all(counts_at_zero(torch, ops, s) for s in streams),
+                      f"{tag}: counts of the two streams not back at 0")
+                check(all(same_bits(torch, a, first) for a in alt),
+                      f"{tag}: calls on two streams differ")
+                n_cases += 1
+    log(f"std_normal_sum, gamma_unnorm_sum merge path: {n_cases} cases "
+        f"({ONE_LAUNCH_SHAPES}, 16- and 4-byte loads), "
+        f"{ONE_LAUNCH_RERUNS} back-to-back calls bit-identical, counts read "
+        "back at 0, two streams alternating agree: ok")
 
 
 ELEMENTWISE = ("normal_sum", "beta_unnorm_sum", "student_t_unnorm_sum")
@@ -1149,10 +1248,12 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish, except mvn_quadform_sum, whose last block of a row sums
-# the row's partials inside the one launch
+# per-row finish, except mvn_quadform_sum, std_normal_sum and
+# gamma_unnorm_sum, whose last block of a row sums the row's partials
+# inside the one launch (a row of one block writes its sum itself)
 KERNEL_LAUNCHES_PER_CALL = 2
-LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1}
+LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1, "std_normal_sum": 1,
+                     "gamma_unnorm_sum": 1}
 
 
 def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
@@ -1180,6 +1281,23 @@ def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
         if total > 0 and launches_per_call in (None, launches / iters):
             return total / 1e3 / iters
     return None
+
+
+def launch_floor(torch):
+    """The card's floor for one launch: a one-block PyTorch kernel (zero_()
+    of 4 floats) timed as time_kernels times a kernel, device time from
+    the profiler and issued time from back-to-back calls."""
+    x = torch.ones(4, device=DEVICE)
+    issued = [time_ms(torch, x.zero_) for _ in range(2)]
+    dev_ms = device_ms(torch, x.zero_, launches_per_call=1)
+    row = {"name": "zero_ of 4 floats", "ms": dev_ms,
+           "issued_ms": min(issued), "issued_ms_runs": issued,
+           "ms_from": "torch.profiler device time" if dev_ms is not None
+           else "not measured (no whole device trace)"}
+    device = f"{dev_ms * 1e3:.2f}" if dev_ms is not None else "not measured"
+    log(f"one-launch floor (zero_() of 4 floats, one block), us: device "
+        f"{device} / issued {row['issued_ms'] * 1e3:.2f}")
+    return row
 
 
 def logpdf_case(torch, F, ops, ref, name, shape, gen):
@@ -2249,7 +2367,8 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
 # float32 gates' prefill (flash_fwd)
 # kernels whose line has a row for each timed call, not only the widest
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
-                 "categorical_logits_sum_small", "ssd_scan")
+                 "categorical_logits_sum_small", "ssd_scan",
+                 "std_normal_sum", "gamma_unnorm_sum")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),
@@ -2422,7 +2541,7 @@ REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integr
 # the kernels whose registers, shared memory and spills phase 2 reports
 PTXAS_REPORTED = ("flash_fwd_tc", "flash_tiles", "flash_decode",
                   "flash_combine", "categorical_small_partials",
-                  "mvn_quad_tc", "ssd_scan_tc")
+                  "mvn_quad_tc", "ssd_scan_tc", "row_sum")
 
 
 def ptxas_report(path: str) -> list:
@@ -2526,6 +2645,7 @@ def main() -> int:
     # phase 3
     worst = check_kernels(torch, ops, ref)
     worst.update(check_categorical_gamma_kernels(torch, ops, ref))
+    check_one_launch(torch, ops, ref)
     worst.update(check_density_kernels(torch, ops, ref))
     worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
     worst.update(check_flash_kernel(torch, fops, fref))
@@ -2611,6 +2731,7 @@ def main() -> int:
     log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
+    floor = launch_floor(torch)
     timings = time_kernels(torch, F, ops, ref)
     timings += time_leapfrog_kernels(torch, lf_ops, lf_ref, g_comp.spec)
     g_kernel = models["gaussian_10k"][1]
@@ -2676,7 +2797,7 @@ def main() -> int:
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
               "ptxas": {p: lines for p, lines in reports.items()},
               "runs": runs, "lm_runs": lm_runs, "checks": checks,
-              "timings": timings,
+              "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

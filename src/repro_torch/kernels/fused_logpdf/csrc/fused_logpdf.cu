@@ -46,7 +46,8 @@
 // Design. The TPU kernel walks an (R, 128) tiling of the input in a
 // sequential grid and carries a VMEM accumulator from step to step. Hopper
 // runs blocks in parallel in no order, so nothing carries over between
-// blocks. Instead there is a deterministic two-stage reduction:
+// blocks. For bernoulli, categorical, normal, beta and student_t there is
+// a deterministic two-stage reduction:
 //   stage 1: grid (nparts, B). Block (p, b) strides over row b with a
 //            grid-stride loop, masks the ragged end by index (no padding
 //            to tiles), and reduces its 256 thread sums with warp shuffles
@@ -55,8 +56,40 @@
 //            fixed order into out[b].
 // There are no float atomics, and every thread's share of the work is a
 // function of (n, nparts) alone, so two runs give bit-identical sums.
-// Loads are scalar and coalesced; 16-byte vector loads would need
-// row starts aligned to 4 floats, which a stride of n does not give.
+// Their loads are scalar and coalesced.
+//
+// std_normal_sum (TPU: kernel.py:54 / :266) and gamma_unnorm_sum (:154 /
+// :292) take ONE launch a call. At the main paths' shapes (std_normal 4 x
+// 11, 4 x 101, 4 x 400; hier_poisson's gamma 4 x 1) their bytes take
+// 0.002-0.01 us at 3.35 TB/s, so what bounds them on this card is one
+// launch's latency; bytes bound them only past about a megabyte (4 x
+// 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A second launch per call (stage
+// 2) doubled the launch floor, so here:
+//   - a block's share of a row is 2,048 floats a round: 256 threads with
+//     two 16-byte loads each (8 KB) in flight at once, about one round trip
+//     to L2 (~0.3-0.5 us; more from HBM). A merge across blocks costs a
+//     store, an acq_rel atomic and an L2 read of the partials, more than a
+//     round, so a row of at most 2,048 floats is one block (grid (1, B))
+//     that writes out[b] itself: no partials, no count.
+//   - a longer row is cut into ceil(n / 2,048) parts (at most 1,024, in
+//     rounds beyond), one block each; at 1 x 1,000,003 that is 489 blocks
+//     with 4 MB in flight, above the ~2.3 MB that 3.35 TB/s at ~0.7 us of
+//     latency needs. Each block writes partials[b, p] and takes a ticket
+//     from an int count of row b (one atom.acq_rel); the block that draws
+//     nparts - 1 sums the row's partials in index order, writes out[b] and
+//     resets the count to 0 (mvn_quad.cu's pattern). No float atomics, a
+//     fixed order. Against shares of 4,096 and 1,024 floats (chip_compare.py
+//     on an H100 80GB HBM3 at 700 W), 2,048 is the fastest at 4 x 40,000
+//     (std_normal 2.72 us; 2.77 and 2.91; gamma 3.27; 4.2-4.5 and 3.39);
+//     4,096 is faster at 1 x 1,000,003 (3.37 against 3.64) and 1,024 by
+//     0.02-0.14 us at the main paths' short rows.
+//   - loads are 16 bytes when every input's row starts are 16-byte aligned
+//     (base aligned, row stride a multiple of 4 floats or 0), else scalar
+//     (a z[:, 1:] view, n = 101). The caller (ops.reduce_plan) picks both
+//     from n and the addresses, so reruns are bit-identical; the two load
+//     widths sum in different orders, each fixed.
+// The wrapper keeps `partials` and the counts once per (device, stream),
+// so a call allocates only `out`.
 //
 // categorical_logits_sum reduces over items, not elements. Above 256
 // classes (the LM vocabularies) one warp serves each item (b, i). Its lanes stride over the C classes twice, the second time
@@ -77,9 +110,11 @@
 // arithmetic: a label outside [0, C) gives NaN, a -inf logit adds
 // exp(-inf) = 0, a row of -inf logits gives NaN (-inf - -inf), and a +inf
 // or NaN logit gives NaN.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -114,22 +149,6 @@ __device__ __forceinline__ float block_sum(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-std_normal_partials(const float* __restrict__ z, long long z_row_stride,
-                    long long n, float* __restrict__ partials) {
-  const float* row = z + static_cast<long long>(blockIdx.y) * z_row_stride;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    acc += std_normal_term(row[i]);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
 bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
                          const float* __restrict__ y, long long y_row_stride,
                          long long n, float* __restrict__ partials) {
@@ -140,26 +159,6 @@ bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += step) {
     acc += bernoulli_logit_term(lrow[i], yrow[i]);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gamma_unnorm_partials(const float* __restrict__ x, long long x_row_stride,
-                      const float* __restrict__ am1, long long a_row_stride,
-                      const float* __restrict__ rate, long long r_row_stride,
-                      long long n, float* __restrict__ partials) {
-  const float* xrow = x + static_cast<long long>(blockIdx.y) * x_row_stride;
-  const float* arow = am1 + static_cast<long long>(blockIdx.y) * a_row_stride;
-  const float* rrow = rate + static_cast<long long>(blockIdx.y) * r_row_stride;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    acc += arow[i] * logf(xrow[i]) - rrow[i] * xrow[i];
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) {
@@ -394,6 +393,154 @@ finish_rows(const float* __restrict__ partials, int nparts,
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
+// ---- std_normal_sum and gamma_unnorm_sum: one launch a call ----------
+// A block's share of a row in one round: 256 threads x 8 floats, two
+// 16-byte loads a thread (eight 4-byte ones on the scalar path), all
+// issued before the first add.
+constexpr int kLoads = 2;
+constexpr int kShare = kThreads * 4 * kLoads;  // 2,048 floats
+constexpr int kMaxShareParts = 1024;           // blocks a row; rounds beyond
+
+// The terms of one family at row b: one element (i), or the four elements
+// of 16-byte vector j (elements 4j .. 4j + 3), summed in that order.
+struct StdNormalRow {
+  const float* z;
+  long long zs;
+  __device__ __forceinline__ float one(int b, long long i) const {
+    return std_normal_term(__ldg(z + b * zs + i));
+  }
+  __device__ __forceinline__ float four(int b, long long j) const {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(z + b * zs) + j);
+    float s = std_normal_term(v.x);
+    s += std_normal_term(v.y);
+    s += std_normal_term(v.z);
+    s += std_normal_term(v.w);
+    return s;
+  }
+};
+
+// am1 log x - rate x; x <= 0 gives what logf gives (-inf at 0, NaN below)
+__device__ __forceinline__ float gamma_term(float am1, float x, float rate) {
+  return am1 * logf(x) - rate * x;
+}
+
+struct GammaRow {
+  const float* x;
+  long long xs;
+  const float* am1;
+  long long as;
+  const float* rate;
+  long long rs;
+  __device__ __forceinline__ float one(int b, long long i) const {
+    return gamma_term(__ldg(am1 + b * as + i), __ldg(x + b * xs + i),
+                      __ldg(rate + b * rs + i));
+  }
+  __device__ __forceinline__ float four(int b, long long j) const {
+    using V = const float4*;
+    const float4 xv = __ldg(reinterpret_cast<V>(x + b * xs) + j);
+    const float4 av = __ldg(reinterpret_cast<V>(am1 + b * as) + j);
+    const float4 rv = __ldg(reinterpret_cast<V>(rate + b * rs) + j);
+    float s = gamma_term(av.x, xv.x, rv.x);
+    s += gamma_term(av.y, xv.y, rv.y);
+    s += gamma_term(av.z, xv.z, rv.z);
+    s += gamma_term(av.w, xv.w, rv.w);
+    return s;
+  }
+};
+
+// Grid (nparts, rows). Block (p, b) sums its shares of row b, rounds p,
+// p + nparts, ...; with one part it writes out[b] itself. Otherwise it
+// writes partials[b, p], and the block that draws the last ticket of
+// counts[b] sums the row's partials in index order, writes out[b] and sets
+// the count back to 0.
+template <bool kVec, class Row>
+__global__ void __launch_bounds__(kThreads)
+row_sum(Row row, long long n, float* partials, int* counts,
+        float* __restrict__ out) {
+  __shared__ bool merge_last;
+  constexpr int kPer = kVec ? kLoads : 4 * kLoads;
+  const int b = blockIdx.y;
+  const int parts = gridDim.x;
+  float acc = 0.0f;
+  for (long long base = static_cast<long long>(blockIdx.x) * kShare; base < n;
+       base += static_cast<long long>(parts) * kShare) {
+    float part[kPer];
+    if constexpr (kVec) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const long long j = (base >> 2) + threadIdx.x + k * kThreads;
+        part[k] = j < (n >> 2) ? row.four(b, j) : 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const long long i = base + threadIdx.x + k * kThreads;
+        part[k] = i < n ? row.one(b, i) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) acc += part[k];
+  }
+  if (kVec && blockIdx.x == 0 && threadIdx.x == 0) {
+    // the 0-3 floats past the last whole vector
+    for (long long i = n & ~3LL; i < n; ++i) acc += row.one(b, i);
+  }
+  acc = block_sum(acc);
+  if (parts == 1) {
+    if (threadIdx.x == 0) out[b] = acc;
+    return;
+  }
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(b) * parts + blockIdx.x] = acc;
+    // release this block's partial, acquire the others' (one atom.acq_rel;
+    // two __threadfence() around a plain atomicAdd took 0.3-0.5 us more at
+    // 4 x 40,000 and 1 x 1,000,003)
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(counts[b]);
+    merge_last = ticket.fetch_add(1, cuda::memory_order_acq_rel) == parts - 1;
+  }
+  __syncthreads();
+  if (!merge_last) return;
+  const float* prow = partials + static_cast<long long>(b) * parts;
+  float total = 0.0f;
+  for (int i = threadIdx.x; i < parts; i += kThreads) {
+    total += __ldcg(prow + i);
+  }
+  total = block_sum(total);
+  if (threadIdx.x == 0) {
+    out[b] = total;
+    counts[b] = 0;
+  }
+}
+
+int share_parts(long long n) {
+  const long long p = (n + kShare - 1) / kShare;
+  return static_cast<int>(p < kMaxShareParts ? p : kMaxShareParts);
+}
+
+// 16-byte loads need every row start 16-byte aligned: the base and a row
+// stride of a multiple of 4 floats (0 included)
+bool aligned16(const float* p, long long row_stride) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && row_stride % 4 == 0;
+}
+
+template <class Row>
+int launch_row_sum(const Row& row, bool vec, int rows, long long n,
+                   int nparts, float* partials, int* counts, float* out,
+                   void* stream) {
+  if (rows <= 0 || rows > 65535 || n <= 0 || nparts != share_parts(n) ||
+      (nparts > 1 && (partials == nullptr || counts == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nparts, rows);
+  if (vec) {
+    row_sum<true><<<grid, kThreads, 0, s>>>(row, n, partials, counts, out);
+  } else {
+    row_sum<false><<<grid, kThreads, 0, s>>>(row, n, partials, counts, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int rows, long long n, int nparts) {
   return rows <= 0 || rows > 65535 || n <= 0 || nparts <= 0 || nparts > 65535;
 }
@@ -404,18 +551,40 @@ bool bad_shape(int rows, long long n, int nparts) {
 // launches go on the caller's stream and do not synchronise. `partials`
 // holds rows * nparts floats and `out` rows floats, both allocated by the
 // caller.
+
+// std_normal_sum and gamma_unnorm_sum: one launch. nparts must be
+// ceil(n / 2048) capped at 1024 (ops.reduce_plan); with one part
+// `partials` and `counts` may be null, else `partials` holds rows * nparts
+// floats and `counts` rows ints that are zero (the kernel leaves them
+// zero). `vec` asks for 16-byte loads: every input 16-byte aligned with a
+// row stride of a multiple of 4 floats, or the call is refused.
 extern "C" int repro_std_normal_sum(const float* z, long long z_row_stride,
-                                    int rows, long long n, float* partials,
-                                    int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  std_normal_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(z, z_row_stride, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
+                                    int rows, long long n, int nparts, int vec,
+                                    float* partials, int* counts, float* out,
+                                    void* stream) {
+  if (vec && !aligned16(z, z_row_stride)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(StdNormalRow{z, z_row_stride}, vec != 0, rows, n,
+                        nparts, partials, counts, out, stream);
 }
 
+extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
+                                     const float* am1, long long a_row_stride,
+                                     const float* rate, long long r_row_stride,
+                                     int rows, long long n, int nparts,
+                                     int vec, float* partials, int* counts,
+                                     float* out, void* stream) {
+  if (vec && !(aligned16(x, x_row_stride) && aligned16(am1, a_row_stride) &&
+               aligned16(rate, r_row_stride))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(
+      GammaRow{x, x_row_stride, am1, a_row_stride, rate, r_row_stride},
+      vec != 0, rows, n, nparts, partials, counts, out, stream);
+}
+
+// The families below: stage 1, then finish_rows.
 extern "C" int repro_bernoulli_logit_sum(const float* l, long long l_row_stride,
                                          const float* y, long long y_row_stride,
                                          int rows, long long n, float* partials,
@@ -424,21 +593,6 @@ extern "C" int repro_bernoulli_logit_sum(const float* l, long long l_row_stride,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bernoulli_logit_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
       l, l_row_stride, y, y_row_stride, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
-                                     const float* am1, long long a_row_stride,
-                                     const float* rate, long long r_row_stride,
-                                     int rows, long long n, float* partials,
-                                     int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gamma_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      x, x_row_stride, am1, a_row_stride, rate, r_row_stride, n, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

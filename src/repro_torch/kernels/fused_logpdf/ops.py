@@ -21,9 +21,10 @@ Three layers:
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +43,8 @@ __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "student_t_unnorm_logpdf_sum", "mvnormal_prec_quadform_sum",
            "site_block_sum", "kernel_source", "mvn_kernel_source",
            "categorical_group", "SMALL_C", "mvn_tiles", "mvn_smem_bytes",
-           "MAX_SMEM_BYTES"]
+           "MAX_SMEM_BYTES", "REDUCE_SHARE", "ReducePlan", "reduce_plan",
+           "partials_needed"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
@@ -66,6 +68,13 @@ _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
 # mvn_quadform_sum's last-block counts, by (device, stream): zero between
 # calls (the kernel sets each back to zero), so they are allocated once
 _MVN_COUNTS = {}
+# std_normal_sum and gamma_unnorm_sum (one launch a call): floats of a row
+# one block sums in a round (fused_logpdf.cu kShare), and their scratch by
+# (device index, stream): (float32 partials, int32 last-block counts, zero
+# between calls), grown when a call needs more
+REDUCE_SHARE = 2048
+_SCRATCH = {}
+_SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
 
 
 def reset_launch_counts() -> None:
@@ -83,6 +92,7 @@ def mvn_kernel_source() -> Path:
 
 _LIB = None
 _MVN_LIB = None
+_REDUCE_FNS = {}  # kernel name -> its bound ctypes function, set by _lib()
 
 
 def _lib() -> ctypes.CDLL:
@@ -90,14 +100,17 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = load_library(kernel_source())
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.repro_std_normal_sum.argtypes = [p, i64, i32, i64, p, i32, p, p]
-        lib.repro_std_normal_sum.restype = i32
+        # one launch: ..., rows, n, nparts, vec, partials, counts, out, stream
+        tail = [i32, i64, i32, i32, p, p, p, p]
+        lib.repro_std_normal_sum.argtypes = [p, i64] + tail
+        lib.repro_gamma_unnorm_sum.argtypes = [p, i64, p, i64, p, i64] + tail
+        for name in ("std_normal_sum", "gamma_unnorm_sum"):
+            fn = getattr(lib, f"repro_{name}")
+            fn.restype = i32
+            _REDUCE_FNS[name] = fn
         lib.repro_bernoulli_logit_sum.argtypes = [p, i64, p, i64, i32, i64,
                                                   p, i32, p, p]
         lib.repro_bernoulli_logit_sum.restype = i32
-        lib.repro_gamma_unnorm_sum.argtypes = [p, i64, p, i64, p, i64, i32,
-                                               i64, p, i32, p, p]
-        lib.repro_gamma_unnorm_sum.restype = i32
         lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
                                                      i32, p, i32, p, p]
         lib.repro_categorical_logits_sum.restype = i32
@@ -143,14 +156,15 @@ def _check_rows(name: str, t: torch.Tensor, rows: int, n: int,
     stride n (dense) or 0 (one row shared by every b)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != 2 or tuple(t.shape) != (rows, n):
+    if t.shape != (rows, n):
         raise ValueError(f"{name}: expected shape {(rows, n)}, got "
                          f"{tuple(t.shape)}")
-    if n > 1 and t.stride(1) != 1:
+    row_stride, inner = t.stride()
+    if n > 1 and inner != 1:
         raise ValueError(f"{name}: inner stride must be 1, got {t.stride()}")
-    if rows > 1 and t.stride(0) not in (0, n):
+    if rows > 1 and row_stride != n and row_stride != 0:
         raise ValueError(f"{name}: row stride must be {n} or 0, got "
-                         f"{t.stride(0)}")
+                         f"{row_stride}")
 
 
 def _row_stride(t: torch.Tensor) -> int:
@@ -166,13 +180,89 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def _device_kind(*ts: torch.Tensor) -> str:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
-    kind = ts[0].device.type
+    dev = ts[0].device
+    if any(t.device != dev for t in ts[1:]):
+        devs = {str(t.device) for t in ts}
+        raise ValueError(f"inputs on different devices: {sorted(devs)}")
+    kind = dev.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no fused_logpdf kernel for device '{kind}'")
     return kind
+
+
+class ReducePlan(NamedTuple):
+    """How ``std_normal_sum`` and ``gamma_unnorm_sum`` launch: ``nparts``
+    blocks a row (1: the block writes the row's sum itself; more: the last
+    block of a row to finish sums the row's partials) and ``vec``, 16-byte
+    loads."""
+    nparts: int
+    vec: bool
+
+
+def reduce_plan(n: int, inputs=()) -> ReducePlan:
+    """The one-launch reduction of rows of ``n`` floats: ``nparts`` is
+    ``ceil(n / REDUCE_SHARE)``, at most 1,024, from ``n`` alone (so reruns
+    are bit-identical); 16-byte loads when each input, given as ``(address
+    in bytes, row stride in floats)``, starts every row 16-byte aligned
+    (row stride 0 included). Pure Python, as ``fused_logpdf.cu`` checks
+    it."""
+    nparts = max(1, min(_MAX_PARTS, -(-n // REDUCE_SHARE)))
+    vec = all(addr % 16 == 0 and stride % 4 == 0 for addr, stride in inputs)
+    return ReducePlan(nparts, vec)
+
+
+def partials_needed(rows: int, plan: ReducePlan) -> int:
+    """Floats of partials one call writes: one per (row, part), none when
+    a row is one block."""
+    return rows * plan.nparts if plan.nparts > 1 else 0
+
+
+def _reduce_scratch(index: int, stream: int, rows: int, need: int):
+    """Addresses of at least ``need`` float32 partials and ``rows`` zero
+    int32 counts on this device and stream (calls on one stream run one at
+    a time, and each leaves the counts at zero)."""
+    entry = _SCRATCH.get((index, stream))
+    if entry is None or entry[0].numel() < need or entry[1].numel() < rows:
+        dev = torch.device("cuda", index)
+        entry = (torch.empty(max(need, 4096), dtype=torch.float32, device=dev),
+                 torch.zeros(max(rows, 1024), dtype=torch.int32, device=dev))
+        _SCRATCH[(index, stream)] = entry
+    return entry[0].data_ptr(), entry[1].data_ptr()
+
+
+def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
+                 n: int) -> torch.Tensor:
+    """Launch ``std_normal_sum`` or ``gamma_unnorm_sum`` once on CUDA rows
+    that ``_check_rows`` passed: the plan from ``n`` and the addresses,
+    scratch from ``_SCRATCH`` when a row takes more than one block, and
+    only ``out`` allocated."""
+    dev = ins[0].device
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out.zero_()
+    args = []
+    for t in ins:
+        args += (t.data_ptr(), t.stride(0) if rows > 1 else 0)
+    plan = reduce_plan(n, zip(args[::2], args[1::2]))
+    fn = _REDUCE_FNS.get(kernel)
+    if fn is None:  # the first call builds and binds the library
+        _lib()
+        fn = _REDUCE_FNS[kernel]
+    index = dev.index
+    with (_SAME_DEVICE if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        # the stream's handle without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        partials = counts = None
+        need = partials_needed(rows, plan)
+        if need:
+            partials, counts = _reduce_scratch(index, stream, rows, need)
+        err = fn(*args, rows, n, plan.nparts, plan.vec, partials, counts,
+                 out.data_ptr(), stream)
+    if err:
+        _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
+    return out
 
 
 def std_normal_sum_rows(z: torch.Tensor) -> torch.Tensor:
@@ -181,19 +271,7 @@ def std_normal_sum_rows(z: torch.Tensor) -> torch.Tensor:
     _check_rows("z", z, rows, n)
     if _device_kind(z) == "cpu":
         return ref.std_normal_logpdf_sum_ref(z)
-    out = torch.empty(rows, dtype=torch.float32, device=z.device)
-    if n == 0:
-        return out.zero_()
-    nparts = _num_parts(n)
-    partials = torch.empty(rows * nparts, dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = _lib().repro_std_normal_sum(
-            z.data_ptr(), _row_stride(z), rows, n, partials.data_ptr(),
-            nparts, out.data_ptr(), stream)
-    _raise_on(err, "std_normal_sum")
-    LAUNCHES["std_normal_sum"] += 1
-    return out
+    return _reduce_rows("std_normal_sum", (z,), rows, n)
 
 
 def bernoulli_logit_sum_rows(logits: torch.Tensor,
@@ -231,20 +309,7 @@ def gamma_unnorm_sum_rows(x: torch.Tensor, am1: torch.Tensor,
         _check_rows(name, t, rows, n)
     if _device_kind(x, am1, rate) == "cpu":
         return ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
-    out = torch.empty(rows, dtype=torch.float32, device=x.device)
-    if n == 0:
-        return out.zero_()
-    nparts = _num_parts(n)
-    partials = torch.empty(rows * nparts, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().repro_gamma_unnorm_sum(
-            x.data_ptr(), _row_stride(x), am1.data_ptr(), _row_stride(am1),
-            rate.data_ptr(), _row_stride(rate), rows, n, partials.data_ptr(),
-            nparts, out.data_ptr(), stream)
-    _raise_on(err, "gamma_unnorm_sum")
-    LAUNCHES["gamma_unnorm_sum"] += 1
-    return out
+    return _reduce_rows("gamma_unnorm_sum", (x, am1, rate), rows, n)
 
 
 def categorical_group(c: int) -> int:

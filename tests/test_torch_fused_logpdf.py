@@ -608,3 +608,40 @@ def test_mvn_tiles_and_shared_memory():
         assert 2 * (smem + 1024) <= 228 * 1024
     assert ops.mvn_smem_bytes(256) == 3 * (128 + 128) * 36 * 4
     assert 4 * ops.mvn_tiles(4096, 256) <= 2 * 132
+
+
+# reduce_plan's inputs: (address in bytes, row stride in floats)
+ALIGNED, UNALIGNED = 0x7F00_0000_0200, 0x7F00_0000_0204  # a z[:, 1:] view
+
+
+@pytest.mark.parametrize("n,nparts", [
+    (1, 1), (ops.REDUCE_SHARE, 1), (ops.REDUCE_SHARE + 1, 2),
+    (40_000, 20), (1_000_003, 489), (1024 * ops.REDUCE_SHARE, 1024),
+    (1024 * ops.REDUCE_SHARE + 1, 1024)])
+def test_reduce_plan_parts_from_n_alone(n, nparts):
+    """One block a row up to the share (it writes out[b] itself), then one
+    block per 2,048 floats up to 1,024 (rounds beyond); the inputs' layout
+    never changes the parts."""
+    for inputs in ((), ((ALIGNED, n),), ((UNALIGNED, n + 1), (ALIGNED, 0))):
+        assert ops.reduce_plan(n, inputs).nparts == nparts
+
+
+@pytest.mark.parametrize("inputs,vec", [
+    (((ALIGNED, 40_000),), True),             # dense rows, n % 4 == 0
+    (((ALIGNED, 0),), True),                  # one row shared (stride 0)
+    (((UNALIGNED, 40_001),), False),          # a z[:, 1:] view
+    (((ALIGNED, 101),), False),               # n = 101: rows drift off 16 B
+    (((ALIGNED, 400), (ALIGNED, 0), (ALIGNED, 0)), True),  # gamma, shared
+    (((ALIGNED, 400), (ALIGNED + 4, 0), (ALIGNED, 0)), False),
+    ((), True)])
+def test_reduce_plan_loads_from_alignment(inputs, vec):
+    assert ops.reduce_plan(400, inputs).vec is vec
+
+
+@pytest.mark.parametrize("rows", [1, 4, 65535])
+@pytest.mark.parametrize("n", [1, 2048, 2049, 1_000_003])
+def test_reduce_scratch_never_exceeds_rows_times_parts(rows, n):
+    plan = ops.reduce_plan(n)
+    need = ops.partials_needed(rows, plan)
+    assert need <= rows * plan.nparts
+    assert need == (0 if n <= ops.REDUCE_SHARE else rows * plan.nparts)

@@ -134,6 +134,163 @@ def test_cuda_gamma_matches_plain_version(cuda_device, rows, n, shared):
     assert torch.equal(ops.gamma_unnorm_sum_rows(x, am1, rate), got)
 
 
+# std_normal_sum and gamma_unnorm_sum, one launch a call: one block a row
+# up to ops.REDUCE_SHARE floats, the last block of a row merging beyond
+ONE_LAUNCH_SHAPES = [(1, 1), (4, 11), (4, 101), (4, 400),
+                     (4, ops.REDUCE_SHARE - 1),
+                     (4, ops.REDUCE_SHARE), (4, ops.REDUCE_SHARE + 1),
+                     (4, 40000), (16, 257), (1, 1_000_003)]
+ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum")
+
+
+def _rows(rows, n, gen, dev, layout, lo=0.0, scale=1.0, randn=False):
+    """``(rows, n)`` float32: "aligned" a fresh tensor, "offset" a view one
+    float past a 16-byte boundary (z[:, 1:] of one row), "shared" one row
+    at row stride 0."""
+    draw = torch.randn if randn else torch.rand
+    if layout == "offset":
+        flat = lo + scale * draw(rows * n + 1, generator=gen, device=dev)
+        return flat[1:].view(rows, n)
+    if layout == "shared":
+        row = lo + scale * draw(n, generator=gen, device=dev)
+        return row.expand(rows, n)
+    return lo + scale * draw(rows, n, generator=gen, device=dev)
+
+
+def _one_launch_case(family, rows, n, layout, gen, dev):
+    """(wrapper, inputs, plain version, the sum's scale for the gate)."""
+    if family == "std_normal_sum":
+        z = _rows(rows, n, gen, dev, "offset" if layout == "offset"
+                  else "aligned", scale=2.0, randn=True)
+        want = ref.std_normal_logpdf_sum_ref(z)
+        return ops.std_normal_sum_rows, (z,), want, want.abs()
+    x = _rows(rows, n, gen, dev, "offset" if layout == "offset"
+              else "aligned", lo=0.05, scale=4.0)
+    am1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
+    rate = _rows(rows, n, gen, dev, layout, lo=0.2, scale=3.0)
+    want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
+    terms = (am1 * torch.log(x)).abs().sum(-1) + (rate * x).abs().sum(-1)
+    return ops.gamma_unnorm_sum_rows, (x, am1, rate), want, terms
+
+
+def _plan_of(args, rows, n):
+    return ops.reduce_plan(n, [(t.data_ptr(), t.stride(0) if rows > 1 else 0)
+                               for t in args])
+
+
+def _counts_are_zero(stream):
+    """The stream's last-block counts, read back: all 0 (or never made)."""
+    torch.cuda.synchronize()
+    entry = ops._SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
+    return entry is None or not bool(entry[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,layout", [
+    ("std_normal_sum", "aligned"), ("std_normal_sum", "offset"),
+    ("gamma_unnorm_sum", "aligned"), ("gamma_unnorm_sum", "offset"),
+    ("gamma_unnorm_sum", "shared")])
+@pytest.mark.parametrize("rows,n", ONE_LAUNCH_SHAPES)
+def test_cuda_one_launch_sums_match_plain_versions(cuda_device, family,
+                                                   layout, rows, n):
+    """Both paths (one block a row, last-block merge) and both load widths,
+    at rtol 1e-6 (std_normal: every term < 0) and 1e-6 of sum|terms|
+    (gamma), one launch a call, bit-identical on a rerun, counts back at
+    0. "shared" gives gamma's am1 and rate at row stride 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    kern, args, want, scale = _one_launch_case(family, rows, n, layout, gen,
+                                               cuda_device)
+    plan = _plan_of(args, rows, n)
+    assert plan.nparts == -(-n // ops.REDUCE_SHARE)
+    assert plan.vec == (layout != "offset" and (rows == 1 or n % 4 == 0))
+    ops.reset_launch_counts()
+    got = kern(*args)
+    assert ops.LAUNCHES[family] == 1
+    assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    assert torch.equal(kern(*args), got)
+    assert _counts_are_zero(torch.cuda.current_stream())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ONE_LAUNCH)
+@pytest.mark.parametrize("rows,n", [(4, 40000), (1, 1_000_003)])
+def test_cuda_one_launch_reruns_and_two_streams(cuda_device, family, rows, n):
+    """The last-block merge: 100 back-to-back calls bit-identical, calls
+    alternating between two streams equal to them, every count back at 0
+    on each stream."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
+                                        cuda_device)
+    first = kern(*args)
+    again = [kern(*args) for _ in range(100)]
+    assert all(torch.equal(a, first) for a in again)
+    assert _counts_are_zero(torch.cuda.current_stream())
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(kern(*args))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+        assert _counts_are_zero(s)
+    assert all(torch.equal(g, first) for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ONE_LAUNCH)
+@pytest.mark.parametrize("rows,n", [(4, 11), (4, 400), (4, 40000)])
+def test_cuda_one_launch_is_one_kernel_by_profiler(cuda_device, family, rows,
+                                                   n):
+    """torch.profiler sees one kernel a call (row_sum), and no finish_rows.
+    A window that missed some device activity is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
+                                        cuda_device)
+    kern(*args)  # scratch and library in place before the window
+    torch.cuda.synchronize()
+    calls, seen = 10, []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kern(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA" for _ in range(e.count)]
+        assert all("row_sum" in k for k in names), names
+        seen.append(len(names))
+        if len(names) == calls:
+            break
+    assert seen[-1] == calls, seen
+
+
+@pytest.mark.cuda
+def test_cuda_one_launch_refuses_bad_plans(cuda_device):
+    """The C interface refuses 16-byte loads on an unaligned row, parts
+    that are not ceil(n / REDUCE_SHARE), and a merge without scratch: each
+    returns a CUDA error, which the wrapper's check raises as KernelError."""
+    from repro_torch.kernels._build import KernelError
+    share = ops.REDUCE_SHARE
+    z = torch.zeros(4 * (share + 1) + 1, device=cuda_device)
+    view = z[1:].view(4, share + 1)
+    fn = ops._lib().repro_std_normal_sum
+    stream = torch.cuda.current_stream().cuda_stream
+    assert torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()) \
+        == stream  # the raw handle the wrapper passes
+    out = torch.empty(4, device=cuda_device)
+    assert fn(view.data_ptr(), share + 1, 4, share + 1, 2, 1, None, None,
+              out.data_ptr(), stream) != 0
+    assert fn(z.data_ptr(), share, 4, share, 2, 1, None, None,
+              out.data_ptr(), stream) != 0
+    err = fn(z.data_ptr(), 0, 1, share + 1, 2, 0, None, None, out.data_ptr(),
+             stream)
+    with pytest.raises(KernelError, match="std_normal_sum"):
+        ops._raise_on(err, "std_normal_sum")
+
+
 @pytest.mark.cuda
 def test_cuda_new_kernels_one_launch_for_all_chains(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(5)
