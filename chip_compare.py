@@ -13,9 +13,13 @@ process under another module name (its kernel source builds into its own
 ``build/``), holds each wrapper to the other's at rtol 1e-5 (two float32
 sums of up to 10^6 terms in different orders), then times
 both at ``chip_smoke.MAIN_SHAPES`` (and 1 x 1,000,003 for the one-launch
-reductions): the time the host takes to issue a call (CUDA events over
-back-to-back calls, eight turns) and the device time from the profiler
-(four turns, every kernel a call launches). ``paths`` runs
+reductions; beta's and student_t's family_mix_8k blocks again with one
+parameter value a row, element stride 0): the time the host takes to
+issue a call (CUDA events over back-to-back calls, eight turns), the same
+for the per-array function under ``vmap`` over the rows as the main paths
+call it (the wrapper plus the ``autograd.Function``'s forward and vmap
+rule), and the device time from the profiler (four turns, every kernel a
+call launches). ``paths`` runs
 ``chip_smoke.run_model`` for each model in a fresh process per checkout,
 four turns, and reads milliseconds per draw. The card's name and power
 limit come first; the last line is one JSON object with every number.
@@ -31,8 +35,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TURNS = ("other", "this", "this", "other")
-WIDE = {"std_normal_sum": [(1, 1_000_003)],
-        "gamma_unnorm_sum": [(1, 1_000_003)]}
+ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
+              "student_t_unnorm_sum")
+WIDE = {name: [(1, 1_000_003)] for name in ONE_LAUNCH}
+# family_mix_8k's blocks with one parameter value a row (a per-chain scalar
+# under vmap); MAIN_SHAPES's cases pass the parameters as one shared row,
+# as the main paths do on the card
+SCALAR = {"beta_unnorm_sum": [(4, 1024)], "student_t_unnorm_sum": [(4, 2048)]}
+# each wrapper's per-array function, as the fused evaluator calls it
+ENTRY = {"std_normal_sum": "std_normal_logpdf_sum",
+         "gamma_unnorm_sum": "gamma_unnorm_logpdf_sum",
+         "beta_unnorm_sum": "beta_unnorm_logpdf_sum",
+         "student_t_unnorm_sum": "student_t_unnorm_logpdf_sum",
+         "normal_sum": "normal_logpdf_sum"}
 PATHS = ("logreg", "hier_poisson", "gauss_unknown", "sto_volatility", "mixed")
 
 
@@ -45,33 +60,73 @@ def load_other_ops(other: Path):
     return mod
 
 
+def per_row_scalar(t):
+    """``t (B, n)`` as one value a row: its first column, at element
+    stride 0."""
+    return t[:, :1].contiguous().expand_as(t)
+
+
+def vmapped(torch, fn, args):
+    """``fn`` under ``vmap`` over the rows, as the fused evaluator calls
+    it: a shared row (row stride 0) unbatched, one value a row as a
+    per-chain scalar, anything else batched."""
+    ins, dims = [], []
+    for t in args:
+        if t.shape[0] > 1 and t.stride(0) == 0:
+            ins.append(t[0])
+            dims.append(None)
+        else:
+            ins.append(t[:, 0] if t.shape[1] > 1 and t.stride(1) == 0 else t)
+            dims.append(0)
+    return lambda: torch.func.vmap(fn, in_dims=tuple(dims))(*ins)
+
+
 def wrappers(torch, cs, other: Path, kernels) -> dict:
     from repro_torch.kernels.fused_logpdf import ops, ref
     mods = {"this": ops, "other": load_other_ops(other)}
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for name in kernels:
-        for shape in cs.MAIN_SHAPES[name] + WIDE.get(name, []):
+        cases = ([(shape, False) for shape in
+                  cs.MAIN_SHAPES[name] + WIDE.get(name, [])]
+                 + [(shape, True) for shape in SCALAR.get(name, [])])
+        for shape, scalar in cases:
             args, kern, _, _, _, _ = cs.logpdf_case(
                 torch, torch.nn.functional, ops, ref, name, shape, gen)
+            if scalar:
+                args = args[:1] + tuple(per_row_scalar(t) for t in args[1:])
             fns = {who: (lambda f=getattr(m, kern.__name__): f(*args))
                    for who, m in mods.items()}
             torch.testing.assert_close(fns["this"](), fns["other"](),
                                        rtol=1e-5, atol=0)
             row = {"issued_us": {"this": [], "other": []},
                    "device_us": {"this": [], "other": []}}
+            if name in ENTRY and len(shape) == 2:
+                entries = {who: vmapped(torch, getattr(m, ENTRY[name]), args)
+                           for who, m in mods.items()}
+                torch.testing.assert_close(entries["this"](),
+                                           entries["other"](), rtol=1e-5,
+                                           atol=0)
+                row["entry_issued_us"] = {"this": [], "other": []}
             for who in TURNS + TURNS:
                 row["issued_us"][who].append(
                     cs.time_ms(torch, fns[who]) * 1e3)
+                if "entry_issued_us" in row:
+                    row["entry_issued_us"][who].append(
+                        cs.time_ms(torch, entries[who]) * 1e3)
             for who in TURNS:
                 ms = cs.device_ms(torch, fns[who])
                 row["device_us"][who].append(None if ms is None else ms * 1e3)
-            key = f"{name} {'x'.join(map(str, shape))}"
+            key = (f"{name} {'x'.join(map(str, shape))}"
+                   f"{' one parameter value a row' if scalar else ''}")
             out[key] = row
             iss, dev = row["issued_us"], row["device_us"]
+            ent = row.get("entry_issued_us")
             cs.log(f"{key}: issued us other {iss['other']}, this "
                    f"{iss['this']}; device us other {dev['other']}, this "
-                   f"{dev['this']}")
+                   f"{dev['this']}"
+                   + (f"; under vmap issued us other {ent['other']}, this "
+                      f"{ent['this']}" if ent else ""))
     return out
 
 
@@ -115,8 +170,9 @@ def main() -> int:
                     help="root of the other checkout")
     ap.add_argument("mode", choices=("wrappers", "paths", "_path_worker"))
     ap.add_argument("tree", nargs="?", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--kernels", nargs="+",
-                    default=["std_normal_sum", "gamma_unnorm_sum"])
+    ap.add_argument("--kernels", nargs="+", default=list(ONE_LAUNCH),
+                    help="fused_logpdf kernels (chip_smoke.MAIN_SHAPES's "
+                         "names)")
     ap.add_argument("--models", nargs="+", default=list(PATHS))
     ap.add_argument("--draws", type=int, default=200)
     args = ap.parse_args()

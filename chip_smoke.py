@@ -42,11 +42,13 @@ Phases, in order:
    per row, and at its edges: labels outside [0, C) and -inf logits;
    gamma, beta and normal, whose terms change sign, at 1e-6 of the sum of
    their magnitudes, with parameters per row, shared by the rows (row
-   stride 0) and one per row (element stride 0); std_normal_sum and
-   gamma_unnorm_sum (one launch a call) where a row takes several blocks,
-   with 16- and 4-byte loads: 1,000 back-to-back calls bit-identical with
-   the last-block counts read back at 0, and calls alternating between
-   two streams equal to them; student_t at rtol 1e-6;
+   stride 0), one per row (element stride 0) and as views one float past
+   a 16-byte boundary; the one-launch reductions (std_normal_sum,
+   gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum) where a row
+   takes several blocks, with 16- and 4-byte loads (beta's and
+   student_t's parameters shared and one a row): 1,000 back-to-back calls
+   bit-identical with the last-block counts read back at 0, and calls
+   alternating between two streams equal to them; student_t at rtol 1e-6;
    the dense quadratic form at rtol 1e-5 over D = 1 to 1,024 and N = 1 to
    100,000 with the precision shared and per row) and their backward
    through ``vmap(grad)`` with one launch for the whole chain axis; the
@@ -311,7 +313,7 @@ FUSED_LOGPDF = ("std_normal_sum", "bernoulli_logit_sum",
                 "student_t_unnorm_sum", "mvn_quadform_sum")
 CHECK_ROWS = (1, 4, 16)
 # (2,047 and 2,049: either side of one block's share of a row in the
-# one-launch std_normal_sum and gamma_unnorm_sum)
+# one-launch reductions)
 CHECK_N = (1, 101, 255, 257, 400, 2047, 2049, 10000, 40000, 40400, 1_000_003)
 
 
@@ -494,16 +496,22 @@ def check_categorical_gamma_kernels(torch, ops, ref):
     return worst
 
 
-ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum")
+ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
+              "student_t_unnorm_sum")
+# the two whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum")
 ONE_LAUNCH_SHAPES = ((4, 40000), (1, 1_000_003))  # more than one block a row
 ONE_LAUNCH_RERUNS = 1000
 
 
-def one_launch_case(torch, ops, ref, name, rows, n, offset, gen):
-    """(wrapper, inputs, plain result, the gate's scale) of std_normal_sum
-    or gamma_unnorm_sum: rows 16-byte aligned, or (``offset``) one float
-    past a 16-byte boundary, which takes the 4-byte loads; gamma's am1 and
-    rate at row stride 0, as on the main paths."""
+def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
+                    params="shared"):
+    """(wrapper, inputs, plain result, the gate's scale) of a one-launch
+    reduction: the value's rows 16-byte aligned, or (``offset``) one float
+    past a 16-byte boundary, which takes the 4-byte loads; the parameters
+    at row stride 0 (``params="shared"``, as on the main paths) or, for
+    beta and student_t, one value a row (``"scalar"``, element stride 0,
+    which never bars 16-byte loads)."""
     dev = torch.device(DEVICE)
 
     def rows_of(lo, scale, draw):
@@ -512,14 +520,28 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen):
             return flat[1:].view(rows, n)
         return lo + scale * draw(rows, n, generator=gen, device=dev)
 
+    def param(lo, scale):
+        shape = (n,) if params == "shared" else (rows, 1)
+        return (lo + scale * torch.rand(shape, generator=gen, device=dev)
+                ).expand(rows, n)
+
     if name == "std_normal_sum":
         z = rows_of(0.0, 2.0, torch.randn)
         want = ref.std_normal_logpdf_sum_ref(z)
         return ops.std_normal_sum_rows, (z,), want, want.abs()
+    if name == "beta_unnorm_sum":
+        x = rows_of(0.01, 0.98, torch.rand)
+        am1, bm1 = param(-0.5, 3.5), param(-0.5, 3.5)
+        want = ref.beta_unnorm_logpdf_sum_ref(x, am1, bm1)
+        return (ops.beta_unnorm_sum_rows, (x, am1, bm1), want,
+                abs_terms(torch, name, (x, am1, bm1)))
+    if name == "student_t_unnorm_sum":
+        z = rows_of(0.0, 3.0, torch.randn)
+        df = param(0.5, 29.5)
+        want = ref.student_t_unnorm_logpdf_sum_ref(z, df)
+        return ops.student_t_unnorm_sum_rows, (z, df), want, want.abs()
     x = rows_of(0.05, 4.0, torch.rand)
-    am1 = -0.5 + 3.5 * torch.rand(n, generator=gen, device=dev)
-    rate = 0.2 + 3.0 * torch.rand(n, generator=gen, device=dev)
-    am1, rate = am1.expand(rows, n), rate.expand(rows, n)
+    am1, rate = param(-0.5, 3.5), param(0.2, 3.0)
     want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
     terms = ((am1 * torch.log(x)).abs() + (rate * x).abs()).sum(-1)
     return ops.gamma_unnorm_sum_rows, (x, am1, rate), want, terms
@@ -534,88 +556,97 @@ def counts_at_zero(torch, ops, stream) -> bool:
 
 
 def check_one_launch(torch, ops, ref):
-    """std_normal_sum and gamma_unnorm_sum where a row takes more than one
-    block (the last block of a row merges): ONE_LAUNCH_RERUNS back-to-back
-    calls bit-identical with every count read back at 0, and calls
-    alternating between two streams equal to them with both streams'
-    counts at 0; with 16-byte loads and with 4-byte ones. Gates as in
-    check_kernels and check_categorical_gamma_kernels."""
+    """The one-launch reductions where a row takes more than one block (the
+    last block of a row merges): ONE_LAUNCH_RERUNS back-to-back calls
+    bit-identical with every count read back at 0, and calls alternating
+    between two streams equal to them with both streams' counts at 0; with
+    16-byte loads and with 4-byte ones, and beta's and student_t's
+    parameters shared and one value a row. Gates as in check_kernels,
+    check_categorical_gamma_kernels and check_density_kernels."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(18)
     n_cases = 0
-    for name in ONE_LAUNCH:
-        for rows, n in ONE_LAUNCH_SHAPES:
-            for offset in (False, True):
-                kern, args, want, scale = one_launch_case(
-                    torch, ops, ref, name, rows, n, offset, gen)
-                width = "4-byte" if offset else "16-byte"
-                tag = f"{name} {rows}x{n} {width} loads"
-                plan = ops.reduce_plan(n, [
-                    (t.data_ptr(), t.stride(0) if rows > 1 else 0)
-                    for t in args])
-                check(plan.nparts > 1 and plan.vec == (not offset),
-                      f"{tag}: plan {plan}")
-                main = torch.cuda.current_stream()
-                first = kern(*args)
-                again = torch.stack([kern(*args)
-                                     for _ in range(ONE_LAUNCH_RERUNS)])
-                torch.cuda.synchronize()
-                check(bool(((first - want).abs() <= 1e-6 * scale).all()),
-                      f"{tag}: err {float((first - want).abs().max()):.3e} "
-                      "beyond 1e-6")
-                check(same_bits(torch, again, first.expand_as(again)),
-                      f"{tag}: {ONE_LAUNCH_RERUNS} reruns not bit-identical")
-                check(counts_at_zero(torch, ops, main),
-                      f"{tag}: counts not back at 0")
-                streams = (torch.cuda.Stream(), torch.cuda.Stream())
-                for s in streams:
-                    s.wait_stream(main)
-                alt = []
-                for i in range(20):
-                    with torch.cuda.stream(streams[i % 2]):
-                        alt.append(kern(*args))
-                for s in streams:
-                    main.wait_stream(s)
-                check(all(counts_at_zero(torch, ops, s) for s in streams),
-                      f"{tag}: counts of the two streams not back at 0")
-                check(all(same_bits(torch, a, first) for a in alt),
-                      f"{tag}: calls on two streams differ")
-                n_cases += 1
-    log(f"std_normal_sum, gamma_unnorm_sum merge path: {n_cases} cases "
-        f"({ONE_LAUNCH_SHAPES}, 16- and 4-byte loads), "
+    for name, rows, n, params, offset in [
+            (name, rows, n, params, offset) for name in ONE_LAUNCH
+            for rows, n in ONE_LAUNCH_SHAPES
+            for params in (("shared", "scalar") if name in ELEM_STRIDED
+                           else ("shared",))
+            for offset in (False, True)]:
+        kern, args, want, scale = one_launch_case(
+            torch, ops, ref, name, rows, n, offset, gen, params)
+        width = "4-byte" if offset else "16-byte"
+        tag = f"{name} {rows}x{n} {width} loads, {params} parameters"
+        plan = ops.reduce_plan(n, ops._reduce_inputs(
+            args, rows, n, name in ELEM_STRIDED))
+        check(plan.nparts > 1 and plan.vec == (not offset),
+              f"{tag}: plan {plan}")
+        main = torch.cuda.current_stream()
+        first = kern(*args)
+        again = torch.stack([kern(*args)
+                             for _ in range(ONE_LAUNCH_RERUNS)])
+        torch.cuda.synchronize()
+        check(bool(((first - want).abs() <= 1e-6 * scale).all()),
+              f"{tag}: err {float((first - want).abs().max()):.3e} "
+              "beyond 1e-6")
+        check(same_bits(torch, again, first.expand_as(again)),
+              f"{tag}: {ONE_LAUNCH_RERUNS} reruns not bit-identical")
+        check(counts_at_zero(torch, ops, main),
+              f"{tag}: counts not back at 0")
+        streams = (torch.cuda.Stream(), torch.cuda.Stream())
+        for s in streams:
+            s.wait_stream(main)
+        alt = []
+        for i in range(20):
+            with torch.cuda.stream(streams[i % 2]):
+                alt.append(kern(*args))
+        for s in streams:
+            main.wait_stream(s)
+        check(all(counts_at_zero(torch, ops, s) for s in streams),
+              f"{tag}: counts of the two streams not back at 0")
+        check(all(same_bits(torch, a, first) for a in alt),
+              f"{tag}: calls on two streams differ")
+        n_cases += 1
+    log(f"{', '.join(ONE_LAUNCH)} merge path: {n_cases} cases "
+        f"({ONE_LAUNCH_SHAPES}, 16- and 4-byte loads, parameters shared "
+        "and one a row), "
         f"{ONE_LAUNCH_RERUNS} back-to-back calls bit-identical, counts read "
         "back at 0, two streams alternating agree: ok")
 
 
 ELEMENTWISE = ("normal_sum", "beta_unnorm_sum", "student_t_unnorm_sum")
-# parameters dense per row, shared by the rows (row stride 0), or one value
-# per row (element stride 0: gauss_unknown's mu and sigma)
-ELEM_PARAMS = ("per_row", "shared", "scalar")
+# parameters dense per row, shared by the rows (row stride 0), one value
+# per row (element stride 0: gauss_unknown's mu and sigma), or every input
+# a view one float past a 16-byte boundary (4-byte loads)
+ELEM_PARAMS = ("per_row", "shared", "scalar", "offset")
 
 
 def elementwise_case(torch, ops, ref, name, rows, n, params, gen, shared_x=False):
     """(wrapper, inputs, plain version) of one per-element kernel."""
     dev = torch.device(DEVICE)
 
+    def dense(lo, scale, draw):
+        if params == "offset":
+            flat = lo + scale * draw(rows * n + 1, generator=gen, device=dev)
+            return flat[1:].view(rows, n)
+        return lo + scale * draw(rows, n, generator=gen, device=dev)
+
     def param(lo, hi):
-        shape = {"per_row": (rows, n), "shared": (n,),
-                 "scalar": (rows, 1)}[params]
+        if params in ("per_row", "offset"):
+            return dense(lo, hi - lo, torch.rand)
+        shape = (n,) if params == "shared" else (rows, 1)
         return (lo + (hi - lo) * torch.rand(shape, generator=gen,
                                             device=dev)).expand(rows, n)
 
-    def value(shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
     if name == "normal_sum":
-        x = (value(n).expand(rows, n) if shared_x else value((rows, n)))
-        return (ops.normal_sum_rows, (2.0 * x, param(-1.0, 1.0),
-                                      param(0.3, 3.0)),
+        x = (2.0 * torch.randn(n, generator=gen, device=dev).expand(rows, n)
+             if shared_x else dense(0.0, 2.0, torch.randn))
+        return (ops.normal_sum_rows, (x, param(-1.0, 1.0), param(0.3, 3.0)),
                 ref.normal_logpdf_sum_ref)
     if name == "beta_unnorm_sum":
-        x = 0.01 + 0.98 * torch.rand(rows, n, generator=gen, device=dev)
-        return (ops.beta_unnorm_sum_rows, (x, param(-0.5, 3.0),
+        return (ops.beta_unnorm_sum_rows, (dense(0.01, 0.98, torch.rand),
+                                           param(-0.5, 3.0),
                                            param(-0.5, 3.0)),
                 ref.beta_unnorm_logpdf_sum_ref)
-    return (ops.student_t_unnorm_sum_rows, (3.0 * value((rows, n)),
+    return (ops.student_t_unnorm_sum_rows, (dense(0.0, 3.0, torch.randn),
                                             param(0.5, 30.0)),
             ref.student_t_unnorm_logpdf_sum_ref)
 
@@ -647,7 +678,8 @@ def check_density_kernels(torch, ops, ref):
     """normal_sum and beta_unnorm_sum at 1e-6 of the sum of their terms'
     magnitudes (their terms change sign), student_t_unnorm_sum at rtol 1e-6
     (every term <= 0), each over CHECK_ROWS x CHECK_N with parameters per
-    row, shared by the rows and one per row; mvn_quadform_sum at rtol 1e-5
+    row, shared by the rows, one per row and offset views (ELEM_PARAMS);
+    mvn_quadform_sum at rtol 1e-5
     (a float32 product over D terms per entry, with a positive definite
     precision) over MVN_D x MVN_N x CHECK_ROWS up to MVN_MAX_ELEMS, the
     precision shared by the rows and per row; all with bit-identical
@@ -685,8 +717,8 @@ def check_density_kernels(torch, ops, ref):
                 n_elem += 1
     log(f"normal_sum, beta_unnorm_sum, student_t_unnorm_sum vs plain: "
         f"{n_elem} cases (n up to 1,000,003, {CHECK_ROWS} rows, parameters "
-        "per row, shared and one per row), 1e-6 of sum|terms| (rtol 1e-6 "
-        "for student_t), bit-identical reruns: ok")
+        "per row, shared, one per row and offset views), 1e-6 of "
+        "sum|terms| (rtol 1e-6 for student_t), bit-identical reruns: ok")
 
     n_mvn = skipped = 0
     for d in MVN_D:
@@ -1248,12 +1280,14 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish, except mvn_quadform_sum, std_normal_sum and
-# gamma_unnorm_sum, whose last block of a row sums the row's partials
+# per-row finish, except mvn_quadform_sum and the one-launch reductions
+# (std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum,
+# student_t_unnorm_sum), whose last block of a row sums the row's partials
 # inside the one launch (a row of one block writes its sum itself)
 KERNEL_LAUNCHES_PER_CALL = 2
 LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1, "std_normal_sum": 1,
-                     "gamma_unnorm_sum": 1}
+                     "gamma_unnorm_sum": 1, "beta_unnorm_sum": 1,
+                     "student_t_unnorm_sum": 1}
 
 
 def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
@@ -2368,7 +2402,8 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
 # kernels whose line has a row for each timed call, not only the widest
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
                  "categorical_logits_sum_small", "ssd_scan",
-                 "std_normal_sum", "gamma_unnorm_sum")
+                 "std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
+                 "student_t_unnorm_sum")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),

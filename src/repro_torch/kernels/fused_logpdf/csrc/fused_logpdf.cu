@@ -41,13 +41,18 @@
 // gauss_unknown's normal 4 x 10,000 of which it reads 10,000 + 8 floats)
 // the data is bytes to hundreds of KB, so the time is launch latency, not
 // bandwidth; lda's categorical block (4 x 10,176 x 100, 16 MB) is the one
-// that can reach the bandwidth.
+// that can reach the bandwidth. Beta's logf and log1pf and student_t's
+// divide and log1pf are some dozens of instructions an element in
+// software: where a row is one block, the SM that holds it issues them
+// all, which adds 0.3-0.9 us to one launch at 4 x 1,024 and 4 x 2,048,
+// and at 4 x 40,000 beta takes 1.1 us more than std_normal on the same
+// grid (chip_compare.py, H100 80GB HBM3 at 700 W), far above the bytes.
 //
 // Design. The TPU kernel walks an (R, 128) tiling of the input in a
 // sequential grid and carries a VMEM accumulator from step to step. Hopper
 // runs blocks in parallel in no order, so nothing carries over between
-// blocks. For bernoulli, categorical, normal, beta and student_t there is
-// a deterministic two-stage reduction:
+// blocks. For bernoulli, categorical and normal there is a deterministic
+// two-stage reduction:
 //   stage 1: grid (nparts, B). Block (p, b) strides over row b with a
 //            grid-stride loop, masks the ragged end by index (no padding
 //            to tiles), and reduces its 256 thread sums with warp shuffles
@@ -58,13 +63,15 @@
 // function of (n, nparts) alone, so two runs give bit-identical sums.
 // Their loads are scalar and coalesced.
 //
-// std_normal_sum (TPU: kernel.py:54 / :266) and gamma_unnorm_sum (:154 /
-// :292) take ONE launch a call. At the main paths' shapes (std_normal 4 x
-// 11, 4 x 101, 4 x 400; hier_poisson's gamma 4 x 1) their bytes take
-// 0.002-0.01 us at 3.35 TB/s, so what bounds them on this card is one
-// launch's latency; bytes bound them only past about a megabyte (4 x
-// 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A second launch per call (stage
-// 2) doubled the launch floor, so here:
+// std_normal_sum (TPU: kernel.py:54 / :266), gamma_unnorm_sum (:154 /
+// :292), beta_unnorm_sum (:174 / :301) and student_t_unnorm_sum (:194 /
+// :310) take ONE launch a call (row_sum). At the main paths' shapes
+// (std_normal 4 x 11, 4 x 101, 4 x 400; hier_poisson's gamma 4 x 1;
+// mixed's beta 4 x 1 and student_t 4 x 8; family_mix_8k's 4 x 1,024 and
+// 4 x 2,048) their bytes take 0.00001-0.01 us at 3.35 TB/s, so what
+// bounds them on this card is one launch's latency; bytes bound them only
+// past about a megabyte (4 x 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A
+// second launch per call (stage 2) doubled the launch floor, so here:
 //   - a block's share of a row is 2,048 floats a round: 256 threads with
 //     two 16-byte loads each (8 KB) in flight at once, about one round trip
 //     to L2 (~0.3-0.5 us; more from HBM). A merge across blocks costs a
@@ -85,9 +92,20 @@
 //     0.02-0.14 us at the main paths' short rows.
 //   - loads are 16 bytes when every input's row starts are 16-byte aligned
 //     (base aligned, row stride a multiple of 4 floats or 0), else scalar
-//     (a z[:, 1:] view, n = 101). The caller (ops.reduce_plan) picks both
-//     from n and the addresses, so reruns are bit-identical; the two load
-//     widths sum in different orders, each fixed.
+//     (a z[:, 1:] view, n = 101). Beta's and student_t's inputs each have
+//     an element stride of 0 or 1. An element-stride-0 input is one value
+//     a row (a per-chain scalar under vmap: row stride 1); each thread
+//     reads it once, before its loop, it stands for all four lanes of a
+//     vector and it never takes a 16-byte load, so only the dense inputs
+//     decide the load width. Its flag is uniform over the grid, so the
+//     branch on it does not diverge. (A template flag per input instead,
+//     28 row_sum instances against 8 and a 31 % larger library, ran
+//     0.2 us faster on one-value-a-row parameters and 0.07 us slower to
+//     0.08 us faster on the main paths' shared rows: chip_compare.py on
+//     an H100 80GB HBM3 at 700 W.) The caller (ops.reduce_plan) picks
+//     parts and width from n and the addresses, so reruns are
+//     bit-identical; the two load widths sum in different orders, each
+//     fixed.
 // The wrapper keeps `partials` and the counts once per (device, stream),
 // so a call allocates only `out`.
 //
@@ -166,8 +184,8 @@ bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
   }
 }
 
-// One input of the per-element kernels: base pointer, row stride, element
-// stride (0 reads one value for the whole row).
+// One input of normal_partials: base pointer, row stride, element stride
+// (0 reads one value for the whole row).
 struct Strided {
   const float* p;
   long long row_stride;
@@ -190,45 +208,6 @@ normal_partials(Strided x, Strided mu, Strided sig, long long n,
     const float s = srow[i * sig.elem_stride];
     const float z = (xrow[i * x.elem_stride] - mrow[i * mu.elem_stride]) / s;
     acc += (-0.5f * z * z - logf(s)) - kHalfLog2Pi;
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-beta_unnorm_partials(Strided x, Strided am1, Strided bm1, long long n,
-                     float* __restrict__ partials) {
-  const float* xrow = x.row(blockIdx.y);
-  const float* arow = am1.row(blockIdx.y);
-  const float* brow = bm1.row(blockIdx.y);
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    const float xi = xrow[i * x.elem_stride];
-    acc += arow[i * am1.elem_stride] * logf(xi)
-         + brow[i * bm1.elem_stride] * log1pf(-xi);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-student_t_unnorm_partials(Strided z, Strided df, long long n,
-                          float* __restrict__ partials) {
-  const float* zrow = z.row(blockIdx.y);
-  const float* drow = df.row(blockIdx.y);
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    const float zi = zrow[i * z.elem_stride];
-    const float d = drow[i * df.elem_stride];
-    acc += -0.5f * (d + 1.0f) * log1pf(zi * zi / d);
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) {
@@ -401,22 +380,27 @@ constexpr int kLoads = 2;
 constexpr int kShare = kThreads * 4 * kLoads;  // 2,048 floats
 constexpr int kMaxShareParts = 1024;           // blocks a row; rounds beyond
 
-// The terms of one family at row b: one element (i), or the four elements
-// of 16-byte vector j (elements 4j .. 4j + 3), summed in that order.
+// The terms of one family. at(b) is row b as one thread reads it; its
+// one(i) is the term of element i, its four(j) the terms of 16-byte vector
+// j (elements 4j .. 4j + 3), summed in that order.
 struct StdNormalRow {
   const float* z;
   long long zs;
-  __device__ __forceinline__ float one(int b, long long i) const {
-    return std_normal_term(__ldg(z + b * zs + i));
-  }
-  __device__ __forceinline__ float four(int b, long long j) const {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(z + b * zs) + j);
-    float s = std_normal_term(v.x);
-    s += std_normal_term(v.y);
-    s += std_normal_term(v.z);
-    s += std_normal_term(v.w);
-    return s;
-  }
+  struct At {
+    const float* z;
+    __device__ __forceinline__ float one(long long i) const {
+      return std_normal_term(__ldg(z + i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(z) + j);
+      float s = std_normal_term(v.x);
+      s += std_normal_term(v.y);
+      s += std_normal_term(v.z);
+      s += std_normal_term(v.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const { return {z + b * zs}; }
 };
 
 // am1 log x - rate x; x <= 0 gives what logf gives (-inf at 0, NaN below)
@@ -431,21 +415,105 @@ struct GammaRow {
   long long as;
   const float* rate;
   long long rs;
-  __device__ __forceinline__ float one(int b, long long i) const {
-    return gamma_term(__ldg(am1 + b * as + i), __ldg(x + b * xs + i),
-                      __ldg(rate + b * rs + i));
+  struct At {
+    const float* x;
+    const float* am1;
+    const float* rate;
+    __device__ __forceinline__ float one(long long i) const {
+      return gamma_term(__ldg(am1 + i), __ldg(x + i), __ldg(rate + i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      using V = const float4*;
+      const float4 xv = __ldg(reinterpret_cast<V>(x) + j);
+      const float4 av = __ldg(reinterpret_cast<V>(am1) + j);
+      const float4 rv = __ldg(reinterpret_cast<V>(rate) + j);
+      float s = gamma_term(av.x, xv.x, rv.x);
+      s += gamma_term(av.y, xv.y, rv.y);
+      s += gamma_term(av.z, xv.z, rv.z);
+      s += gamma_term(av.w, xv.w, rv.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const {
+    return {x + b * xs, am1 + b * as, rate + b * rs};
   }
-  __device__ __forceinline__ float four(int b, long long j) const {
-    using V = const float4*;
-    const float4 xv = __ldg(reinterpret_cast<V>(x + b * xs) + j);
-    const float4 av = __ldg(reinterpret_cast<V>(am1 + b * as) + j);
-    const float4 rv = __ldg(reinterpret_cast<V>(rate + b * rs) + j);
-    float s = gamma_term(av.x, xv.x, rv.x);
-    s += gamma_term(av.y, xv.y, rv.y);
-    s += gamma_term(av.z, xv.z, rv.z);
-    s += gamma_term(av.w, xv.w, rv.w);
-    return s;
+};
+
+// One input of beta_unnorm_sum and student_t_unnorm_sum: base, row stride,
+// and whether its elements are dense (element stride 1) or one value a row
+// (element stride 0). The flag is the same for every thread of the grid.
+struct Elem {
+  const float* p;
+  long long rs;
+  bool dense;
+  // row b: its start, or its one value, read once
+  struct At {
+    const float* p;
+    float v;
+    bool dense;
+    __device__ __forceinline__ float one(long long i) const {
+      return dense ? __ldg(p + i) : v;
+    }
+    __device__ __forceinline__ float4 four(long long j) const {
+      return dense ? __ldg(reinterpret_cast<const float4*>(p) + j)
+                   : make_float4(v, v, v, v);
+    }
+  };
+  __device__ __forceinline__ At at(int b) const {
+    const float* row = p + b * rs;
+    return {row, dense ? 0.0f : __ldg(row), dense};
   }
+};
+
+// am1 log x + bm1 log1p(-x); x outside (0, 1) gives what logf and log1pf
+// give (-inf at the ends, NaN beyond)
+__device__ __forceinline__ float beta_term(float x, float am1, float bm1) {
+  return am1 * logf(x) + bm1 * log1pf(-x);
+}
+
+struct BetaRow {
+  Elem x, am1, bm1;
+  struct At {
+    Elem::At x, am1, bm1;
+    __device__ __forceinline__ float one(long long i) const {
+      return beta_term(x.one(i), am1.one(i), bm1.one(i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      const float4 xv = x.four(j), av = am1.four(j), bv = bm1.four(j);
+      float s = beta_term(xv.x, av.x, bv.x);
+      s += beta_term(xv.y, av.y, bv.y);
+      s += beta_term(xv.z, av.z, bv.z);
+      s += beta_term(xv.w, av.w, bv.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const {
+    return {x.at(b), am1.at(b), bm1.at(b)};
+  }
+};
+
+// -(df + 1) / 2 log1p(z^2 / df)
+__device__ __forceinline__ float student_t_term(float z, float df) {
+  return -0.5f * (df + 1.0f) * log1pf(z * z / df);
+}
+
+struct StudentTRow {
+  Elem z, df;
+  struct At {
+    Elem::At z, df;
+    __device__ __forceinline__ float one(long long i) const {
+      return student_t_term(z.one(i), df.one(i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      const float4 zv = z.four(j), dv = df.four(j);
+      float s = student_t_term(zv.x, dv.x);
+      s += student_t_term(zv.y, dv.y);
+      s += student_t_term(zv.z, dv.z);
+      s += student_t_term(zv.w, dv.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const { return {z.at(b), df.at(b)}; }
 };
 
 // Grid (nparts, rows). Block (p, b) sums its shares of row b, rounds p,
@@ -461,6 +529,7 @@ row_sum(Row row, long long n, float* partials, int* counts,
   constexpr int kPer = kVec ? kLoads : 4 * kLoads;
   const int b = blockIdx.y;
   const int parts = gridDim.x;
+  const auto r = row.at(b);
   float acc = 0.0f;
   for (long long base = static_cast<long long>(blockIdx.x) * kShare; base < n;
        base += static_cast<long long>(parts) * kShare) {
@@ -469,13 +538,13 @@ row_sum(Row row, long long n, float* partials, int* counts,
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const long long j = (base >> 2) + threadIdx.x + k * kThreads;
-        part[k] = j < (n >> 2) ? row.four(b, j) : 0.0f;
+        part[k] = j < (n >> 2) ? r.four(j) : 0.0f;
       }
     } else {
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const long long i = base + threadIdx.x + k * kThreads;
-        part[k] = i < n ? row.one(b, i) : 0.0f;
+        part[k] = i < n ? r.one(i) : 0.0f;
       }
     }
 #pragma unroll
@@ -483,7 +552,7 @@ row_sum(Row row, long long n, float* partials, int* counts,
   }
   if (kVec && blockIdx.x == 0 && threadIdx.x == 0) {
     // the 0-3 floats past the last whole vector
-    for (long long i = n & ~3LL; i < n; ++i) acc += row.one(b, i);
+    for (long long i = n & ~3LL; i < n; ++i) acc += r.one(i);
   }
   acc = block_sum(acc);
   if (parts == 1) {
@@ -541,6 +610,13 @@ int launch_row_sum(const Row& row, bool vec, int rows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// An input of beta_unnorm_sum or student_t_unnorm_sum: an element stride
+// of 0 or 1, and, with 16-byte loads, a dense one starting every row
+// 16-byte aligned (a one-value-a-row input takes no vector load)
+bool elem_ok(const float* p, long long rs, long long es, bool vec) {
+  return (es == 0 || es == 1) && (!vec || es == 0 || aligned16(p, rs));
+}
+
 bool bad_shape(int rows, long long n, int nparts) {
   return rows <= 0 || rows > 65535 || n <= 0 || nparts <= 0 || nparts > 65535;
 }
@@ -552,7 +628,8 @@ bool bad_shape(int rows, long long n, int nparts) {
 // holds rows * nparts floats and `out` rows floats, both allocated by the
 // caller.
 
-// std_normal_sum and gamma_unnorm_sum: one launch. nparts must be
+// std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum and
+// student_t_unnorm_sum: one launch. nparts must be
 // ceil(n / 2048) capped at 1024 (ops.reduce_plan); with one part
 // `partials` and `counts` may be null, else `partials` holds rows * nparts
 // floats and `counts` rows ints that are zero (the kernel leaves them
@@ -582,6 +659,36 @@ extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
   return launch_row_sum(
       GammaRow{x, x_row_stride, am1, a_row_stride, rate, r_row_stride},
       vec != 0, rows, n, nparts, partials, counts, out, stream);
+}
+
+// Beta and student_t take (pointer, row stride, element stride) for each
+// input; an element stride is 0 (one value a row) or 1.
+extern "C" int repro_beta_unnorm_sum(const float* x, long long x_rs, long long x_es,
+                                     const float* am1, long long a_rs, long long a_es,
+                                     const float* bm1, long long b_rs, long long b_es,
+                                     int rows, long long n, int nparts, int vec,
+                                     float* partials, int* counts, float* out,
+                                     void* stream) {
+  if (!(elem_ok(x, x_rs, x_es, vec) && elem_ok(am1, a_rs, a_es, vec) &&
+        elem_ok(bm1, b_rs, b_es, vec))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(BetaRow{{x, x_rs, x_es == 1}, {am1, a_rs, a_es == 1},
+                                {bm1, b_rs, b_es == 1}},
+                        vec != 0, rows, n, nparts, partials, counts, out, stream);
+}
+
+extern "C" int repro_student_t_unnorm_sum(const float* z, long long z_rs,
+                                          long long z_es, const float* df,
+                                          long long d_rs, long long d_es,
+                                          int rows, long long n, int nparts,
+                                          int vec, float* partials, int* counts,
+                                          float* out, void* stream) {
+  if (!(elem_ok(z, z_rs, z_es, vec) && elem_ok(df, d_rs, d_es, vec))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(StudentTRow{{z, z_rs, z_es == 1}, {df, d_rs, d_es == 1}},
+                        vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
 // The families below: stage 1, then finish_rows.
@@ -660,8 +767,8 @@ extern "C" int repro_categorical_logits_sum_small(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The per-element kernels below take (pointer, row stride, element stride)
-// for each input; an element stride is 0 or 1.
+// normal_sum takes (pointer, row stride, element stride) for each input;
+// an element stride is 0 or 1.
 extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
                                 const float* mu, long long mu_rs, long long mu_es,
                                 const float* sig, long long sig_rs, long long sig_es,
@@ -672,37 +779,6 @@ extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
   normal_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
       Strided{x, x_rs, x_es}, Strided{mu, mu_rs, mu_es},
       Strided{sig, sig_rs, sig_es}, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_beta_unnorm_sum(const float* x, long long x_rs, long long x_es,
-                                     const float* am1, long long a_rs, long long a_es,
-                                     const float* bm1, long long b_rs, long long b_es,
-                                     int rows, long long n, float* partials,
-                                     int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  beta_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      Strided{x, x_rs, x_es}, Strided{am1, a_rs, a_es}, Strided{bm1, b_rs, b_es},
-      n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_student_t_unnorm_sum(const float* z, long long z_rs,
-                                          long long z_es, const float* df,
-                                          long long d_rs, long long d_es,
-                                          int rows, long long n, float* partials,
-                                          int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  student_t_unnorm_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      Strided{z, z_rs, z_es}, Strided{df, d_rs, d_es}, n, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

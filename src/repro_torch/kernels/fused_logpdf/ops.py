@@ -68,10 +68,12 @@ _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
 # mvn_quadform_sum's last-block counts, by (device, stream): zero between
 # calls (the kernel sets each back to zero), so they are allocated once
 _MVN_COUNTS = {}
-# std_normal_sum and gamma_unnorm_sum (one launch a call): floats of a row
-# one block sums in a round (fused_logpdf.cu kShare), and their scratch by
-# (device index, stream): (float32 partials, int32 last-block counts, zero
-# between calls), grown when a call needs more
+# the kernels of one launch a call (fused_logpdf.cu row_sum): floats of a
+# row one block sums in a round (kShare), and their scratch by (device
+# index, stream): (float32 partials, int32 last-block counts, zero between
+# calls), grown when a call needs more
+_ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
+               "student_t_unnorm_sum")
 REDUCE_SHARE = 2048
 _SCRATCH = {}
 _SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
@@ -102,9 +104,12 @@ def _lib() -> ctypes.CDLL:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         # one launch: ..., rows, n, nparts, vec, partials, counts, out, stream
         tail = [i32, i64, i32, i32, p, p, p, p]
+        strided = [p, i64, i64]  # pointer, row stride, element stride
         lib.repro_std_normal_sum.argtypes = [p, i64] + tail
         lib.repro_gamma_unnorm_sum.argtypes = [p, i64, p, i64, p, i64] + tail
-        for name in ("std_normal_sum", "gamma_unnorm_sum"):
+        lib.repro_beta_unnorm_sum.argtypes = 3 * strided + tail
+        lib.repro_student_t_unnorm_sum.argtypes = 2 * strided + tail
+        for name in _ONE_LAUNCH:
             fn = getattr(lib, f"repro_{name}")
             fn.restype = i32
             _REDUCE_FNS[name] = fn
@@ -117,14 +122,8 @@ def _lib() -> ctypes.CDLL:
         lib.repro_categorical_logits_sum_small.argtypes = [
             p, i64, p, i64, i32, i64, i32, i32, p, i32, p, p]
         lib.repro_categorical_logits_sum_small.restype = i32
-        strided = [p, i64, i64]  # pointer, row stride, element stride
-        tail = [i32, i64, p, i32, p, p]
-        lib.repro_normal_sum.argtypes = 3 * strided + tail
-        lib.repro_beta_unnorm_sum.argtypes = 3 * strided + tail
-        lib.repro_student_t_unnorm_sum.argtypes = 2 * strided + tail
-        for f in (lib.repro_normal_sum, lib.repro_beta_unnorm_sum,
-                  lib.repro_student_t_unnorm_sum):
-            f.restype = i32
+        lib.repro_normal_sum.argtypes = 3 * strided + [i32, i64, p, i32, p, p]
+        lib.repro_normal_sum.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -191,24 +190,31 @@ def _device_kind(*ts: torch.Tensor) -> str:
 
 
 class ReducePlan(NamedTuple):
-    """How ``std_normal_sum`` and ``gamma_unnorm_sum`` launch: ``nparts``
-    blocks a row (1: the block writes the row's sum itself; more: the last
-    block of a row to finish sums the row's partials) and ``vec``, 16-byte
-    loads."""
+    """How the one-launch reductions (``std_normal_sum``,
+    ``gamma_unnorm_sum``, ``beta_unnorm_sum``, ``student_t_unnorm_sum``)
+    launch: ``nparts`` blocks a row (1: the block writes the row's sum
+    itself; more: the last block of a row to finish sums the row's
+    partials) and ``vec``, 16-byte loads."""
     nparts: int
     vec: bool
+
+
+def _vector_ready(addr: int, row_stride: int, elem_stride: int = 1) -> bool:
+    """An input that 16-byte loads can read: one value a row (element
+    stride 0, read once and never as a vector), or rows that all start
+    16-byte aligned (row stride 0 included)."""
+    return elem_stride == 0 or (addr % 16 == 0 and row_stride % 4 == 0)
 
 
 def reduce_plan(n: int, inputs=()) -> ReducePlan:
     """The one-launch reduction of rows of ``n`` floats: ``nparts`` is
     ``ceil(n / REDUCE_SHARE)``, at most 1,024, from ``n`` alone (so reruns
-    are bit-identical); 16-byte loads when each input, given as ``(address
-    in bytes, row stride in floats)``, starts every row 16-byte aligned
-    (row stride 0 included). Pure Python, as ``fused_logpdf.cu`` checks
-    it."""
+    are bit-identical); 16-byte loads when every input, given as ``(address
+    in bytes, row stride in floats)`` or ``(address, row stride, element
+    stride)``, can take them: each row start 16-byte aligned, or an element
+    stride of 0. Pure Python, as ``fused_logpdf.cu`` checks it."""
     nparts = max(1, min(_MAX_PARTS, -(-n // REDUCE_SHARE)))
-    vec = all(addr % 16 == 0 and stride % 4 == 0 for addr, stride in inputs)
-    return ReducePlan(nparts, vec)
+    return ReducePlan(nparts, all(_vector_ready(*t) for t in inputs))
 
 
 def partials_needed(rows: int, plan: ReducePlan) -> int:
@@ -230,20 +236,30 @@ def _reduce_scratch(index: int, stream: int, rows: int, need: int):
     return entry[0].data_ptr(), entry[1].data_ptr()
 
 
+def _reduce_inputs(ins: Sequence[torch.Tensor], rows: int, n: int,
+                   elem_strides: bool = False):
+    """Each input of a one-launch reduction as the C side takes it:
+    ``(address, row stride)``, or with ``elem_strides`` ``(address, row
+    stride, element stride)``, where a row of one element counts as one
+    value a row (element stride 0)."""
+    if elem_strides:
+        return [(t.data_ptr(), t.stride(0) if rows > 1 else 0,
+                 t.stride(1) if n > 1 else 0) for t in ins]
+    return [(t.data_ptr(), t.stride(0) if rows > 1 else 0) for t in ins]
+
+
 def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
-                 n: int) -> torch.Tensor:
-    """Launch ``std_normal_sum`` or ``gamma_unnorm_sum`` once on CUDA rows
-    that ``_check_rows`` passed: the plan from ``n`` and the addresses,
-    scratch from ``_SCRATCH`` when a row takes more than one block, and
-    only ``out`` allocated."""
+                 n: int, elem_strides: bool = False) -> torch.Tensor:
+    """Launch one of the one-launch reductions once on CUDA rows that
+    ``_check_rows`` (or, with ``elem_strides``, ``_check_strided``) passed:
+    the plan from ``n`` and the addresses, scratch from ``_SCRATCH`` when a
+    row takes more than one block, and only ``out`` allocated."""
     dev = ins[0].device
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     if n == 0:
         return out.zero_()
-    args = []
-    for t in ins:
-        args += (t.data_ptr(), t.stride(0) if rows > 1 else 0)
-    plan = reduce_plan(n, zip(args[::2], args[1::2]))
+    inputs = _reduce_inputs(ins, rows, n, elem_strides)
+    plan = reduce_plan(n, inputs)
     fn = _REDUCE_FNS.get(kernel)
     if fn is None:  # the first call builds and binds the library
         _lib()
@@ -257,8 +273,8 @@ def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
         need = partials_needed(rows, plan)
         if need:
             partials, counts = _reduce_scratch(index, stream, rows, need)
-        err = fn(*args, rows, n, plan.nparts, plan.vec, partials, counts,
-                 out.data_ptr(), stream)
+        err = fn(*(v for t in inputs for v in t), rows, n, plan.nparts,
+                 plan.vec, partials, counts, out.data_ptr(), stream)
     if err:
         _raise_on(err, kernel)
     LAUNCHES[kernel] += 1
@@ -387,13 +403,17 @@ def _check_strided(name: str, t: torch.Tensor, rows: int, n: int) -> None:
 
 def _strided_sum(kernel: str, plain, names, *ins: torch.Tensor) -> torch.Tensor:
     """Launch one per-element row-sum kernel of ``fused_logpdf.cu`` on
-    ``(B, n)`` inputs, each passed as (pointer, row stride, element
-    stride); on CPU tensors run ``plain``."""
+    ``(B, n)`` inputs of any row stride and an element stride of 0 or 1:
+    beta's and student_t's one launch, or normal's two stages (each input
+    passed as pointer, row stride, element stride); on CPU tensors run
+    ``plain``."""
     rows, n = ins[0].shape
     for name, t in zip(names, ins):
         _check_strided(name, t, rows, n)
     if _device_kind(*ins) == "cpu":
         return plain(*ins)
+    if kernel in _ONE_LAUNCH:
+        return _reduce_rows(kernel, ins, rows, n, elem_strides=True)
     out = torch.empty(rows, dtype=torch.float32, device=ins[0].device)
     if n == 0:
         return out.zero_()
@@ -668,9 +688,16 @@ class _CategoricalLogitsSum(torch.autograd.Function):
 def _strided_rows(t: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     """View ``t`` broadcast to ``shape`` as ``(B, n)`` rows for the
     per-element kernels, which read any row stride and an element stride of
-    0 or 1: a broadcast scalar per row (one mu per chain) stays a view."""
-    shape = shape if len(shape) else torch.Size([1])
-    rows = t.to(torch.float32).expand(shape).reshape(-1, shape[-1])
+    0 or 1: a broadcast scalar per row (one mu per chain) stays a view.
+    Each step runs only where it changes something (each is a dispatch on
+    every evaluation)."""
+    if t.dtype != torch.float32:
+        t = t.to(torch.float32)
+    if len(shape) == 2:
+        rows = t if t.shape == shape else t.expand(shape)
+    else:
+        shape = shape if len(shape) else torch.Size([1])
+        rows = t.expand(shape).reshape(-1, shape[-1])
     if shape[-1] > 1 and rows.stride(1) not in (0, 1):
         rows = rows.contiguous()
     return rows
@@ -686,9 +713,11 @@ def _batch_front(args, in_dims):
     out = []
     for t, d in zip(args, in_dims):
         if d is not None:
-            t = t.movedim(d, 0)
-            t = t.reshape(t.shape[:1] + (1,) * (rank + 1 - t.dim())
-                          + t.shape[1:])
+            if d != 0:
+                t = t.movedim(d, 0)
+            if t.dim() < rank + 1:
+                t = t.reshape(t.shape[:1] + (1,) * (rank + 1 - t.dim())
+                              + t.shape[1:])
         out.append(t)
     return out
 
@@ -696,7 +725,7 @@ def _batch_front(args, in_dims):
 def _elementwise_forward(rows_fn, *ins):
     shape = torch.broadcast_shapes(*(t.shape for t in ins))
     out = rows_fn(*(_strided_rows(t, shape) for t in ins))
-    return out.reshape(shape[:-1])
+    return out if len(shape) == 2 else out.reshape(shape[:-1])
 
 
 class _NormalSum(torch.autograd.Function):

@@ -645,3 +645,64 @@ def test_reduce_scratch_never_exceeds_rows_times_parts(rows, n):
     need = ops.partials_needed(rows, plan)
     assert need <= rows * plan.nparts
     assert need == (0 if n <= ops.REDUCE_SHARE else rows * plan.nparts)
+
+
+# beta's and student_t's inputs: (address, row stride, element stride); an
+# element stride of 0 is one value a row, read once and never as a vector
+PARTS_AT = {1: 1, 8: 1, 1024: 1, 2048: 1, 2049: 2, 40_000: 20}
+
+
+@pytest.mark.parametrize("n", sorted(PARTS_AT))
+@pytest.mark.parametrize("inputs,vec", [
+    # dense rows beside a per-row scalar at any address (vmap's mu)
+    (((ALIGNED, 40_000, 1), (UNALIGNED, 1, 0), (ALIGNED + 8, 1, 0)), True),
+    # a shared row, and one value shared by every row
+    (((ALIGNED, 40_000, 1), (ALIGNED, 0, 1), (UNALIGNED, 0, 0)), True),
+    (((UNALIGNED, 40_000, 1), (ALIGNED, 1, 0)), False),  # a z[:, 1:] view
+    (((ALIGNED, 40_000, 1), (UNALIGNED, 0, 1)), False),  # shared, off 16 B
+    (((ALIGNED, 101, 1), (ALIGNED, 1, 0)), False),       # rows drift off
+    (((UNALIGNED, 3, 0), (UNALIGNED + 4, 1, 0)), True),  # all one a row
+    (((ALIGNED, 0), (UNALIGNED, 1, 0)), True)])          # both forms
+def test_reduce_plan_element_strides(n, inputs, vec):
+    """An element-stride-0 input never bars 16-byte loads; an unaligned
+    dense one does; the parts come from n alone."""
+    assert ops.reduce_plan(n, inputs) == ops.ReducePlan(PARTS_AT[n], vec)
+
+
+def _family_rows(family, rows, n, layout):
+    """CPU inputs of beta_unnorm_sum or student_t_unnorm_sum in the layouts
+    the kernels take: x dense, or one float past a 16-byte boundary
+    ("offset"); the parameters per row ("dense"), one row shared by every
+    row ("shared", row stride 0) or one value a row ("scalar", element
+    stride 0)."""
+    if layout == "offset":
+        x = torch.full((rows * n + 1,), 0.5)[1:].view(rows, n)
+    else:
+        x = torch.full((rows, n), 0.5)
+    param = {"dense": lambda: torch.ones(rows, n),
+             "offset": lambda: torch.ones(rows, n),
+             "shared": lambda: torch.ones(n).expand(rows, n),
+             "scalar": lambda: torch.ones(rows, 1).expand(rows, n)}[layout]
+    return (x, param(), param()) if family == "beta" else (x, param())
+
+
+@pytest.mark.parametrize("family", ["beta", "student_t"])
+@pytest.mark.parametrize("layout", ["dense", "offset", "shared", "scalar"])
+@pytest.mark.parametrize("rows,n", [(4, 1), (4, 8), (4, 1024), (4, 2048),
+                                    (4, 2049), (4, 40_000), (1, 1_000_003)])
+def test_partials_needed_for_beta_and_student_t(family, layout, rows, n):
+    """The plan each wrapper takes from its inputs' layout, and the scratch
+    a call needs: none up to one block's share of a row, one float a
+    (row, part) beyond. Pure Python on CPU tensors (their addresses and
+    strides are what the wrapper reads on the card)."""
+    ins = _family_rows(family, rows, n, layout)
+    inputs = ops._reduce_inputs(ins, rows, n, elem_strides=True)
+    es = {"dense": 1, "offset": 1, "shared": 1, "scalar": 0}[layout]
+    assert inputs[1][1:] == ((0 if layout == "shared" or rows == 1 else n
+                              if es else 1), es if n > 1 else 0)
+    plan = ops.reduce_plan(n, inputs)
+    assert plan.nparts == -(-n // ops.REDUCE_SHARE)
+    assert plan.vec == (n == 1 or (layout != "offset"
+                                   and (rows == 1 or n % 4 == 0)))
+    need = ops.partials_needed(rows, plan)
+    assert need == (0 if n <= ops.REDUCE_SHARE else rows * plan.nparts)

@@ -134,19 +134,26 @@ def test_cuda_gamma_matches_plain_version(cuda_device, rows, n, shared):
     assert torch.equal(ops.gamma_unnorm_sum_rows(x, am1, rate), got)
 
 
-# std_normal_sum and gamma_unnorm_sum, one launch a call: one block a row
-# up to ops.REDUCE_SHARE floats, the last block of a row merging beyond
+# std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum and student_t_unnorm_sum,
+# one launch a call: one block a row up to ops.REDUCE_SHARE floats, the
+# last block of a row merging beyond
 ONE_LAUNCH_SHAPES = [(1, 1), (4, 11), (4, 101), (4, 400),
                      (4, ops.REDUCE_SHARE - 1),
                      (4, ops.REDUCE_SHARE), (4, ops.REDUCE_SHARE + 1),
                      (4, 40000), (16, 257), (1, 1_000_003)]
-ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum")
+ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
+              "student_t_unnorm_sum")
+# the two whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum")
+# beta's and student_t's main paths: mixed's 4 x 1 and 4 x 8,
+# family_mix_8k's 4 x 1,024 and 4 x 2,048, and the wide timing shape
+ELEM_MAIN_SHAPES = [(4, 1), (4, 8), (4, 1024), (4, 2048), (4, 40000)]
 
 
 def _rows(rows, n, gen, dev, layout, lo=0.0, scale=1.0, randn=False):
     """``(rows, n)`` float32: "aligned" a fresh tensor, "offset" a view one
     float past a 16-byte boundary (z[:, 1:] of one row), "shared" one row
-    at row stride 0."""
+    at row stride 0, "scalar" one value a row (element stride 0)."""
     draw = torch.randn if randn else torch.rand
     if layout == "offset":
         flat = lo + scale * draw(rows * n + 1, generator=gen, device=dev)
@@ -154,18 +161,34 @@ def _rows(rows, n, gen, dev, layout, lo=0.0, scale=1.0, randn=False):
     if layout == "shared":
         row = lo + scale * draw(n, generator=gen, device=dev)
         return row.expand(rows, n)
+    if layout == "scalar":
+        col = lo + scale * draw(rows, 1, generator=gen, device=dev)
+        return col.expand(rows, n)
     return lo + scale * draw(rows, n, generator=gen, device=dev)
 
 
 def _one_launch_case(family, rows, n, layout, gen, dev):
-    """(wrapper, inputs, plain version, the sum's scale for the gate)."""
+    """(wrapper, inputs, plain version, the sum's scale for the gate): the
+    value dense (or offset), the parameters in ``layout``."""
+    value = "offset" if layout == "offset" else "aligned"
     if family == "std_normal_sum":
-        z = _rows(rows, n, gen, dev, "offset" if layout == "offset"
-                  else "aligned", scale=2.0, randn=True)
+        z = _rows(rows, n, gen, dev, value, scale=2.0, randn=True)
         want = ref.std_normal_logpdf_sum_ref(z)
         return ops.std_normal_sum_rows, (z,), want, want.abs()
-    x = _rows(rows, n, gen, dev, "offset" if layout == "offset"
-              else "aligned", lo=0.05, scale=4.0)
+    if family == "student_t_unnorm_sum":
+        z = _rows(rows, n, gen, dev, value, scale=3.0, randn=True)
+        df = _rows(rows, n, gen, dev, layout, lo=0.5, scale=29.5)
+        want = ref.student_t_unnorm_logpdf_sum_ref(z, df)
+        return ops.student_t_unnorm_sum_rows, (z, df), want, want.abs()
+    if family == "beta_unnorm_sum":
+        x = _rows(rows, n, gen, dev, value, lo=0.01, scale=0.98)
+        am1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
+        bm1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
+        want = ref.beta_unnorm_logpdf_sum_ref(x, am1, bm1)
+        terms = ((am1 * torch.log(x)).abs()
+                 + (bm1 * torch.log1p(-x)).abs()).sum(-1)
+        return ops.beta_unnorm_sum_rows, (x, am1, bm1), want, terms
+    x = _rows(rows, n, gen, dev, value, lo=0.05, scale=4.0)
     am1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
     rate = _rows(rows, n, gen, dev, layout, lo=0.2, scale=3.0)
     want = ref.gamma_unnorm_logpdf_sum_ref(x, am1, rate)
@@ -173,7 +196,11 @@ def _one_launch_case(family, rows, n, layout, gen, dev):
     return ops.gamma_unnorm_sum_rows, (x, am1, rate), want, terms
 
 
-def _plan_of(args, rows, n):
+def _plan_of(args, rows, n, family="std_normal_sum"):
+    """The plan the wrapper takes: beta and student_t read each input's
+    element stride as well."""
+    if family in ELEM_STRIDED:
+        return ops.reduce_plan(n, ops._reduce_inputs(args, rows, n, True))
     return ops.reduce_plan(n, [(t.data_ptr(), t.stride(0) if rows > 1 else 0)
                                for t in args])
 
@@ -189,20 +216,25 @@ def _counts_are_zero(stream):
 @pytest.mark.parametrize("family,layout", [
     ("std_normal_sum", "aligned"), ("std_normal_sum", "offset"),
     ("gamma_unnorm_sum", "aligned"), ("gamma_unnorm_sum", "offset"),
-    ("gamma_unnorm_sum", "shared")])
+    ("gamma_unnorm_sum", "shared")] + [
+    (family, layout) for family in ELEM_STRIDED
+    for layout in ("aligned", "offset", "shared", "scalar")])
 @pytest.mark.parametrize("rows,n", ONE_LAUNCH_SHAPES)
 def test_cuda_one_launch_sums_match_plain_versions(cuda_device, family,
                                                    layout, rows, n):
     """Both paths (one block a row, last-block merge) and both load widths,
-    at rtol 1e-6 (std_normal: every term < 0) and 1e-6 of sum|terms|
-    (gamma), one launch a call, bit-identical on a rerun, counts back at
-    0. "shared" gives gamma's am1 and rate at row stride 0."""
+    at rtol 1e-6 (std_normal, student_t: every term <= 0) and 1e-6 of
+    sum|terms| (gamma, beta), one launch a call, bit-identical on a rerun,
+    counts back at 0. "shared" gives the parameters at row stride 0,
+    "scalar" one value a row (element stride 0: it never bars 16-byte
+    loads, and a row of one element is one value a row)."""
     gen = torch.Generator(device=cuda_device).manual_seed(12)
     kern, args, want, scale = _one_launch_case(family, rows, n, layout, gen,
                                                cuda_device)
-    plan = _plan_of(args, rows, n)
+    plan = _plan_of(args, rows, n, family)
     assert plan.nparts == -(-n // ops.REDUCE_SHARE)
-    assert plan.vec == (layout != "offset" and (rows == 1 or n % 4 == 0))
+    assert plan.vec == ((family in ELEM_STRIDED and n == 1)
+                        or (layout != "offset" and (rows == 1 or n % 4 == 0)))
     ops.reset_launch_counts()
     got = kern(*args)
     assert ops.LAUNCHES[family] == 1
@@ -221,6 +253,29 @@ def test_cuda_one_launch_reruns_and_two_streams(cuda_device, family, rows, n):
     gen = torch.Generator(device=cuda_device).manual_seed(13)
     kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
                                         cuda_device)
+    _assert_reruns_and_two_streams(cuda_device, kern, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ELEM_STRIDED)
+@pytest.mark.parametrize("layout", ["aligned", "offset", "scalar"])
+@pytest.mark.parametrize("rows,n", [(4, ops.REDUCE_SHARE),
+                                    (4, ops.REDUCE_SHARE + 1), (4, 40000),
+                                    (1, 1_000_003)])
+def test_cuda_elem_strided_reruns_and_two_streams(cuda_device, family,
+                                                  layout, rows, n):
+    """Beta and student_t in the layouts the shared-row test above leaves
+    out: dense parameters, offset views (4-byte loads) and one value a row
+    (element stride 0), either side of one block's share and merging."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    kern, args, _, _ = _one_launch_case(family, rows, n, layout, gen,
+                                        cuda_device)
+    plan = _plan_of(args, rows, n, family)
+    assert plan.vec == (layout != "offset" and (rows == 1 or n % 4 == 0))
+    _assert_reruns_and_two_streams(cuda_device, kern, args)
+
+
+def _assert_reruns_and_two_streams(cuda_device, kern, args):
     first = kern(*args)
     again = [kern(*args) for _ in range(100)]
     assert all(torch.equal(a, first) for a in again)
@@ -245,10 +300,29 @@ def test_cuda_one_launch_is_one_kernel_by_profiler(cuda_device, family, rows,
                                                    n):
     """torch.profiler sees one kernel a call (row_sum), and no finish_rows.
     A window that missed some device activity is taken again."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
                                         cuda_device)
+    _assert_one_kernel_a_call(kern, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ELEM_STRIDED)
+@pytest.mark.parametrize("layout", ["shared", "scalar", "offset"])
+@pytest.mark.parametrize("rows,n", ELEM_MAIN_SHAPES)
+def test_cuda_elem_strided_one_kernel_by_profiler(cuda_device, family,
+                                                  layout, rows, n):
+    """Beta and student_t at their main paths' shapes, in the layouts the
+    paths pass (a shared parameter row), one value a row and offset
+    views: one row_sum kernel a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    kern, args, _, _ = _one_launch_case(family, rows, n, layout, gen,
+                                        cuda_device)
+    _assert_one_kernel_a_call(kern, args)
+
+
+def _assert_one_kernel_a_call(kern, args):
+    from torch.profiler import ProfilerActivity, profile
     kern(*args)  # scratch and library in place before the window
     torch.cuda.synchronize()
     calls, seen = 10, []
@@ -289,6 +363,42 @@ def test_cuda_one_launch_refuses_bad_plans(cuda_device):
              stream)
     with pytest.raises(KernelError, match="std_normal_sum"):
         ops._raise_on(err, "std_normal_sum")
+
+
+@pytest.mark.cuda
+def test_cuda_elem_strided_refuses_bad_plans(cuda_device):
+    """beta's and student_t's C side refuses an element stride outside
+    {0, 1}, 16-byte loads on an unaligned dense input (an unaligned input
+    of element stride 0 is taken), parts that are not ceil(n /
+    REDUCE_SHARE) and a merge without scratch; the wrapper raises the
+    error as KernelError."""
+    from repro_torch.kernels._build import KernelError
+    share = ops.REDUCE_SHARE
+    z = torch.full((4 * (share + 1) + 1,), 0.5, device=cuda_device)
+    view = z[1:].view(4, share + 1)
+    beta = ops._lib().repro_beta_unnorm_sum
+    st = ops._lib().repro_student_t_unnorm_sum
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(4, device=cuda_device)
+    a, v = z.data_ptr(), view.data_ptr()
+    tail = (4, share, 1, 1, None, None, out.data_ptr(), stream)
+    # element stride 2
+    assert beta(a, share, 1, a, share, 2, a, share, 1, *tail) != 0
+    assert st(a, share, 2, a, share, 1, *tail) != 0
+    # 16-byte loads: an unaligned dense input refused, one value a row taken
+    assert beta(v, share + 1, 1, a, 0, 1, a, 0, 1, *tail) != 0
+    assert st(a, share, 1, v, share + 1, 1, *tail) != 0
+    assert st(a, share, 1, v, 1, 0, *tail) == 0
+    assert beta(a, share, 1, v, 1, 0, v, 0, 0, *tail) == 0
+    torch.cuda.synchronize()
+    # parts not ceil(n / share), and a merge without scratch
+    assert st(a, share, 1, a, share, 1, 4, share, 2, 1, None, None,
+              out.data_ptr(), stream) != 0
+    err = beta(a, 0, 1, a, 0, 1, a, 0, 1, 1, share + 1, 2, 0, None, None,
+               out.data_ptr(), stream)
+    assert err != 0
+    with pytest.raises(KernelError, match="beta_unnorm_sum"):
+        ops._raise_on(err, "beta_unnorm_sum")
 
 
 @pytest.mark.cuda
