@@ -6,6 +6,7 @@ that ``.gitignore`` lists) or against a variant of itself, since two calls
 may land on hosts of different speed.
 
     python3 chip_compare.py --other DIR wrappers [--kernels NAME ...]
+    python3 chip_compare.py --other DIR leapfrog [--models NAME ...]
     python3 chip_compare.py --other DIR paths [--models NAME ...] [--draws N]
 
 ``wrappers`` loads the other checkout's ``fused_logpdf/ops.py`` in this
@@ -19,7 +20,12 @@ issue a call (CUDA events over back-to-back calls, eight turns), the same
 for the per-array function under ``vmap`` over the rows as the main paths
 call it (the wrapper plus the ``autograd.Function``'s forward and vmap
 rule), and the device time from the profiler (four turns, every kernel a
-call launches). ``paths`` runs
+call launches). ``leapfrog`` loads the other checkout's
+``fused_leapfrog/ops.py`` the same way and times both ``fused_leapfrog``s
+on the compiled specs of gaussian_10k (uniform NORMAL, 4 x 10,000) and
+family_mix_8k (a mixed table, 4 x 8,192), 4 chains and 4 steps, in the
+same turns, after holding q, p and the gradient to each other at rtol
+1e-5 plus 1e-5 * max|other| and the potential at rtol 1e-5. ``paths`` runs
 ``chip_smoke.run_model`` for each model in a fresh process per checkout,
 four turns, and reads milliseconds per draw. The card's name and power
 limit come first; the last line is one JSON object with every number.
@@ -36,12 +42,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TURNS = ("other", "this", "this", "other")
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum")
+              "student_t_unnorm_sum", "normal_sum")
 WIDE = {name: [(1, 1_000_003)] for name in ONE_LAUNCH}
 # family_mix_8k's blocks with one parameter value a row (a per-chain scalar
 # under vmap); MAIN_SHAPES's cases pass the parameters as one shared row,
-# as the main paths do on the card
-SCALAR = {"beta_unnorm_sum": [(4, 1024)], "student_t_unnorm_sum": [(4, 2048)]}
+# as the main paths do on the card; gauss_unknown's switch route, whose
+# data x is shared by the chains and whose mu and sigma are one a chain
+SCALAR = {"beta_unnorm_sum": [(4, 1024)], "student_t_unnorm_sum": [(4, 2048)],
+          "normal_sum": [(4, 10000)]}
 # each wrapper's per-array function, as the fused evaluator calls it
 ENTRY = {"std_normal_sum": "std_normal_logpdf_sum",
          "gamma_unnorm_sum": "gamma_unnorm_logpdf_sum",
@@ -49,12 +57,13 @@ ENTRY = {"std_normal_sum": "std_normal_logpdf_sum",
          "student_t_unnorm_sum": "student_t_unnorm_logpdf_sum",
          "normal_sum": "normal_logpdf_sum"}
 PATHS = ("logreg", "hier_poisson", "gauss_unknown", "sto_volatility", "mixed")
+LEAPFROG_PATHS = ("gaussian_10k", "family_mix_8k")
 
 
-def load_other_ops(other: Path):
+def load_other_ops(other: Path, kernel: str = "fused_logpdf"):
     spec = importlib.util.spec_from_file_location(
-        "other_fused_logpdf_ops",
-        other / "src/repro_torch/kernels/fused_logpdf/ops.py")
+        f"other_{kernel}_ops",
+        other / f"src/repro_torch/kernels/{kernel}/ops.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -130,6 +139,54 @@ def wrappers(torch, cs, other: Path, kernels) -> dict:
     return out
 
 
+def timed_turns(torch, cs, fns) -> dict:
+    """Issued time (eight turns) and device time (four turns) of each of
+    ``fns`` ("this", "other"), in microseconds."""
+    row = {"issued_us": {"this": [], "other": []},
+           "device_us": {"this": [], "other": []}}
+    for who in TURNS + TURNS:
+        row["issued_us"][who].append(cs.time_ms(torch, fns[who]) * 1e3)
+    for who in TURNS:
+        ms = cs.device_ms(torch, fns[who])
+        row["device_us"][who].append(None if ms is None else ms * 1e3)
+    return row
+
+
+def leapfrog(torch, cs, other: Path, models) -> dict:
+    """Both checkouts' fused_leapfrog on each path's compiled spec, 4
+    chains, 4 steps, in turns."""
+    from repro_torch.core.potential import compile_potential
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    mods = {"this": lf_ops, "other": load_other_ops(other, "fused_leapfrog")}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for path in models:
+        pm = cs.build_model(path)
+        spec = compile_potential(pm.model, pm.model.typed_varinfo(
+            torch.Generator(device="cuda").manual_seed(0)).link()).spec
+        cs.check(spec is not None, f"{path} compiled no separable spec")
+        rows, dim = 4, spec.dim
+        q = torch.randn(rows, dim, generator=gen, device="cuda")
+        p = torch.randn(rows, dim, generator=gen, device="cuda")
+        eps = torch.full((rows,), pm.step_size, device="cuda")
+        _, g = lf_ops.potential_value_and_grad(spec, q)
+        fns = {who: (lambda m=m: m.fused_leapfrog(spec, q, p, g, eps, 4))
+               for who, m in mods.items()}
+        got, want = fns["this"](), fns["other"]()
+        for i in (0, 1, 3):
+            torch.testing.assert_close(
+                got[i], want[i], rtol=1e-5,
+                atol=1e-5 * float(want[i].abs().max()))
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        key = f"fused_leapfrog {path} {rows}x{dim}x4"
+        row = out[key] = timed_turns(torch, cs, fns)
+        cs.log(f"{key}: issued us other {row['issued_us']['other']}, this "
+               f"{row['issued_us']['this']}; device us other "
+               f"{row['device_us']['other']}, this "
+               f"{row['device_us']['this']}")
+    return out
+
+
 def path_worker(tree: Path, models, draws: int) -> None:
     """One checkout's main paths, in a process of its own."""
     sys.path[:0] = [str(tree / "src"), str(tree)]
@@ -168,12 +225,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout")
-    ap.add_argument("mode", choices=("wrappers", "paths", "_path_worker"))
+    ap.add_argument("mode", choices=("wrappers", "leapfrog", "paths",
+                                     "_path_worker"))
     ap.add_argument("tree", nargs="?", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--kernels", nargs="+", default=list(ONE_LAUNCH),
                     help="fused_logpdf kernels (chip_smoke.MAIN_SHAPES's "
                          "names)")
-    ap.add_argument("--models", nargs="+", default=list(PATHS))
+    ap.add_argument("--models", nargs="+", default=None,
+                    help="paths: chip_smoke models (default PATHS); "
+                         "leapfrog: the separable ones (default "
+                         "LEAPFROG_PATHS)")
     ap.add_argument("--draws", type=int, default=200)
     args = ap.parse_args()
     if args.mode == "_path_worker":
@@ -189,8 +250,12 @@ def main() -> int:
     cs.log(smi)
     if args.mode == "wrappers":
         result = wrappers(torch, cs, args.other, args.kernels)
+    elif args.mode == "leapfrog":
+        result = leapfrog(torch, cs, args.other,
+                          args.models or list(LEAPFROG_PATHS))
     else:
-        result = paths(cs, args.other, args.models, args.draws)
+        result = paths(cs, args.other, args.models or list(PATHS),
+                       args.draws)
     print(json.dumps({"device": smi, "other": str(args.other),
                       "mode": args.mode, "result": result}))
     return 0

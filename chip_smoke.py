@@ -44,19 +44,23 @@ Phases, in order:
    their magnitudes, with parameters per row, shared by the rows (row
    stride 0), one per row (element stride 0) and as views one float past
    a 16-byte boundary; the one-launch reductions (std_normal_sum,
-   gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum) where a row
-   takes several blocks, with 16- and 4-byte loads (beta's and
-   student_t's parameters shared and one a row): 1,000 back-to-back calls
+   gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum, normal_sum)
+   where a row takes several blocks, with 16- and 4-byte loads (normal's,
+   beta's and student_t's parameters shared and one a row; normal's data
+   also shared, as on the switch route): 1,000 back-to-back calls
    bit-identical with the last-block counts read back at 0, and calls
    alternating between two streams equal to them; student_t at rtol 1e-6;
    the dense quadratic form at rtol 1e-5 over D = 1 to 1,024 and N = 1 to
    100,000 with the precision shared and per row) and their backward
    through ``vmap(grad)`` with one launch for the whole chain axis; the
-   fused leapfrog and fused potential for every opcode alone and a mixed
-   table, with and without an inverse mass, 1/4/16 chains with distinct
-   step sizes, dim 1 to 1,000,003 and 1/4/8 steps (q, p and gradient at
-   rtol 1e-5 plus atol 1e-5 * max|plain|, the potential at
-   1e-5 * sum_i |v_i|); flash_attention's three kernels by max|kernel -
+   fused leapfrog and fused potential for every opcode alone, a mixed
+   table and one whose opcodes change every 512 coordinates
+   (family_mix_8k's layout), with and without an inverse mass, 1/4/16
+   chains with distinct step sizes, dim 1 to 1,000,003 and 0/1/4/8 steps
+   (q, p and gradient at rtol 1e-5 plus atol 1e-5 * max|plain|, the
+   potential at 1e-5 * sum_i |v_i|; the leapfrog one launch a call with
+   its counts back at 0, 0 steps returning the state, offset views giving
+   the same bits); flash_attention's three kernels by max|kernel -
    plain| / max|plain| (2e-5 in float32, 3e-2 in bf16: tests/
    test_kernels.py's) over that file's cases in both types, each kernel
    at its edges (``FLASH_KERNEL_CASES``: decode at G 1 to 8, odd Sk and
@@ -137,7 +141,9 @@ Phases, in order:
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
    PyTorch library call (device time from the profiler, and the time the
-   host takes to issue each call), and profiles a window of transitions
+   host takes to issue each call; the fused leapfrog at gaussian_10k's
+   and family_mix_8k's compiled specs), and profiles a window of
+   transitions
    of logreg, of gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
    gauss_unknown (both routes), sto_volatility and family_mix_8k for the
    device's busy share; the flash kernels at the LM paths' calls
@@ -185,12 +191,17 @@ GAMMA_OPS = 5           # log, two multiplies, a subtract, the add into the sum
 # exp and an add; per item the log, two subtracts and the add into the sum
 CATEGORICAL_CLASS_OPS = 4
 CATEGORICAL_ITEM_OPS = 4
-# fused leapfrog, uniform NORMAL table (gaussian_10k): per element and step
-# two half-kicks and a drift (three multiply-adds) and the gradient
-# -(u - c0) * (c1 * c1) (three); at the final q the value
-# -0.5 ((u - c0) c1)^2 (four) and its add into the sum
-LEAPFROG_STEP_OPS = 6 + 3
-NORMAL_VALUE_OPS = 4 + 1
+# fused leapfrog: per element and step two half-kicks and a drift (three
+# multiply-adds) and the gradient; at the final q the value and its add
+# into the sum. Gradient and value by opcode (ZERO, NORMAL, EXP, SOFTPLUS,
+# TLOG; an exp, log1p or divide counts one): NORMAL -(u - c0) * (c1 * c1)
+# and -0.5 ((u - c0) c1)^2; EXP c0 - c1 c2 exp(c2 u) and c0 u - c1 exp(c2
+# u); SOFTPLUS two logistics (fabs, negation, exp, add, divide each) and
+# two softplus (fabs, negation, exp, log1p, max, add each) with their
+# multiplies; TLOG with zt = (u - c2) c3
+LEAPFROG_KICK_OPS = 6
+LF_GRAD_OPS = (0, 3, 5, 14, 10)
+LF_VALUE_OPS = (0, 4, 5, 16, 7)
 # normal: subtract, divide, two multiplies, log, two subtracts, the add
 NORMAL_OPS = 8
 # beta: log, log1p, a negation, two multiplies, an add, the add into the sum
@@ -497,9 +508,9 @@ def check_categorical_gamma_kernels(torch, ops, ref):
 
 
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum")
-# the two whose inputs also take an element stride of 0 (one value a row)
-ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum")
+              "student_t_unnorm_sum", "normal_sum")
+# the three whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum")
 ONE_LAUNCH_SHAPES = ((4, 40000), (1, 1_000_003))  # more than one block a row
 ONE_LAUNCH_RERUNS = 1000
 
@@ -510,8 +521,10 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
     reduction: the value's rows 16-byte aligned, or (``offset``) one float
     past a 16-byte boundary, which takes the 4-byte loads; the parameters
     at row stride 0 (``params="shared"``, as on the main paths) or, for
-    beta and student_t, one value a row (``"scalar"``, element stride 0,
-    which never bars 16-byte loads)."""
+    beta, student_t and normal, one value a row (``"scalar"``, element
+    stride 0, which never bars 16-byte loads); for normal also
+    ``"switch"``, gauss_unknown's switch route: the data shared by the
+    rows (row stride 0) and one mu and one sigma a row."""
     dev = torch.device(DEVICE)
 
     def rows_of(lo, scale, draw):
@@ -529,6 +542,17 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
         z = rows_of(0.0, 2.0, torch.randn)
         want = ref.std_normal_logpdf_sum_ref(z)
         return ops.std_normal_sum_rows, (z,), want, want.abs()
+    if name == "normal_sum":
+        if params == "switch":
+            x = (2.0 * torch.randn(n + offset, generator=gen, device=dev)
+                 )[offset:].expand(rows, n)
+            params = "scalar"
+        else:
+            x = rows_of(0.0, 2.0, torch.randn)
+        mu, sig = param(-1.0, 2.0), param(0.3, 2.7)
+        want = ref.normal_logpdf_sum_ref(x, mu, sig)
+        return (ops.normal_sum_rows, (x, mu, sig), want,
+                abs_terms(torch, name, (x, mu, sig)))
     if name == "beta_unnorm_sum":
         x = rows_of(0.01, 0.98, torch.rand)
         am1, bm1 = param(-0.5, 3.5), param(-0.5, 3.5)
@@ -547,11 +571,13 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
     return ops.gamma_unnorm_sum_rows, (x, am1, rate), want, terms
 
 
-def counts_at_zero(torch, ops, stream) -> bool:
-    """The one-launch reductions' last-block counts of ``stream``, read
-    back: there, and all 0."""
+def counts_at_zero(torch, stream) -> bool:
+    """The last-block counts of ``stream`` (the one-launch reductions' and
+    the fused leapfrog's, ``kernels._scratch``), read back: there, and all
+    0."""
+    from repro_torch.kernels._scratch import SCRATCH
     torch.cuda.synchronize()
-    entry = ops._SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
+    entry = SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
     return entry is not None and not bool(entry[1].any())
 
 
@@ -570,6 +596,7 @@ def check_one_launch(torch, ops, ref):
             for rows, n in ONE_LAUNCH_SHAPES
             for params in (("shared", "scalar") if name in ELEM_STRIDED
                            else ("shared",))
+                          + (("switch",) if name == "normal_sum" else ())
             for offset in (False, True)]:
         kern, args, want, scale = one_launch_case(
             torch, ops, ref, name, rows, n, offset, gen, params)
@@ -589,7 +616,7 @@ def check_one_launch(torch, ops, ref):
               "beyond 1e-6")
         check(same_bits(torch, again, first.expand_as(again)),
               f"{tag}: {ONE_LAUNCH_RERUNS} reruns not bit-identical")
-        check(counts_at_zero(torch, ops, main),
+        check(counts_at_zero(torch, main),
               f"{tag}: counts not back at 0")
         streams = (torch.cuda.Stream(), torch.cuda.Stream())
         for s in streams:
@@ -600,14 +627,14 @@ def check_one_launch(torch, ops, ref):
                 alt.append(kern(*args))
         for s in streams:
             main.wait_stream(s)
-        check(all(counts_at_zero(torch, ops, s) for s in streams),
+        check(all(counts_at_zero(torch, s) for s in streams),
               f"{tag}: counts of the two streams not back at 0")
         check(all(same_bits(torch, a, first) for a in alt),
               f"{tag}: calls on two streams differ")
         n_cases += 1
     log(f"{', '.join(ONE_LAUNCH)} merge path: {n_cases} cases "
         f"({ONE_LAUNCH_SHAPES}, 16- and 4-byte loads, parameters shared "
-        "and one a row), "
+        "and one a row, normal's data shared as on the switch route), "
         f"{ONE_LAUNCH_RERUNS} back-to-back calls bit-identical, counts read "
         "back at 0, two streams alternating agree: ok")
 
@@ -791,10 +818,14 @@ def check_density_kernels(torch, ops, ref):
     return worst
 
 
-LF_OPS = (None, 0, 1, 2, 3, 4)  # None: a mixed table (any-opcode kernel)
+# (uniform opcode, coordinates a run of one opcode): None is a mixed table
+# (the any-opcode kernel), its opcode drawn for every coordinate or, as in
+# family_mix_8k, for every 512
+LF_TABLES = ((None, 1), (None, 512), (0, 1), (1, 1), (2, 1), (3, 1), (4, 1))
 LF_CHAINS = (1, 4, 16)
-LF_DIMS = (1, 127, 129, 10000, 1_000_003)
-LF_STEPS = (1, 4, 8)
+# either side of a warp's 128 and of one block's 256 coordinates a chain
+LF_DIMS = (1, 127, 129, 255, 256, 257, 2047, 2049, 8192, 10000, 1_000_003)
+LF_STEPS = (0, 1, 4, 8)
 LF_MAIN = (1, 4, 10000, 4)  # (opcode, chains, dim, n_steps) of gaussian_10k
 
 
@@ -803,8 +834,11 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
     rtol 1e-5 + atol 1e-5 * max|plain| (nvcc contracts the updates into
     FMAs and torch does not; the difference compounds over the steps), the
     potential at 1e-5 * sum_i |v_i| (a float32 sum in another order), and
-    bit-identical reruns. Returns the worst abs error at the main path's
-    shape for each kernel."""
+    bit-identical reruns; fused_leapfrog one launch a call with its counts
+    read back at 0, its 0-step call returning the state bit for bit, and
+    the state as views one float past a 16-byte boundary giving the bits of
+    dense rows. Returns the worst abs error at the main path's shape for
+    each kernel."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4321)
     worst = {"fused_leapfrog": 0.0, "fused_potential_vg": 0.0}
@@ -829,15 +863,19 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
               "1e-5 * sum|v|")
         return float(err.max())
 
-    for uop in LF_OPS:
+    def offset(t):
+        return torch.empty(t.numel() + 1, device=dev)[1:].view_as(t).copy_(t)
+
+    main = torch.cuda.current_stream()
+    for uop, run in LF_TABLES:
         for dim in LF_DIMS:
-            spec = lf_ref.random_spec(dim, uop, seed=dim)
+            spec = lf_ref.random_spec(dim, uop, seed=dim, run=run)
             for rows in LF_CHAINS:
                 q = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
                 p = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
                 eps = 0.01 + 0.04 * torch.rand(rows, generator=gen, device=dev)
                 im = 0.5 + torch.rand(dim, generator=gen, device=dev)
-                tag = f"op {uop} {rows}x{dim}"
+                tag = f"op {uop} run {run} {rows}x{dim}"
                 lp, g = lf_ops.potential_value_and_grad(spec, q)
                 lp2, g2 = lf_ops.potential_value_and_grad(spec, q)
                 want_lp, want_g = lf_ref.potential_value_and_grad_ref(spec, q)
@@ -847,35 +885,53 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
                 errs = [close(f"fused_potential_vg {tag} grad", g, want_g),
                         close_potential(f"fused_potential_vg {tag}", spec, q,
                                         lp, want_lp)]
-                if (uop, rows, dim) == LF_MAIN[:3]:
+                if (uop, run, rows, dim) == (LF_MAIN[0], 1) + LF_MAIN[1:3]:
                     worst["fused_potential_vg"] = max(errs)
                 n_cases += 1
                 for mass in (None, im):
                     for n_steps in LF_STEPS:
+                        before = lf_ops.LAUNCHES["fused_leapfrog"]
                         got = lf_ops.fused_leapfrog(spec, q, p, g, eps,
                                                     n_steps, inv_mass=mass)
+                        t = f"fused_leapfrog {tag} n={n_steps} " \
+                            f"mass={mass is not None}"
+                        check(lf_ops.LAUNCHES["fused_leapfrog"] == before + 1,
+                              f"{t}: not one launch a call")
                         again = lf_ops.fused_leapfrog(spec, q, p, g, eps,
                                                       n_steps, inv_mass=mass)
                         want = lf_ref.leapfrog_ref(spec, q, p, g, eps,
                                                    n_steps, inv_mass=mass)
                         torch.cuda.synchronize()
-                        t = f"fused_leapfrog {tag} n={n_steps} " \
-                            f"mass={mass is not None}"
                         check(all(torch.equal(a, b)
                                   for a, b in zip(got, again)),
                               f"{t}: two runs differ")
+                        check(lf_ops.leapfrog_parts(dim) == 1
+                              or counts_at_zero(torch, main),
+                              f"{t}: counts not back at 0")
+                        if n_steps == 0:
+                            check(all(torch.equal(a, b) for a, b in zip(
+                                (got[0], got[1], got[3]), (q, p, g))),
+                                  f"{t}: 0 steps changed the state")
                         errs = [close(f"{t} {k}", got[i], want[i])
                                 for k, i in (("q", 0), ("p", 1), ("g", 3))]
                         errs.append(close_potential(t, spec, want[0],
                                                     got[2], want[2]))
-                        if (uop, rows, dim, n_steps) == LF_MAIN \
-                                and mass is None:
+                        if (uop, run, rows, dim, n_steps) == \
+                                (LF_MAIN[0], 1) + LF_MAIN[1:] and mass is None:
                             worst["fused_leapfrog"] = max(errs)
                         n_cases += 1
-    log(f"fused_leapfrog kernels vs plain: {n_cases} cases (6 opcode "
-        f"tables x {len(LF_DIMS)} dims x {len(LF_CHAINS)} chain counts; "
-        "with and without inverse mass; 1/4/8 steps), bit-identical "
-        f"reruns: ok; worst abs err at 4x10,000: {worst}")
+                if rows == 4 and dim >= 1024:
+                    views = [offset(t) for t in (q, p, g)]
+                    check(all(torch.equal(a, b) for a, b in zip(
+                        lf_ops.fused_leapfrog(spec, q, p, g, eps, 4),
+                        lf_ops.fused_leapfrog(spec, *views, eps, 4))),
+                          f"fused_leapfrog {tag}: offset views differ")
+    log(f"fused_leapfrog kernels vs plain: {n_cases} cases "
+        f"({len(LF_TABLES)} opcode tables x {len(LF_DIMS)} dims x "
+        f"{len(LF_CHAINS)} chain counts; with and without inverse mass; "
+        f"{LF_STEPS} steps), bit-identical reruns, one fused_leapfrog launch "
+        "a call with its counts back at 0, offset views equal: ok; "
+        f"worst abs err at 4x10,000: {worst}")
     return worst
 
 
@@ -1280,14 +1336,16 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish, except mvn_quadform_sum and the one-launch reductions
+# per-row finish, except mvn_quadform_sum, the one-launch reductions
 # (std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum,
-# student_t_unnorm_sum), whose last block of a row sums the row's partials
-# inside the one launch (a row of one block writes its sum itself)
+# student_t_unnorm_sum, normal_sum) and fused_leapfrog, whose last block of
+# a row (a chain) sums the row's partials inside the one launch (a row of
+# one block writes its sum itself)
 KERNEL_LAUNCHES_PER_CALL = 2
 LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1, "std_normal_sum": 1,
                      "gamma_unnorm_sum": 1, "beta_unnorm_sum": 1,
-                     "student_t_unnorm_sum": 1}
+                     "student_t_unnorm_sum": 1, "normal_sum": 1,
+                     "fused_leapfrog": 1}
 
 
 def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
@@ -1295,20 +1353,25 @@ def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
     """Device time per call of every CUDA kernel that ``fn`` launches, from
     torch.profiler (only those whose name holds one of ``names``, when
     given). The profiler now and then records a window without some of
-    its device activity: a window that shows none, or (given
-    ``launches_per_call``) another number of kernels than ``iters`` times
-    that, is taken again. None when no attempt's trace is whole."""
+    its device activity (most often the window's first kernel, so each
+    window starts with a marker launch, ``torch.cuda._sleep``'s
+    spin_kernel, left out of the sums): a window that shows none, or
+    (given ``launches_per_call``) another number of kernels than ``iters``
+    times that, is taken again. None when no attempt's trace is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and device_us(e) > 0
+                  and "spin_kernel" not in e.key
                   and (names is None or any(n in e.key for n in names))]
         total = sum(device_us(e) for e in events)
         launches = sum(e.count for e in events)
@@ -1520,36 +1583,56 @@ def table_read_bytes(spec) -> int:
     return 4 * COEFFS_READ[spec.uniform_op] * spec.dim
 
 
-def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
-    """Both fused_leapfrog kernels at the main path's shapes (gaussian_10k's
-    spec, 4 chains, 4 steps) beside their plain versions, timed as in
-    :func:`time_kernels`. No library call computes either function."""
+def leapfrog_ops(spec, rows, n_steps) -> int:
+    """Float operations of one fused_leapfrog call (``n_steps`` of kicks,
+    drift and gradient, then the value and its add into the sum), and of
+    one fused_potential_vg call at ``n_steps=None``, counted per opcode as
+    the source writes them."""
+    import numpy as np
+    count = np.bincount(spec.op, minlength=len(LF_GRAD_OPS))
+    grad = sum(int(c) * LF_GRAD_OPS[k] for k, c in enumerate(count))
+    value = sum(int(c) * (LF_VALUE_OPS[k] + 1) for k, c in enumerate(count))
+    if n_steps is None:
+        return rows * (grad + value)
+    return rows * (n_steps * (LEAPFROG_KICK_OPS * spec.dim + grad) + value)
+
+
+def time_leapfrog_kernels(torch, lf_ops, lf_ref, specs, n_steps=4, rows=4):
+    """Both fused_leapfrog kernels at the main paths' shapes (``specs``
+    maps a path to its compiled spec: gaussian_10k's uniform NORMAL table
+    and family_mix_8k's mixed one; 4 chains, 4 steps) beside their plain
+    versions, timed as in :func:`time_kernels`; fused_potential_vg at
+    gaussian_10k's. No library call computes either function."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(8)
-    dim = spec.dim
-    q = torch.randn(rows, dim, generator=gen, device=dev)
-    p = torch.randn(rows, dim, generator=gen, device=dev)
-    eps = torch.full((rows,), 0.1, device=dev)
-    _, g = lf_ops.potential_value_and_grad(spec, q)
-    table_bytes = table_read_bytes(spec)
-    state = 4 * rows * dim
-    cases = {
-        "fused_leapfrog": (
-            lambda: lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps),
-            lambda: lf_ref.leapfrog_ref(spec, q, p, g, eps, n_steps),
+    cases = []
+    for path, spec in specs.items():
+        dim = spec.dim
+        q = torch.randn(rows, dim, generator=gen, device=dev)
+        p = torch.randn(rows, dim, generator=gen, device=dev)
+        eps = torch.full((rows,), 0.1, device=dev)
+        _, g = lf_ops.potential_value_and_grad(spec, q)
+        table_bytes = table_read_bytes(spec)
+        state = 4 * rows * dim
+        cases.append((
+            "fused_leapfrog", path, [rows, dim, n_steps],
+            lambda s=spec, q=q, p=p, g=g, e=eps: lf_ops.fused_leapfrog(
+                s, q, p, g, e, n_steps),
+            lambda s=spec, q=q, p=p, g=g, e=eps: lf_ref.leapfrog_ref(
+                s, q, p, g, e, n_steps),
             # q, p, g and eps in; q, p, g and the potential out
             6 * state + table_bytes + 8 * rows,
-            rows * dim * (n_steps * LEAPFROG_STEP_OPS + NORMAL_VALUE_OPS)),
-        "fused_potential_vg": (
-            lambda: lf_ops.potential_value_and_grad(spec, q),
-            lambda: lf_ref.potential_value_and_grad_ref(spec, q),
-            2 * state + table_bytes + 4 * rows,
-            rows * dim * (3 + NORMAL_VALUE_OPS)),
-    }
+            leapfrog_ops(spec, rows, n_steps)))
+        if path == "gaussian_10k":
+            cases.append((
+                "fused_potential_vg", path, [rows, dim],
+                lambda s=spec, q=q: lf_ops.potential_value_and_grad(s, q),
+                lambda s=spec, q=q: lf_ref.potential_value_and_grad_ref(s, q),
+                2 * state + table_bytes + 4 * rows,
+                leapfrog_ops(spec, rows, None)))
     out = []
-    for name, (kern, plain, nbytes, nops) in cases.items():
-        row = {"name": name, "shape": [rows, dim] + (
-            [n_steps] if name == "fused_leapfrog" else []),
+    for name, path, shape, kern, plain, nbytes, nops in cases:
+        row = {"name": name, "shape": shape, "call": path,
                "ms_from": "torch.profiler device time"}
         calls = {"": kern, "plain_": plain}
         for prefix in ("plain_", "", "", "plain_"):
@@ -1558,7 +1641,8 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
         for prefix, fn in calls.items():
             row[f"{prefix}issued_ms"] = min(row[f"{prefix}issued_ms_runs"])
             row[f"{prefix}ms"] = device_ms(
-                torch, fn, launches_per_call=KERNEL_LAUNCHES_PER_CALL
+                torch, fn, launches_per_call=LAUNCHES_PER_CALL.get(
+                    name, KERNEL_LAUNCHES_PER_CALL)
                 if prefix == "" else None)
             if row[f"{prefix}ms"] is None:
                 row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
@@ -1570,7 +1654,7 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, spec, n_steps=4, rows=4):
         row.update(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         out.append(row)
-        log(f"time {name} {'x'.join(map(str, row['shape']))} "
+        log(f"time {name} {path} {'x'.join(map(str, shape))} "
             f"({row['ms_from']} / issued from the host), us: kernel "
             f"{row['ms'] * 1e3:.2f} / {row['issued_ms'] * 1e3:.2f}, plain "
             f"{row['plain_ms'] * 1e3:.2f} / {row['plain_issued_ms'] * 1e3:.2f}"
@@ -2403,7 +2487,7 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
                  "categorical_logits_sum_small", "ssd_scan",
                  "std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-                 "student_t_unnorm_sum")
+                 "student_t_unnorm_sum", "normal_sum", "fused_leapfrog")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),
@@ -2576,7 +2660,7 @@ REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integr
 # the kernels whose registers, shared memory and spills phase 2 reports
 PTXAS_REPORTED = ("flash_fwd_tc", "flash_tiles", "flash_decode",
                   "flash_combine", "categorical_small_partials",
-                  "mvn_quad_tc", "ssd_scan_tc", "row_sum")
+                  "mvn_quad_tc", "ssd_scan_tc", "row_sum", "leapfrog_kernel")
 
 
 def ptxas_report(path: str) -> list:
@@ -2669,7 +2753,7 @@ def main() -> int:
         # started with the builds
         **{f"{path} (-Xptxas -v)": (lambda p=path: reports.__setitem__(
             p, ptxas_report(p)))
-           for path in (FLASH_CU, LOGPDF_CU, MVN_CU, SSD_CU)}})
+           for path in (FLASH_CU, LOGPDF_CU, MVN_CU, SSD_CU, LEAPFROG_CU)}})
     for path, secs in build_s.items():
         log(f"built and loaded {path} in {secs:.2f} s")
     log(f"{len(build_s)} compiles in {time.perf_counter() - t0:.2f} s")
@@ -2768,7 +2852,9 @@ def main() -> int:
     # phase 7
     floor = launch_floor(torch)
     timings = time_kernels(torch, F, ops, ref)
-    timings += time_leapfrog_kernels(torch, lf_ops, lf_ref, g_comp.spec)
+    timings += time_leapfrog_kernels(
+        torch, lf_ops, lf_ref, {"gaussian_10k": g_comp.spec,
+                                "family_mix_8k": f_comp.spec})
     g_kernel = models["gaussian_10k"][1]
     prof = {
         "logreg": profile_transitions(torch, *models["logreg"][:2]),

@@ -22,17 +22,19 @@
 // The opcode forms are those of kernels/fused_leapfrog/spec.py, with the
 // overflow-safe softplus and logistic.
 //
-// What bounds them on an H100: bytes. The leapfrog reads q, p, g and writes
-// them back (24 B per element) and reads the table once: 4 B per
-// coordinate for each coefficient array the opcode uses, plus 4 B for op
-// in the any-opcode kernel (kCoeffsRead below). For gaussian_10k (uniform
-// NORMAL: c0, c1) at 4 x 10,000 that is ~1.04 MB, ~0.31 us at 3.35 TB/s,
-// against ~40 float ops per element (~0.02 us at 67 TFLOP/s). The potential
-// moves ~0.40 MB, ~0.12 us. At the main path's shapes both are far below a
-// launch's latency, so launch latency is their real bound.
+// What bounds them on an H100: bytes, and below about a megabyte one
+// launch's latency. The leapfrog reads q, p, g and writes them back (24 B
+// per element) and reads the table once: 4 B per coordinate for each
+// coefficient array the opcode uses, plus 4 B for op in the any-opcode
+// kernel (kCoeffsRead below). For gaussian_10k (uniform NORMAL: c0, c1) at
+// 4 x 10,000 that is ~1.04 MB, ~0.31 us at 3.35 TB/s, against ~40 float
+// ops per element (~0.02 us at 67 TFLOP/s); family_mix_8k's mixed table
+// at 4 x 8,192 moves ~0.95 MB. The potential moves ~0.40 MB, ~0.12 us. At
+// the main paths' shapes both are near a launch's latency (~1 us), so the
+// number of launches a call and the time to the first load set the pace.
 //
 // Design. The gradient is elementwise, so no coordinate ever reads another:
-// each thread owns one coordinate of one chain and keeps q, p, g in
+// each thread owns one coordinate of one chain and keeps its q, p, g in
 // registers through all n_steps (the property that makes the TPU kernel a
 // single launch; here it also needs no shared memory). The ragged end is
 // masked by index: the TPU kernel pads to (R, 128) tiles with zero
@@ -40,17 +42,42 @@
 // inverse mass are template parameters: a table with one opcode runs an
 // instantiation without the per-element switch, and a table with several
 // switches per element (the Pallas kernel evaluates every branch under
-// `where` instead). The potential is reduced in two deterministic stages,
-// as in fused_logpdf.cu: grid (nparts, C) writes per-block partial sums
-// (warp shuffles, then one shared-memory step), and one block per chain
-// sums its partials in a fixed order. No float atomics, so reruns are
-// bit-identical. Built without --use_fast_math: expf and log1pf are the
-// accurate versions.
+// `where` instead; family_mix_8k's opcodes change only every 512 or more
+// coordinates, so a warp's switch does not diverge).
+//
+// fused_leapfrog is ONE launch a call. A block holds kLfThreads
+// coordinates of one chain (grid (ceil(dim / kLfThreads), C)); a chain of
+// at most kLfThreads coordinates is one block that writes out[c] itself. A
+// longer chain's blocks each write a partial sum of the potential and take
+// a ticket from an int count of the chain (one atom.acq_rel); the block
+// that draws the last ticket sums the chain's partials in index order,
+// adds const, writes out[c] and resets the count to 0 (fused_logpdf.cu's
+// row_sum, mvn_quad.cu's). No float atomics, and a thread's coordinate and
+// the order of every sum are functions of dim alone, so reruns are
+// bit-identical. The wrapper keeps the partials and counts once per
+// (device, stream), so a call allocates only its outputs. At the main
+// paths' shapes the time is latency: loads, n dependent steps, the block
+// sum and the merge (chip_compare.py leapfrog, device time on an H100
+// 80GB HBM3 at 700 W, against the two launches before: 3.15 us against
+// 3.0 at gaussian_10k's 4 x 10,000 and 3.68 against 3.93 at
+// family_mix_8k's 4 x 8,192; the host issues a call in 0.6-0.8 of the
+// time). Four consecutive coordinates a thread with 16-byte loads in
+// blocks of 1,024 took 3.7 and 7.0 us (family_mix_8k's four switched
+// coordinates a thread run one after another); blocks of 128 and 512 of
+// one coordinate a thread took 3.19 and 2.91 us at the first shape, 3.58
+// and 3.80 at the second, within 0.25 us of 256 each way.
+// fused_potential_vg (one thread a coordinate, then finish_rows) runs
+// once a chain run, at its start, and keeps its two launches. Built
+// without --use_fast_math: expf and log1pf are the accurate versions.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // fused_potential_vg and finish_rows
+// fused_leapfrog: coordinates of one chain a block holds, one a thread
+// (ops.LEAPFROG_SHARE mirrors it)
+constexpr int kLfThreads = 256;
 constexpr int kAnyOp = -1;
 constexpr int kZero = 0, kNormal = 1, kExp = 2, kSoftplus = 3, kTlog = 4;
 
@@ -105,16 +132,18 @@ __device__ __forceinline__ float elem_grad(int op, float u, float c0, float c1,
   }
 }
 
-// Sum over the block; the result is valid in thread 0. Fixed order.
+// Sum over a block of T threads; the result is valid in thread 0. Fixed
+// order.
+template <int T>
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
+  __shared__ float warp_sums[T / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
-  v = (threadIdx.x < kThreads / 32) ? warp_sums[threadIdx.x] : 0.0f;
+  v = (threadIdx.x < T / 32) ? warp_sums[threadIdx.x] : 0.0f;
   if (warp == 0) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -163,25 +192,35 @@ struct LeapfrogArgs {
   long long p_rs;
   const float* g;
   long long g_rs;
-  const float* eps;       // (C,)
+  const float* eps;     // chain c's step at eps[c * eps_stride], or null:
+  long long eps_stride; // eps_value for every chain
+  float eps_value;
   const float* inv_mass;  // (dim,) or null
   Table table;
   long long dim;
   int n_steps;
-  float* q_out;  // (C, dim), dense
-  float* p_out;
-  float* g_out;
-  float* partials;  // (C, gridDim.x)
+  float* state_out;  // (3, C, dim), dense: q, p, g
+  float* partials;   // (C, gridDim.x) when a chain takes several blocks
+  int* counts;       // (C,), zero between calls
+  float const_term;
+  float* out;        // (C,)
 };
 
+// Grid (nparts, C). Block (b, c) runs the n steps for coordinates
+// [b kLfThreads, (b + 1) kLfThreads) of chain c, one a thread; the
+// potential at the final q is summed in a fixed order, and the chain's sum
+// is written by its only block or by the block that draws its last ticket.
 template <int OP, bool WITH_MASS>
-__global__ void __launch_bounds__(kThreads) leapfrog_kernel(LeapfrogArgs a) {
-  const long long c = blockIdx.y;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kLfThreads) leapfrog_kernel(LeapfrogArgs a) {
+  __shared__ bool merge_last;
+  const int c = blockIdx.y;
+  const int parts = gridDim.x;
+  const long long dim = a.dim;
+  const long long i = static_cast<long long>(blockIdx.x) * kLfThreads + threadIdx.x;
   float v = 0.0f;
-  if (i < a.dim) {
+  if (i < dim) {
     const Coeffs k = load_coeffs<OP>(a.table, i);
-    const float eps = a.eps[c];
+    const float eps = a.eps != nullptr ? a.eps[c * a.eps_stride] : a.eps_value;
     const float half_eps = 0.5f * eps;
     const float im = WITH_MASS ? a.inv_mass[i] : 1.0f;
     float q = a.q[c * a.q_rs + i];
@@ -195,13 +234,33 @@ __global__ void __launch_bounds__(kThreads) leapfrog_kernel(LeapfrogArgs a) {
       p = p_half + half_eps * g;
     }
     v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
-    const long long o = c * a.dim + i;
-    a.q_out[o] = q;
-    a.p_out[o] = p;
-    a.g_out[o] = g;
+    const long long plane = static_cast<long long>(gridDim.y) * dim;
+    float* qo = a.state_out + c * dim + i;
+    qo[0] = q;
+    qo[plane] = p;
+    qo[2 * plane] = g;
   }
-  v = block_sum(v);
-  if (threadIdx.x == 0) a.partials[c * gridDim.x + blockIdx.x] = v;
+  v = block_sum<kLfThreads>(v);
+  if (parts == 1) {
+    if (threadIdx.x == 0) a.out[c] = v + a.const_term;
+    return;
+  }
+  if (threadIdx.x == 0) {
+    a.partials[static_cast<long long>(c) * parts + blockIdx.x] = v;
+    // release this block's partial, acquire the others' (one atom.acq_rel)
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(a.counts[c]);
+    merge_last = ticket.fetch_add(1, cuda::memory_order_acq_rel) == parts - 1;
+  }
+  __syncthreads();
+  if (!merge_last) return;
+  const float* prow = a.partials + static_cast<long long>(c) * parts;
+  float total = 0.0f;
+  for (int j = threadIdx.x; j < parts; j += kLfThreads) total += __ldcg(prow + j);
+  total = block_sum<kLfThreads>(total);
+  if (threadIdx.x == 0) {
+    a.out[c] = total + a.const_term;
+    a.counts[c] = 0;
+  }
 }
 
 struct PotentialArgs {
@@ -224,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) potential_vg_kernel(PotentialArgs a)
     a.g_out[c * a.dim + i] = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
     v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
   }
-  v = block_sum(v);
+  v = block_sum<kThreads>(v);
   if (threadIdx.x == 0) a.partials[c * gridDim.x + blockIdx.x] = v;
 }
 
@@ -234,19 +293,19 @@ finish_rows(const float* __restrict__ partials, int nparts, float addend,
   const float* row = partials + static_cast<long long>(blockIdx.x) * nparts;
   float acc = 0.0f;
   for (int i = threadIdx.x; i < nparts; i += kThreads) acc += row[i];
-  acc = block_sum(acc);
+  acc = block_sum<kThreads>(acc);
   if (threadIdx.x == 0) out[blockIdx.x] = acc + addend;
 }
 
 template <bool WITH_MASS>
 void launch_leapfrog(int uniform_op, dim3 grid, cudaStream_t s, const LeapfrogArgs& a) {
   switch (uniform_op) {
-    case kZero: leapfrog_kernel<kZero, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
-    case kNormal: leapfrog_kernel<kNormal, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
-    case kExp: leapfrog_kernel<kExp, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
-    case kSoftplus: leapfrog_kernel<kSoftplus, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
-    case kTlog: leapfrog_kernel<kTlog, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
-    default: leapfrog_kernel<kAnyOp, WITH_MASS><<<grid, kThreads, 0, s>>>(a); break;
+    case kZero: leapfrog_kernel<kZero, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kNormal: leapfrog_kernel<kNormal, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kExp: leapfrog_kernel<kExp, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kSoftplus: leapfrog_kernel<kSoftplus, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kTlog: leapfrog_kernel<kTlog, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    default: leapfrog_kernel<kAnyOp, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
   }
 }
 
@@ -261,7 +320,7 @@ void launch_potential_vg(int uniform_op, dim3 grid, cudaStream_t s, const Potent
   }
 }
 
-// The grid's x extent: one thread per coordinate.
+// fused_potential_vg's grid x extent: one thread per coordinate.
 long long parts_for(long long dim) { return (dim + kThreads - 1) / kThreads; }
 
 bool bad_shape(int rows, long long dim, int nparts, int uniform_op) {
@@ -272,35 +331,42 @@ bool bad_shape(int rows, long long dim, int nparts, int uniform_op) {
 }  // namespace
 
 // C interface, loaded with ctypes. Each returns a cudaError_t (0 = success);
-// launches go on the caller's stream and do not synchronise. The caller
-// allocates the dense (rows, dim) outputs, `partials` (rows * nparts floats,
-// nparts = ceil(dim / 256)) and `out` (rows floats). `uniform_op` is the
-// table's one opcode, or -1 when it holds several; `const_term` is the
-// spec's const in float32.
+// launches go on the caller's stream and do not synchronise.
+// `uniform_op` is the table's one opcode, or -1 when it holds several;
+// `const_term` is the spec's const in float32.
+//
+// fused_leapfrog: one launch. The caller allocates `state_out` (3 * rows *
+// dim floats: q, p, g, each dense) and `out` (rows floats). nparts must be
+// ceil(dim / 256) (ops.leapfrog_parts); with one part `partials` and
+// `counts` may be null, else `partials` holds rows * nparts floats and
+// `counts` rows ints that are zero (the kernel leaves them zero). `eps`
+// is chain c's step at eps[c * eps_stride], or null for `eps_value` in
+// every chain.
 extern "C" int repro_fused_leapfrog(const float* q, long long q_rs, const float* p,
                                     long long p_rs, const float* g, long long g_rs,
-                                    const float* eps, const int* op, const float* c0,
+                                    const float* eps, long long eps_stride,
+                                    float eps_value, const int* op, const float* c0,
                                     const float* c1, const float* c2, const float* c3,
                                     const float* inv_mass, int uniform_op, int rows,
-                                    long long dim, int n_steps, float* q_out,
-                                    float* p_out, float* g_out, float* partials,
-                                    int nparts, float const_term, float* out,
-                                    void* stream) {
-  if (bad_shape(rows, dim, nparts, uniform_op) || n_steps < 0) {
+                                    long long dim, int n_steps, int nparts,
+                                    float* state_out, float* partials, int* counts,
+                                    float const_term, float* out, void* stream) {
+  const long long want = (dim + kLfThreads - 1) / kLfThreads;
+  if (rows <= 0 || rows > 65535 || dim <= 0 || n_steps < 0 || nparts != want ||
+      uniform_op < kAnyOp || uniform_op > kTlog ||
+      (nparts > 1 && (partials == nullptr || counts == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LeapfrogArgs a{q, q_rs, p, p_rs, g, g_rs, eps, inv_mass, Table{op, c0, c1, c2, c3},
-                 dim, n_steps, q_out, p_out, g_out, partials};
+  LeapfrogArgs a{q, q_rs, p, p_rs, g, g_rs, eps, eps_stride, eps_value,
+                 inv_mass, Table{op, c0, c1, c2, c3}, dim, n_steps, state_out,
+                 partials, counts, const_term, out};
   const dim3 grid(nparts, rows);
   if (inv_mass != nullptr) {
     launch_leapfrog<true>(uniform_op, grid, s, a);
   } else {
     launch_leapfrog<false>(uniform_op, grid, s, a);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, const_term, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,18 @@ integrators without touching the MH correction. ``logp`` includes
 the chain axis, so there is no ``vmap`` rule; and no
 ``torch.autograd.Function``, since MCMC transitions are never
 differentiated through.
+
+``fused_leapfrog`` is one launch a call. ``leapfrog_parts`` (pure Python)
+gives its blocks a chain from ``dim`` alone; the last-block partials and
+counts are ``kernels._scratch``'s, kept once per (device, stream), and a
+call allocates only its outputs: the final q, p and gradient as views of
+one ``(3, chains, dim)`` tensor, and the potential.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -26,20 +34,30 @@ import torch
 
 from repro_torch.kernels._build import KernelError, load_library
 from repro_torch.kernels._dispatch import plain_requested
+from repro_torch.kernels._scratch import last_block_scratch
 from repro_torch.kernels.fused_leapfrog import ref
 from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "fused_leapfrog",
-           "potential_value_and_grad", "kernel_source"]
+           "potential_value_and_grad", "kernel_source", "LEAPFROG_SHARE",
+           "leapfrog_parts"]
 
 # kernel name -> launches since the last reset (one per wrapper call that
 # reached the card; the CPU path does not count)
 LAUNCHES = {"fused_leapfrog": 0, "fused_potential_vg": 0}
 
-_THREADS = 256
+_THREADS = 256  # fused_potential_vg: one thread a coordinate
 _ANY_OP = -1
+# fused_leapfrog (fused_leapfrog.cu kLfThreads): coordinates of one chain
+# a block holds, one a thread
+LEAPFROG_SHARE = 256
+_SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
+# spec -> {device index: (table addresses, uniform opcode or -1, const in
+# float32)}, taken once per spec and device
+_SPEC_ARGS = weakref.WeakKeyDictionary()
 
 _LIB = None
+_LEAPFROG_FN = None  # the bound repro_fused_leapfrog, set by _lib()
 
 
 def reset_launch_counts() -> None:
@@ -52,15 +70,19 @@ def kernel_source() -> Path:
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
+    global _LIB, _LEAPFROG_FN
     if _LIB is None:
         lib = load_library(kernel_source())
         p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_float)
+        # q, p, g (pointer, row stride), eps (pointer, stride, value), the
+        # table, inv_mass, uniform_op, rows, dim, n_steps, nparts,
+        # state_out, partials, counts, const, out, stream
         lib.repro_fused_leapfrog.argtypes = (
-            [p, i64, p, i64, p, i64, p] + [p] * 5
-            + [p, i32, i32, i64, i32, p, p, p, p, i32, f32, p, p])
+            [p, i64, p, i64, p, i64, p, i64, f32] + [p] * 5
+            + [p, i32, i32, i64, i32, i32, p, p, p, f32, p, p])
         lib.repro_fused_leapfrog.restype = i32
+        _LEAPFROG_FN = lib.repro_fused_leapfrog
         lib.repro_fused_potential_vg.argtypes = (
             [p, i64] + [p] * 5 + [i32, i32, i64, p, p, i32, f32, p, p])
         lib.repro_fused_potential_vg.restype = i32
@@ -115,21 +137,51 @@ def _check_spec(spec: PotentialSpec, q: torch.Tensor) -> None:
                          f"(num_chains, {spec.dim}), got {tuple(q.shape)}")
 
 
-def _eps_rows(step_size, rows: int, device) -> torch.Tensor:
-    """The step size as a dense float32 ``(rows,)`` tensor on ``device``."""
-    if torch.is_tensor(step_size):
-        if step_size.device != device:
-            raise ValueError(f"step_size on {step_size.device}, state on "
-                             f"{device}")
-        eps = step_size.to(torch.float32)
-        if eps.dim() == 0:
-            return eps.expand(rows).contiguous()
-        if tuple(eps.shape) != (rows,):
-            raise ValueError(f"step_size: expected a number or shape "
-                             f"({rows},), got {tuple(eps.shape)}")
-        return eps.contiguous()
-    return torch.full((rows,), float(step_size), dtype=torch.float32,
-                      device=device)
+def _eps_arg(step_size, rows: int, device):
+    """The step size as the kernel reads it: ``(address, stride, value)``
+    of a float32 0-d or ``(rows,)`` tensor on ``device`` (chain c's step at
+    ``address + c * stride``), or ``(None, 0, value)`` for a number. Also
+    returns the tensor, which must live until the launch."""
+    if not torch.is_tensor(step_size):
+        return None, 0, float(step_size), None
+    if step_size.device != device:
+        raise ValueError(f"step_size on {step_size.device}, state on "
+                         f"{device}")
+    eps = (step_size if step_size.dtype == torch.float32
+           else step_size.to(torch.float32))
+    if eps.dim() == 0:
+        return eps.data_ptr(), 0, 0.0, eps
+    if tuple(eps.shape) != (rows,):
+        raise ValueError(f"step_size: expected a number or shape "
+                         f"({rows},), got {tuple(eps.shape)}")
+    return eps.data_ptr(), eps.stride(0), 0.0, eps
+
+
+def leapfrog_parts(dim: int) -> int:
+    """Blocks of one chain, ``ceil(dim / LEAPFROG_SHARE)``: 1 writes the
+    chain's potential itself, more merge in the last block to finish. From
+    ``dim`` alone, so a thread's coordinate and the order of the
+    potential's sum never change between calls (reruns are bit-identical
+    whatever the inputs' layout). Pure Python, as ``fused_leapfrog.cu``
+    checks it."""
+    return max(1, -(-dim // LEAPFROG_SHARE))
+
+
+def _spec_args(spec: PotentialSpec, index: int):
+    """The table as ``fused_leapfrog.cu`` takes it on device ``index``:
+    (addresses of op, c0..c3; the uniform opcode or -1; the const in
+    float32), once per spec and device."""
+    per = _SPEC_ARGS.get(spec)
+    if per is None:
+        per = _SPEC_ARGS[spec] = {}
+    args = per.get(index)
+    if args is None:
+        addrs = tuple(t.data_ptr() for t in
+                      spec.coeff_arrays(torch.device("cuda", index)))
+        args = per[index] = (
+            addrs, _ANY_OP if spec.uniform_op is None else spec.uniform_op,
+            ref._const(spec))
+    return args
 
 
 def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
@@ -179,30 +231,38 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
                                 inv_mass=inv_mass)
     q2, p2, g2 = _rows(q), _rows(p), _rows(grad)
     rows, dim = q2.shape
-    strides = [_row_stride(n, t)
-               for n, t in (("q", q2), ("p", p2), ("grad", g2))]
-    if inv_mass is not None:
+    dev = q.device
+    index = dev.index
+    strides = (_row_stride("q", q2), _row_stride("p", p2),
+               _row_stride("grad", g2))
+    if inv_mass is not None and dim > 1 and inv_mass.stride(0) != 1:
         inv_mass = inv_mass.contiguous()
-    eps = _eps_rows(step_size, rows, q.device)
-    op, c0, c1, c2, c3 = spec.coeff_arrays(q.device)
-    nparts = -(-dim // _THREADS)
-    q_out, p_out, g_out = (torch.empty((rows, dim), dtype=torch.float32,
-                                       device=q.device) for _ in range(3))
-    partials = torch.empty(rows * nparts, dtype=torch.float32, device=q.device)
-    out = torch.empty(rows, dtype=torch.float32, device=q.device)
-    uop = _ANY_OP if spec.uniform_op is None else spec.uniform_op
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().repro_fused_leapfrog(
-            q2.data_ptr(), strides[0], p2.data_ptr(), strides[1],
-            g2.data_ptr(), strides[2], eps.data_ptr(), op.data_ptr(),
-            c0.data_ptr(), c1.data_ptr(), c2.data_ptr(), c3.data_ptr(),
-            None if inv_mass is None else inv_mass.data_ptr(), uop, rows,
-            dim, n_steps, q_out.data_ptr(), p_out.data_ptr(),
-            g_out.data_ptr(), partials.data_ptr(), nparts, ref._const(spec),
-            out.data_ptr(), stream)
-    _raise_on(err, "fused_leapfrog")
+    eps_addr, eps_stride, eps_value, _eps = _eps_arg(step_size, rows, dev)
+    table, uop, const = _spec_args(spec, index)
+    state = torch.empty((3, rows, dim), dtype=torch.float32, device=dev)
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    nparts = leapfrog_parts(dim)
+    fn = _LEAPFROG_FN
+    if fn is None:  # the first call builds and binds the library
+        _lib()
+        fn = _LEAPFROG_FN
+    with (_SAME_DEVICE if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        # the stream's handle without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        partials = counts = None
+        if nparts > 1:  # one float a (chain, block)
+            partials, counts = last_block_scratch(index, stream, rows,
+                                                  rows * nparts)
+        err = fn(q2.data_ptr(), strides[0], p2.data_ptr(), strides[1],
+                 g2.data_ptr(), strides[2], eps_addr, eps_stride, eps_value,
+                 *table, None if inv_mass is None else inv_mass.data_ptr(),
+                 uop, rows, dim, n_steps, nparts, state.data_ptr(),
+                 partials, counts, const, out.data_ptr(), stream)
+    if err:
+        _raise_on(err, "fused_leapfrog")
     LAUNCHES["fused_leapfrog"] += 1
+    q_out, p_out, g_out = state.unbind(0)
     if q.dim() == 1:
         return q_out[0], p_out[0], out[0], g_out[0]
     return q_out, p_out, out, g_out

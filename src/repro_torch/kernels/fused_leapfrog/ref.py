@@ -62,15 +62,17 @@ def leapfrog_ref(spec: PotentialSpec, q, p, grad, step_size, n_steps: int,
     return q, p, torch.sum(v, dim=-1) + _const(spec), grad
 
 
-def random_spec(dim: int, uniform_op=None, seed: int = 0) -> PotentialSpec:
+def random_spec(dim: int, uniform_op=None, seed: int = 0,
+                run: int = 1) -> PotentialSpec:
     """A random opcode table for checking the kernels against this module,
     with the coefficient forms the compiler folds: Normal (loc, 1/scale),
     Gamma-like EXP (a, b, 1), Beta-like SOFTPLUS (a, b) and StudentT-like
     TLOG ((df+1)/2, 1/df, loc, 1/scale); every c1 >= 0. ``uniform_op=None``
-    mixes all five opcodes."""
+    mixes all five opcodes, one drawn for each ``run`` coordinates (512
+    gives family_mix_8k's layout, where a site's coordinates share one)."""
     rng = np.random.default_rng(seed)
-    op = (rng.integers(0, N_OPS, dim) if uniform_op is None
-          else np.full(dim, uniform_op))
+    op = (rng.integers(0, N_OPS, -(-dim // run)).repeat(run)[:dim]
+          if uniform_op is None else np.full(dim, uniform_op))
     c = np.zeros((4, dim))
     normal, exp, sp, tl = (op == k for k in (OP_NORMAL, OP_EXP, OP_SOFTPLUS,
                                              OP_TLOG))

@@ -51,7 +51,7 @@
 // Design. The TPU kernel walks an (R, 128) tiling of the input in a
 // sequential grid and carries a VMEM accumulator from step to step. Hopper
 // runs blocks in parallel in no order, so nothing carries over between
-// blocks. For bernoulli, categorical and normal there is a deterministic
+// blocks. For bernoulli and categorical there is a deterministic
 // two-stage reduction:
 //   stage 1: grid (nparts, B). Block (p, b) strides over row b with a
 //            grid-stride loop, masks the ragged end by index (no padding
@@ -64,13 +64,14 @@
 // Their loads are scalar and coalesced.
 //
 // std_normal_sum (TPU: kernel.py:54 / :266), gamma_unnorm_sum (:154 /
-// :292), beta_unnorm_sum (:174 / :301) and student_t_unnorm_sum (:194 /
-// :310) take ONE launch a call (row_sum). At the main paths' shapes
-// (std_normal 4 x 11, 4 x 101, 4 x 400; hier_poisson's gamma 4 x 1;
-// mixed's beta 4 x 1 and student_t 4 x 8; family_mix_8k's 4 x 1,024 and
-// 4 x 2,048) their bytes take 0.00001-0.01 us at 3.35 TB/s, so what
-// bounds them on this card is one launch's latency; bytes bound them only
-// past about a megabyte (4 x 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A
+// :292), beta_unnorm_sum (:174 / :301), student_t_unnorm_sum (:194 /
+// :310) and normal_sum (:75 / :274) take ONE launch a call (row_sum). At
+// the main paths' shapes (std_normal 4 x 11, 4 x 101, 4 x 400;
+// hier_poisson's gamma 4 x 1; mixed's beta 4 x 1 and student_t 4 x 8;
+// family_mix_8k's 4 x 1,024 and 4 x 2,048; gauss_unknown's normal 4 x
+// 10,000 of shared data, 40 KB) their bytes take 0.00001-0.01 us at 3.35
+// TB/s, so what bounds them on this card is one launch's latency; bytes
+// bound them only past about a megabyte (4 x 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A
 // second launch per call (stage 2) doubled the launch floor, so here:
 //   - a block's share of a row is 2,048 floats a round: 256 threads with
 //     two 16-byte loads each (8 KB) in flight at once, about one round trip
@@ -92,9 +93,10 @@
 //     0.02-0.14 us at the main paths' short rows.
 //   - loads are 16 bytes when every input's row starts are 16-byte aligned
 //     (base aligned, row stride a multiple of 4 floats or 0), else scalar
-//     (a z[:, 1:] view, n = 101). Beta's and student_t's inputs each have
-//     an element stride of 0 or 1. An element-stride-0 input is one value
-//     a row (a per-chain scalar under vmap: row stride 1); each thread
+//     (a z[:, 1:] view, n = 101). Normal's, beta's and student_t's inputs
+//     each have an element stride of 0 or 1. An element-stride-0 input is
+//     one value a row (a per-chain scalar under vmap: row stride 1, as
+//     gauss_unknown's mu and sigma on the switch route); each thread
 //     reads it once, before its loop, it stands for all four lanes of a
 //     vector and it never takes a 16-byte load, so only the dense inputs
 //     decide the load width. Its flag is uniform over the grid, so the
@@ -177,37 +179,6 @@ bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        i < n; i += step) {
     acc += bernoulli_logit_term(lrow[i], yrow[i]);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-// One input of normal_partials: base pointer, row stride, element stride
-// (0 reads one value for the whole row).
-struct Strided {
-  const float* p;
-  long long row_stride;
-  long long elem_stride;
-  __device__ __forceinline__ const float* row(int b) const {
-    return p + static_cast<long long>(b) * row_stride;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-normal_partials(Strided x, Strided mu, Strided sig, long long n,
-                float* __restrict__ partials) {
-  const float* xrow = x.row(blockIdx.y);
-  const float* mrow = mu.row(blockIdx.y);
-  const float* srow = sig.row(blockIdx.y);
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    const float s = srow[i * sig.elem_stride];
-    const float z = (xrow[i * x.elem_stride] - mrow[i * mu.elem_stride]) / s;
-    acc += (-0.5f * z * z - logf(s)) - kHalfLog2Pi;
   }
   acc = block_sum(acc);
   if (threadIdx.x == 0) {
@@ -372,7 +343,7 @@ finish_rows(const float* __restrict__ partials, int nparts,
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
-// ---- std_normal_sum and gamma_unnorm_sum: one launch a call ----------
+// ---- the one-launch reductions (row_sum) ----------------------------
 // A block's share of a row in one round: 256 threads x 8 floats, two
 // 16-byte loads a thread (eight 4-byte ones on the scalar path), all
 // issued before the first add.
@@ -439,7 +410,8 @@ struct GammaRow {
   }
 };
 
-// One input of beta_unnorm_sum and student_t_unnorm_sum: base, row stride,
+// One input of normal_sum, beta_unnorm_sum and student_t_unnorm_sum: base,
+// row stride,
 // and whether its elements are dense (element stride 1) or one value a row
 // (element stride 0). The flag is the same for every thread of the grid.
 struct Elem {
@@ -514,6 +486,33 @@ struct StudentTRow {
     }
   };
   __device__ __forceinline__ At at(int b) const { return {z.at(b), df.at(b)}; }
+};
+
+// (-z^2 / 2 - log s) - log(2 pi) / 2 with z = (x - mu) / s, in this order
+__device__ __forceinline__ float normal_term(float x, float mu, float s) {
+  const float z = (x - mu) / s;
+  return (-0.5f * z * z - logf(s)) - kHalfLog2Pi;
+}
+
+struct NormalRow {
+  Elem x, mu, sig;
+  struct At {
+    Elem::At x, mu, sig;
+    __device__ __forceinline__ float one(long long i) const {
+      return normal_term(x.one(i), mu.one(i), sig.one(i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      const float4 xv = x.four(j), mv = mu.four(j), sv = sig.four(j);
+      float s = normal_term(xv.x, mv.x, sv.x);
+      s += normal_term(xv.y, mv.y, sv.y);
+      s += normal_term(xv.z, mv.z, sv.z);
+      s += normal_term(xv.w, mv.w, sv.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const {
+    return {x.at(b), mu.at(b), sig.at(b)};
+  }
 };
 
 // Grid (nparts, rows). Block (p, b) sums its shares of row b, rounds p,
@@ -610,7 +609,8 @@ int launch_row_sum(const Row& row, bool vec, int rows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// An input of beta_unnorm_sum or student_t_unnorm_sum: an element stride
+// An input of normal_sum, beta_unnorm_sum or student_t_unnorm_sum: an
+// element stride
 // of 0 or 1, and, with 16-byte loads, a dense one starting every row
 // 16-byte aligned (a one-value-a-row input takes no vector load)
 bool elem_ok(const float* p, long long rs, long long es, bool vec) {
@@ -628,8 +628,8 @@ bool bad_shape(int rows, long long n, int nparts) {
 // holds rows * nparts floats and `out` rows floats, both allocated by the
 // caller.
 
-// std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum and
-// student_t_unnorm_sum: one launch. nparts must be
+// std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum
+// and normal_sum: one launch. nparts must be
 // ceil(n / 2048) capped at 1024 (ops.reduce_plan); with one part
 // `partials` and `counts` may be null, else `partials` holds rows * nparts
 // floats and `counts` rows ints that are zero (the kernel leaves them
@@ -661,8 +661,8 @@ extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
       vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
-// Beta and student_t take (pointer, row stride, element stride) for each
-// input; an element stride is 0 (one value a row) or 1.
+// Beta, student_t and normal take (pointer, row stride, element stride) for
+// each input; an element stride is 0 (one value a row) or 1.
 extern "C" int repro_beta_unnorm_sum(const float* x, long long x_rs, long long x_es,
                                      const float* am1, long long a_rs, long long a_es,
                                      const float* bm1, long long b_rs, long long b_es,
@@ -688,6 +688,21 @@ extern "C" int repro_student_t_unnorm_sum(const float* z, long long z_rs,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_row_sum(StudentTRow{{z, z_rs, z_es == 1}, {df, d_rs, d_es == 1}},
+                        vec != 0, rows, n, nparts, partials, counts, out, stream);
+}
+
+extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
+                                const float* mu, long long m_rs, long long m_es,
+                                const float* sig, long long s_rs, long long s_es,
+                                int rows, long long n, int nparts, int vec,
+                                float* partials, int* counts, float* out,
+                                void* stream) {
+  if (!(elem_ok(x, x_rs, x_es, vec) && elem_ok(mu, m_rs, m_es, vec) &&
+        elem_ok(sig, s_rs, s_es, vec))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(NormalRow{{x, x_rs, x_es == 1}, {mu, m_rs, m_es == 1},
+                                  {sig, s_rs, s_es == 1}},
                         vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
@@ -761,24 +776,6 @@ extern "C" int repro_categorical_logits_sum_small(
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_CAT_SMALL
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// normal_sum takes (pointer, row stride, element stride) for each input;
-// an element stride is 0 or 1.
-extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
-                                const float* mu, long long mu_rs, long long mu_es,
-                                const float* sig, long long sig_rs, long long sig_es,
-                                int rows, long long n, float* partials, int nparts,
-                                float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  normal_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      Strided{x, x_rs, x_es}, Strided{mu, mu_rs, mu_es},
-      Strided{sig, sig_rs, sig_es}, n, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);

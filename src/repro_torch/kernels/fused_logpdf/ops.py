@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels._build import KernelError, load_library
 from repro_torch.kernels._dispatch import plain_requested
+from repro_torch.kernels._scratch import last_block_scratch
 from repro_torch.kernels.fused_logpdf import ref
 
 __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
@@ -68,14 +69,12 @@ _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
 # mvn_quadform_sum's last-block counts, by (device, stream): zero between
 # calls (the kernel sets each back to zero), so they are allocated once
 _MVN_COUNTS = {}
-# the kernels of one launch a call (fused_logpdf.cu row_sum): floats of a
-# row one block sums in a round (kShare), and their scratch by (device
-# index, stream): (float32 partials, int32 last-block counts, zero between
-# calls), grown when a call needs more
+# the kernels of one launch a call (fused_logpdf.cu row_sum) and the floats
+# of a row one block sums in a round (kShare); their scratch is
+# kernels._scratch's
 _ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-               "student_t_unnorm_sum")
+               "student_t_unnorm_sum", "normal_sum")
 REDUCE_SHARE = 2048
-_SCRATCH = {}
 _SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
 
 
@@ -109,6 +108,7 @@ def _lib() -> ctypes.CDLL:
         lib.repro_gamma_unnorm_sum.argtypes = [p, i64, p, i64, p, i64] + tail
         lib.repro_beta_unnorm_sum.argtypes = 3 * strided + tail
         lib.repro_student_t_unnorm_sum.argtypes = 2 * strided + tail
+        lib.repro_normal_sum.argtypes = 3 * strided + tail
         for name in _ONE_LAUNCH:
             fn = getattr(lib, f"repro_{name}")
             fn.restype = i32
@@ -122,8 +122,6 @@ def _lib() -> ctypes.CDLL:
         lib.repro_categorical_logits_sum_small.argtypes = [
             p, i64, p, i64, i32, i64, i32, i32, p, i32, p, p]
         lib.repro_categorical_logits_sum_small.restype = i32
-        lib.repro_normal_sum.argtypes = 3 * strided + [i32, i64, p, i32, p, p]
-        lib.repro_normal_sum.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -191,10 +189,10 @@ def _device_kind(*ts: torch.Tensor) -> str:
 
 class ReducePlan(NamedTuple):
     """How the one-launch reductions (``std_normal_sum``,
-    ``gamma_unnorm_sum``, ``beta_unnorm_sum``, ``student_t_unnorm_sum``)
-    launch: ``nparts`` blocks a row (1: the block writes the row's sum
-    itself; more: the last block of a row to finish sums the row's
-    partials) and ``vec``, 16-byte loads."""
+    ``gamma_unnorm_sum``, ``beta_unnorm_sum``, ``student_t_unnorm_sum``,
+    ``normal_sum``) launch: ``nparts`` blocks a row (1: the block writes
+    the row's sum itself; more: the last block of a row to finish sums the
+    row's partials) and ``vec``, 16-byte loads."""
     nparts: int
     vec: bool
 
@@ -223,19 +221,6 @@ def partials_needed(rows: int, plan: ReducePlan) -> int:
     return rows * plan.nparts if plan.nparts > 1 else 0
 
 
-def _reduce_scratch(index: int, stream: int, rows: int, need: int):
-    """Addresses of at least ``need`` float32 partials and ``rows`` zero
-    int32 counts on this device and stream (calls on one stream run one at
-    a time, and each leaves the counts at zero)."""
-    entry = _SCRATCH.get((index, stream))
-    if entry is None or entry[0].numel() < need or entry[1].numel() < rows:
-        dev = torch.device("cuda", index)
-        entry = (torch.empty(max(need, 4096), dtype=torch.float32, device=dev),
-                 torch.zeros(max(rows, 1024), dtype=torch.int32, device=dev))
-        _SCRATCH[(index, stream)] = entry
-    return entry[0].data_ptr(), entry[1].data_ptr()
-
-
 def _reduce_inputs(ins: Sequence[torch.Tensor], rows: int, n: int,
                    elem_strides: bool = False):
     """Each input of a one-launch reduction as the C side takes it:
@@ -252,8 +237,9 @@ def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
                  n: int, elem_strides: bool = False) -> torch.Tensor:
     """Launch one of the one-launch reductions once on CUDA rows that
     ``_check_rows`` (or, with ``elem_strides``, ``_check_strided``) passed:
-    the plan from ``n`` and the addresses, scratch from ``_SCRATCH`` when a
-    row takes more than one block, and only ``out`` allocated."""
+    the plan from ``n`` and the addresses, scratch from
+    ``kernels._scratch`` when a row takes more than one block, and only
+    ``out`` allocated."""
     dev = ins[0].device
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     if n == 0:
@@ -272,7 +258,7 @@ def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
         partials = counts = None
         need = partials_needed(rows, plan)
         if need:
-            partials, counts = _reduce_scratch(index, stream, rows, need)
+            partials, counts = last_block_scratch(index, stream, rows, need)
         err = fn(*(v for t in inputs for v in t), rows, n, plan.nparts,
                  plan.vec, partials, counts, out.data_ptr(), stream)
     if err:
@@ -402,36 +388,16 @@ def _check_strided(name: str, t: torch.Tensor, rows: int, n: int) -> None:
 
 
 def _strided_sum(kernel: str, plain, names, *ins: torch.Tensor) -> torch.Tensor:
-    """Launch one per-element row-sum kernel of ``fused_logpdf.cu`` on
-    ``(B, n)`` inputs of any row stride and an element stride of 0 or 1:
-    beta's and student_t's one launch, or normal's two stages (each input
-    passed as pointer, row stride, element stride); on CPU tensors run
-    ``plain``."""
+    """Launch one per-element row-sum kernel of ``fused_logpdf.cu``
+    (normal's, beta's or student_t's one launch) on ``(B, n)`` inputs of
+    any row stride and an element stride of 0 or 1, each passed as
+    pointer, row stride, element stride; on CPU tensors run ``plain``."""
     rows, n = ins[0].shape
     for name, t in zip(names, ins):
         _check_strided(name, t, rows, n)
     if _device_kind(*ins) == "cpu":
         return plain(*ins)
-    if kernel in _ONE_LAUNCH:
-        return _reduce_rows(kernel, ins, rows, n, elem_strides=True)
-    out = torch.empty(rows, dtype=torch.float32, device=ins[0].device)
-    if n == 0:
-        return out.zero_()
-    nparts = _num_parts(n)
-    partials = torch.empty(rows * nparts, dtype=torch.float32,
-                           device=ins[0].device)
-    args = []
-    for t in ins:
-        args += [t.data_ptr(), t.stride(0) if rows > 1 else 0,
-                 t.stride(1) if n > 1 else 1]
-    with torch.cuda.device(ins[0].device):
-        stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-        err = getattr(_lib(), f"repro_{kernel}")(
-            *args, rows, n, partials.data_ptr(), nparts, out.data_ptr(),
-            stream)
-    _raise_on(err, kernel)
-    LAUNCHES[kernel] += 1
-    return out
+    return _reduce_rows(kernel, ins, rows, n, elem_strides=True)
 
 
 def normal_sum_rows(x: torch.Tensor, loc: torch.Tensor,

@@ -8,6 +8,7 @@ Models are the paper's ``logreg``, ``naive_bayes``, ``hier_poisson``,
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32, sums in another order). TF32 is off (``resolve_device``).
 """
+import functools
 import re
 from pathlib import Path
 
@@ -128,7 +129,10 @@ def test_paper_suite_data_equal_bit_for_bit(name):
         np.testing.assert_array_equal(got[k], want[k])
 
 
+@functools.lru_cache(maxsize=None)
 def _pair(name):
+    """Both packages' model and trace, made once a module for each model
+    (no test changes them: a trace's link and replace return new ones)."""
     jm = jsuite.build(name, **SMALL[name])
     tm = tsuite.build(name, device="cpu", **SMALL[name])
     jtvi = jm.model.typed_varinfo(jax.random.PRNGKey(0))
@@ -242,8 +246,8 @@ def test_gauss_unknown_switch_route_equals_the_fused_route():
     tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     u = np.array([0.1, 1.4], np.float32)
     with jk.use_fused_logpdf():
-        jv, jg = jax.value_and_grad(jm.model.make_logdensity_fn(
-            jlinked, backend="reference"))(jnp.asarray(u))
+        jv, jg = jax.jit(jax.value_and_grad(jm.model.make_logdensity_fn(
+            jlinked, backend="reference")))(jnp.asarray(u))
     fused = value_and_grad(tm.model.make_logdensity_fn(tlinked))
     switched = value_and_grad(tm.model.make_logdensity_fn(
         tlinked, backend="reference"))

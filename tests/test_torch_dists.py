@@ -121,7 +121,7 @@ def test_stickbreaking_gradients_match_jax_under_vmap(k):
         return jnp.sum(jsb.forward(u) * w) + jsb.forward_log_det_jacobian(u)
 
     g = torch.func.vmap(torch.func.grad(f))(torch.tensor(x)).numpy()
-    jg = np.asarray(jax.vmap(jax.grad(jf))(jnp.asarray(x)))
+    jg = np.asarray(jax.jit(jax.vmap(jax.grad(jf)))(jnp.asarray(x)))
     np.testing.assert_allclose(g, jg, rtol=1e-5,
                                atol=1e-5 * float(np.abs(jg).max()))
     xt = torch.tensor(x)

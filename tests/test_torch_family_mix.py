@@ -7,6 +7,8 @@ the same NumPy arrays; the port's trace is set to the JAX trace's flat
 state. Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 *
 max|g| (float32 sums in another order).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,11 +57,16 @@ def _jax_test_tril():
     return np.asarray(jnp.linalg.cholesky(a @ a.T + jnp.eye(5)), np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _pair(name, tril=None):
+    """Both packages' model and linked trace, once a module for each model
+    and factor: ``tril`` None is the port's default factor, "jax_test" the
+    one ``tests/test_kernel_families.py`` draws."""
     if name == "family_mix_8k":
         jm, tm = _jax_family_mix_8k(), family_mix.family_mix_8k(device="cpu")
     else:
-        tril = family_mix.mixed_scale_tril() if tril is None else tril
+        tril = (family_mix.mixed_scale_tril() if tril is None
+                else _jax_test_tril())
         jm, tm = _jax_mixed(tril), family_mix.mixed(tril, device="cpu")
     jlinked = jm.typed_varinfo(jax.random.PRNGKey(1)).link()
     sig = tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
@@ -85,8 +92,7 @@ def _grad_close(got, want):
 @pytest.mark.parametrize("name,tril", [
     ("family_mix_8k", None), ("mixed", None), ("mixed", "jax_test")])
 def test_density_and_gradient_match_jax(name, tril):
-    jm, tm, jlinked, tlinked = _pair(
-        name, _jax_test_tril() if tril == "jax_test" else None)
+    jm, tm, jlinked, tlinked = _pair(name, tril)
     rng = np.random.default_rng(2)
     jfun = jax.jit(jax.value_and_grad(jm.make_logdensity_fn(jlinked)))
     for k in range(2):

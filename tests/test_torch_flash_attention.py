@@ -17,7 +17,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import \
     flash_attention_gqa as jflash
-from repro.kernels.flash_attention.ref import attention_ref as jref
+from repro.kernels.flash_attention.ref import attention_ref as jref_eager
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.nn.attention import attention_core
@@ -34,6 +34,9 @@ FLASH_CASES = [
     (1, 8, 160, 1, 2, 256, True, 32, 30.0),        # all options
 ]
 INTERPRET = {4, 5}  # indices of the cases also run through Pallas
+# the JAX package's plain version, compiled once per shape and options:
+# the same arithmetic as op-by-op dispatch, several times faster
+jref = jax.jit(jref_eager, static_argnames=("causal", "window", "cap"))
 
 
 def _rel_err(a, b):
@@ -108,7 +111,8 @@ def test_flash_grad_matches_reference():
                  cap=30.0)
         return jnp.sum(o * jnp.asarray(w))
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     o = ops.flash_attention_gqa(tq, tk, tv, q_positions=torch.as_tensor(pos),
                                 kv_positions=torch.as_tensor(pos),

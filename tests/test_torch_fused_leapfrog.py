@@ -29,6 +29,8 @@ from repro_torch.kernels.fused_leapfrog import (LAUNCHES, OP_EXP, OP_NORMAL,
                                                 OP_SOFTPLUS, OP_TLOG, OP_ZERO,
                                                 fused_leapfrog,
                                                 potential_value_and_grad)
+from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+from repro_torch.kernels.fused_leapfrog import ref as lf_ref
 from repro_torch.models import paper_suite as tsuite
 
 TOL = 1e-5
@@ -258,3 +260,42 @@ def test_wrappers_take_the_jax_switches(spec_pair, switch, monkeypatch):
     # the default takes the kernel route, which cannot run on this tensor
     with pytest.raises((AssertionError, ValueError, RuntimeError)):
         potential_value_and_grad(ts, torch.tensor(q[0]))
+
+
+# ---------------------------------------------------------------------------
+# the one-launch kernel's plan, as the card's wrapper takes it (pure Python)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dim,nparts", [
+    (1, 1), (lf_ops.LEAPFROG_SHARE, 1), (lf_ops.LEAPFROG_SHARE + 1, 2),
+    (8192, 32), (10_000, 40), (1_000_003, 3907)])
+def test_leapfrog_parts_from_dim_alone(dim, nparts):
+    """One block a chain up to the share (it writes the chain's potential
+    itself), then one block per 256 coordinates whose last merges."""
+    assert lf_ops.leapfrog_parts(dim) == nparts
+
+
+def test_eps_arg_reads_numbers_and_tensors_without_copies():
+    """The step size as the kernel reads it: a number by value, a 0-d
+    tensor at stride 0, a per-chain vector at its own stride (no copy);
+    another shape raises."""
+    assert lf_ops._eps_arg(0.1, 4, torch.device("cpu"))[:3] == (
+        None, 0, pytest.approx(0.1))
+    one = torch.tensor(0.1)
+    assert lf_ops._eps_arg(one, 4, one.device)[:2] == (one.data_ptr(), 0)
+    per = torch.rand(8)[::2]  # a strided (4,) view
+    addr, stride, _, keep = lf_ops._eps_arg(per, 4, per.device)
+    assert (addr, stride) == (per.data_ptr(), 2) and keep is per
+    addr, _, _, keep = lf_ops._eps_arg(per.double(), 4, per.device)
+    assert keep.dtype == torch.float32 and addr == keep.data_ptr()
+    with pytest.raises(ValueError, match="step_size"):
+        lf_ops._eps_arg(torch.rand(3), 4, torch.device("cpu"))
+
+
+def test_random_spec_runs_keep_one_opcode_a_run():
+    """``run=512`` lays out family_mix_8k's mixed table: one opcode for
+    each 512 coordinates; ``run=1`` draws as before, one a coordinate."""
+    spec = lf_ref.random_spec(8192, None, seed=3, run=512)
+    runs = spec.op.reshape(16, 512)
+    assert (runs == runs[:, :1]).all() and spec.uniform_op is None
+    np.testing.assert_array_equal(lf_ref.random_spec(100, None, seed=3).op,
+                                  np.random.default_rng(3).integers(0, 5, 100))

@@ -93,7 +93,8 @@ def test_site_block_sum_matches_jax_pallas_and_ref(family, sizes):
                     for i, a in enumerate(s)) for s, f in zip(segs, floats)]
         return jops.site_block_sum(family, ss, use_pallas=True, interpret=True)
 
-    jval, jgrads = jax.value_and_grad(jfun)(
+    # compiled once: the same arithmetic as op-by-op dispatch, faster
+    jval, jgrads = jax.jit(jax.value_and_grad(jfun))(
         [tuple(jnp.asarray(s[i]) for i in diff) for s in segs])
     tsegs = [tuple(torch.tensor(a, requires_grad=i in diff)
                    for i, a in enumerate(s)) for s in segs]
@@ -159,8 +160,8 @@ def test_new_family_sums_and_grads_match_jax_pallas(family):
     args = _kernel_family_inputs(family)
     wrt = tuple(range(len(args)))
     jfun = JAX_OPS[family]
-    jval, jgrads = jax.value_and_grad(
-        lambda *a: jfun(*a, interpret=True), argnums=wrt)(
+    jval, jgrads = jax.jit(jax.value_and_grad(
+        lambda *a: jfun(*a, interpret=True), argnums=wrt))(
         *map(jnp.asarray, args))
     targs = [torch.tensor(a, requires_grad=True) for a in args]
     val = TORCH_OPS[family](*targs)
@@ -670,8 +671,8 @@ def test_reduce_plan_element_strides(n, inputs, vec):
 
 
 def _family_rows(family, rows, n, layout):
-    """CPU inputs of beta_unnorm_sum or student_t_unnorm_sum in the layouts
-    the kernels take: x dense, or one float past a 16-byte boundary
+    """CPU inputs of normal_sum, beta_unnorm_sum or student_t_unnorm_sum in
+    the layouts the kernels take: x dense, or one float past a 16-byte boundary
     ("offset"); the parameters per row ("dense"), one row shared by every
     row ("shared", row stride 0) or one value a row ("scalar", element
     stride 0)."""
@@ -683,10 +684,10 @@ def _family_rows(family, rows, n, layout):
              "offset": lambda: torch.ones(rows, n),
              "shared": lambda: torch.ones(n).expand(rows, n),
              "scalar": lambda: torch.ones(rows, 1).expand(rows, n)}[layout]
-    return (x, param(), param()) if family == "beta" else (x, param())
+    return (x, param()) if family == "student_t" else (x, param(), param())
 
 
-@pytest.mark.parametrize("family", ["beta", "student_t"])
+@pytest.mark.parametrize("family", ["beta", "student_t", "normal"])
 @pytest.mark.parametrize("layout", ["dense", "offset", "shared", "scalar"])
 @pytest.mark.parametrize("rows,n", [(4, 1), (4, 8), (4, 1024), (4, 2048),
                                     (4, 2049), (4, 40_000), (1, 1_000_003)])
@@ -706,3 +707,21 @@ def test_partials_needed_for_beta_and_student_t(family, layout, rows, n):
                                    and (rows == 1 or n % 4 == 0)))
     need = ops.partials_needed(rows, plan)
     assert need == (0 if n <= ops.REDUCE_SHARE else rows * plan.nparts)
+
+
+@pytest.mark.parametrize("rows,n", [(4, 1), (4, 10_000), (4, 10_001),
+                                    (4, 40_000)])
+def test_normal_sum_plan_on_the_switch_route(rows, n):
+    """gauss_unknown's switch route hands normal_sum the data shared by the
+    chains (row stride 0) and one mu and one sigma a chain (element stride
+    0): 16-byte loads at any n, as the shared row starts aligned and the
+    per-chain values are read once a thread; parts from n alone."""
+    x = torch.zeros(n).expand(rows, n)
+    mu, sig = torch.zeros(rows, 1), torch.ones(rows, 1)
+    ins = (x, mu.expand(rows, n), sig.expand(rows, n))
+    inputs = ops._reduce_inputs(ins, rows, n, elem_strides=True)
+    assert [t[1:] for t in inputs] == [(0, 1 if n > 1 else 0)] + \
+        [(1, 0)] * 2
+    plan = ops.reduce_plan(n, inputs)
+    assert plan == ops.ReducePlan(-(-n // ops.REDUCE_SHARE), True)
+    assert "normal_sum" in ops._ONE_LAUNCH

@@ -134,17 +134,17 @@ def test_cuda_gamma_matches_plain_version(cuda_device, rows, n, shared):
     assert torch.equal(ops.gamma_unnorm_sum_rows(x, am1, rate), got)
 
 
-# std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum and student_t_unnorm_sum,
-# one launch a call: one block a row up to ops.REDUCE_SHARE floats, the
+# std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum
+# and normal_sum, one launch a call: one block a row up to ops.REDUCE_SHARE floats, the
 # last block of a row merging beyond
 ONE_LAUNCH_SHAPES = [(1, 1), (4, 11), (4, 101), (4, 400),
                      (4, ops.REDUCE_SHARE - 1),
                      (4, ops.REDUCE_SHARE), (4, ops.REDUCE_SHARE + 1),
                      (4, 40000), (16, 257), (1, 1_000_003)]
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum")
-# the two whose inputs also take an element stride of 0 (one value a row)
-ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum")
+              "student_t_unnorm_sum", "normal_sum")
+# the three whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum")
 # beta's and student_t's main paths: mixed's 4 x 1 and 4 x 8,
 # family_mix_8k's 4 x 1,024 and 4 x 2,048, and the wide timing shape
 ELEM_MAIN_SHAPES = [(4, 1), (4, 8), (4, 1024), (4, 2048), (4, 40000)]
@@ -180,6 +180,13 @@ def _one_launch_case(family, rows, n, layout, gen, dev):
         df = _rows(rows, n, gen, dev, layout, lo=0.5, scale=29.5)
         want = ref.student_t_unnorm_logpdf_sum_ref(z, df)
         return ops.student_t_unnorm_sum_rows, (z, df), want, want.abs()
+    if family == "normal_sum":
+        x = _rows(rows, n, gen, dev, value, scale=2.0, randn=True)
+        mu = _rows(rows, n, gen, dev, layout, lo=-1.0, scale=2.0)
+        sig = _rows(rows, n, gen, dev, layout, lo=0.3, scale=2.7)
+        return (ops.normal_sum_rows, (x, mu, sig),
+                ref.normal_logpdf_sum_ref(x, mu, sig),
+                _abs_terms("normal", (x, mu, sig)))
     if family == "beta_unnorm_sum":
         x = _rows(rows, n, gen, dev, value, lo=0.01, scale=0.98)
         am1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
@@ -206,9 +213,11 @@ def _plan_of(args, rows, n, family="std_normal_sum"):
 
 
 def _counts_are_zero(stream):
-    """The stream's last-block counts, read back: all 0 (or never made)."""
+    """The stream's last-block counts (the one-launch reductions' and the
+    fused leapfrog's), read back: all 0 (or never made)."""
+    from repro_torch.kernels._scratch import SCRATCH
     torch.cuda.synchronize()
-    entry = ops._SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
+    entry = SCRATCH.get((torch.cuda.current_device(), stream.cuda_stream))
     return entry is None or not bool(entry[1].any())
 
 
@@ -264,9 +273,10 @@ def test_cuda_one_launch_reruns_and_two_streams(cuda_device, family, rows, n):
                                     (1, 1_000_003)])
 def test_cuda_elem_strided_reruns_and_two_streams(cuda_device, family,
                                                   layout, rows, n):
-    """Beta and student_t in the layouts the shared-row test above leaves
-    out: dense parameters, offset views (4-byte loads) and one value a row
-    (element stride 0), either side of one block's share and merging."""
+    """Beta, student_t and normal in the layouts the shared-row test above
+    leaves out: dense parameters, offset views (4-byte loads) and one value
+    a row (element stride 0), either side of one block's share and
+    merging."""
     gen = torch.Generator(device=cuda_device).manual_seed(15)
     kern, args, _, _ = _one_launch_case(family, rows, n, layout, gen,
                                         cuda_device)
@@ -312,16 +322,20 @@ def test_cuda_one_launch_is_one_kernel_by_profiler(cuda_device, family, rows,
 @pytest.mark.parametrize("rows,n", ELEM_MAIN_SHAPES)
 def test_cuda_elem_strided_one_kernel_by_profiler(cuda_device, family,
                                                   layout, rows, n):
-    """Beta and student_t at their main paths' shapes, in the layouts the
-    paths pass (a shared parameter row), one value a row and offset
-    views: one row_sum kernel a call."""
+    """Beta, student_t and normal at the main paths' shapes, in the
+    layouts the paths pass (a shared parameter row), one value a row and
+    offset views: one row_sum kernel a call."""
     gen = torch.Generator(device=cuda_device).manual_seed(16)
     kern, args, _, _ = _one_launch_case(family, rows, n, layout, gen,
                                         cuda_device)
     _assert_one_kernel_a_call(kern, args)
 
 
-def _assert_one_kernel_a_call(kern, args):
+def _assert_one_kernel_a_call(kern, args, kernel="row_sum"):
+    """``calls`` calls launch ``calls`` kernels named ``kernel`` and no
+    other kernel. Each window starts with one marker launch
+    (``torch.cuda._sleep``'s spin_kernel) that the count leaves out: the
+    profiler can drop a window's first kernel (seen on the H100)."""
     from torch.profiler import ProfilerActivity, profile
     kern(*args)  # scratch and library in place before the window
     torch.cuda.synchronize()
@@ -329,12 +343,15 @@ def _assert_one_kernel_a_call(kern, args):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 kern(*args)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()
-                 if e.device_type.name == "CUDA" for _ in range(e.count)]
-        assert all("row_sum" in k for k in names), names
+                 if e.device_type.name == "CUDA" and "spin_kernel" not in e.key
+                 for _ in range(e.count)]
+        assert all(kernel in k for k in names), names
         seen.append(len(names))
         if len(names) == calls:
             break
@@ -390,6 +407,10 @@ def test_cuda_elem_strided_refuses_bad_plans(cuda_device):
     assert st(a, share, 1, v, share + 1, 1, *tail) != 0
     assert st(a, share, 1, v, 1, 0, *tail) == 0
     assert beta(a, share, 1, v, 1, 0, v, 0, 0, *tail) == 0
+    normal = ops._lib().repro_normal_sum
+    assert normal(a, share, 1, a, share, 3, a, share, 1, *tail) != 0
+    assert normal(v, share + 1, 1, a, 0, 1, a, 0, 1, *tail) != 0
+    assert normal(a, 0, 1, v, 1, 0, v, 1, 0, *tail) == 0  # the switch route
     torch.cuda.synchronize()
     # parts not ceil(n / share), and a merge without scratch
     assert st(a, share, 1, a, share, 1, 4, share, 2, 1, None, None,
@@ -399,6 +420,43 @@ def test_cuda_elem_strided_refuses_bad_plans(cuda_device):
     assert err != 0
     with pytest.raises(KernelError, match="beta_unnorm_sum"):
         ops._raise_on(err, "beta_unnorm_sum")
+
+
+# normal_sum as gauss_unknown's switch route passes it (shared x, one mu
+# and one sigma a chain), one value a row, shared rows and offset views
+NORMAL_LAYOUTS = ("switch", "scalar", "shared", "offset")
+MAIN_DIMS = (1, 255, 256, 257, 2047, 2049, 10000, 1_000_003)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", NORMAL_LAYOUTS)
+@pytest.mark.parametrize("n", MAIN_DIMS)
+def test_cuda_normal_sum_one_launch_layouts(cuda_device, layout, n):
+    """One row_sum launch a call at 1e-6 of sum|terms|, bit-identical on a
+    rerun, the counts back at 0; "switch" reads the data at row stride 0
+    and the parameters at element stride 0, which never bars 16-byte
+    loads; "offset" takes the 4-byte loads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    rows = 1 if n == 1_000_003 else 4
+    if layout == "switch":
+        x = _rows(rows, n, gen, cuda_device, "shared", scale=2.0, randn=True)
+        mu = _rows(rows, n, gen, cuda_device, "scalar", lo=-1.0, scale=2.0)
+        sig = _rows(rows, n, gen, cuda_device, "scalar", lo=0.3, scale=2.7)
+        args = (x, mu, sig)
+        want = ref.normal_logpdf_sum_ref(*args)
+        scale = _abs_terms("normal", args)
+    else:
+        _, args, want, scale = _one_launch_case("normal_sum", rows, n, layout,
+                                                gen, cuda_device)
+    plan = _plan_of(args, rows, n, "normal_sum")
+    assert plan.vec == (n == 1 or (layout != "offset" and (
+        rows == 1 or n % 4 == 0 or layout == "switch")))
+    ops.reset_launch_counts()
+    got = ops.normal_sum_rows(*args)
+    assert ops.LAUNCHES["normal_sum"] == 1
+    assert bool(((got - want).abs() <= 1e-6 * scale).all())
+    assert torch.equal(ops.normal_sum_rows(*args), got)
+    assert _counts_are_zero(torch.cuda.current_stream())
 
 
 @pytest.mark.cuda
@@ -609,6 +667,187 @@ def test_cuda_fused_leapfrog_counts_one_launch_per_call(cuda_device):
     lf_ops.fused_leapfrog(spec, q, q, g, 0.1, 4)
     assert lf_ops.LAUNCHES == {"fused_leapfrog": 1, "fused_potential_vg": 1}
     assert lp.shape == (4,)
+
+
+# fused_leapfrog, one launch a call: one block a chain up to
+# lf_ops.LEAPFROG_SHARE coordinates, the last block of a chain merging
+# beyond (MAIN_DIMS: either side of one block, 2,047 and 2,049, the main
+# paths' 10,000 and 8,192, and 1,000,003). "normal" is gaussian_10k's uniform table, "mixed" a table whose
+# opcode changes every coordinate, "runs" family_mix_8k's layout (one
+# opcode for each 512 coordinates).
+LF_TABLES = {"normal": (OP_NORMAL, 1), "mixed": (None, 1), "runs": (None, 512)}
+
+
+def _lf_case(table, rows, dim, gen, dev):
+    uop, run = LF_TABLES[table]
+    spec = lf_ref.random_spec(dim, uop, seed=dim, run=run)
+    q = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
+    p = torch.randn(rows, dim, generator=gen, device=dev)
+    eps = 0.02 + 0.06 * torch.rand(rows, generator=gen, device=dev)
+    _, g = lf_ref.potential_value_and_grad_ref(spec, q)
+    return spec, q, p, g, eps
+
+
+def _assert_leapfrog_close(spec, got, want):
+    for a, b in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        _assert_state_close(a, b)
+    op, c0, c1, c2, c3 = spec.coeff_arrays(want[0].device)
+    abs_sum = potential_elem_value(op, c0, c1, c2, c3, want[0],
+                                   uniform_op=spec.uniform_op).abs().sum(-1)
+    assert bool(((got[2] - want[2]).abs() <= 1e-5 * abs_sum + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", list(LF_TABLES))
+@pytest.mark.parametrize("dim", MAIN_DIMS + (8192,))
+@pytest.mark.parametrize("mass", [False, True])
+def test_cuda_fused_leapfrog_one_launch_matches_plain_version(
+        cuda_device, table, dim, mass):
+    """At 0 and 4 steps: one launch a call, q, p, g and the potential at
+    the plain version's tolerances (0 steps returns the inputs bit for
+    bit), bit-identical on a rerun, the counts back at 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    rows = 1 if dim == 1_000_003 else 4
+    spec, q, p, g, eps = _lf_case(table, rows, dim, gen, cuda_device)
+    im = (0.5 + torch.rand(dim, generator=gen, device=cuda_device)
+          if mass else None)
+    for n_steps in (0, 4):
+        lf_ops.reset_launch_counts()
+        got = lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps, inv_mass=im)
+        assert lf_ops.LAUNCHES == {"fused_leapfrog": 1,
+                                   "fused_potential_vg": 0}
+        want = lf_ref.leapfrog_ref(spec, q, p, g, eps, n_steps, inv_mass=im)
+        _assert_leapfrog_close(spec, got, want)
+        if n_steps == 0:
+            for a, b in zip((got[0], got[1], got[3]), (q, p, g)):
+                assert torch.equal(a, b)
+        again = lf_ops.fused_leapfrog(spec, q, p, g, eps, n_steps,
+                                      inv_mass=im)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _counts_are_zero(torch.cuda.current_stream())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["normal", "runs"])
+@pytest.mark.parametrize("rows,dim", [(4, 1024), (4, 8192), (4, 10000),
+                                      (1, 1_000_003)])
+def test_cuda_fused_leapfrog_layouts_and_step_forms_give_the_same_bits(
+        cuda_device, table, rows, dim):
+    """The state as views one float past a 16-byte boundary, or q shared
+    by the chains at row stride 0, gives the same bits as dense rows (a
+    thread's coordinate and the sum's order come from dim alone); the step
+    size given per chain, as one 0-d tensor or as a number, too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    spec, q, p, g, eps = _lf_case(table, rows, dim, gen, cuda_device)
+
+    def offset(t):
+        return torch.empty(t.numel() + 1, device=cuda_device)[1:] \
+            .view_as(t).copy_(t)
+
+    views = [offset(t) for t in (q, p, g)]
+    outs = []
+    for step in (eps, eps[0].clone(), float(eps[0])):
+        got = lf_ops.fused_leapfrog(spec, q, p, g, step, 4)
+        got4 = lf_ops.fused_leapfrog(spec, *views, step, 4)
+        assert all(torch.equal(a, b) for a, b in zip(got, got4))
+        outs.append(got)
+    # one step for every chain as a 0-d tensor or a number; chain 0 takes
+    # eps[0] in all three
+    assert all(torch.equal(a, b) for a, b in zip(outs[1], outs[2]))
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(outs[0], outs[1]))
+    if rows > 1:
+        shared = q[:1].expand(rows, dim)
+        assert shared.stride(0) == 0
+        got = lf_ops.fused_leapfrog(spec, shared, p, g, eps, 4)
+        want = lf_ops.fused_leapfrog(spec, shared.contiguous(), p, g, eps, 4)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["normal", "runs"])
+@pytest.mark.parametrize("rows,dim", [(4, 10000), (1, 1_000_003)])
+def test_cuda_fused_leapfrog_reruns_and_two_streams(cuda_device, table, rows,
+                                                    dim):
+    """The last-block merge: 100 back-to-back calls bit-identical, calls
+    alternating between two streams equal to them, every count back at 0
+    on each stream."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    spec, q, p, g, eps = _lf_case(table, rows, dim, gen, cuda_device)
+
+    def call():
+        return lf_ops.fused_leapfrog(spec, q, p, g, eps, 4)
+
+    first = call()
+    assert all(all(torch.equal(a, b) for a, b in zip(call(), first))
+               for _ in range(100))
+    assert _counts_are_zero(torch.cuda.current_stream())
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(call())
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+        assert _counts_are_zero(s)
+    assert all(all(torch.equal(a, b) for a, b in zip(out, first))
+               for out in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table,rows,dim", [("normal", 4, 512),
+                                            ("normal", 4, 10000),
+                                            ("runs", 4, 8192)])
+def test_cuda_fused_leapfrog_is_one_kernel_by_profiler(cuda_device, table,
+                                                       rows, dim):
+    """torch.profiler sees one kernel a call (leapfrog_kernel), and no
+    finish_rows, at gaussian_10k's and family_mix_8k's shapes and where a
+    chain is one block."""
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    spec, q, p, g, eps = _lf_case(table, rows, dim, gen, cuda_device)
+    _assert_one_kernel_a_call(
+        lambda *a: lf_ops.fused_leapfrog(spec, *a, 4), (q, p, g, eps),
+        kernel="leapfrog_kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_leapfrog_refuses_bad_plans(cuda_device):
+    """The C side refuses parts that are not ceil(dim / LEAPFROG_SHARE) and
+    a merge without scratch; the wrapper raises its error as
+    KernelError."""
+    from repro_torch.kernels._build import KernelError
+    share = lf_ops.LEAPFROG_SHARE
+    dim = 2 * share
+    spec = lf_ref.random_spec(dim, OP_NORMAL)
+    table = [t.data_ptr() for t in spec.coeff_arrays(cuda_device)]
+    z = torch.zeros(4 * dim, device=cuda_device)
+    a = z.data_ptr()
+    # every buffer the kernel writes stays alive through the test
+    state = torch.empty(3 * 4 * dim, device=cuda_device)
+    out = torch.empty(4, device=cuda_device)
+    partials = torch.empty(4 * 2, device=cuda_device)
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    fn = lf_ops._lib().repro_fused_leapfrog
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(n, nparts, scratch=True):
+        return fn(a, n, a, n, a, n, None, 0, 0.1, *table, None, OP_NORMAL, 4,
+                  n, 4, nparts, state.data_ptr(),
+                  partials.data_ptr() if scratch else None,
+                  counts.data_ptr() if scratch else None, -1.25,
+                  out.data_ptr(), stream)
+
+    assert call(dim, 2) == 0
+    assert call(dim - 1, 2) == 0
+    assert call(share, 1, scratch=False) == 0  # one block a chain
+    torch.cuda.synchronize()
+    assert not bool(counts.any())
+    assert call(dim, 3) != 0                    # parts
+    assert call(dim, 2, scratch=False) != 0     # a merge, no scratch
+    err = call(dim, 1)
+    with pytest.raises(KernelError, match="fused_leapfrog"):
+        lf_ops._raise_on(err, "fused_leapfrog")
 
 
 # ---------------------------------------------------------------------------

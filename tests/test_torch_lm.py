@@ -16,6 +16,7 @@ when the prompt is at least as long as the ring (ROADMAP Queue 3); the
 port's prefill past the window equals ``forward_train``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,15 +51,25 @@ def _close(got, want, rtol=1e-4, atol=1e-4):
                                rtol=rtol, atol=atol)
 
 
+@functools.lru_cache(maxsize=None)
+def _params(arch, seed):
+    """The JAX package's weights and the port's copy of them, made once a
+    module for each (arch, seed): the attention route does not change
+    them, and no test does."""
+    jp = jlm.init_params(jconfigs.get_smoke_config(arch), seed=seed)
+    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
+                               tconfigs.get_smoke_config(arch), device="cpu")
+    return jp, tp
+
+
+@functools.lru_cache(maxsize=None)
 def _pair(arch, impl="xla", seed=0):
     """(jax cfg, jax params, port cfg, port params): the same weights."""
     jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
                                attn_impl=impl)
     tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
                                attn_impl=impl)
-    jp = jlm.init_params(jcfg, seed=seed)
-    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp), tcfg,
-                               device="cpu")
+    jp, tp = _params(arch, seed)
     return jcfg, jp, tcfg, tp
 
 
@@ -79,6 +90,27 @@ def _inputs(cfg, B, S, seed=0):
 
 def _jx(extras):
     return {k: jnp.asarray(v) for k, v in extras.items()}
+
+
+def _jax_prefill_decode(cfg, B, S, n_prefix):
+    """The JAX package's ``forward_train`` over S tokens, ``prefill`` of
+    the first S - 1 and ``decode_step`` of the last, compiled as one
+    program: the same arithmetic as op-by-op dispatch, in a fraction of
+    the time on the CPU."""
+    def run(params, tokens, extras):
+        full = jlm.forward_train(cfg, params, tokens, **extras)
+        cache = jlm.init_cache(cfg, B, S + n_prefix)
+        logits, cache = jlm.prefill(cfg, params, tokens[:, :-1], cache,
+                                    **extras)
+        memory = None
+        if cfg.enc_layers:
+            memory = jlm.make_cross_kv(cfg, params, jlm.encode(
+                cfg, params, extras["enc_frames"]))
+        pos = jnp.full((B,), S - 1 + n_prefix, jnp.int32)
+        step, _ = jlm.decode_step(cfg, params, tokens[:, -1:], cache, pos,
+                                  memory_kv=memory)
+        return full, logits, step
+    return jax.jit(run)
 
 
 def _th(extras):
@@ -145,29 +177,22 @@ def test_forward_prefill_decode_match_reference(arch, impl):
     jcfg, jp, tcfg, tp = _pair(arch, impl)
     B, S = 2, 16
     tokens, _, extras = _inputs(jcfg, B, S)
-    want = np.asarray(jlm.forward_train(jcfg, jp, jnp.asarray(tokens),
-                                        **_jx(extras)))
+    n_prefix = jcfg.n_prefix if jcfg.n_prefix and not jcfg.enc_layers else 0
+    want, jl, jd = _jax_prefill_decode(jcfg, B, S, n_prefix)(
+        jp, jnp.asarray(tokens), _jx(extras))
     got = tlm.forward_train(tcfg, tp, torch.as_tensor(tokens), **_th(extras))
     assert got.dtype == torch.float32 and got.shape == (B, S, jcfg.vocab)
     _close(got, want)
 
-    n_prefix = jcfg.n_prefix if jcfg.n_prefix and not jcfg.enc_layers else 0
-    jc = jlm.init_cache(jcfg, B, S + n_prefix)
     tc = tlm.init_cache(tcfg, B, S + n_prefix, device="cpu")
-    jl, jc = jlm.prefill(jcfg, jp, jnp.asarray(tokens[:, :-1]), jc,
-                         **_jx(extras))
     tl, tc = tlm.prefill(tcfg, tp, torch.as_tensor(tokens[:, :-1]), tc,
                          **_th(extras))
     _close(tl, jl)
-    jm = tm = None
+    tm = None
     if jcfg.enc_layers:
-        jm = jlm.make_cross_kv(jcfg, jp, jlm.encode(
-            jcfg, jp, jnp.asarray(extras["enc_frames"])))
         tm = tlm.make_cross_kv(tcfg, tp, tlm.encode(
             tcfg, tp, torch.as_tensor(extras["enc_frames"])))
     pos = np.full((B,), S - 1 + n_prefix, np.int32)
-    jd, _ = jlm.decode_step(jcfg, jp, jnp.asarray(tokens[:, -1:]), jc,
-                            jnp.asarray(pos), memory_kv=jm)
     td, _ = tlm.decode_step(tcfg, tp, torch.as_tensor(tokens[:, -1:]), tc,
                             torch.as_tensor(pos), memory_kv=tm)
     _close(td, jd)
@@ -195,8 +220,15 @@ def test_ring_prefill_past_the_window_matches_forward(S):
     assert tcfg.window == 16
     B = 2
     tokens, _, _ = _inputs(jcfg, B, S + 1, seed=S)
+
+    @jax.jit
+    def jax_ring(params, tokens):  # one compiled program
+        cache = jlm.init_cache(jcfg, B, S + 1)
+        return (jlm.forward_train(jcfg, params, tokens),
+                jlm.prefill(jcfg, params, tokens[:, :S], cache)[0])
+
+    jfull, jl = (np.asarray(a) for a in jax_ring(jp, jnp.asarray(tokens)))
     full = tlm.forward_train(tcfg, tp, torch.as_tensor(tokens))
-    jfull = np.asarray(jlm.forward_train(jcfg, jp, jnp.asarray(tokens)))
     _close(full, jfull)
 
     tc = tlm.init_cache(tcfg, B, S + 1, device="cpu")
@@ -209,8 +241,6 @@ def test_ring_prefill_past_the_window_matches_forward(S):
                             torch.full((B,), S, dtype=torch.int32))
     _close(td[:, 0], jfull[:, S], rtol=2e-3, atol=2e-3)
 
-    jc = jlm.init_cache(jcfg, B, S + 1)
-    jl, _ = jlm.prefill(jcfg, jp, jnp.asarray(tokens[:, :S]), jc)
     if S < 16:  # the JAX package is right here: the port equals it
         _close(tl, jl)
     else:       # and wrong here (ROADMAP Queue 3)
@@ -236,13 +266,16 @@ def test_lm_model_contexts_match_reference(arch, impl):
     pairs = [(JPriorContext(), PriorContext()),
              (JLikelihoodContext(), LikelihoodContext()),
              (JMiniBatchContext(scale=7.0), MiniBatchContext(scale=7.0))]
+    # every context and the log-joint compiled as one program: the same
+    # arithmetic as op by op
+    wants = jax.jit(lambda: [jm.logp_with_context({}, jctx)
+                             for jctx, _ in pairs] + [jm.logjoint({})])()
     got = {}
-    for jctx, tctx in pairs:
-        want = float(jm.logp_with_context({}, jctx))
+    for (_, tctx), want in zip(pairs, wants):
         got[type(tctx).__name__] = g = float(tm.logp_with_context({}, tctx))
-        _close(g, want, rtol=1e-5, atol=0)
+        _close(g, float(want), rtol=1e-5, atol=0)
     lj = float(tm.logjoint({}))
-    _close(lj, float(jm.logjoint({})), rtol=1e-5, atol=0)
+    _close(lj, float(wants[-1]), rtol=1e-5, atol=0)
     lp, ll = got["PriorContext"], got["LikelihoodContext"]
     assert np.isclose(lj, lp + ll, rtol=1e-5)
     assert np.isclose(got["MiniBatchContext"], lp + 7.0 * ll, rtol=1e-5)

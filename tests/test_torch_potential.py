@@ -14,6 +14,8 @@ packages, and a coupled hierarchy and eight_schools, which the JAX package
 compiles to a ``CondPotentialSpec`` and the port rejects until its
 dependency graph lands.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,7 +184,10 @@ PAIRS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _compile_both(name):
+    """Both compilers' results on one model, once a module for each model
+    (the results and traces are never changed by a test)."""
     jm, tm = PAIRS[name]()
     jtvi = jm.typed_varinfo(jax.random.PRNGKey(0)).link()
     sig = tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
