@@ -20,7 +20,10 @@ issue a call (CUDA events over back-to-back calls, eight turns), the same
 for the per-array function under ``vmap`` over the rows as the main paths
 call it (the wrapper plus the ``autograd.Function``'s forward and vmap
 rule), and the device time from the profiler (four turns, every kernel a
-call launches). ``leapfrog`` loads the other checkout's
+call launches); ``--kernels categorical_logits_sum`` times the
+categorical at ``MAIN_SHAPES``'s two LM vocabularies over 8,192 items
+(mamba2's 50,280 classes and 49,152). ``leapfrog`` loads the other
+checkout's
 ``fused_leapfrog/ops.py`` the same way and times both ``fused_leapfrog``s
 on the compiled specs of gaussian_10k (uniform NORMAL, 4 x 10,000) and
 family_mix_8k (a mixed table, 4 x 8,192), 4 chains and 4 steps, in the
@@ -42,7 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TURNS = ("other", "this", "this", "other")
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum", "normal_sum")
+              "student_t_unnorm_sum", "normal_sum", "bernoulli_logit_sum")
 WIDE = {name: [(1, 1_000_003)] for name in ONE_LAUNCH}
 # family_mix_8k's blocks with one parameter value a row (a per-chain scalar
 # under vmap); MAIN_SHAPES's cases pass the parameters as one shared row,
@@ -55,7 +58,8 @@ ENTRY = {"std_normal_sum": "std_normal_logpdf_sum",
          "gamma_unnorm_sum": "gamma_unnorm_logpdf_sum",
          "beta_unnorm_sum": "beta_unnorm_logpdf_sum",
          "student_t_unnorm_sum": "student_t_unnorm_logpdf_sum",
-         "normal_sum": "normal_logpdf_sum"}
+         "normal_sum": "normal_logpdf_sum",
+         "bernoulli_logit_sum": "bernoulli_logits_logpmf_sum"}
 PATHS = ("logreg", "hier_poisson", "gauss_unknown", "sto_volatility", "mixed")
 LEAPFROG_PATHS = ("gaussian_10k", "family_mix_8k")
 

@@ -37,16 +37,19 @@ Phases, in order:
    registers, shared memory and spills of this slice's kernels;
 3. holds each kernel against its plain PyTorch version on the card and
    checks that two runs are bit-identical: the fused_logpdf sums at rtol
-   1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``; categorical over
-   C = 1 to 4,096 classes and 1 to 100,000 items with labels shared and
-   per row, and at its edges: labels outside [0, C) and -inf logits;
+   1e-6 (ragged sizes, 1/4/16 rows, a stride-0 ``y``, logits one float
+   past a 16-byte boundary; categorical over C = 1 to 4,097 classes and
+   1 to 100,000 items with labels shared and per row, one launch a call,
+   and at its edges: labels outside [0, C), -inf logits, and at C = 257,
+   1,000 and 50,280 also a row of -inf, +inf and NaN logits;
    gamma, beta and normal, whose terms change sign, at 1e-6 of the sum of
    their magnitudes, with parameters per row, shared by the rows (row
    stride 0), one per row (element stride 0) and as views one float past
    a 16-byte boundary; the one-launch reductions (std_normal_sum,
-   gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum, normal_sum)
-   where a row takes several blocks, with 16- and 4-byte loads (normal's,
-   beta's and student_t's parameters shared and one a row; normal's data
+   gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum, normal_sum,
+   bernoulli_logit_sum) where a row takes several blocks, with 16- and
+   4-byte loads (normal's, beta's, student_t's parameters and bernoulli's
+   y shared and one a row; normal's data
    also shared, as on the switch route): 1,000 back-to-back calls
    bit-identical with the last-block counts read back at 0, and calls
    alternating between two streams equal to them; student_t at rtol 1e-6;
@@ -75,8 +78,8 @@ Phases, in order:
    sends to ``ssd_scan_tc`` the FP32 kernel as well, the mixer's strided
    views through ``ssd_scan_tc``, chunk 32 against chunk 64 at 1e-4, and
    the backward; categorical_logits_sum
-   again at C = 49,152 and 50,280 over 8,192 items; all bit-identical on
-   a rerun;
+   again at C = 49,152 and 50,280 over 8,192 items, one launch a call;
+   all bit-identical on a rerun;
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
    num_chains=4, num_samples=DRAWS["logreg"])`` with every launch count set
    to 0 just before and read just after; the counts must equal the
@@ -306,8 +309,8 @@ MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                # (chains, items, classes): hmm_semisup's two blocks, lda's
                "categorical_logits_sum_small": [(4, 99, 5), (4, 100, 20),
                                                 (4, 10176, 100)],
-               # mamba2-1.3b scoring's tokens
-               "categorical_logits_sum": [(1, 8192, 50280)],
+               # mamba2-1.3b scoring's tokens, and the other LM vocabulary
+               "categorical_logits_sum": [(1, 8192, 50280), (1, 8192, 49152)],
                # hier_poisson's block, and a wide one for the timing phase
                "gamma_unnorm_sum": [(4, 1), (4, 40000)],
                # gauss_unknown's per-array route (shared x, one mu and one
@@ -336,12 +339,16 @@ def check_kernels(torch, ops, ref):
                     | {s for k in worst for s in MAIN_SHAPES[k]})
     for rows, n in shapes:
         z = 2.0 * torch.randn(rows, n, generator=gen, device=dev)
+        zo = (2.0 * torch.randn(rows * n + 1, generator=gen, device=dev)
+              )[1:].view(rows, n)  # off 16 bytes: 4-byte loads
         y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
         cases = [("std_normal_sum", ops.std_normal_sum_rows, (z,),
                   ref.std_normal_logpdf_sum_ref)]
-        for ys in (y.expand(rows, n), y.repeat(rows, 1)):  # stride 0, dense
+        # y at row stride 0 (logreg's) and dense, then the offset logits
+        for args in ((z, y.expand(rows, n)), (z, y.repeat(rows, 1)),
+                     (zo, y.expand(rows, n))):
             cases.append(("bernoulli_logit_sum", ops.bernoulli_logit_sum_rows,
-                          (z, ys), ref.bernoulli_logits_logpmf_sum_ref))
+                          args, ref.bernoulli_logits_logpmf_sum_ref))
         for name, kern, args, plain in cases:
             got = kern(*args)
             again = kern(*args)
@@ -356,7 +363,7 @@ def check_kernels(torch, ops, ref):
                   f"{float((err / want.abs()).max()):.3e} > 1e-6")
             if (rows, n) in MAIN_SHAPES[name]:
                 worst[name] = max(worst[name], float(err.max()))
-    log(f"kernels vs plain: {len(shapes)} shapes x 3 cases, rtol 1e-6, "
+    log(f"kernels vs plain: {len(shapes)} shapes x 4 cases, rtol 1e-6, "
         f"bit-identical reruns: ok")
 
     # backward through vmap(grad): one launch for the whole chain axis
@@ -400,7 +407,10 @@ def same_bits(torch, a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-CAT_C = (1, 2, 5, 20, 31, 32, 33, 100, 4096)
+CAT_C = (1, 2, 5, 20, 31, 32, 33, 100, 257, 1000, 4096, 4097)
+# the large-C path's edge cases: 4-byte loads (257), 16-byte ones (1,000
+# and mamba2's vocabulary)
+CAT_EDGE_C = (257, 1000, 50280)
 CAT_N = (1, 99, 100, 257, 10176, 100_000)
 CAT_MAX_ELEMS = 1 << 27  # 512 MB of logits: larger cases are left out
 
@@ -432,7 +442,11 @@ def check_categorical_gamma_kernels(torch, ops, ref):
                     lab = torch.randint(0, c, (n,) if shared else (rows, n),
                                         generator=gen, device=dev,
                                         dtype=torch.int32).expand(rows, n)
+                    ops.reset_launch_counts()
                     got = ops.categorical_logits_sum_rows(logits, lab)
+                    check(sum(ops.LAUNCHES.values()) == 1,
+                          f"categorical {rows}x{n}x{c}: launches "
+                          f"{ops.LAUNCHES}, expected one")
                     again = ops.categorical_logits_sum_rows(logits, lab)
                     want = ref.categorical_logits_logpmf_sum_ref(logits, lab)
                     torch.cuda.synchronize()
@@ -470,10 +484,33 @@ def check_categorical_gamma_kernels(torch, ops, ref):
                                    equal_nan=True)
         check(same_bits(torch, got, ops.categorical_logits_sum_rows(lg, lab)),
               "categorical_logits_sum edge case: two runs differ")
+    # above 256 classes, one item a row so each edge is held alone: -inf
+    # entries, a label on one, a row of -inf, +inf, NaN, labels -1 and C,
+    # and -inf over each lane's first classes
+    for c in CAT_EDGE_C:
+        lg = torch.randn(9, 1, c, generator=gen, device=dev)
+        lg[1, 0, ::3] = ninf
+        lg[2, 0, ::3] = ninf
+        lg[3, 0, :] = ninf
+        lg[4, 0, c - 1] = float("inf")
+        lg[5, 0, 5] = float("nan")
+        lg[8, 0, :min(c - 1, 2048)] = ninf
+        lab = torch.tensor([0, 1, 3, 2, 4, 5, -1, c, c - 1],
+                           dtype=torch.int32, device=dev).view(9, 1)
+        got = ops.categorical_logits_sum_rows(lg, lab)
+        want = ref.categorical_logits_logpmf_sum_ref(lg, lab)
+        check(bool(torch.isnan(want[[3, 4, 5, 6, 7]]).all())
+              and float(want[2]) == ninf, f"C = {c} edges: plain {want}")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0,
+                                   equal_nan=True)
+        check(same_bits(torch, got, ops.categorical_logits_sum_rows(lg, lab)),
+              f"categorical_logits_sum C = {c} edge cases: two runs differ")
+        edge_cases.append((lg, lab))
     log(f"categorical_logits_sum vs plain: {n_cat} cases (C in {CAT_C}, "
-        f"n in {CAT_N}, {CHECK_ROWS} rows, labels shared and per row; "
-        f"{skipped} over {CAT_MAX_ELEMS} logits left out) and "
-        f"{len(edge_cases)} edge cases, rtol 1e-6, bit-identical reruns: ok")
+        f"n in {CAT_N}, {CHECK_ROWS} rows, labels shared and per row, one "
+        f"launch a call; {skipped} over {CAT_MAX_ELEMS} logits left out) and "
+        f"{len(edge_cases)} edge cases (C = 40 and {CAT_EDGE_C}), rtol 1e-6, "
+        "bit-identical reruns: ok")
 
     n_gamma = 0
     shapes = sorted({(r, n) for r in CHECK_ROWS for n in CHECK_N}
@@ -508,9 +545,10 @@ def check_categorical_gamma_kernels(torch, ops, ref):
 
 
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum", "normal_sum")
-# the three whose inputs also take an element stride of 0 (one value a row)
-ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum")
+              "student_t_unnorm_sum", "normal_sum", "bernoulli_logit_sum")
+# the four whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum",
+                "bernoulli_logit_sum")
 ONE_LAUNCH_SHAPES = ((4, 40000), (1, 1_000_003))  # more than one block a row
 ONE_LAUNCH_RERUNS = 1000
 
@@ -521,8 +559,9 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
     reduction: the value's rows 16-byte aligned, or (``offset``) one float
     past a 16-byte boundary, which takes the 4-byte loads; the parameters
     at row stride 0 (``params="shared"``, as on the main paths) or, for
-    beta, student_t and normal, one value a row (``"scalar"``, element
-    stride 0, which never bars 16-byte loads); for normal also
+    beta, student_t, normal and bernoulli (its y), one value a row
+    (``"scalar"``, element stride 0, which never bars 16-byte loads); for
+    normal also
     ``"switch"``, gauss_unknown's switch route: the data shared by the
     rows (row stride 0) and one mu and one sigma a row."""
     dev = torch.device(DEVICE)
@@ -559,6 +598,13 @@ def one_launch_case(torch, ops, ref, name, rows, n, offset, gen,
         want = ref.beta_unnorm_logpdf_sum_ref(x, am1, bm1)
         return (ops.beta_unnorm_sum_rows, (x, am1, bm1), want,
                 abs_terms(torch, name, (x, am1, bm1)))
+    if name == "bernoulli_logit_sum":  # every term <= 0
+        logits = rows_of(0.0, 2.0, torch.randn)
+        shape = (1, n) if params == "shared" else (rows, 1)
+        y = (torch.rand(shape, generator=gen, device=dev) < 0.5
+             ).float().expand(rows, n)
+        want = ref.bernoulli_logits_logpmf_sum_ref(logits, y)
+        return ops.bernoulli_logit_sum_rows, (logits, y), want, want.abs()
     if name == "student_t_unnorm_sum":
         z = rows_of(0.0, 3.0, torch.randn)
         df = param(0.5, 29.5)
@@ -1336,15 +1382,17 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish, except mvn_quadform_sum, the one-launch reductions
-# (std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum,
-# student_t_unnorm_sum, normal_sum) and fused_leapfrog, whose last block of
-# a row (a chain) sums the row's partials inside the one launch (a row of
-# one block writes its sum itself)
+# per-row finish (categorical_logits_sum_small, fused_potential_vg),
+# except mvn_quadform_sum, the one-launch reductions (std_normal_sum,
+# gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum, normal_sum,
+# bernoulli_logit_sum), the large-C categorical_logits_sum and
+# fused_leapfrog, whose last block of a row (a chain) sums the row's
+# partials inside the one launch (a row of one block writes its sum itself)
 KERNEL_LAUNCHES_PER_CALL = 2
 LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1, "std_normal_sum": 1,
                      "gamma_unnorm_sum": 1, "beta_unnorm_sum": 1,
                      "student_t_unnorm_sum": 1, "normal_sum": 1,
+                     "bernoulli_logit_sum": 1, "categorical_logits_sum": 1,
                      "fused_leapfrog": 1}
 
 
@@ -2088,15 +2136,19 @@ def check_ssd_kernel(torch, sops, sref):
 
 def check_categorical_lm(torch, ops, ref):
     """categorical_logits_sum at the LM vocabularies, N = 8,192 items (the
-    scoring path's 4 x 2,048 tokens), at rtol 1e-6 with a bit-identical
-    rerun. Returns the abs error at mamba2's."""
+    scoring path's 4 x 2,048 tokens), one launch a call, at rtol 1e-6 with
+    a bit-identical rerun. Returns the abs error at mamba2's."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(13)
     err = {}
     for c in LM_VOCABS:
         logits = 3.0 * torch.randn(1, 8192, c, generator=gen, device=DEVICE)
         lab = torch.randint(0, c, (1, 8192), generator=gen, device=DEVICE,
                             dtype=torch.int32)
+        ops.reset_launch_counts()
         got = ops.categorical_logits_sum_rows(logits, lab)
+        check(ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                               "categorical_logits_sum": 1},
+              f"categorical_logits_sum 1x8192x{c}: launches {ops.LAUNCHES}")
         again = ops.categorical_logits_sum_rows(logits, lab)
         want = ref.categorical_logits_logpmf_sum_ref(logits, lab)
         torch.cuda.synchronize()
@@ -2485,7 +2537,8 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
 # float32 gates' prefill (flash_fwd)
 # kernels whose line has a row for each timed call, not only the widest
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
-                 "categorical_logits_sum_small", "ssd_scan",
+                 "categorical_logits_sum_small", "categorical_logits_sum",
+                 "bernoulli_logit_sum", "ssd_scan",
                  "std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
                  "student_t_unnorm_sum", "normal_sum", "fused_leapfrog")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),

@@ -34,13 +34,16 @@ from __future__ import annotations
 
 import contextlib
 
+from repro_torch.kernels.flash_attention import flash_attention_gqa  # noqa: F401
 from repro_torch.kernels.fused_logpdf import (  # noqa: F401
     bernoulli_logits_logpmf_sum, categorical_logits_logpmf_sum,
     normal_logpdf_sum, site_block_sum)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401
 
 __all__ = ["fused_logpdf_enabled", "set_fused_logpdf", "use_fused_logpdf",
            "bernoulli_logits_logpmf_sum", "categorical_logits_logpmf_sum",
-           "normal_logpdf_sum", "site_block_sum"]
+           "normal_logpdf_sum", "site_block_sum", "flash_attention_gqa",
+           "ssd_scan"]
 
 _FUSED_LOGPDF = False
 

@@ -279,7 +279,14 @@ def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
     _check_spec(spec, u)
     _check_state("u", u, u.shape)
     if plain_requested(use_pallas, interpret) or _device_kind(u) == "cpu":
-        return ref.potential_value_and_grad_ref(spec, u)
+        if u.dim() == 1:
+            return ref.potential_value_and_grad_ref(spec, u)
+        # a chain at a time, as the kernel takes a row: the CPU's vector
+        # loops round a row's last elements another way inside a longer
+        # buffer, and a chain's numbers must not depend on its batch
+        vg = [ref.potential_value_and_grad_ref(spec, r) for r in u.unbind(0)]
+        return (torch.stack([v for v, _ in vg]),
+                torch.stack([g for _, g in vg]))
     u2 = _rows(u)
     rows, dim = u2.shape
     stride = _row_stride("u", u2)

@@ -40,8 +40,9 @@
 // family_mix_8k's beta and student_t blocks 4 x 1,024 and 4 x 2,048,
 // gauss_unknown's normal 4 x 10,000 of which it reads 10,000 + 8 floats)
 // the data is bytes to hundreds of KB, so the time is launch latency, not
-// bandwidth; lda's categorical block (4 x 10,176 x 100, 16 MB) is the one
-// that can reach the bandwidth. Beta's logf and log1pf and student_t's
+// bandwidth; lda's categorical block (4 x 10,176 x 100, 16 MB) and mamba2
+// scoring's (8,192 x 50,280, 1.65 GB) are the ones that reach the
+// bandwidth. Beta's logf and log1pf and student_t's
 // divide and log1pf are some dozens of instructions an element in
 // software: where a row is one block, the SM that holds it issues them
 // all, which adds 0.3-0.9 us to one launch at 4 x 1,024 and 4 x 2,048,
@@ -51,28 +52,24 @@
 // Design. The TPU kernel walks an (R, 128) tiling of the input in a
 // sequential grid and carries a VMEM accumulator from step to step. Hopper
 // runs blocks in parallel in no order, so nothing carries over between
-// blocks. For bernoulli and categorical there is a deterministic
-// two-stage reduction:
-//   stage 1: grid (nparts, B). Block (p, b) strides over row b with a
-//            grid-stride loop, masks the ragged end by index (no padding
-//            to tiles), and reduces its 256 thread sums with warp shuffles
-//            and one shared-memory step into partials[b, p].
-//   stage 2: grid (B). One block per row sums its nparts partials in a
-//            fixed order into out[b].
-// There are no float atomics, and every thread's share of the work is a
-// function of (n, nparts) alone, so two runs give bit-identical sums.
-// Their loads are scalar and coalesced.
+// blocks. Every family but the small-C categorical takes ONE launch a call:
+// the blocks of a row each sum a fixed share, and the last block of the
+// row to finish merges the shares in index order (finish_row). There are
+// no float atomics, and every thread's share of the work is a function of
+// the plan (from n, C and the addresses alone), so two runs give
+// bit-identical sums.
 //
 // std_normal_sum (TPU: kernel.py:54 / :266), gamma_unnorm_sum (:154 /
 // :292), beta_unnorm_sum (:174 / :301), student_t_unnorm_sum (:194 /
-// :310) and normal_sum (:75 / :274) take ONE launch a call (row_sum). At
-// the main paths' shapes (std_normal 4 x 11, 4 x 101, 4 x 400;
+// :310), normal_sum (:75 / :274) and bernoulli_logit_sum (:97 / :283) are
+// row_sum. At the main paths' shapes (std_normal 4 x 11, 4 x 101, 4 x 400;
 // hier_poisson's gamma 4 x 1; mixed's beta 4 x 1 and student_t 4 x 8;
 // family_mix_8k's 4 x 1,024 and 4 x 2,048; gauss_unknown's normal 4 x
-// 10,000 of shared data, 40 KB) their bytes take 0.00001-0.01 us at 3.35
+// 10,000 of shared data, 40 KB; logreg's bernoulli 4 x 10,000 with y
+// shared) their bytes take 0.00001-0.06 us at 3.35
 // TB/s, so what bounds them on this card is one launch's latency; bytes
 // bound them only past about a megabyte (4 x 40,000 is 0.64-0.96 MB, 0.19-0.29 us). A
-// second launch per call (stage 2) doubled the launch floor, so here:
+// second launch per call (a finishing kernel) doubled the launch floor, so here:
 //   - a block's share of a row is 2,048 floats a round: 256 threads with
 //     two 16-byte loads each (8 KB) in flight at once, about one round trip
 //     to L2 (~0.3-0.5 us; more from HBM). A merge across blocks costs a
@@ -93,7 +90,8 @@
 //     0.02-0.14 us at the main paths' short rows.
 //   - loads are 16 bytes when every input's row starts are 16-byte aligned
 //     (base aligned, row stride a multiple of 4 floats or 0), else scalar
-//     (a z[:, 1:] view, n = 101). Normal's, beta's and student_t's inputs
+//     (a z[:, 1:] view, n = 101). Normal's, beta's, student_t's and
+//     bernoulli's inputs
 //     each have an element stride of 0 or 1. An element-stride-0 input is
 //     one value a row (a per-chain scalar under vmap: row stride 1, as
 //     gauss_unknown's mu and sigma on the switch route); each thread
@@ -111,25 +109,33 @@
 // The wrapper keeps `partials` and the counts once per (device, stream),
 // so a call allocates only `out`.
 //
-// categorical_logits_sum reduces over items, not elements. Above 256
-// classes (the LM vocabularies) one warp serves each item (b, i). Its lanes stride over the C classes twice, the second time
-// from L1: first the max m (fmaxf, then xor shuffles), then
-// s = sum exp(l - m) (xor shuffles again), and lane 0 adds l[y] - m - log s
-// to the warp's sum; l[y] comes from the lane that read it, so no load
-// waits on the label. Two passes take one expf per class, where a running
-// (max, sum) merged across lanes takes two per class and two per shuffle
-// round. The butterflies are symmetric, so every lane holds the same m and
-// s and the order is fixed. The TPU's padding of C to 128 lanes with
-// -1e30 classes becomes the lane bound k < C. At most 256 classes (lda's
-// 100, hmm_semisup's 5 and 20) a warp-per-item would idle most lanes and
-// read the row twice, so categorical_small_partials gives each item a
-// group of 4 to 32 lanes and reads the row once into registers, several
-// items in flight per warp; its time at lda's 4 x 10,176 x 100 (16.3 MB)
-// is bound by those bytes. The
-// edges follow log_softmax's own
-// arithmetic: a label outside [0, C) gives NaN, a -inf logit adds
-// exp(-inf) = 0, a row of -inf logits gives NaN (-inf - -inf), and a +inf
-// or NaN logit gives NaN.
+// categorical_logits_sum (TPU: kernel.py:120 / :343) reduces over items,
+// not elements. Above 256 classes (the LM vocabularies, 49,152 and 50,280)
+// categorical_sum gives each item (b, i) one warp and reads each logit
+// ONCE: a lane keeps a running (m, s = sum exp(l - m)) over the
+// classes it loads, rescaling s when its max grows, and the lanes merge
+// their pairs by an xor butterfly in a fixed order. The design it replaces
+// read each item twice (a max pass, then the sum of exp "from L1"): at
+// 50,280 classes an item is 201 KB and a block had 8 items in flight,
+// 1.6 MB, where an SM's L1 holds at most 256 KB, so the second pass went
+// back to L2 and HBM. Two reads of mamba2 scoring's 1.65 GB take at least
+// 983.6 us at 3.35 TB/s, one read 491.8 us. Loads are 16 bytes (two a lane
+// a round, eight logits) when every item starts 16-byte aligned (C a
+// multiple of 4, base aligned: both LM vocabularies), else 4 bytes
+// (eight a lane a round); either way a warp's loads are coalesced, 1 KB a
+// warp a round, and 8,192 items are 1,024 blocks, every item in flight at
+// once. At 8,192 x 50,280 it takes 533 us, 92 % of the one-read bound,
+// where the two-pass design took 1,240 (chip_compare.py on an H100 80GB
+// HBM3 at 700 W). The label's logit stays with the lane that loaded it. Items are cut into ceil(n / items a block) parts (at most
+// 1,024, rounds beyond) and merged as row_sum's, in one launch. At most
+// 256 classes (lda's 100, hmm_semisup's 5 and 20) a warp an item would idle
+// most lanes, so categorical_small_partials gives each item a group of 4
+// to 32 lanes and reads the row once into registers, several items in
+// flight per warp, then finish_rows (a second launch) sums the blocks; its
+// time at lda's 4 x 10,176 x 100 (16.3 MB) is bound by those bytes. The
+// edges follow log_softmax's own arithmetic: a label outside [0, C) gives
+// NaN, a -inf logit adds exp(-inf) = 0, a row of -inf logits gives NaN
+// (-inf - -inf), and a +inf or NaN logit gives NaN.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
@@ -168,66 +174,6 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-bernoulli_logit_partials(const float* __restrict__ l, long long l_row_stride,
-                         const float* __restrict__ y, long long y_row_stride,
-                         long long n, float* __restrict__ partials) {
-  const float* lrow = l + static_cast<long long>(blockIdx.y) * l_row_stride;
-  const float* yrow = y + static_cast<long long>(blockIdx.y) * y_row_stride;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
-  float acc = 0.0f;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += step) {
-    acc += bernoulli_logit_term(lrow[i], yrow[i]);
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-categorical_partials(const float* __restrict__ logits, long long l_row_stride,
-                     const int* __restrict__ labels, long long y_row_stride,
-                     long long n, int c, float* __restrict__ partials) {
-  constexpr int kWarps = kThreads / 32;
-  constexpr unsigned kAll = 0xffffffffu;
-  const float* lrow = logits + static_cast<long long>(blockIdx.y) * l_row_stride;
-  const int* yrow = labels + static_cast<long long>(blockIdx.y) * y_row_stride;
-  const int lane = threadIdx.x & 31;
-  const long long step = static_cast<long long>(gridDim.x) * kWarps;
-  float acc = 0.0f;
-  // the loop bound is uniform over a warp, so every lane reaches the shuffles
-  for (long long i = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-       i < n; i += step) {
-    const float* item = lrow + i * c;
-    const int y = yrow[i];  // one broadcast load, in flight with the classes
-    float m = -INFINITY;
-    for (int k = lane; k < c; k += 32) m = fmaxf(m, item[k]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kAll, m, off));
-    // second pass from L1; the lane whose stride holds class y keeps l[y]
-    float s = 0.0f, picked = 0.0f;
-    for (int k = lane; k < c; k += 32) {
-      const float l = item[k];
-      if (k == y) picked = l;
-      s += expf(l - m);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kAll, s, off);
-    const bool valid = y >= 0 && y < c;
-    picked = __shfl_sync(kAll, picked, valid ? (y & 31) : 0);
-    if (lane == 0) {
-      // log_softmax's order: (l[y] - m) - log s
-      acc += valid ? (picked - m) - logf(s) : __int_as_float(0x7fc00000);
-    }
-  }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-  }
-}
-
 // C <= 256 classes: a group of GS lanes (4 up to C = 32, then 8, 16 and
 // 32: at most 8 classes a lane) serves one item, so a warp has 32 / GS
 // items in flight. The row is read once into registers and each class's
@@ -241,7 +187,7 @@ categorical_partials(const float* __restrict__ logits, long long l_row_stride,
 // which the rtol 1e-6 gate needs at one item (where l[y] - m - log s
 // cancels). Loads are 4 bytes, strided by lane: coalesced over a group
 // (16-byte loads would give each lane 4 adjacent classes, not torch's
-// order). Same edges as categorical_partials.
+// order). Same edges as categorical_sum.
 template <int NP2>
 __global__ void __launch_bounds__(kThreads)
 categorical_small_partials(const float* __restrict__ logits,
@@ -350,6 +296,9 @@ finish_rows(const float* __restrict__ partials, int nparts,
 constexpr int kLoads = 2;
 constexpr int kShare = kThreads * 4 * kLoads;  // 2,048 floats
 constexpr int kMaxShareParts = 1024;           // blocks a row; rounds beyond
+// categorical_sum: one warp an item, so a block has 8 in flight (ops.py
+// CAT_ITEMS)
+constexpr int kCatItems = kThreads / 32;
 
 // The terms of one family. at(b) is row b as one thread reads it; its
 // one(i) is the term of element i, its four(j) the terms of 16-byte vector
@@ -515,16 +464,67 @@ struct NormalRow {
   }
 };
 
+// -softplus(-l) - (1 - y) l, with l and y each one value a row or dense
+struct BernoulliRow {
+  Elem l, y;
+  struct At {
+    Elem::At l, y;
+    __device__ __forceinline__ float one(long long i) const {
+      return bernoulli_logit_term(l.one(i), y.one(i));
+    }
+    __device__ __forceinline__ float four(long long j) const {
+      const float4 lv = l.four(j), yv = y.four(j);
+      float s = bernoulli_logit_term(lv.x, yv.x);
+      s += bernoulli_logit_term(lv.y, yv.y);
+      s += bernoulli_logit_term(lv.z, yv.z);
+      s += bernoulli_logit_term(lv.w, yv.w);
+      return s;
+    }
+  };
+  __device__ __forceinline__ At at(int b) const { return {l.at(b), y.at(b)}; }
+};
+
+// The end of a block of grid (nparts, rows) that holds `acc`, its sum of
+// row b (valid in thread 0): with one part it writes out[b] itself.
+// Otherwise it writes partials[b, p], and the block that draws the last
+// ticket of counts[b] sums the row's partials in index order, writes out[b]
+// and sets the count back to 0.
+__device__ __forceinline__ void finish_row(float acc, int b, float* partials,
+                                           int* counts, float* __restrict__ out) {
+  __shared__ bool merge_last;
+  const int parts = gridDim.x;
+  if (parts == 1) {
+    if (threadIdx.x == 0) out[b] = acc;
+    return;
+  }
+  if (threadIdx.x == 0) {
+    partials[static_cast<long long>(b) * parts + blockIdx.x] = acc;
+    // release this block's partial, acquire the others' (one atom.acq_rel;
+    // two __threadfence() around a plain atomicAdd took 0.3-0.5 us more at
+    // 4 x 40,000 and 1 x 1,000,003)
+    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(counts[b]);
+    merge_last = ticket.fetch_add(1, cuda::memory_order_acq_rel) == parts - 1;
+  }
+  __syncthreads();
+  if (!merge_last) return;
+  const float* prow = partials + static_cast<long long>(b) * parts;
+  float total = 0.0f;
+  for (int i = threadIdx.x; i < parts; i += kThreads) {
+    total += __ldcg(prow + i);
+  }
+  total = block_sum(total);
+  if (threadIdx.x == 0) {
+    out[b] = total;
+    counts[b] = 0;
+  }
+}
+
 // Grid (nparts, rows). Block (p, b) sums its shares of row b, rounds p,
-// p + nparts, ...; with one part it writes out[b] itself. Otherwise it
-// writes partials[b, p], and the block that draws the last ticket of
-// counts[b] sums the row's partials in index order, writes out[b] and sets
-// the count back to 0.
+// p + nparts, ..., then finish_row merges the row.
 template <bool kVec, class Row>
 __global__ void __launch_bounds__(kThreads)
 row_sum(Row row, long long n, float* partials, int* counts,
         float* __restrict__ out) {
-  __shared__ bool merge_last;
   constexpr int kPer = kVec ? kLoads : 4 * kLoads;
   const int b = blockIdx.y;
   const int parts = gridDim.x;
@@ -553,31 +553,120 @@ row_sum(Row row, long long n, float* partials, int* counts,
     // the 0-3 floats past the last whole vector
     for (long long i = n & ~3LL; i < n; ++i) acc += r.one(i);
   }
-  acc = block_sum(acc);
-  if (parts == 1) {
-    if (threadIdx.x == 0) out[b] = acc;
-    return;
+  finish_row(block_sum(acc), b, partials, counts, out);
+}
+
+// ---- categorical_logits_sum above 256 classes -----------------------
+// A running (m, s) of one lane, s = sum exp(l - m) over the classes it has
+// read: fold in eight more logits x. Exponents are taken against
+// base = m' (m' the new max), or 0 while m' is -inf (every logit so far
+// -inf: each adds exp(-inf) = 0, not exp(-inf - -inf) = NaN). A +inf logit
+// makes m' = +inf and exp(+inf - +inf) = NaN, as log_softmax gives; a NaN
+// logit adds exp(NaN) (fmaxf drops it from the max, not from the sum).
+// s is rescaled only when the max grows, by exp(m - base) (0 when m was
+// -inf); the eight terms are summed as a tree, then added.
+__device__ __forceinline__ void online_fold(float& m, float& s, const float (&x)[8]) {
+  float cm = x[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) cm = fmaxf(cm, x[k]);
+  const float mm = fmaxf(m, cm);
+  const float base = mm == -INFINITY ? 0.0f : mm;
+  float e[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) e[k] = expf(x[k] - base);
+  const float t = ((e[0] + e[1]) + (e[2] + e[3])) + ((e[4] + e[5]) + (e[6] + e[7]));
+  if (mm > m) s *= expf(m - base);
+  s += t;
+  m = mm;
+}
+
+// Merge another lane's (om, os) into (m, s): the same two products in
+// either lane, so both hold the same bits after a butterfly step.
+__device__ __forceinline__ void online_merge(float& m, float& s, float om, float os) {
+  const float mm = fmaxf(m, om);
+  const float base = mm == -INFINITY ? 0.0f : mm;
+  s = __fmul_rn(s, expf(m - base)) + __fmul_rn(os, expf(om - base));
+  m = mm;
+}
+
+// Element r of v, by selects (an index into a register array would put the
+// array in local memory)
+__device__ __forceinline__ float lane_of(float4 v, int r) {
+  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
+}
+
+// Grid (nparts, rows); warp w of block p serves items p * 8 + w,
+// (p + nparts) * 8 + w, ... Lane t reads the classes (vectors of 4 with
+// kVec) t, t + 32, t + 64, ..., eight a round in two 16-byte loads (eight
+// 4-byte ones otherwise), each once, into its running (m, s); the lane
+// whose stride holds class y keeps l[y]. Lanes merge by an xor butterfly;
+// lane 0 adds (l[y] - m) - log s to its sum, which finish_row merges as
+// row_sum's. (Four and eight warps an item, merging through shared memory,
+// took 601-603 and 533-534 us against this layout's 533-535 at 8,192 x
+// 50,280: chip_compare.py on an H100 80GB HBM3 at 700 W.)
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+categorical_sum(const float* __restrict__ logits, long long l_row_stride,
+                const int* __restrict__ labels, long long y_row_stride,
+                long long n, int c, float* partials, int* counts,
+                float* __restrict__ out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int b = blockIdx.y;
+  const float* lrow = logits + static_cast<long long>(b) * l_row_stride;
+  const int* yrow = labels + static_cast<long long>(b) * y_row_stride;
+  const int t = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * kCatItems;
+  float acc = 0.0f;
+  // the loop bound is uniform over the block, so every lane reaches the
+  // shuffles; an item past n adds nothing
+  for (long long i0 = static_cast<long long>(blockIdx.x) * kCatItems; i0 < n;
+       i0 += step) {
+    const long long i = i0 + (threadIdx.x >> 5);
+    const bool real = i < n;
+    const float* item = lrow + (real ? i : 0) * static_cast<long long>(c);
+    const int y = real ? __ldg(yrow + i) : -1;
+    float m = -INFINITY, s = 0.0f, picked = 0.0f;
+    if constexpr (kVec) {
+      const float4* v = reinterpret_cast<const float4*>(item);
+      const int nv = real ? c >> 2 : 0;
+      for (int j = t; j < nv; j += 64) {
+        const int j2 = j + 32;
+        const float4 a = __ldg(v + j);
+        const float4 q = j2 < nv ? __ldg(v + j2)
+                                 : make_float4(-INFINITY, -INFINITY,
+                                               -INFINITY, -INFINITY);
+        const float x[8] = {a.x, a.y, a.z, a.w, q.x, q.y, q.z, q.w};
+        if ((y >> 2) == j) picked = lane_of(a, y & 3);
+        if ((y >> 2) == j2) picked = lane_of(q, y & 3);
+        online_fold(m, s, x);
+      }
+    } else {
+      const int nc = real ? c : 0;
+      for (int k = t; k < nc; k += 256) {
+        float x[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int cls = k + u * 32;
+          x[u] = cls < nc ? __ldg(item + cls) : -INFINITY;
+          if (cls == y) picked = x[u];
+        }
+        online_fold(m, s, x);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float om = __shfl_xor_sync(kAll, m, off);
+      const float os = __shfl_xor_sync(kAll, s, off);
+      online_merge(m, s, om, os);
+    }
+    const bool valid = y >= 0 && y < c;
+    picked = __shfl_sync(kAll, picked, valid ? (kVec ? y >> 2 : y) & 31 : 0);
+    if (t == 0 && real) {
+      // log_softmax's order: (l[y] - m) - log s
+      acc += valid ? (picked - m) - logf(s) : __int_as_float(0x7fc00000);
+    }
   }
-  if (threadIdx.x == 0) {
-    partials[static_cast<long long>(b) * parts + blockIdx.x] = acc;
-    // release this block's partial, acquire the others' (one atom.acq_rel;
-    // two __threadfence() around a plain atomicAdd took 0.3-0.5 us more at
-    // 4 x 40,000 and 1 x 1,000,003)
-    cuda::atomic_ref<int, cuda::thread_scope_device> ticket(counts[b]);
-    merge_last = ticket.fetch_add(1, cuda::memory_order_acq_rel) == parts - 1;
-  }
-  __syncthreads();
-  if (!merge_last) return;
-  const float* prow = partials + static_cast<long long>(b) * parts;
-  float total = 0.0f;
-  for (int i = threadIdx.x; i < parts; i += kThreads) {
-    total += __ldcg(prow + i);
-  }
-  total = block_sum(total);
-  if (threadIdx.x == 0) {
-    out[b] = total;
-    counts[b] = 0;
-  }
+  finish_row(block_sum(acc), b, partials, counts, out);
 }
 
 int share_parts(long long n) {
@@ -609,9 +698,8 @@ int launch_row_sum(const Row& row, bool vec, int rows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// An input of normal_sum, beta_unnorm_sum or student_t_unnorm_sum: an
-// element stride
-// of 0 or 1, and, with 16-byte loads, a dense one starting every row
+// An input of normal_sum, beta_unnorm_sum, student_t_unnorm_sum or
+// bernoulli_logit_sum: an element stride of 0 or 1, and, with 16-byte loads, a dense one starting every row
 // 16-byte aligned (a one-value-a-row input takes no vector load)
 bool elem_ok(const float* p, long long rs, long long es, bool vec) {
   return (es == 0 || es == 1) && (!vec || es == 0 || aligned16(p, rs));
@@ -624,12 +712,11 @@ bool bad_shape(int rows, long long n, int nparts) {
 }  // namespace
 
 // C interface, loaded with ctypes. Each returns a cudaError_t (0 = success);
-// launches go on the caller's stream and do not synchronise. `partials`
-// holds rows * nparts floats and `out` rows floats, both allocated by the
-// caller.
+// launches go on the caller's stream and do not synchronise. `out` holds
+// rows floats, allocated by the caller, as is every scratch buffer.
 
-// std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum
-// and normal_sum: one launch. nparts must be
+// std_normal_sum, gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum,
+// normal_sum and bernoulli_logit_sum: one launch. nparts must be
 // ceil(n / 2048) capped at 1024 (ops.reduce_plan); with one part
 // `partials` and `counts` may be null, else `partials` holds rows * nparts
 // floats and `counts` rows ints that are zero (the kernel leaves them
@@ -661,8 +748,8 @@ extern "C" int repro_gamma_unnorm_sum(const float* x, long long x_row_stride,
       vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
-// Beta, student_t and normal take (pointer, row stride, element stride) for
-// each input; an element stride is 0 (one value a row) or 1.
+// Beta, student_t, normal and bernoulli take (pointer, row stride, element
+// stride) for each input; an element stride is 0 (one value a row) or 1.
 extern "C" int repro_beta_unnorm_sum(const float* x, long long x_rs, long long x_es,
                                      const float* am1, long long a_rs, long long a_es,
                                      const float* bm1, long long b_rs, long long b_es,
@@ -706,42 +793,55 @@ extern "C" int repro_normal_sum(const float* x, long long x_rs, long long x_es,
                         vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
-// The families below: stage 1, then finish_rows.
-extern "C" int repro_bernoulli_logit_sum(const float* l, long long l_row_stride,
-                                         const float* y, long long y_row_stride,
-                                         int rows, long long n, float* partials,
-                                         int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bernoulli_logit_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      l, l_row_stride, y, y_row_stride, n, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int repro_bernoulli_logit_sum(const float* l, long long l_rs, long long l_es,
+                                         const float* y, long long y_rs, long long y_es,
+                                         int rows, long long n, int nparts, int vec,
+                                         float* partials, int* counts, float* out,
+                                         void* stream) {
+  if (!(elem_ok(l, l_rs, l_es, vec) && elem_ok(y, y_rs, y_es, vec))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_row_sum(BernoulliRow{{l, l_rs, l_es == 1}, {y, y_rs, y_es == 1}},
+                        vec != 0, rows, n, nparts, partials, counts, out, stream);
 }
 
+// categorical_logits_sum (any C; ops.py sends it C > 256): one launch.
 // logits (rows, n, c) with the class axis dense and items c apart; labels
-// (rows, n) with the item axis dense. Row strides may be 0 (shared).
+// (rows, n) with the item axis dense; row strides may be 0 (shared).
+// nparts must be ceil(n / items a block) capped at 1024
+// (ops.categorical_plan), with scratch as for the one-launch reductions;
+// `vec` asks for 16-byte loads: c a multiple of 4 and the logits 16-byte
+// aligned with a row stride of a multiple of 4 floats, or the call is
+// refused.
 extern "C" int repro_categorical_logits_sum(const float* logits,
                                             long long l_row_stride,
                                             const int* labels,
                                             long long y_row_stride, int rows,
-                                            long long n, int c, float* partials,
-                                            int nparts, float* out, void* stream) {
-  if (bad_shape(rows, n, nparts) || c <= 0) {
+                                            long long n, int c, int nparts,
+                                            int vec, float* partials,
+                                            int* counts, float* out,
+                                            void* stream) {
+  const long long want = (n + kCatItems - 1) / kCatItems;
+  if (rows <= 0 || rows > 65535 || n <= 0 || c <= 0 ||
+      nparts != (want < kMaxShareParts ? want : kMaxShareParts) ||
+      (nparts > 1 && (partials == nullptr || counts == nullptr)) ||
+      (vec && (c % 4 != 0 || !aligned16(logits, l_row_stride)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  categorical_partials<<<dim3(nparts, rows), kThreads, 0, s>>>(
-      logits, l_row_stride, labels, y_row_stride, n, c, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, out);
+  const dim3 grid(nparts, rows);
+  if (vec) {
+    categorical_sum<true><<<grid, kThreads, 0, s>>>(
+        logits, l_row_stride, labels, y_row_stride, n, c, partials, counts, out);
+  } else {
+    categorical_sum<false><<<grid, kThreads, 0, s>>>(
+        logits, l_row_stride, labels, y_row_stride, n, c, partials, counts, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The C <= 256 path; `group` is the lanes an item takes (ops.py
+// The C <= 256 path, stage 1 then finish_rows; `partials` holds rows *
+// nparts floats. `group` is the lanes an item takes (ops.py
 // categorical_group), checked against the kernel's own choice.
 extern "C" int repro_categorical_logits_sum_small(
     const float* logits, long long l_row_stride, const int* labels,

@@ -45,7 +45,7 @@ __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "site_block_sum", "kernel_source", "mvn_kernel_source",
            "categorical_group", "SMALL_C", "mvn_tiles", "mvn_smem_bytes",
            "MAX_SMEM_BYTES", "REDUCE_SHARE", "ReducePlan", "reduce_plan",
-           "partials_needed"]
+           "partials_needed", "CAT_ITEMS", "categorical_plan"]
 
 SITE_BLOCK_FAMILIES = ("std_normal", "normal", "bernoulli_logits",
                        "categorical_logits", "gamma", "beta", "student_t",
@@ -60,9 +60,10 @@ LAUNCHES = {"std_normal_sum": 0, "bernoulli_logit_sum": 0,
             "mvn_quadform_sum": 0}
 
 _THREADS = 256
-_ITEMS_PER_THREAD = 8
-_WARPS = _THREADS // 32  # categorical above SMALL_C: one warp per item
 SMALL_C = 256  # categorical: at most this many classes take the group path
+# categorical above SMALL_C: one warp an item, so the items a block has in
+# flight (fused_logpdf.cu kCatItems)
+CAT_ITEMS = _THREADS // 32
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _MAX_PARTS = 1024
 _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
@@ -70,10 +71,10 @@ _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
 # calls (the kernel sets each back to zero), so they are allocated once
 _MVN_COUNTS = {}
 # the kernels of one launch a call (fused_logpdf.cu row_sum) and the floats
-# of a row one block sums in a round (kShare); their scratch is
-# kernels._scratch's
+# of a row one block sums in a round (kShare); their scratch, and the large-C
+# categorical_logits_sum's, is kernels._scratch's
 _ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-               "student_t_unnorm_sum", "normal_sum")
+               "student_t_unnorm_sum", "normal_sum", "bernoulli_logit_sum")
 REDUCE_SHARE = 2048
 _SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
 
@@ -109,16 +110,14 @@ def _lib() -> ctypes.CDLL:
         lib.repro_beta_unnorm_sum.argtypes = 3 * strided + tail
         lib.repro_student_t_unnorm_sum.argtypes = 2 * strided + tail
         lib.repro_normal_sum.argtypes = 3 * strided + tail
-        for name in _ONE_LAUNCH:
+        lib.repro_bernoulli_logit_sum.argtypes = 2 * strided + tail
+        # logits, row stride, labels, row stride, rows, n, c, then the tail
+        lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
+                                                     i32] + tail[2:]
+        for name in _ONE_LAUNCH + ("categorical_logits_sum",):
             fn = getattr(lib, f"repro_{name}")
             fn.restype = i32
             _REDUCE_FNS[name] = fn
-        lib.repro_bernoulli_logit_sum.argtypes = [p, i64, p, i64, i32, i64,
-                                                  p, i32, p, p]
-        lib.repro_bernoulli_logit_sum.restype = i32
-        lib.repro_categorical_logits_sum.argtypes = [p, i64, p, i64, i32, i64,
-                                                     i32, p, i32, p, p]
-        lib.repro_categorical_logits_sum.restype = i32
         lib.repro_categorical_logits_sum_small.argtypes = [
             p, i64, p, i64, i32, i64, i32, i32, p, i32, p, p]
         lib.repro_categorical_logits_sum_small.restype = i32
@@ -142,8 +141,9 @@ def _mvn_lib() -> ctypes.CDLL:
     return _MVN_LIB
 
 
-def _num_parts(n: int, per_block: int = _THREADS * _ITEMS_PER_THREAD) -> int:
-    """Stage-1 blocks per row: a function of n alone (determinism)."""
+def _num_parts(n: int, per_block: int) -> int:
+    """Blocks a row of ``n`` items, ``per_block`` a block: a function of n
+    alone (determinism)."""
     return max(1, min(_MAX_PARTS, -(-n // per_block)))
 
 
@@ -188,11 +188,12 @@ def _device_kind(*ts: torch.Tensor) -> str:
 
 
 class ReducePlan(NamedTuple):
-    """How the one-launch reductions (``std_normal_sum``,
-    ``gamma_unnorm_sum``, ``beta_unnorm_sum``, ``student_t_unnorm_sum``,
-    ``normal_sum``) launch: ``nparts`` blocks a row (1: the block writes
-    the row's sum itself; more: the last block of a row to finish sums the
-    row's partials) and ``vec``, 16-byte loads."""
+    """How the one-launch kernels (``std_normal_sum``, ``gamma_unnorm_sum``,
+    ``beta_unnorm_sum``, ``student_t_unnorm_sum``, ``normal_sum``,
+    ``bernoulli_logit_sum``, and ``categorical_logits_sum`` above
+    ``SMALL_C`` classes) launch: ``nparts`` blocks a row (1: the block
+    writes the row's sum itself; more: the last block of a row to finish
+    sums the row's partials) and ``vec``, 16-byte loads."""
     nparts: int
     vec: bool
 
@@ -213,6 +214,18 @@ def reduce_plan(n: int, inputs=()) -> ReducePlan:
     stride of 0. Pure Python, as ``fused_logpdf.cu`` checks it."""
     nparts = max(1, min(_MAX_PARTS, -(-n // REDUCE_SHARE)))
     return ReducePlan(nparts, all(_vector_ready(*t) for t in inputs))
+
+
+def categorical_plan(n: int, c: int, addr: int, row_stride: int) -> ReducePlan:
+    """``categorical_logits_sum`` above ``SMALL_C`` classes on rows of
+    ``n`` items: ``nparts`` is ``ceil(n / CAT_ITEMS)``, at most 1,024, from
+    ``n`` alone; 16-byte loads when every item starts 16-byte aligned:
+    ``c`` a multiple of 4 and the logits at ``addr`` (bytes) with rows
+    ``row_stride`` floats apart (0 included) 16-byte aligned. Its scratch
+    is ``partials_needed``'s, as the reductions'. Pure Python, as
+    ``fused_logpdf.cu`` checks it."""
+    nparts = max(1, min(_MAX_PARTS, -(-n // CAT_ITEMS)))
+    return ReducePlan(nparts, c % 4 == 0 and _vector_ready(addr, row_stride))
 
 
 def partials_needed(rows: int, plan: ReducePlan) -> int:
@@ -236,16 +249,21 @@ def _reduce_inputs(ins: Sequence[torch.Tensor], rows: int, n: int,
 def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
                  n: int, elem_strides: bool = False) -> torch.Tensor:
     """Launch one of the one-launch reductions once on CUDA rows that
-    ``_check_rows`` (or, with ``elem_strides``, ``_check_strided``) passed:
-    the plan from ``n`` and the addresses, scratch from
-    ``kernels._scratch`` when a row takes more than one block, and only
-    ``out`` allocated."""
-    dev = ins[0].device
-    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    ``_check_rows`` (or, with ``elem_strides``, ``_check_strided``) passed,
+    with the plan from ``n`` and the addresses."""
     if n == 0:
-        return out.zero_()
+        return torch.zeros(rows, dtype=torch.float32, device=ins[0].device)
     inputs = _reduce_inputs(ins, rows, n, elem_strides)
-    plan = reduce_plan(n, inputs)
+    return _launch_one(kernel, ins[0].device, rows, reduce_plan(n, inputs),
+                       [v for t in inputs for v in t] + [rows, n])
+
+
+def _launch_one(kernel: str, dev: torch.device, rows: int, plan: ReducePlan,
+                head) -> torch.Tensor:
+    """Launch a one-launch kernel once on ``dev``: ``head`` is its C
+    call's arguments before the plan; scratch from ``kernels._scratch``
+    when a row takes more than one block, and only ``out`` allocated."""
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
     fn = _REDUCE_FNS.get(kernel)
     if fn is None:  # the first call builds and binds the library
         _lib()
@@ -259,8 +277,8 @@ def _reduce_rows(kernel: str, ins: Sequence[torch.Tensor], rows: int,
         need = partials_needed(rows, plan)
         if need:
             partials, counts = last_block_scratch(index, stream, rows, need)
-        err = fn(*(v for t in inputs for v in t), rows, n, plan.nparts,
-                 plan.vec, partials, counts, out.data_ptr(), stream)
+        err = fn(*head, plan.nparts, plan.vec, partials, counts,
+                 out.data_ptr(), stream)
     if err:
         _raise_on(err, kernel)
     LAUNCHES[kernel] += 1
@@ -279,27 +297,11 @@ def std_normal_sum_rows(z: torch.Tensor) -> torch.Tensor:
 def bernoulli_logit_sum_rows(logits: torch.Tensor,
                              y: torch.Tensor) -> torch.Tensor:
     """``out[b] = sum_i(-softplus(-l[b, i]) - (1 - y[b, i]) l[b, i])`` for
-    ``logits (B, n)`` and ``y (B, n)``; ``y`` may have row stride 0."""
-    rows, n = logits.shape
-    _check_rows("logits", logits, rows, n)
-    _check_rows("y", y, rows, n)
-    if _device_kind(logits, y) == "cpu":
-        return ref.bernoulli_logits_logpmf_sum_ref(logits, y)
-    out = torch.empty(rows, dtype=torch.float32, device=logits.device)
-    if n == 0:
-        return out.zero_()
-    nparts = _num_parts(n)
-    partials = torch.empty(rows * nparts, dtype=torch.float32,
-                           device=logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = _lib().repro_bernoulli_logit_sum(
-            logits.data_ptr(), _row_stride(logits), y.data_ptr(),
-            _row_stride(y), rows, n, partials.data_ptr(), nparts,
-            out.data_ptr(), stream)
-    _raise_on(err, "bernoulli_logit_sum")
-    LAUNCHES["bernoulli_logit_sum"] += 1
-    return out
+    two ``(B, n)`` inputs; each may have row and element stride 0 (logreg's
+    ``y`` is one row shared by the chains)."""
+    return _strided_sum("bernoulli_logit_sum",
+                        ref.bernoulli_logits_logpmf_sum_ref, ("logits", "y"),
+                        logits, y)
 
 
 def gamma_unnorm_sum_rows(x: torch.Tensor, am1: torch.Tensor,
@@ -346,31 +348,28 @@ def categorical_logits_sum_rows(logits: torch.Tensor,
     _check_rows("labels", labels, rows, n, dtype=torch.int32)
     if _device_kind(logits, labels) == "cpu":
         return ref.categorical_logits_logpmf_sum_ref(logits, labels)
-    out = torch.empty(rows, dtype=torch.float32, device=logits.device)
     if n == 0:
-        return out.zero_()
+        return torch.zeros(rows, dtype=torch.float32, device=logits.device)
     group = categorical_group(c)
-    # items a block has in flight: one per warp, or one per group of lanes
-    nparts = _num_parts(n, _THREADS // group if group else _WARPS)
+    if not group:  # one launch, each logit read once
+        l_stride = logits.stride(0) if rows > 1 else 0
+        plan = categorical_plan(n, c, logits.data_ptr(), l_stride)
+        return _launch_one("categorical_logits_sum", logits.device, rows, plan,
+                           [logits.data_ptr(), l_stride, labels.data_ptr(),
+                            labels.stride(0) if rows > 1 else 0, rows, n, c])
+    out = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    nparts = _num_parts(n, _THREADS // group)  # a group of lanes an item
     partials = torch.empty(rows * nparts, dtype=torch.float32,
                            device=logits.device)
     l_stride = logits.stride(0) if rows > 1 else n * c
-    kernel = ("categorical_logits_sum_small" if group
-              else "categorical_logits_sum")
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
-        if group:
-            err = _lib().repro_categorical_logits_sum_small(
-                logits.data_ptr(), l_stride, labels.data_ptr(),
-                _row_stride(labels), rows, n, c, group, partials.data_ptr(),
-                nparts, out.data_ptr(), stream)
-        else:
-            err = _lib().repro_categorical_logits_sum(
-                logits.data_ptr(), l_stride, labels.data_ptr(),
-                _row_stride(labels), rows, n, c, partials.data_ptr(), nparts,
-                out.data_ptr(), stream)
-    _raise_on(err, kernel)
-    LAUNCHES[kernel] += 1
+        err = _lib().repro_categorical_logits_sum_small(
+            logits.data_ptr(), l_stride, labels.data_ptr(),
+            _row_stride(labels), rows, n, c, group, partials.data_ptr(),
+            nparts, out.data_ptr(), stream)
+    _raise_on(err, "categorical_logits_sum_small")
+    LAUNCHES["categorical_logits_sum_small"] += 1
     return out
 
 
@@ -389,9 +388,10 @@ def _check_strided(name: str, t: torch.Tensor, rows: int, n: int) -> None:
 
 def _strided_sum(kernel: str, plain, names, *ins: torch.Tensor) -> torch.Tensor:
     """Launch one per-element row-sum kernel of ``fused_logpdf.cu``
-    (normal's, beta's or student_t's one launch) on ``(B, n)`` inputs of
-    any row stride and an element stride of 0 or 1, each passed as
-    pointer, row stride, element stride; on CPU tensors run ``plain``."""
+    (normal's, beta's, student_t's or bernoulli's one launch) on ``(B, n)``
+    inputs of any row stride and an element stride of 0 or 1, each passed
+    as pointer, row stride, element stride; on CPU tensors run
+    ``plain``."""
     rows, n = ins[0].shape
     for name, t in zip(names, ins):
         _check_strided(name, t, rows, n)
@@ -549,10 +549,7 @@ class _BernoulliLogitSum(torch.autograd.Function):
 
     @staticmethod
     def forward(logits, y):
-        shape = torch.broadcast_shapes(logits.shape, y.shape)
-        out = bernoulli_logit_sum_rows(_as_rows(logits, shape),
-                                       _as_rows(y, shape))
-        return out.reshape(shape[:-1])
+        return _elementwise_forward(bernoulli_logit_sum_rows, logits, y)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -3,7 +3,7 @@ log-density, held against the JAX package on the same NumPy inputs.
 
 Models are the paper's ``logreg``, ``naive_bayes``, ``hier_poisson``,
 ``hmm_semisup``, ``lda``, ``gauss_unknown``, ``sto_volatility`` and
-``eight_schools`` at small size; the data come from the same
+``eight_schools`` at Table 1's sizes; the data come from the same
 ``np.random.default_rng`` calls in both packages.
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32, sums in another order). TF32 is off (``resolve_device``).
@@ -29,16 +29,18 @@ from repro_torch.convert import layout_signature, state_from_reference
 from repro_torch.dists import BernoulliLogits, MvNormalDiag, Normal
 from repro_torch.infer.hmc import value_and_grad
 from repro_torch.models import paper_suite as tsuite
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 REPO = Path(__file__).resolve().parents[1]
-SMALL = {"logreg": dict(n=256, dim=8),
-         "naive_bayes": dict(n=64, n_classes=3, dim=4),
-         "hier_poisson": dict(n=20, n_groups=4),
-         "hmm_semisup": dict(K=3, V=6, T=30, T_sup=10),
-         "lda": dict(V=12, K=3, D=4, avg_len=30),
-         "gauss_unknown": dict(n=64),
-         "sto_volatility": dict(T=40),
-         "eight_schools": {}}
+# the models at their default (Table-1) sizes, the sizes
+# tests/test_paper_suite.py traces op by op: in the whole run the JAX
+# package's compiles of those traces are shared (each new primitive and
+# shape costs an XLA compile), and test_torch_potential.py's compiler runs
+# trace the same
+SMALL = dict.fromkeys(["logreg", "naive_bayes", "hier_poisson", "hmm_semisup",
+                       "lda", "gauss_unknown", "sto_volatility",
+                       "eight_schools"], {})
 MODELS = list(SMALL)
 
 
@@ -51,6 +53,19 @@ def _close(got, want, rtol=1e-5, atol=1e-6):
 def _grad_close(got, want):
     want = np.asarray(want)
     _close(got, want, rtol=1e-5, atol=1e-5 * float(np.max(np.abs(want))))
+
+
+def _jax_trace(model, seed=0, link=False):
+    """The JAX package's typed trace of ``model`` from ``PRNGKey(seed)``
+    (linked with ``link``), traced and compiled as one program: the prior
+    draw of op-by-op dispatch up to float32 rounding, in a fraction of the
+    time on the CPU. For the models at Table 1's size, which no other test
+    of the port traces op by op (the small ones share the op-by-op
+    compilations with the compiler's replays in test_torch_potential.py)."""
+    def trace(key):
+        tvi = model.typed_varinfo(key)
+        return tvi.link() if link else tvi
+    return jax.jit(trace)(jax.random.PRNGKey(seed))
 
 
 # ---------------------------------------------------------------------------
@@ -71,12 +86,15 @@ BIJECTORS = {
 def test_bijector_matches_jax(name):
     tbij, jbij, shape = BIJECTORS[name]
     x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
-    xt, xj = torch.tensor(x), jnp.asarray(x)
+    xt = torch.tensor(x)
+    jy, jldj, jx = jax.jit(lambda u: (
+        jbij.forward(u), jbij.forward_log_det_jacobian(u),
+        jbij.inverse(jbij.forward(u))))(jnp.asarray(x))
     y = tbij.forward(xt)
-    _close(y, jbij.forward(xj))
-    _close(tbij.forward_log_det_jacobian(xt), jbij.forward_log_det_jacobian(xj))
-    _close(tbij.inverse(y), jbij.inverse(jbij.forward(xj)), atol=1e-5)
-    assert tuple(y.shape) == tuple(jbij.forward(xj).shape)
+    _close(y, jy)
+    _close(tbij.forward_log_det_jacobian(xt), jldj)
+    _close(tbij.inverse(y), jx, atol=1e-5)
+    assert tuple(y.shape) == tuple(jy.shape)
     assert tbij.unconstrained_shape(y.shape) == \
         jbij.unconstrained_shape(tuple(y.shape))
 
@@ -87,14 +105,16 @@ def test_distributions_log_prob_match_jax():
     loc = rng.normal(size=4).astype(np.float32)
     scale = rng.uniform(0.5, 2.0, size=4).astype(np.float32)
     t = torch.tensor
-    _close(Normal(t(loc), t(scale)).log_prob(t(x)),
-           JNormal(jnp.asarray(loc), jnp.asarray(scale)).log_prob(x))
-    _close(Normal(0.5, 3.0).log_prob(t(x)), JNormal(0.5, 3.0).log_prob(x))
-    _close(MvNormalDiag(t(loc), t(scale)).log_prob(t(x)),
-           JMvNormalDiag(jnp.asarray(loc), jnp.asarray(scale)).log_prob(x))
     y = (rng.random((3, 4)) < 0.5).astype(np.int32)
-    _close(BernoulliLogits(t(x)).log_prob(t(y)),
-           JBernoulliLogits(jnp.asarray(x)).log_prob(y))
+    wants = jax.jit(lambda: (
+        JNormal(jnp.asarray(loc), jnp.asarray(scale)).log_prob(x),
+        JNormal(0.5, 3.0).log_prob(x),
+        JMvNormalDiag(jnp.asarray(loc), jnp.asarray(scale)).log_prob(x),
+        JBernoulliLogits(jnp.asarray(x)).log_prob(y)))()
+    _close(Normal(t(loc), t(scale)).log_prob(t(x)), wants[0])
+    _close(Normal(0.5, 3.0).log_prob(t(x)), wants[1])
+    _close(MvNormalDiag(t(loc), t(scale)).log_prob(t(x)), wants[2])
+    _close(BernoulliLogits(t(x)).log_prob(t(y)), wants[3])
     assert MvNormalDiag(t(loc), t(scale)).shape == (4,)
     assert Normal(t(loc), 1.0).shape == (4,)
 
@@ -140,6 +160,12 @@ def _pair(name):
     return jm, tm, jtvi, ttvi
 
 
+@functools.lru_cache(maxsize=None)
+def _jlinked(name):
+    """The JAX trace of ``_pair(name)``, linked, once a module."""
+    return _pair(name)[2].link()
+
+
 def _jax_signature(jtvi):
     return tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
                  for s in jtvi.layout.sites)
@@ -149,7 +175,7 @@ def _jax_signature(jtvi):
 def test_flat_link_roundtrip_and_layout_signature(name):
     _, _, jtvi, ttvi = _pair(name)
     assert layout_signature(ttvi) == _jax_signature(jtvi)
-    assert layout_signature(ttvi.link()) == _jax_signature(jtvi.link())
+    assert layout_signature(ttvi.link()) == _jax_signature(_jlinked(name))
     for tvi in (ttvi, ttvi.link()):
         flat = tvi.flat()
         assert flat.shape == (tvi.num_flat,)
@@ -165,7 +191,7 @@ def test_flat_link_roundtrip_and_layout_signature(name):
 @pytest.mark.parametrize("name", MODELS)
 def test_logdensity_value_and_grad_match_jax(name):
     jm, tm, jtvi, ttvi = _pair(name)
-    jlinked, tlinked = jtvi.link(), ttvi.link()
+    jlinked, tlinked = _jlinked(name), ttvi.link()
     rng = np.random.default_rng(3)
     u = (np.asarray(jlinked.flat())
          + 0.3 * rng.normal(size=jlinked.num_flat)).astype(np.float32)
@@ -205,21 +231,30 @@ def test_model_names_and_builders_match_jax():
     assert sorted(tsuite._BUILDERS) == sorted(jsuite._BUILDERS)
 
 
+@functools.lru_cache(maxsize=None)
+def _sto_volatility_full():
+    """Both packages' sto_volatility at Table 1's T = 500, the JAX linked
+    trace and its density's value and gradient compiled once, for every
+    phi (the same shapes)."""
+    jm = jsuite.build("sto_volatility")
+    tm = tsuite.build("sto_volatility", device="cpu")
+    jlinked = _jax_trace(jm.model, link=True)
+    jvg = jax.jit(jax.value_and_grad(jm.model.make_logdensity_fn(jlinked)))
+    return jm, tm, jlinked, jvg
+
+
 @pytest.mark.parametrize("phi", [-0.95, 0.0, 0.5, 0.99])
 def test_sto_volatility_ar1_path_matches_the_jax_scan(phi):
     """The closed-form AR(1) path (one power matrix, one product) against
     the JAX package's 499-step ``lax.scan`` at Table 1's T = 500: density
     at rtol 1e-5, gradient at rtol 1e-5 plus atol 1e-5 * max|g|."""
-    jm = jsuite.build("sto_volatility")
-    tm = tsuite.build("sto_volatility", device="cpu")
-    jlinked = jm.model.typed_varinfo(jax.random.PRNGKey(0)).link()
+    jm, tm, jlinked, jvg = _sto_volatility_full()
     rng = np.random.default_rng(int(1000 * phi) % 97)
     u = (0.5 * rng.normal(size=jlinked.num_flat)).astype(np.float32)
     p = (phi + 1.0) / 2.0
     u[0] = np.log(p) - np.log1p(-p)  # phi = -1 + 2 sigmoid(u_phi)
     u[1] = np.log(0.3)               # sigma
-    jv, jg = jax.jit(jax.value_and_grad(
-        jm.model.make_logdensity_fn(jlinked)))(jnp.asarray(u))
+    jv, jg = jvg(jnp.asarray(u))
     tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     ut = torch.tensor(u)
     assert abs(float(tlinked.replace_flat(ut).invlink().values[0]) - phi) < 1e-6
@@ -242,7 +277,7 @@ def test_gauss_unknown_switch_route_equals_the_fused_route():
 
     jm, tm = jsuite.build("gauss_unknown"), tsuite.build("gauss_unknown",
                                                          device="cpu")
-    jlinked = jm.model.typed_varinfo(jax.random.PRNGKey(0)).link()
+    jlinked = _jax_trace(jm.model, link=True)
     tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     u = np.array([0.1, 1.4], np.float32)
     with jk.use_fused_logpdf():
@@ -265,7 +300,7 @@ def test_gauss_unknown_switch_route_equals_the_fused_route():
 def test_state_from_reference_rejects_other_layouts():
     _, _, jtvi, ttvi = _pair("logreg")
     linked = ttvi.link()
-    sig = _jax_signature(jtvi.link())
+    sig = _jax_signature(_jlinked("logreg"))
     bad = tuple((n + "_x", s, o, k) for n, s, o, k in sig)
     with pytest.raises(ValueError, match="layouts differ"):
         state_from_reference(linked, np.zeros(linked.num_flat), bad)
@@ -417,8 +452,8 @@ def test_eager_reject_short_circuits_as_in_jax():
 @pytest.mark.parametrize("name", ("hier_poisson", "gauss_unknown"))
 def test_typed_varinfo_site_accessors_match_jax(name):
     jm, tm, jtvi, ttvi = _pair(name)
-    sig = _jax_signature(jtvi.link())
-    jlinked = jtvi.link()
+    jlinked = _jlinked(name)
+    sig = _jax_signature(jlinked)
     tlinked = state_from_reference(ttvi.link(), np.asarray(jlinked.flat()),
                                    sig)
     for m in jlinked.metas:
@@ -454,7 +489,7 @@ def test_gauss_unknown_mixing_at_table1_step_matches_jax(capsys):
     tm = tsuite.build("gauss_unknown", device="cpu")
     y = np.asarray(jm.data["y"], np.float64)
     start = (np.float32(y.var()), np.float32(y.mean()))  # (s, m)
-    jtvi = jm.model.typed_varinfo(jax.random.PRNGKey(0))
+    jtvi = _jax_trace(jm.model)
     jlinked = jtvi.replace_values(tuple(jnp.asarray(v) for v in start)).link()
     ttvi = tm.model.typed_varinfo(torch.Generator().manual_seed(0))
     tlinked = ttvi.replace_values(tuple(torch.tensor(v) for v in start)).link()

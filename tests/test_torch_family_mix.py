@@ -23,6 +23,7 @@ from repro_torch.infer import HMC, run_chains
 from repro_torch.infer.hmc import value_and_grad
 from repro_torch.kernels.fused_logpdf import ops
 from repro_torch.models import family_mix
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
 
 
 def _jax_family_mix_8k():
@@ -68,7 +69,10 @@ def _pair(name, tril=None):
         tril = (family_mix.mixed_scale_tril() if tril is None
                 else _jax_test_tril())
         jm, tm = _jax_mixed(tril), family_mix.mixed(tril, device="cpu")
-    jlinked = jm.typed_varinfo(jax.random.PRNGKey(1)).link()
+    # the JAX trace as one compiled program: its prior draw up to float32
+    # rounding, in a fraction of the time of op-by-op dispatch
+    jlinked = jax.jit(lambda key: jm.typed_varinfo(key).link())(
+        jax.random.PRNGKey(1))
     sig = tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
                 for s in jlinked.layout.sites)
     tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(1)).link()
@@ -114,7 +118,7 @@ def test_mixed_fused_blocks_and_batched_factor(monkeypatch):
     from repro_torch.core.interpreters import _fusible_parts
     from repro_torch.dists import MvNormal as TMvNormal
 
-    _, tm, _, tlinked = _pair("mixed")
+    _, tm, _, tlinked = _pair("mixed", None)
     families = []
     orig = ops.site_block_sum
 

@@ -21,6 +21,8 @@ from repro.kernels.flash_attention.ref import attention_ref as jref_eager
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.nn.attention import attention_core
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 # tests/test_kernels.py's FLASH_CASES in float32 (its bf16 cases run on the
 # card, where the kernel reads bf16)

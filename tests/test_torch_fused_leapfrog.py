@@ -1,15 +1,20 @@
 """PyTorch port: the fused leapfrog and fused potential against the JAX
 package, and the fused integrator against the autodiff one.
 
-Specs are compiled by ``repro`` (every opcode, alone and mixed) and carried
-across with ``spec_from_reference``; states are made with NumPy from a
+Specs are compiled by ``repro`` (every opcode in one table, and each
+opcode alone as its sites' coordinates of that table) and carried across
+with ``spec_from_reference``; states are made with NumPy from a
 seed. The port's wrappers run their plain versions on the CPU; the JAX
-side runs its Pallas kernels in interpret mode, once per chain with that
-chain's step size. Tolerances are those of ``tests/test_fused_leapfrog.py``:
+side runs its plain reference (``use_pallas=False``, the jnp oracle that
+the JAX package's own tests hold its Pallas kernels to), every chain with
+its own step size in one compiled program. Tolerances are those of
+``tests/test_fused_leapfrog.py``:
 max abs 1e-5 on q and p, 1e-4 on the gradient, and 1e-5 on
 ``|logp - ref| / (1 + |ref|)``. The CUDA kernels themselves run only on a
 GPU: ``test_torch_kernels_cuda.py`` holds them.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,7 @@ from repro.core.potential import build_potential_spec as jbuild_spec
 from repro.dists import (Beta, Cauchy, Exponential, Flat, Gamma, HalfNormal,
                          LogNormal, Normal, StudentT, Uniform)
 from repro.kernels import fused_leapfrog as jfl
+from repro.kernels.fused_leapfrog import PotentialSpec as JPotentialSpec
 from repro_torch.convert import spec_from_reference
 from repro_torch.core.potential import compile_potential
 from repro_torch.infer import HMC, run_chains
@@ -32,50 +38,74 @@ from repro_torch.kernels.fused_leapfrog import (LAUNCHES, OP_EXP, OP_NORMAL,
 from repro_torch.kernels.fused_leapfrog import ops as lf_ops
 from repro_torch.kernels.fused_leapfrog import ref as lf_ref
 from repro_torch.models import paper_suite as tsuite
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 TOL = 1e-5
 EPS = np.array([0.05, 0.03, 0.08], np.float32)  # one step size per chain
 
 
-def _sites(kind):
-    if kind in ("mix", "normal"):
-        repro.sample("n", Normal(jnp.zeros(8), 2.0))
-        repro.sample("l", LogNormal(0.5, 1.2))
-    if kind in ("mix", "exp"):
-        repro.sample("g", Gamma(2.0 * jnp.ones(5), 1.5))
-        repro.sample("h", HalfNormal(0.5))
-        repro.sample("e", Exponential(0.7 * jnp.ones(2)))
-    if kind in ("mix", "softplus"):
-        repro.sample("b", Beta(2.0, 3.0))
-        repro.sample("u", Uniform(-1.0, 2.0))
-    if kind in ("mix", "tlog"):
-        repro.sample("t", StudentT(4.0, 0.0, jnp.ones(3)))
-        repro.sample("c", Cauchy(0.0, 2.0))
-    if kind in ("mix", "zero"):
-        repro.sample("f", Flat(jnp.zeros(4)))
+def _sites():
+    """Sites of every opcode family (ZERO is the Flat site)."""
+    repro.sample("n", Normal(jnp.zeros(8), 2.0))
+    repro.sample("l", LogNormal(0.5, 1.2))
+    repro.sample("g", Gamma(2.0 * jnp.ones(5), 1.5))
+    repro.sample("h", HalfNormal(0.5))
+    repro.sample("e", Exponential(0.7 * jnp.ones(2)))
+    repro.sample("b", Beta(2.0, 3.0))
+    repro.sample("u", Uniform(-1.0, 2.0))
+    repro.sample("t", StudentT(4.0, 0.0, jnp.ones(3)))
+    repro.sample("c", Cauchy(0.0, 2.0))
+    repro.sample("f", Flat(jnp.zeros(4)))
 
 
 KINDS = {"mix": None, "zero": OP_ZERO, "normal": OP_NORMAL, "exp": OP_EXP,
          "softplus": OP_SOFTPLUS, "tlog": OP_TLOG}
 
 
-@pytest.fixture(scope="module", params=list(KINDS))
-def spec_pair(request):
-    """A spec compiled by ``repro`` and the port's copy of it."""
-    kind = request.param
+# each kind's sites: one opcode throughout ("mix" is every site)
+KIND_SITES = {"zero": ("f",), "normal": ("n", "l"), "exp": ("g", "h", "e"),
+              "softplus": ("b", "u"), "tlog": ("t", "c")}
 
+
+@functools.lru_cache(maxsize=None)
+def _mix_spec():
+    """``repro``'s spec of every site in one table, and its linked trace:
+    the prior draw, and the compiler's value and gradient probes, each
+    compiled as one program (as the JAX package's samplers run them)."""
     @repro.model
     def family_mix():
-        _sites(kind)
+        _sites()
 
     m = family_mix()
-    tvi = m.typed_varinfo(jax.random.PRNGKey(0)).link()
-    js = jbuild_spec(m, tvi, backend="fused")
+    tvi = jax.jit(lambda key: m.typed_varinfo(key).link())(
+        jax.random.PRNGKey(0))
+    make = m.make_logdensity_fn
+    m.make_logdensity_fn = lambda *a, **k: jax.jit(make(*a, **k))
+    return jbuild_spec(m, tvi, backend="fused"), tvi
+
+
+@pytest.fixture(scope="module", params=list(KINDS))
+def spec_pair(request):
+    """A spec compiled by ``repro`` and the port's copy of it: for "mix"
+    the whole table, for each other kind the coordinates of its sites in
+    that table (their opcodes and coefficients as ``repro`` compiled
+    them, and the table's const), so ``repro``'s compiler runs once."""
+    kind = request.param
+    js, tvi = _mix_spec()
+    u0 = np.asarray(tvi.flat(), np.float32)
+    if kind != "mix":
+        idx = np.concatenate([
+            np.arange(s.unc_offset, s.unc_offset + s.unc_size)
+            for s in tvi.layout.sites if s.name in KIND_SITES[kind]])
+        js = JPotentialSpec(js.op[idx], js.c0[idx], js.c1[idx], js.c2[idx],
+                            js.c3[idx], js.const, int(idx.size))
+        u0 = u0[idx]
     assert js.uniform_op == KINDS[kind]
     ts = spec_from_reference(js.op, js.c0, js.c1, js.c2, js.c3, js.const,
                              js.dim)
     assert ts.uniform_op == js.uniform_op
-    return js, ts, np.asarray(tvi.flat(), np.float32)
+    return js, ts, u0
 
 
 def _states(u0, seed=7):
@@ -95,9 +125,11 @@ def _rel(a, b):
     return abs(float(a) - float(b)) / (1.0 + abs(float(b)))
 
 
-@pytest.mark.pallas_interpret
 @pytest.mark.parametrize("metric", ["unit", "diag"])
 def test_fused_leapfrog_matches_jax_pallas_kernel(spec_pair, metric):
+    """The port's fused_leapfrog (its plain version here) against the JAX
+    package's fused_leapfrog through its plain reference, 8 steps, each
+    chain at its own step size."""
     js, ts, u0 = spec_pair
     q, p, rng = _states(u0)
     im = (None if metric == "unit"
@@ -109,30 +141,30 @@ def test_fused_leapfrog_matches_jax_pallas_kernel(spec_pair, metric):
                          torch.tensor(g), torch.tensor(EPS), 8,
                          inv_mass=None if im is None else torch.tensor(im))
     assert LAUNCHES == before  # the CPU path runs the plain version
-    for c, eps in enumerate(EPS):
-        want = jfl.fused_leapfrog(
-            js, jnp.asarray(q[c]), jnp.asarray(p[c]), jnp.asarray(g[c]),
-            float(eps), 8, inv_mass=None if im is None else jnp.asarray(im),
-            use_pallas=True, interpret=True)
-        wq, wp, wlp, wg = want
+    jim = None if im is None else jnp.asarray(im)
+    wants = jax.jit(jax.vmap(lambda q, p, g, e: jfl.fused_leapfrog(
+        js, q, p, g, e, 8, inv_mass=jim, use_pallas=False)))(
+        *map(jnp.asarray, (q, p, g, EPS)))
+    for c in range(len(EPS)):
+        wq, wp, wlp, wg = (w[c] for w in wants)
         assert _max_abs(got[0][c], wq) < TOL
         assert _max_abs(got[1][c], wp) < TOL
         assert _rel(got[2][c], wlp) < TOL
         assert _max_abs(got[3][c], wg) < 1e-4
 
 
-@pytest.mark.pallas_interpret
 def test_potential_value_and_grad_matches_jax_pallas_kernel(spec_pair):
+    """The port's potential value and gradient against the JAX package's
+    plain reference, every chain in one compiled program."""
     js, ts, u0 = spec_pair
     q, _, _ = _states(u0, seed=11)
     logp, g = potential_value_and_grad(ts, torch.tensor(q))
     assert logp.shape == (len(EPS),) and g.shape == q.shape
+    wlps, wgs = jax.jit(jax.vmap(lambda u: jfl.potential_value_and_grad(
+        js, u, use_pallas=False)))(jnp.asarray(q))
     for c in range(len(EPS)):
-        wlp, wg = jfl.potential_value_and_grad(js, jnp.asarray(q[c]),
-                                               use_pallas=True,
-                                               interpret=True)
-        assert _rel(logp[c], wlp) < TOL
-        assert _max_abs(g[c], wg) < TOL
+        assert _rel(logp[c], wlps[c]) < TOL
+        assert _max_abs(g[c], wgs[c]) < TOL
     # one chain as a (dim,) vector gives the same numbers
     lp1, g1 = potential_value_and_grad(ts, torch.tensor(q[1]))
     assert lp1.shape == () and float(lp1) == float(logp[1])
@@ -250,12 +282,12 @@ def test_wrappers_take_the_jax_switches(spec_pair, switch, monkeypatch):
     out = fused_leapfrog(ts, torch.tensor(q[0]), torch.tensor(p[0]), g[0],
                          float(EPS[0]), 4, **switch)
     assert LAUNCHES == before
-    wlp, wg = jfl.potential_value_and_grad(js, jnp.asarray(q[0]),
-                                           use_pallas=False)
+    (wlp, wg), want = jax.jit(lambda q, p, g: (
+        jfl.potential_value_and_grad(js, q, use_pallas=False),
+        jfl.fused_leapfrog(js, q, p, g, float(EPS[0]), 4,
+                           use_pallas=False)))(
+        jnp.asarray(q[0]), jnp.asarray(p[0]), jnp.asarray(g[0].numpy()))
     assert _rel(lp, wlp) < TOL and _max_abs(gg, wg) < TOL
-    want = jfl.fused_leapfrog(js, jnp.asarray(q[0]), jnp.asarray(p[0]),
-                              jnp.asarray(g[0].numpy()), float(EPS[0]), 4,
-                              use_pallas=False)
     assert _max_abs(out[0], want[0]) < TOL and _rel(out[2], want[2]) < TOL
     # the default takes the kernel route, which cannot run on this tensor
     with pytest.raises((AssertionError, ValueError, RuntimeError)):

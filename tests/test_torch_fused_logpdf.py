@@ -1,12 +1,16 @@
 """PyTorch port: fused_logpdf ``site_block_sum`` and its autograd Functions.
 
 Inputs come from a NumPy seed and go through the JAX package's
-``site_block_sum`` and per-array functions (its Pallas kernels in interpret
-mode) and the port's, for all eight families.
+``site_block_sum`` (through its plain reference, ``use_pallas=False``:
+the JAX package's own tests hold its Pallas kernels to that reference) and
+per-array functions (its Pallas kernels in interpret mode) and the
+port's, for all eight families.
 Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 (float32 sums taken in a different order). The CUDA kernels themselves
 run only on a GPU: ``test_torch_kernels_cuda.py`` holds them.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +20,8 @@ import torch
 from repro.kernels.fused_logpdf import ops as jops
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_logpdf import ops, ref
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 SIZES = [[1], [255, 257], [1000, 129, 1]]
 N_CLASSES = 7  # categorical segments: (n, C) logits and (n,) labels
@@ -82,20 +88,35 @@ def _assert_grad_close(got, want):
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=atol)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_block_sums():
+    """The JAX package's ``site_block_sum`` (plain reference) and its
+    gradient in the float columns, for every family and ``SIZES`` entry,
+    as one compiled program: the same arithmetic as op-by-op dispatch, in
+    one compile for the module."""
+    cases = [(family, tuple(sizes)) for family in FAMILIES for sizes in SIZES]
+
+    def one(family, segs, floats):
+        diff = DIFF_COLS[family]
+        ss = [tuple(f[diff.index(i)] if i in diff else jnp.asarray(a)
+                    for i, a in enumerate(s)) for s, f in zip(segs, floats)]
+        return jops.site_block_sum(family, ss, use_pallas=False)
+
+    segs = {c: _segments(c[0], c[1]) for c in cases}
+    floats = [[tuple(jnp.asarray(s[i]) for i in DIFF_COLS[c[0]])
+               for s in segs[c]] for c in cases]
+    out = jax.jit(lambda fl: [
+        jax.value_and_grad(functools.partial(one, c[0], segs[c]))(f)
+        for c, f in zip(cases, fl)])(floats)
+    return dict(zip(cases, out))
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("sizes", SIZES, ids=lambda s: "x".join(map(str, s)))
 def test_site_block_sum_matches_jax_pallas_and_ref(family, sizes):
     segs = _segments(family, sizes)
     diff = DIFF_COLS[family]
-
-    def jfun(floats):
-        ss = [tuple(f[diff.index(i)] if i in diff else jnp.asarray(a)
-                    for i, a in enumerate(s)) for s, f in zip(segs, floats)]
-        return jops.site_block_sum(family, ss, use_pallas=True, interpret=True)
-
-    # compiled once: the same arithmetic as op-by-op dispatch, faster
-    jval, jgrads = jax.jit(jax.value_and_grad(jfun))(
-        [tuple(jnp.asarray(s[i]) for i in diff) for s in segs])
+    jval, jgrads = _jax_block_sums()[family, tuple(sizes)]
     tsegs = [tuple(torch.tensor(a, requires_grad=i in diff)
                    for i, a in enumerate(s)) for s in segs]
     val = ops.site_block_sum(family, tsegs)
@@ -345,11 +366,16 @@ def test_row_wrappers_run_plain_version_on_cpu_without_counting():
     np.testing.assert_array_equal(
         ops.bernoulli_logit_sum_rows(logits, y).numpy(),
         ref.bernoulli_logits_logpmf_sum_ref(logits, y).numpy())
-    cat = torch.randn(4, 100, 5)
-    labels = torch.randint(0, 5, (100,), dtype=torch.int32).expand(4, 100)
-    np.testing.assert_array_equal(
-        ops.categorical_logits_sum_rows(cat, labels).numpy(),
-        ref.categorical_logits_logpmf_sum_ref(cat, labels).numpy())
+    for c in (5, 257):  # the small-C path's classes, and the large path's
+        cat = torch.randn(4, 100, c)
+        labels = torch.randint(0, c, (100,), dtype=torch.int32).expand(4, 100)
+        np.testing.assert_array_equal(
+            ops.categorical_logits_sum_rows(cat, labels).numpy(),
+            ref.categorical_logits_logpmf_sum_ref(cat, labels).numpy())
+    yv = torch.tensor([[0.0], [1.0], [1.0], [0.0]]).expand(4, 100)
+    np.testing.assert_array_equal(  # one y a row (element stride 0)
+        ops.bernoulli_logit_sum_rows(logits, yv).numpy(),
+        ref.bernoulli_logits_logpmf_sum_ref(logits, yv).numpy())
     x = torch.rand(4, 100) + 0.1
     a = torch.full((100,), 0.5).expand(4, 100)
     np.testing.assert_array_equal(
@@ -475,6 +501,21 @@ def _as(t, v, torch_side):
     return torch.as_tensor(v) if torch_side else jnp.asarray(v)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_per_array():
+    """Each per-array function of the JAX package on
+    ``_per_array_inputs()``, its Pallas kernel in interpret mode, all in
+    one compiled program."""
+    ins = _per_array_inputs()
+    names = sorted(PER_ARRAY)
+    args = [[_as(None, ins[c], False) for c in PER_ARRAY[n][1]]
+            for n in names]
+    out = jax.jit(lambda args: [
+        getattr(jops, n)(*a, block_rows=8, interpret=True)
+        for n, a in zip(names, args)])(args)
+    return dict(zip(names, out))
+
+
 @pytest.mark.parametrize("name", sorted(PER_ARRAY))
 def test_per_array_functions_take_the_jax_keywords(name, monkeypatch):
     """block_rows is accepted and ignored; interpret=True runs the plain
@@ -482,8 +523,7 @@ def test_per_array_functions_take_the_jax_keywords(name, monkeypatch):
     package's Pallas kernel in interpret mode."""
     fn_cls, cols = PER_ARRAY[name]
     ins = _per_array_inputs()
-    want = getattr(jops, name)(*(_as(None, ins[c], False) for c in cols),
-                               block_rows=8, interpret=True)
+    want = _jax_per_array()[name]
     t_ins = [_as(None, ins[c], True) for c in cols]
     fn = getattr(ops, name)
     default = fn(*t_ins, block_rows=8)
@@ -501,15 +541,25 @@ def test_per_array_functions_take_the_jax_keywords(name, monkeypatch):
         fn(*t_ins, interpret=None)  # the default keeps the kernel route
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_block_sum_plain():
+    """The JAX package's ``site_block_sum`` through its plain reference on
+    ``_segments(family, [129, 3])`` for every family, one compiled
+    program for the module."""
+    segs = {f: [tuple(jnp.asarray(c) for c in s)
+                for s in _segments(f, [129, 3])] for f in FAMILIES}
+    out = jax.jit(lambda segs: {f: jops.site_block_sum(
+        f, segs[f], use_pallas=False) for f in FAMILIES})(segs)
+    return {f: float(v) for f, v in out.items()}
+
+
 @pytest.mark.parametrize("switch", [dict(use_pallas=False),
                                     dict(interpret=True),
                                     dict(use_pallas=True, interpret=True)])
 @pytest.mark.parametrize("family", FAMILIES)
 def test_site_block_sum_takes_the_jax_switches(family, switch, monkeypatch):
     segs = _segments(family, [129, 3])
-    want = jops.site_block_sum(
-        family, [tuple(jnp.asarray(c) for c in s) for s in segs],
-        use_pallas=False)
+    want = _jax_block_sum_plain()[family]
     t_segs = [tuple(torch.as_tensor(c) for c in s) for s in segs]
     for fn_cls, _ in PER_ARRAY.values():
         monkeypatch.setattr(getattr(ops, fn_cls), "apply",
@@ -684,10 +734,13 @@ def _family_rows(family, rows, n, layout):
              "offset": lambda: torch.ones(rows, n),
              "shared": lambda: torch.ones(n).expand(rows, n),
              "scalar": lambda: torch.ones(rows, 1).expand(rows, n)}[layout]
-    return (x, param()) if family == "student_t" else (x, param(), param())
+    if family in ("student_t", "bernoulli"):
+        return x, param()
+    return x, param(), param()
 
 
-@pytest.mark.parametrize("family", ["beta", "student_t", "normal"])
+@pytest.mark.parametrize("family", ["beta", "student_t", "normal",
+                                    "bernoulli"])
 @pytest.mark.parametrize("layout", ["dense", "offset", "shared", "scalar"])
 @pytest.mark.parametrize("rows,n", [(4, 1), (4, 8), (4, 1024), (4, 2048),
                                     (4, 2049), (4, 40_000), (1, 1_000_003)])
@@ -725,3 +778,45 @@ def test_normal_sum_plan_on_the_switch_route(rows, n):
     plan = ops.reduce_plan(n, inputs)
     assert plan == ops.ReducePlan(-(-n // ops.REDUCE_SHARE), True)
     assert "normal_sum" in ops._ONE_LAUNCH
+
+
+@pytest.mark.parametrize("rows,n", [(4, 1), (4, 10_000), (4, 40_000),
+                                    (1, 1_000_003)])
+def test_bernoulli_is_one_launch_on_logregs_layout(rows, n):
+    """logreg hands bernoulli_logit_sum its logits a row per chain and y
+    shared by the chains (row stride 0): 16-byte loads when the logits'
+    rows start aligned, parts from n alone, row_sum's scratch; an offset
+    view of the logits takes 4-byte loads."""
+    assert "bernoulli_logit_sum" in ops._ONE_LAUNCH
+    logits, y = torch.zeros(rows, n), torch.zeros(n).expand(rows, n)
+    inputs = ops._reduce_inputs((logits, y), rows, n, elem_strides=True)
+    es = 1 if n > 1 else 0
+    assert [t[1:] for t in inputs] == [(n if rows > 1 else 0, es), (0, es)]
+    plan = ops.reduce_plan(n, inputs)
+    assert plan == ops.ReducePlan(-(-n // ops.REDUCE_SHARE), True)
+    assert ops.partials_needed(rows, plan) == (
+        0 if n <= ops.REDUCE_SHARE else rows * plan.nparts)
+    off = torch.zeros(rows * n + 1)[1:].view(rows, n)
+    inputs = ops._reduce_inputs((off, y), rows, n, elem_strides=True)
+    assert ops.reduce_plan(n, inputs).vec is (n == 1)
+
+
+@pytest.mark.parametrize("n,nparts", [
+    (1, 1), (ops.CAT_ITEMS, 1), (ops.CAT_ITEMS + 1, 2), (99, 13),
+    (8192, 1024), (1024 * ops.CAT_ITEMS + 1, 1024), (10 ** 6, 1024)])
+@pytest.mark.parametrize("c", [257, 1000, 4097, 49_152, 50_280])
+def test_categorical_plan_from_n_c_and_addresses(n, nparts, c):
+    """The large-C categorical_logits_sum: ceil(n / CAT_ITEMS) blocks a row
+    up to 1,024 (rounds beyond) from n alone, whatever the layout; 16-byte
+    loads only when C is a multiple of 4 and the logits' rows start
+    16-byte aligned (row stride 0 included); scratch as the reductions'."""
+    assert ops.CAT_ITEMS == 8
+    for addr, stride in ((ALIGNED, n * c), (ALIGNED, 0), (UNALIGNED, 0),
+                         (ALIGNED, n * c + 1)):
+        plan = ops.categorical_plan(n, c, addr, stride)
+        assert plan.nparts == nparts
+        assert plan.vec is (c % 4 == 0 and addr == ALIGNED
+                            and stride % 4 == 0)
+        for rows in (1, 4):
+            assert ops.partials_needed(rows, plan) == (
+                0 if nparts == 1 else rows * nparts)

@@ -24,6 +24,8 @@ from repro_torch.infer import (HMC, DualAveraging, effective_sample_size,
 from repro_torch.infer.hmc import (_leapfrog, hmc_transition, make_chain_fn,
                                    value_and_grad)
 from repro_torch.models import paper_suite as tsuite
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 SMALL = dict(n=256, dim=8)
 

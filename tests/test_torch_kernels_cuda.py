@@ -142,29 +142,33 @@ ONE_LAUNCH_SHAPES = [(1, 1), (4, 11), (4, 101), (4, 400),
                      (4, ops.REDUCE_SHARE), (4, ops.REDUCE_SHARE + 1),
                      (4, 40000), (16, 257), (1, 1_000_003)]
 ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-              "student_t_unnorm_sum", "normal_sum")
-# the three whose inputs also take an element stride of 0 (one value a row)
-ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum")
+              "student_t_unnorm_sum", "normal_sum", "bernoulli_logit_sum")
+# the four whose inputs also take an element stride of 0 (one value a row)
+ELEM_STRIDED = ("beta_unnorm_sum", "student_t_unnorm_sum", "normal_sum",
+                "bernoulli_logit_sum")
 # beta's and student_t's main paths: mixed's 4 x 1 and 4 x 8,
 # family_mix_8k's 4 x 1,024 and 4 x 2,048, and the wide timing shape
 ELEM_MAIN_SHAPES = [(4, 1), (4, 8), (4, 1024), (4, 2048), (4, 40000)]
 
 
-def _rows(rows, n, gen, dev, layout, lo=0.0, scale=1.0, randn=False):
+def _rows(rows, n, gen, dev, layout, lo=0.0, scale=1.0, randn=False,
+          coin=False):
     """``(rows, n)`` float32: "aligned" a fresh tensor, "offset" a view one
     float past a 16-byte boundary (z[:, 1:] of one row), "shared" one row
-    at row stride 0, "scalar" one value a row (element stride 0)."""
-    draw = torch.randn if randn else torch.rand
+    at row stride 0, "scalar" one value a row (element stride 0); with
+    ``coin`` each value is 0 or 1 (bernoulli's y)."""
+    def draw(*shape):
+        v = lo + scale * (torch.randn if randn else torch.rand)(
+            *shape, generator=gen, device=dev)
+        return (v < 0.5).float() if coin else v
+
     if layout == "offset":
-        flat = lo + scale * draw(rows * n + 1, generator=gen, device=dev)
-        return flat[1:].view(rows, n)
+        return draw(rows * n + 1)[1:].view(rows, n)
     if layout == "shared":
-        row = lo + scale * draw(n, generator=gen, device=dev)
-        return row.expand(rows, n)
+        return draw(n).expand(rows, n)
     if layout == "scalar":
-        col = lo + scale * draw(rows, 1, generator=gen, device=dev)
-        return col.expand(rows, n)
-    return lo + scale * draw(rows, n, generator=gen, device=dev)
+        return draw(rows, 1).expand(rows, n)
+    return draw(rows, n)
 
 
 def _one_launch_case(family, rows, n, layout, gen, dev):
@@ -187,6 +191,11 @@ def _one_launch_case(family, rows, n, layout, gen, dev):
         return (ops.normal_sum_rows, (x, mu, sig),
                 ref.normal_logpdf_sum_ref(x, mu, sig),
                 _abs_terms("normal", (x, mu, sig)))
+    if family == "bernoulli_logit_sum":  # every term <= 0
+        logits = _rows(rows, n, gen, dev, value, scale=2.0, randn=True)
+        y = _rows(rows, n, gen, dev, layout, coin=True)
+        want = ref.bernoulli_logits_logpmf_sum_ref(logits, y)
+        return ops.bernoulli_logit_sum_rows, (logits, y), want, want.abs()
     if family == "beta_unnorm_sum":
         x = _rows(rows, n, gen, dev, value, lo=0.01, scale=0.98)
         am1 = _rows(rows, n, gen, dev, layout, lo=-0.5, scale=3.5)
@@ -305,11 +314,14 @@ def _assert_reruns_and_two_streams(cuda_device, kern, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ONE_LAUNCH)
-@pytest.mark.parametrize("rows,n", [(4, 11), (4, 400), (4, 40000)])
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 11), (4, 400), (4, 10000),
+                                    (4, 40000), (1, 1_000_003)])
 def test_cuda_one_launch_is_one_kernel_by_profiler(cuda_device, family, rows,
                                                    n):
-    """torch.profiler sees one kernel a call (row_sum), and no finish_rows.
-    A window that missed some device activity is taken again."""
+    """torch.profiler sees one kernel a call (row_sum), and no finish_rows,
+    at the main paths' shapes (logreg's bernoulli at 4 x 10,000), one
+    element and a row of many blocks. A window that missed some device
+    activity is taken again."""
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
                                         cuda_device)
@@ -411,6 +423,11 @@ def test_cuda_elem_strided_refuses_bad_plans(cuda_device):
     assert normal(a, share, 1, a, share, 3, a, share, 1, *tail) != 0
     assert normal(v, share + 1, 1, a, 0, 1, a, 0, 1, *tail) != 0
     assert normal(a, 0, 1, v, 1, 0, v, 1, 0, *tail) == 0  # the switch route
+    bern = ops._lib().repro_bernoulli_logit_sum
+    assert bern(a, share, 2, a, 0, 1, *tail) != 0
+    assert bern(v, share + 1, 1, a, 0, 1, *tail) != 0
+    assert bern(a, share, 1, v, 0, 1, *tail) != 0
+    assert bern(a, share, 1, v, 1, 0, *tail) == 0  # one y a row
     torch.cuda.synchronize()
     # parts not ceil(n / share), and a merge without scratch
     assert st(a, share, 1, a, share, 1, 4, share, 2, 1, None, None,
@@ -1124,3 +1141,176 @@ def test_cuda_ssd_scan_chunk_invariance_and_backward(cuda_device):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         assert _rel_err(a, b) < 2e-4
+
+
+# bernoulli_logit_sum as logreg calls it (logits a row a chain, y shared by
+# the chains at row stride 0), with the logits as an offset view (4-byte
+# loads), one element, and a row of many blocks
+BERNOULLI_CASES = [(4, 10000, "aligned"), (4, 10000, "offset"),
+                   (1, 1, "aligned"), (1, 1_000_003, "aligned")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,layout", BERNOULLI_CASES)
+def test_cuda_bernoulli_one_launch_on_logregs_layout(cuda_device, rows, n,
+                                                     layout):
+    """rtol 1e-6 against the plain version, the plan's load width, one
+    launch a call, a bit-identical rerun and the counts back at 0 (one
+    row_sum kernel a call by the profiler at these shapes:
+    ``test_cuda_one_launch_is_one_kernel_by_profiler``)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    logits = _rows(rows, n, gen, cuda_device,
+                   "offset" if layout == "offset" else "aligned", scale=2.0,
+                   randn=True)
+    y = _rows(rows, n, gen, cuda_device, layout="shared", coin=True)
+    kern, args = ops.bernoulli_logit_sum_rows, (logits, y)
+    want = ref.bernoulli_logits_logpmf_sum_ref(logits, y)
+    plan = _plan_of(args, rows, n, "bernoulli_logit_sum")
+    assert plan.vec == (layout != "offset" or n == 1)
+    ops.reset_launch_counts()
+    got = kern(*args)
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "bernoulli_logit_sum": 1}
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert torch.equal(kern(*args), got)
+    assert _counts_are_zero(torch.cuda.current_stream())
+
+
+# categorical_logits_sum above 256 classes: one launch, each logit read
+# once; 257 and 4,097 take 4-byte loads (C not a multiple of 4), the LM
+# vocabularies 16-byte ones
+CAT_LARGE_C = (257, 1000, 4097, 49152, 50280)
+
+
+def _cat_logits(rows, n, c, gen, dev, offset=False, scale=3.0):
+    """``(rows, n, c)`` logits: fresh, or a view one float past a 16-byte
+    boundary (4-byte loads at any C)."""
+    flat = scale * torch.randn(rows * n * c + offset, generator=gen,
+                               device=dev)
+    return flat[int(offset):].view(rows, n, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", CAT_LARGE_C)
+@pytest.mark.parametrize("rows,n", [(1, 1), (4, 99), (16, 257), (1, 8192)])
+@pytest.mark.parametrize("labels", ["shared", "per_row"])
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_cuda_categorical_large_c_one_launch(cuda_device, c, rows, n, labels,
+                                             offset):
+    """rtol 1e-6 against the plain version (every term is <= 0), one
+    launch a call, the plan's load width, a bit-identical rerun, and the
+    counts back at 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    logits = _cat_logits(rows, n, c, gen, cuda_device, offset)
+    lab = torch.randint(0, c, (n,) if labels == "shared" else (rows, n),
+                        generator=gen, device=cuda_device,
+                        dtype=torch.int32).expand(rows, n)
+    plan = ops.categorical_plan(n, c, logits.data_ptr(),
+                                logits.stride(0) if rows > 1 else 0)
+    assert plan == ops.ReducePlan(min(1024, -(-n // ops.CAT_ITEMS)),
+                                  c % 4 == 0 and not offset)
+    ops.reset_launch_counts()
+    got = ops.categorical_logits_sum_rows(logits, lab)
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0),
+                            "categorical_logits_sum": 1}
+    torch.testing.assert_close(
+        got, ref.categorical_logits_logpmf_sum_ref(logits, lab), rtol=1e-6,
+        atol=0)
+    assert torch.equal(ops.categorical_logits_sum_rows(logits, lab), got)
+    assert _counts_are_zero(torch.cuda.current_stream())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", CAT_LARGE_C)
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_cuda_categorical_large_c_edges(cuda_device, c, offset):
+    """log_softmax's edges, one item a row so that each is held alone:
+    -inf entries add 0 (at the start of every lane's classes too), a label
+    on a -inf entry gives -inf, a row of -inf gives NaN, a +inf or NaN
+    logit gives NaN, labels -1 and C give NaN; and the same entries summed
+    over items. NaN and -inf where the plain version gives them, the rest
+    at rtol 1e-6, bit-identical on a rerun."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    ninf = float("-inf")
+    logits = _cat_logits(11, 1, c, gen, cuda_device, offset, scale=1.0)
+    lab = [0, 1, 3, 2, 4, 5, 6, -1, c, c - 1, c // 2]
+    logits[1, 0, ::3] = ninf           # -inf entries, label 1 finite
+    logits[2, 0, ::3] = ninf           # label 3 on a -inf entry
+    logits[3, 0, :] = ninf             # a row of -inf
+    logits[4, 0, c - 1] = float("inf")
+    logits[5, 0, 5] = float("nan")
+    logits[9, 0, :min(c - 1, 2048)] = ninf  # each lane's first classes
+    logits[10, 0, 0] = ninf
+    labels = torch.tensor(lab, dtype=torch.int32,
+                          device=cuda_device).view(11, 1)
+    got = ops.categorical_logits_sum_rows(logits, labels)
+    want = ref.categorical_logits_logpmf_sum_ref(logits, labels)
+    assert torch.isnan(want[[3, 4, 5, 7, 8]]).all()
+    assert want[2] == ninf and torch.isfinite(want[[0, 1, 6, 9, 10]]).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0, equal_nan=True)
+    assert torch.equal(got.view(torch.int32),
+                       ops.categorical_logits_sum_rows(
+                           logits, labels).view(torch.int32))
+    # summed over items (the logits shared by the rows, row stride 0): every
+    # row NaN over all eleven items; -inf, -inf and finite over the six
+    # items without a NaN
+    items = logits.view(1, 11, c).expand(3, 11, c)
+    per_row = torch.tensor([lab, [0, 1, 3] + [0] * 8,
+                            [0, 1, 1, 0, 0, 0, 6, 0, 0, c - 1, c - 1]],
+                           dtype=torch.int32, device=cuda_device)
+    keep = torch.tensor([0, 1, 2, 6, 9, 10], device=cuda_device)
+    sub = items[:, keep].contiguous()
+    for lg, lb in ((items, per_row), (sub, per_row[:, keep].contiguous())):
+        want = ref.categorical_logits_logpmf_sum_ref(lg, lb)
+        torch.testing.assert_close(ops.categorical_logits_sum_rows(lg, lb),
+                                   want, rtol=1e-6, atol=0, equal_nan=True)
+    assert want[0] == want[1] == ninf and torch.isfinite(want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,c", [(4, 99, 1000), (1, 8192, 49152),
+                                      (1, 8192, 50280), (2, 8192, 4097)])
+def test_cuda_categorical_large_c_reruns_streams_and_one_kernel(
+        cuda_device, rows, n, c):
+    """100 reruns bit-identical, calls on two streams equal to them with
+    every count back at 0, and one categorical_sum kernel a call by the
+    profiler."""
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    logits = _cat_logits(rows, n, c, gen, cuda_device)
+    lab = torch.randint(0, c, (rows, n), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    args = (logits, lab)
+    _assert_reruns_and_two_streams(cuda_device, ops.categorical_logits_sum_rows,
+                                   args)
+    _assert_one_kernel_a_call(ops.categorical_logits_sum_rows, args,
+                              kernel="categorical_sum")
+
+
+@pytest.mark.cuda
+def test_cuda_categorical_refuses_bad_plans(cuda_device):
+    """The C side refuses 16-byte loads at a C that is not a multiple of 4
+    or on unaligned logits, parts that are not ceil(n / CAT_ITEMS) capped
+    at 1,024, and a merge without scratch; the wrapper raises the error as
+    KernelError."""
+    from repro_torch.kernels._build import KernelError
+    fn = ops._lib().repro_categorical_logits_sum
+    logits = torch.zeros(2 * 64 * 1000 + 1, device=cuda_device)
+    labels = torch.zeros(2, 64, dtype=torch.int32, device=cuda_device)
+    out = torch.empty(2, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    a, y = logits.data_ptr(), labels.data_ptr()
+
+    def call(addr, c, n, nparts, vec, scratch=None):
+        return fn(addr, n * c, y, 64, 2, n, c, nparts, vec, scratch, scratch,
+                  out.data_ptr(), stream)
+
+    assert call(a, 1000, 1, 1, 1) == 0
+    assert call(a, 999, 1, 1, 1) != 0      # C not a multiple of 4
+    assert call(a + 4, 1000, 1, 1, 1) != 0  # unaligned
+    assert call(a + 4, 999, 1, 1, 0) == 0   # 4-byte loads take either
+    assert call(a, 1000, 64, 7, 1) != 0     # ceil(64 / 8) is 8
+    err = call(a, 1000, 64, 8, 1)           # a merge without scratch
+    assert err != 0
+    torch.cuda.synchronize()
+    with pytest.raises(KernelError, match="categorical_logits_sum"):
+        ops._raise_on(err, "categorical_logits_sum")

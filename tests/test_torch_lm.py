@@ -1,14 +1,21 @@
 """PyTorch port: the LM substrate (``repro_torch.nn``, ``configs``,
 ``models.bayes_lm``, ``launch.serve``) held against the JAX package.
 
-The same weights go through both packages: the JAX package's
-``init_params`` pytree is carried across with
-``repro_torch.convert.params_from_reference`` (its initialiser keys on
-Python's salted ``hash``, so weights cannot be re-derived from a seed).
-Tokens and frames are made with NumPy. Smoke configs in float32;
+The same weights go through both packages: the port's seeded
+``init_params`` (the JAX package's law, fan-in scaled normals) carried
+into the JAX package's pytree key for key, as NumPy; the JAX package's own
+``init_params`` (its initialiser keys on Python's salted ``hash``, so its
+weights cannot be re-derived from a seed) is carried the other way by
+``repro_torch.convert.params_from_reference`` where that conversion is
+the point, and every ported arch's init tree (its shapes from
+``jax.eval_shape``) is carried across with seeded values. Tokens and frames are made with NumPy. Each JAX computation
+runs as one compiled program (``jax.jit``). Smoke configs in float32;
 tolerances: logits at rtol and atol 1e-4 (float32 products and softmaxes
 in another order over a few layers, logits up to ~60), densities at rtol
-1e-5. On the CPU the flash route runs the kernels' plain versions.
+1e-5. On the CPU the flash route runs the kernels' plain versions; the
+JAX side runs its plain attention and scan (``attn_impl="xla"``) for
+both of the port's routes, since the JAX package's own tests hold its
+Pallas kernels to those.
 
 The ring-buffer prefill is where the port departs from the JAX package on
 purpose: the JAX package attends over a ring it has already overwritten
@@ -39,6 +46,8 @@ from repro_torch.launch.serve import serve_batch
 from repro_torch.models import bayes_lm as tbayes
 from repro_torch.models import paper_suite as tsuite
 from repro_torch.nn import lm as tlm
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 PORTED = ["smollm-360m", "minitron-4b", "granite-8b", "gemma2-27b",
           "internvl2-26b", "seamless-m4t-large-v2", "mamba2-1.3b"]
@@ -53,13 +62,16 @@ def _close(got, want, rtol=1e-4, atol=1e-4):
 
 @functools.lru_cache(maxsize=None)
 def _params(arch, seed):
-    """The JAX package's weights and the port's copy of them, made once a
+    """The port's weights and the JAX package's copy of them, made once a
     module for each (arch, seed): the attention route does not change
     them, and no test does."""
-    jp = jlm.init_params(jconfigs.get_smoke_config(arch), seed=seed)
-    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp),
-                               tconfigs.get_smoke_config(arch), device="cpu")
+    tp = tlm.init_params(tconfigs.get_smoke_config(arch), seed=seed,
+                         device="cpu")
+    dtype = jconfigs.get_smoke_config(arch).dtype
+    jp = jax.tree_util.tree_map(
+        lambda t: jnp.asarray(t.to(torch.float32).numpy(), dtype), tp)
     return jp, tp
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,9 +106,9 @@ def _jx(extras):
 
 def _jax_prefill_decode(cfg, B, S, n_prefix):
     """The JAX package's ``forward_train`` over S tokens, ``prefill`` of
-    the first S - 1 and ``decode_step`` of the last, compiled as one
-    program: the same arithmetic as op-by-op dispatch, in a fraction of
-    the time on the CPU."""
+    the first S - 1 and ``decode_step`` of the last, as one function for
+    ``jax.jit``: the same arithmetic as op-by-op dispatch, in a fraction
+    of the time on the CPU."""
     def run(params, tokens, extras):
         full = jlm.forward_train(cfg, params, tokens, **extras)
         cache = jlm.init_cache(cfg, B, S + n_prefix)
@@ -110,7 +122,21 @@ def _jax_prefill_decode(cfg, B, S, n_prefix):
         step, _ = jlm.decode_step(cfg, params, tokens[:, -1:], cache, pos,
                                   memory_kv=memory)
         return full, logits, step
-    return jax.jit(run)
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(arch, B=2, S=16):
+    """The JAX package's logits for ``arch``'s smoke config through its
+    plain route: ``forward_train`` over S tokens, ``prefill`` of S - 1,
+    ``decode_step`` of the last (NumPy), once a module: both of the port's
+    routes are held to them."""
+    jcfg, jp, _, _ = _pair(arch, "xla")
+    tokens, _, extras = _inputs(jcfg, B, S)
+    n_prefix = jcfg.n_prefix if jcfg.n_prefix and not jcfg.enc_layers else 0
+    run = jax.jit(_jax_prefill_decode(jcfg, B, S, n_prefix))
+    return tuple(np.asarray(a)
+                 for a in run(jp, jnp.asarray(tokens), _jx(extras)))
 
 
 def _th(extras):
@@ -145,8 +171,15 @@ def test_unported_blocks_raise_naming_the_roadmap_item(arch):
 
 
 def test_params_carry_across_key_for_key_and_are_seeded_by_path():
-    jcfg, jp, tcfg, tp = _pair("gemma2-27b")
+    jcfg, _, tcfg, _ = _pair("gemma2-27b")
+    # the JAX package's own init, one program, carried across
+    jp = jax.jit(functools.partial(jlm.init_params, jcfg, 0))()
+    tp = params_from_reference(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                               device="cpu")
     assert tlm.count_params(tp) == jlm.count_params(jp)
+    for a, b in zip(jax.tree_util.tree_leaves(jp),
+                    jax.tree_util.tree_leaves(tp)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a, np.float32))
     tree = jax.tree_util.tree_map(np.asarray, jp)
     tree["segments"][0][0]["attn"].pop("wq")
     with pytest.raises(ValueError, match="segments/0/0/attn: keys"):
@@ -165,6 +198,30 @@ def test_params_carry_across_key_for_key_and_are_seeded_by_path():
                            a["segments"][0][1]["attn"]["wq"])
 
 
+@pytest.mark.parametrize("arch", PORTED)
+def test_params_from_reference_takes_the_reference_init_tree(arch):
+    """The JAX package's ``init_params`` tree for each ported arch (its
+    keys, shapes and dtypes from ``jax.eval_shape``, no compile), filled
+    with seeded NumPy values, carries across key for key: the port's own
+    init has the same keys and shapes, and every value arrives."""
+    jcfg = jconfigs.get_smoke_config(arch)
+    tcfg = tconfigs.get_smoke_config(arch)
+    shapes = jax.eval_shape(functools.partial(jlm.init_params, jcfg, 0))
+    rng = np.random.default_rng(0)
+    tree = jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    tp = params_from_reference(tree, tcfg, device="cpu")
+    own = tlm.init_params(tcfg, device="meta")
+    assert (jax.tree_util.tree_structure(tp)
+            == jax.tree_util.tree_structure(own))
+    for a, b, c in zip(jax.tree_util.tree_leaves(tree),
+                       jax.tree_util.tree_leaves(tp),
+                       jax.tree_util.tree_leaves(own)):
+        assert tuple(b.shape) == tuple(c.shape) and b.dtype == c.dtype
+        want = torch.as_tensor(a).to(b.dtype)  # the parameter's type
+        torch.testing.assert_close(b, want, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # forward, prefill and decode against the JAX package
 # ---------------------------------------------------------------------------
@@ -174,12 +231,11 @@ CASES = [(a, "xla") for a in PORTED] + [("gemma2-27b", "flash"),
 
 @pytest.mark.parametrize("arch,impl", CASES)
 def test_forward_prefill_decode_match_reference(arch, impl):
-    jcfg, jp, tcfg, tp = _pair(arch, impl)
+    jcfg, _, tcfg, tp = _pair(arch, impl)
     B, S = 2, 16
     tokens, _, extras = _inputs(jcfg, B, S)
     n_prefix = jcfg.n_prefix if jcfg.n_prefix and not jcfg.enc_layers else 0
-    want, jl, jd = _jax_prefill_decode(jcfg, B, S, n_prefix)(
-        jp, jnp.asarray(tokens), _jx(extras))
+    want, jl, jd = _jax_reference(arch, B, S)
     got = tlm.forward_train(tcfg, tp, torch.as_tensor(tokens), **_th(extras))
     assert got.dtype == torch.float32 and got.shape == (B, S, jcfg.vocab)
     _close(got, want)
@@ -204,8 +260,8 @@ def test_forward_prefill_decode_match_reference(arch, impl):
 def test_lm_loss_matches_reference():
     jcfg, jp, tcfg, tp = _pair("smollm-360m")
     tokens, labels, _ = _inputs(jcfg, 2, 8)
-    want = float(jlm.lm_loss(jcfg, jp, jnp.asarray(tokens),
-                             jnp.asarray(labels)))
+    want = float(jax.jit(functools.partial(jlm.lm_loss, jcfg))(
+        jp, jnp.asarray(tokens), jnp.asarray(labels)))
     got = float(tlm.lm_loss(tcfg, tp, torch.as_tensor(tokens),
                             torch.as_tensor(labels)))
     _close(got, want, rtol=1e-5, atol=0)
@@ -216,18 +272,19 @@ def test_lm_loss_matches_reference():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("S", [12, 17, 24, 40])
 def test_ring_prefill_past_the_window_matches_forward(S):
-    jcfg, jp, tcfg, tp = _pair("gemma2-27b", "flash", seed=2)
+    jcfg, jp, _, _ = _pair("gemma2-27b", "xla", seed=2)
+    _, _, tcfg, tp = _pair("gemma2-27b", "flash", seed=2)
     assert tcfg.window == 16
     B = 2
     tokens, _, _ = _inputs(jcfg, B, S + 1, seed=S)
 
-    @jax.jit
     def jax_ring(params, tokens):  # one compiled program
         cache = jlm.init_cache(jcfg, B, S + 1)
         return (jlm.forward_train(jcfg, params, tokens),
                 jlm.prefill(jcfg, params, tokens[:, :S], cache)[0])
 
-    jfull, jl = (np.asarray(a) for a in jax_ring(jp, jnp.asarray(tokens)))
+    jfull, jl = (np.asarray(a)
+                 for a in jax.jit(jax_ring)(jp, jnp.asarray(tokens)))
     full = tlm.forward_train(tcfg, tp, torch.as_tensor(tokens))
     _close(full, jfull)
 
@@ -255,8 +312,9 @@ def test_ring_prefill_past_the_window_matches_forward(S):
                                        ("mamba2-1.3b", "flash")])
 def test_lm_model_contexts_match_reference(arch, impl):
     """test_train_serve.py's context checks, with values equal to the JAX
-    package's at rtol 1e-5."""
-    jcfg, jp, tcfg, tp = _pair(arch, impl)
+    package's (its plain route) at rtol 1e-5."""
+    jcfg, jp, _, _ = _pair(arch, "xla")
+    _, _, tcfg, tp = _pair(arch, impl)
     tokens, labels, _ = _inputs(jcfg, 2, 8)
     jm = jbayes.make_lm_model(jcfg, prior_sigma=1.0)(
         tokens=jnp.asarray(tokens), labels=jnp.asarray(labels), params=jp)
@@ -286,7 +344,8 @@ def test_lm_model_contexts_match_reference(arch, impl):
 def test_logp_with_context_matches_reference_on_a_paper_model():
     jm = jsuite.build("logreg", n=256, dim=8)
     tm = tsuite.build("logreg", device="cpu", n=256, dim=8)
-    jlinked = jm.model.typed_varinfo(jax.random.PRNGKey(0)).link()
+    jlinked = jax.jit(lambda key: jm.model.typed_varinfo(key).link())(
+        jax.random.PRNGKey(0))
     tlinked = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     rng = np.random.default_rng(1)
     u = (np.asarray(jlinked.flat())
@@ -295,11 +354,13 @@ def test_logp_with_context_matches_reference_on_a_paper_model():
     sig = tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
                 for s in jlinked.layout.sites)
     tt = state_from_reference(tlinked, u, sig)
-    for jctx, tctx in [(JMiniBatchContext(scale=3.0),
-                        MiniBatchContext(scale=3.0)),
-                       (JPriorContext(), PriorContext()),
-                       (JLikelihoodContext(), LikelihoodContext())]:
-        want = float(jm.model.logp_with_context(jt, jctx))
+    pairs = [(JMiniBatchContext(scale=3.0), MiniBatchContext(scale=3.0)),
+             (JPriorContext(), PriorContext()),
+             (JLikelihoodContext(), LikelihoodContext())]
+    wants = jax.jit(lambda t: [jm.model.logp_with_context(t, jctx)
+                               for jctx, _ in pairs])(jt)
+    for (_, tctx), want in zip(pairs, wants):
+        want = float(want)
         for backend in ("fused", "reference"):
             got = float(tm.model.logp_with_context(tt, tctx, backend=backend))
             _close(got, want, rtol=1e-5, atol=0)
@@ -352,8 +413,8 @@ def test_nn_common_inits_and_layer_norm_match_reference():
     x = rng.standard_normal((3, 5, 48)).astype(np.float32) * 2.0 + 0.5
     scale = rng.standard_normal(48).astype(np.float32)
     bias = rng.standard_normal(48).astype(np.float32)
-    want = jcommon.layer_norm(jnp.asarray(x), jnp.asarray(scale),
-                              jnp.asarray(bias))
+    want = jax.jit(jcommon.layer_norm)(jnp.asarray(x), jnp.asarray(scale),
+                                       jnp.asarray(bias))
     got = tcommon.layer_norm(torch.as_tensor(x), torch.as_tensor(scale),
                              torch.as_tensor(bias))
     assert got.dtype == torch.float32
@@ -364,7 +425,8 @@ def test_nn_common_inits_and_layer_norm_match_reference():
     # the inits: the reference's shapes, types and laws (Philox, not
     # threefry, so the draws themselves differ)
     shape = (256, 512)
-    wj = jcommon.dense_init(jax.random.PRNGKey(0), shape)
+    wj = jax.eval_shape(lambda key: jcommon.dense_init(key, shape),
+                        jax.random.PRNGKey(0))
     wt = tcommon.dense_init(torch.Generator().manual_seed(0), shape)
     et = tcommon.embed_init(torch.Generator().manual_seed(0), shape,
                             dtype=torch.float32)

@@ -41,6 +41,7 @@ from repro_torch.kernels.fused_leapfrog import (OP_EXP, OP_NORMAL,
                                                 OP_SOFTPLUS, OP_TLOG, OP_ZERO)
 from repro_torch.models import family_mix
 from repro_torch.models import paper_suite as tsuite
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
 
 
 def _multi_site_pair():
@@ -164,24 +165,36 @@ def _suite_pair(name, **kw):
             tsuite.build(name, device="cpu", **kw).model)
 
 
+# the paper models at their default (Table-1) sizes, which
+# tests/test_paper_suite.py and test_torch_core.py trace op by op too: the
+# JAX package's compiles of those traces are shared in one process
 PAIRS = {
     "gaussian_10k": lambda: _suite_pair("gaussian_10k"),
     "multi_site": _multi_site_pair,
-    "logreg": lambda: _suite_pair("logreg", n=64, dim=4),
-    "naive_bayes": lambda: _suite_pair("naive_bayes", n=64, n_classes=3,
-                                       dim=4),
+    "logreg": lambda: _suite_pair("logreg"),
+    "naive_bayes": lambda: _suite_pair("naive_bayes"),
     "coupled": _coupled_pair,
     "lone_gamma": _lone_gamma_pair,
-    "hier_poisson": lambda: _suite_pair("hier_poisson", n=20, n_groups=4),
-    "hmm_semisup": lambda: _suite_pair("hmm_semisup", K=3, V=6, T=30,
-                                       T_sup=10),
-    "lda": lambda: _suite_pair("lda", V=12, K=3, D=4, avg_len=30),
+    "hier_poisson": lambda: _suite_pair("hier_poisson"),
+    "hmm_semisup": lambda: _suite_pair("hmm_semisup"),
+    "lda": lambda: _suite_pair("lda"),
     "family_mix_8k": _family_mix_pair,
-    "gauss_unknown": lambda: _suite_pair("gauss_unknown", n=64),
-    "sto_volatility": lambda: _suite_pair("sto_volatility", T=40),
+    "gauss_unknown": lambda: _suite_pair("gauss_unknown"),
+    "sto_volatility": lambda: _suite_pair("sto_volatility"),
     "eight_schools": lambda: _suite_pair("eight_schools"),
     **{f"lone_{f}": (lambda f=f: _lone_pair(f)) for f in LONE_FAMILIES},
 }
+
+
+def _compiled_densities(jm):
+    """``jm`` with each log-density it makes compiled as one program, as
+    the JAX package's samplers run it: its compiler evaluates the density
+    and its gradient at the recorded point and two probes, the same
+    arithmetic as op-by-op dispatch in a fraction of the time on the
+    CPU."""
+    make = jm.make_logdensity_fn
+    jm.make_logdensity_fn = lambda *a, **k: jax.jit(make(*a, **k))
+    return jm
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,6 +202,7 @@ def _compile_both(name):
     """Both compilers' results on one model, once a module for each model
     (the results and traces are never changed by a test)."""
     jm, tm = PAIRS[name]()
+    jm = _compiled_densities(jm)
     jtvi = jm.typed_varinfo(jax.random.PRNGKey(0)).link()
     sig = tuple((s.name, tuple(s.shape), s.unc_offset, s.unc_size)
                 for s in jtvi.layout.sites)

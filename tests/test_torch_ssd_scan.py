@@ -20,6 +20,8 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref
 from repro.nn.ssm import ssd_chunked_ref as jchunked_eager
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.nn.ssm import ssd_chunked_ref
+from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+
 
 # the JAX package's plain versions, compiled once per shape: the same
 # arithmetic as op-by-op dispatch in a tenth of the time
@@ -213,3 +215,21 @@ def test_ssd_tc_rounding_matches_jax_pallas():
     # the float32 plain version of the port, for scale, is far closer
     plain = ops.ssd_scan(*map(torch.as_tensor, ins), chunk=64).numpy()
     assert _rel_err(plain, want) < 2e-4
+
+
+def test_kernels_package_exports_the_references_kernel_names():
+    """``repro_torch.kernels`` exports ``flash_attention_gqa`` and
+    ``ssd_scan`` as ``repro.kernels`` does: the subpackages' functions,
+    with ``repro_torch.kernels.ssd_scan.ops`` still importable."""
+    import importlib
+
+    import repro.kernels as jkernels
+    import repro_torch.kernels as tkernels
+    from repro_torch.kernels import flash_attention_gqa, ssd_scan
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    assert flash_attention_gqa is flash_ops.flash_attention_gqa
+    assert ssd_scan is ops.ssd_scan
+    assert importlib.import_module("repro_torch.kernels.ssd_scan.ops") is ops
+    for name in ("flash_attention_gqa", "ssd_scan"):
+        assert name in tkernels.__all__
+        assert callable(getattr(jkernels, name))
