@@ -8,6 +8,7 @@ may land on hosts of different speed.
     python3 chip_compare.py --other DIR wrappers [--kernels NAME ...]
     python3 chip_compare.py --other DIR leapfrog [--models NAME ...]
     python3 chip_compare.py --other DIR paths [--models NAME ...] [--draws N]
+    python3 chip_compare.py --other DIR lm
 
 ``wrappers`` loads the other checkout's ``fused_logpdf/ops.py`` in this
 process under another module name (its kernel source builds into its own
@@ -30,7 +31,13 @@ family_mix_8k (a mixed table, 4 x 8,192), 4 chains and 4 steps, in the
 same turns, after holding q, p and the gradient to each other at rtol
 1e-5 plus 1e-5 * max|other| and the potential at rtol 1e-5. ``paths`` runs
 ``chip_smoke.run_model`` for each model in a fresh process per checkout,
-four turns, and reads milliseconds per draw. The card's name and power
+four turns, and reads milliseconds per draw. ``lm`` loads the other
+checkout's ``flash_attention/ops.py`` and ``ssd_scan/ops.py`` the same way
+and runs both checkouts' wrappers, each as its own ``plan`` picks, at the
+LM paths' float32 calls (``LM_CALLS``: smollm-360m's prefill and
+mamba2-1.3b's scoring scan), holds each output to the other's (flash at
+2e-5, the SSD at 2e-4 of max|other|, the float32 gates' tolerances), then
+times both in the same turns. The card's name and power
 limit come first; the last line is one JSON object with every number.
 """
 from __future__ import annotations
@@ -61,6 +68,8 @@ ENTRY = {"std_normal_sum": "std_normal_logpdf_sum",
          "normal_sum": "normal_logpdf_sum",
          "bernoulli_logit_sum": "bernoulli_logits_logpmf_sum"}
 PATHS = ("logreg", "hier_poisson", "gauss_unknown", "sto_volatility", "mixed")
+# the LM paths' float32 calls: (kind, chip_smoke's name for the call)
+LM_CALLS = (("flash", "smollm_prefill"), ("ssd", "SSD_MAMBA2"))
 LEAPFROG_PATHS = ("gaussian_10k", "family_mix_8k")
 
 
@@ -100,8 +109,8 @@ def wrappers(torch, cs, other: Path, kernels) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for name in kernels:
-        cases = ([(shape, False) for shape in
-                  cs.MAIN_SHAPES[name] + WIDE.get(name, [])]
+        cases = ([(shape, False) for shape in dict.fromkeys(
+                  cs.MAIN_SHAPES[name] + WIDE.get(name, []))]
                  + [(shape, True) for shape in SCALAR.get(name, [])])
         for shape, scalar in cases:
             args, kern, _, _, _, _ = cs.logpdf_case(
@@ -191,6 +200,56 @@ def leapfrog(torch, cs, other: Path, models) -> dict:
     return out
 
 
+def lm(torch, cs, other: Path) -> dict:
+    """Both checkouts' flash_attention and ssd_scan wrappers at the float32
+    calls of LM_CALLS, held to each other, then timed in turns."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    mods = {"this": {"flash": fops, "ssd": sops},
+            "other": {"flash": load_other_ops(other, "flash_attention"),
+                      "ssd": load_other_ops(other, "ssd_scan")}}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for kind, call in LM_CALLS:
+        if kind == "flash":
+            q, k, v, kw = cs.flash_call(torch, cs.LM_FLASH[call],
+                                        torch.float32, gen)
+            shape = list(q.shape)
+            fns = {who: (lambda m=m[kind]: m.flash_attention_gqa(q, k, v,
+                                                                 **kw))
+                   for who, m in mods.items()}
+            kernels = {who: m[kind].plan(*q.shape[:2], k.shape[1],
+                                         *q.shape[2:4], torch.float32,
+                                         q.shape[4]).kernel
+                       for who, m in mods.items()}
+            tol = cs.FLASH_TOL["float32"]
+        else:
+            case = getattr(cs, call)
+            ins = cs.ssd_inputs(torch, case, torch.float32, gen)
+            shape = list(case)
+            fns = {who: (lambda m=m[kind]: m.ssd_scan(*ins, chunk=case[-1]))
+                   for who, m in mods.items()}
+            b, s, h, p, g, n, chunk = case
+            kernels = {who: m[kind].plan(h, g, p, n, chunk, torch.float32)
+                       for who, m in mods.items()}
+            tol = cs.SSD_TOL["float32"]
+        err = cs.rel_err(fns["this"](), fns["other"]())
+        cs.check(err < tol, f"{call}: this vs other rel err {err:.3e} >= "
+                 f"{tol}")
+        row = out[call] = timed_turns(torch, cs, fns)
+        row.update(shape=shape, kernels=kernels, rel_err=err)
+        cs.log(f"{call} float32 {shape} (this {kernels['this']}, other "
+               f"{kernels['other']}, rel err {err:.2e}): issued us other "
+               f"{row['issued_us']['other']}, this {row['issued_us']['this']}"
+               f"; device us other {row['device_us']['other']}, this "
+               f"{row['device_us']['this']}")
+        if kind == "flash":
+            del q, k, v
+        else:
+            del ins
+    return out
+
+
 def path_worker(tree: Path, models, draws: int) -> None:
     """One checkout's main paths, in a process of its own."""
     sys.path[:0] = [str(tree / "src"), str(tree)]
@@ -229,7 +288,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout")
-    ap.add_argument("mode", choices=("wrappers", "leapfrog", "paths",
+    ap.add_argument("mode", choices=("wrappers", "leapfrog", "paths", "lm",
                                      "_path_worker"))
     ap.add_argument("tree", nargs="?", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--kernels", nargs="+", default=list(ONE_LAUNCH),
@@ -257,6 +316,8 @@ def main() -> int:
     elif args.mode == "leapfrog":
         result = leapfrog(torch, cs, args.other,
                           args.models or list(LEAPFROG_PATHS))
+    elif args.mode == "lm":
+        result = lm(torch, cs, args.other)
     else:
         result = paths(cs, args.other, args.models or list(PATHS),
                        args.draws)

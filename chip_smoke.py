@@ -21,10 +21,11 @@ random weights from a seed and ``attn_impl="flash"``: serving
 ``smollm-360m`` at full width and depth and ``gemma2-27b`` at full width
 with its depth cut to one (local, global) block, through the hand-written
 flash-attention kernels (``flash_fwd_tc``, the bf16 prefill on the tensor
-cores; ``flash_decode``, every decode step; ``flash_fwd``, the FP32
-prefill of the float32 serving run); scoring 4 x 2,048 tokens under the
-Bayesian ``mamba2-1.3b`` at full width and depth, through ``ssd_scan_tc``
-(bf16 on the tensor cores; the FP32 ``ssd_scan`` on the float32 gate) and
+cores; ``flash_decode``, every decode step; ``flash_fwd_tf32``, the
+prefill of the float32 serving run on the tensor cores in 3xTF32);
+scoring 4 x 2,048 tokens under the Bayesian ``mamba2-1.3b`` at full width
+and depth, through ``ssd_scan_tc`` (bf16 on the tensor cores;
+``ssd_scan_tf32``, 3xTF32, on the float32 gate) and
 ``categorical_logits_sum``; and serving ``mamba2-1.3b`` briefly (its
 prefill runs the plain scan, its decode the O(1) update, as in the JAX
 package: no kernel of this slice). Draws per model are in ``DRAWS``.
@@ -63,7 +64,7 @@ Phases, in order:
    (q, p and gradient at rtol 1e-5 plus atol 1e-5 * max|plain|, the
    potential at 1e-5 * sum_i |v_i|; the leapfrog one launch a call with
    its counts back at 0, 0 steps returning the state, offset views giving
-   the same bits); flash_attention's three kernels by max|kernel -
+   the same bits); flash_attention's four kernels by max|kernel -
    plain| / max|plain| (2e-5 in float32, 3e-2 in bf16: tests/
    test_kernels.py's) over that file's cases in both types, each kernel
    at its edges (``FLASH_KERNEL_CASES``: decode at G 1 to 8, odd Sk and
@@ -71,13 +72,15 @@ Phases, in order:
    softcapped), rings with holes and fully masked rows (exact zeros)
    through each kernel and every call of the LM paths (``LM_FLASH``, the
    large ones on their first and last 128 query rows), each kernel
-   reached, and the backward through the ``autograd.Function`` at 2e-5;
-   the two SSD kernels the same way (2e-4 and 5e-2) over that file's
-   cases, ``ssd_scan_tc``'s shapes (``SSD_TC_CASES``) and mamba2's 4 x
-   2,048 x 64 heads: the kernel ``plan`` picks, and on every bf16 call it
-   sends to ``ssd_scan_tc`` the FP32 kernel as well, the mixer's strided
-   views through ``ssd_scan_tc``, chunk 32 against chunk 64 at 1e-4, and
-   the backward; categorical_logits_sum
+   reached (the FP32 flash_fwd, which no main path runs any more, also on
+   every float32 prefill call by ``launch_kernel``), and the backward
+   through the ``autograd.Function`` at 2e-5; the three SSD kernels the
+   same way (2e-4 and 5e-2) over that file's cases, the tensor-core
+   kernels' shapes (``SSD_TC_CASES``) and mamba2's 4 x 2,048 x 64 heads:
+   the kernel ``plan`` picks, and on every call it sends to a tensor-core
+   kernel the FP32 kernel as well, the mixer's strided views through both
+   tensor-core kernels, chunk invariance at 1e-4, and the backward;
+   categorical_logits_sum
    again at C = 49,152 and 50,280 over 8,192 items, one launch a call;
    all bit-identical on a rerun;
 4. ``logreg``: ``run_chains(HMC(step_size=0.002, n_leapfrog=4),
@@ -126,15 +129,16 @@ Phases, in order:
    and every decode step fed the same tokens, and prefill(S - 1) plus
    decode(1) against ``forward_train``'s last logits (both within 2e-3;
    for gemma2 the prompt passes the 4,096-slot ring, so this is the ring
-   repair at real size; the float32 flash run is counted: flash_fwd once
-   per attention layer in the prefill, flash_decode in each decode step);
+   repair at real size; the float32 flash run is counted: flash_fwd_tf32
+   once per attention layer in the prefill, flash_decode in each decode
+   step);
    then the timed bf16 ``serve_batch`` with every count zeroed just before
    and read just after (flash_fwd_tc once per attention layer in the
    prefill, flash_decode once per layer in each decode step, nothing
    else),
    and the dense route's bf16 greedy tokens for agreement (reported, not
    gated); for the scoring path, in float32, the log-likelihood with
-   ``ssd_scan`` (counted: once per layer) against the plain scan's (rtol
+   ``ssd_scan_tf32`` (counted: once per layer) against the plain scan's (rtol
    1e-4) and logjoint = logprior + loglikelihood (rtol 1e-5); in bf16 the
    log-likelihood through ``ssd_scan_tc`` against the plain scan's on the
    same weights (``LM_SCORE_BF16_TOL``); then two timed bf16 evaluations,
@@ -152,11 +156,14 @@ Phases, in order:
    device's busy share; the flash kernels at the LM paths' calls
    (``FLASH_TIMED``: the bf16 serving calls and the float32 prefill; the
    library call is ``scaled_dot_product_attention`` with a boolean mask
-   and ``enable_gqa``, none where gemma2's softcap applies) and both SSD
-   kernels at mamba2's bf16 call (the FP32 kernel also at the float32
-   gate's), their bounds at the peak for the inputs' type (the bf16
-   tensor cores or FP32; at the FP32 rate also ``bound_fp32_ms``;
-   mvn_quadform_sum's at the TF32 rate of its three products); and
+   and ``enable_gqa``, none where gemma2's softcap applies; at the float32
+   prefill the FP32 flash_fwd too) and the SSD kernels at mamba2's bf16
+   and float32 calls (at each the kernel ``plan`` picks and the FP32
+   kernel), their bounds at the peak for the kernel's route (the bf16
+   tensor cores, FP32, or three passes at the TF32 rate for the 3xTF32
+   kernels and mvn_quadform_sum; at the FP32 rate also ``bound_fp32_ms``);
+   the kernels' line lists the FP32 kernels that no main path runs any
+   more with 0 launches and ``off_main_path``; and
    profiles of each serving path's prefill and decode steps and of one
    scoring evaluation.
 
@@ -231,8 +238,10 @@ SOURCES = {
     "flash_fwd": FLASH_CU,
     "flash_fwd_tc": FLASH_CU,
     "flash_decode": FLASH_CU,
+    "flash_fwd_tf32": FLASH_CU,
     "ssd_scan": SSD_CU,
     "ssd_scan_tc": SSD_CU,
+    "ssd_scan_tf32": SSD_CU,
 }
 REPLACES = {
     "std_normal_sum": "src/repro/kernels/fused_logpdf/kernel.py:54",
@@ -250,8 +259,10 @@ REPLACES = {
     "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:34",
     "flash_fwd_tc": "src/repro/kernels/flash_attention/kernel.py:34",
     "flash_decode": "src/repro/kernels/flash_attention/kernel.py:34",
+    "flash_fwd_tf32": "src/repro/kernels/flash_attention/kernel.py:34",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:31",
     "ssd_scan_tc": "src/repro/kernels/ssd_scan/kernel.py:31",
+    "ssd_scan_tf32": "src/repro/kernels/ssd_scan/kernel.py:31",
 }
 NO_LIBRARY = {
     "gamma_unnorm_sum": "no single PyTorch call computes sum(am1 log x - "
@@ -274,6 +285,19 @@ NO_LIBRARY = {
                 "is a dozen einsums and a loop over chunks)",
 }
 NO_LIBRARY["ssd_scan_tc"] = NO_LIBRARY["ssd_scan"]
+NO_LIBRARY["ssd_scan_tf32"] = NO_LIBRARY["ssd_scan"]
+# kernels that no main path launches any more: plan sends the calls they
+# ran to the tensor-core kernels; they keep the shapes those do not take,
+# are held to their plain versions in phase 3 and timed (by
+# launch_kernel) at the float32 calls they used to run
+OFF_MAIN_PATH = {
+    "flash_fwd": "the float32 prefill at hd 64 and 128 now runs "
+                 "flash_fwd_tf32; flash_fwd keeps the other head dims (16, "
+                 "20, 256), which no main path has",
+    "ssd_scan": "mamba2's float32 scoring call now runs ssd_scan_tf32; "
+                "ssd_scan keeps head dim 32, other state dims, unaligned "
+                "rows and bf16 at chunk 32, which no main path has",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -1551,15 +1575,19 @@ LIBRARY_HOLD = {"normal_sum": lambda lib, k: (-lib, k.sum()),
                 "mvn_quadform_sum": lambda lib, k: (-0.5 * lib, k)}
 
 
+# shapes timed beside MAIN_SHAPES: bernoulli's row of many blocks
+TIMED_WIDE = {"bernoulli_logit_sum": [(1, 1_000_003)]}
+
+
 def time_kernels(torch, F, ops, ref):
-    """Each fused_logpdf kernel at the main paths' shapes beside its plain
-    version and one library call: device time from the profiler (``*_ms``)
+    """Each fused_logpdf kernel at the main paths' shapes (and
+    ``TIMED_WIDE``'s) beside its plain version and one library call: device time from the profiler (``*_ms``)
     and CUDA-event time over back-to-back calls from the host
     (``*_issued_ms``, the wrapper's host cost at these sizes)."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(7)
     rows = []
     for name, shapes in MAIN_SHAPES.items():
-        for shape in shapes:
+        for shape in shapes + TIMED_WIDE.get(name, []):
             args, kern, plain, library, nbytes, nops = logpdf_case(
                 torch, F, ops, ref, name, shape, gen)
             calls = {"": lambda: kern(*args), "plain_": lambda: plain(*args)}
@@ -1925,15 +1953,17 @@ FLASH_KERNEL_CASES = [(3, 1, 77, 2, 1, 64, None, None, True),
 
 
 def check_flash_kernel(torch, fops, fref):
-    """flash_attention's three kernels against the plain version by rel err
+    """flash_attention's four kernels against the plain version by rel err
     (2e-5 float32, 3e-2 bf16): FLASH_CASES in both types with a partly
     filled cache, FLASH_KERNEL_CASES (each kernel at its edges), a ring
     with holes and fully masked rows (exact zeros) through each kernel,
-    every LM path's call in both types; bit-identical reruns; the backward
-    through the autograd.Function against autograd of the plain version.
-    Checks that every kernel ran, and returns each kernel's worst abs error
-    at the LM paths' calls of the main path's type (bf16; float32 for
-    flash_fwd, the float32 gates' prefill)."""
+    every LM path's call in both types (and, on each float32 prefill, the
+    FP32 flash_fwd by launch_kernel too); bit-identical reruns; the
+    backward through the autograd.Function against autograd of the plain
+    version. Checks that every kernel ran, and returns each kernel's worst
+    abs error at the LM paths' calls of the main path's type (bf16 for
+    flash_fwd_tc and flash_decode; float32 for flash_fwd_tf32, the float32
+    gates' prefill, and for flash_fwd on the same calls)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(11)
     fops.reset_launch_counts()
@@ -2002,6 +2032,13 @@ def check_flash_kernel(torch, fops, fref):
               f"flash_attention ({name}): a fully masked row is not exactly "
               "zero")
         n += 1
+        if sq == 35:  # the FP32 kernel on the prefill call too
+            got = fops.launch_kernel("flash_fwd", qd, kd, vd, **kw)
+            err = rel_err(got, fref.attention_ref(qd, kd, vd, **kw))
+            check(err < tol and bool((got[:, 2] == 0).all()),
+                  f"flash_fwd ring case ({dtype}): rel err {err:.3e}, "
+                  f"masked row zero {bool((got[:, 2] == 0).all())}")
+            n += 1
     # backward through the autograd.Function
     q = torch.randn(B, 3, KV, G, hd, generator=gen, device=dev)
     kw = dict(ring, q_positions=torch.tensor([[last, last - 1, -7]] * B,
@@ -2019,15 +2056,30 @@ def check_flash_kernel(torch, fops, fref):
     for name, spec in LM_FLASH.items():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kw = flash_call(torch, spec, dtype, gen)
-            _, err, abs_err = flash_vs_plain(torch, fops, fref, q, k, v, kw)
+            got, err, abs_err = flash_vs_plain(torch, fops, fref, q, k, v,
+                                               kw)
             tol = FLASH_TOL[str(dtype).split(".")[1]]
             kern = flash_kernel_of(fops, q, k)
             check(err < tol, f"flash_attention {name} {dtype} ({kern}): rel "
                   f"err {err:.3e} >= {tol}")
-            if (dtype == torch.bfloat16) == (kern != "flash_fwd"):
+            if (dtype == torch.bfloat16) == (kern in ("flash_fwd_tc",
+                                                      "flash_decode")):
                 worst[kern] = max(worst[kern], abs_err)
             n += 1
-            del q, k, v
+            if kern == "flash_fwd_tf32":
+                # the FP32 kernel on the call it ran before flash_fwd_tf32
+                old = fops.launch_kernel("flash_fwd", q, k, v, **kw)
+                rows = _row_subset(torch, q.shape[1]).to(q.device)
+                want = fref.attention_ref(
+                    q[:, rows], k, v,
+                    **dict(kw, q_positions=kw["q_positions"][:, rows]))
+                e = rel_err(old[:, rows], want)
+                check(e < tol, f"flash_fwd {name} {dtype}: rel err {e:.3e}")
+                worst["flash_fwd"] = max(worst["flash_fwd"], float(
+                    (old[:, rows] - want).abs().max()))
+                n += 1
+                del old, want
+            del q, k, v, got
     torch.cuda.synchronize()
     ran = dict(fops.LAUNCHES)
     check(all(ran[k] > 0 for k in fops.KERNELS),
@@ -2052,17 +2104,27 @@ def ssd_inputs(torch, case, dtype, gen):
     return x, dt, A, B, C
 
 
+# the type of each SSD kernel's main-path call (the FP32 kernel's former
+# one: mamba2's float32 scoring), where its worst abs error is read
+SSD_MAIN_TYPE = {"ssd_scan": "float32", "ssd_scan_tc": "bfloat16",
+                 "ssd_scan_tf32": "float32"}
+
+
 def check_ssd_kernel(torch, sops, sref):
-    """Both SSD kernels against the plain version by rel err (2e-4
+    """The SSD kernels against the plain version by rel err (2e-4
     float32, 5e-2 bf16) over SSD_CASES, SSD_TC_CASES and mamba2's call in
-    both types: ``ssd_scan`` (through ``plan``) everywhere, and where
-    ``plan`` picks ``ssd_scan_tc`` the FP32 kernel on the same bf16 call
-    too (``launch_kernel``); the mixer's strided views through
-    ``ssd_scan_tc``; each with a bit-identical rerun; chunk 32 against
-    chunk 64 (1e-4) and the backward (2e-4) on the FP32 kernel. Returns the
-    worst abs error of each kernel at mamba2's bf16 call."""
+    both types: the kernel ``plan`` picks everywhere, and where it picks a
+    tensor-core kernel (``ssd_scan_tc`` for bf16, ``ssd_scan_tf32`` for
+    float32) the FP32 kernel on the same call too (``launch_kernel``); the
+    mixer's strided views through both tensor-core kernels; each with a
+    bit-identical rerun; chunk 32 against chunk 64 on the FP32 kernel and
+    ``ssd_scan_tf32`` at chunk 32, 64 and 128 (the same bits: it walks
+    sub-chunks of 64) against the FP32 kernel at chunk 32 (1e-4); the
+    backward (2e-4) through both FP32 kernels. Returns the worst abs error
+    of each kernel at mamba2's call in its main path's type
+    (``SSD_MAIN_TYPE``)."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(12)
-    worst = {"ssd_scan": 0.0, "ssd_scan_tc": 0.0}
+    worst = dict.fromkeys(sops.KERNELS, 0.0)
     ran = dict.fromkeys(sops.KERNELS, 0)
     n_cases = 0
     for case in SSD_CASES + SSD_TC_CASES + [SSD_MAMBA2]:
@@ -2071,8 +2133,8 @@ def check_ssd_kernel(torch, sops, sref):
             ins = ssd_inputs(torch, case, dtype, gen)
             want = sref.ssd_scan_ref(*ins, chunk=chunk)
             chosen = sops.plan(h, g, p, n, chunk, dtype)
-            kernels = ([chosen] if chosen == "ssd_scan"
-                       else list(sops.KERNELS))
+            kernels = [chosen] + (["ssd_scan"] if chosen != "ssd_scan"
+                                  else [])
             for kernel in kernels:
                 sops.reset_launch_counts()
                 if kernel == chosen:
@@ -2088,49 +2150,65 @@ def check_ssd_kernel(torch, sops, sref):
                 check(torch.equal(got, again),
                       f"{kernel} {case}: two runs differ")
                 err = rel_err(got, want)
-                tol = SSD_TOL[str(dtype).split(".")[1]]
+                dt_name = str(dtype).split(".")[1]
+                tol = SSD_TOL[dt_name]
                 check(err < tol, f"{kernel} {case} {dtype}: rel err "
                       f"{err:.3e} >= {tol}")
-                if case == SSD_MAMBA2 and dtype == torch.bfloat16:
+                if case == SSD_MAMBA2 and dt_name == SSD_MAIN_TYPE[kernel]:
                     worst[kernel] = float((got.float() - want.float())
                                           .abs().max())
                 n_cases += 1
+            del ins, want, got, again
     # the mixer's views of the convolution output, read through strides
     b, s, h, p, g, n, chunk = SSD_MAMBA2[0], 512, 8, 64, 1, 128, 128
     dev = torch.device(DEVICE)
-    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
-                       device=dev).to(torch.bfloat16)
-    xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
-    x, B, C = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
-               Cc.reshape(b, s, g, n))
-    _, dt, A, _, _ = ssd_inputs(torch, (b, s, h, p, g, n, chunk),
-                                torch.float32, gen)
-    sops.reset_launch_counts()
-    got = sops.ssd_scan(x, dt, A, B, C, chunk=chunk)
-    check(sops.LAUNCHES == {"ssd_scan": 0, "ssd_scan_tc": 1},
-          f"ssd_scan on the mixer's views: launches {sops.LAUNCHES}")
-    err = rel_err(got, sref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk))
-    check(err < SSD_TOL["bfloat16"], f"ssd_scan_tc on the mixer's views: "
-          f"rel err {err:.3e}")
+    for dtype, kernel in ((torch.bfloat16, "ssd_scan_tc"),
+                          (torch.float32, "ssd_scan_tf32")):
+        conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                           device=dev).to(dtype)
+        xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+        x, B, C = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
+                   Cc.reshape(b, s, g, n))
+        _, dt, A, _, _ = ssd_inputs(torch, (b, s, h, p, g, n, chunk),
+                                    torch.float32, gen)
+        sops.reset_launch_counts()
+        got = sops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        want_counts = {**dict.fromkeys(sops.KERNELS, 0), kernel: 1}
+        check(sops.LAUNCHES == want_counts,
+              f"ssd_scan on the mixer's {dtype} views: launches "
+              f"{sops.LAUNCHES}")
+        err = rel_err(got, sref.ssd_scan_ref(x, dt, A, B, C, chunk=chunk))
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        check(err < tol, f"{kernel} on the mixer's views: rel err "
+              f"{err:.3e}")
     check(all(ran.values()), f"an SSD kernel was not reached: {ran}")
     ins = ssd_inputs(torch, (1, 128, 2, 32, 1, 64, 32), torch.float32, gen)
     e = rel_err(sops.ssd_scan(*ins, chunk=32), sops.ssd_scan(*ins, chunk=64))
     check(e < 1e-4, f"ssd_scan chunk 32 vs 64: rel err {e:.3e}")
-    w = torch.randn(ins[0].shape, generator=gen, device=ins[0].device)
-    grads = []
-    for fn in (sops.ssd_scan, sref.ssd_scan_ref):
-        xs = [t.clone().requires_grad_(True) for t in ins]
-        (fn(*xs, chunk=32) * w).sum().backward()
-        grads.append([t.grad for t in xs])
-    for name, a, b in zip(("x", "dt", "A", "B", "C"), *grads):
-        e = rel_err(a, b)
-        check(e < 2e-4, f"ssd_scan backward d{name}: rel err {e:.3e}")
-    log(f"ssd_scan and ssd_scan_tc vs plain: {n_cases} kernel runs "
-        f"({ran}) over test_kernels.py's cases, a ragged grouped one, "
-        "ssd_scan_tc's shapes and mamba2's 4 x 2,048 x 64 heads (float32 at "
-        "rel 2e-4, bf16 at 5e-2), the mixer's strided views, chunk 32 vs 64 "
-        "at 1e-4, the backward at 2e-4, bit-identical reruns: ok (mamba2 "
-        f"bf16 abs err {worst})")
+    tf_ins = ssd_inputs(torch, (1, 300, 2, 64, 1, 64, 64), torch.float32,
+                        gen)
+    y32, y64, y128 = (sops.ssd_scan(*tf_ins, chunk=c) for c in sops.CHUNKS)
+    same = torch.equal(y32, y64) and torch.equal(y64, y128)
+    e = rel_err(y128, sops.launch_kernel("ssd_scan", *tf_ins, chunk=32))
+    check(same and e < 1e-4, f"ssd_scan_tf32 chunk 32, 64 and 128 equal "
+          f"{same}; vs ssd_scan at chunk 32: rel err {e:.3e}")
+    for args, chunk in ((ins, 32), (tf_ins, 64)):
+        w = torch.randn(args[0].shape, generator=gen, device=args[0].device)
+        grads = []
+        for fn in (sops.ssd_scan, sref.ssd_scan_ref):
+            xs = [t.clone().requires_grad_(True) for t in args]
+            (fn(*xs, chunk=chunk) * w).sum().backward()
+            grads.append([t.grad for t in xs])
+        for name, a, b in zip(("x", "dt", "A", "B", "C"), *grads):
+            e = rel_err(a, b)
+            check(e < 2e-4, f"ssd_scan backward (chunk {chunk}) d{name}: rel "
+                  f"err {e:.3e}")
+    log(f"ssd_scan kernels vs plain: {n_cases} kernel runs ({ran}) over "
+        "test_kernels.py's cases, a ragged grouped one, the tensor-core "
+        "kernels' shapes and mamba2's 4 x 2,048 x 64 heads (float32 at rel "
+        "2e-4, bf16 at 5e-2), the mixer's strided views in both types, "
+        "chunk invariance at 1e-4, the backward at 2e-4, bit-identical "
+        f"reruns: ok (mamba2 abs err in the main path's type {worst})")
     return worst
 
 
@@ -2256,8 +2334,8 @@ def lm_serve_path(torch, arch, mods):
     if n_attn:
         p32 = lm.tree_map(lambda t: t.float(), params)
         c32 = dataclasses.replace(cfg, dtype=torch.float32)
-        # the float32 serving run is counted too: its prefill is the FP32
-        # flash_fwd's main-path call, its decode steps flash_decode's
+        # the float32 serving run is counted too: its prefill is
+        # flash_fwd_tf32's main-path call, its decode steps flash_decode's
         torch.cuda.synchronize()
         lm_reset(mods)
         flash, ftok = greedy_run(torch, lm, bayes_lm, c32, p32, prompts,
@@ -2265,7 +2343,8 @@ def lm_serve_path(torch, arch, mods):
         torch.cuda.synchronize()
         out["f32_launches"] = lm_counts(mods)
         want32 = {**dict.fromkeys(out["f32_launches"], 0),
-                  "flash_fwd": n_attn, "flash_decode": n_attn * (max_new - 1)}
+                  "flash_fwd_tf32": n_attn,
+                  "flash_decode": n_attn * (max_new - 1)}
         check(out["f32_launches"] == want32,
               f"{arch} float32 serving: launches {out['f32_launches']}, "
               f"expected {want32}")
@@ -2338,7 +2417,7 @@ def lm_serve_path(torch, arch, mods):
 def lm_score_path(torch, mods):
     """mamba2-1.3b scoring at full width and depth: the Bayesian LM's
     log-likelihood and log-joint of 4 x 2,048 tokens. Float32 gates: the
-    kernel route's log-likelihood (the FP32 ``ssd_scan``, counted) against
+    kernel route's log-likelihood (``ssd_scan_tf32``, counted) against
     the plain scan's (rtol 1e-4), logjoint = logprior + loglikelihood (rtol
     1e-5). The bf16 gate: the log-likelihood through ``ssd_scan_tc``
     against the plain scan's on the same bf16 weights and tokens
@@ -2388,7 +2467,7 @@ def lm_score_path(torch, mods):
     check(out["joint_vs_parts_rel"] <= 1e-5,
           f"{arch}: logjoint {lj} != logprior + loglikelihood {lp + ll}")
     want32 = {**dict.fromkeys(out["f32_launches"], 0),
-              "ssd_scan": cfg.n_layers, "categorical_logits_sum": 1}
+              "ssd_scan_tf32": cfg.n_layers, "categorical_logits_sum": 1}
     check(out["f32_launches"] == want32, f"{arch} float32 scoring: launches "
           f"{out['f32_launches']}, expected {want32}")
 
@@ -2482,10 +2561,12 @@ def sdpa_call(torch, F, q, k, v, kw):
 
 
 def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
-             why_none=None, launches=1, names=None):
+             why_none=None, launches=1, names=None, passes=1):
     """A timing row: device ms (profiler) and issued ms (CUDA events) of
     the kernel, its plain version and the library call, beside the bound
-    from ``nbytes`` and ``nops`` at ``peak`` operations per second."""
+    from ``nbytes`` and ``passes`` times ``nops`` at ``peak`` operations
+    per second (3 for a 3xTF32 kernel at the TF32 rate), and the bound of
+    ``nops`` at the FP32 rate beside it."""
     calls = {"": kern, "plain_": plain}
     if library is not None:
         calls["library_"] = library
@@ -2516,8 +2597,8 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
         for prefix in calls:
             row[f"{prefix}ms"] = row[f"{prefix}issued_ms"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / peak * 1e3
-    row.update(bytes=nbytes, ops=nops, peak_ops_per_s=peak,
+    t_ops = passes * nops / peak * 1e3
+    row.update(bytes=nbytes, ops=nops, passes=passes, peak_ops_per_s=peak,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bound_fp32_ms=max(t_bytes, nops / FP32_FLOPS_PER_S * 1e3))
@@ -2527,16 +2608,18 @@ def time_row(torch, name, shape, kern, plain, library, nbytes, nops, peak,
         f"kernel {row['ms'] * 1e3:.2f} / {row['issued_ms'] * 1e3:.2f}, plain "
         f"{row['plain_ms'] * 1e3:.2f} / {row['plain_issued_ms'] * 1e3:.2f}, "
         f"{lib}, bound {row['bound_ms'] * 1e3:.2f} ({row['bound_by']}, "
-        f"{peak / 1e12:.0f} TFLOP/s; at the FP32 rate "
+        f"{passes} x ops at {peak / 1e12:.0f} TFLOP/s; at the FP32 rate "
         f"{row['bound_fp32_ms'] * 1e3:.2f})")
     return row
 
 
 # the LM paths' flash calls that are timed, each in the type the main path
 # runs it in: the bf16 serving calls (flash_fwd_tc, flash_decode) and the
-# float32 gates' prefill (flash_fwd)
+# float32 gates' prefill (flash_fwd_tf32, and the FP32 flash_fwd on the
+# same call)
 # kernels whose line has a row for each timed call, not only the widest
 PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
+                 "flash_fwd_tf32", "ssd_scan_tf32",
                  "categorical_logits_sum_small", "categorical_logits_sum",
                  "bernoulli_logit_sum", "ssd_scan",
                  "std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
@@ -2557,24 +2640,50 @@ def read_bytes(t) -> int:
 
 
 def flash_launches_per_call(fops, q, k) -> int:
-    """Kernels one call launches: flash_fwd_tc's pre-pass, the kernel, and
-    a prefill kernel's split combine (flash_decode merges its own)."""
+    """Kernels one call launches: the tensor-core kernels' pre-pass, the
+    kernel, and a prefill kernel's split combine (flash_decode merges its
+    own)."""
     B, Sq, KV, G, hd = q.shape
     kernel, _, nsplit = fops.plan(B, Sq, k.shape[1], KV, G, q.dtype, hd)
-    return ((kernel == "flash_fwd_tc") + 1
+    return ((kernel in ("flash_fwd_tc", "flash_fwd_tf32")) + 1
             + (nsplit > 1 and kernel != "flash_decode"))
 
 
+# each LM kernel's peak rate and passes of the products at it, by the
+# inputs' type: the bf16 tensor cores; the 3xTF32 kernels' three passes at
+# the TF32 rate; the FP32 kernels on the CUDA cores (a bf16 call at the bf16
+# rate, as the inputs' type gives it)
+_BF16, _FP32, _TF32 = ((BF16_FLOPS_PER_S, 1), (FP32_FLOPS_PER_S, 1),
+                       (TF32_FLOPS_PER_S, 3))
+ROUTE_PEAK = {"flash_fwd_tc": {"bfloat16": _BF16},
+              "flash_decode": {"bfloat16": _BF16},
+              "flash_fwd": {"float32": _FP32},
+              "flash_fwd_tf32": {"float32": _TF32},
+              "ssd_scan_tc": {"bfloat16": _BF16},
+              "ssd_scan": {"bfloat16": _BF16, "float32": _FP32},
+              "ssd_scan_tf32": {"float32": _TF32}}
+
 # the SSD kernels' device functions, as the profiler names them
-SSD_DEVICE_NAMES = {"ssd_scan": "ssd_scan_kernel<", "ssd_scan_tc": "ssd_scan_tc<"}
+SSD_DEVICE_NAMES = {"ssd_scan": "ssd_scan_kernel<", "ssd_scan_tc": "ssd_scan_tc<",
+                    "ssd_scan_tf32": "ssd_scan_tf32"}
+# kernels a call: ssd_scan_tf32's pre-pass (ssd_scan_tf32_gram) and scan
+SSD_LAUNCHES_PER_CALL = {"ssd_scan": 1, "ssd_scan_tc": 1, "ssd_scan_tf32": 2}
+# positions a step of the scan where it is not the call's chunk:
+# ssd_scan_tf32 walks sub-chunks of 64 whatever the chunk (ssd_scan.cu
+# kTfRows), so its work, and the bound, are those of chunk 64
+SSD_STEP_ROWS = {"ssd_scan_tf32": 64}
 
 
 def time_lm_kernels(torch, F, fops, fref, sops, sref):
     """flash_attention's kernels at the LM paths' calls (FLASH_TIMED) and
-    ssd_scan at mamba2's: bound from the bytes (q, k, v, out, positions and
-    validity read or written once) and the products' flops (4 hd per kept
-    (query, key) pair; the SSD's causal halves) at the peak for the
-    inputs' type (the bf16 tensor cores; FP32 for a float32 call)."""
+    the SSD kernels at mamba2's: bound from the bytes (q, k, v, out,
+    positions and validity read or written once) and the products' flops
+    (4 hd per kept (query, key) pair; the SSD's causal halves at the
+    positions the kernel steps, ``SSD_STEP_ROWS``) at the peak
+    for the kernel's route (the bf16 tensor cores; three TF32 passes for
+    the 3xTF32 kernels; FP32 for the FP32 kernels), the FP32 bound beside
+    it. At each float32 call the FP32 kernel that ran it before
+    (``launch_kernel``) is timed too."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(14)
     rows = []
     for name, dt in FLASH_TIMED:
@@ -2599,32 +2708,45 @@ def time_lm_kernels(torch, F, fops, fref, sops, sref):
                    "cap * tanh(s / cap)), so no single PyTorch call "
                    "computes this attention")
         kernel = flash_kernel_of(fops, q, k)
+        peak, passes = ROUTE_PEAK[kernel][dt]
         rows.append(time_row(
             torch, kernel, [B, Sq, Sk, KV, G, hd], kern, plain, library,
-            nbytes, nops,
-            BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S,
-            why, flash_launches_per_call(fops, q, k), names=("flash_",)))
+            nbytes, nops, peak, why, flash_launches_per_call(fops, q, k),
+            names=("flash_",), passes=passes))
         rows[-1].update(call=name, dtype=dt)
+        if kernel == "flash_fwd_tf32":  # the FP32 kernel on the same call
+            nsplit = fops.plan(B, Sq, Sk, KV, G, dtype, hd).nsplit
+            peak, passes = ROUTE_PEAK["flash_fwd"][dt]
+            rows.append(time_row(
+                torch, "flash_fwd", [B, Sq, Sk, KV, G, hd],
+                lambda: fops.launch_kernel("flash_fwd", q, k, v, **kw),
+                plain, library, nbytes, nops, peak, why, 1 + (nsplit > 1),
+                names=("flash_",), passes=passes))
+            rows[-1].update(call=name, dtype=dt)
         del q, k, v
     b, s, h, p, g, n, L = SSD_MAMBA2
-    nc = -(-s // L)
-    causal = L * (L + 1) // 2
-    # the products with C B^T formed once for a group's heads
-    nops = 2 * b * nc * (g * causal * n + h * (causal * p + 2 * L * n * p))
+
+    def ssd_ops(rows_a_step):
+        """The products' flops when the scan steps ``rows_a_step``
+        positions at a time, C B^T formed once for a group's heads."""
+        nc = -(-s // rows_a_step)
+        causal = rows_a_step * (rows_a_step + 1) // 2
+        return 2 * b * nc * (g * causal * n + h * (
+            causal * p + 2 * rows_a_step * n * p))
     for dt_name in ("bfloat16", "float32"):
         ins = ssd_inputs(torch, SSD_MAMBA2, getattr(torch, dt_name), gen)
         nbytes = sum(read_bytes(t) for t in ins) + read_bytes(ins[0])  # + y
-        peak = BF16_FLOPS_PER_S if dt_name == "bfloat16" else FP32_FLOPS_PER_S
-        # at the bf16 call both kernels, in turns; the float32 gate's call
-        # (the FP32 kernel's main path) once
-        for kernel in (sops.KERNELS if dt_name == "bfloat16"
-                       else ("ssd_scan",)):
+        # at each call the kernel plan picks and the FP32 kernel
+        for kernel in (("ssd_scan_tc", "ssd_scan") if dt_name == "bfloat16"
+                       else ("ssd_scan_tf32", "ssd_scan")):
+            peak, passes = ROUTE_PEAK[kernel][dt_name]
             rows.append(time_row(
                 torch, kernel, list(SSD_MAMBA2),
                 lambda k=kernel, i=ins: sops.launch_kernel(k, *i, chunk=L),
                 lambda i=ins: sref.ssd_scan_ref(*i, chunk=L), None, nbytes,
-                nops, peak, NO_LIBRARY[kernel],
-                names=(SSD_DEVICE_NAMES[kernel],)))
+                ssd_ops(SSD_STEP_ROWS.get(kernel, L)), peak,
+                NO_LIBRARY[kernel], SSD_LAUNCHES_PER_CALL[kernel],
+                names=(SSD_DEVICE_NAMES[kernel],), passes=passes))
             rows[-1].update(call=f"mamba2_scoring_{dt_name}", dtype=dt_name)
         del ins
     return rows
@@ -2712,8 +2834,9 @@ REFERENCE_SAMPLES = 300  # gaussian_10k, family_mix_8k under the autodiff integr
 
 # the kernels whose registers, shared memory and spills phase 2 reports
 PTXAS_REPORTED = ("flash_fwd_tc", "flash_tiles", "flash_decode",
-                  "flash_combine", "categorical_small_partials",
-                  "mvn_quad_tc", "ssd_scan_tc", "row_sum", "leapfrog_kernel")
+                  "flash_combine", "flash_fwd_tf32", "categorical_small_partials",
+                  "mvn_quad_tc", "ssd_scan_tc", "ssd_scan_tf32", "row_sum",
+                  "leapfrog_kernel")
 
 
 def ptxas_report(path: str) -> list:
@@ -2952,6 +3075,8 @@ def main() -> int:
             timed = [max(timed, key=lambda t: t["bytes"])]
         launches = sum(c.get(name, 0) for c in counted)
         for main in timed:
+            extra = ({"off_main_path": OFF_MAIN_PATH[name]}
+                     if name in OFF_MAIN_PATH else {})
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches,
@@ -2963,9 +3088,15 @@ def main() -> int:
                 "plain_issued_ms": main["plain_issued_ms"],
                 "library_issued_ms": main["library_issued_ms"],
                 "ms_from": main["ms_from"], "shape": main["shape"],
-                "call": main.get("call"),
+                "call": main.get("call"), "bound_fp32_ms":
+                main.get("bound_fp32_ms"), **extra,
             })
-        check(launches > 0, f"{name} was never launched on the main paths")
+        # every kernel of the main paths ran there; the FP32 kernels the
+        # tensor-core ones replaced there (OFF_MAIN_PATH) ran in phase 3
+        check(launches > 0 or name in OFF_MAIN_PATH,
+              f"{name} was never launched on the main paths")
+        check(not (launches > 0 and name in OFF_MAIN_PATH),
+              f"{name} ran on a main path ({launches} launches)")
     total_s = time.perf_counter() - t_start
     log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,

@@ -4,7 +4,8 @@ Each ``.cu`` source under a ``csrc/`` directory of the package is compiled
 on first use into a shared library with a plain C interface, for
 ``sm_90a`` (Hopper). Libraries go into ``build/repro_torch_kernels/`` at
 the root of the checkout (listed in ``.gitignore``), keyed by a hash of the
-source and the compiler flags, so an edited source rebuilds and an
+source, the headers it includes by a quoted path (``kernels/csrc/tf32.cuh``)
+and the compiler flags, so an edited source or header rebuilds and an
 unchanged one is loaded as it is. Nothing here runs at import time.
 
 A missing ``nvcc``, a failed build or a failed launch raises
@@ -16,13 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "KernelError", "load_library",
-           "find_nvcc", "library_path"]
+           "find_nvcc", "library_path", "source_files"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -31,6 +33,7 @@ BUILD_DIR = _PACKAGE.parents[1] / "build" / "repro_torch_kernels"
 
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 class KernelError(RuntimeError):
@@ -54,10 +57,26 @@ def find_nvcc() -> str:
                       "the CUDA kernels cannot be built")
 
 
+def source_files(source: Path) -> List[Path]:
+    """``source`` and every file it includes by a quoted path (read
+    relative to the including file, as ``nvcc`` does), each once, the
+    source first."""
+    files, todo = [], [Path(source).resolve()]
+    while todo:
+        f = todo.pop()
+        if f not in files:
+            files.append(f)
+            todo += [(f.parent / m.decode()).resolve()
+                     for m in reversed(_QUOTED_INCLUDE.findall(f.read_bytes()))]
+    return files
+
+
 def library_path(source: Path) -> Path:
     """Where the library for ``source`` lives: keyed by a hash of the
-    source text and the flags."""
-    digest = hashlib.sha256(source.read_bytes()
+    source's text, its included headers' (``source_files``) and the
+    flags."""
+    digest = hashlib.sha256(b"".join(f.read_bytes()
+                                     for f in source_files(source))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}" / f"lib{source.stem}.so"
 

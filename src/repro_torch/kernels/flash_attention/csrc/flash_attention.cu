@@ -1,5 +1,5 @@
 // GQA flash attention for Hopper (sm_90a), with a plain C interface for
-// ctypes: three forward kernels and the merge of a key split.
+// ctypes: four forward kernels and the merge of a key split.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // _flash_kernel (:34), reached through flash_attention_bhd (:99, the
@@ -20,8 +20,9 @@
 // caller pads nothing. A call with too few blocks to fill the card splits
 // its keys over nsplit blocks per row tile; each writes its rows'
 // unnormalised (m, l, acc) to scratch, and the splits are merged in a
-// fixed order: by flash_combine after flash_fwd and flash_fwd_tc, by the
-// last split to finish (an integer count) in flash_decode. No float
+// fixed order: by flash_combine after flash_fwd, flash_fwd_tc and
+// flash_fwd_tf32, by the last split to finish (an integer count) in
+// flash_decode. No float
 // atomics: reruns are bit-identical.
 // ops.plan picks the kernel from the shapes, the type and the head dim:
 //
@@ -65,8 +66,30 @@
 // merge by xor shuffles (symmetric, so every lane holds the same sums),
 // the warps through shared memory in a fixed order.
 //
-// flash_fwd (everything else: the float32 prefill, other head dims up to
-// 256): the FP32 kernel on the CUDA cores. One block serves one (batch, kv
+// flash_fwd_tf32 (float32, hd 64 or 128, Sq * G >= 64): the float32
+// prefill on the tensor cores. Bound: operations, 4 hd flops per kept pair,
+// three TF32 passes of them (3xTF32, as in mvn_quad.cu: each operand a
+// split into hi, a rounded to 10 mantissa bits, and lo = a - hi, and lo*hi
+// + hi*lo + hi*hi accumulated in float32) at the TF32 rate; one TF32 pass
+// (about 1e-3) would miss the float32 gates' 2e-5. Design: flash_fwd_tc's
+// blocks, skip predicates, masks and online softmax on the accumulators,
+// in mma.sync m16n8k8. A float32 ring of two K and V tiles beside their
+// hi/lo copies does not leave room for two blocks an SM, so one raw tile
+// is the cp.async target: when tile k lands, the block splits its K and V
+// once into the fragments every warp reads (hi and lo of a thread's two
+// B-fragment values in one 16-byte load), then starts tile k + 1's copy
+// into the raw tile and computes on the fragments. m16n8k8 has no
+// ldmatrix.trans for 32-bit values and its accumulator layout is not its
+// A layout; taking V's keys in the order 2 gc, 2 gc + 1 within each 8
+// makes P's accumulators the A fragment of P V as they are. Q is split
+// once into registers at hd 64; at hd 128 (128 registers for hi and lo) Q
+// stays as it is in registers and each k-step splits its fragment once for
+// a tile's eight key n-tiles. The softmax keeps float32 accuracy (exp2f,
+// tanhf). 101 KB of shared memory a block at hd 64 (two blocks an SM),
+// 199 KB at hd 128.
+//
+// flash_fwd (every other head dim up to 256: 16, 20, 256, ..., in either
+// type): the FP32 kernel on the CUDA cores. One block serves one (batch, kv
 // head, tile of BM rows), BM 64 (16 when there are fewer rows), and walks
 // the keys in tiles of 64 with the online-softmax recurrence (running max
 // m, sum l and accumulator per row in registers), which takes the place of
@@ -78,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/tf32.cuh"  // split_tf32, split4, mma_tf32, mma3
 
 namespace {
 
@@ -873,6 +898,322 @@ flash_fwd_tc(Params a) {
 }
 
 // ---------------------------------------------------------------------------
+// flash_fwd_tf32: float32 prefill on the tensor cores in 3xTF32 (mma.sync
+// m16n8k8)
+// ---------------------------------------------------------------------------
+template <int HD>
+constexpr size_t tf_smem_bytes() {
+  // K and V fragments (hi and lo) of one tile, one raw tile of K and V
+  // (the cp.async target), and the positions of each
+  return sizeof(float) * (4 * static_cast<size_t>(kTcKeys) * HD +
+                          2 * static_cast<size_t>(kTcKeys) * (HD + 4)) +
+         2 * kTcKeys * sizeof(int);
+}
+
+// cp.async of key tile t's raw K and V rows (pitch HD + 4 floats) and its
+// 64 positions
+template <int HD>
+__device__ __forceinline__ void tf_load_tile(const Params& a, long long b,
+                                             int kv, int t, float* kr,
+                                             float* vr, int* kp_s, int tid) {
+  constexpr int kChunks = HD / 4;  // 16-byte chunks per key row
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+#pragma unroll 4
+  for (int idx = tid; idx < kTcKeys * kChunks; idx += kTcThreads) {
+    const int j = idx / kChunks, c = idx - j * kChunks;
+    const int col = t * kTcKeys + j;
+    const bool in = col < a.sk;
+    const long long cc = in ? col : 0;
+    const int o = j * (HD + 4) + 4 * c;
+    cp_async16(smem_addr(kr + o), k + b * a.k_sb + cc * a.k_ss + kv * a.k_sh + 4 * c,
+               in ? 16 : 0);
+    cp_async16(smem_addr(vr + o), v + b * a.v_sb + cc * a.v_ss + kv * a.v_sh + 4 * c,
+               in ? 16 : 0);
+  }
+  if (tid < kTcKeys / 4) {
+    const int ktiles = (a.sk + kTcKeys - 1) / kTcKeys;
+    cp_async16(smem_addr(kp_s + 4 * tid),
+               a.kpm + b * ktiles * kTcKeys + t * kTcKeys + 4 * tid, 16);
+  }
+}
+
+// one block of 4 warps serves 64 rows (16 a warp) of one (batch, kv head,
+// key split), as flash_fwd_tc's blocks do; kCap: the softcap, a template
+// argument so that the softmax's loops hold no branch
+template <int HD, bool kCap>
+__global__ void __launch_bounds__(kTcThreads, HD <= 64 ? 2 : 1)
+flash_fwd_tf32(Params a) {
+  constexpr int BM = kTcRows;
+  constexpr int KS = HD / 8;       // k-steps of Q K^T
+  constexpr int DN = HD / 8;       // n-tiles of the output
+  constexpr int SN = kTcKeys / 8;  // n-tiles of S, k-steps of P V
+  constexpr int RP = HD + 4;       // floats a raw key row
+  constexpr bool kQSplit = HD <= 64;  // Q's hi and lo stay in registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ unsigned char st_s[kStateChunk];
+  float4* kf = reinterpret_cast<float4*>(smem_raw);  // [SN][KS][32]
+  float4* vf = kf + SN * KS * 32;                    // [SN][DN][32]
+  float* kr = reinterpret_cast<float*>(vf + SN * DN * 32);  // [64][RP]
+  float* vr = kr + kTcKeys * RP;                             // [64][RP]
+  int* kp_raw = reinterpret_cast<int*>(vr + kTcKeys * RP);   // [64]
+  int* kp_s = kp_raw + kTcKeys;                              // [64]
+
+  const float* __restrict__ q = static_cast<const float*>(a.q);
+  float* __restrict__ out = static_cast<float*>(a.out);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;  // fragment row, column
+  const long long b = blockIdx.z;
+  const int kv = blockIdx.y;
+  const long long rows = static_cast<long long>(a.sq) * a.g;
+  const long long tile = blockIdx.x / a.nsplit;
+  const int split = blockIdx.x - static_cast<int>(tile) * a.nsplit;
+  const long long r0 = tile * BM;
+
+  // this thread's two rows: gr and gr + 8 of its warp's 16
+  long long rr[2];
+  int qp[2];
+  const float* qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rr[i] = r0 + warp * 16 + gr + 8 * i;
+    qrow[i] = nullptr;
+    qp[i] = 0;
+    if (rr[i] < rows) {
+      const long long qi = rr[i] / a.g;
+      const int head = kv * a.g + static_cast<int>(rr[i] - qi * a.g);
+      qrow[i] = q + b * a.q_sb + qi * a.q_ss + head * a.q_sh;
+      qp[i] = a.qpos[b * a.qp_sb + qi];
+    }
+  }
+  // Q's A fragments (rows gr / gr + 8, columns gc / gc + 4 of each k-step):
+  // split once into hi (qa) and lo (qb) at hd 64; at hd 128 (128 registers
+  // for both) qa holds Q as it is and each k-step splits it as it is used,
+  // once for the eight key n-tiles of a tile
+  uint32_t qa[KS][4];
+  uint32_t qb[kQSplit ? KS : 1][4];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int d = 8 * s + gc;
+    const float v[4] = {qrow[0] ? qrow[0][d] : 0.0f,
+                        qrow[1] ? qrow[1][d] : 0.0f,
+                        qrow[0] ? qrow[0][d + 4] : 0.0f,
+                        qrow[1] ? qrow[1][d + 4] : 0.0f};
+    if constexpr (kQSplit) {
+      split4(v, qa[s], qb[s]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qa[s][e] = __float_as_uint(v[e]);
+    }
+  }
+  // qmin, qmax over the block's real rows (every warp the same)
+  int qmin = kBig, qmax = -kBig;
+#pragma unroll
+  for (int h = 0; h < BM / 32; ++h) {
+    const long long r = r0 + lane + 32 * h;
+    if (r < rows) {
+      const int p = a.qpos[b * a.qp_sb + r / a.g];
+      qmin = min(qmin, p);
+      qmax = max(qmax, p);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  }
+
+  // this split's key tiles
+  const int ktiles = (a.sk + kTcKeys - 1) / kTcKeys;
+  const int per = (ktiles + a.nsplit - 1) / a.nsplit;
+  const int t_begin = split * per;
+  const int t_end = min(ktiles, t_begin + per);
+
+  // scores in the log2 domain; the softmax keeps float32 accuracy
+  // (exp2f, tanhf: not the approximate unit of flash_fwd_tc)
+  const float s_mul = kCap ? a.scale / a.cap : a.scale * kLog2e;
+  const float cap_l2 = a.cap * kLog2e;
+
+  float o[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int c0 = t_begin; c0 < t_end; c0 += kStateChunk) {
+    const int c1 = min(t_end, c0 + kStateChunk);
+    __syncthreads();  // the previous chunk's states are no longer read
+    for (int t = c0 + tid; t < c1; t += kTcThreads)
+      st_s[t - c0] = tile_state(a, a.tsum[b * ktiles + t], qmin, qmax);
+    __syncthreads();
+    int t = c0;
+    while (t < c1 && st_s[t - c0] == 0) ++t;
+    if (t < c1) tf_load_tile<HD>(a, b, kv, t, kr, vr, kp_raw, tid);
+    cp_async_commit();
+
+    while (t < c1) {
+      const int st = st_s[t - c0];
+      int nt = t + 1;
+      while (nt < c1 && st_s[nt - c0] == 0) ++nt;
+      cp_async_wait<0>();
+      __syncthreads();  // tile t landed; the last tile's fragments are free
+      // split K and V once, into the fragments every warp reads: K's
+      // (keys 8 j + gr, columns 8 s + gc, + 4) and V's with its keys in the
+      // order 2 gc, 2 gc + 1, which makes P's accumulators its A fragment
+      // as they are (columns 8 d + gr); one 16-byte load a fragment
+#pragma unroll
+      for (int idx = tid; idx < SN * KS * 32; idx += kTcThreads) {
+        const int ln = idx & 31, blk = idx >> 5;
+        const int j = blk / KS, s = blk - j * KS;
+        const float* src = kr + (8 * j + (ln >> 2)) * RP + 8 * s + (ln & 3);
+        uint32_t h0, l0, h1, l1;
+        split_tf32(src[0], h0, l0);
+        split_tf32(src[4], h1, l1);
+        kf[idx] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                              __uint_as_float(l0), __uint_as_float(l1));
+      }
+#pragma unroll
+      for (int idx = tid; idx < SN * DN * 32; idx += kTcThreads) {
+        const int ln = idx & 31, blk = idx >> 5;
+        const int n = blk / DN, dn = blk - n * DN;
+        const float* src = vr + (8 * n + 2 * (ln & 3)) * RP + 8 * dn + (ln >> 2);
+        uint32_t h0, l0, h1, l1;
+        split_tf32(src[0], h0, l0);
+        split_tf32(src[RP], h1, l1);
+        vf[idx] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                              __uint_as_float(l0), __uint_as_float(l1));
+      }
+      if (tid < kTcKeys) kp_s[tid] = kp_raw[tid];
+      __syncthreads();  // fragments in place; the raw tile is free
+      if (nt < c1) tf_load_tile<HD>(a, b, kv, nt, kr, vr, kp_raw, tid);
+      cp_async_commit();
+
+      // S = Q K^T over the tile's 64 keys
+      float s[SN][4];
+#pragma unroll
+      for (int n = 0; n < SN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ah[4], al[4];
+        if constexpr (kQSplit) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qa[ks][e];
+            al[e] = qb[ks][e];
+          }
+        } else {
+          const float v[4] = {__uint_as_float(qa[ks][0]), __uint_as_float(qa[ks][1]),
+                              __uint_as_float(qa[ks][2]), __uint_as_float(qa[ks][3])};
+          split4(v, ah, al);
+        }
+#pragma unroll
+        for (int j = 0; j < SN; ++j) mma3(s[j], ah, al, kf[(j * KS + ks) * 32 + lane]);
+      }
+
+      // softcap and scale into the log2 domain, masks (every pair kept
+      // in a tile of state 2), online softmax
+      const bool all_kept = st == 2;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * s_mul;
+          if constexpr (kCap) x = cap_l2 * tanhf(x);
+          const int kp = kp_s[n * 8 + 2 * gc + (e & 1)];
+          const bool keep = all_kept ||
+                            (kp != kBig && keep_pair(a, qp[e >> 1], kp));
+          x = keep ? x : kNegInf;
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[n][e];
+          const float p = x == kNegInf ? 0.0f : exp2f(x - m[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V: P's accumulators (keys 2 gc, 2 gc + 1 of each 8) split
+      // once as the A fragments
+#pragma unroll
+      for (int kk = 0; kk < SN; ++kk) {
+        const float pv[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+        uint32_t ph[4], pl[4];
+        split4(pv, ph, pl);
+#pragma unroll
+        for (int dn = 0; dn < DN; ++dn) mma3(o[dn], ph, pl, vf[(kk * DN + dn) * 32 + lane]);
+      }
+      t = nt;
+    }
+    cp_async_wait<0>();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (a.nsplit > 1) {  // unnormalised partials (m in natural-log units)
+    const long long base =
+        ((b * a.kvh + kv) * gridDim.x + blockIdx.x) * BM + warp * 16 + gr;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long pr = base + 8 * i;
+      if (gc == 0) {
+        a.part_ml[2 * pr] = m[i] * kLn2;
+        a.part_ml[2 * pr + 1] = l[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        float* dst = a.part_acc + pr * a.hd + n * 8 + 2 * gc;
+        dst[0] = o[n][2 * i];
+        dst[1] = o[n][2 * i + 1];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rr[i] >= rows) continue;
+    const long long qi = rr[i] / a.g;
+    const int head = kv * a.g + static_cast<int>(rr[i] - qi * a.g);
+    float* orow = out + b * a.o_sb + qi * a.o_ss + head * a.o_sh;
+    const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * gc) =
+          make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // flash_decode: few rows (Sq * G < 64), bound by the cache's bytes
 // ---------------------------------------------------------------------------
 constexpr int kDecWarps = 4;
@@ -1241,6 +1582,29 @@ int launch_tc(const Params& a, int batch, cudaStream_t stream) {
   return launch_combine<__nv_bfloat16>(a, tiles, batch, stream);
 }
 
+template <int HD>
+int launch_tf32(const Params& a, int batch, cudaStream_t stream) {
+  constexpr size_t smem = tf_smem_bytes<HD>();
+  static_assert(smem + kStateChunk <= 232448,
+                "flash_fwd_tf32: more shared memory than a block has");
+  const bool capped = a.cap > 0.0f;
+  auto kernel = capped ? flash_fwd_tf32<HD, true> : flash_fwd_tf32<HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned ktiles = static_cast<unsigned>((a.sk + kTcKeys - 1) / kTcKeys);
+  flash_tiles<<<dim3(ktiles, batch), kTcKeys, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned tiles = row_tiles(a);
+  kernel<<<dim3(tiles * a.nsplit, a.kvh, batch), kTcThreads, smem,
+           stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.nsplit == 1) return static_cast<int>(err);
+  return launch_combine<float>(a, tiles, batch, stream);
+}
+
 template <typename T, int HD, int R>
 int launch_decode(const Params& a, int vec, int batch, cudaStream_t stream) {
   const unsigned tiles = row_tiles(a);
@@ -1277,7 +1641,8 @@ bool aligned16(const void* p) {
 // kpm holds B * ceil(sk / 64) * 64 ints and tsum 4 ints for each of B *
 // ceil(sk / 64) tiles, 16-byte aligned), 2 flash_decode (bm 1, 2, 4 or 8
 // rows per block; nsplit > 1 needs sem, B * KV * tiles ints, zero, which
-// the kernel leaves zero). dtype: 0 float32, 1
+// the kernel leaves zero), 3 flash_fwd_tf32 (float32, otherwise as
+// flash_fwd_tc: 16-byte chunks are 4 floats). dtype: 0 float32, 1
 // bfloat16. nsplit > 1 needs part_acc (B * KV * tiles * nsplit * bm * hd
 // floats) and part_ml (twice B * KV * tiles * nsplit * bm), tiles =
 // ceil(sq * g / bm). Returns a cudaError_t (0 on success);
@@ -1325,6 +1690,18 @@ extern "C" int repro_flash_attention(
       return static_cast<int>(bad);
     }
     return hd == 64 ? launch_tc<64>(a, batch, s) : launch_tc<128>(a, batch, s);
+  }
+  if (kernel == 3) {
+    const bool chunks = q_sb % 4 == 0 && q_ss % 4 == 0 && q_sh % 4 == 0 &&
+                        k_sb % 4 == 0 && k_ss % 4 == 0 && k_sh % 4 == 0 &&
+                        v_sb % 4 == 0 && v_ss % 4 == 0 && v_sh % 4 == 0 &&
+                        o_sb % 2 == 0 && o_ss % 2 == 0 && o_sh % 2 == 0;
+    if (dtype != 0 || bm != kTcRows || (hd != 64 && hd != 128) || !chunks ||
+        !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) ||
+        !aligned16(kpm) || !aligned16(tsum)) {
+      return static_cast<int>(bad);
+    }
+    return hd == 64 ? launch_tf32<64>(a, batch, s) : launch_tf32<128>(a, batch, s);
   }
   if (kernel == 2) {
     if ((bm != 1 && bm != 2 && bm != 4 && bm != 8) ||

@@ -11,15 +11,17 @@ the type and the head dim alone:
 * ``flash_decode`` when there are fewer than 64 rows (Sq * G, decode), in
   either type: bound by the cache's bytes;
 * ``flash_fwd_tc`` for bf16 prefill at hd 64 or 128: the tensor cores;
-* ``flash_fwd`` for everything else (float32 prefill, other head dims up
-  to 256): FP32 on the CUDA cores.
+* ``flash_fwd_tf32`` for float32 prefill at hd 64 or 128: the tensor
+  cores in 3xTF32 (float32 accuracy);
+* ``flash_fwd`` for the prefill at every other head dim up to 256 (16,
+  20, 256, ...), in either type: FP32 on the CUDA cores.
 
 Each launch is counted in ``LAUNCHES`` under its kernel's name.
 
 The kernels read q, k and v through their strides (the last axis must be
 dense) and mask ragged lengths themselves, so the wrapper pads and copies
-nothing, except that ``flash_fwd_tc``'s 16-byte copies need 16-byte
-aligned rows (a view that breaks that is copied first). A call with few
+nothing, except that the tensor-core kernels' 16-byte copies need
+16-byte aligned rows (a view that breaks that is copied first). A call with few
 blocks splits its keys (``plan``): the wrapper then allocates the
 partials' scratch, and the splits are merged in a fixed order, by the
 source's combine kernel (a second launch within the same call) after the
@@ -43,17 +45,20 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention_gqa",
            "kernel_source", "plan", "Plan", "KERNELS", "MAX_HEAD_DIM",
-           "decode_pass_keys"]
+           "decode_pass_keys", "launch_kernel", "smem_bytes",
+           "MAX_SMEM_BYTES"]
 
-KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_decode")
+KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_decode", "flash_fwd_tf32")
 # launches since the last reset, by kernel (one per call that reached the
 # card; a split's combine is part of the same call)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 MAX_HEAD_DIM = 256
 _SMS = 132        # streaming multiprocessors of an H100 SXM
-_KEY_TILE = 64    # keys per tile of flash_fwd and flash_fwd_tc
+_KEY_TILE = 64    # keys per tile of the prefill kernels
 _DECODE_ROWS = 64  # fewer rows than this (Sq * G) go to flash_decode
 _TC_HEAD_DIMS = (64, 128)
+MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
+_STATE_CHUNK = 512        # tile states a tensor-core block holds at once
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None
@@ -103,10 +108,12 @@ def plan(batch: int, sq: int, sk: int, kv_heads: int, group: int,
     blocks as the card holds at once (three an SM, two at R = 8: one
     wave, which fills the 132 SMs at least twice) but no more splits than
     give each block two passes of its key groups (``decode_pass_keys``).
-    Otherwise bf16 at hd 64 or 128: ``flash_fwd_tc``, else
-    ``flash_fwd``, 64 rows per block, and when those blocks are fewer than
-    the SMs the key tiles are split so that about 4 blocks per SM run, at
-    most one split per tile."""
+    Otherwise, at hd 64 or 128, ``flash_fwd_tc`` for bf16 and
+    ``flash_fwd_tf32`` for float32 (the float32 gates' prefill: smollm's hd
+    64, gemma2's 128); at any other head dim ``flash_fwd`` in either type.
+    64 rows per block, and when those blocks are fewer than the SMs the
+    key tiles are split so that about 4 blocks per SM run, at most one
+    split per tile."""
     rows = sq * group
     if rows < _DECODE_ROWS:
         r = 1
@@ -117,13 +124,32 @@ def plan(batch: int, sq: int, sk: int, kv_heads: int, group: int,
         passes = -(-sk // (2 * decode_pass_keys(r, head_dim, dtype)))
         return Plan("flash_decode", r,
                     max(1, min(passes, resident // blocks)))
-    kernel = ("flash_fwd_tc" if dtype == torch.bfloat16
-              and head_dim in _TC_HEAD_DIMS else "flash_fwd")
+    kernel = "flash_fwd"
+    if head_dim in _TC_HEAD_DIMS:
+        kernel = ("flash_fwd_tc" if dtype == torch.bfloat16
+                  else "flash_fwd_tf32")
     blocks = -(-rows // 64) * kv_heads * batch
     if blocks >= _SMS:
         return Plan(kernel, 64, 1)
     return Plan(kernel, 64, max(1, min(-(-sk // _KEY_TILE),
                                        -(-4 * _SMS // blocks))))
+
+
+def smem_bytes(kernel: str, head_dim: int) -> int:
+    """Shared memory of one block of a tensor-core prefill kernel, dynamic
+    and static (the tile states): ``flash_fwd_tc`` (``tc_smem_bytes`` in
+    the source) two stages of bf16 K and V tiles and their positions;
+    ``flash_fwd_tf32`` (``tf_smem_bytes``) one tile's K and V fragments,
+    hi and lo, one raw float32 tile of K and V (rows of hd + 4) and two
+    sets of positions."""
+    if kernel == "flash_fwd_tc":
+        dynamic = 2 * 2 * _KEY_TILE * head_dim * 2 + 2 * _KEY_TILE * 4
+    elif kernel == "flash_fwd_tf32":
+        dynamic = 4 * (4 * _KEY_TILE * head_dim
+                       + 2 * _KEY_TILE * (head_dim + 4)) + 2 * _KEY_TILE * 4
+    else:
+        raise ValueError(f"no shared-memory reckoning for {kernel!r}")
+    return dynamic + _STATE_CHUNK
 
 
 def _strides(t: torch.Tensor, group: Optional[int] = None):
@@ -153,8 +179,10 @@ def decode_pass_keys(rows: int, head_dim: int, dtype: torch.dtype) -> int:
 
 
 def _aligned(t: torch.Tensor, strides) -> bool:
-    """16-byte aligned base and strides of whole 16-byte chunks (8 bf16)."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in strides)
+    """16-byte aligned base and strides of whole 16-byte chunks (8 bf16, 4
+    float32)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % (16 // t.element_size()) == 0 for st in strides)
 
 
 def _split_counts(n: int, device: torch.device, stream: int) -> torch.Tensor:
@@ -176,7 +204,27 @@ def _inner_dense(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _launch(q, k, v, qp, kp, mask, causal, window, cap) -> torch.Tensor:
+def launch_kernel(kernel: str, q, k, v, *, q_positions, kv_positions,
+                  causal: bool = True, window: Optional[int] = None,
+                  cap: Optional[float] = None, kv_mask=None) -> torch.Tensor:
+    """Run one named kernel of ``KERNELS`` on CUDA tensors, with ``plan``'s
+    rows and splits: the kernel ``plan`` picks, or ``flash_fwd`` on any
+    prefill call (it takes every head dim and both types); raises
+    otherwise. For holding the kernels against the plain version and
+    against each other; the model path goes through
+    ``flash_attention_gqa``, which follows ``plan``. No autograd."""
+    if kernel not in KERNELS:
+        raise ValueError(f"flash_attention: no kernel {kernel!r}; one of "
+                         f"{KERNELS}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: {kernel} runs on a CUDA "
+                         f"tensor, got '{q.device.type}'")
+    return _launch(q, k, v, q_positions, kv_positions, kv_mask, causal,
+                   window, cap, kernel)
+
+
+def _launch(q, k, v, qp, kp, mask, causal, window, cap,
+            kernel: Optional[str] = None) -> torch.Tensor:
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -200,12 +248,19 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap) -> torch.Tensor:
     if mask is not None:
         mask = mask.to(torch.bool)
         mask = mask if Sk == 1 or mask.stride(1) == 1 else mask.contiguous()
-    kernel, bm, nsplit = plan(B, Sq, Sk, KV, G, q.dtype, hd)
-    if kernel == "flash_fwd_tc":
+    chosen, bm, nsplit = plan(B, Sq, Sk, KV, G, q.dtype, hd)
+    if kernel is None:
+        kernel = chosen
+    elif kernel != chosen and (kernel != "flash_fwd"
+                               or chosen == "flash_decode"):
+        raise ValueError(f"{kernel} does not take this call ({chosen} "
+                         f"does): q {tuple(q.shape)} {q.dtype}, Sk {Sk}")
+    tensor_cores = kernel in ("flash_fwd_tc", "flash_fwd_tf32")
+    if tensor_cores:
         q, k, v = (t if _aligned(t, _strides(t, G if t is q else None))
                    else t.contiguous() for t in (q, k, v))
     part_acc = part_ml = kpm = tsum = None
-    if kernel == "flash_fwd_tc":  # the pre-pass's key positions, summaries
+    if tensor_cores:  # the pre-pass's key positions, summaries
         ktiles = -(-Sk // _KEY_TILE)
         kpm = torch.empty(B * ktiles * _KEY_TILE, dtype=torch.int32,
                           device=q.device)

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/tf32.cuh"  // split_tf32, split4, mma3
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -114,24 +116,6 @@ __device__ __forceinline__ void ldsm_x4(const float* p, uint32_t (&r)[4]) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-// a = hi + lo: hi rounded to TF32 (half a unit of the 13 dropped bits
-// added to the magnitude, then the bits cleared), lo the exact rest, whose
-// low 13 bits the TF32 mma ignores
-__device__ __forceinline__ void split_tf32(uint32_t bits, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (bits + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(bits) - __uint_as_float(hi));
-}
-// d += a b: a 16 x 8 TF32 (row), b 8 x 8 TF32 (col), d 16 x 8 float32
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Stage kt's slice of the shared dimension: xs[r][k] = xc[r0 + r, k0 + k]
 // and ps[j][k] = P[j0 + j, k0 + k], zeros past N and D.
 template <int BN, bool kVec>
@@ -240,7 +224,8 @@ mvn_quad_tc(const float* __restrict__ xc, long long x_batch_stride,
                     (mat & 1) * 4, b);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          split_tf32(b[e], bh[j + (e >> 1)][e & 1], bl[j + (e >> 1)][e & 1]);
+          split_tf32(__uint_as_float(b[e]), bh[j + (e >> 1)][e & 1],
+                     bl[j + (e >> 1)][e & 1]);
       }
 #pragma unroll
       for (int i = 0; i < T::kMT; ++i) {
@@ -248,14 +233,10 @@ mvn_quad_tc(const float* __restrict__ xc, long long x_batch_stride,
         uint32_t a[4], ah[4], al[4];
         ldsm_x4(xs + (wr + i * 16 + (mat & 1) * 8 + mrow) * kPitch + kk +
                     (mat >> 1) * 4, a);
+        split4(a, ah, al);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
-#pragma unroll
-        for (int j = 0; j < T::kNT; ++j) {
-          mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);
-          mma_tf32(acc[i][j], ah, bl[j][0], bl[j][1]);
-          mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
-        }
+        for (int j = 0; j < T::kNT; ++j)
+          mma3(acc[i][j], ah, al, bh[j][0], bh[j][1], bl[j][0], bl[j][1]);
       }
     }
   }

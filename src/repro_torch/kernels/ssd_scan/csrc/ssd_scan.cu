@@ -1,6 +1,7 @@
-// Mamba-2 chunked SSD scan for Hopper (sm_90a), two kernels with a plain C
-// interface for ctypes: ssd_scan_tc, bf16 on the tensor cores, and
-// ssd_scan_kernel, float32 on the CUDA cores for every other call (the
+// Mamba-2 chunked SSD scan for Hopper (sm_90a), three kernels with a plain
+// C interface for ctypes: ssd_scan_tc, bf16 on the tensor cores;
+// ssd_scan_tf32 (and its pre-pass), float32 on the tensor cores in 3xTF32;
+// and ssd_scan_kernel, float32 on the CUDA cores for every other call (the
 // wrapper's plan picks).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
@@ -42,7 +43,41 @@
 // mma.sync m16n8k16 bf16 with float32 accumulation; no atomics: reruns
 // are bit-identical.
 //
-// ssd_scan_kernel (float32, and every call ssd_scan_tc does not take).
+// ssd_scan_tf32 (float32 x, B, C; n and p each 64 or 128). What
+// bounds it: at mamba2-1.3b's call the inputs and output are 279 MB, 83 us
+// at 3.35 TB/s, against 19.4 GFLOP of products at its 64-position
+// sub-chunks, three TF32 passes of them 118 us on the tensor cores:
+// operations. Each product is 3xTF32 (as in
+// mvn_quad.cu): an operand a is split into hi (a rounded to 10 mantissa
+// bits, ties away from zero) and lo = a - hi, and lo*hi + hi*lo + hi*hi is
+// accumulated in float32 by mma.sync m16n8k8, which keeps the float32
+// gates (2e-4 here, 1e-4 on the scoring log-likelihood) where one TF32
+// pass (about 1e-3) would not. Design: float32 tiles are twice bf16's, so
+// ssd_scan_tc's ring of C, B and x for 128 positions and 128 columns
+// (384 KB in float32) cannot stay. The kernel walks sub-chunks of 64
+// positions whatever the chunk (the chunked scan's result does not depend
+// on the chunk length), and one block of 8 warps serves (batch, head, 64
+// output columns): a two-stage cp.async ring of C, B [64][n], x [64][64]
+// and dt (160 KB at n 128, XOR-swizzled) and S's hi and lo (64 KB) fill
+// the 227 KB, so sub-chunk c + 1 lands while c computes. G = C B^T is the
+// same for every head of a group, so a pre-pass (ssd_scan_tf32_gram, a
+// block a (batch, group, sub-chunk)) forms its causal 16 x 16 tiles once
+// into scratch (2 MB at mamba2's call, read back from L2): formed in each
+// block, by both warps of a row tile, it was 35 % of the products and
+// most of the warps' imbalance (a row tile's causal tiles run 1 to 4).
+// Per sub-chunk one warp scans cum; each warp takes one row tile of y and
+// 32 columns: y_inter = C S (C's fragment split once a warp) while its G
+// tiles load, then W = G o exp(cum_i - cum_j) o dt_j (the mask inside the
+// exponent), split once as it leaves the registers, is the A operand of W
+// x as it is (its keys taken in the order 2 gc, 2 gc + 1, and x's rows in
+// the same order). Then S <- e^{cum_L} S + (B o segdt)^T x on 16 rows of
+// S a warp, S in float32 in the registers of the warp that owns it, split
+// once into the B fragments of the next sub-chunk's C S in shared memory.
+// x and B are split as a warp loads them (no room for their hi and lo
+// beside the ring). No atomics: reruns are bit-identical.
+//
+// ssd_scan_kernel (float32, and every call the tensor-core kernels do not
+// take).
 // What bounds it: at mamba2-1.3b's shape a chunk is about 4 M
 // multiply-adds on 80 KB of inputs: operations, not bytes.
 //
@@ -65,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/tf32.cuh"  // split_tf32, split4, mma_tf32, mma3
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -84,6 +121,7 @@ struct Params {
   long long c_sb, c_ss, c_sg;   // C (b, s, g, n)
   long long y_sb, y_ss, y_sh;   // y (b, s, h, p)
   int s, h, g, n;
+  float* gram;  // ssd_scan_tf32: G = C B^T [b][g][sub-chunk][64][64]
 };
 
 // C and B [L][n + 1], x [L][P], S [n][P], W [32][L + 1], cum, dt and
@@ -691,6 +729,372 @@ __global__ void __launch_bounds__(kTcThreads, 1) ssd_scan_tc(Params a) {
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// ssd_scan_tf32: float32 x, B and C on the tensor cores in 3xTF32
+// (mma.sync m16n8k8)
+// ---------------------------------------------------------------------------
+constexpr int kTfThreads = 256;
+constexpr int kTfRows = 64;  // positions a sub-chunk
+constexpr int kTfCols = 64;  // output columns a block (one head's, or half)
+
+template <int N>
+struct TfShape {
+  static constexpr int kSMT = N / 16;               // S row tiles
+  static constexpr int kSG = 8 / kSMT;              // column groups, state phase
+  static constexpr int kSN = kTfCols / 8 / kSG;     // a warp's S n-tiles
+  // a stage: C, B [64][N], x [64][64] and dt [64], in float32
+  static constexpr int kStage = 2 * kTfRows * N + kTfRows * kTfCols + kTfRows;
+  // two stages; S hi and lo [N][64] in fragment order; cum and segdt [64]
+  static constexpr size_t kSmem =
+      (2ull * kStage + 2ull * N * kTfCols + 2ull * kTfRows) * sizeof(float);
+};
+
+// element offset of (row, col) in a [rows][kCols] float tile whose 16-byte
+// chunks are XOR-swizzled by the row: ldmatrix's 8 row addresses, and the
+// scalar fragment loads below, fall on distinct banks
+template <int kCols>
+__device__ __forceinline__ int swz4(int row, int col) {
+  return row * kCols + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+// cp.async of sub-chunk sc's C and B [64][N] into cs and cs + 64 N, by
+// kT threads; zeros past the sequence
+template <int N, int kT>
+__device__ __forceinline__ void tf_load_cb(const Params& a, long long bi,
+                                           int gi, int sc, float* cs,
+                                           int tid) {
+  const float* Cg = static_cast<const float*>(a.C);
+  const float* Bg = static_cast<const float*>(a.B);
+  float* bs = cs + kTfRows * N;
+  const long long s0 = static_cast<long long>(sc) * kTfRows;
+  constexpr int kNC = N / 4;  // 16-byte copies a row of C or B
+#pragma unroll 4
+  for (int idx = tid; idx < kTfRows * kNC; idx += kT) {
+    const int i = idx / kNC, c = idx - i * kNC;
+    const bool in = s0 + i < a.s;
+    const long long si = in ? s0 + i : 0;
+    const int o = swz4<N>(i, 4 * c);
+    cp_async16(smem_addr(cs + o), Cg + bi * a.c_sb + si * a.c_ss + gi * a.c_sg + 4 * c,
+               in ? 16 : 0);
+    cp_async16(smem_addr(bs + o), Bg + bi * a.b_sb + si * a.b_ss + gi * a.b_sg + 4 * c,
+               in ? 16 : 0);
+  }
+}
+
+// cp.async of sub-chunk sc's C, B [64][N], x [64][64] (the block's columns)
+// and dt [64]; zeros (dt = 0) past the sequence
+template <int N>
+__device__ __forceinline__ void tf_load(const Params& a, long long bi, int gi,
+                                        int hi, int pc0, int sc, float* st,
+                                        int tid) {
+  const float* xg = static_cast<const float*>(a.x);
+  float* xs = st + 2 * kTfRows * N;
+  float* dts = xs + kTfRows * kTfCols;
+  const long long s0 = static_cast<long long>(sc) * kTfRows;
+  tf_load_cb<N, kTfThreads>(a, bi, gi, sc, st, tid);
+  constexpr int kXC = kTfCols / 4;
+#pragma unroll 4
+  for (int idx = tid; idx < kTfRows * kXC; idx += kTfThreads) {
+    const int j = idx / kXC, c = idx - j * kXC;
+    const bool in = s0 + j < a.s;
+    const long long sj = in ? s0 + j : 0;
+    cp_async16(smem_addr(xs + swz4<kTfCols>(j, 4 * c)),
+               xg + bi * a.x_sb + sj * a.x_ss +
+                   static_cast<long long>(hi) * a.x_sh + pc0 + 4 * c,
+               in ? 16 : 0);
+  }
+  if (tid < kTfRows) {
+    const bool in = s0 + tid < a.s;
+    const long long si = in ? s0 + tid : 0;
+    cp_async4(smem_addr(dts + tid), a.dt + bi * a.dt_sb + si * a.dt_ss + hi,
+              in ? 4 : 0);
+  }
+}
+
+// ssd_scan_tf32's pre-pass: G = C B^T of one sub-chunk of one group (its
+// causal 16 x 16 tiles, in 3xTF32) into gram, once for all the group's
+// heads; grid (sub-chunks, groups, batch), warp m the row tile m
+constexpr int kGramThreads = 128;
+
+template <int N>
+__global__ void __launch_bounds__(kGramThreads) ssd_scan_tf32_gram(Params a) {
+  extern __shared__ __align__(128) float smem_f[];
+  float* cs = smem_f;              // C, B [64][N], swizzled
+  float* bs = cs + kTfRows * N;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;
+  const int sc = blockIdx.x, gi = blockIdx.y;
+  const long long bi = blockIdx.z;
+  tf_load_cb<N, kGramThreads>(a, bi, gi, sc, cs, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int m = warp, i0 = 16 * warp;
+  float g[4][2][4];
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[kb][t][e] = 0.0f;
+#pragma unroll 2
+  for (int ks = 0; ks < N / 8; ++ks) {
+    uint32_t cr[4], ch[4], cl[4];  // C's A fragment, rows i0 .. i0 + 15
+    ldsm_x4(smem_addr(cs + swz4<N>(i0 + (mat & 1) * 8 + mrow,
+                                   8 * ks + (mat >> 1) * 4)), cr);
+    split4(cr, ch, cl);
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      if (kb > m) continue;  // uniform over the warp
+      uint32_t br[4], bh[4], bl[4];  // B^T for keys 16 kb .. + 8, + 16
+      ldsm_x4(smem_addr(bs + swz4<N>(16 * kb + (mat >> 1) * 8 + mrow,
+                                     8 * ks + (mat & 1) * 4)), br);
+      split4(br, bh, bl);
+      mma3(g[kb][0], ch, cl, bh[0], bh[1], bl[0], bl[1]);
+      mma3(g[kb][1], ch, cl, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+  float* out = a.gram +
+               ((bi * a.g + gi) * gridDim.x + sc) * (kTfRows * kTfRows);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    if (kb > m) continue;
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (i0 + gr + 8 * r) * kTfRows + 16 * kb +
+                                   8 * t + 2 * gc) =
+            make_float2(g[kb][t][2 * r], g[kb][t][2 * r + 1]);
+  }
+}
+
+// grid (h * (P / 64), batch): one block a (batch, head, 64 output columns),
+// walking the sequence in sub-chunks of 64 positions
+template <int N>
+__global__ void __launch_bounds__(kTfThreads, 1) ssd_scan_tf32(Params a, int p) {
+  using S = TfShape<N>;
+  extern __shared__ __align__(128) float smem_f[];
+  float* ring = smem_f;                    // [2][kStage]
+  float4* sf = reinterpret_cast<float4*>(ring + 2 * S::kStage);  // S hi/lo
+  float* cum = ring + 2 * S::kStage + 2 * N * kTfCols;  // [64], natural log
+  float* segdt = cum + kTfRows;                          // [64]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, gc = lane & 3;     // fragment row, column
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix matrix, its row
+  const int slabs = p / kTfCols;
+  const int hi = blockIdx.x / slabs;
+  const int pc0 = (blockIdx.x - hi * slabs) * kTfCols;
+  const long long bi = blockIdx.y;
+  const int gi = hi / (a.h / a.g);
+  const int nsub = (a.s + kTfRows - 1) / kTfRows;
+  const float av = a.A[hi];
+  float* __restrict__ y = static_cast<float*>(a.y);
+
+  // y phase: row tile ym, columns yc0 .. yc0 + 32
+  const int ym = warp >> 1, yc0 = (warp & 1) * 32, i0 = 16 * ym;
+  // state phase: rows n0 .. n0 + 16 of S, columns sc0 .. sc0 + 8 kSN
+  const int n0 = 16 * (warp / S::kSG);
+  const int sc0 = (warp % S::kSG) * (8 * S::kSN);
+
+  float sacc[S::kSN][4];
+#pragma unroll
+  for (int t = 0; t < S::kSN; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[t][e] = 0.0f;
+
+  tf_load<N>(a, bi, gi, hi, pc0, 0, ring, tid);
+  cp_async_commit();
+
+  for (int sc = 0; sc < nsub; ++sc) {
+    const long long s0 = static_cast<long long>(sc) * kTfRows;
+    const float* cs = ring + (sc & 1) * S::kStage;
+    const float* bs = cs + kTfRows * N;
+    const float* xs = bs + kTfRows * N;
+    const float* dts = xs + kTfRows * kTfCols;
+    cp_async_wait<0>();
+    __syncthreads();  // the stage, and S from the last sub-chunk, in place
+    if (warp == 0) {  // cum = cumsum(dt * a), two positions a lane
+      const float d0 = dts[2 * lane], d1 = dts[2 * lane + 1];
+      const float v0 = d0 * av, v1 = v0 + d1 * av;
+      float incl = v1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float other = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += other;
+      }
+      const float before = incl - v1;
+      const float last = __shfl_sync(0xffffffffu, incl, 31);
+      const float c0 = before + v0, c1 = before + v1;
+      cum[2 * lane] = c0;
+      cum[2 * lane + 1] = c1;
+      segdt[2 * lane] = expf(last - c0) * d0;
+      segdt[2 * lane + 1] = expf(last - c1) * d1;
+    }
+    if (sc + 1 < nsub) {
+      tf_load<N>(a, bi, gi, hi, pc0, sc + 1, ring + ((sc + 1) & 1) * S::kStage,
+                 tid);
+    }
+    cp_async_commit();
+    __syncthreads();  // cum and segdt in place
+
+    // y = e^{cum_i} (C S)_i + (W x)_i, W = G o exp(cum_i - cum_j) o dt_j
+    // over the causal 16-column tiles kb <= ym, G = C B^T from the
+    // pre-pass (its loads in flight during C S)
+    {
+      const float* gm = a.gram +
+                        ((bi * a.g + gi) * nsub + sc) * (kTfRows * kTfRows);
+      float g[4][2][4];
+      float acc[4][4];
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float2 v = make_float2(0.0f, 0.0f);
+            if (kb <= ym)
+              v = *reinterpret_cast<const float2*>(
+                  gm + (i0 + gr + 8 * r) * kTfRows + 16 * kb + 8 * t + 2 * gc);
+            g[kb][t][2 * r] = v.x;
+            g[kb][t][2 * r + 1] = v.y;
+          }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+      if (sc > 0) {  // y_inter (S is zero before the first sub-chunk)
+#pragma unroll 2
+        for (int ks = 0; ks < N / 8; ++ks) {
+          uint32_t cr[4], ch[4], cl[4];  // C's A fragment, rows i0 .. i0 + 15
+          ldsm_x4(smem_addr(cs + swz4<N>(i0 + (mat & 1) * 8 + mrow,
+                                         8 * ks + (mat >> 1) * 4)), cr);
+          split4(cr, ch, cl);
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            mma3(acc[t], ch, cl, sf[(ks * 8 + (yc0 >> 3) + t) * 32 + lane]);
+        }
+      }
+      const float ci0 = cum[i0 + gr], ci1 = cum[i0 + gr + 8];
+      const float e0 = expf(ci0), e1 = expf(ci1);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc[t][0] *= e0;
+        acc[t][1] *= e0;
+        acc[t][2] *= e1;
+        acc[t][3] *= e1;
+      }
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        if (kb > ym) continue;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          // W on the tile's keys j0 + 2 gc (+ 1), the causal mask inside
+          // the exponent (anticausal differences are positive and
+          // overflow); the keys taken in the order 2 gc, 2 gc + 1 make
+          // the accumulator the A fragment of W x as it is
+          const int j0 = 16 * kb + 8 * t;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 2 * gc + e;
+            const float cj = cum[j], dj = dts[j];
+            const bool k0 = i0 + gr >= j, k1 = i0 + gr + 8 >= j;
+            const float d0 = expf(k0 ? ci0 - cj : 0.0f);
+            const float d1 = expf(k1 ? ci1 - cj : 0.0f);
+            g[kb][t][e] = k0 ? g[kb][t][e] * d0 * dj : 0.0f;
+            g[kb][t][2 + e] = k1 ? g[kb][t][2 + e] * d1 * dj : 0.0f;
+          }
+          const uint32_t wr[4] = {__float_as_uint(g[kb][t][0]),
+                                  __float_as_uint(g[kb][t][2]),
+                                  __float_as_uint(g[kb][t][1]),
+                                  __float_as_uint(g[kb][t][3])};
+          uint32_t wh[4], wl[4];
+          split4(wr, wh, wl);
+          const int ja = j0 + 2 * gc;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = yc0 + 8 * nt + gr;
+            uint32_t xh0, xl0, xh1, xl1;
+            split_tf32(xs[swz4<kTfCols>(ja, col)], xh0, xl0);
+            split_tf32(xs[swz4<kTfCols>(ja + 1, col)], xh1, xl1);
+            mma3(acc[nt], wh, wl, xh0, xh1, xl0, xl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = pc0 + yc0 + 8 * t + 2 * gc;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long si = s0 + i0 + gr + 8 * r;
+          if (si >= a.s) continue;
+          *reinterpret_cast<float2*>(y + bi * a.y_sb + si * a.y_ss +
+                                     static_cast<long long>(hi) * a.y_sh + col) =
+              make_float2(acc[t][2 * r], acc[t][2 * r + 1]);
+        }
+      }
+    }
+
+    // S <- e^{cum_L} S + B^T (segdt o x) on the warp's rows and columns,
+    // the keys in the order 2 gc, 2 gc + 1 (as for W x)
+    {
+      const float dl = expf(cum[kTfRows - 1]);
+#pragma unroll
+      for (int t = 0; t < S::kSN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[t][e] *= dl;
+#pragma unroll 2
+      for (int ks = 0; ks < kTfRows / 8; ++ks) {
+        const int ja = 8 * ks + 2 * gc;
+        const float sa = segdt[ja], sb = segdt[ja + 1];
+        const uint32_t br[4] = {
+            __float_as_uint(bs[swz4<N>(ja, n0 + gr)] * sa),
+            __float_as_uint(bs[swz4<N>(ja, n0 + gr + 8)] * sa),
+            __float_as_uint(bs[swz4<N>(ja + 1, n0 + gr)] * sb),
+            __float_as_uint(bs[swz4<N>(ja + 1, n0 + gr + 8)] * sb)};
+        uint32_t bh[4], bl[4];
+        split4(br, bh, bl);
+#pragma unroll
+        for (int t = 0; t < S::kSN; ++t) {
+          const int col = sc0 + 8 * t + gr;
+          uint32_t xh0, xl0, xh1, xl1;
+          split_tf32(xs[swz4<kTfCols>(ja, col)], xh0, xl0);
+          split_tf32(xs[swz4<kTfCols>(ja + 1, col)], xh1, xl1);
+          mma3(sacc[t], bh, bl, xh0, xh1, xl0, xl1);
+        }
+      }
+    }
+    __syncthreads();  // S, cum, segdt and this stage are no longer read
+    if (sc + 1 < nsub) {
+      // S, split once, into the B fragments of the next sub-chunk's C S:
+      // element (r, c) goes to k-step r / 8, n-tile c / 8, lane (c % 8) * 4
+      // + r % 4, slot r % 8 / 4 (hi) or 2 + r % 8 / 4 (lo)
+      float* sfl = reinterpret_cast<float*>(sf);
+#pragma unroll
+      for (int t = 0; t < S::kSN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = n0 + gr + 8 * (e >> 1);
+          const int c = sc0 + 8 * t + 2 * gc + (e & 1);
+          uint32_t h, l;
+          split_tf32(sacc[t][e], h, l);
+          const int o = (((r >> 3) * 8 + (c >> 3)) * 32 + (c & 7) * 4 + (r & 3)) * 4 +
+                        ((r >> 2) & 1);
+          sfl[o] = __uint_as_float(h);
+          sfl[o + 2] = __uint_as_float(l);
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 template <typename T, int L, int P>
 int launch(const Params& a, int batch, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(L, a.n, P);
@@ -747,6 +1151,29 @@ int launch_tc_n(const Params& a, int p, int batch, cudaStream_t stream) {
                    : launch_tc_p<L, 128>(a, p, batch, stream);
 }
 
+template <int N>
+int launch_tf(const Params& a, int p, int batch, cudaStream_t stream) {
+  constexpr size_t smem = TfShape<N>::kSmem;
+  constexpr size_t gram_smem = 2ull * kTfRows * N * sizeof(float);
+  static_assert(smem <= 232448, "ssd_scan_tf32: more shared memory than a block has");
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_tf32_gram<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(gram_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nsub = (a.s + kTfRows - 1) / kTfRows;
+  ssd_scan_tf32_gram<N><<<dim3(nsub, a.g, batch), kGramThreads, gram_smem,
+                          stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      ssd_scan_tf32<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_scan_tf32<N><<<dim3(a.h * (p / kTfCols), batch), kTfThreads, smem,
+                     stream>>>(a, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype (of x, B, C and y): 0 float32, 1 bfloat16. chunk in {32, 64, 128},
@@ -801,6 +1228,43 @@ extern "C" int repro_ssd_scan_tc(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return chunk == 64 ? launch_tc_n<64>(a, p, batch, st)
                      : launch_tc_n<128>(a, p, batch, st);
+}
+
+// ssd_scan_tf32: float32 x, B, C and y; n and p each 64 or 128, chunk 32,
+// 64 or 128 (the kernel walks sub-chunks of 64 whatever the chunk: the
+// scan's result does not depend on it); x, B, C and y 16-byte aligned with strides of whole
+// 16-byte chunks (4 floats); gram, scratch of batch * g * ceil(s / 64) *
+// 4,096 floats, 16-byte aligned. Two launches: the pre-pass that forms G
+// = C B^T, then the scan. Returns a cudaError_t.
+extern "C" int repro_ssd_scan_tf32(
+    const void* x, const float* dt, const float* A, const void* B,
+    const void* C, void* y, float* gram,
+    long long x_sb, long long x_ss, long long x_sh,
+    long long dt_sb, long long dt_ss,
+    long long b_sb, long long b_ss, long long b_sg,
+    long long c_sb, long long c_ss, long long c_sg,
+    long long y_sb, long long y_ss, long long y_sh,
+    int batch, int s, int h, int g, int n, int p, int chunk, void* stream) {
+  const auto aligned = [](const void* ptr, long long s0, long long s1,
+                          long long s2) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s0 % 4 == 0 &&
+           s1 % 4 == 0 && s2 % 4 == 0;
+  };
+  if (batch <= 0 || batch > 65535 || s <= 0 || h <= 0 || g <= 0 ||
+      h % g != 0 || (p != 64 && p != 128) || (n != 64 && n != 128) ||
+      (chunk != 32 && chunk != 64 && chunk != 128) ||
+      !aligned(x, x_sb, x_ss, x_sh) ||
+      !aligned(B, b_sb, b_ss, b_sg) || !aligned(C, c_sb, c_ss, c_sg) ||
+      !aligned(y, y_sb, y_ss, y_sh) || gram == nullptr ||
+      !aligned(gram, 0, 0, 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params a{x, dt, A, B, C, y, x_sb, x_ss, x_sh, dt_sb, dt_ss,
+           b_sb, b_ss, b_sg, c_sb, c_ss, c_sg, y_sb, y_ss, y_sh, s, h, g, n,
+           gram};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return n == 64 ? launch_tf<64>(a, p, batch, st)
+                 : launch_tf<128>(a, p, batch, st);
 }
 
 extern "C" const char* repro_ssd_cuda_error_string(int err) {

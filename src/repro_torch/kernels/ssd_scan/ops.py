@@ -10,10 +10,17 @@ path:
 * ``ssd_scan_tc`` for bf16 x, B and C with chunk, d_state and head dim
   each 64 or 128, the block's 128 / p heads in one group, and 16-byte
   aligned rows: the four chunk products on the tensor cores;
-* ``ssd_scan`` for everything else (float32, other shapes): FP32 on the
-  CUDA cores.
+* ``ssd_scan_tf32`` for float32 x, B and C with d_state and head dim
+  each 64 or 128, any chunk of ``CHUNKS`` (it walks sub-chunks of 64
+  whatever the chunk) and 16-byte aligned rows: the four products on the
+  tensor cores in 3xTF32 (float32 accuracy), C B^T formed once for a
+  group's heads by a pre-pass into scratch the wrapper allocates;
+* ``ssd_scan`` for everything else: FP32 on the CUDA cores, for head dim
+  32, other state dims and unaligned rows in either type, and bf16 calls
+  at chunk 32 or whose heads do not fill ``ssd_scan_tc``'s blocks.
 
-Each launch is counted in ``LAUNCHES`` under its kernel's name.
+Each call that reaches the card is counted once in ``LAUNCHES`` under its
+kernel's name (``ssd_scan_tf32``'s pre-pass is part of the same call).
 
 The kernels read x, B and C through their strides (the last axis must be
 dense: the mixer's split views of the convolution output go in as they
@@ -39,16 +46,18 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "ssd_scan", "kernel_source",
            "plan", "tc_aligned", "launch_kernel", "TC_CHUNKS",
            "TC_HEAD_DIMS", "TC_STATE_DIMS"]
 
-KERNELS = ("ssd_scan", "ssd_scan_tc")
+KERNELS = ("ssd_scan", "ssd_scan_tc", "ssd_scan_tf32")
 # launches since the last reset, by kernel (one per call that reached the
 # card)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 CHUNKS = (32, 64, 128)      # the FP32 kernel's chunk lengths
 HEAD_DIMS = (32, 64, 128)   # and head dims p
-TC_CHUNKS = (64, 128)       # ssd_scan_tc's chunk lengths,
+TC_CHUNKS = (64, 128)       # the tensor-core kernels' chunk lengths,
 TC_HEAD_DIMS = (64, 128)    # head dims p
 TC_STATE_DIMS = (64, 128)   # and state dims n
 _TC_COLS = 128              # ssd_scan_tc's output columns a block (heads x p)
+_TF_ROWS = 64               # ssd_scan_tf32's sub-chunk (positions)
+_TF_COLS = 64               # and output columns a block
 MAX_SMEM_BYTES = 232_448    # shared memory one block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,10 +81,16 @@ def smem_bytes(chunk: int, n: int, p: int, kernel: str = "ssd_scan") -> int:
     + 1]`` and three chunk vectors, in float32. ``ssd_scan_tc``
     (``TcShape::kSmem``): two stages of C and B ``[chunk][n]`` and x
     ``[chunk][128]`` and S ``[n][128]`` in bf16, cum and dt ``[2][chunk]`` in
-    float32 (its 128 columns are 128 / p heads)."""
+    float32 (its 128 columns are 128 / p heads). ``ssd_scan_tf32``
+    (``TfShape::kSmem``, whatever the chunk and p): two stages of C and B
+    ``[64][n]``, x ``[64][64]`` and dt ``[64]``, S's hi and lo ``[n][64]``,
+    cum and segdt ``[64]``, in float32."""
     if kernel == "ssd_scan_tc":
         return 2 * (2 * (2 * chunk * n + chunk * _TC_COLS) + n * _TC_COLS) \
             + 4 * 2 * 2 * chunk
+    if kernel == "ssd_scan_tf32":
+        stage = 2 * _TF_ROWS * n + _TF_ROWS * _TF_COLS + _TF_ROWS
+        return 4 * (2 * stage + 2 * n * _TF_COLS + 2 * _TF_ROWS)
     return 4 * (2 * chunk * (n + 1) + chunk * p + n * p + 32 * (chunk + 1)
                 + 3 * chunk + 1)
 
@@ -85,22 +100,29 @@ def plan(h: int, g: int, p: int, n: int, chunk: int,
     """The kernel (one of ``KERNELS``) of one call from its shapes, type
     and alignment alone, so reruns take the same path: ``ssd_scan_tc`` for
     bf16 at chunk, n and p in (64, 128), with a block's 128 / p heads in
-    one group and ``aligned`` rows (``tc_aligned``); else the FP32
-    ``ssd_scan``."""
-    if (dtype == torch.bfloat16 and aligned and chunk in TC_CHUNKS
-            and p in TC_HEAD_DIMS and n in TC_STATE_DIMS and g > 0
-            and h % g == 0 and (h // g) % (_TC_COLS // p) == 0):
+    one group and ``aligned`` rows (``tc_aligned``); ``ssd_scan_tf32`` for
+    float32 at n and p in (64, 128), any chunk of ``CHUNKS``, with
+    ``aligned`` rows (mamba2's float32 scoring call); else the FP32
+    ``ssd_scan``, which keeps head dim 32, state dims other than 64 and
+    128 and unaligned rows in either type, and bf16 calls at chunk 32 or
+    whose heads do not fill ``ssd_scan_tc``'s blocks."""
+    tc_shape = (aligned and p in TC_HEAD_DIMS and n in TC_STATE_DIMS
+                and g > 0 and h % g == 0)
+    if (tc_shape and dtype == torch.bfloat16 and chunk in TC_CHUNKS
+            and (h // g) % (_TC_COLS // p) == 0):
         return "ssd_scan_tc"
+    if tc_shape and dtype == torch.float32 and chunk in CHUNKS:
+        return "ssd_scan_tf32"
     return "ssd_scan"
 
 
 def tc_aligned(*ts: torch.Tensor) -> bool:
-    """Whether ``ssd_scan_tc``'s 16-byte copies can read each tensor: a
-    16-byte aligned base, a dense last axis and every other stride a whole
-    number of 16-byte chunks (8 bf16)."""
+    """Whether the tensor-core kernels' 16-byte copies can read each
+    tensor: a 16-byte aligned base, a dense last axis and every other
+    stride a whole number of 16-byte chunks (8 bf16, 4 float32)."""
     return all(t.data_ptr() % 16 == 0
                and (t.shape[-1] <= 1 or t.stride(-1) == 1)
-               and all(st % 8 == 0 for size, st in
+               and all(st % (16 // t.element_size()) == 0 for size, st in
                        zip(t.shape[:-1], t.stride()[:-1]) if size > 1)
                for t in ts)
 
@@ -116,6 +138,9 @@ def _lib() -> ctypes.CDLL:
         lib.repro_ssd_scan_tc.argtypes = [p] * 6 + [i64] * 14 + [i32] * 7 \
             + [p]
         lib.repro_ssd_scan_tc.restype = i32
+        lib.repro_ssd_scan_tf32.argtypes = [p] * 7 + [i64] * 14 + \
+            [i32] * 7 + [p]
+        lib.repro_ssd_scan_tf32.restype = i32
         lib.repro_ssd_cuda_error_string.argtypes = [i32]
         lib.repro_ssd_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -126,7 +151,7 @@ def launch_kernel(kernel: str, x, dt, A, B, C, *, chunk: int = 128
                   ) -> torch.Tensor:
     """Run one named kernel of ``KERNELS`` on CUDA tensors, whatever
     ``plan`` would pick (raises where that kernel does not take the call):
-    for holding both kernels against the plain version and against each
+    for holding the kernels against the plain version and against each
     other. The model path goes through ``ssd_scan``, which follows
     ``plan``. No autograd."""
     if kernel not in KERNELS:
@@ -149,8 +174,8 @@ def _launch(x, dt, A, B, C, chunk: int,
     chosen = plan(h, g, p, n, chunk, x.dtype, tc_aligned(x, B, C))
     if kernel is None:
         kernel = chosen
-    elif kernel == "ssd_scan_tc" and chosen != kernel:
-        raise ValueError(f"ssd_scan_tc does not take this call: {x.dtype}, "
+    elif kernel != "ssd_scan" and chosen != kernel:
+        raise ValueError(f"{kernel} does not take this call: {x.dtype}, "
                          f"chunk {chunk}, h {h}, g {g}, p {p}, n {n}, "
                          f"aligned {tc_aligned(x, B, C)}")
     if kernel == "ssd_scan" and (chunk not in CHUNKS or p not in HEAD_DIMS):
@@ -178,7 +203,13 @@ def _launch(x, dt, A, B, C, chunk: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), y.data_ptr())
-        if kernel == "ssd_scan_tc":
+        if kernel == "ssd_scan_tf32":  # G = C B^T of every sub-chunk
+            gram = torch.empty(b * g * -(-s // _TF_ROWS) * _TF_ROWS ** 2,
+                               dtype=torch.float32, device=x.device)
+            err = _lib().repro_ssd_scan_tf32(*ptrs, gram.data_ptr(),
+                                             *strides, b, s, h, g, n, p,
+                                             chunk, stream)
+        elif kernel == "ssd_scan_tc":
             err = _lib().repro_ssd_scan_tc(*ptrs, *strides, b, s, h, g, n, p,
                                            chunk, stream)
         else:

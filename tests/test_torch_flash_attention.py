@@ -183,11 +183,18 @@ PLANS = [
     ((2, 4160, 8256, 16, 2, torch.bfloat16, 128), ("flash_fwd_tc", 64, 1)),
     ((2, 1, 4096, 16, 2, torch.bfloat16, 128), ("flash_decode", 2, 12)),
     ((2, 1, 4192, 16, 2, torch.bfloat16, 128), ("flash_decode", 2, 12)),
-    # the float32 gates: FP32 prefill, the decode kernel in float32
-    ((8, 1024, 1088, 5, 3, torch.float32, 64), ("flash_fwd", 64, 1)),
+    # the float32 gates: the 3xTF32 prefill (smollm's hd 64, gemma2's
+    # 128), the decode kernel in float32
+    ((8, 1024, 1088, 5, 3, torch.float32, 64), ("flash_fwd_tf32", 64, 1)),
+    ((2, 4160, 8256, 16, 2, torch.float32, 128), ("flash_fwd_tf32", 64, 1)),
+    ((1, 256, 256, 1, 4, torch.float32, 128), ("flash_fwd_tf32", 64, 4)),
     ((8, 1, 1088, 5, 3, torch.float32, 64), ("flash_decode", 4, 9)),
-    # other head dims in bf16 go to flash_fwd; a small prefill splits
+    # other head dims in either type go to flash_fwd; a small prefill
+    # splits
     ((2, 40, 40, 2, 3, torch.bfloat16, 16), ("flash_fwd", 64, 1)),
+    ((2, 40, 40, 2, 3, torch.float32, 16), ("flash_fwd", 64, 1)),
+    ((2, 33, 70, 1, 3, torch.float32, 20), ("flash_fwd", 64, 2)),
+    ((1, 64, 64, 1, 2, torch.float32, 256), ("flash_fwd", 64, 1)),
     ((1, 256, 256, 1, 4, torch.bfloat16, 128), ("flash_fwd_tc", 64, 4)),
     # G rows in registers: R the power of two >= rows, at most 8
     ((1, 1, 96, 2, 8, torch.bfloat16, 64), ("flash_decode", 8, 2)),

@@ -10,6 +10,7 @@ Tolerances: value rtol 1e-5; gradient rtol 1e-5 with atol 1e-5 * max|g|
 run only on a GPU: ``test_torch_kernels_cuda.py`` holds them.
 """
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -464,6 +465,29 @@ def test_library_path_is_keyed_by_source_content(tmp_path, monkeypatch):
     src.write_text("// b")
     assert _build.library_path(src) != a
     assert a.name == "libk.so" and a.parent.parent == tmp_path
+
+
+def test_library_path_is_keyed_by_included_headers(tmp_path, monkeypatch):
+    """An edit of a header the source includes by a quoted path rebuilds;
+    the three 3xTF32 sources share kernels/csrc/tf32.cuh."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "k").mkdir()
+    head = tmp_path / "inc" / "h.cuh"
+    head.write_text("// a")
+    src = tmp_path / "k" / "k.cu"
+    src.write_text('#include <stdint.h>\n  #include "../inc/h.cuh"\n')
+    assert _build.source_files(src) == [src.resolve(), head.resolve()]
+    a = _build.library_path(src)
+    head.write_text("// b")
+    assert _build.library_path(src) != a
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    tf32 = Path(_build.__file__).resolve().parent / "csrc" / "tf32.cuh"
+    for source in (fops.kernel_source(), sops.kernel_source(),
+                   ops.mvn_kernel_source()):
+        assert _build.source_files(source) == [source, tf32]
+    assert _build.source_files(ops.kernel_source()) == [ops.kernel_source()]
 
 
 # each per-array function, its autograd Function, and its inputs (1-D, or

@@ -17,8 +17,9 @@ another order). The flash-attention and SSD-scan kernels by
 ``tests/test_kernels.py``'s measure, max|kernel - plain| / max|plain|:
 flash 2e-5 in float32 and 3e-2 in bf16, ssd_scan 2e-4 and 5e-2 (float32
 math in another order; bf16 outputs round, and ssd_scan_tc rounds W, S and
-B o segdt to bf16 for the tensor cores). Reruns must be bit-identical (no
-float atomics).
+B o segdt to bf16 for the tensor cores; flash_fwd_tf32 and ssd_scan_tf32
+hold the float32 tolerances with 3xTF32 products, whose dropped lo*lo term
+is about 2^-22 of each). Reruns must be bit-identical (no float atomics).
 """
 import pytest
 import torch
@@ -343,31 +344,40 @@ def test_cuda_elem_strided_one_kernel_by_profiler(cuda_device, family,
     _assert_one_kernel_a_call(kern, args)
 
 
-def _assert_one_kernel_a_call(kern, args, kernel="row_sum"):
-    """``calls`` calls launch ``calls`` kernels named ``kernel`` and no
-    other kernel. Each window starts with one marker launch
-    (``torch.cuda._sleep``'s spin_kernel) that the count leaves out: the
-    profiler can drop a window's first kernel (seen on the H100)."""
+def _kernel_windows(fn, calls=10, per_call=1):
+    """The names of the CUDA kernels that ``calls`` calls of ``fn`` launch,
+    by torch.profiler, one list a window. Each window starts with one
+    marker launch (``torch.cuda._sleep``'s spin_kernel) that is left out:
+    the profiler can drop a window's first kernel (seen on the H100). A
+    window short of ``per_call * calls`` kernels is taken again, up to
+    three windows; the last is the complete one, if any was."""
     from torch.profiler import ProfilerActivity, profile
-    kern(*args)  # scratch and library in place before the window
+    fn()  # scratch and library in place before the window
     torch.cuda.synchronize()
-    calls, seen = 10, []
+    windows = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             for _ in range(calls):
-                kern(*args)
+                fn()
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type.name == "CUDA" and "spin_kernel" not in e.key
-                 for _ in range(e.count)]
-        assert all(kernel in k for k in names), names
-        seen.append(len(names))
-        if len(names) == calls:
+        windows.append([e.key for e in prof.key_averages()
+                        if e.device_type.name == "CUDA"
+                        and "spin_kernel" not in e.key
+                        for _ in range(e.count)])
+        if len(windows[-1]) == per_call * calls:
             break
-    assert seen[-1] == calls, seen
+    return windows
+
+
+def _assert_one_kernel_a_call(kern, args, kernel="row_sum"):
+    """10 calls launch 10 kernels named ``kernel`` and no other kernel, in
+    every profiler window (``_kernel_windows``)."""
+    windows = _kernel_windows(lambda: kern(*args))
+    assert all(kernel in k for names in windows for k in names), windows
+    assert len(windows[-1]) == 10, [len(w) for w in windows]
 
 
 @pytest.mark.cuda
@@ -1098,7 +1108,7 @@ def test_cuda_ssd_scan_both_kernels_on_bf16(cuda_device, case):
     a rerun."""
     ins = _ssd_inputs(case, torch.bfloat16, cuda_device)
     want = ssd_scan_ref(*ins, chunk=case[-1])
-    for kernel in ssd_ops.KERNELS:
+    for kernel in ("ssd_scan", "ssd_scan_tc"):
         got = ssd_ops.launch_kernel(kernel, *ins, chunk=case[-1])
         assert torch.equal(ssd_ops.launch_kernel(kernel, *ins,
                                                  chunk=case[-1]), got)
@@ -1123,7 +1133,8 @@ def test_cuda_ssd_scan_tc_reads_the_mixers_views(cuda_device, p, g):
     A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda_device))
     ssd_ops.reset_launch_counts()
     got = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=128)
-    assert ssd_ops.LAUNCHES == {"ssd_scan": 0, "ssd_scan_tc": 1}
+    assert ssd_ops.LAUNCHES == {**dict.fromkeys(ssd_ops.KERNELS, 0),
+                                "ssd_scan_tc": 1}
     assert _rel_err(got, ssd_scan_ref(x, dt, A, B, C, chunk=128)) < 5e-2
 
 
@@ -1141,6 +1152,183 @@ def test_cuda_ssd_scan_chunk_invariance_and_backward(cuda_device):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         assert _rel_err(a, b) < 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the float32 tensor-core kernels: flash_fwd_tf32 and ssd_scan_tf32 (3xTF32)
+# ---------------------------------------------------------------------------
+# (B, Sq, Sk, KV, G, hd, window, cap, holes): the float32 prefill at hd 64
+# and 128: test_kernels.py's cases, ragged Sq and Sk, windows, softcaps,
+# holes, splits (few blocks), and smollm's and gemma2's calls
+TF32_FLASH_CASES = [
+    (2, 128, 128, 2, 2, 64, None, None, False),
+    (1, 256, 256, 1, 4, 128, None, 50.0, False),
+    (2, 100, 100, 2, 1, 64, 64, None, True),
+    (1, 64, 64, 4, 1, 128, None, None, False),
+    (1, 333, 517, 2, 3, 64, None, 50.0, True),
+    (2, 190, 1000, 1, 2, 128, 128, 30.0, True),
+    (1, 64, 65, 4, 1, 64, 7, None, True),
+    (2, 97, 97, 1, 2, 128, 17, None, True),
+    (8, 1024, 1088, 5, 3, 64, None, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TF32_FLASH_CASES)
+def test_cuda_flash_fwd_tf32_matches_plain_version(cuda_device, case):
+    """flash_fwd_tf32 against the plain version at 2e-5 of max|plain| (the
+    float32 gate), the first three queries before every key (exactly-zero
+    rows), a bit-identical rerun, and the FP32 flash_fwd on the same call
+    by launch_kernel."""
+    B, Sq, Sk, KV, G, hd, window, cap, holes = case
+    q, k, v, kp, ok = _flash_inputs(cuda_device, B, Sq, Sk, KV, G, hd,
+                                    torch.float32, holes, 10)
+    qp = torch.cat([torch.full((3,), -5, dtype=torch.int32,
+                               device=cuda_device), kp[Sk - Sq + 3:]])
+    kw = dict(q_positions=qp[None].expand(B, Sq),
+              kv_positions=kp[None].expand(B, Sk), kv_mask=ok[None].expand(
+                  B, Sk), causal=True, window=window, cap=cap)
+    assert flash_ops.plan(B, Sq, Sk, KV, G, torch.float32,
+                          hd).kernel == "flash_fwd_tf32"
+    flash_ops.reset_launch_counts()
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    again = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert flash_ops.LAUNCHES == {**dict.fromkeys(flash_ops.KERNELS, 0),
+                                  "flash_fwd_tf32": 2}
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert bool((got[:, :3] == 0).all())
+    want = attention_ref(q, k, v, **kw)
+    assert _rel_err(got, want) < 2e-5
+    old = flash_ops.launch_kernel("flash_fwd", q, k, v, **kw)
+    assert _rel_err(old, want) < 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fwd_tf32_ring_with_holes(cuda_device):
+    """A ring of positions with holes and a query before every key,
+    through flash_fwd_tf32 (70 rows): rel 2e-5, the masked row exactly 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    B, Sq, Sk, KV, G, hd, last = 2, 35, 64, 2, 2, 64, 100
+    q = torch.randn(B, Sq, KV, G, hd, generator=gen, device=cuda_device)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda_device)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda_device)
+    slot = torch.arange(Sk, dtype=torch.int32, device=cuda_device)
+    ok = torch.ones(B, Sk, dtype=torch.bool, device=cuda_device)
+    ok[:, 5:40:4] = False
+    qpos = torch.tensor([last, last - 1, -7] + [last - 2 - i
+                                                for i in range(Sq - 3)],
+                        dtype=torch.int32, device=cuda_device)
+    kw = dict(q_positions=qpos[None].expand(B, Sq),
+              kv_positions=(last - torch.remainder(last - slot, Sk))[None]
+              .expand(B, Sk), kv_mask=ok, causal=True, window=48, cap=None)
+    assert flash_ops.plan(B, Sq, Sk, KV, G, torch.float32,
+                          hd).kernel == "flash_fwd_tf32"
+    got = flash_ops.flash_attention_gqa(q, k, v, **kw)
+    assert _rel_err(got, attention_ref(q, k, v, **kw)) < 2e-5
+    assert bool((got[:, 2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,hd", [(8, 1024, 1088, 5, 3, 64),
+                                            (1, 333, 517, 2, 3, 64),
+                                            (2, 190, 1000, 1, 2, 128)])
+def test_cuda_flash_fwd_tf32_kernels_a_call_by_profiler(cuda_device, B, Sq,
+                                                       Sk, KV, G, hd):
+    """One flash_tiles and one flash_fwd_tf32 a call, and one
+    flash_combine where plan splits the keys, nothing else."""
+    q, k, v, kp, ok = _flash_inputs(cuda_device, B, Sq, Sk, KV, G, hd,
+                                    torch.float32, True, 11)
+    kw = dict(q_positions=kp[Sk - Sq:][None].expand(B, Sq),
+              kv_positions=kp[None].expand(B, Sk),
+              kv_mask=ok[None].expand(B, Sk), causal=True, window=None,
+              cap=None)
+    nsplit = flash_ops.plan(B, Sq, Sk, KV, G, torch.float32, hd).nsplit
+    names = _kernel_windows(
+        lambda: flash_ops.flash_attention_gqa(q, k, v, **kw),
+        per_call=2 + (nsplit > 1))[-1]
+    want = {"flash_tiles": 10, "flash_fwd_tf32": 10,
+            "flash_combine": 10 if nsplit > 1 else 0}
+    assert {n: sum(n in k for k in names) for n in want} == want, names
+    assert len(names) == sum(want.values()), names
+
+
+def _tf32_ssd_cases():
+    return [c for c in SSD_CASES
+            if ssd_ops.plan(c[2], c[4], c[3], c[5], c[6], torch.float32)
+            == "ssd_scan_tf32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _tf32_ssd_cases())
+def test_cuda_ssd_scan_tf32_matches_plain_version(cuda_device, case):
+    """ssd_scan_tf32 on every float32 call of SSD_CASES that plan sends it
+    (mamba2's among them) against the plain version at 2e-4, bit-identical
+    on a rerun; the FP32 kernel on the same call by launch_kernel."""
+    ins = _ssd_inputs(case, torch.float32, cuda_device, seed=13)
+    chunk = case[-1]
+    want = ssd_scan_ref(*ins, chunk=chunk)
+    ssd_ops.reset_launch_counts()
+    got = ssd_ops.ssd_scan(*ins, chunk=chunk)
+    again = ssd_ops.ssd_scan(*ins, chunk=chunk)
+    assert ssd_ops.LAUNCHES == {**dict.fromkeys(ssd_ops.KERNELS, 0),
+                                "ssd_scan_tf32": 2}
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) < 2e-4
+    old = ssd_ops.launch_kernel("ssd_scan", *ins, chunk=chunk)
+    assert _rel_err(old, want) < 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_tf32_chunk_invariance_and_views(cuda_device):
+    """ssd_scan_tf32 walks sub-chunks of 64 whatever the chunk: chunk 32,
+    64 and 128 give the same bits, within 1e-4 of the FP32 kernel at chunk
+    32; the mixer's float32 views go through it as they are; the backward
+    (through the plain version) at 2e-4."""
+    ins = _ssd_inputs((1, 300, 2, 64, 1, 64, 64), torch.float32,
+                      cuda_device, seed=15)
+    ssd_ops.reset_launch_counts()
+    y32, y64, y128 = (ssd_ops.ssd_scan(*ins, chunk=c) for c in ssd_ops.CHUNKS)
+    assert ssd_ops.LAUNCHES == {**dict.fromkeys(ssd_ops.KERNELS, 0),
+                                "ssd_scan_tf32": 3}
+    assert torch.equal(y32, y64) and torch.equal(y64, y128)
+    assert _rel_err(y128, ssd_ops.launch_kernel("ssd_scan", *ins,
+                                                chunk=32)) < 1e-4
+    w = torch.randn_like(y64)
+    grads = []
+    for fn in (ssd_ops.ssd_scan, ssd_scan_ref):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        (fn(*xs, chunk=64) * w).sum().backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        assert _rel_err(a, b) < 2e-4
+    b, s, h, p, g, n = 2, 200, 4, 128, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    conv = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                       device=cuda_device)
+    xs, Bc, Cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    x, B, C = (xs.reshape(b, s, h, p), Bc.reshape(b, s, g, n),
+               Cc.reshape(b, s, g, n))
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen,
+                                                  device=cuda_device))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda_device))
+    ssd_ops.reset_launch_counts()
+    got = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=128)
+    assert ssd_ops.LAUNCHES == {**dict.fromkeys(ssd_ops.KERNELS, 0),
+                                "ssd_scan_tf32": 1}
+    assert _rel_err(got, ssd_scan_ref(x, dt, A, B, C, chunk=128)) < 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_tf32_one_kernel_by_profiler(cuda_device):
+    """One ssd_scan_tf32 kernel and its pre-pass (ssd_scan_tf32_gram, G =
+    C B^T once for a group's heads) a call at mamba2's float32 call."""
+    ins = _ssd_inputs((4, 2048, 64, 64, 1, 128, 128), torch.float32,
+                      cuda_device)
+    names = _kernel_windows(lambda: ssd_ops.ssd_scan(*ins, chunk=128),
+                            calls=4, per_call=2)[-1]
+    assert sum("ssd_scan_tf32_gram<" in k for k in names) == 4, names
+    assert sum("ssd_scan_tf32<" in k for k in names) == 4, names
+    assert len(names) == 8, names
 
 
 # bernoulli_logit_sum as logreg calls it (logits a row a chain, y shared by

@@ -116,7 +116,7 @@ def test_interpret_runs_the_plain_version(monkeypatch):
 @pytest.mark.parametrize("call,want", [
     # (h, g, p, n, chunk, dtype, aligned) -> kernel
     ((64, 1, 64, 128, 128, torch.bfloat16, True), "ssd_scan_tc"),  # mamba2
-    ((64, 1, 64, 128, 128, torch.float32, True), "ssd_scan"),
+    ((64, 1, 64, 128, 128, torch.float32, True), "ssd_scan_tf32"),
     ((64, 1, 64, 128, 32, torch.bfloat16, True), "ssd_scan"),
     ((8, 1, 32, 64, 64, torch.bfloat16, True), "ssd_scan"),
     ((64, 1, 64, 128, 128, torch.bfloat16, False), "ssd_scan"),
@@ -124,8 +124,21 @@ def test_interpret_runs_the_plain_version(monkeypatch):
     ((4, 4, 64, 128, 128, torch.bfloat16, True), "ssd_scan"),
     ((4, 2, 128, 64, 128, torch.bfloat16, True), "ssd_scan_tc"),
     ((4, 1, 64, 32, 128, torch.bfloat16, True), "ssd_scan"),
+    # float32: the 3xTF32 kernel at n and p in (64, 128), any chunk of
+    # CHUNKS (it walks sub-chunks of 64), whatever the heads a group; the
+    # FP32 kernel keeps the other shapes
+    ((8, 2, 128, 64, 64, torch.float32, True), "ssd_scan_tf32"),
+    ((4, 4, 64, 128, 128, torch.float32, True), "ssd_scan_tf32"),
+    ((64, 1, 64, 128, 32, torch.float32, True), "ssd_scan_tf32"),
+    ((64, 1, 64, 128, 256, torch.float32, True), "ssd_scan"),
+    ((8, 1, 32, 64, 64, torch.float32, True), "ssd_scan"),
+    ((4, 2, 64, 16, 64, torch.float32, True), "ssd_scan"),
+    ((64, 1, 64, 128, 128, torch.float32, False), "ssd_scan"),
 ], ids=["mamba2", "float32", "chunk32", "p32", "unaligned", "g2",
-        "one_head_a_group", "p128", "n32"])
+        "one_head_a_group", "p128", "n32", "float32_p128_n64",
+        "float32_one_head_a_group", "float32_chunk32", "float32_chunk256",
+        "float32_p32",
+        "float32_n16", "float32_unaligned"])
 def test_plan_picks_the_kernel(call, want):
     assert ops.plan(*call) == want
     assert want in ops.KERNELS
@@ -152,17 +165,34 @@ def test_tc_aligned_takes_the_mixers_views():
 def test_shared_memory_of_both_kernels_fits_a_block():
     """Every (chunk, n, p) that plan sends to each kernel fits the 227 KB a
     block may use; mamba2's call: 231,424 B for ssd_scan_tc (two stages of
-    C, B and x, S in bf16, cum and dt) and 215,684 B for the FP32 kernel."""
+    C, B and x, S in bf16, cum and dt), 230,400 B for ssd_scan_tf32 (two
+    stages of C, B, x and dt for 64 positions, S's hi and lo, cum and
+    segdt, in float32) and 215,684 B for the FP32 kernel. The flash
+    tensor-core kernels at hd 64 and 128 too: flash_fwd_tf32 takes
+    101,376 B at smollm's hd 64 (two blocks an SM) and 199,680 B at
+    gemma2's 128."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     for chunk in ops.TC_CHUNKS:
         for n in ops.TC_STATE_DIMS:
             for p in ops.TC_HEAD_DIMS:
-                assert ops.smem_bytes(chunk, n, p, "ssd_scan_tc") \
-                    <= ops.MAX_SMEM_BYTES
+                for kernel in ("ssd_scan_tc", "ssd_scan_tf32"):
+                    assert ops.smem_bytes(chunk, n, p, kernel) \
+                        <= ops.MAX_SMEM_BYTES
     assert ops.smem_bytes(128, 128, 64, "ssd_scan_tc") == 231_424
+    assert ops.smem_bytes(128, 128, 64, "ssd_scan_tf32") == 230_400
     assert ops.smem_bytes(128, 128, 64) == 215_684
     for chunk in ops.CHUNKS:
         for p in ops.HEAD_DIMS:
             assert ops.smem_bytes(chunk, 64, p) <= ops.MAX_SMEM_BYTES
+    for kernel in ("flash_fwd_tc", "flash_fwd_tf32"):
+        for hd in (64, 128):
+            assert flash_ops.smem_bytes(kernel, hd) \
+                <= flash_ops.MAX_SMEM_BYTES
+    assert flash_ops.smem_bytes("flash_fwd_tf32", 64) == 101_376
+    assert flash_ops.smem_bytes("flash_fwd_tf32", 128) == 199_680
+    # two blocks of 1 KB reserve each within the SM's 228 KB at hd 64
+    assert 2 * (flash_ops.smem_bytes("flash_fwd_tf32", 64) + 1024) \
+        <= 228 * 1024
 
 
 def _bf16(t):
