@@ -9,6 +9,7 @@ may land on hosts of different speed.
     python3 chip_compare.py --other DIR leapfrog [--models NAME ...]
     python3 chip_compare.py --other DIR paths [--models NAME ...] [--draws N]
     python3 chip_compare.py --other DIR lm
+    python3 chip_compare.py cluster [--models NAME ...]
 
 ``wrappers`` loads the other checkout's ``fused_logpdf/ops.py`` in this
 process under another module name (its kernel source builds into its own
@@ -29,7 +30,11 @@ checkout's
 on the compiled specs of gaussian_10k (uniform NORMAL, 4 x 10,000) and
 family_mix_8k (a mixed table, 4 x 8,192), 4 chains and 4 steps, in the
 same turns, after holding q, p and the gradient to each other at rtol
-1e-5 plus 1e-5 * max|other| and the potential at rtol 1e-5. ``paths`` runs
+1e-5 plus 1e-5 * max|other| and the potential at rtol 1e-5; then both
+``potential_value_and_grad`` at the same 4 chains, held bit for bit equal
+and timed the same way. ``cluster`` (no ``--other``) times this checkout's
+``potential_value_and_grad`` against the thread-block-cluster design of
+``probes/potential_vg_cluster.cu`` at the same specs. ``paths`` runs
 ``chip_smoke.run_model`` for each model in a fresh process per checkout,
 four turns, and reads milliseconds per draw. ``lm`` loads the other
 checkout's ``flash_attention/ops.py`` and ``ssd_scan/ops.py`` the same way
@@ -152,32 +157,74 @@ def wrappers(torch, cs, other: Path, kernels) -> dict:
     return out
 
 
-def timed_turns(torch, cs, fns) -> dict:
+def queued_ms(torch, fn, calls=200, spin_cycles=50_000_000) -> float:
+    """Device time a call with the host out of the way: ``calls`` calls
+    issued while the card runs a spin kernel (``torch.cuda._sleep``, tens
+    of milliseconds, longer than the host takes to issue them), timed by
+    CUDA events from the spin's end to the last call's end. Unlike the
+    profiler's sum of kernel times it counts the card's own gaps between
+    dependent launches. A window in which the spin ended before the host
+    had issued the last call is taken again with a longer spin; None if
+    none was clean."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card still spinning
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / calls
+        spin_cycles *= 4
+    return None
+
+
+def timed_turns(torch, cs, fns, queued=False) -> dict:
     """Issued time (eight turns) and device time (four turns) of each of
-    ``fns`` ("this", "other"), in microseconds."""
-    row = {"issued_us": {"this": [], "other": []},
-           "device_us": {"this": [], "other": []}}
-    for who in TURNS + TURNS:
+    ``fns``, in microseconds: "this" and "other" in TURNS, more in their
+    order and back; with ``queued``, also :func:`queued_ms` (four
+    turns)."""
+    turns = TURNS if len(fns) == 2 else tuple(fns) + tuple(reversed(fns))
+    kinds = ("issued_us", "device_us") + (("queued_us",) if queued else ())
+    row = {kind: {who: [] for who in fns} for kind in kinds}
+    for who in turns + turns:
         row["issued_us"][who].append(cs.time_ms(torch, fns[who]) * 1e3)
-    for who in TURNS:
+    for who in turns:
         ms = cs.device_ms(torch, fns[who])
         row["device_us"][who].append(None if ms is None else ms * 1e3)
+        if queued:
+            ms = queued_ms(torch, fns[who])
+            row["queued_us"][who].append(None if ms is None else ms * 1e3)
     return row
+
+
+def path_spec(torch, cs, path):
+    """The path's model and its compiled separable spec."""
+    from repro_torch.core.potential import compile_potential
+    pm = cs.build_model(path)
+    spec = compile_potential(pm.model, pm.model.typed_varinfo(
+        torch.Generator(device="cuda").manual_seed(0)).link()).spec
+    cs.check(spec is not None, f"{path} compiled no separable spec")
+    return pm, spec
 
 
 def leapfrog(torch, cs, other: Path, models) -> dict:
     """Both checkouts' fused_leapfrog on each path's compiled spec, 4
-    chains, 4 steps, in turns."""
-    from repro_torch.core.potential import compile_potential
+    chains, 4 steps, and both potential_value_and_grad at the same state
+    (bit for bit equal: the same partition and order of the sum), in
+    turns."""
     from repro_torch.kernels.fused_leapfrog import ops as lf_ops
     mods = {"this": lf_ops, "other": load_other_ops(other, "fused_leapfrog")}
     gen = torch.Generator(device="cuda").manual_seed(8)
     out = {}
     for path in models:
-        pm = cs.build_model(path)
-        spec = compile_potential(pm.model, pm.model.typed_varinfo(
-            torch.Generator(device="cuda").manual_seed(0)).link()).spec
-        cs.check(spec is not None, f"{path} compiled no separable spec")
+        pm, spec = path_spec(torch, cs, path)
         rows, dim = 4, spec.dim
         q = torch.randn(rows, dim, generator=gen, device="cuda")
         p = torch.randn(rows, dim, generator=gen, device="cuda")
@@ -193,10 +240,85 @@ def leapfrog(torch, cs, other: Path, models) -> dict:
         torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
         key = f"fused_leapfrog {path} {rows}x{dim}x4"
         row = out[key] = timed_turns(torch, cs, fns)
-        cs.log(f"{key}: issued us other {row['issued_us']['other']}, this "
-               f"{row['issued_us']['this']}; device us other "
-               f"{row['device_us']['other']}, this "
-               f"{row['device_us']['this']}")
+        log_row(cs, key, row)
+        fns = {who: (lambda m=m: m.potential_value_and_grad(spec, q))
+               for who, m in mods.items()}
+        got, want = fns["this"](), fns["other"]()
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"fused_potential_vg {path}: not the other's bits")
+        key = f"fused_potential_vg {path} {rows}x{dim}"
+        row = out[key] = timed_turns(torch, cs, fns, queued=True)
+        log_row(cs, key, row)
+    return out
+
+
+def log_row(cs, key, row) -> None:
+    cs.log(f"{key}: " + "; ".join(
+        f"{kind[:-3]} us " + ", ".join(f"{who} {v}" for who, v in
+                                       row[kind].items())
+        for kind in ("issued_us", "device_us", "queued_us") if kind in row))
+
+
+def cluster(torch, cs, models) -> dict:
+    """This checkout's fused_potential_vg against the thread-block-cluster
+    design of ``probes/potential_vg_cluster.cu`` (8 and 16 blocks a
+    chain) on each path's compiled spec, 4 chains: each held to the plain
+    version at the kernel tests' tolerances (the gradient at rtol 1e-5 plus
+    1e-5 * max|plain|, the potential at 1e-5 * sum|v_i|) and bit-identical
+    on a rerun, then timed in turns."""
+    import ctypes
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    from repro_torch.kernels.fused_leapfrog import ref as lf_ref
+    from repro_torch.kernels.fused_leapfrog.spec import potential_elem_value
+    fn = load_library(ROOT / "probes" / "potential_vg_cluster.cu") \
+        .repro_potential_vg_cluster
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    fn.argtypes = [p, i64] + [p] * 5 + [i32, i32, i64, i32, p, f32, p, p]
+    fn.restype = i32
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for path in models:
+        _, spec = path_spec(torch, cs, path)
+        rows, dim = 4, spec.dim
+        q = torch.randn(rows, dim, generator=gen, device="cuda")
+        table, uop, const = lf_ops._spec_args(spec,
+                                              torch.cuda.current_device())
+
+        def run(blocks, q=q, table=table, uop=uop, const=const):
+            lp = torch.empty(rows, device="cuda")
+            g = torch.empty(rows, dim, device="cuda")
+            err = fn(q.data_ptr(), dim, *table, uop, rows, dim, blocks,
+                     g.data_ptr(), const, lp.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            cs.check(err == 0, f"cluster of {blocks}: CUDA error {err}")
+            return lp, g
+
+        fns = {"this": lambda s=spec, q=q: lf_ops.potential_value_and_grad(
+                   s, q),
+               "cluster8": lambda: run(8), "cluster16": lambda: run(16)}
+        want_lp, want_g = lf_ref.potential_value_and_grad_ref(spec, q)
+        abs_sum = potential_elem_value(
+            *spec.coeff_arrays(q.device), q,
+            uniform_op=spec.uniform_op).abs().sum(-1)
+        errs = {}
+        for who, f in fns.items():
+            (lp, g), again = f(), f()
+            cs.check(torch.equal(lp, again[0]) and torch.equal(g, again[1]),
+                     f"{who} {path}: reruns differ")
+            g_err = (g - want_g).abs()
+            lp_err = (lp - want_lp).abs()
+            cs.check(bool((g_err <= 1e-5 * want_g.abs()
+                           + 1e-5 * float(want_g.abs().max())).all()),
+                     f"{who} {path}: gradient beyond the plain tolerance")
+            cs.check(bool((lp_err <= 1e-5 * abs_sum + 1e-6).all()),
+                     f"{who} {path}: potential beyond 1e-5 * sum|v|")
+            errs[who] = (float(g_err.max()), float(lp_err.max()))
+        key = f"fused_potential_vg {path} {rows}x{dim}"
+        row = out[key] = timed_turns(torch, cs, fns, queued=True)
+        row["max_abs_err_grad_potential"] = errs
+        log_row(cs, key, row)
     return out
 
 
@@ -286,20 +408,23 @@ def paths(cs, other: Path, models, draws: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, type=Path,
-                    help="root of the other checkout")
+    ap.add_argument("--other", type=Path,
+                    help="root of the other checkout (every mode but "
+                         "cluster)")
     ap.add_argument("mode", choices=("wrappers", "leapfrog", "paths", "lm",
-                                     "_path_worker"))
+                                     "cluster", "_path_worker"))
     ap.add_argument("tree", nargs="?", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--kernels", nargs="+", default=list(ONE_LAUNCH),
                     help="fused_logpdf kernels (chip_smoke.MAIN_SHAPES's "
                          "names)")
     ap.add_argument("--models", nargs="+", default=None,
                     help="paths: chip_smoke models (default PATHS); "
-                         "leapfrog: the separable ones (default "
+                         "leapfrog, cluster: the separable ones (default "
                          "LEAPFROG_PATHS)")
     ap.add_argument("--draws", type=int, default=200)
     args = ap.parse_args()
+    if args.other is None and args.mode != "cluster":
+        ap.error(f"{args.mode} needs --other")
     if args.mode == "_path_worker":
         path_worker(args.tree, args.models, args.draws)
         return 0
@@ -318,6 +443,8 @@ def main() -> int:
                           args.models or list(LEAPFROG_PATHS))
     elif args.mode == "lm":
         result = lm(torch, cs, args.other)
+    elif args.mode == "cluster":
+        result = cluster(torch, cs, args.models or list(LEAPFROG_PATHS))
     else:
         result = paths(cs, args.other, args.models or list(PATHS),
                        args.draws)

@@ -62,9 +62,12 @@ Phases, in order:
    (family_mix_8k's layout), with and without an inverse mass, 1/4/16
    chains with distinct step sizes, dim 1 to 1,000,003 and 0/1/4/8 steps
    (q, p and gradient at rtol 1e-5 plus atol 1e-5 * max|plain|, the
-   potential at 1e-5 * sum_i |v_i|; the leapfrog one launch a call with
-   its counts back at 0, 0 steps returning the state, offset views giving
-   the same bits); flash_attention's four kernels by max|kernel -
+   potential at 1e-5 * sum_i |v_i|; both one launch a call with the
+   counts back at 0, the leapfrog's 0 steps returning the state, offset
+   views giving the same bits; the potential's merge path at 4 x 10,000,
+   4 x 8,192 and 1 x 1,000,003, q dense and at row stride 0: 1,000
+   back-to-back calls bit-identical, calls alternating with the
+   leapfrog's and between two streams giving the same bits); flash_attention's four kernels by max|kernel -
    plain| / max|plain| (2e-5 in float32, 3e-2 in bf16: tests/
    test_kernels.py's) over that file's cases in both types, each kernel
    at its edges (``FLASH_KERNEL_CASES``: decode at G 1 to 8, odd Sk and
@@ -904,8 +907,9 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
     rtol 1e-5 + atol 1e-5 * max|plain| (nvcc contracts the updates into
     FMAs and torch does not; the difference compounds over the steps), the
     potential at 1e-5 * sum_i |v_i| (a float32 sum in another order), and
-    bit-identical reruns; fused_leapfrog one launch a call with its counts
-    read back at 0, its 0-step call returning the state bit for bit, and
+    bit-identical reruns; each kernel one launch a call with the counts
+    read back at 0, the leapfrog's 0-step call returning the state bit for
+    bit, and
     the state as views one float past a 16-byte boundary giving the bits of
     dense rows. Returns the worst abs error at the main path's shape for
     each kernel."""
@@ -946,12 +950,18 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
                 eps = 0.01 + 0.04 * torch.rand(rows, generator=gen, device=dev)
                 im = 0.5 + torch.rand(dim, generator=gen, device=dev)
                 tag = f"op {uop} run {run} {rows}x{dim}"
+                before = lf_ops.LAUNCHES["fused_potential_vg"]
                 lp, g = lf_ops.potential_value_and_grad(spec, q)
+                check(lf_ops.LAUNCHES["fused_potential_vg"] == before + 1,
+                      f"fused_potential_vg {tag}: not one launch a call")
                 lp2, g2 = lf_ops.potential_value_and_grad(spec, q)
                 want_lp, want_g = lf_ref.potential_value_and_grad_ref(spec, q)
                 torch.cuda.synchronize()
                 check(torch.equal(lp, lp2) and torch.equal(g, g2),
                       f"fused_potential_vg {tag}: two runs differ")
+                check(lf_ops.leapfrog_parts(dim) == 1
+                      or counts_at_zero(torch, main),
+                      f"fused_potential_vg {tag}: counts not back at 0")
                 errs = [close(f"fused_potential_vg {tag} grad", g, want_g),
                         close_potential(f"fused_potential_vg {tag}", spec, q,
                                         lp, want_lp)]
@@ -999,10 +1009,85 @@ def check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod):
     log(f"fused_leapfrog kernels vs plain: {n_cases} cases "
         f"({len(LF_TABLES)} opcode tables x {len(LF_DIMS)} dims x "
         f"{len(LF_CHAINS)} chain counts; with and without inverse mass; "
-        f"{LF_STEPS} steps), bit-identical reruns, one fused_leapfrog launch "
-        "a call with its counts back at 0, offset views equal: ok; "
+        f"{LF_STEPS} steps), bit-identical reruns, one fused_leapfrog and "
+        "one fused_potential_vg launch a call with the counts back at 0, "
+        "offset views equal: ok; "
         f"worst abs err at 4x10,000: {worst}")
     return worst
+
+
+# fused_potential_vg's merge path: (table, chains, dim) where a chain takes
+# several blocks; "runs" is family_mix_8k's layout (one opcode for each 512
+# coordinates)
+POTENTIAL_MERGE = (("normal", 4, 10000), ("runs", 4, 8192),
+                   ("normal", 1, 1_000_003), ("runs", 1, 1_000_003))
+POTENTIAL_TABLES = {"normal": (1, 1), "runs": (None, 512)}
+
+
+def check_potential_merge(torch, lf_ops, lf_ref):
+    """fused_potential_vg where a chain takes several blocks (the last
+    block of a chain merges), at gaussian_10k's and family_mix_8k's 4
+    chains and at 1 x 1,000,003, from dense rows and from q shared by the
+    chains at row stride 0: ONE_LAUNCH_RERUNS back-to-back calls
+    bit-identical with the counts read back at 0; calls alternating with
+    fused_leapfrog's on one stream (sharing its scratch) and calls
+    alternating between two streams give the same bits, every count back
+    at 0. The plain-version gates are check_leapfrog_kernels'."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    main = torch.cuda.current_stream()
+    n_cases = 0
+    for table, rows, dim in POTENTIAL_MERGE:
+        uop, run = POTENTIAL_TABLES[table]
+        spec = lf_ref.random_spec(dim, uop, seed=dim, run=run)
+        q = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
+        p = torch.randn(rows, dim, generator=gen, device=dev)
+        for layout, u in (("dense", q), ("row stride 0",
+                                         q[:1].expand(rows, dim))):
+            tag = f"fused_potential_vg {table} {rows}x{dim} {layout}"
+            check(lf_ops.leapfrog_parts(dim) > 1, f"{tag}: one block")
+
+            def call(u=u, spec=spec):
+                return lf_ops.potential_value_and_grad(spec, u)
+
+            first = call()
+            runs = [call() for _ in range(ONE_LAUNCH_RERUNS)]
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, a[0], first[0])
+                      and same_bits(torch, a[1], first[1]) for a in runs),
+                  f"{tag}: {ONE_LAUNCH_RERUNS} reruns not bit-identical")
+            check(counts_at_zero(torch, main), f"{tag}: counts not back at 0")
+            del runs
+            mixed = []
+            for _ in range(10):
+                lf_ops.fused_leapfrog(spec, u, p, first[1], 0.01, 4)
+                mixed.append(call())
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, a[0], first[0])
+                      and same_bits(torch, a[1], first[1]) for a in mixed),
+                  f"{tag}: calls alternating with fused_leapfrog differ")
+            check(counts_at_zero(torch, main), f"{tag}: counts not back at 0 "
+                  "after the leapfrog's")
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            for s in streams:
+                s.wait_stream(main)
+            alt = []
+            for i in range(20):
+                with torch.cuda.stream(streams[i % 2]):
+                    alt.append(call())
+            for s in streams:
+                main.wait_stream(s)
+            check(all(counts_at_zero(torch, s) for s in streams),
+                  f"{tag}: counts of the two streams not back at 0")
+            check(all(same_bits(torch, a[0], first[0])
+                      and same_bits(torch, a[1], first[1]) for a in alt),
+                  f"{tag}: calls on two streams differ")
+            n_cases += 1
+    log(f"fused_potential_vg merge path: {n_cases} cases "
+        f"({POTENTIAL_MERGE}, dense and row stride 0), "
+        f"{ONE_LAUNCH_RERUNS} back-to-back calls bit-identical, counts read "
+        "back at 0, alternating with fused_leapfrog and between two "
+        "streams the same bits: ok")
 
 
 # ---------------------------------------------------------------------------
@@ -1065,7 +1150,7 @@ START = {"hier_poisson": ("origin", 1.0), "sto_volatility": ("origin", 1.0),
 DRAWS = {"logreg": 300, "naive_bayes": 300, "gaussian_10k": 2000,
          "hier_poisson": 500, "hmm_semisup": 100, "lda": 500,
          "gauss_unknown": 1000, "gauss_unknown_switch": 1000,
-         "sto_volatility": 1000, "family_mix_8k": 1000, "mixed": 1000}
+         "sto_volatility": 500, "family_mix_8k": 1000, "mixed": 500}
 
 
 def run_model(torch, name, num_samples, seed=0, leapfrog="auto",
@@ -1406,18 +1491,21 @@ def device_us(event) -> float:
 
 
 # launches per call of every hand-written kernel: the kernel and its
-# per-row finish (categorical_logits_sum_small, fused_potential_vg),
-# except mvn_quadform_sum, the one-launch reductions (std_normal_sum,
-# gamma_unnorm_sum, beta_unnorm_sum, student_t_unnorm_sum, normal_sum,
-# bernoulli_logit_sum), the large-C categorical_logits_sum and
-# fused_leapfrog, whose last block of a row (a chain) sums the row's
+# per-row finish (categorical_logits_sum_small), except mvn_quadform_sum,
+# the one-launch reductions (std_normal_sum, gamma_unnorm_sum,
+# beta_unnorm_sum, student_t_unnorm_sum, normal_sum, bernoulli_logit_sum),
+# the large-C categorical_logits_sum, fused_leapfrog and
+# fused_potential_vg, whose last block of a row (a chain) sums the row's
 # partials inside the one launch (a row of one block writes its sum itself)
 KERNEL_LAUNCHES_PER_CALL = 2
 LAUNCHES_PER_CALL = {"mvn_quadform_sum": 1, "std_normal_sum": 1,
                      "gamma_unnorm_sum": 1, "beta_unnorm_sum": 1,
                      "student_t_unnorm_sum": 1, "normal_sum": 1,
                      "bernoulli_logit_sum": 1, "categorical_logits_sum": 1,
-                     "fused_leapfrog": 1}
+                     "fused_leapfrog": 1, "fused_potential_vg": 1}
+
+
+WINDOW_PAD_S = 0.02  # host seconds between a profiler window's edges and its calls
 
 
 def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
@@ -1427,9 +1515,14 @@ def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
     given). The profiler now and then records a window without some of
     its device activity (most often the window's first kernel, so each
     window starts with a marker launch, ``torch.cuda._sleep``'s
-    spin_kernel, left out of the sums): a window that shows none, or
-    (given ``launches_per_call``) another number of kernels than ``iters``
-    times that, is taken again. None when no attempt's trace is whole."""
+    spin_kernel, left out of the sums), and the calls start WINDOW_PAD_S
+    after the window opens and end WINDOW_PAD_S before it closes (the
+    profiler keeps only device activity whose time, carried onto the
+    host's clock, falls inside the window, and that time can land
+    hundreds of microseconds early: probes/profiler_windows.py): a window
+    that shows none, or (given ``launches_per_call``) another number of
+    kernels than ``iters`` times that, is taken again. None when no
+    attempt's trace is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1438,9 +1531,11 @@ def device_ms(torch, fn, iters=50, attempts=3, launches_per_call=None,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
         events = [e for e in prof.key_averages()
                   if e.device_type.name == "CUDA" and device_us(e) > 0
                   and "spin_kernel" not in e.key
@@ -1677,8 +1772,8 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, specs, n_steps=4, rows=4):
     """Both fused_leapfrog kernels at the main paths' shapes (``specs``
     maps a path to its compiled spec: gaussian_10k's uniform NORMAL table
     and family_mix_8k's mixed one; 4 chains, 4 steps) beside their plain
-    versions, timed as in :func:`time_kernels`; fused_potential_vg at
-    gaussian_10k's. No library call computes either function."""
+    versions, timed as in :func:`time_kernels`, and fused_potential_vg at
+    the same states. No library call computes either function."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(8)
     cases = []
@@ -1699,13 +1794,12 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, specs, n_steps=4, rows=4):
             # q, p, g and eps in; q, p, g and the potential out
             6 * state + table_bytes + 8 * rows,
             leapfrog_ops(spec, rows, n_steps)))
-        if path == "gaussian_10k":
-            cases.append((
-                "fused_potential_vg", path, [rows, dim],
-                lambda s=spec, q=q: lf_ops.potential_value_and_grad(s, q),
-                lambda s=spec, q=q: lf_ref.potential_value_and_grad_ref(s, q),
-                2 * state + table_bytes + 4 * rows,
-                leapfrog_ops(spec, rows, None)))
+        cases.append((
+            "fused_potential_vg", path, [rows, dim],
+            lambda s=spec, q=q: lf_ops.potential_value_and_grad(s, q),
+            lambda s=spec, q=q: lf_ref.potential_value_and_grad_ref(s, q),
+            2 * state + table_bytes + 4 * rows,
+            leapfrog_ops(spec, rows, None)))
     out = []
     for name, path, shape, kern, plain, nbytes, nops in cases:
         row = {"name": name, "shape": shape, "call": path,
@@ -1771,11 +1865,13 @@ def _profile_transitions(torch, pm, kernel, spec, steps, switch,
         state, _ = kern.step(state, gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)  # as device_ms pads its windows
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = kern.step(state, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(WINDOW_PAD_S)
     events = prof.key_averages()
     kernels = [(e.key, device_us(e), e.count) for e in events
                if device_us(e) > 0 and e.device_type.name == "CUDA"]
@@ -2623,7 +2719,8 @@ PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
                  "categorical_logits_sum_small", "categorical_logits_sum",
                  "bernoulli_logit_sum", "ssd_scan",
                  "std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
-                 "student_t_unnorm_sum", "normal_sum", "fused_leapfrog")
+                 "student_t_unnorm_sum", "normal_sum", "fused_leapfrog",
+                 "fused_potential_vg")
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),
@@ -2759,11 +2856,13 @@ def profile_window(torch, label, fn, steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_PAD_S)  # as device_ms pads its windows
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(WINDOW_PAD_S)
     events = prof.key_averages()
     kernels = sorted(((e.key, device_us(e), e.count) for e in events
                       if device_us(e) > 0 and e.device_type.name == "CUDA"),
@@ -2943,6 +3042,7 @@ def main() -> int:
     check_one_launch(torch, ops, ref)
     worst.update(check_density_kernels(torch, ops, ref))
     worst.update(check_leapfrog_kernels(torch, lf_ops, lf_ref, spec_mod))
+    check_potential_merge(torch, lf_ops, lf_ref)
     worst.update(check_flash_kernel(torch, fops, fref))
     worst.update(check_ssd_kernel(torch, sops, sref))
     worst["categorical_logits_sum"] = max(worst["categorical_logits_sum"],

@@ -1,6 +1,8 @@
 """Scratch of the kernels whose last block merges a row's partials
-(``fused_logpdf.cu``'s ``row_sum``, ``fused_leapfrog.cu``'s
-``leapfrog_kernel``): float32 partials and int32 last-block counts, kept
+(``fused_logpdf.cu``'s ``row_sum``, behind the six one-launch
+reductions, and ``categorical_sum``; ``fused_leapfrog.cu``'s
+``leapfrog_kernel``, behind ``fused_leapfrog`` and
+``fused_potential_vg``): float32 partials and int32 last-block counts, kept
 once per (device, stream). Calls on one stream run one at a time and each
 leaves the counts at zero, so the kernels share them. Nothing here runs at
 import time."""

@@ -45,37 +45,47 @@
 // `where` instead; family_mix_8k's opcodes change only every 512 or more
 // coordinates, so a warp's switch does not diverge).
 //
-// fused_leapfrog is ONE launch a call. A block holds kLfThreads
-// coordinates of one chain (grid (ceil(dim / kLfThreads), C)); a chain of
-// at most kLfThreads coordinates is one block that writes out[c] itself. A
-// longer chain's blocks each write a partial sum of the potential and take
-// a ticket from an int count of the chain (one atom.acq_rel); the block
-// that draws the last ticket sums the chain's partials in index order,
-// adds const, writes out[c] and resets the count to 0 (fused_logpdf.cu's
-// row_sum, mvn_quad.cu's). No float atomics, and a thread's coordinate and
-// the order of every sum are functions of dim alone, so reruns are
-// bit-identical. The wrapper keeps the partials and counts once per
-// (device, stream), so a call allocates only its outputs. At the main
-// paths' shapes the time is latency: loads, n dependent steps, the block
-// sum and the merge (chip_compare.py leapfrog, device time on an H100
-// 80GB HBM3 at 700 W, against the two launches before: 3.15 us against
-// 3.0 at gaussian_10k's 4 x 10,000 and 3.68 against 3.93 at
-// family_mix_8k's 4 x 8,192; the host issues a call in 0.6-0.8 of the
-// time). Four consecutive coordinates a thread with 16-byte loads in
-// blocks of 1,024 took 3.7 and 7.0 us (family_mix_8k's four switched
-// coordinates a thread run one after another); blocks of 128 and 512 of
-// one coordinate a thread took 3.19 and 2.91 us at the first shape, 3.58
-// and 3.80 at the second, within 0.25 us of 256 each way.
-// fused_potential_vg (one thread a coordinate, then finish_rows) runs
-// once a chain run, at its start, and keeps its two launches. Built
-// without --use_fast_math: expf and log1pf are the accurate versions.
+// Both are ONE launch a call, of one kernel: fused_potential_vg is a mode
+// of leapfrog_kernel (kPotential) that evaluates g at q and neither reads
+// nor writes p. A block holds kLfThreads coordinates of one chain (grid
+// (ceil(dim / kLfThreads), C)); a chain of at most kLfThreads coordinates
+// is one block that writes out[c] itself. A longer chain's blocks each
+// write a partial sum of the potential and take a ticket from an int
+// count of the chain (one atom.acq_rel); the block that draws the last
+// ticket sums the chain's partials in index order, adds const, writes
+// out[c] and resets the count to 0 (fused_logpdf.cu's row_sum,
+// mvn_quad.cu's). No float atomics, and a thread's coordinate and the
+// order of every sum are functions of dim alone, so reruns are
+// bit-identical; the potential keeps the partition and order of its
+// former kernel and per-chain finish (two launches), so it gives their
+// bits. The wrapper keeps the partials and counts once per (device,
+// stream), so a call allocates only its outputs. At the main paths'
+// shapes the time is latency: loads, the n dependent steps, the block sum
+// and the merge. Device time on an H100 80GB HBM3 at 700 W
+// (chip_compare.py leapfrog, against the parent's in one process): the
+// leapfrog 3.0 us at gaussian_10k's 4 x 10,000 x 4 steps, 3.6 at
+// family_mix_8k's 4 x 8,192; the potential 2.74-2.76 and 3.02 us by the
+// profiler's kernel time (2.77 and 3.14 for the two launches), 3.77 and
+// 3.93 us a call issued behind a spin (4.72-4.85 and 5.09: the gap
+// between the two launches); the host issues a call in 0.57-0.64 of the
+// parent's time.
+// Ablations, at those shapes: the leapfrog with four consecutive
+// coordinates a thread and 16-byte loads in blocks of 1,024, 3.7 and 7.0
+// us (family_mix_8k's four switched coordinates a thread run one after
+// another); blocks of 128 and 512 of one coordinate a thread within 0.25
+// us of 256 each way. The potential as one thread-block cluster of 8 or
+// 16 blocks a chain merging in distributed shared memory
+// (probes/potential_vg_cluster.cu, chip_compare.py cluster): 2.28 and
+// 2.33 us at the first shape, 3.60-3.63 and 3.16 at the second (mixed
+// opcodes, several switched coordinates a thread); it would leave a chain
+// of 10^6 coordinates to 16 blocks, and is not used. Built without
+// --use_fast_math: expf and log1pf are the accurate versions.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // fused_potential_vg and finish_rows
-// fused_leapfrog: coordinates of one chain a block holds, one a thread
+// Coordinates of one chain a block holds, one a thread, in every mode
 // (ops.LEAPFROG_SHARE mirrors it)
 constexpr int kLfThreads = 256;
 constexpr int kAnyOp = -1;
@@ -199,18 +209,22 @@ struct LeapfrogArgs {
   Table table;
   long long dim;
   int n_steps;
-  float* state_out;  // (3, C, dim), dense: q, p, g
+  float* state_out;  // (3, C, dim), dense: q, p, g; the potential's g (C, dim)
   float* partials;   // (C, gridDim.x) when a chain takes several blocks
   int* counts;       // (C,), zero between calls
   float const_term;
   float* out;        // (C,)
 };
 
-// Grid (nparts, C). Block (b, c) runs the n steps for coordinates
-// [b kLfThreads, (b + 1) kLfThreads) of chain c, one a thread; the
-// potential at the final q is summed in a fixed order, and the chain's sum
-// is written by its only block or by the block that draws its last ticket.
-template <int OP, bool WITH_MASS>
+// What a launch computes: the n steps with a unit or a diagonal inverse
+// mass, or fused_potential_vg's g at q (which neither reads p nor writes it).
+constexpr int kUnitMass = 0, kMass = 1, kPotential = 2;
+
+// Grid (nparts, C). Block (b, c) takes coordinates [b kLfThreads,
+// (b + 1) kLfThreads) of chain c, one a thread; the potential at the final
+// q is summed in a fixed order, and the chain's sum is written by its only
+// block or by the block that draws its last ticket.
+template <int OP, int MODE>
 __global__ void __launch_bounds__(kLfThreads) leapfrog_kernel(LeapfrogArgs a) {
   __shared__ bool merge_last;
   const int c = blockIdx.y;
@@ -220,25 +234,29 @@ __global__ void __launch_bounds__(kLfThreads) leapfrog_kernel(LeapfrogArgs a) {
   float v = 0.0f;
   if (i < dim) {
     const Coeffs k = load_coeffs<OP>(a.table, i);
-    const float eps = a.eps != nullptr ? a.eps[c * a.eps_stride] : a.eps_value;
-    const float half_eps = 0.5f * eps;
-    const float im = WITH_MASS ? a.inv_mass[i] : 1.0f;
     float q = a.q[c * a.q_rs + i];
-    float p = a.p[c * a.p_rs + i];
-    float g = a.g[c * a.g_rs + i];
-    for (int s = 0; s < a.n_steps; ++s) {
-      const float p_half = p + half_eps * g;
-      const float vel = WITH_MASS ? im * p_half : p_half;
-      q = q + eps * vel;
-      g = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
-      p = p_half + half_eps * g;
+    if (MODE == kPotential) {
+      a.state_out[c * dim + i] = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+    } else {
+      const float eps = a.eps != nullptr ? a.eps[c * a.eps_stride] : a.eps_value;
+      const float half_eps = 0.5f * eps;
+      const float im = MODE == kMass ? a.inv_mass[i] : 1.0f;
+      float p = a.p[c * a.p_rs + i];
+      float g = a.g[c * a.g_rs + i];
+      for (int s = 0; s < a.n_steps; ++s) {
+        const float p_half = p + half_eps * g;
+        const float vel = MODE == kMass ? im * p_half : p_half;
+        q = q + eps * vel;
+        g = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
+        p = p_half + half_eps * g;
+      }
+      const long long plane = static_cast<long long>(gridDim.y) * dim;
+      float* qo = a.state_out + c * dim + i;
+      qo[0] = q;
+      qo[plane] = p;
+      qo[2 * plane] = g;
     }
     v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
-    const long long plane = static_cast<long long>(gridDim.y) * dim;
-    float* qo = a.state_out + c * dim + i;
-    qo[0] = q;
-    qo[plane] = p;
-    qo[2 * plane] = g;
   }
   v = block_sum<kLfThreads>(v);
   if (parts == 1) {
@@ -263,85 +281,42 @@ __global__ void __launch_bounds__(kLfThreads) leapfrog_kernel(LeapfrogArgs a) {
   }
 }
 
-struct PotentialArgs {
-  const float* q;
-  long long q_rs;
-  Table table;
-  long long dim;
-  float* g_out;  // (C, dim), dense
-  float* partials;
-};
-
-template <int OP>
-__global__ void __launch_bounds__(kThreads) potential_vg_kernel(PotentialArgs a) {
-  const long long c = blockIdx.y;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  float v = 0.0f;
-  if (i < a.dim) {
-    const Coeffs k = load_coeffs<OP>(a.table, i);
-    const float q = a.q[c * a.q_rs + i];
-    a.g_out[c * a.dim + i] = elem_grad<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
-    v = elem_value<OP>(k.op, q, k.c0, k.c1, k.c2, k.c3);
-  }
-  v = block_sum<kThreads>(v);
-  if (threadIdx.x == 0) a.partials[c * gridDim.x + blockIdx.x] = v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-finish_rows(const float* __restrict__ partials, int nparts, float addend,
-            float* __restrict__ out) {
-  const float* row = partials + static_cast<long long>(blockIdx.x) * nparts;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < nparts; i += kThreads) acc += row[i];
-  acc = block_sum<kThreads>(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc + addend;
-}
-
-template <bool WITH_MASS>
-void launch_leapfrog(int uniform_op, dim3 grid, cudaStream_t s, const LeapfrogArgs& a) {
+template <int MODE>
+void launch(int uniform_op, int nparts, int rows, cudaStream_t s, const LeapfrogArgs& a) {
+  const dim3 grid(nparts, rows);
   switch (uniform_op) {
-    case kZero: leapfrog_kernel<kZero, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
-    case kNormal: leapfrog_kernel<kNormal, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
-    case kExp: leapfrog_kernel<kExp, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
-    case kSoftplus: leapfrog_kernel<kSoftplus, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
-    case kTlog: leapfrog_kernel<kTlog, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
-    default: leapfrog_kernel<kAnyOp, WITH_MASS><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kZero: leapfrog_kernel<kZero, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kNormal: leapfrog_kernel<kNormal, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kExp: leapfrog_kernel<kExp, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kSoftplus: leapfrog_kernel<kSoftplus, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
+    case kTlog: leapfrog_kernel<kTlog, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
+    default: leapfrog_kernel<kAnyOp, MODE><<<grid, kLfThreads, 0, s>>>(a); break;
   }
 }
 
-void launch_potential_vg(int uniform_op, dim3 grid, cudaStream_t s, const PotentialArgs& a) {
-  switch (uniform_op) {
-    case kZero: potential_vg_kernel<kZero><<<grid, kThreads, 0, s>>>(a); break;
-    case kNormal: potential_vg_kernel<kNormal><<<grid, kThreads, 0, s>>>(a); break;
-    case kExp: potential_vg_kernel<kExp><<<grid, kThreads, 0, s>>>(a); break;
-    case kSoftplus: potential_vg_kernel<kSoftplus><<<grid, kThreads, 0, s>>>(a); break;
-    case kTlog: potential_vg_kernel<kTlog><<<grid, kThreads, 0, s>>>(a); break;
-    default: potential_vg_kernel<kAnyOp><<<grid, kThreads, 0, s>>>(a); break;
-  }
-}
-
-// fused_potential_vg's grid x extent: one thread per coordinate.
-long long parts_for(long long dim) { return (dim + kThreads - 1) / kThreads; }
-
-bool bad_shape(int rows, long long dim, int nparts, int uniform_op) {
-  return rows <= 0 || rows > 65535 || dim <= 0 || nparts != parts_for(dim) ||
-         uniform_op < kAnyOp || uniform_op > kTlog;
+// A plan the kernel refuses: nparts must be ceil(dim / kLfThreads), and a
+// chain of several blocks needs scratch to merge in.
+bool bad_plan(int rows, long long dim, int nparts, int uniform_op,
+              const float* partials, const int* counts) {
+  return rows <= 0 || rows > 65535 || dim <= 0 ||
+         nparts != (dim + kLfThreads - 1) / kLfThreads || uniform_op < kAnyOp ||
+         uniform_op > kTlog || (nparts > 1 && (partials == nullptr || counts == nullptr));
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Each returns a cudaError_t (0 = success);
-// launches go on the caller's stream and do not synchronise.
+// launches go on the caller's stream and do not synchronise. Each is one
+// launch: the caller allocates the outputs, `out` rows floats. nparts must
+// be ceil(dim / 256) (ops.leapfrog_parts); with one part `partials` and
+// `counts` may be null, else `partials` holds rows * nparts floats and
+// `counts` rows ints that are zero (the kernel leaves them zero).
 // `uniform_op` is the table's one opcode, or -1 when it holds several;
 // `const_term` is the spec's const in float32.
 //
-// fused_leapfrog: one launch. The caller allocates `state_out` (3 * rows *
-// dim floats: q, p, g, each dense) and `out` (rows floats). nparts must be
-// ceil(dim / 256) (ops.leapfrog_parts); with one part `partials` and
-// `counts` may be null, else `partials` holds rows * nparts floats and
-// `counts` rows ints that are zero (the kernel leaves them zero). `eps`
-// is chain c's step at eps[c * eps_stride], or null for `eps_value` in
-// every chain.
+// fused_leapfrog: `state_out` holds 3 * rows * dim floats (q, p, g, each
+// dense). `eps` is chain c's step at eps[c * eps_stride], or null for
+// `eps_value` in every chain.
 extern "C" int repro_fused_leapfrog(const float* q, long long q_rs, const float* p,
                                     long long p_rs, const float* g, long long g_rs,
                                     const float* eps, long long eps_stride,
@@ -351,41 +326,36 @@ extern "C" int repro_fused_leapfrog(const float* q, long long q_rs, const float*
                                     long long dim, int n_steps, int nparts,
                                     float* state_out, float* partials, int* counts,
                                     float const_term, float* out, void* stream) {
-  const long long want = (dim + kLfThreads - 1) / kLfThreads;
-  if (rows <= 0 || rows > 65535 || dim <= 0 || n_steps < 0 || nparts != want ||
-      uniform_op < kAnyOp || uniform_op > kTlog ||
-      (nparts > 1 && (partials == nullptr || counts == nullptr))) {
+  if (n_steps < 0 || bad_plan(rows, dim, nparts, uniform_op, partials, counts)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   LeapfrogArgs a{q, q_rs, p, p_rs, g, g_rs, eps, eps_stride, eps_value,
                  inv_mass, Table{op, c0, c1, c2, c3}, dim, n_steps, state_out,
                  partials, counts, const_term, out};
-  const dim3 grid(nparts, rows);
   if (inv_mass != nullptr) {
-    launch_leapfrog<true>(uniform_op, grid, s, a);
+    launch<kMass>(uniform_op, nparts, rows, s, a);
   } else {
-    launch_leapfrog<false>(uniform_op, grid, s, a);
+    launch<kUnitMass>(uniform_op, nparts, rows, s, a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// fused_potential_vg: `g_out` holds rows * dim floats (dense).
 extern "C" int repro_fused_potential_vg(const float* q, long long q_rs, const int* op,
                                         const float* c0, const float* c1,
                                         const float* c2, const float* c3,
                                         int uniform_op, int rows, long long dim,
-                                        float* g_out, float* partials, int nparts,
-                                        float const_term, float* out,
+                                        int nparts, float* g_out, float* partials,
+                                        int* counts, float const_term, float* out,
                                         void* stream) {
-  if (bad_shape(rows, dim, nparts, uniform_op)) {
+  if (bad_plan(rows, dim, nparts, uniform_op, partials, counts)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PotentialArgs a{q, q_rs, Table{op, c0, c1, c2, c3}, dim, g_out, partials};
-  launch_potential_vg(uniform_op, dim3(nparts, rows), s, a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_rows<<<rows, kThreads, 0, s>>>(partials, nparts, const_term, out);
+  LeapfrogArgs a{q, q_rs, nullptr, 0, nullptr, 0, nullptr, 0, 0.0f, nullptr,
+                 Table{op, c0, c1, c2, c3}, dim, 0, g_out, partials, counts,
+                 const_term, out};
+  launch<kPotential>(uniform_op, nparts, rows, static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }
 

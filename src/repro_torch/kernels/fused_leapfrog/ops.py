@@ -16,11 +16,12 @@ the chain axis, so there is no ``vmap`` rule; and no
 ``torch.autograd.Function``, since MCMC transitions are never
 differentiated through.
 
-``fused_leapfrog`` is one launch a call. ``leapfrog_parts`` (pure Python)
-gives its blocks a chain from ``dim`` alone; the last-block partials and
-counts are ``kernels._scratch``'s, kept once per (device, stream), and a
-call allocates only its outputs: the final q, p and gradient as views of
-one ``(3, chains, dim)`` tensor, and the potential.
+Each is one launch a call, of one kernel. ``leapfrog_parts`` (pure
+Python) gives its blocks a chain from ``dim`` alone; the last-block
+partials and counts are ``kernels._scratch``'s, kept once per (device,
+stream), and a call allocates only its outputs: the final q, p and
+gradient as views of one ``(3, chains, dim)`` tensor (the gradient alone
+for the potential), and the potential.
 """
 from __future__ import annotations
 
@@ -46,10 +47,9 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "fused_leapfrog",
 # reached the card; the CPU path does not count)
 LAUNCHES = {"fused_leapfrog": 0, "fused_potential_vg": 0}
 
-_THREADS = 256  # fused_potential_vg: one thread a coordinate
 _ANY_OP = -1
-# fused_leapfrog (fused_leapfrog.cu kLfThreads): coordinates of one chain
-# a block holds, one a thread
+# fused_leapfrog.cu kLfThreads: coordinates of one chain a block holds, one
+# a thread, for both entry points
 LEAPFROG_SHARE = 256
 _SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
 # spec -> {device index: (table addresses, uniform opcode or -1, const in
@@ -57,7 +57,7 @@ _SAME_DEVICE = contextlib.nullcontext()  # the input is on the current device
 _SPEC_ARGS = weakref.WeakKeyDictionary()
 
 _LIB = None
-_LEAPFROG_FN = None  # the bound repro_fused_leapfrog, set by _lib()
+_FNS = {}  # kernel name -> its bound C function, set by _lib()
 
 
 def reset_launch_counts() -> None:
@@ -70,7 +70,7 @@ def kernel_source() -> Path:
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB, _LEAPFROG_FN
+    global _LIB
     if _LIB is None:
         lib = load_library(kernel_source())
         p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -82,12 +82,15 @@ def _lib() -> ctypes.CDLL:
             [p, i64, p, i64, p, i64, p, i64, f32] + [p] * 5
             + [p, i32, i32, i64, i32, i32, p, p, p, f32, p, p])
         lib.repro_fused_leapfrog.restype = i32
-        _LEAPFROG_FN = lib.repro_fused_leapfrog
+        # u (pointer, row stride), the table, uniform_op, rows, dim, nparts,
+        # g_out, partials, counts, const, out, stream
         lib.repro_fused_potential_vg.argtypes = (
-            [p, i64] + [p] * 5 + [i32, i32, i64, p, p, i32, f32, p, p])
+            [p, i64] + [p] * 5 + [i32, i32, i64, i32, p, p, p, f32, p, p])
         lib.repro_fused_potential_vg.restype = i32
         lib.repro_fused_leapfrog_error_string.argtypes = [i32]
         lib.repro_fused_leapfrog_error_string.restype = ctypes.c_char_p
+        _FNS.update(fused_leapfrog=lib.repro_fused_leapfrog,
+                    fused_potential_vg=lib.repro_fused_potential_vg)
         _LIB = lib
     return _LIB
 
@@ -184,6 +187,30 @@ def _spec_args(spec: PotentialSpec, index: int):
     return args
 
 
+def _launch(kernel: str, index: int, rows: int, nparts: int, const: float,
+            out: torch.Tensor, *args) -> None:
+    """One launch of ``kernel`` on device ``index``: its C function takes
+    ``args``, then the merge's partials and counts (the current stream's
+    scratch, when a chain takes several blocks), the const, the ``rows``
+    potentials ``out`` and the stream. Raises on a refused launch."""
+    fn = _FNS.get(kernel)
+    if fn is None:  # the first call builds and binds the library
+        _lib()
+        fn = _FNS[kernel]
+    with (_SAME_DEVICE if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        # the stream's handle without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        partials = counts = None
+        if nparts > 1:  # one float a (chain, block)
+            partials, counts = last_block_scratch(index, stream, rows,
+                                                  rows * nparts)
+        err = fn(*args, partials, counts, const, out.data_ptr(), stream)
+    if err:
+        _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
+
+
 def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
                    grad: torch.Tensor, step_size, n_steps: int, *,
                    inv_mass: Optional[torch.Tensor] = None,
@@ -242,26 +269,11 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
     state = torch.empty((3, rows, dim), dtype=torch.float32, device=dev)
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     nparts = leapfrog_parts(dim)
-    fn = _LEAPFROG_FN
-    if fn is None:  # the first call builds and binds the library
-        _lib()
-        fn = _LEAPFROG_FN
-    with (_SAME_DEVICE if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
-        # the stream's handle without building a Stream object
-        stream = torch._C._cuda_getCurrentRawStream(index)
-        partials = counts = None
-        if nparts > 1:  # one float a (chain, block)
-            partials, counts = last_block_scratch(index, stream, rows,
-                                                  rows * nparts)
-        err = fn(q2.data_ptr(), strides[0], p2.data_ptr(), strides[1],
-                 g2.data_ptr(), strides[2], eps_addr, eps_stride, eps_value,
-                 *table, None if inv_mass is None else inv_mass.data_ptr(),
-                 uop, rows, dim, n_steps, nparts, state.data_ptr(),
-                 partials, counts, const, out.data_ptr(), stream)
-    if err:
-        _raise_on(err, "fused_leapfrog")
-    LAUNCHES["fused_leapfrog"] += 1
+    _launch("fused_leapfrog", index, rows, nparts, const, out,
+            q2.data_ptr(), strides[0], p2.data_ptr(), strides[1],
+            g2.data_ptr(), strides[2], eps_addr, eps_stride, eps_value,
+            *table, None if inv_mass is None else inv_mass.data_ptr(), uop,
+            rows, dim, n_steps, nparts, state.data_ptr())
     q_out, p_out, g_out = state.unbind(0)
     if q.dim() == 1:
         return q_out[0], p_out[0], out[0], g_out[0]
@@ -273,9 +285,15 @@ def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
                              interpret: Optional[bool] = None,
                              block_rows: int = 256):
     """Fused analytic ``(logp, grad)`` of the compiled potential at ``u``
-    (``(dim,)`` or ``(num_chains, dim)``); used for chain init. ``logp``
-    includes ``spec.const``. ``use_pallas=False`` or ``interpret=True``
-    runs the plain version; ``block_rows`` is ignored."""
+    (``(dim,)`` or ``(num_chains, dim)``, any row stride, 0 included); used
+    for chain init. ``logp`` includes ``spec.const``. ``use_pallas=False``
+    or ``interpret=True`` runs the plain version; ``block_rows`` is
+    ignored.
+
+    On the card one launch a call, ``fused_leapfrog``'s kernel evaluating
+    the gradient at ``u``: the same blocks a chain (``leapfrog_parts``),
+    the same last-block merge and scratch; a call allocates only the
+    gradient and the potential."""
     _check_spec(spec, u)
     _check_state("u", u, u.shape)
     if plain_requested(use_pallas, interpret) or _device_kind(u) == "cpu":
@@ -289,22 +307,16 @@ def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
                 torch.stack([g for _, g in vg]))
     u2 = _rows(u)
     rows, dim = u2.shape
+    dev = u.device
+    index = dev.index
     stride = _row_stride("u", u2)
-    op, c0, c1, c2, c3 = spec.coeff_arrays(u.device)
-    nparts = -(-dim // _THREADS)
-    g_out = torch.empty((rows, dim), dtype=torch.float32, device=u.device)
-    partials = torch.empty(rows * nparts, dtype=torch.float32, device=u.device)
-    out = torch.empty(rows, dtype=torch.float32, device=u.device)
-    uop = _ANY_OP if spec.uniform_op is None else spec.uniform_op
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _lib().repro_fused_potential_vg(
-            u2.data_ptr(), stride, op.data_ptr(), c0.data_ptr(),
-            c1.data_ptr(), c2.data_ptr(), c3.data_ptr(), uop, rows, dim,
-            g_out.data_ptr(), partials.data_ptr(), nparts, ref._const(spec),
-            out.data_ptr(), stream)
-    _raise_on(err, "fused_potential_vg")
-    LAUNCHES["fused_potential_vg"] += 1
+    table, uop, const = _spec_args(spec, index)
+    g_out = torch.empty((rows, dim), dtype=torch.float32, device=dev)
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    nparts = leapfrog_parts(dim)
+    _launch("fused_potential_vg", index, rows, nparts, const, out,
+            u2.data_ptr(), stride, *table, uop, rows, dim, nparts,
+            g_out.data_ptr())
     if u.dim() == 1:
         return out[0], g_out[0]
     return out, g_out

@@ -21,6 +21,8 @@ B o segdt to bf16 for the tensor cores; flash_fwd_tf32 and ssd_scan_tf32
 hold the float32 tolerances with 3xTF32 products, whose dropped lo*lo term
 is about 2^-22 of each). Reruns must be bit-identical (no float atomics).
 """
+import time
+
 import pytest
 import torch
 
@@ -344,12 +346,19 @@ def test_cuda_elem_strided_one_kernel_by_profiler(cuda_device, family,
     _assert_one_kernel_a_call(kern, args)
 
 
+WINDOW_PAD_S = 0.02  # host seconds between a window's edges and its calls
+
+
 def _kernel_windows(fn, calls=10, per_call=1):
     """The names of the CUDA kernels that ``calls`` calls of ``fn`` launch,
     by torch.profiler, one list a window. Each window starts with one
     marker launch (``torch.cuda._sleep``'s spin_kernel) that is left out:
-    the profiler can drop a window's first kernel (seen on the H100). A
-    window short of ``per_call * calls`` kernels is taken again, up to
+    the profiler can drop a window's first kernel (seen on the H100). The
+    calls are issued WINDOW_PAD_S after the window opens and it closes
+    WINDOW_PAD_S after they end: the profiler keeps only device activity
+    whose time, carried into the host's clock, falls inside the window,
+    and late in a long process that carried time can sit off the host's.
+    A window short of ``per_call * calls`` kernels is taken again, up to
     three windows; the last is the complete one, if any was."""
     from torch.profiler import ProfilerActivity, profile
     fn()  # scratch and library in place before the window
@@ -360,9 +369,11 @@ def _kernel_windows(fn, calls=10, per_call=1):
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
         windows.append([e.key for e in prof.key_averages()
                         if e.device_type.name == "CUDA"
                         and "spin_kernel" not in e.key
@@ -875,6 +886,140 @@ def test_cuda_fused_leapfrog_refuses_bad_plans(cuda_device):
     err = call(dim, 1)
     with pytest.raises(KernelError, match="fused_leapfrog"):
         lf_ops._raise_on(err, "fused_leapfrog")
+
+
+# fused_potential_vg, one launch a call: fused_leapfrog's kernel evaluating
+# the gradient at u, with the same blocks a chain and the same last-block
+# merge and scratch.
+def _potential_state(table, rows, dim, layout, gen, dev):
+    """(spec, u, p) with u dense (rows, dim), one chain as a 1-D u, or one
+    row shared by the chains at row stride 0; p of u's shape."""
+    uop, run = LF_TABLES[table]
+    spec = lf_ref.random_spec(dim, uop, seed=dim, run=run)
+    if layout == "1-D":
+        u = 0.5 * torch.randn(dim, generator=gen, device=dev)
+    elif layout == "row stride 0":
+        u = (0.5 * torch.randn(dim, generator=gen, device=dev)).expand(rows,
+                                                                       dim)
+    else:
+        u = 0.5 * torch.randn(rows, dim, generator=gen, device=dev)
+    return spec, u, torch.randn(u.shape, generator=gen, device=dev)
+
+
+def _assert_potential_one_launch(spec, u, p):
+    """One launch and one kernel a call (by the counts and the profiler),
+    value and gradient at the plain version's tolerances, a rerun
+    bit-identical, the counts back at 0, and calls alternating with
+    fused_leapfrog's on one stream (sharing its scratch) giving the same
+    bits."""
+    lf_ops.reset_launch_counts()
+    lp, g = lf_ops.potential_value_and_grad(spec, u)
+    assert lf_ops.LAUNCHES == {"fused_leapfrog": 0, "fused_potential_vg": 1}
+    assert lp.shape == u.shape[:-1] and g.shape == u.shape
+    want_lp, want_g = lf_ref.potential_value_and_grad_ref(spec, u)
+    _assert_state_close(g, want_g)
+    abs_sum = potential_elem_value(*spec.coeff_arrays(u.device), u,
+                                   uniform_op=spec.uniform_op).abs().sum(-1)
+    assert bool(((lp - want_lp).abs() <= 1e-5 * abs_sum + 1e-6).all())
+    again = lf_ops.potential_value_and_grad(spec, u)
+    assert torch.equal(again[0], lp) and torch.equal(again[1], g)
+    assert _counts_are_zero(torch.cuda.current_stream())
+    for _ in range(3):
+        lf_ops.fused_leapfrog(spec, u, p, g, 0.01, 4)
+        got = lf_ops.potential_value_and_grad(spec, u)
+        assert torch.equal(got[0], lp) and torch.equal(got[1], g)
+    assert _counts_are_zero(torch.cuda.current_stream())
+    _assert_one_kernel_a_call(lf_ops.potential_value_and_grad, (spec, u),
+                              kernel="leapfrog_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", list(LF_TABLES))
+@pytest.mark.parametrize("dim", MAIN_DIMS + (8192,))
+def test_cuda_fused_potential_vg_one_launch_matches_plain_version(
+        cuda_device, table, dim):
+    """4 chains (1 at 1,000,003 coordinates), dense rows: either side of
+    one block, 2,047 and 2,049, family_mix_8k's 8,192 and gaussian_10k's
+    10,000."""
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    rows = 1 if dim == 1_000_003 else 4
+    _assert_potential_one_launch(*_potential_state(table, rows, dim, "dense",
+                                                   gen, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", list(LF_TABLES))
+@pytest.mark.parametrize("dim", [1, 257, 8192, 10000])
+@pytest.mark.parametrize("layout", ["1-D", "row stride 0"])
+def test_cuda_fused_potential_vg_one_launch_layouts(cuda_device, table, dim,
+                                                    layout):
+    """One chain as a 1-D u, and 4 chains sharing one row at row stride 0
+    (whose potentials and gradients are then the dense row's bits in every
+    chain)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    spec, u, p = _potential_state(table, 4, dim, layout, gen, cuda_device)
+    _assert_potential_one_launch(spec, u, p)
+    if layout == "row stride 0":
+        lp, g = lf_ops.potential_value_and_grad(spec, u)
+        lp1, g1 = lf_ops.potential_value_and_grad(spec, u[0].contiguous())
+        assert all(torch.equal(v, lp1) for v in lp)
+        assert all(torch.equal(r, g1) for r in g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table,rows,dim", [("normal", 4, 10000),
+                                            ("runs", 4, 8192),
+                                            ("normal", 1, 1_000_003)])
+def test_cuda_fused_potential_vg_reruns_and_two_streams(cuda_device, table,
+                                                        rows, dim):
+    """The last-block merge: 100 back-to-back calls bit-identical, calls
+    alternating between two streams equal to them, every count back at 0
+    on each stream."""
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+    spec, u, _ = _potential_state(table, rows, dim, "dense", gen,
+                                  cuda_device)
+
+    def kern(u):
+        lp, g = lf_ops.potential_value_and_grad(spec, u)
+        return torch.cat([lp, g.reshape(-1)])
+
+    _assert_reruns_and_two_streams(cuda_device, kern, (u,))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_potential_vg_refuses_bad_plans(cuda_device):
+    """The C side refuses parts that are not ceil(dim / LEAPFROG_SHARE) and
+    a merge without scratch; the wrapper raises its error as
+    KernelError."""
+    from repro_torch.kernels._build import KernelError
+    share = lf_ops.LEAPFROG_SHARE
+    dim = 2 * share
+    spec = lf_ref.random_spec(dim, OP_NORMAL)
+    table = [t.data_ptr() for t in spec.coeff_arrays(cuda_device)]
+    u = torch.zeros(4 * dim, device=cuda_device)
+    g_out = torch.empty(4 * dim, device=cuda_device)
+    out = torch.empty(4, device=cuda_device)
+    partials = torch.empty(4 * 2, device=cuda_device)
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    fn = lf_ops._lib().repro_fused_potential_vg
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(n, nparts, scratch=True):
+        return fn(u.data_ptr(), n, *table, OP_NORMAL, 4, n, nparts,
+                  g_out.data_ptr(), partials.data_ptr() if scratch else None,
+                  counts.data_ptr() if scratch else None, -1.25,
+                  out.data_ptr(), stream)
+
+    assert call(dim, 2) == 0
+    assert call(dim - 1, 2) == 0
+    assert call(share, 1, scratch=False) == 0  # one block a chain
+    torch.cuda.synchronize()
+    assert not bool(counts.any())
+    assert call(dim, 3) != 0                    # parts
+    assert call(dim, 2, scratch=False) != 0     # a merge, no scratch
+    err = call(dim, 1)
+    with pytest.raises(KernelError, match="fused_potential_vg"):
+        lf_ops._raise_on(err, "fused_potential_vg")
 
 
 # ---------------------------------------------------------------------------
