@@ -147,6 +147,24 @@ Phases, in order:
    same weights (``LM_SCORE_BF16_TOL``); then two timed bf16 evaluations,
    counted (ssd_scan_tc once per layer, categorical_logits_sum once, per
    evaluation);
+6b. NUTS, the other samplers and Table 1, each run counted: NUTS on
+   gaussian_10k through the fused leaves (4 chains, 100 warmup, 200
+   draws; ``fused_potential_vg`` once per lockstep leaf iteration and at
+   chain init, nothing else but the compiler's 5 probes; its moments
+   gated as phase 6's; launches, tree depth and host syncs a draw
+   printed) and on logreg through the autodiff leaves (40 + 80 draws,
+   depth at most 7; the density kernels once per leaf iteration; the
+   final-draw densities at rtol 1e-5 and the means against the port's
+   HMC chain started at a NUTS draw within 5.5 Monte-Carlo standard
+   errors); MAP, RWMH from MAP's mode, ADVI full-batch and against
+   ``minibatch=``, and the self-batching SGLD step on tests/test_infer.py's
+   and tests/test_sharded_chains.py's models and gates; then Table 1
+   (``benchmarks/table1.py``'s ``table1/<model>/{typed,handwritten,
+   untyped},us_per_call,derived`` lines for the eight models: one chain
+   of ``make_chain_fn`` on the fused log-density and on the hand-written
+   twin, 30 draws after a warm-up call, and ``HMC.run_untyped`` over 3
+   draws, extrapolated; hmm_semisup 20 and 2). Table 1's lines are
+   information: only a NaN or a failed run fails them;
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -1199,7 +1217,6 @@ def start_point(torch, np, pm, seed):
 def _run_model(torch, name, num_samples, seed, leapfrog, route):
     import numpy as np
 
-    from repro_torch.bijectors import bijector_for
     from repro_torch.infer import HMC, run_chains
     from repro_torch.kernels.fused_leapfrog import ops as lf_ops
     from repro_torch.kernels.fused_logpdf import ops
@@ -1258,29 +1275,7 @@ def _run_model(torch, name, num_samples, seed, leapfrog, route):
                   f"(min {float(x.min()):.3e}, max |row sum - 1| {dev1:.3e})")
             simplex[s.name] = {"min": float(x.min()), "max_row_sum_dev": dev1}
 
-    # the density at the final draws on the fused and the per-site
-    # evaluators (the per-site one through the per-array kernel on the
-    # switch route) vs the hand-written twin and the chain's logp, on the
-    # card. The constrained draws are linked back through each site's
-    # bijector (the stick-breaking inverse for simplex rows) to the
-    # unconstrained flat state.
-    tvi = pm.model.typed_varinfo(
-        torch.Generator(device=DEVICE).manual_seed(seed)).link()
-    q = torch.cat([
-        bijector_for(d).inverse(torch.as_tensor(chain[s.name][:, -1],
-                                                device=DEVICE))
-        .reshape(num_chains, -1) for s, d in zip(tvi.layout.sites, tvi.dists)],
-        dim=1)
-    fused_d = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
-    refd = torch.func.vmap(pm.model.make_logdensity_fn(
-        tvi, backend="reference"))(q)
-    torch.testing.assert_close(fused_d, refd, rtol=1e-5, atol=0)
-    if pm.handwritten is not None:
-        hand = torch.func.vmap(pm.handwritten)(q)
-        torch.testing.assert_close(fused_d, hand, rtol=1e-5, atol=0)
-    torch.testing.assert_close(fused_d.cpu(), torch.as_tensor(logp[:, -1]),
-                               rtol=1e-5, atol=0)
-    rel = float(((fused_d - refd).abs() / refd.abs()).max())
+    rel = final_draw_density(torch, pm, chain, seed)
 
     summary = chain.summary().splitlines()
     result = {
@@ -1309,6 +1304,42 @@ def _run_model(torch, name, num_samples, seed, leapfrog, route):
     return result, pm, kernel, chain
 
 
+def final_states(torch, pm, chain, seed=0):
+    """(the linked trace, the chains' final draws linked back through each
+    site's bijector, the stick-breaking inverse for simplex rows, to the
+    unconstrained flat state ``(num_chains, dim)``)."""
+    from repro_torch.bijectors import bijector_for
+
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(seed)).link()
+    q = torch.cat([
+        bijector_for(d).inverse(torch.as_tensor(chain[s.name][:, -1],
+                                                device=DEVICE))
+        .reshape(chain.num_chains, -1)
+        for s, d in zip(tvi.layout.sites, tvi.dists)], dim=1)
+    return tvi, q
+
+
+def final_draw_density(torch, pm, chain, seed=0):
+    """The density at the final draws on the fused and the per-site
+    evaluators (the per-site one through the per-array kernel on the
+    switch route) vs the hand-written twin and the chain's logp (rtol
+    1e-5), on the card, at :func:`final_states`; returns max |fused -
+    per-site| / |per-site|."""
+    tvi, q = final_states(torch, pm, chain, seed)
+    fused_d = torch.func.vmap(pm.model.make_logdensity_fn(tvi))(q)
+    refd = torch.func.vmap(pm.model.make_logdensity_fn(
+        tvi, backend="reference"))(q)
+    torch.testing.assert_close(fused_d, refd, rtol=1e-5, atol=0)
+    if pm.handwritten is not None:
+        hand = torch.func.vmap(pm.handwritten)(q)
+        torch.testing.assert_close(fused_d, hand, rtol=1e-5, atol=0)
+    torch.testing.assert_close(
+        fused_d.cpu(), torch.as_tensor(chain.stats["logp"][:, -1]),
+        rtol=1e-5, atol=0)
+    return float(((fused_d - refd).abs() / refd.abs()).max())
+
+
 def check_first_draws(np, name, chain, ref_chain, first=10, rtol=0.0):
     """The first draws of the fused and the reference integrator (same
     seed, same generator draws) together: every draw within 1e-4 + rtol *
@@ -1327,10 +1358,23 @@ def check_first_draws(np, name, chain, ref_chain, first=10, rtol=0.0):
 
 
 def check_gaussian(np, chain, ref_chain, first=10):
+    """gaussian_10k: the moments of :func:`gaussian_moments`; and the first
+    draws of the fused and the reference integrator (same seed, same
+    generator draws) together."""
+    out = gaussian_moments(np, chain)
+    out.update(check_first_draws(np, "gaussian_10k", chain, ref_chain,
+                                 first))
+    d = out["fused_vs_reference_draws_max_abs"]
+    lp_rel = out["fused_vs_reference_logp_max_rel"]
+    log(f"gaussian_10k first {first} draws fused vs reference: max abs "
+        f"{d:.2e}, logp max rel {lp_rel:.2e}")
+    return out
+
+
+def gaussian_moments(np, chain, label="gaussian_10k"):
     """gaussian_10k: every coordinate's posterior mean within 5.5 Monte-Carlo
     standard errors of 0 (sd 1/sqrt(ESS of x)) and its variance within 5.5
-    of 1 (sd sqrt(2/ESS of x^2)); and the first draws of the fused and the
-    reference integrator (same seed, same generator draws) together."""
+    of 1 (sd sqrt(2/ESS of x^2))."""
     from repro_torch.infer import effective_sample_size
 
     x = chain["x"].astype(np.float64)  # (chains, draws, dim)
@@ -1350,19 +1394,13 @@ def check_gaussian(np, chain, ref_chain, first=10):
            "mean_abs_mean": float(np.abs(mean).mean()),
            "mean_var": float(var.mean())}
     check(np.isfinite(ess).all() and np.isfinite(ess2).all(),
-          "gaussian_10k: ESS not finite")
+          f"{label}: ESS not finite")
     check(out["max_abs_z_mean"] < 5.5 and out["max_abs_z_var"] < 5.5,
-          f"gaussian_10k: posterior moments off: {out}")
-    out.update(check_first_draws(np, "gaussian_10k", chain, ref_chain,
-                                 first))
-    d = out["fused_vs_reference_draws_max_abs"]
-    lp_rel = out["fused_vs_reference_logp_max_rel"]
-    log(f"gaussian_10k moments: ESS median {out['ess_median']:.0f} (min "
+          f"{label}: posterior moments off: {out}")
+    log(f"{label} moments: ESS median {out['ess_median']:.0f} (min "
         f"{out['ess_min']:.0f}, x^2 median {out['ess_sq_median']:.0f}); max "
-        f"|z| of the 10,000 means {out['max_abs_z_mean']:.2f}, of the "
-        f"variances {out['max_abs_z_var']:.2f} (limit 5.5); first {first} "
-        f"draws fused vs reference: max abs {d:.2e}, logp max rel "
-        f"{lp_rel:.2e}")
+        f"|z| of the {dim:,} means {out['max_abs_z_mean']:.2f}, of the "
+        f"variances {out['max_abs_z_var']:.2f} (limit 5.5)")
     return out
 
 
@@ -1463,6 +1501,514 @@ def check_family_mix_spec(torch, np, spec_mod, lf_ops, spec, pm, chain):
         f"const {spec.const:.6f} (the model's {const:.6f}); spec vs density "
         f"at the final draws max "
         f"rel {out['spec_vs_density_max_rel']:.2e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: NUTS, the other samplers and Table 1
+# ---------------------------------------------------------------------------
+# (warmup, draws, max_depth) of each NUTS path, 4 chains; logreg's trees
+# are capped at depth 7 (127 leaves) for the time of its warmup from the
+# prior draw
+NUTS_RUNS = {"gaussian_10k": (100, 200, 10), "logreg": (40, 70, 7)}
+# the HMC chains that logreg's NUTS means are held to: (warmup, draws,
+# leapfrog steps), 4 chains with dual averaging from a Uniform(-0.1, 0.1)
+# jitter around the port's MAP mode (MAP_STEPS of Adam), none of it from
+# NUTS; every coordinate's split R-hat must stay under HMC_REF_RHAT
+NUTS_HMC_REF = (40, 150, 8)
+MAP_STEPS = 300
+HMC_REF_RHAT = 1.1
+# Table 1 (benchmarks/table1.py's three variants of one chain), in
+# TABLE1_REPS alternating repetitions: (typed and hand-written draws, each
+# timed after one warm-up call of 2; untyped draws, its loop alone: a
+# 1-draw run subtracted from a (1 + n)-draw run); hmm_semisup's transition
+# takes hundreds of ms and lda's ~100 ms for the three, so theirs are cut
+TABLE1_DRAWS = {"hmm_semisup": (3, 1), "lda": (15, 8)}
+TABLE1_DEFAULT = (20, 10)
+TABLE1_REPS = 3
+
+
+def counts_reset(torch):
+    """Every launch count and the NUTS tree counts set to 0, the card idle."""
+    from repro_torch.infer import nuts as nuts_mod
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    from repro_torch.kernels.fused_logpdf import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lf_ops.reset_launch_counts()
+    nuts_mod.reset_tree_counts()
+
+
+def counts_read(torch):
+    """(launches, NUTS tree counts) since :func:`counts_reset`."""
+    from repro_torch.infer import nuts as nuts_mod
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    from repro_torch.kernels.fused_logpdf import ops
+    torch.cuda.synchronize()
+    return {**ops.LAUNCHES, **lf_ops.LAUNCHES}, dict(nuts_mod.TREE_COUNTS)
+
+
+def nuts_path(torch, np, name, seed=0):
+    """NUTS on one paper model through ``run_chains``: 4 chains from the
+    prior draw with jitter 1, dual-averaging warmup, counted. The launches
+    must be the compiler's probe evaluations plus one evaluation per
+    lockstep leaf iteration and one at chain init: ``fused_potential_vg``
+    on a separable spec (gaussian_10k, whose moments are then gated as
+    phase 6's), the density blocks' kernels otherwise (logreg, whose
+    final-draw densities are then held to the per-site evaluator, the
+    hand-written twin and the chain's logp at rtol 1e-5, and whose means
+    to the port's own HMC within 5.5 Monte-Carlo standard errors: the
+    chains of :func:`hmc_reference`, which take nothing from NUTS)."""
+    from repro_torch.infer import NUTS, run_chains
+
+    warmup, draws, depth = NUTS_RUNS[name]
+    pm = build_model(name)
+    kernel = NUTS(step_size=pm.step_size, max_depth=depth)
+    counts_reset(torch)
+    t0 = time.perf_counter()
+    chain = run_chains(seed, pm.model, kernel, draws, num_warmup=warmup,
+                       num_chains=4, device=DEVICE)
+    launches, tree = counts_read(torch)
+    secs = time.perf_counter() - t0
+    trees = warmup + draws
+    check(tree["trees"] == trees, f"NUTS {name}: {tree['trees']} trees, "
+          f"expected {trees}")
+    evals = tree["leaf_iterations"] + 1  # + the chain init
+    fused = name in SEPARABLE
+    want = dict.fromkeys(launches, 0)
+    for k, per in PER_EVAL[name].items():
+        want[k] += per * (PROBE_EVALS[name] + (0 if fused else evals))
+    if fused:
+        want["fused_potential_vg"] = evals
+    check(launches == want, f"NUTS {name}: launches {launches}, expected "
+          f"{want} ({tree['leaf_iterations']} lockstep leaf iterations)")
+    for site in chain.names():
+        check(np.isfinite(chain[site]).all(),
+              f"NUTS {name}: non-finite draws of '{site}'")
+    check(np.isfinite(chain.stats["logp"]).all(), f"NUTS {name}: "
+          "non-finite logp")
+    depth_mean = float(chain.stats["tree_depth"].mean())
+    check(tree["draws"] == draws, f"NUTS {name}: {tree['draws']} draws")
+    out = {"model": name, "num_chains": 4, "num_warmup": warmup,
+           "num_samples": draws, "max_depth": depth, "seconds": secs,
+           "seconds_per_transition": secs / trees, "launches": launches,
+           "trees": trees, "leaf_iterations": tree["leaf_iterations"],
+           "leaf_iterations_per_transition": tree["leaf_iterations"] / trees,
+           "host_syncs_per_transition": tree["host_syncs"] / trees,
+           # the sampling draws alone (warmup's trees start deeper)
+           "leaf_iterations_per_draw": tree["draw_leaf_iterations"] / draws,
+           "host_syncs_per_draw": tree["draw_host_syncs"] / draws,
+           "mean_tree_depth": depth_mean,
+           "mean_accept": float(chain.stats["accept_prob"].mean()),
+           "divergences": int(chain.stats["diverging"].sum())}
+    if fused:
+        # one launch a leaf iteration: the sampling draws' own
+        out["potential_launches_per_draw"] = out["leaf_iterations_per_draw"]
+        out.update(gaussian_moments(np, chain, label=f"NUTS {name}"))
+    else:
+        out["final_density_max_rel"] = final_draw_density(torch, pm, chain,
+                                                          seed)
+        ref, out["hmc_reference"] = hmc_reference(torch, np, pm, seed)
+        out["max_abs_z_vs_hmc"] = compare_means(np, name, chain, ref)
+    log(f"NUTS {name}: 4 chains x ({warmup} warmup + {draws}) draws in "
+        f"{secs:.2f} s ({secs / trees * 1e3:.2f} ms a transition); sampling "
+        f"draws: mean tree depth {depth_mean:.2f}, "
+        f"{out['leaf_iterations_per_draw']:.2f} lockstep leaf iterations "
+        f"and {out['host_syncs_per_draw']:.2f} host syncs a draw (warmup "
+        f"included: {out['leaf_iterations_per_transition']:.2f} and "
+        f"{out['host_syncs_per_transition']:.2f}); mean accept "
+        f"{out['mean_accept']:.3f}, {out['divergences']} divergent; "
+        f"launches {launches}"
+        + (f"; fused_potential_vg {out['potential_launches_per_draw']:.2f} "
+           "launches a draw" if fused else ""))
+    return out, chain
+
+
+def hmc_reference(torch, np, pm, seed=0):
+    """The port's HMC on ``pm``, independent of NUTS: the port's MAP mode
+    (``MAP_STEPS`` of Adam from 0), then 4 chains from a Uniform(-0.1, 0.1)
+    jitter around it (overdispersed: logreg's posterior sds are ~0.02),
+    ``NUTS_HMC_REF`` = (warmup with dual averaging, draws, leapfrog steps)
+    through ``run_chains``. Fails unless every coordinate's split R-hat is
+    under ``HMC_REF_RHAT``. Returns the chain and its summary."""
+    from repro_torch.infer import (HMC, MAP, effective_sample_size,
+                                   run_chains, split_rhat)
+
+    warmup, draws, n_leapfrog = NUTS_HMC_REF
+    t0 = time.perf_counter()
+    est, losses = MAP(num_steps=MAP_STEPS).run(seed, pm.model, device=DEVICE)
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(seed))
+    mode = tvi.replace_values(tuple(
+        torch.as_tensor(est[mt.name], device=DEVICE).reshape(mt.shape)
+        for mt in tvi.metas))
+    kern = HMC(step_size=pm.step_size, n_leapfrog=n_leapfrog,
+               adapt_step_size=True)
+    chain = run_chains(seed + 1, pm.model, kern, draws, num_warmup=warmup,
+                       num_chains=4, init_varinfo=mode, init_jitter=0.1,
+                       device=DEVICE)
+    secs = time.perf_counter() - t0
+    rhat, ess = [], []
+    for site in chain.names():
+        x = chain[site].astype(np.float64)
+        x = x.reshape(x.shape[:2] + (-1,))
+        for i in range(x.shape[-1]):
+            rhat.append(split_rhat(x[..., i]))
+            ess.append(effective_sample_size(x[..., i]))
+    out = {"map_steps": MAP_STEPS, "map_loss_first": float(losses[0]),
+           "map_loss_last": float(losses[-1]), "num_warmup": warmup,
+           "num_samples": draws, "n_leapfrog": n_leapfrog,
+           "max_split_rhat": float(max(rhat)), "min_ess": float(min(ess)),
+           "mean_accept": float(chain.stats["accept_prob"].mean()),
+           "seconds": secs}
+    check(np.isfinite(rhat).all() and max(rhat) < HMC_REF_RHAT,
+          f"HMC reference on {pm.name}: split R-hat up to {max(rhat):.3f}, "
+          f"limit {HMC_REF_RHAT}")
+    log(f"HMC reference on {pm.name}: MAP loss {losses[0]:.1f} -> "
+        f"{losses[-1]:.1f}; 4 chains x ({warmup} warmup + {draws}) draws of "
+        f"{n_leapfrog} leapfrog steps in {secs:.2f} s; split R-hat <= "
+        f"{max(rhat):.4f}, ESS >= {min(ess):.1f}, mean accept "
+        f"{out['mean_accept']:.3f}")
+    return chain, out
+
+
+def compare_means(np, name, chain, other, n_se=5.5):
+    """Every coordinate's posterior mean of ``chain`` against ``other``'s
+    within ``n_se`` Monte-Carlo standard errors of the difference (each sd
+    over sqrt(ESS)); returns the largest |z|."""
+    from repro_torch.infer import effective_sample_size
+
+    worst = 0.0
+    for site in chain.names():
+        a = chain[site].astype(np.float64)
+        b = other[site].astype(np.float64)
+        a = a.reshape(a.shape[:2] + (-1,))
+        b = b.reshape(b.shape[:2] + (-1,))
+        for i in range(a.shape[-1]):
+            se = [x[..., i].std() / np.sqrt(effective_sample_size(x[..., i]))
+                  for x in (a, b)]
+            z = (a[..., i].mean() - b[..., i].mean()) / np.hypot(*se)
+            check(np.isfinite(z) and abs(z) < n_se,
+                  f"NUTS {name}: mean of {site}[{i}] {a[..., i].mean():.5f} "
+                  f"vs HMC's {b[..., i].mean():.5f}: {z:.2f} standard "
+                  f"errors, limit {n_se}")
+            worst = max(worst, abs(float(z)))
+    log(f"NUTS {name}: means vs the port's HMC reference chains: max "
+        f"|z| {worst:.2f} (limit {n_se})")
+    return worst
+
+
+def _gauss_models(torch, np):
+    """The models of tests/test_infer.py (mu, s; 200 observations of N(2,
+    1)) and tests/test_sharded_chains.py (a mean under 128 observations of
+    N(-1, 0.5); SGLD's under 64 of N(2, 1)), data on the card."""
+    from repro_torch import model, observe, sample
+    from repro_torch.dists import HalfNormal, Normal
+
+    np.random.seed(0)
+    y200 = np.random.normal(2.0, 1.0, size=200).astype(np.float32)
+    y128 = np.random.default_rng(1).normal(-1.0, 0.5, 128).astype(np.float32)
+    y64 = np.random.default_rng(0).normal(2.0, 1.0, 64).astype(np.float32)
+
+    @model
+    def gauss(y):
+        mu = sample("mu", Normal(0.0, 10.0))
+        s = sample("s", HalfNormal(2.0))
+        observe("y", Normal(mu, s), y)
+
+    @model
+    def mean_only(y):
+        mu = sample("mu", Normal(0.0, 5.0))
+        observe("y", Normal(mu, 0.5), y)
+
+    @model
+    def sgld_mean(y):
+        mu = sample("params", Normal(0.0, 10.0))
+        observe("y", Normal(mu, 1.0), y)
+
+    def on_card(y):
+        return torch.as_tensor(y, device=DEVICE)
+
+    return ((gauss(on_card(y200)), y200), (mean_only(on_card(y128)), y128),
+            (sgld_mean(on_card(y64)), y64))
+
+
+def other_samplers(torch, np):
+    """MAP, RWMH from MAP's mode, ADVI (full-batch, then full against
+    ``minibatch=``) and the self-batching SGLD step on the card, each
+    counted, with tests/test_infer.py's and tests/test_sharded_chains.py's
+    gates."""
+    from repro_torch.infer import (ADVI, MAP, RWMH, SGLD,
+                                   make_subsampled_sgld_step)
+    from repro_torch.sharding import Minibatch
+
+    (m, y), (m2, y2), (m3, y3) = _gauss_models(torch, np)
+    runs, out = {}, {}
+
+    def counted(label, fn):
+        counts_reset(torch)
+        t0 = time.perf_counter()
+        res = fn()
+        launches, _ = counts_read(torch)
+        secs = time.perf_counter() - t0
+        check(sum(launches.values()) > 0, f"{label} launched no kernel")
+        runs[label] = {"launches": launches, "seconds": secs}
+        return res
+
+    est, losses = counted("map", lambda: MAP(num_steps=400).run(
+        13, m, device=DEVICE))
+    mu_map = float(est["mu"])
+    check(abs(mu_map - y.mean()) < 0.05 and losses[-1] < losses[0],
+          f"MAP: mu {mu_map:.4f}, data mean {y.mean():.4f}; loss "
+          f"{losses[0]:.2f} -> {losses[-1]:.2f}")
+    out["map"] = {"mu": mu_map, "data_mean": float(y.mean()),
+                  "loss_first": float(losses[0]),
+                  "loss_last": float(losses[-1])}
+
+    tvi = m.typed_varinfo(torch.Generator(device=DEVICE).manual_seed(0))
+    mode = tvi.replace_values(tuple(
+        torch.as_tensor(est[mt.name], device=DEVICE).reshape(mt.shape)
+        for mt in tvi.metas))
+    ch = counted("rwmh", lambda: RWMH(proposal_scale=0.1).run(
+        7, m, 600, num_warmup=200, init_varinfo=mode, num_chains=4,
+        device=DEVICE))
+    check(abs(ch.mean("mu") - y.mean()) < 0.2
+          and np.isfinite(ch.stats["logp"]).all(),
+          f"RWMH: mean of mu {ch.mean('mu'):.4f}, data mean {y.mean():.4f}")
+    out["rwmh"] = {"mean_mu": float(ch.mean("mu")),
+                   "accept": float(ch.stats["accept_prob"].mean())}
+
+    res = counted("advi", lambda: ADVI(num_steps=400, lr=0.05).run(
+        9, m, device=DEVICE))
+    post = res.sample(11, 2000)
+    check(abs(float(post["mu"].mean()) - y.mean()) < 0.1
+          and res.elbo_trace[-1] > res.elbo_trace[0]
+          and np.isfinite(res.elbo_trace).all(),
+          f"ADVI: posterior mean of mu {float(post['mu'].mean()):.4f}, data "
+          f"mean {y.mean():.4f}; ELBO {res.elbo_trace[0]:.2f} -> "
+          f"{res.elbo_trace[-1]:.2f}")
+    out["advi"] = {"mean_mu": float(post["mu"].mean()),
+                   "elbo_first": float(res.elbo_trace[0]),
+                   "elbo_last": float(res.elbo_trace[-1])}
+
+    full = counted("advi_full_128", lambda: ADVI(
+        num_mc=4, lr=0.05, num_steps=300).run(2, m2, device=DEVICE))
+    mini = counted("advi_minibatch_32", lambda: ADVI(
+        num_mc=4, lr=0.05, num_steps=300,
+        minibatch=Minibatch(("y",), 32)).run(2, m2, device=DEVICE))
+    d = abs(float(mini.mu[0]) - float(full.mu[0]))
+    check(d < 0.1 and np.isfinite(mini.elbo_trace).all(),
+          f"ADVI minibatch: mu {float(mini.mu[0]):.4f} vs full-batch "
+          f"{float(full.mu[0]):.4f}")
+    out["advi_minibatch"] = {"mu_full": float(full.mu[0]),
+                             "mu_minibatch": float(mini.mu[0])}
+
+    def sgld_run():
+        sgld = SGLD(step_size=2e-2, temperature=0.0)
+        step = make_subsampled_sgld_step(m3, Minibatch(("y",), 16), sgld)
+        params = torch.zeros((), device=DEVICE)
+        state = sgld.init(params)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        lps = []
+        for _ in range(300):
+            params, state, lp = step(gen, params, state)
+            lps.append(lp)
+        return params, torch.stack(lps)
+
+    lp0 = float(m3.logjoint({"params": torch.zeros((), device=DEVICE)}))
+    params, lps = counted("sgld_subsampled", sgld_run)
+    lp1 = float(m3.logjoint({"params": params}))
+    check(bool(torch.isfinite(lps).all()) and lp1 > lp0
+          and abs(float(params) - y3.mean()) < 0.5,
+          f"SGLD: mu {float(params):.4f}, data mean {y3.mean():.4f}; "
+          f"log-joint {lp0:.2f} -> {lp1:.2f}")
+    out["sgld"] = {"mu": float(params), "data_mean": float(y3.mean()),
+                   "logjoint_first": lp0, "logjoint_last": lp1}
+    for label, r in runs.items():
+        log(f"{label}: {r['seconds']:.2f} s, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    log("samplers: " + json.dumps(out))
+    return runs, out
+
+
+def table1(torch, np):
+    """Table 1's three variants of one HMC chain (``benchmarks/table1.py``)
+    for each paper model, on the card: ``make_chain_fn`` of the model's
+    fused log-density (typed) and of its hand-written twin, and
+    ``HMC.run_untyped`` (the per-site evaluator replayed eagerly, autograd
+    and a NumPy loop) timed on its draw loop alone (its setup, a 1-draw
+    run less one draw, is reported apart). ``TABLE1_REPS`` repetitions in
+    turn; each row carries the median µs a draw and the spread of each
+    ratio over the repetitions. The port has no compile step, so no
+    ``compile_s``. Information lines: only a NaN or a failed run fails
+    the phase. Returns the typed runs' counts and the rows."""
+    from repro_torch.infer.hmc import HMC, make_chain_fn
+    from repro_torch.models import MODEL_NAMES
+
+    runs, rows = {}, []
+    for name in MODEL_NAMES:
+        iters, u_iters = TABLE1_DRAWS.get(name, TABLE1_DEFAULT)
+        pm = build_model(name)
+        tvi = pm.model.typed_varinfo(
+            torch.Generator(device=DEVICE).manual_seed(42)).link()
+        q0 = tvi.flat()
+        collect = q0.shape[0] <= 1024  # no 2000 x 10,000 draws
+        hmc = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog)
+        chains = {}
+        for label, logdensity in (
+                ("typed", pm.model.make_logdensity_fn(tvi)),
+                ("handwritten", pm.handwritten)):
+            make_chain_fn(logdensity, 2, pm.step_size, pm.n_leapfrog,
+                          collect=collect)(
+                torch.Generator(device=DEVICE).manual_seed(0), q0)
+            chains[label] = make_chain_fn(logdensity, iters, pm.step_size,
+                                          pm.n_leapfrog, collect=collect)
+
+        def timed(label):
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = chains[label](gen, q0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(not bool(torch.isnan(outs[1]).any()),
+                  f"table1 {name} {label}: NaN logp")
+            return secs / iters
+
+        def untyped(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ch = hmc.run_untyped(0, pm.model, n, init_varinfo=tvi.invlink(),
+                                 device=DEVICE)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(not np.isnan(ch.stats["logp"]).any(),
+                  f"table1 {name} untyped: NaN logp")
+            return secs
+
+        untyped(1)  # the "package" program and first-call costs
+        counts_reset(torch)
+        reps = []
+        for r in range(TABLE1_REPS):
+            typed_s = timed("typed")
+            if r == 0:
+                runs[name], _ = counts_read(torch)
+            hand_s = timed("handwritten")
+            one = untyped(1)
+            loop_s = (untyped(1 + u_iters) - one) / u_iters
+            reps.append((typed_s, hand_s, loop_s, one - loop_s))
+        med = np.median(np.asarray(reps), axis=0)
+        t_h = [t / h for t, h, _, _ in reps]
+        u_t = [u / t for t, _, u, _ in reps]
+        row = {"model": name, "iters": iters, "untyped_iters": u_iters,
+               "reps": TABLE1_REPS,
+               "typed_us": med[0] * 1e6, "handwritten_us": med[1] * 1e6,
+               "untyped_us": med[2] * 1e6, "untyped_setup_ms": med[3] * 1e3,
+               "typed_vs_handwritten": [min(t_h), float(np.median(t_h)),
+                                        max(t_h)],
+               "untyped_over_typed": [min(u_t), float(np.median(u_t)),
+                                      max(u_t)],
+               "reps_us": [[x * 1e6 for x in rep[:3]] for rep in reps],
+               "typed_launches": runs[name]}
+        rows.append(row)
+        log(f"table1/{name}/typed,{row['typed_us']:.2f},"
+            f"median_of={TABLE1_REPS};iters={iters}")
+        log(f"table1/{name}/handwritten,{row['handwritten_us']:.2f},"
+            f"median_of={TABLE1_REPS};iters={iters}")
+        log(f"table1/{name}/untyped,{row['untyped_us']:.2f},"
+            f"median_of={TABLE1_REPS};loop_iters={u_iters};"
+            f"setup_ms={row['untyped_setup_ms']:.1f};"
+            "typed_vs_handwritten={:.3f}[{:.3f}-{:.3f}];"
+            "untyped_over_typed={:.3f}[{:.3f}-{:.3f}]".format(
+                *row["typed_vs_handwritten"][1::-1],
+                row["typed_vs_handwritten"][2],
+                *row["untyped_over_typed"][1::-1],
+                row["untyped_over_typed"][2]))
+    return runs, rows
+
+
+def table1_profile(torch, np, name="logreg", calls=10):
+    """Where a Table-1 draw's time goes on ``name``: one gradient
+    evaluation (a leapfrog step's work) of the typed density (the fused
+    log-density under ``torch.func``), the hand-written twin (the same
+    transform) and the untyped path (the per-site evaluator replayed
+    eagerly with ``torch.autograd`` and the host round trip of
+    ``run_untyped``), on one chain. Per evaluation: host µs (CUDA-synced
+    clock, unprofiled), aten events (nested ones included) and kernel
+    launches and device µs under ``torch.profiler``; and, for the typed
+    one, the Python functions with the most own time under ``cProfile``."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.contexts import DefaultContext
+    from repro_torch.infer.hmc import value_and_grad
+
+    pm = build_model(name)
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(42)).link()
+    q0 = tvi.flat()
+    q_np = q0.cpu().numpy()
+    typed = value_and_grad(pm.model.make_logdensity_fn(tvi))
+    hand = value_and_grad(pm.handwritten)
+    ctx = DefaultContext()
+
+    def untyped():  # infer/hmc.py run_untyped's logp_and_grad
+        u = torch.as_tensor(q_np, device=DEVICE).requires_grad_(True)
+        lp = pm.model._eval_logp(tvi.replace_flat(u), ctx, eager=True)
+        (g,) = torch.autograd.grad(lp, u)
+        return float(lp.detach()), g.detach().cpu().numpy()
+
+    out = {"model": name}
+    for label, fn in (("typed", lambda: typed(q0)),
+                      ("handwritten", lambda: hand(q0)),
+                      ("untyped", untyped)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type.name == "CUDA" and device_us(e) > 0]
+        aten = [e for e in events if e.key.startswith("aten::")]
+        out[label] = {
+            "host_us": host_us,
+            "aten_events": sum(e.count for e in aten) / calls,
+            "kernel_launches": sum(e.count for e in kernels) / calls,
+            "device_us": sum(device_us(e) for e in kernels) / calls,
+            "top_aten": [[e.key, e.count / calls] for e in
+                         sorted(aten, key=lambda e: -e.count)[:6]]}
+        log(f"table1 profile {name} {label}: {host_us:.1f} us a gradient "
+            f"evaluation; {out[label]['aten_events']:.0f} aten events, "
+            f"{out[label]['kernel_launches']:.0f} kernel launches, "
+            f"{out[label]['device_us']:.1f} us on the device")
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(calls):
+        typed(q0)
+    torch.cuda.synchronize()
+    pr.disable()
+    stats = pstats.Stats(pr)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    out["typed_cprofile"] = [
+        {"function": f"{Path(f).name}:{line}({fn})", "calls": nc / calls,
+         "own_us": tt / calls * 1e6, "cumulative_us": ct / calls * 1e6}
+        for (f, line, fn), (_, nc, tt, ct, _) in top]
+    log(f"table1 profile {name} typed: own time under cProfile "
+        "(us an evaluation):")
+    for t in out["typed_cprofile"]:
+        log(f"    {t['own_us']:9.1f} own {t['cumulative_us']:9.1f} cum "
+            f"x{t['calls']:<5.0f} {t['function'][:90]}")
     return out
 
 
@@ -3114,6 +3660,15 @@ def main() -> int:
     runs["mixed"], pm, kernel, chain = run_model(torch, "mixed",
                                                  draws("mixed"))
     models["mixed"] = (pm, kernel, chain)
+    # phase 6b: NUTS, the other samplers and Table 1, each run counted
+    t6b = time.perf_counter()
+    nuts = {"gaussian_10k": nuts_path(torch, np, "gaussian_10k")[0],
+            "logreg": nuts_path(torch, np, "logreg")[0]}
+    sampler_runs, checks["samplers"] = other_samplers(torch, np)
+    table1_runs, table1_rows = table1(torch, np)
+    table1_prof = table1_profile(torch, np)
+    phase_6b_s = time.perf_counter() - t6b
+    log(f"phase 6b done in {phase_6b_s:.1f} s")
     # the LM paths, each with every count zeroed just before its timed run
     # and read just after it
     lm_mods = (ops, lf_ops, fops, sops)
@@ -3165,6 +3720,9 @@ def main() -> int:
     # every counted run's launches: the PPL paths, the LM paths (bf16) and
     # the LM paths' float32 serving runs
     counted = ([r["launches"] for r in runs.values()]
+               + [r["launches"] for r in nuts.values()]
+               + [r["launches"] for r in sampler_runs.values()]
+               + list(table1_runs.values())
                + [r["launches"] for r in lm_runs.values()]
                + [r.get("f32_launches", {}) for r in lm_runs.values()])
     for name in SOURCES:
@@ -3201,7 +3759,10 @@ def main() -> int:
     log(f"all phases done in {total_s:.1f} s")
     result = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
               "ptxas": {p: lines for p, lines in reports.items()},
-              "runs": runs, "lm_runs": lm_runs, "checks": checks,
+              "runs": runs, "nuts": nuts, "sampler_runs": sampler_runs,
+              "table1": table1_rows, "table1_profile": table1_prof,
+              "phase_6b_s": phase_6b_s,
+              "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}
     out = Path(args.out)

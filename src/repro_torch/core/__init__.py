@@ -9,6 +9,9 @@ from repro_torch.core.primitives import (deterministic, factor, get_logp,
                                          missing, observe, prior_factor,
                                          reject, reject_if, sample, set_logp,
                                          submodel, tilde)
+from repro_torch.core.program import (CompiledProgram, ProgramCache,
+                                      ProgramKey, cache_stats, clear_cache,
+                                      program_cache)
 from repro_torch.core.varinfo import (SiteMeta, TypedVarInfo, UntypedVarInfo,
                                       typify)
 from repro_torch.core.varname import VarName
@@ -22,4 +25,6 @@ __all__ = [
     "MiniBatchContext",
     "UntypedVarInfo", "TypedVarInfo", "typify", "SiteMeta", "VarName",
     "Sampler", "Evaluator", "LinkedEvaluator", "EarlyRejectError",
+    "CompiledProgram", "ProgramCache", "ProgramKey",
+    "program_cache", "cache_stats", "clear_cache",
 ]

@@ -15,13 +15,14 @@ Model evaluation methods mirror the paper's phases:
                         context-dispatched densities.
 * ``make_logdensity_fn`` — flat unconstrained R^n -> log density (HMC).
 
-PyTorch runs eagerly, so there is no compiled-program cache here: the
-samplers call ``make_logdensity_fn`` directly.
+The samplers reach ``make_logdensity_fn`` through the program cache
+(``core/program.py``), keyed on the generator's uid and the bound data.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import itertools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,6 +39,8 @@ from repro_torch.core.varinfo import TypedVarInfo, UntypedVarInfo, typify
 
 __all__ = ["model", "Model", "ModelGen"]
 
+_UIDS = itertools.count()
+
 
 class ModelGen:
     """The model constructor produced by ``@model`` (paper's ModelGen)."""
@@ -47,6 +50,9 @@ class ModelGen:
         self.name = fn.__name__
         self.signature = inspect.signature(fn)
         self.arg_names = tuple(self.signature.parameters)
+        # process-monotonic identity for program-cache keys (never reused,
+        # unlike id())
+        self._uid = next(_UIDS)
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs) -> "Model":

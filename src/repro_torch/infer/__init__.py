@@ -1,14 +1,24 @@
 """repro_torch.infer — inference over typed traces.
 
 Every sampler runs the SAME fused flat-buffer log-density
-(``Model.make_logdensity_fn(..., backend="fused")``); ``run_chains`` runs
-all chains in lockstep on one device.
+(``Model.make_logdensity_fn(..., backend="fused")``, cached by
+``core/program.py``); ``run_chains`` runs all chains in lockstep on one
+device.
 """
+from repro_torch.infer.advi import ADVI, ADVIResult
 from repro_torch.infer.chains import (Chain, TransitionKernel,
                                       effective_sample_size, package_draws,
                                       run_chains, split_rhat)
 from repro_torch.infer.hmc import HMC, DualAveraging
+from repro_torch.infer.map_estimate import MAP
+from repro_torch.infer.mh import RWMH
+from repro_torch.infer.nuts import NUTS
+from repro_torch.infer.sgld import SGLD, make_sgld_step, make_subsampled_sgld_step
 
-__all__ = ["HMC", "DualAveraging", "Chain", "TransitionKernel",
-           "effective_sample_size", "package_draws", "run_chains",
-           "split_rhat"]
+__all__ = [
+    "HMC", "NUTS", "RWMH", "SGLD", "make_sgld_step",
+    "make_subsampled_sgld_step", "ADVI", "ADVIResult",
+    "MAP", "Chain", "TransitionKernel",
+    "effective_sample_size", "package_draws", "run_chains",
+    "split_rhat", "DualAveraging",
+]

@@ -10,10 +10,12 @@ Three layers:
   functions over a flat unconstrained state written out as
   ``(num_chains, dim)``, drawing their noise from an explicit
   ``torch.Generator``.
-* ``run_chains`` — the many-chains-on-one-device runner: builds the
-  model's fused flat log-density ONCE (and, for a sampler that asks, its
-  separable ``PotentialSpec``), advances all chains in lockstep (one
-  kernel launch per density family per step, or one fused leapfrog per
+* ``run_chains`` — the many-chains-on-one-device runner: takes the
+  model's fused flat log-density (and, for a sampler that asks, its
+  separable ``PotentialSpec``) from the program cache
+  (``core/program.py``), so a repeated call on the same model and layout
+  builds neither again, advances all chains in lockstep (one kernel
+  launch per density family per step, or one fused leapfrog per
   transition, for the whole chain axis), and packages the stacked draws
   back through the typed trace.
 """
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.potential import compile_potential
+from repro_torch.core.program import (CompiledProgram, ProgramKey,
+                                      cached_potential, density_program,
+                                      program_cache, trace_fingerprint)
 
 __all__ = ["Chain", "TransitionKernel", "drive_chains",
            "effective_sample_size", "package_draws", "run_chains",
@@ -245,12 +249,23 @@ def package_draws(tvi_linked, qs: torch.Tensor,
     Chain
         NumPy draws keyed by site symbol, each
         ``(num_chains, num_samples) + site.shape`` on the constrained
-        support (a double ``vmap`` of ``replace_flat().invlink()``).
+        support (a double ``vmap`` of ``replace_flat().invlink()``, one
+        cached ``"package"`` program).
     """
-    def to_constrained(q):
-        return tvi_linked.replace_flat(q).invlink().as_dict()
+    # cached on the trace FINGERPRINT (layout + dist parameters): the
+    # invlink bakes the stored dists' parameters (e.g. Uniform bounds), so
+    # equal-layout traces with different dist params get programs apart
+    key = ProgramKey(trace_fingerprint(tvi_linked), "package",
+                     tvi_linked.layout, (), "fused", ())
 
-    draws = torch.func.vmap(torch.func.vmap(to_constrained))(qs)
+    def build():
+        def to_constrained(q):
+            return tvi_linked.replace_flat(q).invlink().as_dict()
+
+        return CompiledProgram(
+            key, lambda q: torch.func.vmap(torch.func.vmap(to_constrained))(q))
+
+    draws = program_cache().get_or_build(key, build)(qs)
 
     def host(v):
         return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
@@ -275,7 +290,8 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     """Run ``num_chains`` MCMC chains in lockstep on one device.
 
     The model's log-density is built once from the typed trace (fused
-    flat-buffer backend by default) and shared by every chain. A kernel
+    flat-buffer backend by default), kept in the program cache for later
+    calls, and shared by every chain. A kernel
     with ``uses_potential_spec`` also gets the model's separable
     ``PotentialSpec`` (or the compiler's reason why there is none). Each
     transition advances the whole ``(num_chains, dim)`` state: either the
@@ -342,10 +358,13 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
            else model.typed_varinfo(gen))
     assert_continuous_supports(tvi, type(kernel).__name__)
     tvi = tvi.link()
-    logdensity = model.make_logdensity_fn(tvi, ctx=ctx, backend=backend)
+    # density + PotentialSpec come from the ProgramCache: repeated calls on
+    # the same (model, layout, ctx, backend) build neither again, and so
+    # pay no compiler probes
+    logdensity = density_program(model, tvi, ctx=ctx, backend=backend)
     dim = int(tvi.num_flat)
     if getattr(kernel, "uses_potential_spec", False):
-        res = compile_potential(model, tvi, ctx=ctx, backend=backend)
+        res = cached_potential(model, tvi, ctx=ctx, backend=backend)
         kern = kernel.make_kernel(logdensity, dim, spec=res.spec,
                                   spec_reason=res.reason)
     else:

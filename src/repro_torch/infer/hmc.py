@@ -17,6 +17,17 @@ compiler rejects the model (logreg, naive_bayes, any coupled model) it
 runs the autodiff integrator and keeps the compiler's reason on
 ``TransitionKernel.spec_reason``. ``"fused"`` demands the spec and raises
 ``ValueError`` with that reason; ``"reference"`` always runs autodiff.
+
+Two execution paths, mirroring the paper's central comparison:
+
+* ``run`` — TYPED path: the log-density is specialised on the
+  TypedVarInfo (the fused evaluator, one kernel launch per density family
+  for all chains), taken from the program cache through ``run_chains``;
+* ``run_untyped`` — UNTYPED path: a NumPy loop in which every evaluation
+  replays the model eagerly through the per-site evaluator, with autograd
+  for the gradient and a host round trip per evaluation, the analogue of
+  ``Vector{Real}`` and dynamic dispatch that the paper's typed traces
+  remove.
 """
 from __future__ import annotations
 
@@ -24,13 +35,16 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core.contexts import Context
+from repro_torch._device import resolve_device
+from repro_torch.core.contexts import Context, DefaultContext
 from repro_torch.core.model import Model
-from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.core.varinfo import TypedVarInfo, assert_continuous_supports
 from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
-from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+from repro_torch.infer.chains import (Chain, TransitionKernel, package_draws,
+                                      run_chains)
 from repro_torch.kernels.fused_leapfrog.ops import (fused_leapfrog,
                                                     potential_value_and_grad)
 
@@ -222,6 +236,14 @@ class HMC:
                           init_jitter=1.0 if num_chains > 1 else 0.0,
                           backend=self.backend, ctx=ctx, device=device)
 
+    def _package(self, m: Model, tvi_linked: TypedVarInfo, qs, logps, accs,
+                 divs=None) -> Chain:
+        """Map flat unconstrained draws back to constrained named arrays."""
+        stats = {"logp": logps, "accept_prob": accs}
+        if divs is not None:
+            stats["diverging"] = divs
+        return package_draws(tvi_linked, qs, stats=stats)
+
     def make_kernel(self, logdensity: Callable, dim: int,
                     spec: Optional[PotentialSpec] = None,
                     spec_reason: Optional[str] = None) -> TransitionKernel:
@@ -320,3 +342,65 @@ class HMC:
         return TransitionKernel(init, warm, finalize, step,
                                 spec_reason=None if use_fused
                                 else spec_reason)
+
+    # -- untyped eager path (the paper's slow general mode) -------------------
+    def run_untyped(self, seed: int, m: Model, num_samples: int,
+                    init_varinfo: Optional[TypedVarInfo] = None,
+                    device=None) -> Chain:
+        """Same algorithm, executed through the untyped eager path.
+
+        One chain. Every log-density and gradient replays the model eagerly
+        through the per-site evaluator (``eager=True``: a ``reject()``
+        aborts the replay) with ``torch.autograd`` for the gradient, on
+        ``device`` (``None`` means CUDA), and the loop, the momentum and the
+        accept draws are NumPy's (``np.random.default_rng(seed)``; the
+        discovery draw, when ``init_varinfo`` is absent, comes from a
+        ``torch.Generator`` seeded with ``seed``). ``step_size`` and
+        ``n_leapfrog`` as in :meth:`run`; the unit metric, no adaptation.
+        """
+        dev = resolve_device(device)
+        tvi = (init_varinfo if init_varinfo is not None
+               else m.typed_varinfo(
+                   torch.Generator(device=dev).manual_seed(int(seed))))
+        assert_continuous_supports(tvi, "HMC")
+        tvi = tvi.link()
+        ctx = DefaultContext()
+
+        def logp_and_grad(q: np.ndarray):
+            # fresh eager evaluation each call: the dynamic path
+            u = torch.as_tensor(q, device=dev).requires_grad_(True)
+            lp = m._eval_logp(tvi.replace_flat(u), ctx, eager=True)
+            if torch.is_tensor(lp) and lp.requires_grad:
+                (g,) = torch.autograd.grad(lp, u)
+                g = g.detach().cpu().numpy()
+            else:  # rejected replay: a constant -inf
+                g = np.zeros_like(q)
+            return float(lp.detach()), g
+
+        rng = np.random.default_rng(int(seed))
+        q = tvi.flat().detach().cpu().numpy()
+        logp, grad = logp_and_grad(q)
+        eps = self.step_size
+        qs, logps, accs = [], [], []
+        for _ in range(num_samples):
+            p0 = rng.standard_normal(q.shape).astype(q.dtype)
+            qn, pn, gn = q.copy(), p0.copy(), grad.copy()
+            for _ in range(self.n_leapfrog):
+                pn = pn + 0.5 * eps * gn
+                qn = qn + eps * pn
+                lpn, gn = logp_and_grad(qn)
+                pn = pn + 0.5 * eps * gn
+            h0 = -logp + 0.5 * float(p0 @ p0)
+            h1 = -lpn + 0.5 * float(pn @ pn)
+            # a NaN energy error rejects, as in hmc_transition (Python's
+            # min(0.0, nan) would return 0.0 and accept)
+            log_acc = -np.inf if np.isnan(h0 - h1) else min(0.0, h0 - h1)
+            if np.log(rng.uniform()) < log_acc:
+                q, logp, grad = qn, lpn, gn
+            qs.append(q.copy())
+            logps.append(logp)
+            accs.append(np.exp(log_acc))
+
+        qs = torch.as_tensor(np.stack(qs), device=dev)[None]
+        return self._package(m, tvi, qs, np.asarray(logps)[None],
+                             np.asarray(accs)[None])

@@ -1,0 +1,333 @@
+"""NUTS — iterative No-U-Turn sampler (multinomial variant), all chains in
+lockstep.
+
+The checkpoint-stack iterative formulation of ``repro.infer.nuts``: a
+doubling tree of depth up to ``max_depth``; u-turn checks against
+power-of-two subtree boundaries use a checkpoint array indexed by the
+binary structure of the leaf counter (:func:`_leaf_to_ckpt`).
+
+``repro`` runs the tree as three nested ``lax.while_loop`` s under
+``vmap`` over chains, and ``vmap`` turns each batched predicate into
+"loop while any chain is live, and freeze the chains that are done".
+The port does the same by hand on ``(num_chains, dim)`` tensors: every
+carried field is updated through ``torch.where`` on a per-chain mask, and
+each loop continues while any chain is live. Each continuation test is a
+host sync (``Tensor.any()`` read on the host); :data:`TREE_COUNTS` counts
+them with the lockstep leaf iterations. A frozen chain's row is still
+evaluated and its result discarded, as under ``vmap``, so each lockstep
+leaf iteration is ONE evaluation for all chains: one
+``fused_potential_vg`` launch on a separable spec, else one autodiff
+``value_and_grad`` of the fused log-joint (one ``fused_logpdf`` launch
+per density family).
+
+Randomness: every draw comes from the run's one ``torch.Generator``, for
+all chains at once (frozen ones included), in this order per transition:
+the momentum ``randn (num_chains, dim)``; then for each doubling, one
+direction uniform ``(num_chains,)``, one uniform ``(num_chains,)`` per
+lockstep leaf iteration (the progressive-sampling draw), and one merge
+uniform ``(num_chains,)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.model import Model
+from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+from repro_torch.infer.hmc import DualAveraging, _per_coord, value_and_grad
+from repro_torch.kernels.fused_leapfrog.ops import potential_value_and_grad
+
+__all__ = ["NUTS", "TREE_COUNTS", "reset_tree_counts"]
+
+# since the last reset: NUTS transitions (trees), lockstep leaf iterations
+# (each one density evaluation for all chains) and host syncs (loop tests
+# read on the host), over all transitions and over the kernel's sampling
+# draws (``step``, not ``warm``); and the leaf iterations of the last
+# transition
+TREE_COUNTS = {"trees": 0, "leaf_iterations": 0, "host_syncs": 0,
+               "draws": 0, "draw_leaf_iterations": 0, "draw_host_syncs": 0,
+               "last_leaf_iterations": 0}
+
+
+def reset_tree_counts() -> None:
+    for k in TREE_COUNTS:
+        TREE_COUNTS[k] = 0
+
+
+def _is_turning(q_l, p_l, q_r, p_r):
+    """The u-turn criterion on the last axis: ``(dim,)`` states or a chain
+    batch ``(num_chains, dim)``."""
+    dq = q_r - q_l
+    return (torch.sum(dq * p_l, dim=-1) <= 0.0) | \
+        (torch.sum(dq * p_r, dim=-1) <= 0.0)
+
+
+def _leaf_to_ckpt(n: int, max_depth: int):
+    """leaf counter -> (idx_min, idx_max) of checkpoints to u-turn-check.
+
+    ``idx_max`` is the number of set bits of ``n >> 1`` and ``idx_min =
+    idx_max - trailing_ones(n) + 1``, as ``repro``'s while loops count
+    them; here ``trailing_ones(n) = popcount(n ^ (n + 1)) - 1``. ``n`` is
+    a host int: every live chain is at the same leaf of the same level.
+    ``max_depth`` is ``repro``'s argument; Python ints need no bit width.
+    """
+    del max_depth
+    idx_max = (n >> 1).bit_count()
+    return idx_max - ((n ^ (n + 1)).bit_count() - 1) + 1, idx_max
+
+
+def _sync_any(mask: torch.Tensor) -> bool:
+    """A loop test read on the host: one sync, counted."""
+    TREE_COUNTS["host_syncs"] += 1
+    return bool(mask.any())
+
+
+def _keep(live, new, old):
+    """``new`` on the live chains, ``old`` on the frozen ones."""
+    m = live if new.dim() == 1 else live.view((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+
+
+@dataclasses.dataclass
+class NUTS:
+    step_size: float = 0.1
+    max_depth: int = 10
+    adapt_step_size: bool = True
+    target_accept: float = 0.8
+    backend: str = "fused"  # log-density backend (see make_logdensity_fn)
+    leapfrog: str = "auto"  # "auto" | "fused" | "reference"
+
+    @property
+    def uses_potential_spec(self) -> bool:
+        """Whether drivers should try to compile a PotentialSpec for this
+        sampler (``run_chains`` checks this before ``make_kernel``)."""
+        return self.leapfrog != "reference"
+
+    def _make_ld_grad(self, logdensity, spec, spec_reason=None):
+        """(logp, grad) evaluator for tree leaves, on ``(num_chains, dim)``.
+
+        With a compiled PotentialSpec the gradient is the analytic opcode
+        table (one ``fused_potential_vg`` launch for all chains, zero
+        autodiff); otherwise the autodiff ``value_and_grad`` of the
+        log-density under ``vmap``.
+        """
+        if self.leapfrog not in ("auto", "fused", "reference"):
+            raise ValueError(f"unknown leapfrog mode {self.leapfrog!r}")
+        if self.leapfrog == "fused" and spec is None:
+            why = f": {spec_reason}" if spec_reason else \
+                " (PotentialSpec compilation failed or was not attempted)"
+            raise ValueError(
+                f"leapfrog='fused' requires a separable model{why}; use "
+                "leapfrog='auto' to fall back to autodiff gradients")
+        if spec is not None and self.leapfrog != "reference":
+            return lambda q: potential_value_and_grad(spec, q)
+        return value_and_grad(logdensity)
+
+    def _build_step(self, ld_grad, dim: int):
+        """Build the NUTS transition for all chains in lockstep.
+
+        Returns ``nuts_step(q0, logp0, grad0, eps, generator) -> (q, logp,
+        grad, accept_prob, tree_depth, diverging)``, each with the chain
+        axis first (``q0 (num_chains, dim)``; ``eps`` a number or a
+        per-chain tensor); shared by :meth:`run` and :meth:`make_kernel`.
+        """
+        del dim  # carried by q0
+        max_depth = int(self.max_depth)
+        k_slots = max_depth + 1
+
+        def nuts_step(q0, logp0, grad0, eps, generator):
+            n_chains = q0.shape[0]
+            dev, dt = q0.device, q0.dtype
+            e_abs = _per_coord(eps, q0)
+
+            def uniform():
+                return torch.rand((n_chains,), generator=generator,
+                                  dtype=dt, device=dev)
+
+            p0 = torch.randn(q0.shape, generator=generator, dtype=dt,
+                             device=dev)
+            h0 = -logp0 + 0.5 * torch.sum(p0 * p0, dim=-1)
+            false = torch.zeros((n_chains,), dtype=torch.bool, device=dev)
+            zero = torch.zeros((n_chains,), dtype=dt, device=dev)
+            s = dict(q_l=q0, p_l=p0, g_l=grad0, q_r=q0, p_r=p0, g_r=grad0,
+                     q_prop=q0, logp_prop=logp0, g_prop=grad0,
+                     log_weight=zero, depth=torch.zeros(
+                         (n_chains,), dtype=torch.int64, device=dev),
+                     turning=false, diverging=false, sum_acc=zero,
+                     n_acc=zero)
+            leaves = 0
+            # every live chain has grown the same number of doublings, so
+            # the level (and its subtree size 2^level) is one host int
+            for level in range(max_depth):
+                active = ~s["turning"] & ~s["diverging"]
+                if not _sync_any(active):
+                    break
+                go_right = uniform() < 0.5
+                right = go_right.unsqueeze(-1)
+                direction = torch.where(right, 1.0, -1.0).to(dt)
+                e = e_abs * direction
+                q = torch.where(right, s["q_r"], s["q_l"])
+                p = torch.where(right, s["p_r"], s["p_l"])
+                g = torch.where(right, s["g_r"], s["g_l"])
+                # the subtree's carry (repro's `sub`)
+                ck_q = torch.zeros((n_chains, k_slots) + q0.shape[1:],
+                                   dtype=dt, device=dev)
+                ck_p = torch.zeros_like(ck_q)
+                sub_log_w = torch.full((n_chains,), -torch.inf, dtype=dt,
+                                       device=dev)
+                sub_turn, sub_div = false, false
+                sq_prop, slogp_prop, sg_prop = q, zero, g
+                sum_acc, n_acc = s["sum_acc"], s["n_acc"]
+                live = active
+                n_leaf = 1 << level
+                for leaf in range(n_leaf):
+                    if leaf > 0 and not _sync_any(live):
+                        break
+                    leaves += 1
+                    p_h = p + 0.5 * e * g
+                    q_n = q + e * p_h
+                    logp_n, g_n = ld_grad(q_n)
+                    p_n = p_h + 0.5 * e * g_n
+                    h = -logp_n + 0.5 * torch.sum(p_n * p_n, dim=-1)
+                    div_n = sub_div | (h - h0 > 1000.0) | torch.isnan(h)
+                    lw = torch.where(div_n, -torch.inf, h0 - h)
+                    # multinomial progressive sampling within the subtree
+                    total_n = torch.logaddexp(sub_log_w, lw)
+                    take = torch.log(uniform()) < lw - total_n
+                    acc_n = sum_acc + torch.clamp(torch.exp(h0 - h), max=1.0)
+                    # u-turn checks via the checkpoint stack: every live
+                    # chain is at this leaf, so the slots are host ints; a
+                    # frozen chain's slots are written too, and its checks
+                    # dropped by _keep
+                    idx_min, idx_max = _leaf_to_ckpt(leaf, max_depth)
+                    if leaf % 2 == 0:
+                        ck_q[:, idx_max] = q_n
+                        ck_p[:, idx_max] = p_n
+                    else:
+                        ckq = ck_q[:, idx_min:idx_max + 1]
+                        dq = direction.unsqueeze(1) * (q_n.unsqueeze(1) - ckq)
+                        turns = (
+                            (torch.sum(dq * ck_p[:, idx_min:idx_max + 1],
+                                       dim=-1) <= 0.0)
+                            | (torch.sum(dq * p_n.unsqueeze(1), dim=-1)
+                               <= 0.0))
+                        sub_turn = _keep(live, sub_turn | turns.any(-1),
+                                         sub_turn)
+                    # commit on the live chains only
+                    q, p, g = (_keep(live, q_n, q), _keep(live, p_n, p),
+                               _keep(live, g_n, g))
+                    sub_log_w = _keep(live, total_n, sub_log_w)
+                    sub_div = _keep(live, div_n, sub_div)
+                    took = live & take
+                    sq_prop = _keep(took, q_n, sq_prop)
+                    slogp_prop = _keep(took, logp_n, slogp_prop)
+                    sg_prop = _keep(took, g_n, sg_prop)
+                    sum_acc = _keep(live, acc_n, sum_acc)
+                    n_acc = _keep(live, n_acc + 1.0, n_acc)
+                    live = live & ~sub_turn & ~sub_div
+
+                # merge the subtree's proposal with the main one (biased
+                # progressive sampling toward the new subtree)
+                take_new = ((torch.log(uniform()) < sub_log_w
+                             - s["log_weight"]) & ~sub_turn & ~sub_div)
+                new = dict(
+                    q_prop=_keep(take_new, sq_prop, s["q_prop"]),
+                    logp_prop=_keep(take_new, slogp_prop, s["logp_prop"]),
+                    g_prop=_keep(take_new, sg_prop, s["g_prop"]),
+                    log_weight=torch.logaddexp(s["log_weight"], sub_log_w),
+                    q_l=torch.where(right, s["q_l"], q),
+                    p_l=torch.where(right, s["p_l"], p),
+                    g_l=torch.where(right, s["g_l"], g),
+                    q_r=torch.where(right, q, s["q_r"]),
+                    p_r=torch.where(right, p, s["p_r"]),
+                    g_r=torch.where(right, g, s["g_r"]),
+                    depth=s["depth"] + 1,
+                    diverging=s["diverging"] | sub_div,
+                    sum_acc=sum_acc, n_acc=n_acc)
+                new["turning"] = sub_turn | _is_turning(
+                    new["q_l"], new["p_l"], new["q_r"], new["p_r"])
+                s = {k: _keep(active, new[k], v) if k in new else v
+                     for k, v in s.items()}
+            TREE_COUNTS["trees"] += 1
+            TREE_COUNTS["leaf_iterations"] += leaves
+            TREE_COUNTS["last_leaf_iterations"] = leaves
+            acc_prob = s["sum_acc"] / torch.clamp(s["n_acc"], min=1.0)
+            return (s["q_prop"], s["logp_prop"], s["g_prop"], acc_prob,
+                    s["depth"], s["diverging"])
+
+        return nuts_step
+
+    # -- TransitionKernel protocol (run_chains driver) -------------------------
+    def make_kernel(self, logdensity, dim: int, spec=None,
+                    spec_reason: Optional[str] = None) -> TransitionKernel:
+        """Build the NUTS :class:`TransitionKernel` for ``run_chains``.
+
+        State is ``(q, logp, grad, da_state, eps)`` with the chain axis
+        first; ``step`` emits ``{"q", "logp", "accept_prob", "tree_depth",
+        "diverging"}`` per draw (``diverging``: the doubling tree hit an
+        energy error > 1000 or NaN and was truncated). Warmup runs
+        dual-averaging on the mean subtree acceptance statistic, per chain.
+        ``spec`` (an optional compiled PotentialSpec) swaps the tree-leaf
+        gradient for the fused analytic evaluator; ``spec_reason`` (the
+        compiler diagnosis when ``spec`` is None) rides on the returned
+        kernel so the fallback is explainable.
+        """
+        ld_grad = self._make_ld_grad(logdensity, spec, spec_reason)
+        nuts_step = self._build_step(ld_grad, dim)
+        da = DualAveraging(target_accept=self.target_accept)
+
+        def init(q0):
+            logp0, grad0 = ld_grad(q0)
+            eps = torch.full(logp0.shape, float(self.step_size),
+                             device=q0.device)
+            return (q0, logp0, grad0, da.init(eps), eps)
+
+        def warm(state, t, generator):
+            q, logp, grad, da_state, eps = state
+            cur = torch.exp(da_state[0]) if self.adapt_step_size else eps
+            q, logp, grad, acc, _, _ = nuts_step(q, logp, grad, cur,
+                                                 generator)
+            if self.adapt_step_size:
+                da_state = da.update(da_state, acc, t)
+            return (q, logp, grad, da_state, eps)
+
+        def finalize(state):
+            q, logp, grad, da_state, eps = state
+            if self.adapt_step_size:
+                eps = torch.exp(da_state[1])
+            return (q, logp, grad, da_state, eps)
+
+        def step(state, generator):
+            q, logp, grad, da_state, eps = state
+            before = (TREE_COUNTS["leaf_iterations"],
+                      TREE_COUNTS["host_syncs"])
+            q, logp, grad, acc, depth, div = nuts_step(q, logp, grad, eps,
+                                                       generator)
+            TREE_COUNTS["draws"] += 1
+            TREE_COUNTS["draw_leaf_iterations"] += \
+                TREE_COUNTS["leaf_iterations"] - before[0]
+            TREE_COUNTS["draw_host_syncs"] += \
+                TREE_COUNTS["host_syncs"] - before[1]
+            out = {"q": q, "logp": logp, "accept_prob": acc,
+                   "tree_depth": depth, "diverging": div}
+            return (q, logp, grad, da_state, eps), out
+
+        use_fused = spec is not None and self.leapfrog != "reference"
+        return TransitionKernel(init, warm, finalize, step,
+                                spec_reason=None if use_fused
+                                else spec_reason)
+
+    def run(self, seed: int, m: Model, num_samples: int,
+            num_warmup: int = 500,
+            init_varinfo: Optional[TypedVarInfo] = None,
+            num_chains: int = 1, device=None) -> Chain:
+        """Sample ``num_chains`` chains of ``m`` on ``device`` (``None``
+        means CUDA) through :func:`run_chains`, every chain from the
+        discovery draw; ``chain.stats["tree_depth"]`` holds the depths."""
+        return run_chains(seed, m, self, num_samples, num_warmup=num_warmup,
+                          num_chains=num_chains, init_varinfo=init_varinfo,
+                          init_jitter=0.0, backend=self.backend,
+                          device=device)

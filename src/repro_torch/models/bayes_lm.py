@@ -60,6 +60,7 @@ def make_lm_model(cfg: lm.ArchConfig, prior_sigma: float = 1.0):
                 labels.reshape(-1))
         return logits
 
+    lm_bayes.lm_config = cfg  # marks an LM model (infer/sgld.py refuses it)
     return lm_bayes
 
 

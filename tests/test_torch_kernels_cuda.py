@@ -20,6 +20,10 @@ math in another order; bf16 outputs round, and ssd_scan_tc rounds W, S and
 B o segdt to bf16 for the tensor cores; flash_fwd_tf32 and ssd_scan_tf32
 hold the float32 tolerances with 3xTF32 products, whose dropped lo*lo term
 is about 2^-22 of each). Reruns must be bit-identical (no float atomics).
+The samplers' paths: a NUTS draw launches ``fused_potential_vg`` once a
+lockstep leaf iteration, exactly; ``grad`` of a ``vmap`` (ADVI's order)
+through the std_normal, bernoulli and gamma wrappers at rtol 1e-5 of the
+plain version's.
 """
 import time
 
@@ -349,7 +353,7 @@ def test_cuda_elem_strided_one_kernel_by_profiler(cuda_device, family,
 WINDOW_PAD_S = 0.02  # host seconds between a window's edges and its calls
 
 
-def _kernel_windows(fn, calls=10, per_call=1):
+def _kernel_windows(fn, calls=10, per_call=1, only=None):
     """The names of the CUDA kernels that ``calls`` calls of ``fn`` launch,
     by torch.profiler, one list a window. Each window starts with one
     marker launch (``torch.cuda._sleep``'s spin_kernel) that is left out:
@@ -359,7 +363,9 @@ def _kernel_windows(fn, calls=10, per_call=1):
     whose time, carried into the host's clock, falls inside the window,
     and late in a long process that carried time can sit off the host's.
     A window short of ``per_call * calls`` kernels is taken again, up to
-    three windows; the last is the complete one, if any was."""
+    three windows; the last is the complete one, if any was. ``only``
+    keeps the kernels whose names contain it (a path that also launches
+    PyTorch's own kernels)."""
     from torch.profiler import ProfilerActivity, profile
     fn()  # scratch and library in place before the window
     torch.cuda.synchronize()
@@ -377,6 +383,7 @@ def _kernel_windows(fn, calls=10, per_call=1):
         windows.append([e.key for e in prof.key_averages()
                         if e.device_type.name == "CUDA"
                         and "spin_kernel" not in e.key
+                        and (only is None or only in e.key)
                         for _ in range(e.count)])
         if len(windows[-1]) == per_call * calls:
             break
@@ -1647,3 +1654,105 @@ def test_cuda_categorical_refuses_bad_plans(cuda_device):
     torch.cuda.synchronize()
     with pytest.raises(KernelError, match="categorical_logits_sum"):
         ops._raise_on(err, "categorical_logits_sum")
+
+
+# ---------------------------------------------------------------------------
+# the samplers' paths: NUTS leaves, and grad of a vmap (ADVI's order)
+# ---------------------------------------------------------------------------
+def _gaussian_nuts_step(dev, chains=4):
+    """One NUTS step function on gaussian_10k's compiled spec (4 chains,
+    jittered starts), its state, and the spec; each call of the returned
+    ``one()`` redraws the same tree (its generator reseeded)."""
+    from repro_torch.core.potential import compile_potential
+    from repro_torch.infer import NUTS
+    from repro_torch.models import paper_suite
+
+    pm = paper_suite.build("gaussian_10k", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tvi = pm.model.typed_varinfo(gen).link()
+    spec = compile_potential(pm.model, tvi).spec
+    assert spec is not None
+    kern = NUTS(step_size=0.1).make_kernel(pm.model.make_logdensity_fn(tvi),
+                                           spec.dim, spec=spec)
+    q0 = tvi.flat() + 2.0 * torch.rand((chains, spec.dim), generator=gen,
+                                       device=dev) - 1.0
+    state = kern.init(q0)
+
+    def one():
+        gen.manual_seed(5)
+        return kern.step(state, gen)
+
+    return one
+
+
+@pytest.mark.cuda
+def test_cuda_nuts_draw_is_one_potential_launch_a_leaf_iteration(cuda_device):
+    """One NUTS draw on gaussian_10k's spec launches fused_potential_vg
+    exactly once per lockstep leaf iteration for all chains together (the
+    count the step reports in TREE_COUNTS), by LAUNCHES and by the
+    profiler, and nothing else of the port."""
+    from repro_torch.infer import nuts as nuts_mod
+    one = _gaussian_nuts_step(cuda_device)
+    one()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lf_ops.reset_launch_counts()
+    nuts_mod.reset_tree_counts()
+    _, out = one()
+    torch.cuda.synchronize()
+    leaves = nuts_mod.TREE_COUNTS["last_leaf_iterations"]
+    assert nuts_mod.TREE_COUNTS["trees"] == 1 and leaves >= 1
+    assert leaves == nuts_mod.TREE_COUNTS["leaf_iterations"]
+    assert lf_ops.LAUNCHES == {"fused_leapfrog": 0,
+                               "fused_potential_vg": leaves}
+    assert set(ops.LAUNCHES.values()) == {0}
+    # a tree of depth d has at most 2^d - 1 leaves, and the deepest chain's
+    # tree sets the lockstep count
+    depth = int(out["tree_depth"].max())
+    assert 2 ** (depth - 1) <= leaves <= 2 ** depth - 1
+    windows = _kernel_windows(one, calls=3, per_call=leaves,
+                              only="leapfrog_kernel")
+    assert len(windows[-1]) == 3 * leaves, [len(w) for w in windows]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["std_normal", "bernoulli", "gamma"])
+def test_cuda_grad_of_vmap_matches_plain(cuda_device, family):
+    """ADVI's transform order: ``grad`` of a ``vmap`` over 8 draws through
+    the wrapper's autograd Function equals the same through the plain
+    version at rtol 1e-5, with one forward launch for the 8 rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    n = 10000
+    eps = torch.randn(8, n, generator=gen, device=cuda_device)
+    y = (torch.rand(n, generator=gen, device=cuda_device) < 0.5).float()
+    am1 = torch.full((n,), 1.5, device=cuda_device)
+    rate = torch.full((n,), 0.7, device=cuda_device)
+    fns = {"std_normal": (ops.std_normal_logpdf_sum,
+                          ref.std_normal_logpdf_sum_ref, lambda u: (u,)),
+           "bernoulli": (ops.bernoulli_logits_logpmf_sum,
+                         ref.bernoulli_logits_logpmf_sum_ref,
+                         lambda u: (u, y)),
+           "gamma": (ops.gamma_unnorm_logpdf_sum,
+                     ref.gamma_unnorm_logpdf_sum_ref,
+                     lambda u: (torch.exp(u), am1, rate))}
+    kern, plain, args = fns[family]
+
+    def elbo(fn):
+        def f(params):
+            mu, log_sigma = params
+            u = mu + torch.exp(log_sigma) * eps
+            return torch.mean(torch.func.vmap(lambda uu: fn(*args(uu)))(u))
+        return f
+
+    params = (0.1 * torch.randn(n, generator=gen, device=cuda_device),
+              torch.full((n,), -1.0, device=cuda_device))
+    ops.reset_launch_counts()
+    (gm, gs), v = torch.func.grad_and_value(elbo(kern))(params)
+    kernel = {"std_normal": "std_normal_sum", "bernoulli":
+              "bernoulli_logit_sum", "gamma": "gamma_unnorm_sum"}[family]
+    assert ops.LAUNCHES == {**dict.fromkeys(ops.LAUNCHES, 0), kernel: 1}
+    (wm, ws), wv = torch.func.grad_and_value(elbo(plain))(params)
+    torch.testing.assert_close(v, wv, rtol=1e-5, atol=0)
+    for g, w in ((gm, wm), (gs, ws)):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
