@@ -152,7 +152,9 @@ Phases, in order:
    draws; ``fused_potential_vg`` once per lockstep leaf iteration and at
    chain init, nothing else but the compiler's 5 probes; its moments
    gated as phase 6's; launches, tree depth and host syncs a draw
-   printed) and on logreg through the autodiff leaves (40 + 80 draws,
+   printed; then ms a transition and a leaf iteration replayed and under
+   ``disable_capture()``, in turns, ``NUTS_TIMED``) and on logreg
+   through the autodiff leaves (40 + 80 draws,
    depth at most 7; the density kernels once per leaf iteration; the
    final-draw densities at rtol 1e-5 and the means against the port's
    HMC chain started at a NUTS draw within 5.5 Monte-Carlo standard
@@ -162,9 +164,19 @@ Phases, in order:
    (``benchmarks/table1.py``'s ``table1/<model>/{typed,handwritten,
    untyped},us_per_call,derived`` lines for the eight models: one chain
    of ``make_chain_fn`` on the fused log-density and on the hand-written
-   twin, 30 draws after a warm-up call, and ``HMC.run_untyped`` over 3
-   draws, extrapolated; hmm_semisup 20 and 2). Table 1's lines are
-   information: only a NaN or a failed run fails them;
+   twin, replaying their captured transitions after one whole chain, and
+   ``HMC.run_untyped``'s draw loop; medians of ``TABLE1_REPS``; logreg's
+   typed and hand-written chains also once under ``disable_capture()``,
+   ``table1_eager/...`` lines). Table 1's lines are information: only a
+   NaN or a failed run fails them;
+6c. the compile step held: every captured PPL path (HMC with
+   dual-averaging warmup on the ten models, both integrators on the
+   separable ones, gauss_unknown's switch route, NUTS on gaussian_10k and
+   logreg, Table 1's chains, MAP, RWMH, ADVI with and without
+   ``minibatch=``, the subsampled SGLD step) against the same run under
+   ``disable_capture()``: identical draws bit for bit and equal launch
+   counts, or the run fails (the LM decode steps are held the same way,
+   greedy and sampled, in the LM phase);
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -174,7 +186,9 @@ Phases, in order:
    transitions
    of logreg, of gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
    gauss_unknown (both routes), sto_volatility and family_mix_8k for the
-   device's busy share; the flash kernels at the LM paths' calls
+   device's busy share, each eagerly and replayed as ``run_chains``
+   replays it (kernels, and host syncs and copies by name, a
+   transition); the flash kernels at the LM paths' calls
    (``FLASH_TIMED``: the bf16 serving calls and the float32 prefill; the
    library call is ``scaled_dot_product_attention`` with a boolean mask
    and ``enable_gqa``, none where gemma2's softcap applies; at the float32
@@ -185,8 +199,9 @@ Phases, in order:
    kernels and mvn_quadform_sum; at the FP32 rate also ``bound_fp32_ms``);
    the kernels' line lists the FP32 kernels that no main path runs any
    more with 0 launches and ``off_main_path``; and
-   profiles of each serving path's prefill and decode steps and of one
-   scoring evaluation.
+   profiles of each serving path's prefill and decode steps (eager, and
+   the decode step replayed as ``serve_batch`` runs it; ms a token of
+   each unprofiled, in turns) and of one scoring evaluation.
 
 Usage, from the root of a checkout, on a machine with one CUDA GPU:
 
@@ -200,6 +215,7 @@ the port's sources.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -1516,6 +1532,7 @@ NUTS_RUNS = {"gaussian_10k": (100, 200, 10), "logreg": (40, 70, 7)}
 # jitter around the port's MAP mode (MAP_STEPS of Adam), none of it from
 # NUTS; every coordinate's split R-hat must stay under HMC_REF_RHAT
 NUTS_HMC_REF = (40, 150, 8)
+NUTS_TIMED = (10, 20)  # warmup, draws of nuts_timed's runs
 MAP_STEPS = 300
 HMC_REF_RHAT = 1.1
 # Table 1 (benchmarks/table1.py's three variants of one chain), in
@@ -1526,6 +1543,7 @@ HMC_REF_RHAT = 1.1
 TABLE1_DRAWS = {"hmm_semisup": (3, 1), "lda": (15, 8)}
 TABLE1_DEFAULT = (20, 10)
 TABLE1_REPS = 3
+TABLE1_EAGER = ("logreg",)  # the chains also timed with capture off
 
 
 def counts_reset(torch):
@@ -1610,6 +1628,7 @@ def nuts_path(torch, np, name, seed=0):
                                                           seed)
         ref, out["hmc_reference"] = hmc_reference(torch, np, pm, seed)
         out["max_abs_z_vs_hmc"] = compare_means(np, name, chain, ref)
+    out["timed"] = nuts_timed(torch, pm, kernel, seed)
     log(f"NUTS {name}: 4 chains x ({warmup} warmup + {draws}) draws in "
         f"{secs:.2f} s ({secs / trees * 1e3:.2f} ms a transition); sampling "
         f"draws: mean tree depth {depth_mean:.2f}, "
@@ -1622,6 +1641,43 @@ def nuts_path(torch, np, name, seed=0):
         + (f"; fused_potential_vg {out['potential_launches_per_draw']:.2f} "
            "launches a draw" if fused else ""))
     return out, chain
+
+
+def nuts_timed(torch, pm, kernel, seed=0):
+    """ms a transition and a lockstep leaf iteration of NUTS on ``pm``,
+    replayed (the leaf programs captured by the run before) and under
+    ``disable_capture()``, in turns: ``NUTS_TIMED`` warmup and draws of 4
+    chains each, host clock, synchronised."""
+    from repro_torch.core.program import disable_capture
+    from repro_torch.infer import run_chains
+    from repro_torch.infer import nuts as nuts_mod
+
+    warm, draws = NUTS_TIMED
+    res = {}
+    for mode in ("replayed", "eager", "replayed", "eager"):
+        torch.cuda.synchronize()
+        nuts_mod.reset_tree_counts()
+        t0 = time.perf_counter()
+        with (disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            run_chains(seed + 1, pm.model, kernel, draws, num_warmup=warm,
+                       num_chains=4, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tree = dict(nuts_mod.TREE_COUNTS)
+        res.setdefault(mode, []).append({
+            "ms_per_transition": secs * 1e3 / tree["trees"],
+            "ms_per_leaf_iteration": secs * 1e3 / tree["leaf_iterations"],
+            "leaf_iterations_per_transition":
+                tree["leaf_iterations"] / tree["trees"],
+            "host_syncs_per_transition": tree["host_syncs"] / tree["trees"]})
+    for mode, runs in res.items():
+        log(f"NUTS {pm.name} {mode}: "
+            + ", ".join(f"{r['ms_per_transition']:.3f} ms a transition, "
+                        f"{r['ms_per_leaf_iteration']:.3f} ms a leaf "
+                        f"iteration ({r['leaf_iterations_per_transition']:.2f}"
+                        " a transition)" for r in runs))
+    return res
 
 
 def hmc_reference(torch, np, pm, seed=0):
@@ -1831,6 +1887,196 @@ def other_samplers(torch, np):
     return runs, out
 
 
+# ---------------------------------------------------------------------------
+# the graphs phase: every captured path against the same run eagerly
+# ---------------------------------------------------------------------------
+GRAPH_RUN = (4, 6)  # warmup, draws of each captured-against-eager HMC run
+GRAPH_NUTS = (3, 4)
+GRAPH_STEPS = 30    # MAP, ADVI and SGLD steps
+GRAPH_MODELS = ("logreg", "naive_bayes", "gaussian_10k", "hier_poisson",
+                "hmm_semisup", "lda", "gauss_unknown", "sto_volatility",
+                "family_mix_8k", "mixed")
+
+
+def same_results(np, a, b) -> bool:
+    """Bit for bit (NaN equal to NaN): two Chains, arrays or trees."""
+    from repro_torch.infer.chains import Chain
+
+    if isinstance(a, Chain):
+        return (a.names() == b.names() and set(a.stats) == set(b.stats)
+                and all(same_results(np, a[k], b[k]) for k in a.names())
+                and all(same_results(np, a.stats[k], b.stats[k])
+                        for k in a.stats))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_results(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_results(np, x, y)
+                                        for x, y in zip(a, b))
+    if hasattr(a, "detach"):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"))
+
+
+def captured_vs_eager(torch, np, label, fn, mods=None, warm=None):
+    """``fn()`` with capture on, then under ``disable_capture()``, each with
+    every launch count zeroed just before and read just after: the results
+    must be identical bit for bit, the counted launches equal (a replay
+    adds back what its capture counted), and the first run must have
+    replayed graphs. ``warm()``, run eagerly first, builds what only a
+    first run builds (the cached density and spec: the compiler's
+    probes)."""
+    from repro_torch.core.program import GRAPH_COUNTS, disable_capture
+
+    mods = mods or _ppl_mods()
+    if warm is not None:
+        with disable_capture():
+            warm()
+    lm_reset(mods)
+    before = dict(GRAPH_COUNTS)
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    launches = lm_counts(mods)
+    graphs = {k: GRAPH_COUNTS[k] - before[k] for k in before}
+    lm_reset(mods)
+    t0 = time.perf_counter()
+    with disable_capture():
+        want = fn()
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    eager_launches = lm_counts(mods)
+    same = same_results(np, got, want)
+    check(same, f"graphs {label}: the captured run differs from the eager "
+          "one")
+    check(launches == eager_launches, f"graphs {label}: launches "
+          f"{launches} captured, {eager_launches} eager")
+    check(graphs["replays"] > 0, f"graphs {label}: no graph was replayed "
+          f"({graphs})")
+    log(f"graphs {label}: identical to the eager run; {graphs['captures']} "
+        f"captures, {graphs['replays']} replays; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {t_graph:.2f} s "
+        f"captured, {t_eager:.2f} s eager")
+    return {"identical": same, "captures": graphs["captures"],
+            "replays": graphs["replays"], "launches": launches,
+            "seconds": t_graph, "eager_seconds": t_eager}
+
+
+def _ppl_mods():
+    from repro_torch.kernels.fused_leapfrog import ops as lf_ops
+    from repro_torch.kernels.fused_logpdf import ops
+    return (ops, lf_ops)
+
+
+def graphs_phase(torch, np):
+    """Captured against eager on the PPL paths at full size (the LM decode
+    steps are held in :func:`lm_serve_path`): HMC with dual-averaging
+    warmup on the ten models (gaussian_10k and family_mix_8k fused, then
+    under the autodiff integrator) and gauss_unknown's switch route, NUTS
+    on gaussian_10k (fused leaves) and logreg, Table 1's chains (typed and
+    hand-written) on logreg and gaussian_10k, MAP, RWMH, ADVI (full and
+    minibatch) and the subsampled SGLD step. Draws are cut to
+    ``GRAPH_RUN``, ``GRAPH_NUTS`` and ``GRAPH_STEPS``: each run still
+    takes the eager first call, the capture and replays of each program."""
+    from repro_torch.infer import (ADVI, HMC, MAP, NUTS, RWMH, SGLD,
+                                   make_subsampled_sgld_step, run_chains)
+    from repro_torch.infer.hmc import make_chain_fn
+    from repro_torch.kernels import use_fused_logpdf
+    from repro_torch.sharding import Minibatch
+
+    t_start = time.perf_counter()
+    warm, draws = GRAPH_RUN
+    out = {}
+    for name in GRAPH_MODELS:
+        pm = build_model(name)
+        init, jitter = start_point(torch, np, pm, 0)
+        for leapfrog in (("auto", "reference") if name in SEPARABLE
+                         else ("auto",)):
+            kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+                         adapt_step_size=True, leapfrog=leapfrog)
+            label = name + ("" if leapfrog == "auto" else " (autodiff)")
+            def run(n=draws, w=warm):
+                return run_chains(0, pm.model, kernel, n, num_warmup=w,
+                                  num_chains=4, device=DEVICE,
+                                  init_varinfo=init, init_jitter=jitter)
+
+            out[label] = captured_vs_eager(torch, np, label, run,
+                                           warm=lambda: run(1, 0))
+        if name in ("logreg", "gaussian_10k"):
+            tvi = pm.model.typed_varinfo(
+                torch.Generator(device=DEVICE).manual_seed(42)).link()
+            for variant, ld in (("typed", pm.model.make_logdensity_fn(tvi)),
+                                ("handwritten", pm.handwritten)):
+                chain = make_chain_fn(ld, draws, pm.step_size, pm.n_leapfrog,
+                                      collect=name == "logreg")
+                out[f"table1 {name} {variant}"] = captured_vs_eager(
+                    torch, np, f"table1 {name} {variant}", lambda: chain(
+                        torch.Generator(device=DEVICE).manual_seed(0),
+                        tvi.flat()))
+    pm = build_model("gauss_unknown")
+    init, jitter = start_point(torch, np, pm, 0)
+    def switch_run(n=draws, w=warm):
+        return run_chains(0, pm.model, HMC(step_size=pm.step_size), n,
+                          num_warmup=w, num_chains=4, device=DEVICE,
+                          init_varinfo=init, init_jitter=jitter,
+                          backend="reference")
+
+    with use_fused_logpdf():
+        out["gauss_unknown_switch"] = captured_vs_eager(
+            torch, np, "gauss_unknown (switch route)", switch_run,
+            warm=lambda: switch_run(1, 0))
+    n_warm, n_draws = GRAPH_NUTS
+    for name in ("gaussian_10k", "logreg"):
+        pm = build_model(name)
+        kernel = NUTS(step_size=pm.step_size, max_depth=NUTS_RUNS[name][2])
+
+        def nuts_run(n=n_draws, w=n_warm):
+            return run_chains(0, pm.model, kernel, n, num_warmup=w,
+                              num_chains=4, device=DEVICE)
+
+        out[f"nuts {name}"] = captured_vs_eager(
+            torch, np, f"NUTS {name}", nuts_run, warm=lambda: nuts_run(1, 0))
+    (m, _), (m2, _), (m3, _) = _gauss_models(torch, np)
+    steps = GRAPH_STEPS
+    out["map"] = captured_vs_eager(
+        torch, np, "MAP", lambda: MAP(num_steps=steps).run(13, m,
+                                                           device=DEVICE))
+    out["rwmh"] = captured_vs_eager(
+        torch, np, "RWMH", lambda: RWMH(proposal_scale=0.1).run(
+            7, m, draws, num_warmup=warm, num_chains=4, device=DEVICE),
+        warm=lambda: RWMH(proposal_scale=0.1).run(7, m, 1, num_chains=4,
+                                                  device=DEVICE))
+
+    def advi(minibatch):
+        res = ADVI(num_mc=4, lr=0.05, num_steps=steps,
+                   minibatch=minibatch).run(2, m2, device=DEVICE)
+        return res.mu, res.log_sigma, res.elbo_trace
+
+    out["advi"] = captured_vs_eager(torch, np, "ADVI", lambda: advi(None))
+    out["advi_minibatch"] = captured_vs_eager(
+        torch, np, "ADVI (minibatch)", lambda: advi(Minibatch(("y",), 32)))
+
+    def sgld():
+        sgld = SGLD(step_size=2e-2, temperature=0.0)
+        step = make_subsampled_sgld_step(m3, Minibatch(("y",), 16), sgld)
+        params = torch.zeros((), device=DEVICE)
+        state = sgld.init(params)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        lps = []
+        for _ in range(steps):
+            params, state, lp = step(gen, params, state)
+            lps.append(lp)
+        return params, torch.stack(lps)
+
+    out["sgld"] = captured_vs_eager(torch, np, "SGLD (subsampled)", sgld)
+    log(f"graphs phase: {len(out)} paths identical captured and eager in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def table1(torch, np):
     """Table 1's three variants of one HMC chain (``benchmarks/table1.py``)
     for each paper model, on the card: ``make_chain_fn`` of the model's
@@ -1839,9 +2085,14 @@ def table1(torch, np):
     and a NumPy loop) timed on its draw loop alone (its setup, a 1-draw
     run less one draw, is reported apart). ``TABLE1_REPS`` repetitions in
     turn; each row carries the median µs a draw and the spread of each
-    ratio over the repetitions. The port has no compile step, so no
-    ``compile_s``. Information lines: only a NaN or a failed run fails
-    the phase. Returns the typed runs' counts and the rows."""
+    ratio over the repetitions. Each chain's transition is a program: one
+    whole chain runs first (its eager call and capture), and the timed
+    chains replay its graph; on ``TABLE1_EAGER`` the typed and hand-written
+    chains are also timed once under ``disable_capture()``
+    (``table1_eager/...`` lines). Information lines: only a NaN or a
+    failed run fails the phase. Returns the typed runs' counts and the
+    rows."""
+    from repro_torch.core.program import disable_capture
     from repro_torch.infer.hmc import HMC, make_chain_fn
     from repro_torch.models import MODEL_NAMES
 
@@ -1858,17 +2109,19 @@ def table1(torch, np):
         for label, logdensity in (
                 ("typed", pm.model.make_logdensity_fn(tvi)),
                 ("handwritten", pm.handwritten)):
-            make_chain_fn(logdensity, 2, pm.step_size, pm.n_leapfrog,
-                          collect=collect)(
-                torch.Generator(device=DEVICE).manual_seed(0), q0)
             chains[label] = make_chain_fn(logdensity, iters, pm.step_size,
                                           pm.n_leapfrog, collect=collect)
+            # one whole chain first: its transition program's eager call
+            # and capture, so the timed chains replay (as repro's Table 1
+            # times a compiled chain)
+            chains[label](torch.Generator(device=DEVICE).manual_seed(0), q0)
 
-        def timed(label):
+        def timed(label, eager=False):
             gen = torch.Generator(device=DEVICE).manual_seed(0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs = chains[label](gen, q0)
+            with disable_capture() if eager else contextlib.nullcontext():
+                outs = chains[label](gen, q0)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             check(not bool(torch.isnan(outs[1]).any()),
@@ -1924,6 +2177,11 @@ def table1(torch, np):
                 row["typed_vs_handwritten"][2],
                 *row["untyped_over_typed"][1::-1],
                 row["untyped_over_typed"][2]))
+        if name in TABLE1_EAGER:  # the same chains run op by op, once
+            for label in ("typed", "handwritten"):
+                row[f"{label}_eager_us"] = timed(label, eager=True) * 1e6
+                log(f"table1_eager/{name}/{label},"
+                    f"{row[f'{label}_eager_us']:.2f},iters={iters}")
     return runs, rows
 
 
@@ -2399,6 +2657,8 @@ def profile_transitions(torch, pm, kernel, spec=None, steps=20,
 
 def _profile_transitions(torch, pm, kernel, spec, steps, switch,
                          ProfilerActivity, profile):
+    from repro_torch.infer.chains import TransitionPrograms
+
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     tvi = pm.model.typed_varinfo(gen).link()
     kern = kernel.make_kernel(pm.model.make_logdensity_fn(
@@ -2408,13 +2668,46 @@ def _profile_transitions(torch, pm, kernel, spec, steps, switch,
              f"{', switch route' if switch else ''})")
     state = kern.init(tvi.flat().expand(4, tvi.num_flat).contiguous())
     for _ in range(5):
-        state, _ = kern.step(state, gen)
+        state, out = kern.step(state, gen)
+    eager = _transition_window(torch, label, lambda: kern.step(state, gen),
+                               steps, ProfilerActivity, profile)
+    # the same transition as run_chains replays it: the step program over
+    # its buffers (the first call eager, the second captured), then the
+    # window over replays alone
+    progs = TransitionPrograms(kern)
+    bufs = tuple(x.clone() for x in state[:3]) + (state[3], state[4])
+    draws = {k: torch.empty(v.shape[:1] + (max(steps, 3),) + v.shape[1:],
+                            dtype=v.dtype, device=DEVICE)
+             for k, v in out.items()}
+    idx = torch.zeros((1,), dtype=torch.int64, device=DEVICE)
+    for _ in range(3):
+        progs.step(bufs, draws, idx, gen)
+    idx.zero_()
+    replay = _transition_window(
+        torch, label + " replayed",
+        lambda: progs.step(bufs, draws, idx, gen), steps, ProfilerActivity,
+        profile)
+    check(progs.step.captures == 1 and progs.step.replays == steps + 2,
+          f"profile {label}: the step program was captured "
+          f"{progs.step.captures} times and replayed {progs.step.replays}")
+    if eager["kernels_per_transition"] and replay["kernels_per_transition"]:
+        log(f"    {label}: {replay['kernels_per_transition']:.0f} kernels a "
+            f"replay against {eager['kernels_per_transition']:.0f} eager; "
+            f"wall {replay['wall_ms_per_transition']:.3f} ms against "
+            f"{eager['wall_ms_per_transition']:.3f}")
+    return {**eager, "replay": replay}
+
+
+def _transition_window(torch, label, fn, steps, ProfilerActivity, profile):
+    """The profiler over ``steps`` calls of ``fn``: wall and device ms,
+    busy share, kernels, and the host syncs and copies (runtime calls whose
+    name holds Synchronize or Memcpy, by name) a transition."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(WINDOW_PAD_S)  # as device_ms pads its windows
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = kern.step(state, gen)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         time.sleep(WINDOW_PAD_S)
@@ -2425,34 +2718,40 @@ def _profile_transitions(torch, pm, kernel, spec, steps, switch,
     kernels.sort(key=lambda k: -k[1])
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)
-    syncs = sum(e.count for e in events
-                if "Synchronize" in e.key or "Memcpy" in e.key)
-    out = {"model": pm.name, "integrator": label, "transitions": steps,
+    # the window's own closing cudaDeviceSynchronize is left out
+    syncs = {e.key: e.count / steps for e in events
+             if ("Synchronize" in e.key or "Memcpy" in e.key)
+             and e.device_type.name == "CPU"}
+    syncs.pop("cudaDeviceSynchronize", None)
+    out = {"model": label, "transitions": steps,
            "wall_ms_per_transition": wall * 1e3 / steps,
            "device_ms_per_transition": busy_us / 1e3 / steps,
            "busy_share": busy_us / 1e6 / wall if busy_us else None,
-           "kernel_launches_per_transition": sum(k[2] for k in kernels) / steps,
-           "syncs_or_copies_per_transition": syncs / steps,
+           "kernels_per_transition": sum(k[2] for k in kernels) / steps,
+           "syncs_or_copies_per_transition": sum(syncs.values()),
+           "syncs_or_copies_by_name": syncs,
            "top_kernels": [{"name": k, "device_us": us, "count": c}
                            for k, us, c in kernels[:12]],
            "top_host_ops": [{"name": e.key, "self_cpu_us": e.self_cpu_time_total,
                              "count": e.count} for e in host[:12]]}
+    # the old key, kept for the JSON's readers
+    out["kernel_launches_per_transition"] = out["kernels_per_transition"]
     if busy_us:
         log(f"profile {label}: {out['wall_ms_per_transition']:.3f} ms wall "
             f"per transition, {out['device_ms_per_transition']:.3f} ms on the "
             f"device, busy share {out['busy_share']:.3f}")
-        log(f"    {out['kernel_launches_per_transition']:.0f} kernel launches "
-            f"and {out['syncs_or_copies_per_transition']:.1f} syncs or copies "
-            "per transition; top kernels by device time:")
+        log(f"    {out['kernels_per_transition']:.0f} kernels and "
+            f"{out['syncs_or_copies_per_transition']:.1f} syncs or copies per "
+            f"transition {syncs}; top kernels by device time:")
         for k in out["top_kernels"]:
             log(f"    {k['device_us'] / steps:9.2f} us/transition "
                 f"x{k['count'] // steps:<4d} {k['name'][:90]}")
         log("    top host ops by self CPU time:")
-        for h in out["top_host_ops"]:
+        for h in out["top_host_ops"][:8]:
             log(f"    {h['self_cpu_us'] / steps:9.2f} us/transition "
                 f"x{h['count'] // steps:<4d} {h['name'][:90]}")
     else:
-        log("profile: the trace shows no device time (not measured)")
+        log(f"profile {label}: the trace shows no device time (not measured)")
     return out
 
 
@@ -2891,6 +3190,8 @@ LM_SERVE = {"smollm-360m": (8, 1024, 64, None),
             "gemma2-27b": (2, 4160, 32, 2),   # one (local, global) block
             "mamba2-1.3b": (4, 1024, 32, None)}
 LM_SCORE = ("mamba2-1.3b", 4, 2048)           # (arch, sequences, tokens)
+LM_GRAPH_NEW = 8   # new tokens of each captured-against-eager serving run
+DECODE_TIMED = 32  # decode steps timed unprofiled, replayed and eager
 LM_GATE = 2e-3  # tests/test_archs.py's tolerance for decode vs forward
 # bf16 scoring: the log-likelihood through ssd_scan_tc against the plain
 # scan's, same bf16 weights and tokens. The two differ only inside the
@@ -3035,6 +3336,16 @@ def lm_serve_path(torch, arch, mods):
     out.update(prefill_ms=stats["prefill_s"] * 1e3,
                decode_ms_per_token=stats["decode_s_per_token"] * 1e3,
                tokens_per_s=stats["tokens_per_s"])
+    # the decode step's graph against the same steps eagerly, greedy and
+    # sampled (the request's generator registered with the graph)
+    import numpy as np
+    for temp in (0.0, 1.0):
+        out[f"graphs_temperature_{temp:g}"] = captured_vs_eager(
+            torch, np, f"{arch} decode (temperature {temp:g})",
+            lambda: serve_batch(arch, cfg=cfg, params=params,
+                                prompts=prompts, max_new=LM_GRAPH_NEW,
+                                temperature=temp, device=DEVICE)[0],
+            mods=mods)
     if n_attn:  # greedy agreement with the dense route in bf16 (reported)
         dense_tokens, _ = serve_batch(
             arch, cfg=dataclasses.replace(cfg, attn_impl="xla"),
@@ -3435,16 +3746,24 @@ def profile_window(torch, label, fn, steps):
 
 
 def profile_lm(torch, serve_state, score_state):
-    """A window of decode steps of each serving path (its prefill once)
-    and one scoring evaluation."""
+    """A window of decode steps of each serving path (its prefill once),
+    eager and replayed (``launch.serve.decode_program``, as ``serve_batch``
+    runs it), ms a token of each unprofiled, in turns, and one scoring
+    evaluation."""
     from repro_torch.core.contexts import LikelihoodContext
+    from repro_torch.core.program import disable_capture
+    from repro_torch.launch.serve import decode_program
     from repro_torch.models import bayes_lm
     from repro_torch.nn import lm
     out = {}
     for arch, (cfg, params, prompts) in serve_state.items():
         B, S = prompts.shape
         steps = 8
-        cache = lm.init_cache(cfg, B, S + steps + 2, device=DEVICE)
+        # the eager window's steps, then the program's: two before its
+        # window, one more at the window's start, the window, and the
+        # timed steps in four turns
+        n_prog = 3 + steps + 2 * DECODE_TIMED
+        cache = lm.init_cache(cfg, B, S + steps + 2 + n_prog, device=DEVICE)
         prefill = bayes_lm.make_prefill_step(cfg)
         decode = bayes_lm.make_serve_step(cfg)
         with torch.no_grad():
@@ -3463,6 +3782,39 @@ def profile_lm(torch, serve_state, score_state):
 
             out[f"{arch}_decode"] = profile_window(
                 torch, f"{arch} decode step", step, steps)
+            prog = decode_program(cfg)
+            tok = token.clone()
+            ppos = pos + steps + 2
+            toks = torch.empty((B, n_prog + 1), dtype=torch.int32,
+                               device=DEVICE)
+            idx = torch.zeros((1,), dtype=torch.int64, device=DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+            def call():
+                prog(params, tok, cache, ppos, toks, idx, gen, None)
+
+            call()
+            call()
+            out[f"{arch}_decode_replayed"] = profile_window(
+                torch, f"{arch} decode step replayed", call, steps)
+            timed = {"replayed": [], "eager": []}
+            for mode in ("replayed", "eager", "eager", "replayed"):
+                n = DECODE_TIMED // 2
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (disable_capture() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    for _ in range(n):
+                        call()
+                torch.cuda.synchronize()
+                timed[mode].append((time.perf_counter() - t0) * 1e3 / n)
+            check(prog.captures == 1, f"{arch}: the decode program was "
+                  f"captured {prog.captures} times")
+            out[f"{arch}_decode_ms_per_token"] = timed
+            log(f"{arch} decode ms a token (unprofiled, {DECODE_TIMED // 2} "
+                f"steps a turn): replayed {timed['replayed']}, eager "
+                f"{timed['eager']}")
+        del cache
     cfg, params, tokens, labels = score_state
     with torch.no_grad():
         m = bayes_lm.make_lm_model(cfg)(tokens=tokens, labels=labels,
@@ -3669,6 +4021,10 @@ def main() -> int:
     table1_prof = table1_profile(torch, np)
     phase_6b_s = time.perf_counter() - t6b
     log(f"phase 6b done in {phase_6b_s:.1f} s")
+    # phase 6c: every captured PPL path against the same run eagerly
+    t6c = time.perf_counter()
+    graphs = graphs_phase(torch, np)
+    phase_6c_s = time.perf_counter() - t6c
     # the LM paths, each with every count zeroed just before its timed run
     # and read just after it
     lm_mods = (ops, lf_ops, fops, sops)
@@ -3761,7 +4117,8 @@ def main() -> int:
               "ptxas": {p: lines for p, lines in reports.items()},
               "runs": runs, "nuts": nuts, "sampler_runs": sampler_runs,
               "table1": table1_rows, "table1_profile": table1_prof,
-              "phase_6b_s": phase_6b_s,
+              "phase_6b_s": phase_6b_s, "graphs": graphs,
+              "phase_6c_s": phase_6c_s,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}

@@ -21,6 +21,11 @@ __all__ = [
 
 
 def _as_like(v, x: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor of ``x``'s type and device; a Python number as a
+    device fill, not a host-to-device copy (which a captured transition
+    cannot hold)."""
+    if not torch.is_tensor(v) and isinstance(v, (int, float)):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
     return torch.as_tensor(v, dtype=x.dtype, device=x.device)
 
 

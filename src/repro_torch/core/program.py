@@ -11,16 +11,27 @@ spec, on every call. This module gives all of them one shared ABI:
   plus a content hash of the bound data (tensors and arrays by shape,
   dtype, device and sha1 of their bytes), so rebinding data to new values
   never reuses a stale program.
-* :class:`CompiledProgram` — a function over the flat buffer with call
-  and signature accounting. PyTorch runs it eagerly: there is no compile
-  step yet, and ``retraces`` counts the distinct argument signatures
-  (shape, dtype and device of each tensor leaf) it has been called with.
-  Each of those signatures is one capture that a CUDA-graph replay of the
-  program will need (ROADMAP.md Queue 1 item 11b).
+* :class:`CompiledProgram` — a function over the flat buffer with its
+  compile step and call and signature accounting, the port's ``jax.jit``:
+  on CUDA the body of each argument signature is recorded once as a
+  ``torch.cuda.CUDAGraph`` (at its second call) and replayed after that;
+  on the CPU it runs eagerly. ``retraces`` counts the signatures,
+  ``captures`` and ``replays`` the graphs; :func:`disable_capture` is the
+  port's ``jax.disable_jit``.
 * :class:`ProgramCache` — keyed store with hit/miss/eviction counters
-  and LRU eviction. Entries are ``CompiledProgram`` s or plain build
-  artefacts (``PotentialCompileResult``) that are expensive to rebuild:
-  the separable-spec compiler's probes are five density evaluations.
+  and LRU eviction. Entries are ``CompiledProgram`` s, a sampler's set of
+  them (``infer.chains.TransitionPrograms``), or plain build artefacts
+  (``PotentialCompileResult``) that are expensive to rebuild: the
+  separable-spec compiler's probes are five density evaluations.
+
+Which programs return the graph's own outputs (``donate_argnums``, as
+``repro`` donates): the sampler and serving loops' own programs, whose
+outputs and in-place buffers their loop consumes before the next call —
+``TransitionPrograms``' warm and step (``run_chains``, ``make_chain_fn``),
+NUTS's tree programs, MAP's step and the serving loop's decode step.
+ADVI's and SGLD's steps and the density programs return fresh tensors.
+The ``"package"`` program runs eagerly (``jit=False``): it runs once a
+run and its output goes to the host.
 
 The module-level default cache (``program_cache()``) is what
 ``run_chains``, the samplers and chain packaging share;
@@ -28,18 +39,25 @@ The module-level default cache (``program_cache()``) is what
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import hashlib
+import inspect
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import SUPPORTED_NODES, tree_flatten, tree_unflatten
 
-__all__ = ["CompiledProgram", "ProgramCache", "ProgramKey",
+__all__ = ["CaptureError", "CompiledProgram", "GRAPH_COUNTS", "ProgramCache",
+           "ProgramKey",
            "cache_stats", "cached_potential", "clear_cache",
-           "data_fingerprint", "density_program", "kernel_fingerprint",
+           "data_fingerprint", "density_program", "disable_capture",
+           "kernel_fingerprint",
            "model_fingerprint", "model_graph", "program_cache",
            "trace_fingerprint"]
 
@@ -194,54 +212,413 @@ class ProgramKey(NamedTuple):
     sharding: Tuple = ()
 
 
-def _leaf_signature(x) -> Tuple:
-    if torch.is_tensor(x):
-        return (tuple(x.shape), x.dtype, x.device)
-    return (type(x).__name__,)
+# ---------------------------------------------------------------------------
+# The compile step: a program's body as a CUDA graph, one a signature
+# ---------------------------------------------------------------------------
+class CaptureError(RuntimeError):
+    """A program's body could not be recorded as a CUDA graph."""
 
 
-def _signature(args, kwargs) -> Tuple:
-    """The argument signature a capture would specialise on: the tree
-    structure, and the shape, dtype and device of each tensor leaf (a
-    non-tensor leaf by its type alone)."""
-    if not kwargs and all(torch.is_tensor(a) for a in args):
-        return tuple(_leaf_signature(a) for a in args)  # the hot path
-    from torch.utils._pytree import tree_flatten
-    leaves, spec = tree_flatten((args, kwargs))
-    return (str(spec), tuple(_leaf_signature(x) for x in leaves))
+_NO_CAPTURE = [0]       # depth of disable_capture() blocks
+# captures and replays of every program of the process, cached or not
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+_CAPTURING = []         # kinds of the programs being captured, innermost last
+_CAPTURE_STREAMS = {}   # device index -> the stream every capture runs on
+_NUMBERS = (bool, int, float, complex, np.number, np.bool_)
+
+
+@contextlib.contextmanager
+def disable_capture():
+    """Run every program eagerly inside the block, as ``jax.disable_jit``
+    runs every jitted function op by op. Signatures are still counted."""
+    _NO_CAPTURE[0] += 1
+    try:
+        yield
+    finally:
+        _NO_CAPTURE[0] -= 1
+
+
+_COUNTERS = []
+
+
+def _launch_counters():
+    """The ``LAUNCHES`` dicts of every kernel module."""
+    if not _COUNTERS:
+        from repro_torch.kernels.flash_attention import ops as flash
+        from repro_torch.kernels.fused_leapfrog import ops as leapfrog
+        from repro_torch.kernels.fused_logpdf import ops as logpdf
+        from repro_torch.kernels.ssd_scan import ops as ssd
+        _COUNTERS.extend((logpdf.LAUNCHES, leapfrog.LAUNCHES, flash.LAUNCHES,
+                          ssd.LAUNCHES))
+    return _COUNTERS
+
+
+def _switch_state() -> bool:
+    from repro_torch.kernels import fused_logpdf_enabled
+    return fused_logpdf_enabled()
+
+
+def _capture_stream(index: int) -> torch.cuda.Stream:
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
+
+
+_peek_transform = torch._C._functorch.peek_interpreter_stack
+
+
+def _cuda_device(x):
+    """The device a graph of the tensor or generator ``x`` would run on:
+    CUDA's, else None."""
+    return x.device if x.device.type == "cuda" else None
+
+
+@contextlib.contextmanager
+def _recording(graph, dev: torch.device):
+    """Record the block's CUDA work into ``graph``, on the capture stream
+    of ``dev``, with that stream's kernel scratch sized first. The body's
+    exception, if any, is the one raised."""
+    from repro_torch.kernels import _scratch
+
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    stream = _capture_stream(index)
+    stream.wait_stream(torch.cuda.current_stream(index))
+    _scratch.reserve(index, stream.cuda_stream)
+    # no garbage collection inside the capture: a collected program would
+    # destroy its graph there, which a capture does not permit
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(index), torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                yield
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:  # noqa: BLE001 - the body's is the cause
+                    pass
+                raise
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    torch.cuda.current_stream(index).wait_stream(stream)
+
+
+# slot kinds of a captured graph's argument leaves
+_PRIVATE, _PINNED, _DONATED, _GENERATOR, _VALUE = range(5)
+
+
+class _Graph:
+    """One capture: the graph, what each argument leaf became in it, its
+    outputs and the kernel launches it replays."""
+
+    __slots__ = ("graph", "slots", "out_leaves", "out_spec", "launches")
+
+
+def _same(x, t) -> bool:
+    return x is t or (x.data_ptr() == t.data_ptr() and x.shape == t.shape
+                      and x.stride() == t.stride() and x.dtype == t.dtype)
 
 
 class CompiledProgram:
-    """One function over the flat buffer, with call and signature accounting.
+    """One function over the flat buffer, with its compile step and call
+    and signature accounting, as ``repro``'s ``jax.jit`` program.
 
-    ``calls`` counts Python-level invocations. The port runs the body
-    eagerly (there is no compile step), and ``retraces`` counts the
-    distinct argument signatures seen: one for repeated calls at one
-    shape, one more for each new shape, as a jitted program's trace count
-    does. Each signature is one capture that replaying the program as a
-    CUDA graph will need (ROADMAP.md Queue 1 item 11b); ``retraces``
-    staying flat across repeated runs is what the "zero recompiles" tests
-    assert.
+    ``calls`` counts Python-level invocations and ``retraces`` the distinct
+    argument signatures: the tree structure; each tensor leaf's shape,
+    dtype and device; a static argument's value (``static_argnums``); and
+    the per-array switch (``kernels.use_fused_logpdf``), whose route a
+    graph records. ``retraces`` staying flat across repeated runs is what
+    the "zero recompiles" tests assert.
+
+    **Capture.** On CUDA the first call of a signature runs the body
+    eagerly: it builds the kernels, their tables and scratch. The second
+    records the body as a ``torch.cuda.CUDAGraph`` on a stream of its own
+    and replays it; every later call replays it (``captures``,
+    ``replays``). A one-shot program never pays for a capture. The CPU has
+    no graph: there every call runs the body. A failed capture (a host
+    sync, a pageable copy, an allocation that cannot be made) raises
+    :class:`CaptureError` naming the program; nothing falls back.
+
+    The graph reads a tensor argument from a buffer of its own, copied in
+    at each replay, unless the same tensor was passed to the eager call
+    before the capture (model weights, data): then it reads that tensor
+    (pinned), and a later call with another one captures again. A
+    ``torch.Generator`` argument is registered with the graph, so a replay
+    draws from its state what the eager body would have drawn, and
+    advances it; a later call with another generator lends that one's
+    state to the registered one for the replay. A Python number that is
+    not static is refused: a graph would bake its value (``jax.jit``
+    traces it).
+
+    ``donate_argnums`` name arguments (pytrees of tensors) that the body
+    writes in place, as a sampler loop's state and draws: the graph reads
+    and writes the caller's own tensors (a call with other tensors copies
+    them in and back, and leaves the recorded ones as they were). A
+    program with donated arguments returns the
+    graph's own output tensors, which its caller (a loop) consumes
+    before the next call; any other returns fresh copies, as ``repro``
+    returns fresh arrays.
+
+    Called on ``torch.func``-wrapped tensors, while a capture runs, or
+    inside :func:`disable_capture`, the body runs inline, as a jitted
+    function called inside another is inlined.
     """
 
-    def __init__(self, key: ProgramKey, raw: Callable):
+    def __init__(self, key: ProgramKey, raw: Callable, *, jit: bool = True,
+                 static_argnums=(), donate_argnums=()):
         self.key = key
         self.raw = raw
+        self.jit = bool(jit)
+        self.static_argnums = frozenset(_argnums(static_argnums))
+        self.donate_argnums = frozenset(_argnums(donate_argnums))
         self.calls = 0
         self.retraces = 0
-        self._seen = set()
+        self.captures = 0
+        self.replays = 0
+        # signature -> weakrefs of the eager call's tensor leaves (before
+        # the capture), or its _Graph
+        self._seen = {}
+
+    @property
+    def kind(self) -> str:
+        return self.key.kind
+
+    def _refuse(self, pos, what: str):
+        name = pos if isinstance(pos, str) else _param_name(self.raw, pos)
+        raise TypeError(
+            f"program '{self.kind}': argument {name} is {what}; a graph "
+            "would bake its value: pass a tensor, or name the argument in "
+            "static_argnums")
+
+    def _flatten(self, args, kwargs):
+        """(leaves of the dynamic arguments, in ``torch.utils._pytree``'s
+        order, and the signature)."""
+        leaves, keys = [], []
+        for pos, a in enumerate(args):
+            if pos in self.static_argnums:
+                try:
+                    hash(a)
+                except TypeError:
+                    raise TypeError(
+                        f"program '{self.kind}': static argument "
+                        f"{_param_name(self.raw, pos)} is not hashable"
+                    ) from None
+                keys.append(("static", a))
+            else:
+                keys.append(self._walk(a, pos, leaves))
+        if kwargs:
+            keys.append(self._walk(kwargs, "keywords", leaves))
+        return leaves, (_switch_state(), tuple(keys))
+
+    def _walk(self, x, pos, leaves):
+        """Append the leaves of ``x`` to ``leaves`` and return its part of
+        the signature. Tuples, lists, dicts and named tuples are walked
+        here (the hot path: a sampler's state); any other pytree container
+        by ``torch.utils._pytree``, whose order this keeps."""
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return (x.shape, x.dtype, x.device)
+        t = type(x)
+        if t is tuple or t is list or (isinstance(x, tuple)
+                                       and hasattr(t, "_fields")):
+            return (t, tuple([self._walk(v, pos, leaves) for v in x]))
+        if t is dict:
+            return (t, tuple(x), tuple([self._walk(v, pos, leaves)
+                                        for v in x.values()]))
+        if t in SUPPORTED_NODES:
+            sub, spec = tree_flatten(x)
+            return (spec, tuple([self._walk(v, pos, leaves) for v in sub]))
+        leaves.append(x)
+        if isinstance(x, torch.Generator):
+            return ("generator", x.device)
+        if x is None:
+            return None
+        if not self.jit:
+            return (t.__name__,)
+        if isinstance(x, _NUMBERS):
+            self._refuse(pos, f"a Python {t.__name__}")
+        try:
+            hash(x)
+        except TypeError:
+            self._refuse(pos, f"a {t.__name__}, not a tensor")
+        return ("value", x)
+
+    def _rebuild(self, args, kwargs, leaves):
+        """``args`` and ``kwargs`` with their dynamic leaves replaced."""
+        it = iter(leaves)
+        new_args = []
+        for pos, a in enumerate(args):
+            if pos in self.static_argnums:
+                new_args.append(a)
+            elif torch.is_tensor(a):
+                new_args.append(next(it))
+            else:
+                sub, spec = tree_flatten(a)
+                new_args.append(tree_unflatten([next(it) for _ in sub], spec))
+        if kwargs:
+            sub, spec = tree_flatten(kwargs)
+            kwargs = tree_unflatten([next(it) for _ in sub], spec)
+        return new_args, kwargs
+
+    def _donated_mask(self, args, kwargs):
+        mask = []
+        for pos, a in enumerate(args):
+            if pos in self.static_argnums:
+                continue
+            n = 1 if torch.is_tensor(a) else len(tree_flatten(a)[0])
+            mask.extend([pos in self.donate_argnums] * n)
+        if kwargs:
+            mask.extend([False] * len(tree_flatten(kwargs)[0]))
+        return mask
 
     def __call__(self, *args, **kwargs):
         self.calls += 1
-        sig = _signature(args, kwargs)
-        if sig not in self._seen:
-            self._seen.add(sig)
+        leaves, sig = self._flatten(args, kwargs)
+        entry = self._seen.get(sig)
+        if entry is None:
             self.retraces += 1
-        return self.raw(*args, **kwargs)
+            self._seen[sig] = entry = ()
+        dev = None
+        # inline inside a torch.func transform (vmap, grad) and inside a
+        # capture; eager with capture off
+        if self.jit and not _NO_CAPTURE[0] and _peek_transform() is None:
+            for x in leaves:  # the first CUDA tensor or generator
+                if isinstance(x, (torch.Tensor, torch.Generator)):
+                    dev = _cuda_device(x)
+                    if dev is not None:
+                        break
+            if dev is not None and (
+                    _CAPTURING or torch.cuda.is_current_stream_capturing()):
+                dev = None
+        if dev is None:  # the CPU, inline, or capture off
+            return self.raw(*args, **kwargs)
+        if isinstance(entry, _Graph):
+            out = self._replay(entry, leaves)
+            if out is not _MISMATCH:
+                return out
+            # a pinned argument changed: run eagerly, capture again next
+            entry = ()
+        if entry == ():  # the eager call before the capture
+            self._seen[sig] = tuple(weakref.ref(x) if torch.is_tensor(x)
+                                    else None for x in leaves)
+            return self.raw(*args, **kwargs)
+        graph = self._capture(args, kwargs, leaves, entry, dev)
+        self._seen[sig] = graph
+        self.captures += 1
+        GRAPH_COUNTS["captures"] += 1
+        return self._replay(graph, leaves)
+
+    def _capture(self, args, kwargs, leaves, eager_refs, dev) -> _Graph:
+        from repro_torch.kernels import _scratch
+
+        g = _Graph()
+        g.graph = torch.cuda.CUDAGraph()
+        g.slots, registered = [], set()
+        donated = self._donated_mask(args, kwargs)
+        inner = []
+        for i, x in enumerate(leaves):
+            if isinstance(x, torch.Generator):
+                if id(x) not in registered:
+                    g.graph.register_generator_state(x)
+                    registered.add(id(x))
+                g.slots.append((_GENERATOR, x))
+                inner.append(x)
+            elif not torch.is_tensor(x):
+                g.slots.append((_VALUE, None))
+                inner.append(x)
+            elif donated[i]:
+                g.slots.append((_DONATED, x))
+                inner.append(x)
+            elif eager_refs[i] is not None and eager_refs[i]() is x:
+                g.slots.append((_PINNED, x))
+                inner.append(x)
+            else:
+                buf = x.clone()
+                g.slots.append((_PRIVATE, buf))
+                inner.append(buf)
+        cargs, ckwargs = self._rebuild(args, kwargs, inner)
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        _CAPTURING.append(self.kind)
+        try:
+            with _recording(g.graph, dev):
+                out = self.raw(*cargs, **ckwargs)
+        except Exception as exc:
+            raise CaptureError(
+                f"program '{self.kind}' could not be captured as a CUDA "
+                f"graph: {type(exc).__name__}: {exc}") from exc
+        finally:
+            _CAPTURING.pop()
+            g.launches = tuple(
+                tuple((k, c[k] - b[k]) for k in c if c[k] != b[k])
+                for c, b in zip(counters, before))
+            for c, b in zip(counters, before):
+                c.update(b)
+        g.out_leaves, g.out_spec = tree_flatten(out)
+        return g
+
+    def _replay(self, g: _Graph, leaves):
+        copy_back, swaps = [], {}
+        for (kind, t), x in zip(g.slots, leaves):
+            if kind == _PINNED and not _same(x, t):
+                return _MISMATCH
+        for (kind, t), x in zip(g.slots, leaves):
+            if kind == _PRIVATE:
+                t.copy_(x)
+            elif kind == _DONATED and not _same(x, t):
+                # the recorded tensor is its first caller's: kept aside
+                copy_back.append((x, t, t.clone()))
+                t.copy_(x)
+            elif kind == _GENERATOR and x is not t and id(t) not in swaps:
+                # another generator: the registered one draws from its
+                # state, then hands it back and takes its own again
+                swaps[id(t)] = (x, t, t.get_state())
+                t.set_state(x.get_state())
+        g.graph.replay()
+        for x, t, kept in swaps.values():
+            x.set_state(t.get_state())
+            t.set_state(kept)
+        for x, t, kept in copy_back:
+            x.copy_(t)
+            t.copy_(kept)
+        for counter, added in zip(_launch_counters(), g.launches):
+            for k, n in added:
+                counter[k] += n
+        self.replays += 1
+        GRAPH_COUNTS["replays"] += 1
+        outs = g.out_leaves
+        if not self.donate_argnums:
+            outs = [o.clone() if torch.is_tensor(o) else o for o in outs]
+        return tree_unflatten(outs, g.out_spec)
 
     def __repr__(self):
-        return (f"CompiledProgram({self.key.kind}, calls={self.calls}, "
-                f"retraces={self.retraces})")
+        return (f"CompiledProgram({self.kind}, calls={self.calls}, "
+                f"retraces={self.retraces}, captures={self.captures}, "
+                f"replays={self.replays})")
+
+
+_MISMATCH = object()
+
+
+def _argnums(nums) -> Tuple[int, ...]:
+    return (int(nums),) if isinstance(nums, int) else tuple(int(n)
+                                                            for n in nums)
+
+
+def _param_name(fn: Callable, pos) -> str:
+    if isinstance(pos, str):
+        return pos
+    try:
+        names = list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        names = []
+    return (f"{pos} ('{names[pos]}')" if pos < len(names)
+            and not names[pos].startswith("*") else str(pos))
 
 
 class ProgramCache:
@@ -298,8 +675,10 @@ class ProgramCache:
 
     def stats(self) -> Dict[str, int]:
         """Aggregate counters, including per-program signature accounting."""
-        progs = [v for v in self._entries.values()
-                 if isinstance(v, CompiledProgram)]
+        progs = []
+        for v in self._entries.values():  # programs, and samplers' sets
+            progs.extend([v] if isinstance(v, CompiledProgram)
+                         else getattr(v, "programs", ()))
         return {
             "size": len(self._entries),
             "hits": self.hits,
@@ -307,6 +686,8 @@ class ProgramCache:
             "evictions": self.evictions,
             "retraces": sum(p.retraces for p in progs),
             "calls": sum(p.calls for p in progs),
+            "captures": sum(p.captures for p in progs),
+            "replays": sum(p.replays for p in progs),
         }
 
 

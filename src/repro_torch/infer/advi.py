@@ -102,10 +102,10 @@ class ADVI:
             est = make_minibatch_logdensity(m, tvi, self.minibatch,
                                             backend=self.backend)
 
-            def draws():
-                eps = torch.randn((self.num_mc, dim), generator=gen,
+            def draws(generator):
+                eps = torch.randn((self.num_mc, dim), generator=generator,
                                   device=dev)
-                return eps, est.draw_indices(gen)
+                return eps, est.draw_indices(generator)
 
             def log_densities(u, idx):
                 return torch.func.vmap(
@@ -114,8 +114,8 @@ class ADVI:
             logdensity = density_program(m, tvi, ctx=ctx,
                                          backend=self.backend)
 
-            def draws():
-                return (torch.randn((self.num_mc, dim), generator=gen,
+            def draws(generator):
+                return (torch.randn((self.num_mc, dim), generator=generator,
                                     device=dev),)
 
             def log_densities(u):
@@ -135,13 +135,14 @@ class ADVI:
         state = opt.init(params)
         grad_and_loss = torch.func.grad_and_value(neg_elbo)
 
-        def raw_step(params, state, *drawn):
-            grads, loss = grad_and_loss(params, *drawn)
+        def raw_step(params, state, generator):
+            grads, loss = grad_and_loss(params, *draws(generator))
             deltas, state = opt.update(grads, state, params)
             return apply_updates(params, deltas), state, loss
 
-        # The whole optimisation step is one cached program: re-running ADVI
-        # on the same model/layout/hyperparameters reuses the step.
+        # The whole optimisation step, its draws included, is one cached
+        # program: re-running ADVI on the same model/layout/hyperparameters
+        # reuses the step, and on CUDA its graph.
         cache = program_cache()
         step_key = ProgramKey(
             model_fingerprint(m), "advi_step", tvi.layout, (),
@@ -155,9 +156,9 @@ class ADVI:
 
         losses = []
         for _ in range(self.num_steps):
-            params, state, loss = step(params, state, *draws())
+            params, state, loss = step(params, state, gen)
             losses.append(loss)
         mu, log_sigma = params
-        elbos = np.asarray([-float(x) for x in losses], np.float32)
+        elbos = -torch.stack(losses).cpu().numpy().astype(np.float32)
         return ADVIResult(mu.cpu().numpy(), log_sigma.cpu().numpy(),
                           elbos, tvi, m)

@@ -16,8 +16,16 @@ Three layers:
   (``core/program.py``), so a repeated call on the same model and layout
   builds neither again, advances all chains in lockstep (one kernel
   launch per density family per step, or one fused leapfrog per
-  transition, for the whole chain axis), and packages the stacked draws
-  back through the typed trace.
+  transition, for the whole chain axis), and packages the draws back
+  through the typed trace.
+* ``TransitionPrograms`` — a kernel's warm and step transitions as two
+  ``CompiledProgram`` s over the loop's buffers, cached by
+  ``run_chains``: on CUDA each is captured as a graph and replayed once a
+  transition, as ``repro`` runs the chain loop under ``jax.jit``. The
+  warmup iteration ``t`` and the draw index are device tensors advanced
+  inside the programs, and each draw is written into preallocated
+  ``(num_chains, num_samples, ...)`` buffers, so a replay needs no host
+  work beyond its launch; the draws stay on the device until packaging.
 """
 from __future__ import annotations
 
@@ -27,12 +35,15 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
 from repro_torch._device import resolve_device
 from repro_torch.core.program import (CompiledProgram, ProgramKey,
                                       cached_potential, density_program,
+                                      kernel_fingerprint, model_fingerprint,
                                       program_cache, trace_fingerprint)
 
-__all__ = ["Chain", "TransitionKernel", "drive_chains",
+__all__ = ["Chain", "TransitionKernel", "TransitionPrograms", "drive_chains",
            "effective_sample_size", "package_draws", "run_chains",
            "split_rhat"]
 
@@ -209,7 +220,8 @@ class TransitionKernel(NamedTuple):
         caches (log-density, gradient, adaptation state).
     warm : callable
         ``(state, t, generator) -> state``; one warmup transition at
-        iteration ``t`` (a float), including any step-size adaptation.
+        iteration ``t`` (a float32 0-d tensor on the chains' device),
+        including any step-size adaptation.
     finalize : callable
         ``state -> state``; freezes adapted quantities before sampling.
         ``run_chains`` calls it only after a non-empty warmup.
@@ -222,6 +234,14 @@ class TransitionKernel(NamedTuple):
         this kernel (``None`` when a spec is in use or was never wanted):
         the diagnosis from ``repro_torch.core.potential``, so that a
         ``leapfrog="auto"`` fallback is explained instead of silent.
+    capturable : bool
+        Whether ``warm`` and ``step`` may be recorded as CUDA graphs: no
+        host read of a device value, every draw from the generator they
+        are given. NUTS reads its loop tests on the host and captures its
+        leaf iterations instead.
+    programs : tuple
+        The kernel's own ``CompiledProgram`` s (NUTS's tree programs), for
+        the cache's counters.
     """
 
     init: Callable
@@ -229,6 +249,8 @@ class TransitionKernel(NamedTuple):
     finalize: Callable
     step: Callable
     spec_reason: Optional[str] = None
+    capturable: bool = True
+    programs: tuple = ()
 
 
 def package_draws(tvi_linked, qs: torch.Tensor,
@@ -262,13 +284,18 @@ def package_draws(tvi_linked, qs: torch.Tensor,
         def to_constrained(q):
             return tvi_linked.replace_flat(q).invlink().as_dict()
 
+        # once a run, its output goes straight to the host: a graph would
+        # only hold a second copy of the draws
         return CompiledProgram(
-            key, lambda q: torch.func.vmap(torch.func.vmap(to_constrained))(q))
+            key, lambda q: torch.func.vmap(torch.func.vmap(to_constrained))(q),
+            jit=False)
 
     draws = program_cache().get_or_build(key, build)(qs)
 
     def host(v):
-        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+        # a copy: run_chains' draws are buffers the next run overwrites
+        return (v.detach().to("cpu", copy=True).numpy() if torch.is_tensor(v)
+                else np.asarray(v))
 
     return Chain({k: host(v) for k, v in draws.items()},
                  stats={k: host(v) for k, v in (stats or {}).items()})
@@ -363,43 +390,175 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     # pay no compiler probes
     logdensity = density_program(model, tvi, ctx=ctx, backend=backend)
     dim = int(tvi.num_flat)
-    if getattr(kernel, "uses_potential_spec", False):
-        res = cached_potential(model, tvi, ctx=ctx, backend=backend)
-        kern = kernel.make_kernel(logdensity, dim, spec=res.spec,
-                                  spec_reason=res.reason)
+
+    def make_kern():
+        if getattr(kernel, "uses_potential_spec", False):
+            res = cached_potential(model, tvi, ctx=ctx, backend=backend)
+            return kernel.make_kernel(logdensity, dim, spec=res.spec,
+                                      spec_reason=res.reason)
+        return kernel.make_kernel(logdensity, dim)
+
+    kfp = kernel_fingerprint(kernel)
+    if kfp is None:  # an opaque kernel: no key can tell two apart
+        progs = TransitionPrograms(make_kern())
     else:
-        kern = kernel.make_kernel(logdensity, dim)
+        from repro_torch.core.contexts import DefaultContext
+        from repro_torch.kernels import fused_logpdf_enabled
+        # the transition does not depend on num_warmup or num_samples
+        key = ProgramKey(model_fingerprint(model), "transition", tvi.layout,
+                         (int(num_chains),), backend,
+                         (ctx if ctx is not None else DefaultContext(), kfp,
+                          fused_logpdf_enabled()))
+        progs = program_cache().get_or_build(
+            key, lambda: TransitionPrograms(make_kern(), key))
 
     q0s = tvi.flat().to(dev).expand(num_chains, dim)
     if init_jitter:
         u = torch.rand((num_chains, dim), generator=gen, device=dev)
         q0s = q0s + (2.0 * u - 1.0) * init_jitter
-    qs, stats = drive_chains(kern, q0s, gen, num_warmup=num_warmup,
-                             num_samples=num_samples)
+    qs, stats = drive_chains(progs.kern, q0s, gen, num_warmup=num_warmup,
+                             num_samples=num_samples, programs=progs)
     return package_draws(tvi, qs, stats=stats)
+
+
+def _assign(bufs, new) -> None:
+    """Write the tree ``new`` into the same-structured buffers ``bufs``,
+    leaf by leaf; a leaf that is already its buffer is left alone, and one
+    that shares memory with another buffer is copied first."""
+    b_leaves, _ = tree_flatten(bufs)
+    n_leaves, _ = tree_flatten(new)
+    owned = {b.untyped_storage().data_ptr() for b in b_leaves}
+    pairs = []
+    for b, n in zip(b_leaves, n_leaves):
+        if n is b:
+            continue
+        if n.untyped_storage().data_ptr() in owned:
+            n = n.clone()
+        pairs.append((b, n))
+    for b, n in pairs:
+        b.copy_(n)
+
+
+def _record(draws: Dict[str, torch.Tensor], out, idx: torch.Tensor,
+            axis: int) -> None:
+    """Write one draw's stats into ``draws`` at the device index ``idx``
+    along the draws axis."""
+    for k, buf in draws.items():
+        buf.index_copy_(axis, idx, out[k].unsqueeze(axis).to(buf.dtype))
+
+
+class TransitionPrograms:
+    """A :class:`TransitionKernel` 's chain init, warm and step transitions
+    as programs over the loop's buffers, and those buffers.
+
+    ``init(q0s)`` returns the initial state (fresh tensors);
+    ``warm(state, t, generator)`` runs one warmup transition and advances
+    the float32 0-d ``t``; ``step(state, draws, idx, generator)`` runs one
+    sampling transition, writes its stats into ``draws`` at the int64
+    ``(1,)`` index ``idx`` and advances it. Both write the state in place
+    (donated arguments), so on CUDA a transition is one graph replay with
+    no host work beyond the launch. The buffers are kept per state
+    signature and draw count and reused by the next run, so every replay
+    reads and writes the tensors its graph recorded. A kernel that is not
+    ``capturable`` runs both eagerly.
+    """
+
+    def __init__(self, kern: TransitionKernel,
+                 key: Optional[ProgramKey] = None):
+        key = key if key is not None else ProgramKey(
+            ("uncached",), "transition", None, (), "", ())
+        self.kern = kern
+        self.init = CompiledProgram(key._replace(kind="init"), kern.init,
+                                    jit=kern.capturable)
+        self.warm = CompiledProgram(key._replace(kind="warm"), self._warm,
+                                    jit=kern.capturable,
+                                    donate_argnums=(0, 1))
+        self.step = CompiledProgram(key._replace(kind="step"), self._step,
+                                    jit=kern.capturable,
+                                    donate_argnums=(0, 1, 2))
+        self._buffers = {}
+
+    @property
+    def programs(self):
+        return (self.init, self.warm, self.step) + tuple(self.kern.programs)
+
+    def _warm(self, state, t, generator):
+        _assign(state, self.kern.warm(state, t, generator))
+        t.add_(1.0)
+
+    def _step(self, state, draws, idx, generator):
+        new, out = self.kern.step(state, generator)
+        _assign(state, new)
+        _record(draws, out, idx, tree_flatten(state)[0][0].dim() - 1)
+        idx.add_(1)
+
+    def run(self, q0s: torch.Tensor, generator: torch.Generator, *,
+            num_warmup: int, num_samples: int):
+        """Warmup then sampling from ``q0s``; returns ``(state, draws)``:
+        the final state and each stat's ``(..., num_samples, ...)`` buffer
+        (the draws axis after the chain axis, first for a ``(dim,)``
+        state). Both are this object's buffers, which the next run on the
+        same shapes overwrites."""
+        if num_samples < 1:
+            raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+        kern = self.kern
+        leaves, spec = tree_flatten(self.init(q0s))
+        skey = (spec, tuple((tuple(x.shape), x.dtype, x.device)
+                            for x in leaves))
+        bufs = self._buffers.get(skey)
+        dev = q0s.device
+        if bufs is None:
+            bufs = self._buffers[skey] = {
+                "state": [x.clone() for x in leaves], "draws": {},
+                "t": torch.zeros((), dtype=torch.float32, device=dev),
+                "idx": torch.zeros((1,), dtype=torch.int64, device=dev)}
+        else:
+            _assign(bufs["state"], leaves)
+        state = tree_unflatten(bufs["state"], spec)
+        t, idx = bufs["t"], bufs["idx"]
+        t.zero_()
+        for _ in range(num_warmup):
+            self.warm(state, t, generator)
+        if num_warmup > 0:
+            # freeze adapted quantities only when adaptation actually ran:
+            # dual averaging's smoothed iterate starts at exp(0) = 1.0
+            _assign(state, kern.finalize(state))
+        idx.zero_()
+        first = 0
+        draws = bufs["draws"].get(num_samples)
+        if draws is None:
+            # the first draw of a new draw count runs eagerly and sizes
+            # its buffers
+            new, out = kern.step(state, generator)
+            _assign(state, new)
+            axis = q0s.dim() - 1
+            draws = bufs["draws"][num_samples] = {
+                k: torch.empty(v.shape[:axis] + (num_samples,)
+                               + v.shape[axis:], dtype=v.dtype,
+                               device=v.device) for k, v in out.items()}
+            _record(draws, out, idx, axis)
+            idx.add_(1)
+            first = 1
+        for _ in range(first, num_samples):
+            self.step(state, draws, idx, generator)
+        return state, draws
 
 
 def drive_chains(kern: TransitionKernel, q0s: torch.Tensor,
                  generator: torch.Generator, *, num_warmup: int,
-                 num_samples: int):
+                 num_samples: int,
+                 programs: Optional[TransitionPrograms] = None):
     """Run warmup then sampling for all chains of ``q0s (num_chains, dim)``.
 
     Returns ``(qs, stats)``: ``qs (num_chains, num_samples, dim)`` and each
-    per-draw stat stacked to ``(num_chains, num_samples, ...)``. Nothing in
-    the loop waits for the device: draws stay on it until packaging.
+    per-draw stat as ``(num_chains, num_samples, ...)``. Nothing in the
+    loop waits for the device: draws stay on it until packaging. The
+    transitions run through ``programs`` (``run_chains`` passes its cached
+    ones, whose buffers the returned draws are) or through new
+    :class:`TransitionPrograms` of ``kern``.
     """
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
-    state = kern.init(q0s)
-    for t in range(num_warmup):
-        state = kern.warm(state, float(t), generator)
-    if num_warmup > 0:
-        # freeze adapted quantities only when adaptation actually ran:
-        # dual averaging's smoothed iterate starts at exp(0) = 1.0
-        state = kern.finalize(state)
-    outs = []
-    for _ in range(num_samples):
-        state, out = kern.step(state, generator)
-        outs.append(out)
-    stats = {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
+    progs = programs if programs is not None else TransitionPrograms(kern)
+    _, draws = progs.run(q0s, generator, num_warmup=num_warmup,
+                         num_samples=num_samples)
+    stats = dict(draws)
     return stats.pop("q"), stats

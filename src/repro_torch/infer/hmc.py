@@ -22,7 +22,8 @@ Two execution paths, mirroring the paper's central comparison:
 
 * ``run`` — TYPED path: the log-density is specialised on the
   TypedVarInfo (the fused evaluator, one kernel launch per density family
-  for all chains), taken from the program cache through ``run_chains``;
+  for all chains), taken from the program cache through ``run_chains``,
+  whose transitions are programs (on the card, CUDA graph replays);
 * ``run_untyped`` — UNTYPED path: a NumPy loop in which every evaluation
   replays the model eagerly through the per-site evaluator, with autograd
   for the gradient and a host round trip per evaluation, the analogue of
@@ -43,7 +44,9 @@ from repro_torch.core.contexts import Context, DefaultContext
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo, assert_continuous_supports
 from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
-from repro_torch.infer.chains import (Chain, TransitionKernel, package_draws,
+from repro_torch.core.program import ProgramKey
+from repro_torch.infer.chains import (Chain, TransitionKernel,
+                                      TransitionPrograms, package_draws,
                                       run_chains)
 from repro_torch.kernels.fused_leapfrog.ops import (fused_leapfrog,
                                                     potential_value_and_grad)
@@ -77,7 +80,9 @@ def value_and_grad(logdensity: Callable) -> Callable:
 @dataclasses.dataclass(frozen=True)
 class DualAveraging:
     """Nesterov dual-averaging step-size adaptation (Stan warmup), applied
-    elementwise to per-chain tensors."""
+    elementwise to per-chain tensors. The iteration ``t`` is a float32
+    tensor, as ``repro`` feeds it (``jnp.arange(num_warmup, float32)``), so
+    a captured warmup transition reads it from the device."""
 
     target_accept: float = 0.8
     gamma: float = 0.05
@@ -89,13 +94,13 @@ class DualAveraging:
         zero = torch.zeros_like(eps)
         return (torch.log(eps), zero, zero, torch.log(10.0 * eps))
 
-    def update(self, state, accept_prob, t: float):
+    def update(self, state, accept_prob, t):
         log_eps, log_eps_bar, h_bar, mu = state
-        t = t + 1.0
+        t = torch.as_tensor(t, dtype=torch.float32) + 1.0
         eta = 1.0 / (t + self.t0)
         h_bar = (1.0 - eta) * h_bar + eta * (self.target_accept - accept_prob)
-        log_eps = mu - math.sqrt(t) / self.gamma * h_bar
-        w = t ** (-self.kappa)
+        log_eps = mu - torch.sqrt(t) / self.gamma * h_bar
+        w = torch.pow(t, -self.kappa)
         log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
         return (log_eps, log_eps_bar, h_bar, mu)
 
@@ -179,21 +184,37 @@ def make_chain_fn(logdensity: Callable, num_samples: int, step_size: float,
     log-density, so the typed-DSL path and a hand-written density run the
     exact same HMC program. ``q0`` is ``(dim,)`` or ``(num_chains, dim)``;
     the draws axis is inserted after the chain axis. With
-    ``collect=False`` it returns ``(q_final, logps, accept_probs)``."""
+    ``collect=False`` it returns ``(q_final, logps, accept_probs)``.
+
+    Each transition is one program (``repro`` jits the chain): on CUDA a
+    captured graph, replayed once a draw, as ``run_chains`` runs its
+    transitions (``TransitionPrograms``), with no cache key."""
     ld_and_grad = value_and_grad(logdensity)
 
-    def chain(generator, q0):
-        q = q0
+    def init(q0):
         logp, grad = ld_and_grad(q0)
-        outs = []
-        for _ in range(num_samples):
-            q, logp, grad, acc, _, _ = hmc_transition(
-                ld_and_grad, q, logp, grad, step_size, generator, n_leapfrog)
-            outs.append((q, logp, acc) if collect else (logp, acc))
-        axis = q0.dim() - 1
-        stacked = tuple(torch.stack(o, dim=axis) for o in zip(*outs))
-        return stacked if collect else (q,) + stacked
+        return (q0, logp, grad)
 
+    def step(state, generator):
+        q, logp, grad = state
+        q, logp, grad, acc, _, _ = hmc_transition(
+            ld_and_grad, q, logp, grad, step_size, generator, n_leapfrog)
+        out = {"logp": logp, "accept_prob": acc}
+        if collect:
+            out["q"] = q
+        return (q, logp, grad), out
+
+    progs = TransitionPrograms(
+        TransitionKernel(init, None, lambda s: s, step),
+        ProgramKey(("chain_fn",), "chain_fn", None, (), "", ()))
+
+    def chain(generator, q0):
+        (q, _, _), draws = progs.run(q0, generator, num_warmup=0,
+                                     num_samples=num_samples)
+        stats = (draws["logp"].clone(), draws["accept_prob"].clone())
+        return ((draws["q"].clone(),) if collect else (q.clone(),)) + stats
+
+    chain.programs = progs
     return chain
 
 

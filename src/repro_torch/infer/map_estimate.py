@@ -4,13 +4,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.contexts import Context
 from repro_torch.core.model import Model
+from repro_torch.core.program import (CompiledProgram, ProgramKey,
+                                      model_fingerprint)
 from repro_torch.core.varinfo import TypedVarInfo
+from repro_torch.infer.chains import _assign
 from repro_torch.optim import adam, apply_updates
 
 __all__ = ["MAP"]
@@ -38,12 +40,25 @@ class MAP:
         opt = adam(self.lr)
         q = torch.zeros_like(tvi.flat())
         state = opt.init(q)
+        losses = torch.empty(self.num_steps, dtype=torch.float32,
+                             device=q.device)
+        idx = torch.zeros((1,), dtype=torch.int64, device=q.device)
 
-        losses = []
-        for _ in range(self.num_steps):
+        def raw_step(q, state, losses, idx):
             grad, loss = loss_and_grad(q)
-            deltas, state = opt.update(grad, state, q)
-            q = apply_updates(q, deltas)
-            losses.append(loss)
+            deltas, new_state = opt.update(grad, state, q)
+            _assign((q, state), (apply_updates(q, deltas), new_state))
+            losses.index_copy_(0, idx, loss.reshape(1).to(torch.float32))
+            idx.add_(1)
+
+        # one program a run, over this run's buffers (written in place): on
+        # CUDA each step after the second is one graph replay, as repro
+        # jits the step
+        step = CompiledProgram(
+            ProgramKey(model_fingerprint(m), "map_step", tvi.layout, (),
+                       "fused", (float(self.lr),)),
+            raw_step, donate_argnums=(0, 1, 2, 3))
+        for _ in range(self.num_steps):
+            step(q, state, losses, idx)
         estimate = tvi.replace_flat(q).invlink().as_dict()
-        return estimate, np.asarray([float(x) for x in losses], np.float32)
+        return estimate, losses.cpu().numpy()

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels._build import KernelError, load_library
 from repro_torch.kernels._dispatch import plain_requested
+from repro_torch.kernels._scratch import last_block_scratch
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention_gqa",
@@ -62,9 +63,6 @@ _STATE_CHUNK = 512        # tile states a tensor-core block holds at once
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None
-# flash_decode's split counts, by (device, stream): zero between calls (the
-# kernel sets each back to zero), so they are allocated once and grown
-_COUNTS = {}
 
 
 def reset_launch_counts() -> None:
@@ -185,17 +183,6 @@ def _aligned(t: torch.Tensor, strides) -> bool:
         st % (16 // t.element_size()) == 0 for st in strides)
 
 
-def _split_counts(n: int, device: torch.device, stream: int) -> torch.Tensor:
-    """At least ``n`` zero int32 counts for flash_decode's last-split merge
-    on this device and stream (calls on one stream run one at a time)."""
-    key = (device, stream)
-    counts = _COUNTS.get(key)
-    if counts is None or counts.numel() < n:
-        counts = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTS[key] = counts
-    return counts
-
-
 def _inner_dense(name: str, t: torch.Tensor) -> torch.Tensor:
     """``t``, checked to have a last-axis stride of 1."""
     if t.shape[-1] > 1 and t.stride(-1) != 1:
@@ -275,8 +262,9 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         counts = None
         if kernel == "flash_decode" and nsplit > 1:
-            counts = _split_counts(B * KV * -(-(Sq * G) // bm), q.device,
-                                   stream)
+            # zero counts for the last-split merge, kernels._scratch's
+            _, counts = last_block_scratch(
+                q.device.index, stream, B * KV * -(-(Sq * G) // bm), 0)
         err = _lib().repro_flash_attention(
             KERNELS.index(kernel), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], qp.data_ptr(), kp.data_ptr(),
@@ -291,7 +279,7 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap,
             None if part_ml is None else part_ml.data_ptr(),
             None if kpm is None else kpm.data_ptr(),
             None if tsum is None else tsum.data_ptr(),
-            None if counts is None else counts.data_ptr(), stream)
+            counts, stream)
     if err != 0:
         msg = _lib().repro_flash_cuda_error_string(err).decode()
         raise KernelError(f"{kernel} launch failed: CUDA error {err} "

@@ -67,12 +67,10 @@ CAT_ITEMS = _THREADS // 32
 MAX_SMEM_BYTES = 232_448  # shared memory one block may use on Hopper
 _MAX_PARTS = 1024
 _MVN_ROWS = 128  # rows of xc per block (mvn_quad.cu kRows)
-# mvn_quadform_sum's last-block counts, by (device, stream): zero between
-# calls (the kernel sets each back to zero), so they are allocated once
-_MVN_COUNTS = {}
 # the kernels of one launch a call (fused_logpdf.cu row_sum) and the floats
-# of a row one block sums in a round (kShare); their scratch, and the large-C
-# categorical_logits_sum's, is kernels._scratch's
+# of a row one block sums in a round (kShare); their scratch, the large-C
+# categorical_logits_sum's and mvn_quadform_sum's counts are
+# kernels._scratch's
 _ONE_LAUNCH = ("std_normal_sum", "gamma_unnorm_sum", "beta_unnorm_sum",
                "student_t_unnorm_sum", "normal_sum", "bernoulli_logit_sum")
 REDUCE_SHARE = 2048
@@ -459,11 +457,11 @@ def mvn_quadform_sum_rows(xc: torch.Tensor, prec: torch.Tensor) -> torch.Tensor:
                            device=xc.device)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        counts = _mvn_counts(rows, xc.device, stream)
+        _, counts = last_block_scratch(xc.device.index, stream, rows, 0)
         err = _mvn_lib().repro_mvn_quadform_sum(
             xc.data_ptr(), xc.stride(0) if rows > 1 else 0, prec.data_ptr(),
             prec.stride(0) if rows > 1 else 0, rows, n, d,
-            partials.data_ptr(), tiles, counts.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), tiles, counts, out.data_ptr(),
             stream)
     _raise_on(err, "mvn_quadform_sum")
     LAUNCHES["mvn_quadform_sum"] += 1
@@ -484,19 +482,6 @@ def mvn_smem_bytes(d: int) -> int:
     36 tile of the precision's rows, float32."""
     width = 64 if d <= 64 else 128
     return 3 * (_MVN_ROWS + width) * 36 * 4
-
-
-def _mvn_counts(rows: int, device: torch.device, stream: int) -> torch.Tensor:
-    """At least ``rows`` zero int32 counts for mvn_quadform_sum's last-block
-    sum on this device and stream (calls on one stream run one at a
-    time)."""
-    key = (device, stream)
-    counts = _MVN_COUNTS.get(key)
-    if counts is None or counts.numel() < rows:
-        counts = torch.zeros(max(rows, 1024), dtype=torch.int32,
-                             device=device)
-        _MVN_COUNTS[key] = counts
-    return counts
 
 
 def _addressable(t: torch.Tensor) -> torch.Tensor:

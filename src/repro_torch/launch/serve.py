@@ -2,9 +2,15 @@
 
 ``serve_batch`` groups requests into a fixed batch: one prefill over the
 prompts, then greedy (or sampled) decode steps until every request has
-``max_new`` tokens. The decode positions stay on the device and no step
-reads a value back to the host, so the steps queue up behind each other;
-the generated tokens come back once, at the end.
+``max_new`` tokens. The decode step is one program, as ``repro`` jits it
+with its cache donated: it writes the KV cache (the port's donation), the
+next token, its position and the token's slot of the output in place, and
+advances the position and the slot on the device, so on CUDA every step
+after the second is one graph replay, and no step reads a value back to
+the host; the generated tokens come back once, at the end. The sampled
+route draws from the request's ``torch.Generator``, which the graph
+registers. The prefill runs once a batch and stays eager: a capture would
+cost more than the one call it would replay.
 
 The probability-query server (``--queries``) waits for ROADMAP Queue 1
 item 6.
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
+from repro_torch.core.program import CompiledProgram, ProgramKey
 from repro_torch.models import bayes_lm
 from repro_torch.nn import lm
 
@@ -36,6 +43,31 @@ from repro_torch.nn import lm
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def decode_program(cfg: lm.ArchConfig,
+                   temperature: float = 0.0) -> CompiledProgram:
+    """The serving loop's decode step as one program, over its buffers:
+    ``step(params, token, cache, pos, out_tokens, idx, generator,
+    memory_kv)`` decodes one token after ``token (B, 1)`` at positions
+    ``pos (B,)`` (``bayes_lm.make_serve_step``), writes it into ``token``
+    and into column ``idx (1,)`` of ``out_tokens (B, max_new)``, writes the
+    cache, and advances ``pos`` and ``idx``, all in place (donated)."""
+    decode = bayes_lm.make_serve_step(cfg, temperature)
+
+    def decode_body(params, token, cache, pos, out_tokens, idx, generator,
+                    memory_kv):
+        nxt, _, _ = decode(params, token, cache, pos, generator=generator,
+                           memory_kv=memory_kv)
+        token.copy_(nxt)
+        out_tokens.index_copy_(1, idx, nxt)
+        pos.add_(1)
+        idx.add_(1)
+
+    return CompiledProgram(
+        ProgramKey(("serve", cfg.name), "decode_step", None, (),
+                   cfg.attn_impl, (float(temperature),)),
+        decode_body, donate_argnums=(1, 2, 3, 4, 5))
 
 
 def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4,
@@ -80,7 +112,6 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4,
     max_len = prompt_len + n_prefix + max_new
     cache = lm.init_cache(cfg, batch, max_len, device=dev)
     prefill = bayes_lm.make_prefill_step(cfg)
-    decode = bayes_lm.make_serve_step(cfg, temperature)
 
     with torch.no_grad():
         _sync(dev)
@@ -91,19 +122,22 @@ def serve_batch(arch: str, *, smoke: bool = True, batch: int = 4,
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
-        out_tokens = [first]
-        token = first
+        # the decode loop's buffers, written in place by the step program
+        out_tokens = torch.empty((batch, max_new), dtype=torch.int32,
+                                 device=dev)
+        out_tokens[:, :1] = first
+        token = first.clone()
         pos = torch.full((batch,), prompt_len + n_prefix, dtype=torch.int32,
                          device=dev)
+        idx = torch.ones((1,), dtype=torch.int64, device=dev)
+        step = decode_program(cfg, temperature)
         t0 = time.perf_counter()
-        for i in range(max_new - 1):
-            token, _, cache = decode(params, token, cache, pos + i,
-                                     generator=gen, memory_kv=memory_kv)
-            out_tokens.append(token)
+        for _ in range(max_new - 1):
+            step(params, token, cache, pos, out_tokens, idx, gen, memory_kv)
         _sync(dev)
         t_decode = time.perf_counter() - t0
 
-    generated = torch.cat(out_tokens, dim=1).cpu()
+    generated = out_tokens.cpu()
     n_steps = max(max_new - 1, 1)
     stats = {
         "prefill_s": t_prefill,

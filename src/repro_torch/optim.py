@@ -74,10 +74,12 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     def update(grads, state, params):
         step = state.step + 1
         t = step.to(torch.float32)
-        b1t = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=t.device), t)
-        b2t = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=t.device), t)
+        # the bases as device fills, not host copies: a captured step
+        # cannot hold a host-to-device copy
+        b1t = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                         device=t.device), t)
+        b2t = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                         device=t.device), t)
 
         def upd(g, m, v, p):
             g32 = g.to(torch.float32)

@@ -1756,3 +1756,285 @@ def test_cuda_grad_of_vmap_matches_plain(cuda_device, family):
     for g, w in ((gm, wm), (gs, ws)):
         torch.testing.assert_close(g, w, rtol=1e-5,
                                    atol=1e-5 * float(w.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the compile step: programs captured as CUDA graphs against the same runs
+# under disable_capture() (-k graph). The kernels are deterministic and the
+# generator is registered with each graph, so every draw is identical.
+# ---------------------------------------------------------------------------
+def _same(a, b) -> bool:
+    import numpy as np
+
+    from repro_torch.infer.chains import Chain
+    if isinstance(a, Chain):
+        return (a.names() == b.names()
+                and all(_same(a[k], b[k]) for k in a.names())
+                and all(_same(a.stats[k], b.stats[k]) for k in a.stats))
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool(np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f"))
+
+
+def _launches():
+    return {**ops.LAUNCHES, **lf_ops.LAUNCHES, **flash_ops.LAUNCHES}
+
+
+def _captured_and_eager(fn, warm=None):
+    """``fn()`` captured, then under disable_capture(), with the launch
+    counts of each; asserts graphs were replayed in the first. ``warm()``
+    runs eagerly before both: what only a first run builds (the cached
+    density and spec, whose compiler probes launch kernels)."""
+    from repro_torch.core.program import GRAPH_COUNTS, disable_capture
+    if warm is not None:
+        with disable_capture():
+            warm()
+    for m in (ops, lf_ops, flash_ops):
+        m.reset_launch_counts()
+    replays = GRAPH_COUNTS["replays"]
+    got = fn()
+    torch.cuda.synchronize()
+    assert GRAPH_COUNTS["replays"] > replays
+    counted = _launches()
+    for m in (ops, lf_ops, flash_ops):
+        m.reset_launch_counts()
+    with disable_capture():
+        want = fn()
+    torch.cuda.synchronize()
+    return got, want, counted, _launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gaussian_10k", "logreg", "hier_poisson"])
+def test_cuda_graph_run_chains_matches_eager(cuda_device, name):
+    """run_chains with dual-averaging warmup: gaussian_10k on the fused
+    leapfrog, logreg and hier_poisson on the autodiff integrator; the same
+    draws, and after the replays the same launch counts, as eagerly."""
+    from repro_torch.infer import HMC, run_chains
+    from repro_torch.models import paper_suite
+
+    pm = paper_suite.build(name, device=cuda_device)
+    kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+                 adapt_step_size=True)
+    def run(n=8, w=6):
+        return run_chains(3, pm.model, kernel, n, num_warmup=w,
+                          num_chains=4, device=cuda_device, init_jitter=0.1)
+
+    got, want, counted, eager = _captured_and_eager(run, lambda: run(1, 0))
+    assert _same(got, want)
+    assert counted == eager and sum(counted.values()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graph_chain_fn_matches_eager(cuda_device):
+    """Table 1's chain (make_chain_fn), typed and hand-written, on logreg."""
+    from repro_torch.infer.hmc import make_chain_fn
+    from repro_torch.models import paper_suite
+
+    pm = paper_suite.build("logreg", device=cuda_device)
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=cuda_device).manual_seed(42)).link()
+    for ld in (pm.model.make_logdensity_fn(tvi), pm.handwritten):
+        chain = make_chain_fn(ld, 8, pm.step_size, pm.n_leapfrog)
+        got, want, counted, eager = _captured_and_eager(lambda: chain(
+            torch.Generator(device=cuda_device).manual_seed(0), tvi.flat()))
+        assert _same(got, want) and counted == eager
+        assert chain.programs.step.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gaussian_10k", "logreg"])
+def test_cuda_graph_nuts_matches_eager(cuda_device, name):
+    """NUTS with its leaf iterations, doubling starts and merges captured
+    (gaussian_10k's leaves one fused_potential_vg, logreg's autodiff)."""
+    from repro_torch.infer import NUTS, run_chains
+    from repro_torch.models import paper_suite
+
+    pm = paper_suite.build(name, device=cuda_device)
+    kernel = NUTS(step_size=pm.step_size, max_depth=6)
+    def run(n=5, w=4):
+        return run_chains(1, pm.model, kernel, n, num_warmup=w,
+                          num_chains=4, device=cuda_device)
+
+    got, want, counted, eager = _captured_and_eager(run, lambda: run(1, 0))
+    assert _same(got, want) and counted == eager
+
+
+def _gauss(dev, n=128, seed=0):
+    import numpy as np
+    from repro_torch import model, observe, sample
+    from repro_torch.dists import HalfNormal, Normal
+
+    y = np.random.default_rng(seed).normal(2.0, 1.0, size=n)
+
+    @model
+    def gauss(y):
+        mu = sample("mu", Normal(0.0, 10.0))
+        s = sample("s", HalfNormal(2.0))
+        observe("y", Normal(mu, s), y)
+
+    @model
+    def gm(y):
+        mu = sample("params", Normal(0.0, 10.0))
+        observe("y", Normal(mu, 1.0), y)
+
+    yt = torch.tensor(y, dtype=torch.float32, device=dev)
+    return gauss(yt), gm(yt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["advi", "advi_minibatch", "map",
+                                     "sgld"])
+def test_cuda_graph_sampler_steps_match_eager(cuda_device, sampler):
+    """ADVI's step (its draws, and with minibatch= the head of a randperm,
+    inside the graph), MAP's Adam step and the subsampled SGLD step."""
+    from repro_torch.infer import (ADVI, MAP, SGLD,
+                                   make_subsampled_sgld_step)
+    from repro_torch.sharding import Minibatch
+
+    m, gm = _gauss(cuda_device)
+
+    def run():
+        if sampler.startswith("advi"):
+            res = ADVI(num_mc=4, num_steps=20, minibatch=Minibatch(
+                ("y",), 32) if sampler == "advi_minibatch" else None).run(
+                2, m, device=cuda_device)
+            return res.mu, res.log_sigma, res.elbo_trace
+        if sampler == "map":
+            est, losses = MAP(num_steps=20).run(1, m, device=cuda_device)
+            return est["mu"], est["s"], losses
+        sgld = SGLD(step_size=2e-2)
+        step = make_subsampled_sgld_step(gm, Minibatch(("y",), 16), sgld)
+        params = torch.zeros((), device=cuda_device)
+        state = sgld.init(params)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        out = []
+        for _ in range(20):
+            params, state, lp = step(gen, params, state)
+            out.append(lp)
+        return params, torch.stack(out)
+
+    got, want, counted, eager = _captured_and_eager(run)
+    assert _same(got, want) and counted == eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 1.0], ids=["greedy",
+                                                          "sampled"])
+def test_cuda_graph_serve_batch_matches_eager(cuda_device, temperature):
+    """serve_batch's decode step replayed: the same tokens as eagerly, on
+    both attention routes of a smoke config, greedy and sampled."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_batch
+
+    for impl in ("flash", "xla"):
+        cfg = dataclasses.replace(configs.get_smoke_config("smollm-360m"),
+                                  attn_impl=impl)
+        got, want, counted, eager = _captured_and_eager(
+            lambda: serve_batch("smollm-360m", cfg=cfg, max_new=10,
+                                temperature=temperature,
+                                device=cuda_device)[0])
+        assert torch.equal(got, want) and counted == eager
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_of_a_host_sync_raises_naming_the_program(
+        cuda_device):
+    """No silent fallback: a body that reads a value on the host raises
+    at its capture (its second call), naming the program; a capture after
+    it works."""
+    from repro_torch.core.program import (CaptureError, CompiledProgram,
+                                          ProgramKey)
+
+    def body(x):
+        return x * float(x.sum().item())
+
+    prog = CompiledProgram(ProgramKey(("t",), "synced_step", None, (), ""),
+                           body)
+    x = torch.ones(4, device=cuda_device)
+    prog(x)
+    with pytest.raises(CaptureError, match="program 'synced_step'"):
+        prog(x)
+    torch.cuda.synchronize()
+    fine = CompiledProgram(ProgramKey(("t",), "fine", None, (), ""),
+                           lambda x: x * 2)
+    for _ in range(3):
+        out = fine(x)
+    assert fine.captures == 1 and torch.equal(out, 2 * x)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_scratch_growth_keeps_earlier_graphs(cuda_device,
+                                                         monkeypatch):
+    """Two programs captured with multi-block rows (the last-block
+    scratch), then a third whose rows need more scratch than any call
+    before: the capture stream's scratch grows by adding, and the first
+    program replayed again still gives the eager kernel's bits. A capture
+    stream of its own and the default sizes, whatever ran before."""
+    from repro_torch.core import program as program_mod
+    from repro_torch.core.program import CompiledProgram, ProgramKey
+    from repro_torch.kernels import _scratch
+
+    monkeypatch.setattr(program_mod, "_CAPTURE_STREAMS", {})
+    monkeypatch.setitem(_scratch.HIGH, "partials", 4096)
+    monkeypatch.setitem(_scratch.HIGH, "counts", 1024)
+
+    def program(rows, n):
+        def body(gen):
+            z = torch.randn((rows, n), generator=gen, device=cuda_device)
+            return ops.std_normal_sum_rows(z)
+        return CompiledProgram(ProgramKey(("t",), f"rows{rows}", None, (),
+                                          ""), body)
+
+    def draws(prog, seed):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        return [prog(gen) for _ in range(3)]
+
+    def eager(rows, n, seed):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        return [ops.std_normal_sum_rows(torch.randn(
+            (rows, n), generator=gen, device=cuda_device)) for _ in range(3)]
+
+    first, second = program(4, 40000), program(8, 40000)
+    draws(first, 0)
+    draws(second, 0)
+    retired = len(_scratch.RETIRED)
+    rows = _scratch.HIGH["partials"] // 20 + 64  # 20 blocks a row at 40,000
+    third = program(rows, 40000)
+    draws(third, 0)
+    assert third.captures == 1 and len(_scratch.RETIRED) > retired
+    got = draws(first, 9)
+    assert first.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, eager(4, 40000, 9)))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_switch_toggle_takes_the_other_route(cuda_device):
+    """gauss_unknown on the per-site evaluator: with the per-array switch
+    off, no normal_sum launch; toggled on between two run_chains calls, the
+    transitions (a new signature, a new graph) launch it."""
+    from repro_torch.infer import HMC, run_chains
+    from repro_torch.kernels import use_fused_logpdf
+    from repro_torch.models import paper_suite
+
+    pm = paper_suite.build("gauss_unknown", device=cuda_device)
+    kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog)
+
+    def run():
+        ops.reset_launch_counts()
+        run_chains(0, pm.model, kernel, 6, num_chains=4, device=cuda_device,
+                   init_jitter=0.05, backend="reference")
+        torch.cuda.synchronize()
+        return dict(ops.LAUNCHES)
+
+    assert run()["normal_sum"] == 0
+    with use_fused_logpdf():
+        on = run()
+    assert on["normal_sum"] > 0
+    assert run()["normal_sum"] == 0

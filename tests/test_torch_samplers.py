@@ -414,6 +414,38 @@ def test_rwmh_untyped_matches_the_reference_draw_for_draw():
     assert 0 < got.stats["accept_prob"].sum() < 40 - n_early
 
 
+# ---- dual averaging with the iteration on the device ---------------------
+def test_dual_averaging_with_a_float32_t_matches_the_reference():
+    """``t`` as a float32 tensor, as the port's warm program carries it and
+    as ``repro`` feeds it (``jnp.arange(num_warmup, float32)``): 100
+    updates against ``repro``'s ``DualAveraging`` run in one ``jax.jit``
+    (a ``lax.scan``), at rtol 1e-6."""
+    from repro.infer import hmc as jhmc
+    from repro_torch.infer.hmc import DualAveraging
+
+    accs = np.random.default_rng(3).random(100).astype(np.float32)
+
+    def scan(accs):
+        da = jhmc.DualAveraging()
+
+        def body(state, inp):
+            t, a = inp
+            return da.update(state, a, t), None
+
+        state, _ = jax.lax.scan(body, da.init(jnp.float32(0.05)),
+                                (jnp.arange(100, dtype=jnp.float32), accs))
+        return state
+
+    want = jax.jit(scan)(jnp.asarray(accs))
+    da = DualAveraging()
+    state, t = da.init(torch.tensor(0.05)), torch.zeros(())
+    for a in accs:
+        state = da.update(state, torch.tensor(a), t)
+        t = t + 1.0
+    for got, w in zip(state, want):
+        np.testing.assert_allclose(float(got), float(w), rtol=1e-6)
+
+
 # ---- MAP and ADVI ---------------------------------------------------------------
 def test_map_recovers_the_mode(gauss_model):
     m, data = gauss_model
