@@ -15,11 +15,14 @@ through the separable-potential compiler and the fused n-step leapfrog of
 of the JAX package that reach the other density families: ``family_mix_8k``
 (8,192-D, seven families: the fused leapfrog with a mixed opcode table,
 then the autodiff integrator) and ``mixed`` (a dense 5-D MvNormal among
-four other families). Then the LM substrate, through the entry points a
-user calls (``launch.serve.serve_batch``, ``models.bayes_lm``), with
-random weights from a seed and ``attn_impl="flash"``: serving
-``smollm-360m`` at full width and depth and ``gemma2-27b`` at full width
-with its depth cut to one (local, global) block, through the hand-written
+four other families); and ``eight_schools``, which with gauss_unknown
+runs the conditionally separable spec (plain torch: its head replays the
+model), with the static analysis over the whole suite. Then the LM
+substrate, through the entry points a user calls
+(``launch.serve.serve_batch``, ``models.bayes_lm``), with random weights
+from a seed and ``attn_impl="flash"``: serving ``smollm-360m`` at full
+width and depth and ``gemma2-27b`` at full width with its depth cut to
+one (local, global) block, through the hand-written
 flash-attention kernels (``flash_fwd_tc``, the bf16 prefill on the tensor
 cores; ``flash_decode``, every decode step; ``flash_fwd_tf32``, the
 prefill of the float32 serving run on the tensor cores in 3xTF32);
@@ -107,18 +110,22 @@ Phases, in order:
    ``leapfrog="reference"`` and holds the first 10 draws of both
    integrators together (atol 1e-4 on the draws, rtol 1e-5 on logp); then,
    as in phase 4, ``hier_poisson`` (step 0.02; std_normal_sum and
-   gamma_unnorm_sum once per evaluation, 5 compiler probes),
+   gamma_unnorm_sum once per evaluation; no probes: its dependency graph
+   puts a Poisson likelihood on its leaves),
    ``hmm_semisup`` (step 0.01; the small-C categorical_logits_sum twice
    per evaluation, C = 5 and 20; no probes: the compiler stops at the
    simplex sites) and ``lda`` (step 0.005; the small-C path once, 4 x
    10,176 x 100; no probes), and their simplex draws: non-negative, rows summing
-   to 1 within 1e-5; ``gauss_unknown`` (step 0.01; std_normal_sum twice
-   per evaluation, 5 probes; its posterior means of m and s against the
+   to 1 within 1e-5; ``gauss_unknown`` (step 0.01; the conditional spec,
+   head s: std_normal_sum twice in each of the compiler's 5 probe
+   evaluations and no launch a transition, the conditional integrator
+   being plain torch; its posterior means of m and s against the
    conjugate posterior's within 5.5 Monte-Carlo standard errors), then the
-   same model on the per-site evaluator inside ``use_fused_logpdf()``
+   same model under the autodiff integrator on the per-site evaluator
+   inside ``use_fused_logpdf()``
    (``normal_sum`` once per evaluation for all chains: shared data, one
    mu and sigma per chain); ``sto_volatility`` (step 0.01; std_normal_sum
-   twice, no probes: HalfCauchy has no opcode); ``family_mix_8k`` (step
+   twice, no probes: its y mixes three leaf sites); ``family_mix_8k`` (step
    0.01: its mixed-opcode spec, whose opcodes, coefficients and const
    equal a float64 fold of the model's parameters, and one
    ``fused_leapfrog`` per draw; then
@@ -170,13 +177,28 @@ Phases, in order:
    ``table1_eager/...`` lines). Table 1's lines are information: only a
    NaN or a failed run fails them;
 6c. the compile step held: every captured PPL path (HMC with
-   dual-averaging warmup on the ten models, both integrators on the
-   separable ones, gauss_unknown's switch route, NUTS on gaussian_10k and
-   logreg, Table 1's chains, MAP, RWMH, ADVI with and without
-   ``minibatch=``, the subsampled SGLD step) against the same run under
-   ``disable_capture()``: identical draws bit for bit and equal launch
-   counts, or the run fails (the LM decode steps are held the same way,
-   greedy and sampled, in the LM phase);
+   dual-averaging warmup on the eleven models, both integrators on the
+   separable and the conditional ones, gauss_unknown's switch route,
+   NUTS on gaussian_10k and logreg, Table 1's chains, MAP, RWMH, ADVI
+   with and without ``minibatch=``, the subsampled SGLD step) against the
+   same run under ``disable_capture()``: identical draws bit for bit and
+   equal launch counts, or the run fails (the LM decode steps are held the
+   same way, greedy and sampled, in the LM phase);
+6d. the conditional spec (ROADMAP Queue 1 item 5): eight_schools on its
+   published data (step 0.1, 1,000 draws; std_normal_sum twice in each of
+   the compiler's 5 probe evaluations, nothing a transition) and phase
+   6's gauss_unknown run, each through ``run_chains(model,
+   HMC(leapfrog="auto"))`` with 4 chains: the spec is conditional, head
+   {mu, tau} and {s}; the first 10 draws equal ``leapfrog="reference"``'s
+   from the same seed within atol 1e-5 (``repro``'s gate,
+   tests/test_analysis.py:248-259); ms a draw of both routes. Then
+   ``python -m repro_torch.analyze --json`` over the whole paper suite on
+   the card, in a process of its own: exit status 0, a report that
+   ``validate_analysis_report`` accepts, the verdicts (separable
+   gaussian_10k, conditional gauss_unknown and eight_schools, the rest
+   none). ``torch.cuda.memory_reserved()``, ``memory_allocated()`` and
+   the peak since the previous line (``max_memory_allocated()``) are
+   printed after phases 6, 6b, 6c and 6d;
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -184,8 +206,10 @@ Phases, in order:
    host takes to issue each call; the fused leapfrog at gaussian_10k's
    and family_mix_8k's compiled specs), and profiles a window of
    transitions
-   of logreg, of gaussian_10k under both integrators, of hier_poisson, hmm_semisup, lda,
-   gauss_unknown (both routes), sto_volatility and family_mix_8k for the
+   of logreg, of gaussian_10k under both integrators, of hier_poisson,
+   hmm_semisup, lda, gauss_unknown (the switch route, the autodiff and the
+   conditional integrators), eight_schools (autodiff and conditional),
+   sto_volatility and family_mix_8k for the
    device's busy share, each eagerly and replayed as ``run_chains``
    replays it (kernels, and host syncs and copies by name, a
    transition); the flash kernels at the LM paths' calls
@@ -1144,6 +1168,9 @@ PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
             "gauss_unknown_switch": {"normal_sum": 1},
             # the prior block (mu and h_std) and the likelihood block (y)
             "sto_volatility": {"std_normal_sum": 2},
+            # the prior block (mu and theta; tau's HalfNormal has no
+            # family) and the likelihood block (y)
+            "eight_schools": {"std_normal_sum": 2},
             "family_mix_8k": {"std_normal_sum": 1, "gamma_unnorm_sum": 1,
                               "beta_unnorm_sum": 1,
                               "student_t_unnorm_sum": 1},
@@ -1151,22 +1178,30 @@ PER_EVAL = {"logreg": {"std_normal_sum": 1, "bernoulli_logit_sum": 1},
                       "beta_unnorm_sum": 1, "student_t_unnorm_sum": 1,
                       "mvn_quadform_sum": 1}}
 # the potential compiler's log-density evaluations (core/potential.py
-# _build): for a model whose sites all have opcodes, the value at the
-# recorded point, then a value and a gradient at each of two probe points,
-# whatever the verdict; a model with a simplex site is rejected before the
-# first. Each runs the fused forward once; the gradient's backward
-# launches nothing.
-PROBE_EVALS = {"logreg": 5, "naive_bayes": 5, "gaussian_10k": 5,
-               "hier_poisson": 5, "hmm_semisup": 0, "lda": 0,
+# _build and _build_cond): for a compile that reaches its probes (a
+# separable or a conditional one), the value at the recorded point, then a
+# value and a gradient at each of two probe points, whatever the verdict;
+# a model whose dependency graph rules both out is rejected before the
+# first (logreg, naive_bayes, hier_poisson, sto_volatility: coupled
+# through likelihoods no leaf can attach; hmm_semisup, lda: simplex sites;
+# mixed: MvNormal has no opcode). Each runs the fused forward once; the
+# gradient's backward launches nothing. The graph build and the
+# conditional spec's replays run on the plain evaluator and launch nothing.
+PROBE_EVALS = {"logreg": 0, "naive_bayes": 0, "gaussian_10k": 5,
+               "hier_poisson": 0, "hmm_semisup": 0, "lda": 0,
                "gauss_unknown": 5, "gauss_unknown_switch": 5,
-               # HalfCauchy and MvNormal have no opcode
-               "sto_volatility": 0, "mixed": 0, "family_mix_8k": 5}
+               "sto_volatility": 0, "mixed": 0, "family_mix_8k": 5,
+               "eight_schools": 5}
 # on the switch route the observed block is also evaluated eagerly, once
-# by each eager replay of the model inside run_chains: the discovery run
-# (when run_chains draws the start itself) and the compiler's recording
-# replay (when it compiles)
+# by the discovery run when run_chains draws the start itself (the switch
+# route runs the autodiff integrator, leapfrog="reference", so that
+# normal_sum stays on its transitions: the conditional spec would attach
+# y to m and evaluate no Normal block)
 EAGER_EVALS = {"gauss_unknown_switch": 1}
 SEPARABLE = ("gaussian_10k", "family_mix_8k")  # the compiler accepts these
+# leapfrog="auto" runs these on the conditional spec: plain torch, no
+# kernel launch in a transition (ROADMAP Queue 1 item 5)
+CONDITIONAL = ("gauss_unknown", "eight_schools")
 # where the chains start (run_chains' init_varinfo and init_jitter): the
 # prior draw with jitter 1, except (no warmup in Table 1, so a start where
 # every fixed-step transition diverges never moves):
@@ -1184,7 +1219,8 @@ START = {"hier_poisson": ("origin", 1.0), "sto_volatility": ("origin", 1.0),
 DRAWS = {"logreg": 300, "naive_bayes": 300, "gaussian_10k": 2000,
          "hier_poisson": 500, "hmm_semisup": 100, "lda": 500,
          "gauss_unknown": 1000, "gauss_unknown_switch": 1000,
-         "sto_volatility": 500, "family_mix_8k": 1000, "mixed": 500}
+         "sto_volatility": 500, "family_mix_8k": 1000, "mixed": 500,
+         "eight_schools": 1000}
 
 
 def run_model(torch, name, num_samples, seed=0, leapfrog="auto",
@@ -1257,19 +1293,22 @@ def _run_model(torch, name, num_samples, seed, leapfrog, route):
 
     evals = num_samples * pm.n_leapfrog + 1  # + the initial gradient
     fused = kernel.uses_potential_spec and name in SEPARABLE
+    # the conditional integrator is plain torch: no launch a transition
+    cond = (kernel.uses_potential_spec and name in CONDITIONAL
+            and route == "fused")
+    integrator = "fused" if fused else "conditional" if cond else "autodiff"
     want = dict.fromkeys(launches, 0)
     probes = PROBE_EVALS[key] if kernel.uses_potential_spec else 0
-    eager = EAGER_EVALS.get(key, 0) * (
-        (init is None) + bool(kernel.uses_potential_spec))
+    eager = EAGER_EVALS.get(key, 0) * (init is None)
     for k, per in PER_EVAL[key].items():
-        want[k] += per * (eager + probes + (0 if fused else evals))
+        want[k] += per * (eager + probes + (0 if fused or cond else evals))
     if fused:
         want["fused_leapfrog"] = num_samples  # no warmup in Table 1
         want["fused_potential_vg"] = 1
     check(launches == want,
           f"{key} ({leapfrog}): launches {launches}, expected {want} "
           f"({probes} compiler probe evaluations, {eager} eager, "
-          f"{'fused' if fused else 'autodiff'} integrator)")
+          f"{integrator} integrator)")
 
     logp = chain.stats["logp"]
     acc = float(chain.stats["accept_prob"].mean())
@@ -1297,7 +1336,7 @@ def _run_model(torch, name, num_samples, seed, leapfrog, route):
     result = {
         "model": name, "route": route, "backend": backend,
         "leapfrog": leapfrog,
-        "integrator": "fused" if fused else "autodiff",
+        "integrator": integrator,
         "compiler_probe_evals": probes, "eager_evals": eager,
         "num_chains": num_chains, "num_samples": num_samples,
         "step_size": pm.step_size, "n_leapfrog": pm.n_leapfrog,
@@ -1895,7 +1934,7 @@ GRAPH_NUTS = (3, 4)
 GRAPH_STEPS = 30    # MAP, ADVI and SGLD steps
 GRAPH_MODELS = ("logreg", "naive_bayes", "gaussian_10k", "hier_poisson",
                 "hmm_semisup", "lda", "gauss_unknown", "sto_volatility",
-                "family_mix_8k", "mixed")
+                "family_mix_8k", "mixed", "eight_schools")
 
 
 def same_results(np, a, b) -> bool:
@@ -1993,8 +2032,8 @@ def graphs_phase(torch, np):
     for name in GRAPH_MODELS:
         pm = build_model(name)
         init, jitter = start_point(torch, np, pm, 0)
-        for leapfrog in (("auto", "reference") if name in SEPARABLE
-                         else ("auto",)):
+        for leapfrog in (("auto", "reference")
+                         if name in SEPARABLE + CONDITIONAL else ("auto",)):
             kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
                          adapt_step_size=True, leapfrog=leapfrog)
             label = name + ("" if leapfrog == "auto" else " (autodiff)")
@@ -2019,7 +2058,8 @@ def graphs_phase(torch, np):
     pm = build_model("gauss_unknown")
     init, jitter = start_point(torch, np, pm, 0)
     def switch_run(n=draws, w=warm):
-        return run_chains(0, pm.model, HMC(step_size=pm.step_size), n,
+        return run_chains(0, pm.model, HMC(step_size=pm.step_size,
+                                           leapfrog="reference"), n,
                           num_warmup=w, num_chains=4, device=DEVICE,
                           init_varinfo=init, init_jitter=jitter,
                           backend="reference")
@@ -2075,6 +2115,150 @@ def graphs_phase(torch, np):
     log(f"graphs phase: {len(out)} paths identical captured and eager in "
         f"{time.perf_counter() - t_start:.1f} s")
     return out
+
+
+def cond_spec(torch, pm):
+    """The conditional spec ``run_chains`` compiled for ``pm`` (the
+    program cache's; the profiler's trace draws from seed 3, whose layout
+    is the same)."""
+    from repro_torch.core.program import cached_potential
+    return cached_potential(pm.model, pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(0)).link()).spec
+
+
+def memory_line(torch, label):
+    """The card's memory after a phase: what the caching allocator holds
+    (``memory_reserved``), what tensors hold now (``memory_allocated``)
+    and their peak since the last line (``max_memory_allocated``, whose
+    counter is then reset), in MiB."""
+    torch.cuda.synchronize()
+    mib = 1 << 20
+    out = {"reserved_mib": torch.cuda.memory_reserved() / mib,
+           "allocated_mib": torch.cuda.memory_allocated() / mib,
+           "max_allocated_mib": torch.cuda.max_memory_allocated() / mib}
+    torch.cuda.reset_peak_memory_stats()
+    log(f"memory after {label}: reserved {out['reserved_mib']:.1f} MiB, "
+        f"allocated {out['allocated_mib']:.1f} MiB, max allocated since "
+        f"the last line {out['max_allocated_mib']:.1f} MiB")
+    return out
+
+
+# phase 6d: the conditional spec. The compiler's verdict and head on each
+# model, its first draws against the autodiff integrator's (repro's own
+# gate, tests/test_analysis.py:248-259: atol 1e-5 over 10 draws), ms a
+# draw of both routes; then the analysis CLI over the whole suite
+COND_HEADS = {"eight_schools": ("mu", "tau"), "gauss_unknown": ("s",)}
+COND_FIRST = 10
+COND_ATOL = 1e-5
+COND_REFERENCE_SAMPLES = 300
+
+
+def conditional_phase(torch, np, runs, models, draws):
+    """eight_schools (its published data) and gauss_unknown (Table 1's
+    10,000 observations), 4 chains each through ``run_chains(model,
+    HMC(leapfrog="auto"))`` (:func:`run_model`, counted: the compiler's 5
+    probe evaluations, no launch a transition): the spec ``run_chains``
+    compiled (the cache's) is conditional with ``COND_HEADS``' head; the
+    first ``COND_FIRST`` draws equal ``leapfrog="reference"``'s from the
+    same seed within ``COND_ATOL``; gauss_unknown's means match the
+    conjugate posterior. gauss_unknown's main run is phase 6's."""
+    from repro_torch.core.program import cached_potential
+    from repro_torch.kernels.fused_leapfrog.spec import CondPotentialSpec
+
+    out = {}
+    for name, head in COND_HEADS.items():
+        if name not in runs:
+            runs[name], pm, kernel, chain = run_model(torch, name,
+                                                      draws(name))
+            models[name] = (pm, kernel, chain)
+        pm, kernel, chain = models[name]
+        check(runs[name]["integrator"] == "conditional",
+              f"{name}: leapfrog='auto' ran the "
+              f"{runs[name]['integrator']} integrator")
+        res = cached_potential(pm.model, pm.model.typed_varinfo(
+            torch.Generator(device=DEVICE).manual_seed(0)).link())
+        check(res.kind == "conditional"
+              and isinstance(res.spec, CondPotentialSpec)
+              and tuple(res.spec.head_syms) == head,
+              f"{name}: the compiler's verdict is {res.kind} "
+              f"({res.reason}), head "
+              f"{getattr(res.spec, 'head_syms', None)}, expected "
+              f"conditional with head {head}")
+        ref_run, _, _, ref_chain = run_model(
+            torch, name, COND_REFERENCE_SAMPLES, leapfrog="reference")
+        runs[f"{name}_reference"] = ref_run
+        d = max(float(np.abs(chain[s][:, :COND_FIRST]
+                             - ref_chain[s][:, :COND_FIRST]).max())
+                for s in chain.names())
+        lp, lp_ref = (c.stats["logp"][:, :COND_FIRST]
+                      for c in (chain, ref_chain))
+        lp_rel = float((np.abs(lp - lp_ref) / np.abs(lp_ref)).max())
+        check(d <= COND_ATOL,
+              f"{name}: the first {COND_FIRST} draws of the conditional and "
+              f"the autodiff integrators differ by {d:.3e} (atol "
+              f"{COND_ATOL})")
+        ms, ms_ref = (r["seconds_per_draw"] * 1e3
+                      for r in (runs[name], ref_run))
+        out[name] = {"head_syms": list(res.spec.head_syms),
+                     "first_draws": COND_FIRST, "draws_max_abs": d,
+                     "logp_max_rel": lp_rel, "ms_per_draw": ms,
+                     "reference_ms_per_draw": ms_ref,
+                     "draws": runs[name]["num_samples"],
+                     "reference_draws": ref_run["num_samples"]}
+        log(f"{name}: conditional spec, head {', '.join(head)}; first "
+            f"{COND_FIRST} draws against the autodiff integrator's: max abs "
+            f"{d:.2e} (atol {COND_ATOL}), logp max rel {lp_rel:.2e}; "
+            f"{ms:.3f} ms/draw conditional ({runs[name]['num_samples']} "
+            f"draws) against {ms_ref:.3f} autodiff ({ref_run['num_samples']})")
+    out["analyze_cli"] = analyze_cli(torch)
+    return out
+
+
+ANALYZE_SUITE = ("gaussian_10k", "gauss_unknown", "naive_bayes", "logreg",
+                 "hier_poisson", "sto_volatility", "hmm_semisup", "lda",
+                 "eight_schools")
+
+
+def analyze_cli(torch):
+    """``python -m repro_torch.analyze --json`` over the whole paper suite
+    on the card, in a process of its own: exit status 0 (no error
+    finding), a report that ``validate_analysis_report`` accepts, stamped
+    with this card, and the verdicts ``leapfrog="auto"`` acts on."""
+    import os
+
+    from repro_torch.analysis.report import validate_analysis_report
+
+    path = ROOT / "build" / "analysis.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analyze", "--quiet", "--json",
+         str(path)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"    analyze: {line}")
+    check(proc.returncode == 0,
+          f"python -m repro_torch.analyze exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    report = json.loads(path.read_text())
+    errs = validate_analysis_report(report)
+    check(not errs, f"the analysis report is malformed: {errs}")
+    kinds = {m["name"]: m["potential"]["kind"] for m in report["models"]}
+    want = dict.fromkeys(ANALYZE_SUITE)
+    want.update(gaussian_10k="separable", gauss_unknown="conditional",
+                eight_schools="conditional")
+    check(kinds == want, f"analyze: verdicts {kinds}, expected {want}")
+    check(report["machine"]["device"] == torch.cuda.get_device_name(0),
+          f"analyze: the report's device is {report['machine']['device']}")
+    log(f"analyze: {len(kinds)} models, exit status 0, report valid, "
+        f"{secs:.1f} s")
+    return {"seconds": secs, "returncode": proc.returncode, "kinds": kinds,
+            "n_errors": sum(m["n_errors"] for m in report["models"]),
+            "n_warnings": sum(m["n_warnings"] for m in report["models"])}
 
 
 def table1(torch, np):
@@ -2640,9 +2824,9 @@ def time_leapfrog_kernels(torch, lf_ops, lf_ref, specs, n_steps=4, rows=4):
 def profile_transitions(torch, pm, kernel, spec=None, steps=20,
                         route="fused"):
     """Device busy share and top kernels over ``steps`` transitions of one
-    model; ``spec`` (a compiled PotentialSpec) selects the fused
-    integrator, ``route="switch"`` the per-site evaluator with the
-    per-array switch on."""
+    model; ``spec`` (a compiled PotentialSpec or CondPotentialSpec)
+    selects the fused or the conditional integrator, ``route="switch"``
+    the per-site evaluator with the per-array switch on."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -2664,8 +2848,9 @@ def _profile_transitions(torch, pm, kernel, spec, steps, switch,
     kern = kernel.make_kernel(pm.model.make_logdensity_fn(
         tvi, backend="reference" if switch else "fused"), tvi.num_flat,
         spec=spec)
-    label = (f"{pm.name} ({'fused' if spec is not None else 'autodiff'}"
-             f"{', switch route' if switch else ''})")
+    integrator = ("autodiff" if spec is None else "conditional"
+                  if type(spec).__name__ == "CondPotentialSpec" else "fused")
+    label = f"{pm.name} ({integrator}{', switch route' if switch else ''})"
     state = kern.init(tvi.flat().expand(4, tvi.num_flat).contiguous())
     for _ in range(5):
         state, out = kern.step(state, gen)
@@ -3987,7 +4172,8 @@ def main() -> int:
         np, models["gauss_unknown"][0], models["gauss_unknown"][2])
     key = "gauss_unknown_switch"
     runs[key], pm, kernel, chain = run_model(
-        torch, "gauss_unknown", draws(key), route="switch")
+        torch, "gauss_unknown", draws(key), leapfrog="reference",
+        route="switch")
     models[key] = (pm, kernel, chain)
     checks[key] = check_gauss_unknown(np, pm, chain)
     for name in ("sto_volatility", "family_mix_8k"):
@@ -4012,6 +4198,7 @@ def main() -> int:
     runs["mixed"], pm, kernel, chain = run_model(torch, "mixed",
                                                  draws("mixed"))
     models["mixed"] = (pm, kernel, chain)
+    memory = {"6": memory_line(torch, "phase 6")}
     # phase 6b: NUTS, the other samplers and Table 1, each run counted
     t6b = time.perf_counter()
     nuts = {"gaussian_10k": nuts_path(torch, np, "gaussian_10k")[0],
@@ -4021,10 +4208,18 @@ def main() -> int:
     table1_prof = table1_profile(torch, np)
     phase_6b_s = time.perf_counter() - t6b
     log(f"phase 6b done in {phase_6b_s:.1f} s")
+    memory["6b"] = memory_line(torch, "phase 6b")
     # phase 6c: every captured PPL path against the same run eagerly
     t6c = time.perf_counter()
     graphs = graphs_phase(torch, np)
     phase_6c_s = time.perf_counter() - t6c
+    memory["6c"] = memory_line(torch, "phase 6c")
+    # phase 6d: the conditional spec, and the analysis CLI
+    t6d = time.perf_counter()
+    conditional = conditional_phase(torch, np, runs, models, draws)
+    phase_6d_s = time.perf_counter() - t6d
+    log(f"phase 6d done in {phase_6d_s:.1f} s")
+    memory["6d"] = memory_line(torch, "phase 6d")
     # the LM paths, each with every count zeroed just before its timed run
     # and read just after it
     lm_mods = (ops, lf_ops, fops, sops)
@@ -4056,8 +4251,18 @@ def main() -> int:
         "hmm_semisup": profile_transitions(torch, *models["hmm_semisup"][:2],
                                            steps=1),
         "lda": profile_transitions(torch, *models["lda"][:2]),
+        # gauss_unknown and eight_schools: the autodiff integrator (no
+        # spec), then the conditional one that leapfrog="auto" runs
         "gauss_unknown": profile_transitions(torch,
                                              *models["gauss_unknown"][:2]),
+        "gauss_unknown_conditional": profile_transitions(
+            torch, *models["gauss_unknown"][:2], spec=cond_spec(
+                torch, models["gauss_unknown"][0])),
+        "eight_schools": profile_transitions(torch,
+                                             *models["eight_schools"][:2]),
+        "eight_schools_conditional": profile_transitions(
+            torch, *models["eight_schools"][:2], spec=cond_spec(
+                torch, models["eight_schools"][0])),
         "gauss_unknown_switch": profile_transitions(
             torch, *models["gauss_unknown_switch"][:2], route="switch"),
         "sto_volatility": profile_transitions(torch,
@@ -4118,7 +4323,8 @@ def main() -> int:
               "runs": runs, "nuts": nuts, "sampler_runs": sampler_runs,
               "table1": table1_rows, "table1_profile": table1_prof,
               "phase_6b_s": phase_6b_s, "graphs": graphs,
-              "phase_6c_s": phase_6c_s,
+              "phase_6c_s": phase_6c_s, "conditional": conditional,
+              "phase_6d_s": phase_6d_s, "memory": memory,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}

@@ -208,6 +208,21 @@ class Model:
 
         return logdensity
 
+    # -- static analysis -----------------------------------------------------
+    def analyze(self, generator=None):
+        """Static analysis bundle: dependency graph, lints, fusion coverage.
+
+        Returns a :class:`repro_torch.analysis.ModelAnalysis` —
+        ``.findings`` (lint results, errors first), ``.coverage`` (per-site
+        fused kernel table + the potential-spec verdict that decides
+        whether ``leapfrog="auto"`` runs fused), ``.render()`` for the
+        human report. ``generator`` (a ``torch.Generator`` or an integer
+        seed, default 0) draws the discovery trace, where ``repro`` takes
+        a key. ``python -m repro_torch.analyze`` is the CLI equivalent.
+        """
+        from repro_torch.analysis import analyze_model
+        return analyze_model(self, generator=generator)
+
     # -- predictive / posterior draws -----------------------------------------
     def sample_prior(self, seed_or_generator) -> Dict[str, Any]:
         """One draw of every parameter site from the prior, by site name.

@@ -21,8 +21,9 @@ spec, on every call. This module gives all of them one shared ABI:
 * :class:`ProgramCache` — keyed store with hit/miss/eviction counters
   and LRU eviction. Entries are ``CompiledProgram`` s, a sampler's set of
   them (``infer.chains.TransitionPrograms``), or plain build artefacts
-  (``PotentialCompileResult``) that are expensive to rebuild: the
-  separable-spec compiler's probes are five density evaluations.
+  (``PotentialCompileResult``, ``ModelGraph``) that are expensive to
+  rebuild: the potential compiler's probes are five density evaluations,
+  the graph three replays of the model.
 
 Which programs return the graph's own outputs (``donate_argnums``, as
 ``repro`` donates): the sampler and serving loops' own programs, whose
@@ -53,8 +54,8 @@ import numpy as np
 import torch
 from torch.utils._pytree import SUPPORTED_NODES, tree_flatten, tree_unflatten
 
-__all__ = ["CaptureError", "CompiledProgram", "GRAPH_COUNTS", "ProgramCache",
-           "ProgramKey",
+__all__ = ["CaptureError", "CompiledProgram", "GRAPH_COUNTS", "GraphPool",
+           "ProgramCache", "ProgramKey",
            "cache_stats", "cached_potential", "clear_cache",
            "data_fingerprint", "density_program", "disable_capture",
            "kernel_fingerprint",
@@ -274,11 +275,34 @@ def _cuda_device(x):
     return x.device if x.device.type == "cuda" else None
 
 
+class GraphPool:
+    """One CUDA graph memory pool that several programs capture into, in
+    place of a private pool for each capture.
+
+    For programs whose graphs replay one after another on one stream and
+    whose outputs do not outlive the next replay: a sampler's
+    transitions, which write their results into donated buffers and
+    return nothing (``infer.chains.TransitionPrograms``), and a chain
+    init, whose output is copied out at once. A later capture may then
+    reuse the memory an earlier graph only needs while it replays, so the
+    pool holds the largest graph's temporaries, not their sum. The handle
+    is taken at the first capture, so building one needs no CUDA."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 @contextlib.contextmanager
-def _recording(graph, dev: torch.device):
+def _recording(graph, dev: torch.device, pool: Optional[GraphPool] = None):
     """Record the block's CUDA work into ``graph``, on the capture stream
-    of ``dev``, with that stream's kernel scratch sized first. The body's
-    exception, if any, is the one raised."""
+    of ``dev``, with that stream's kernel scratch sized first, into
+    ``pool`` (a private pool when ``None``). The body's exception, if
+    any, is the one raised."""
     from repro_torch.kernels import _scratch
 
     index = dev.index if dev.index is not None \
@@ -292,7 +316,8 @@ def _recording(graph, dev: torch.device):
     gc.disable()
     try:
         with torch.cuda.device(index), torch.cuda.stream(stream):
-            graph.capture_begin()
+            graph.capture_begin(pool=None if pool is None
+                                else pool.handle())
             try:
                 yield
             except BaseException:
@@ -367,15 +392,21 @@ class CompiledProgram:
     Called on ``torch.func``-wrapped tensors, while a capture runs, or
     inside :func:`disable_capture`, the body runs inline, as a jitted
     function called inside another is inlined.
+
+    Each capture takes a private memory pool unless ``pool`` (a
+    :class:`GraphPool`) is given, which the programs of one sampler
+    share. :meth:`forget` drops every signature and its graph.
     """
 
     def __init__(self, key: ProgramKey, raw: Callable, *, jit: bool = True,
-                 static_argnums=(), donate_argnums=()):
+                 static_argnums=(), donate_argnums=(),
+                 pool: Optional[GraphPool] = None):
         self.key = key
         self.raw = raw
         self.jit = bool(jit)
         self.static_argnums = frozenset(_argnums(static_argnums))
         self.donate_argnums = frozenset(_argnums(donate_argnums))
+        self.pool = pool
         self.calls = 0
         self.retraces = 0
         self.captures = 0
@@ -387,6 +418,12 @@ class CompiledProgram:
     @property
     def kind(self) -> str:
         return self.key.kind
+
+    def forget(self) -> None:
+        """Drop every signature seen and its graph, with the tensors the
+        graph holds (its buffers, donated arguments and outputs); the next
+        call of a signature runs eagerly again and counts as a new one."""
+        self._seen.clear()
 
     def _refuse(self, pos, what: str):
         name = pos if isinstance(pos, str) else _param_name(self.raw, pos)
@@ -546,7 +583,7 @@ class CompiledProgram:
         before = [dict(c) for c in counters]
         _CAPTURING.append(self.kind)
         try:
-            with _recording(g.graph, dev):
+            with _recording(g.graph, dev, self.pool):
                 out = self.raw(*cargs, **ckwargs)
         except Exception as exc:
             raise CaptureError(
@@ -738,11 +775,10 @@ def cached_potential(model, tvi_linked, ctx=None, backend: str = "fused",
                      cache: Optional[ProgramCache] = None):
     """Cached :func:`repro_torch.core.potential.compile_potential` result.
 
-    The compile replays the model and runs five probe evaluations of the
-    density; caching it is what makes repeated ``run_chains`` calls free
-    of them. ``allow_conditional`` is part of the key, as in ``repro``;
-    the port compiles only the separable spec until the conditional one
-    lands (ROADMAP.md Queue 1 item 5).
+    The compile is graph-gated and runs several replay probes — caching
+    it is what makes repeated ``run_chains`` calls and the
+    analysis-after-sampling path free. ``allow_conditional`` is part of
+    the key and reaches the compiler, as in ``repro``.
     """
     cache = cache if cache is not None else _DEFAULT_CACHE
     key = ProgramKey(model_fingerprint(model), "potential",
@@ -751,16 +787,29 @@ def cached_potential(model, tvi_linked, ctx=None, backend: str = "fused",
 
     def build():
         from repro_torch.core.potential import compile_potential
-        return compile_potential(model, tvi_linked, ctx=ctx, backend=backend)
+        return compile_potential(model, tvi_linked, ctx=ctx, backend=backend,
+                                 allow_conditional=allow_conditional)
 
     return cache.get_or_build(key, build)
 
 
 def model_graph(model, tvi, ctx=None,
                 cache: Optional[ProgramCache] = None):
-    """``repro``'s cached dependency graph of a model. The port has no
-    graph builder yet: it needs a tracer of its own (ROADMAP.md Queue 1
-    item 5)."""
-    raise NotImplementedError(
-        "model_graph is not ported yet: the dependency graph needs a "
-        "tracer of the port's own (ROADMAP.md Queue 1 item 5)")
+    """Cached :func:`repro_torch.analysis.graph.build_model_graph`.
+
+    ``build_model_graph`` invlinks linked traces itself and its output is
+    structural (value-independent; dynamic structure is detected by its
+    own multi-generator probe), so linked and unlinked callers — the
+    potential compiler and ``Model.analyze`` — share one entry keyed on
+    (model, layout, ctx).
+    """
+    cache = cache if cache is not None else _DEFAULT_CACHE
+    layout = tvi.layout if tvi is not None else None
+    key = ProgramKey(model_fingerprint(model), "graph", layout, (),
+                     "fused", (ctx,))
+
+    def build():
+        from repro_torch.analysis.graph import build_model_graph
+        return build_model_graph(model, tvi, ctx=ctx)
+
+    return cache.get_or_build(key, build)

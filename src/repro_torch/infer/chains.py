@@ -12,7 +12,7 @@ Three layers:
   ``torch.Generator``.
 * ``run_chains`` — the many-chains-on-one-device runner: takes the
   model's fused flat log-density (and, for a sampler that asks, its
-  separable ``PotentialSpec``) from the program cache
+  (conditionally) separable spec) from the program cache
   (``core/program.py``), so a repeated call on the same model and layout
   builds neither again, advances all chains in lockstep (one kernel
   launch per density family per step, or one fused leapfrog per
@@ -38,7 +38,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch._device import resolve_device
-from repro_torch.core.program import (CompiledProgram, ProgramKey,
+from repro_torch.core.program import (CompiledProgram, GraphPool, ProgramKey,
                                       cached_potential, density_program,
                                       kernel_fingerprint, model_fingerprint,
                                       program_cache, trace_fingerprint)
@@ -230,7 +230,7 @@ class TransitionKernel(NamedTuple):
         per-draw tensors, each ``(num_chains, ...)``, that MUST contain
         ``"q"`` and ``"logp"``; extra keys become ``Chain.stats``.
     spec_reason : str, optional
-        Why the fused-integrator PotentialSpec could NOT be compiled for
+        Why the fused-integrator spec could NOT be compiled for
         this kernel (``None`` when a spec is in use or was never wanted):
         the diagnosis from ``repro_torch.core.potential``, so that a
         ``leapfrog="auto"`` fallback is explained instead of silent.
@@ -319,8 +319,8 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     The model's log-density is built once from the typed trace (fused
     flat-buffer backend by default), kept in the program cache for later
     calls, and shared by every chain. A kernel
-    with ``uses_potential_spec`` also gets the model's separable
-    ``PotentialSpec`` (or the compiler's reason why there is none). Each
+    with ``uses_potential_spec`` also gets the model's (conditionally)
+    separable spec (or the compiler's reason why there is none). Each
     transition advances the whole ``(num_chains, dim)`` state: either the
     density's value and gradient run under ``torch.func.vmap`` over the
     chain axis, so each density family is one kernel launch for all
@@ -385,7 +385,7 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
            else model.typed_varinfo(gen))
     assert_continuous_supports(tvi, type(kernel).__name__)
     tvi = tvi.link()
-    # density + PotentialSpec come from the ProgramCache: repeated calls on
+    # density + potential spec come from the ProgramCache: repeated calls on
     # the same (model, layout, ctx, backend) build neither again, and so
     # pay no compiler probes
     logdensity = density_program(model, tvi, ctx=ctx, backend=backend)
@@ -458,8 +458,12 @@ class TransitionPrograms:
     ``(1,)`` index ``idx`` and advances it. Both write the state in place
     (donated arguments), so on CUDA a transition is one graph replay with
     no host work beyond the launch. The buffers are kept per state
-    signature and draw count and reused by the next run, so every replay
-    reads and writes the tensors its graph recorded. A kernel that is not
+    signature and reused by the next run, so every replay reads and
+    writes the tensors its graph recorded; the draw buffers are kept for
+    one draw count only: a run at another count frees them and the step
+    graph that writes them (at gaussian_10k's 4 x 10,000 float32 and
+    2,000 draws, ``q`` alone is 320 MB). The three programs capture into
+    one :class:`~repro_torch.core.program.GraphPool`. A kernel that is not
     ``capturable`` runs both eagerly.
     """
 
@@ -468,14 +472,15 @@ class TransitionPrograms:
         key = key if key is not None else ProgramKey(
             ("uncached",), "transition", None, (), "", ())
         self.kern = kern
+        self.pool = GraphPool()
         self.init = CompiledProgram(key._replace(kind="init"), kern.init,
-                                    jit=kern.capturable)
+                                    jit=kern.capturable, pool=self.pool)
         self.warm = CompiledProgram(key._replace(kind="warm"), self._warm,
                                     jit=kern.capturable,
-                                    donate_argnums=(0, 1))
+                                    donate_argnums=(0, 1), pool=self.pool)
         self.step = CompiledProgram(key._replace(kind="step"), self._step,
                                     jit=kern.capturable,
-                                    donate_argnums=(0, 1, 2))
+                                    donate_argnums=(0, 1, 2), pool=self.pool)
         self._buffers = {}
 
     @property
@@ -509,7 +514,7 @@ class TransitionPrograms:
         dev = q0s.device
         if bufs is None:
             bufs = self._buffers[skey] = {
-                "state": [x.clone() for x in leaves], "draws": {},
+                "state": [x.clone() for x in leaves], "draws": None,
                 "t": torch.zeros((), dtype=torch.float32, device=dev),
                 "idx": torch.zeros((1,), dtype=torch.int64, device=dev)}
         else:
@@ -525,14 +530,20 @@ class TransitionPrograms:
             _assign(state, kern.finalize(state))
         idx.zero_()
         first = 0
-        draws = bufs["draws"].get(num_samples)
+        draws = bufs["draws"]
+        axis = q0s.dim() - 1
+        if draws is not None and \
+                next(iter(draws.values())).shape[axis] != num_samples:
+            # another draw count: its buffers and the step graph that
+            # writes them go before the new ones are made
+            draws = bufs["draws"] = None
+            self.step.forget()
         if draws is None:
             # the first draw of a new draw count runs eagerly and sizes
             # its buffers
             new, out = kern.step(state, generator)
             _assign(state, new)
-            axis = q0s.dim() - 1
-            draws = bufs["draws"][num_samples] = {
+            draws = bufs["draws"] = {
                 k: torch.empty(v.shape[:axis] + (num_samples,)
                                + v.shape[axis:], dtype=v.dtype,
                                device=v.device) for k, v in out.items()}

@@ -9,14 +9,17 @@ one explicit ``torch.Generator`` on the chains' device (they will never
 equal the JAX package's threefry draws; the tests inject the same NumPy
 momentum into both packages' ``_leapfrog`` instead).
 
-``leapfrog="auto"`` compiles the model's linked density to a separable
-``PotentialSpec`` (``core/potential.py``) and, when that succeeds
-(gaussian_10k), runs the fused integrator: one ``fused_leapfrog`` launch
-per transition for all chains, analytic gradients, no autodiff. When the
-compiler rejects the model (logreg, naive_bayes, any coupled model) it
-runs the autodiff integrator and keeps the compiler's reason on
-``TransitionKernel.spec_reason``. ``"fused"`` demands the spec and raises
-``ValueError`` with that reason; ``"reference"`` always runs autodiff.
+``leapfrog="auto"`` compiles the model's linked density
+(``core/potential.py``): to a separable ``PotentialSpec`` (gaussian_10k),
+whose integrator is one ``fused_leapfrog`` launch per transition for all
+chains, analytic gradients, no autodiff; or to a ``CondPotentialSpec``
+(eight_schools, gauss_unknown), whose leaves stay analytic and whose
+small head goes through autodiff of a model replay, in plain torch under
+``torch.func.vmap`` over the chains. When the compiler rejects the model
+(logreg, naive_bayes, hier_poisson, ...) it runs the autodiff integrator
+and keeps the compiler's reason on ``TransitionKernel.spec_reason``.
+``"fused"`` demands a spec and raises ``ValueError`` with that reason;
+``"reference"`` always runs autodiff.
 
 Two execution paths, mirroring the paper's central comparison:
 
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -43,7 +46,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.contexts import Context, DefaultContext
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo, assert_continuous_supports
-from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
+from repro_torch.kernels.fused_leapfrog.spec import (CondPotentialSpec,
+                                                     PotentialSpec)
 from repro_torch.core.program import ProgramKey
 from repro_torch.infer.chains import (Chain, TransitionKernel,
                                       TransitionPrograms, package_draws,
@@ -223,7 +227,7 @@ class HMC:
     """Static HMC with a fixed number of leapfrog steps (paper setup).
 
     ``leapfrog``: ``"auto"`` runs the fused n-step integrator when the
-    model compiles to a separable ``PotentialSpec`` and the autodiff
+    model compiles to a (conditionally) separable spec and the autodiff
     integrator otherwise; ``"fused"`` requires the spec; ``"reference"``
     always runs autodiff. ``inv_mass`` is an optional DIAGONAL inverse
     mass (flat vector over the unconstrained state).
@@ -239,8 +243,9 @@ class HMC:
 
     @property
     def uses_potential_spec(self) -> bool:
-        """Whether drivers should try to compile a PotentialSpec for this
-        sampler (``run_chains`` checks this before ``make_kernel``)."""
+        """Whether callers should try to compile a (conditionally)
+        separable spec for this sampler (``run_chains`` checks this before
+        ``make_kernel``)."""
         return self.leapfrog != "reference"
 
     def run(self, seed: int, m: Model, num_samples: int,
@@ -266,7 +271,8 @@ class HMC:
         return package_draws(tvi_linked, qs, stats=stats)
 
     def make_kernel(self, logdensity: Callable, dim: int,
-                    spec: Optional[PotentialSpec] = None,
+                    spec: Optional[Union[PotentialSpec,
+                                         CondPotentialSpec]] = None,
                     spec_reason: Optional[str] = None) -> TransitionKernel:
         """Build the HMC :class:`TransitionKernel` for ``run_chains``.
 
@@ -277,12 +283,14 @@ class HMC:
             ``Model.make_logdensity_fn`` output — the fused hot path).
         dim : int
             Length of the flat unconstrained state.
-        spec : PotentialSpec, optional
-            Compiled separable potential (``repro_torch.core.potential``).
-            When given (and ``leapfrog != "reference"``) the kernel runs
-            the fused integrator: chain init through
-            ``potential_value_and_grad`` and each transition's whole n-step
-            leapfrog as one ``fused_leapfrog`` launch for all chains.
+        spec : PotentialSpec or CondPotentialSpec, optional
+            Compiled (conditionally) separable potential
+            (``repro_torch.core.potential``). When given (and ``leapfrog
+            != "reference"``) the kernel runs the fused integrator: chain
+            init through ``potential_value_and_grad`` and each
+            transition's whole n-step leapfrog through ``fused_leapfrog``,
+            one launch for all chains on a separable spec, plain torch on
+            a conditional one.
         spec_reason : str, optional
             Compiler diagnosis when ``spec`` is ``None`` — carried on the
             returned kernel (``TransitionKernel.spec_reason``) and quoted
@@ -303,7 +311,8 @@ class HMC:
             why = f": {spec_reason}" if spec_reason else \
                 " (PotentialSpec compilation failed or was not attempted)"
             raise ValueError(
-                f"leapfrog='fused' requires a separable model{why}; use "
+                "leapfrog='fused' requires a (conditionally-)separable "
+                f"model{why}; use "
                 "leapfrog='auto' to fall back to the autodiff integrator")
         use_fused = spec is not None and self.leapfrog != "reference"
         inv_mass_on = {}  # device -> inv_mass tensor, moved there once

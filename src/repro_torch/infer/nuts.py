@@ -16,7 +16,8 @@ host sync (``Tensor.any()`` read on the host); :data:`TREE_COUNTS` counts
 them with the lockstep leaf iterations. A frozen chain's row is still
 evaluated and its result discarded, as under ``vmap``, so each lockstep
 leaf iteration is ONE evaluation for all chains: one
-``fused_potential_vg`` launch on a separable spec, else one autodiff
+``fused_potential_vg`` launch on a separable spec, the plain-torch
+conditional evaluator on a conditional one, else one autodiff
 ``value_and_grad`` of the fused log-joint (one ``fused_logpdf`` launch
 per density family). The work between two loop tests (a transition's
 start, a doubling's start and merge, a leaf iteration) is a
@@ -108,8 +109,9 @@ class NUTS:
 
     @property
     def uses_potential_spec(self) -> bool:
-        """Whether drivers should try to compile a PotentialSpec for this
-        sampler (``run_chains`` checks this before ``make_kernel``)."""
+        """Whether callers should try to compile a (conditionally)
+        separable spec for this sampler (``run_chains`` checks this before
+        ``make_kernel``)."""
         return self.leapfrog != "reference"
 
     def _make_ld_grad(self, logdensity, spec, spec_reason=None):
@@ -117,8 +119,9 @@ class NUTS:
 
         With a compiled PotentialSpec the gradient is the analytic opcode
         table (one ``fused_potential_vg`` launch for all chains, zero
-        autodiff); otherwise the autodiff ``value_and_grad`` of the
-        log-density under ``vmap``.
+        autodiff); with a CondPotentialSpec the analytic leaves and the
+        head's autodiff in plain torch under ``vmap``; otherwise the
+        autodiff ``value_and_grad`` of the log-density under ``vmap``.
         """
         if self.leapfrog not in ("auto", "fused", "reference"):
             raise ValueError(f"unknown leapfrog mode {self.leapfrog!r}")
@@ -126,8 +129,9 @@ class NUTS:
             why = f": {spec_reason}" if spec_reason else \
                 " (PotentialSpec compilation failed or was not attempted)"
             raise ValueError(
-                f"leapfrog='fused' requires a separable model{why}; use "
-                "leapfrog='auto' to fall back to autodiff gradients")
+                "leapfrog='fused' requires a (conditionally-)separable "
+                f"model{why}; use leapfrog='auto' to fall back to autodiff "
+                "gradients")
         if spec is not None and self.leapfrog != "reference":
             return lambda q: potential_value_and_grad(spec, q)
         return value_and_grad(logdensity)
@@ -353,10 +357,10 @@ class NUTS:
         "diverging"}`` per draw (``diverging``: the doubling tree hit an
         energy error > 1000 or NaN and was truncated). Warmup runs
         dual-averaging on the mean subtree acceptance statistic, per chain.
-        ``spec`` (an optional compiled PotentialSpec) swaps the tree-leaf
-        gradient for the fused analytic evaluator; ``spec_reason`` (the
-        compiler diagnosis when ``spec`` is None) rides on the returned
-        kernel so the fallback is explainable.
+        ``spec`` (an optional compiled PotentialSpec or CondPotentialSpec)
+        swaps the tree-leaf gradient for the fused analytic evaluator;
+        ``spec_reason`` (the compiler diagnosis when ``spec`` is None)
+        rides on the returned kernel so the fallback is explainable.
         """
         ld_grad = self._make_ld_grad(logdensity, spec, spec_reason)
         nuts_step = self._build_step(ld_grad, dim)

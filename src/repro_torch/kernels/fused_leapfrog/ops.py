@@ -11,8 +11,12 @@ Both take ``(dim,)`` or ``(num_chains, dim)`` states and return
 ``repro_torch.infer.hmc._leapfrog``'s ``(q, p, logp, grad)`` contract
 (``(logp, grad)`` for the potential), so the HMC transition swaps
 integrators without touching the MH correction. ``logp`` includes
-``spec.const``, added in float32 after the sum. The state already carries
-the chain axis, so there is no ``vmap`` rule; and no
+``spec.const``, added in float32 after the sum. A
+:class:`~repro_torch.kernels.fused_leapfrog.spec.CondPotentialSpec` goes
+to ``ref.leapfrog_cond_ref`` and ``ref.cond_value_and_grad`` on every
+device and launches nothing, as ``repro`` sends it to its jnp version:
+its head term replays model code, which no generic kernel absorbs. The
+state already carries the chain axis, so there is no ``vmap`` rule; and no
 ``torch.autograd.Function``, since MCMC transitions are never
 differentiated through.
 
@@ -37,7 +41,8 @@ from repro_torch.kernels._build import KernelError, load_library
 from repro_torch.kernels._dispatch import plain_requested
 from repro_torch.kernels._scratch import last_block_scratch
 from repro_torch.kernels.fused_leapfrog import ref
-from repro_torch.kernels.fused_leapfrog.spec import PotentialSpec
+from repro_torch.kernels.fused_leapfrog.spec import (CondPotentialSpec,
+                                                     PotentialSpec)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "fused_leapfrog",
            "potential_value_and_grad", "kernel_source", "LEAPFROG_SHARE",
@@ -133,8 +138,9 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_spec(spec: PotentialSpec, q: torch.Tensor) -> None:
-    if not isinstance(spec, PotentialSpec):
-        raise TypeError(f"expected a PotentialSpec, got {type(spec).__name__}")
+    if not isinstance(spec, (PotentialSpec, CondPotentialSpec)):
+        raise TypeError(f"expected a PotentialSpec or CondPotentialSpec, "
+                        f"got {type(spec).__name__}")
     if q.dim() not in (1, 2) or q.shape[-1] != spec.dim:
         raise ValueError(f"expected a state of shape ({spec.dim},) or "
                          f"(num_chains, {spec.dim}), got {tuple(q.shape)}")
@@ -221,8 +227,10 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
 
     Parameters
     ----------
-    spec : PotentialSpec
-        Compiled separable potential (``repro_torch.core.potential``).
+    spec : PotentialSpec or CondPotentialSpec
+        Compiled (conditionally) separable potential
+        (``repro_torch.core.potential``); a conditional one runs
+        ``ref.leapfrog_cond_ref`` on every device.
     q, p, grad : torch.Tensor, float32, ``(dim,)`` or ``(num_chains, dim)``
         Position, momentum and the potential gradient at ``q``.
     step_size : float, 0-d tensor or ``(num_chains,)`` tensor
@@ -251,6 +259,9 @@ def fused_leapfrog(spec: PotentialSpec, q: torch.Tensor, p: torch.Tensor,
     n_steps = int(n_steps)
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    if isinstance(spec, CondPotentialSpec):
+        return ref.leapfrog_cond_ref(spec, q, p, grad, step_size, n_steps,
+                                     inv_mass=inv_mass)
     extra = () if inv_mass is None else (inv_mass,)
     if (plain_requested(use_pallas, interpret)
             or _device_kind(q, p, grad, *extra) == "cpu"):
@@ -286,9 +297,10 @@ def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
                              block_rows: int = 256):
     """Fused analytic ``(logp, grad)`` of the compiled potential at ``u``
     (``(dim,)`` or ``(num_chains, dim)``, any row stride, 0 included); used
-    for chain init. ``logp`` includes ``spec.const``. ``use_pallas=False``
-    or ``interpret=True`` runs the plain version; ``block_rows`` is
-    ignored.
+    for chain init. A ``CondPotentialSpec`` runs
+    ``ref.cond_value_and_grad`` on every device. ``logp`` includes
+    ``spec.const``. ``use_pallas=False`` or ``interpret=True`` runs the
+    plain version; ``block_rows`` is ignored.
 
     On the card one launch a call, ``fused_leapfrog``'s kernel evaluating
     the gradient at ``u``: the same blocks a chain (``leapfrog_parts``),
@@ -296,6 +308,8 @@ def potential_value_and_grad(spec: PotentialSpec, u: torch.Tensor, *,
     gradient and the potential."""
     _check_spec(spec, u)
     _check_state("u", u, u.shape)
+    if isinstance(spec, CondPotentialSpec):
+        return ref.cond_value_and_grad(spec, u)
     if plain_requested(use_pallas, interpret) or _device_kind(u) == "cpu":
         if u.dim() == 1:
             return ref.potential_value_and_grad_ref(spec, u)

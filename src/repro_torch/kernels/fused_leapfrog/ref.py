@@ -10,19 +10,24 @@ CUDA kernel against them on the card.
 Shapes: ``q``, ``p``, ``grad`` are ``(dim,)`` or ``(num_chains, dim)``;
 ``step_size`` is a number, a 0-d tensor or a per-chain ``(num_chains,)``
 tensor; ``inv_mass`` is an optional diagonal ``(dim,)``.
+
+``leapfrog_cond_ref`` is the integrator of a :class:`CondPotentialSpec`
+on every device, as ``repro``'s is jnp on every backend: its head term
+replays model code, which no generic kernel absorbs. Its chains run under
+``torch.func.vmap``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.fused_leapfrog.spec import (N_OPS, OP_EXP,
-                                                     OP_NORMAL, OP_SOFTPLUS,
-                                                     OP_TLOG, PotentialSpec,
-                                                     potential_elem_grad,
-                                                     potential_elem_value)
+from repro_torch.kernels.fused_leapfrog.spec import (
+    N_OPS, OP_EXP, OP_NORMAL, OP_SOFTPLUS, OP_TLOG, CondPotentialSpec,
+    PotentialSpec, cond_potential_value_and_grad, potential_elem_grad,
+    potential_elem_value)
 
-__all__ = ["potential_value_and_grad_ref", "leapfrog_ref", "random_spec"]
+__all__ = ["potential_value_and_grad_ref", "leapfrog_ref", "random_spec",
+           "cond_value_and_grad", "leapfrog_cond_ref"]
 
 
 def _const(spec: PotentialSpec) -> float:
@@ -60,6 +65,39 @@ def leapfrog_ref(spec: PotentialSpec, q, p, grad, step_size, n_steps: int,
         p = p_half + 0.5 * eps * grad
     v = potential_elem_value(op, c0, c1, c2, c3, q, uniform_op=uop)
     return q, p, torch.sum(v, dim=-1) + _const(spec), grad
+
+
+def cond_value_and_grad(spec: CondPotentialSpec, u: torch.Tensor):
+    """:func:`cond_potential_value_and_grad` of ``u`` (``(dim,)``) or of
+    each chain of ``u`` (``(num_chains, dim)``, under ``torch.func.vmap``)."""
+    if u.dim() == 1:
+        return cond_potential_value_and_grad(spec, u)
+    return torch.func.vmap(
+        lambda r: cond_potential_value_and_grad(spec, r))(u)
+
+
+def leapfrog_cond_ref(spec: CondPotentialSpec, q, p, grad, step_size,
+                      n_steps: int, inv_mass=None):
+    """n-step leapfrog on a conditionally separable potential.
+
+    Same step ordering as :func:`leapfrog_ref`; the density/gradient come
+    from :func:`cond_value_and_grad` — leaf terms analytic elementwise,
+    only the small head block goes through autodiff of the auxiliary
+    coefficient function. Returns ``(q, p, logp, grad)``, ``logp`` at the
+    final position."""
+    eps = step_size
+    if torch.is_tensor(eps) and eps.dim() == q.dim() - 1 and eps.dim() > 0:
+        eps = eps.unsqueeze(-1)  # per-chain step broadcast over dim
+    logp = None
+    for _ in range(n_steps):
+        p_half = p + 0.5 * eps * grad
+        vel = p_half if inv_mass is None else inv_mass * p_half
+        q = q + eps * vel
+        logp, grad = cond_value_and_grad(spec, q)
+        p = p_half + 0.5 * eps * grad
+    if logp is None:  # no step: the potential at the start
+        logp = cond_value_and_grad(spec, q)[0]
+    return q, p, logp, grad
 
 
 def random_spec(dim: int, uniform_op=None, seed: int = 0,

@@ -19,9 +19,9 @@ Table 1 sizes:
   sto_volatility : 500 obs (its AR(1) path as one matrix product)
   hmm_semisup    : K=5 latent, V=20 symbols, T=300 (200 unsupervised)
   lda            : V=100, K=5, D=10 docs, ~1,000 words each
-and eight_schools (not in Table 1: the conditionally separable hierarchy;
-the port runs it under the autodiff integrator until the conditional
-spec lands, ROADMAP.md Queue 1 item 5).
+and eight_schools (not in Table 1: the conditionally separable hierarchy,
+which ``leapfrog="auto"`` runs on the conditional integrator, as
+gauss_unknown).
 
 Every constructor takes ``device=`` (``None`` means CUDA) and puts the data
 there; the model's tensors never leave it.

@@ -75,7 +75,8 @@ class FakeGraph:
 
 
 @contextlib.contextmanager
-def _recording(graph, dev):
+def _recording(graph, dev, pool=None):
+    graph.pool = pool  # the pool the capture was given, for the tests
     rec = _Recorder()
     try:
         with rec:

@@ -12,6 +12,12 @@ its own step size in one compiled program. Tolerances are those of
 max abs 1e-5 on q and p, 1e-4 on the gradient, and 1e-5 on
 ``|logp - ref| / (1 + |ref|)``. The CUDA kernels themselves run only on a
 GPU: ``test_torch_kernels_cuda.py`` holds them.
+
+The conditional integrator (a ``CondPotentialSpec`` from each package's
+own compiler, at the same state) is held to ``repro``'s
+``leapfrog_cond_ref`` over 8 steps at 1e-5, and one HMC transition with
+the same NumPy momentum and accept uniform on eight_schools and on
+gauss_unknown at 200 observations.
 """
 import functools
 
@@ -27,7 +33,11 @@ from repro.dists import (Beta, Cauchy, Exponential, Flat, Gamma, HalfNormal,
                          LogNormal, Normal, StudentT, Uniform)
 from repro.kernels import fused_leapfrog as jfl
 from repro.kernels.fused_leapfrog import PotentialSpec as JPotentialSpec
-from repro_torch.convert import spec_from_reference
+from repro.infer import hmc as jhmc
+from repro.kernels.fused_leapfrog import ref as jfl_ref
+from repro.models import paper_suite as jsuite
+from repro_torch.convert import (layout_signature, spec_from_reference,
+                                 state_from_reference)
 from repro_torch.core.potential import compile_potential
 from repro_torch.infer import HMC, run_chains
 from repro_torch.infer.hmc import _leapfrog, hmc_transition, value_and_grad
@@ -331,3 +341,95 @@ def test_random_spec_runs_keep_one_opcode_a_run():
     assert (runs == runs[:, :1]).all() and spec.uniform_op is None
     np.testing.assert_array_equal(lf_ref.random_spec(100, None, seed=3).op,
                                   np.random.default_rng(3).integers(0, 5, 100))
+
+
+# ---------------------------------------------------------------------------
+# the conditional integrator against the JAX package's
+# ---------------------------------------------------------------------------
+COND_MODELS = {"eight_schools": {}, "gauss_unknown": dict(n=200)}
+
+
+@functools.lru_cache(maxsize=None)
+def _cond_pair(name):
+    """Both packages' conditional specs of one model, each from its own
+    compiler at the JAX trace's state, with the state."""
+    from repro.core.potential import compile_potential as jcompile
+
+    jm = jsuite.build(name, **COND_MODELS[name]).model
+    make = jm.make_logdensity_fn
+    jm.make_logdensity_fn = lambda *a, **k: jax.jit(make(*a, **k))
+    jtvi = jm.typed_varinfo(jax.random.PRNGKey(0)).link()
+    pm = tsuite.build(name, device="cpu", **COND_MODELS[name])
+    ttvi = pm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
+    ttvi = state_from_reference(ttvi, np.array(jtvi.flat()),
+                                layout_signature(jtvi))
+    jres, tres = jcompile(jm, jtvi), compile_potential(pm.model, ttvi)
+    assert jres.kind == tres.kind == "conditional"
+    return jres.spec, tres.spec, ttvi.flat().numpy(), pm
+
+
+def test_cond_leapfrog_matches_the_reference_trajectory():
+    """8 steps of ``leapfrog_cond_ref`` from the same NumPy state and
+    momentum (``repro``'s ``test_cond_leapfrog_matches_autodiff_trajectory``
+    setting: step 0.1), q, p and the final potential at 1e-5; one chain
+    as a ``(dim,)`` vector and as a batch of one, launching nothing."""
+    js, ts, u0, _ = _cond_pair("eight_schools")
+    rng = np.random.default_rng(7)
+    q = (u0 + 0.2 * rng.standard_normal(u0.size)).astype(np.float32)
+    p = rng.standard_normal(u0.size).astype(np.float32)
+    _, g = potential_value_and_grad(ts, torch.tensor(q))
+    want = jax.jit(lambda q, p, g: jfl_ref.leapfrog_cond_ref(
+        js, q, p, g, 0.1, 8))(*map(jnp.asarray, (q, p, g.numpy())))
+    before = dict(LAUNCHES)
+    got = fused_leapfrog(ts, torch.tensor(q), torch.tensor(p), g, 0.1, 8)
+    batch = fused_leapfrog(ts, torch.tensor(q)[None], torch.tensor(p)[None],
+                           g[None], torch.tensor([0.1]), 8)
+    assert LAUNCHES == before
+    assert _max_abs(got[0], want[0]) < TOL
+    assert _max_abs(got[1], want[1]) < TOL
+    assert _rel(got[2], want[2]) < TOL
+    assert _max_abs(got[3], want[3]) < 1e-4
+    for a, b in zip(batch, got):
+        assert _max_abs(a[0], b) < 1e-6
+
+
+@pytest.mark.parametrize("name", sorted(COND_MODELS))
+def test_cond_hmc_transition_matches_the_reference(name, monkeypatch):
+    """One Metropolis-corrected transition, 4 steps, with the same NumPy
+    momentum and accept uniform stubbed into each package's draws: the
+    port's batch of one chain (its ``run_chains`` layout, under
+    ``vmap``) against ``repro``'s ``hmc_transition`` on its
+    ``fused_leapfrog``; q, logp and grad at 1e-5, 1e-5 and 1e-4, the
+    accept decision exact."""
+    js, ts, u0, pm = _cond_pair(name)
+    rng = np.random.default_rng(3)
+    q = (u0 + 0.05 * rng.standard_normal(u0.size)).astype(np.float32)
+    p0 = rng.standard_normal(u0.size).astype(np.float32)
+    uni = np.float32(rng.uniform())
+    eps = pm.step_size
+
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape: jnp.asarray(p0).reshape(shape))
+    monkeypatch.setattr(jax.random, "uniform",
+                        lambda key, shape: jnp.asarray(uni).reshape(shape))
+    jlogp, jgrad = jfl.potential_value_and_grad(js, jnp.asarray(q))
+    want = jax.jit(lambda q, lp, g: jhmc.hmc_transition(
+        None, q, lp, g, eps, jax.random.PRNGKey(0), 4,
+        leapfrog_fn=lambda q, p, g, e, n: jfl.fused_leapfrog(
+            js, q, p, g, e, n)))(jnp.asarray(q), jlogp, jgrad)
+
+    monkeypatch.setattr(torch, "randn",
+                        lambda shape, **kw: torch.tensor(p0).reshape(shape))
+    monkeypatch.setattr(torch, "rand",
+                        lambda shape, **kw: torch.full(shape, float(uni)))
+    qt = torch.tensor(q)[None]
+    logp, grad = potential_value_and_grad(ts, qt)
+    got = hmc_transition(
+        lambda u: potential_value_and_grad(ts, u), qt, logp, grad,
+        torch.tensor([eps]), torch.Generator(), 4,
+        leapfrog_fn=lambda q, p, g, e, n: fused_leapfrog(ts, q, p, g, e, n))
+    assert bool(got[4][0]) == bool(want[4])
+    assert _max_abs(got[0][0], want[0]) < TOL
+    assert _rel(got[1][0], want[1]) < TOL
+    assert _max_abs(got[2][0], want[2]) < 1e-4
+    assert abs(float(got[3][0]) - float(want[3])) < 1e-4

@@ -325,10 +325,10 @@ def _assert_reruns_and_two_streams(cuda_device, kern, args):
                                     (4, 40000), (1, 1_000_003)])
 def test_cuda_one_launch_is_one_kernel_by_profiler(cuda_device, family, rows,
                                                    n):
-    """torch.profiler sees one kernel a call (row_sum), and no finish_rows,
-    at the main paths' shapes (logreg's bernoulli at 4 x 10,000), one
-    element and a row of many blocks. A window that missed some device
-    activity is taken again."""
+    """One kernel a call (row_sum), and no finish_rows, at the main
+    paths' shapes (logreg's bernoulli at 4 x 10,000), one element and a
+    row of many blocks, counted by the nodes of a CUDA graph of 10 calls
+    (``_graph_kernels``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(14)
     kern, args, _, _ = _one_launch_case(family, rows, n, "shared", gen,
                                         cuda_device)
@@ -365,7 +365,9 @@ def _kernel_windows(fn, calls=10, per_call=1, only=None):
     A window short of ``per_call * calls`` kernels is taken again, up to
     three windows; the last is the complete one, if any was. ``only``
     keeps the kernels whose names contain it (a path that also launches
-    PyTorch's own kernels)."""
+    PyTorch's own kernels). Left to the one path a graph cannot hold, a
+    NUTS draw (its loop tests read the device): the one-kernel-a-call
+    tests count by ``_graph_kernels``."""
     from torch.profiler import ProfilerActivity, profile
     fn()  # scratch and library in place before the window
     torch.cuda.synchronize()
@@ -390,12 +392,94 @@ def _kernel_windows(fn, calls=10, per_call=1, only=None):
     return windows
 
 
+def _demangle(name: bytes) -> str:
+    """A kernel's C++ name as the profiler shows it (``__cxa_demangle``)."""
+    import ctypes
+    fn = getattr(ctypes.CDLL("libstdc++.so.6"), "__cxa_demangle")
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_void_p
+    free = ctypes.CDLL("libc.so.6").free
+    free.argtypes, free.restype = [ctypes.c_void_p], None
+    status = ctypes.c_int(0)
+    out = fn(name, None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return name.decode()
+    text = ctypes.string_at(out).decode()
+    free(out)
+    return text
+
+
+def _graph_kernels(fn, calls=10):
+    """The device work that ``calls`` calls of ``fn`` launch, as the nodes
+    of one CUDA graph recorded from them (``core.program._recording``: the
+    capture stream's kernel scratch sized first), read through the CUDA
+    API (``cuGraph*``):
+    each kernel node's demangled name, any other node as ``<node type
+    N>``. The clock for the one-kernel-a-call tests: a graph holds every
+    launch the calls make, where a torch.profiler window in a process that
+    built its kernels lost one of ten on the leapfrog, flash and SSD
+    kernels (``probes/profiler_windows_cold.py``). Nothing is replayed."""
+    import ctypes
+
+    from repro_torch.core.program import _recording
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+    cuda.cuGraphGetNodes.argtypes = [vp, vp, ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [vp, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), vp]
+    cuda.cuKernelGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), vp]
+    for f in (cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType,
+              cuda.cuFuncGetName, cuda.cuKernelGetName):
+        f.restype = ctypes.c_int  # CUresult
+    fn()  # scratch and library in place before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with _recording(g, torch.device("cuda", torch.cuda.current_device())):
+        for _ in range(calls):
+            fn()
+    graph = g.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(graph, ctypes.cast(nodes, vp),
+                                ctypes.byref(n)) == 0
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx",
+                                                    "by", "bz", "shmem")]
+                    + [(f, ctypes.c_void_p) for f in ("params", "extra",
+                                                      "kern", "ctx")])
+
+    get_params = getattr(cuda, "cuGraphKernelNodeGetParams_v2",
+                         cuda.cuGraphKernelNodeGetParams)
+    get_params.argtypes = [vp, ctypes.POINTER(Params)]
+    get_params.restype = ctypes.c_int
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"<node type {kind.value}>")
+            continue
+        p = Params()
+        assert get_params(node, ctypes.byref(p)) == 0
+        name = ctypes.c_char_p()
+        err = (cuda.cuFuncGetName(ctypes.byref(name), p.func) if p.func
+               else cuda.cuKernelGetName(ctypes.byref(name), p.kern))
+        assert err == 0 and name.value, f"no name for a kernel node ({err})"
+        names.append(_demangle(name.value))
+    return names
+
+
 def _assert_one_kernel_a_call(kern, args, kernel="row_sum"):
-    """10 calls launch 10 kernels named ``kernel`` and no other kernel, in
-    every profiler window (``_kernel_windows``)."""
-    windows = _kernel_windows(lambda: kern(*args))
-    assert all(kernel in k for names in windows for k in names), windows
-    assert len(windows[-1]) == 10, [len(w) for w in windows]
+    """10 calls launch 10 kernels named ``kernel`` and nothing else, by the
+    nodes of a CUDA graph of the calls (``_graph_kernels``)."""
+    names = _graph_kernels(lambda: kern(*args))
+    assert all(kernel in k for k in names), names
+    assert len(names) == 10, names
 
 
 @pytest.mark.cuda
@@ -846,9 +930,9 @@ def test_cuda_fused_leapfrog_reruns_and_two_streams(cuda_device, table, rows,
                                             ("runs", 4, 8192)])
 def test_cuda_fused_leapfrog_is_one_kernel_by_profiler(cuda_device, table,
                                                        rows, dim):
-    """torch.profiler sees one kernel a call (leapfrog_kernel), and no
-    finish_rows, at gaussian_10k's and family_mix_8k's shapes and where a
-    chain is one block."""
+    """One kernel a call (leapfrog_kernel), and no finish_rows, at
+    gaussian_10k's and family_mix_8k's shapes and where a chain is one
+    block, by the nodes of a CUDA graph of 10 calls."""
     gen = torch.Generator(device=cuda_device).manual_seed(24)
     spec, q, p, g, eps = _lf_case(table, rows, dim, gen, cuda_device)
     _assert_one_kernel_a_call(
@@ -914,7 +998,8 @@ def _potential_state(table, rows, dim, layout, gen, dev):
 
 
 def _assert_potential_one_launch(spec, u, p):
-    """One launch and one kernel a call (by the counts and the profiler),
+    """One launch and one kernel a call (by the counts and a CUDA graph's
+    nodes),
     value and gradient at the plain version's tolerances, a rerun
     bit-identical, the counts back at 0, and calls alternating with
     fused_leapfrog's on one stream (sharing its scratch) giving the same
@@ -1387,7 +1472,8 @@ def test_cuda_flash_fwd_tf32_ring_with_holes(cuda_device):
 def test_cuda_flash_fwd_tf32_kernels_a_call_by_profiler(cuda_device, B, Sq,
                                                        Sk, KV, G, hd):
     """One flash_tiles and one flash_fwd_tf32 a call, and one
-    flash_combine where plan splits the keys, nothing else."""
+    flash_combine where plan splits the keys, nothing else, by the nodes
+    of a CUDA graph of 10 calls."""
     q, k, v, kp, ok = _flash_inputs(cuda_device, B, Sq, Sk, KV, G, hd,
                                     torch.float32, True, 11)
     kw = dict(q_positions=kp[Sk - Sq:][None].expand(B, Sq),
@@ -1395,9 +1481,8 @@ def test_cuda_flash_fwd_tf32_kernels_a_call_by_profiler(cuda_device, B, Sq,
               kv_mask=ok[None].expand(B, Sk), causal=True, window=None,
               cap=None)
     nsplit = flash_ops.plan(B, Sq, Sk, KV, G, torch.float32, hd).nsplit
-    names = _kernel_windows(
-        lambda: flash_ops.flash_attention_gqa(q, k, v, **kw),
-        per_call=2 + (nsplit > 1))[-1]
+    names = _graph_kernels(
+        lambda: flash_ops.flash_attention_gqa(q, k, v, **kw))
     want = {"flash_tiles": 10, "flash_fwd_tf32": 10,
             "flash_combine": 10 if nsplit > 1 else 0}
     assert {n: sum(n in k for k in names) for n in want} == want, names
@@ -1473,11 +1558,12 @@ def test_cuda_ssd_scan_tf32_chunk_invariance_and_views(cuda_device):
 @pytest.mark.cuda
 def test_cuda_ssd_scan_tf32_one_kernel_by_profiler(cuda_device):
     """One ssd_scan_tf32 kernel and its pre-pass (ssd_scan_tf32_gram, G =
-    C B^T once for a group's heads) a call at mamba2's float32 call."""
+    C B^T once for a group's heads) a call at mamba2's float32 call, by
+    the nodes of a CUDA graph of 4 calls."""
     ins = _ssd_inputs((4, 2048, 64, 64, 1, 128, 128), torch.float32,
                       cuda_device)
-    names = _kernel_windows(lambda: ssd_ops.ssd_scan(*ins, chunk=128),
-                            calls=4, per_call=2)[-1]
+    names = _graph_kernels(lambda: ssd_ops.ssd_scan(*ins, chunk=128),
+                           calls=4)
     assert sum("ssd_scan_tf32_gram<" in k for k in names) == 4, names
     assert sum("ssd_scan_tf32<" in k for k in names) == 4, names
     assert len(names) == 8, names
@@ -1496,7 +1582,7 @@ def test_cuda_bernoulli_one_launch_on_logregs_layout(cuda_device, rows, n,
                                                      layout):
     """rtol 1e-6 against the plain version, the plan's load width, one
     launch a call, a bit-identical rerun and the counts back at 0 (one
-    row_sum kernel a call by the profiler at these shapes:
+    row_sum kernel a call by a CUDA graph's nodes at these shapes:
     ``test_cuda_one_launch_is_one_kernel_by_profiler``)."""
     gen = torch.Generator(device=cuda_device).manual_seed(21)
     logits = _rows(rows, n, gen, cuda_device,

@@ -6,13 +6,14 @@ port's trace set to the JAX trace's flat state. Tolerances: opcodes equal,
 coefficients at atol 1e-6 (both fold the same float32 parameters in
 float64), ``const`` at rtol 1e-5 (a float32 log-density at the recorded
 point, summed in another order). Separable: gaussian_10k, family_mix_8k
-(every opcode in one table) and one site of each opcode family. Models the
-port cannot compile: logreg, naive_bayes and gauss_unknown (likelihoods
-move with u), hier_poisson (coupled through its likelihood), hmm_semisup
-and lda (simplex sites), sto_volatility (HalfCauchy has no opcode) in both
-packages, and a coupled hierarchy and eight_schools, which the JAX package
-compiles to a ``CondPotentialSpec`` and the port rejects until its
-dependency graph lands.
+(every opcode in one table) and one site of each opcode family. Both
+compilers are gated by their dependency graphs: eight_schools,
+gauss_unknown and a ``mu -> x`` hierarchy compile to a
+``CondPotentialSpec`` in both (equal ``head_syms``; value at rtol 1e-5 and
+gradient at 1e-4 against ``repro``'s ``cond_potential_value_and_grad``
+at three points, ``repro``'s own gate), and logreg, naive_bayes,
+hier_poisson, hmm_semisup, lda, sto_volatility and a scale-coupled model
+to ``None`` with ``repro``'s reasons, word for word.
 """
 import functools
 
@@ -29,16 +30,19 @@ from repro.dists import Gamma as JGamma
 from repro.dists import MvNormalDiag as JMvNormalDiag
 from repro.dists import Normal as JNormal
 from repro.kernels.fused_leapfrog import CondPotentialSpec
+from repro.kernels.fused_leapfrog.spec import \
+    cond_potential_value_and_grad as jpotential_vg
 from repro.models import paper_suite as jsuite
 import repro_torch
 from repro_torch.convert import spec_from_reference, state_from_reference
-from repro_torch.core.potential import (COUPLED_NOTE, PotentialCompileResult,
-                                        build_potential_spec,
-                                        compile_potential)
+from repro_torch.core.potential import build_potential_spec, compile_potential
+from repro_torch.kernels.fused_leapfrog import \
+    CondPotentialSpec as TCondPotentialSpec
 from repro_torch.dists import Flat, Gamma, MvNormalDiag, Normal
 from repro_torch.infer import HMC, run_chains
 from repro_torch.kernels.fused_leapfrog import (OP_EXP, OP_NORMAL,
-                                                OP_SOFTPLUS, OP_TLOG, OP_ZERO)
+                                                OP_SOFTPLUS, OP_TLOG, OP_ZERO,
+                                                potential_value_and_grad)
 from repro_torch.models import family_mix
 from repro_torch.models import paper_suite as tsuite
 from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
@@ -86,6 +90,25 @@ def _coupled_pair():
         repro_torch.sample("x", Normal(mu * torch.ones(3), 1.0))
 
     return jchained(), tchained()
+
+
+def _scale_coupled_pair():
+    """A scale coupled to a parameter: no leaf block can attach."""
+    from repro.dists import HalfNormal as JHalfNormal
+    from repro_torch.dists import HalfNormal
+
+    @repro.model
+    def jscale_coupled():
+        s = repro.sample("s", JHalfNormal(1.0))
+        repro.observe("y", JNormal(jnp.zeros(4), s), 0.1 * jnp.ones(4))
+
+    @repro_torch.model
+    def tscale_coupled():
+        s = repro_torch.sample("s", HalfNormal(1.0))
+        repro_torch.observe("y", Normal(torch.zeros(4), s),
+                            0.1 * torch.ones(4))
+
+    return jscale_coupled(), tscale_coupled()
 
 
 def _lone_gamma_pair():
@@ -174,6 +197,7 @@ PAIRS = {
     "logreg": lambda: _suite_pair("logreg"),
     "naive_bayes": lambda: _suite_pair("naive_bayes"),
     "coupled": _coupled_pair,
+    "scale_coupled": _scale_coupled_pair,
     "lone_gamma": _lone_gamma_pair,
     "hier_poisson": lambda: _suite_pair("hier_poisson"),
     "hmm_semisup": lambda: _suite_pair("hmm_semisup"),
@@ -257,29 +281,38 @@ def test_each_new_opcode_family_spec_equals_the_reference(family):
     _assert_specs_equal(jres.spec, tres.spec)
 
 
-@pytest.mark.parametrize("name,reason,evals", [
-    ("gauss_unknown", "mismatch at probe point 1 of 2", 5),
-    ("sto_volatility", "no opcode for HalfCauchy", 0),
-    ("eight_schools", "mismatch at probe point 1 of 2", 5)])
-def test_this_slices_paper_models_compile_to_none(name, reason, evals,
+# the ids are the names these cases had when the port compiled all three
+# to None (the reason it gave, then its evaluations)
+@pytest.mark.parametrize("name,kind,evals", [
+    ("gauss_unknown", "conditional", 5),
+    ("sto_volatility", None, 0),
+    ("eight_schools", "conditional", 5)],
+    ids=["gauss_unknown-mismatch at probe point 1 of 2-5",
+         "sto_volatility-no opcode for HalfCauchy-0",
+         "eight_schools-mismatch at probe point 1 of 2-5"])
+def test_this_slices_paper_models_compile_to_none(name, kind, evals,
                                                   monkeypatch):
-    """sto_volatility's HalfCauchy has no opcode in either package.
-    gauss_unknown (m's scale depends on s) and eight_schools are coupled
-    hierarchies that the JAX package compiles to a ``CondPotentialSpec``
-    and the port rejects until its dependency graph lands (ROADMAP.md
-    Queue 1 item 5). The compiler's log-density evaluations are what a
-    run's launch counts include."""
+    """The paper models this test was written for, when the port compiled
+    them all to ``None``: since the dependency graph, gauss_unknown (m's
+    scale depends on s) and eight_schools compile to a ``CondPotentialSpec``
+    in both packages, with ``repro``'s head; sto_volatility's y mixes
+    three leaf sites, so both reject it. The compiler's log-density
+    evaluations are what a run's launch counts include: the recorded point
+    and two probe points for a conditional compile, none for a rejection
+    by the graph."""
     jres, tres, _, _ = _compile_both(name)
-    assert tres.spec is None and reason in tres.reason
-    if name == "sto_volatility":
-        assert jres.spec is None
+    assert tres.kind == jres.kind == kind
+    if kind is None:
+        assert tres.spec is None and tres.reason == jres.reason
     else:
+        assert isinstance(tres.spec, TCondPotentialSpec)
         assert isinstance(jres.spec, CondPotentialSpec)
+        assert tres.spec.head_syms == jres.spec.head_syms
     kw = {"gauss_unknown": dict(n=64), "sto_volatility": dict(T=40),
           "eight_schools": {}}[name]
     res, calls = _count_compiler_evaluations(
         tsuite.build(name, device="cpu", **kw), monkeypatch)
-    assert res.spec is None and calls == evals
+    assert res.kind == kind and calls == evals
 
 
 def test_lone_gamma_spec_equals_the_reference():
@@ -295,33 +328,126 @@ def test_lone_gamma_spec_equals_the_reference():
 
 @pytest.mark.parametrize("name", ["hier_poisson", "hmm_semisup", "lda"])
 def test_new_paper_models_compile_to_none_in_both(name):
-    """Both packages reject the three models, with reasons that differ (see
-    ROADMAP.md Queue 3): the port stops at the simplex sites of
-    hmm_semisup and lda before any probe, and finds hier_poisson's
-    coupling through its likelihood at probe point 1."""
+    """Both packages reject the three models, with the same reason: the
+    graph finds hier_poisson's Poisson likelihood on its leaves, and no
+    leaf block left once hmm_semisup's and lda's simplex sites (and the
+    sites their factor and likelihood couple) join the head."""
     jres, tres, _, _ = _compile_both(name)
     assert jres.spec is None and tres.spec is None
-    if name == "hier_poisson":
-        assert "mismatch at probe point 1 of 2" in tres.reason
-        assert tres.reason.endswith(COUPLED_NOTE)
-    else:
-        assert tres.reason == "non-elementwise support simplex"
+    assert tres.reason == jres.reason and tres.site == jres.site
+    assert tres.reason.startswith("coupled (")
 
 
 @pytest.mark.parametrize("name", ["logreg", "naive_bayes"])
 def test_likelihood_models_compile_to_none_in_both(name):
     jres, tres, tm, ttvi = _compile_both(name)
     assert jres.spec is None and tres.spec is None
-    assert "mismatch at probe point" in tres.reason
-    assert tres.reason.endswith(COUPLED_NOTE)
+    assert tres.reason == jres.reason and tres.site == jres.site
     assert build_potential_spec(tm, ttvi) is None
 
 
 def test_coupled_hierarchy_waits_for_the_conditional_spec():
+    """The ``mu -> x`` hierarchy: a conditional spec in both packages now
+    (it waited for the port's dependency graph), with ``mu`` the head."""
     jres, tres, _, _ = _compile_both("coupled")
     assert isinstance(jres.spec, CondPotentialSpec)
-    assert tres == PotentialCompileResult(reason=tres.reason)
-    assert "ROADMAP.md Queue 1 item 5" in tres.reason
+    assert isinstance(tres.spec, TCondPotentialSpec)
+    assert tres.kind == "conditional" and tres.reason is None
+    assert tres.spec.head_syms == jres.spec.head_syms == ("mu",)
+    np.testing.assert_array_equal(tres.spec.leaf_idx, jres.spec.leaf_idx)
+    np.testing.assert_array_equal(tres.spec.opA, jres.spec.opA)
+    np.testing.assert_array_equal(tres.spec.attach_mask,
+                                  jres.spec.attach_mask)
+
+
+# all nine paper_suite models and two coupled models
+KIND_MODELS = ["gaussian_10k", "gauss_unknown", "naive_bayes", "logreg",
+               "hier_poisson", "sto_volatility", "hmm_semisup", "lda",
+               "eight_schools", "coupled", "scale_coupled"]
+
+
+@pytest.mark.parametrize("name", KIND_MODELS)
+def test_compiler_kind_equals_the_reference(name):
+    """The verdict of both compilers: the same ``kind``; the same
+    ``head_syms``, head and leaf slots, leaf opcodes and attach mask where
+    it is conditional; ``repro``'s reason and site, word for word, where
+    the spec is ``None``."""
+    jres, tres, _, _ = _compile_both(name)
+    assert tres.kind == jres.kind
+    assert (tres.reason, tres.site) == (jres.reason, jres.site)
+    if tres.kind == "conditional":
+        js, ts = jres.spec, tres.spec
+        assert ts.head_syms == js.head_syms and ts.dim == js.dim
+        for f in ("head_idx", "leaf_idx", "opA", "attach_mask"):
+            np.testing.assert_array_equal(getattr(ts, f), getattr(js, f),
+                                          err_msg=f)
+        assert ts.uniform_opA == js.uniform_opA
+    if name == "scale_coupled":
+        assert tres.spec is None and "'y'" in tres.reason
+
+
+@functools.lru_cache(maxsize=None)
+def _cond_points(name):
+    """Three states ``u0 + 0.5 N(0, 1)`` from NumPy, and both packages'
+    conditional value and gradient at them (``repro``'s in one compiled
+    program for the three)."""
+    jres, tres, _, ttvi = _compile_both(name)
+    jspec = jres.spec
+    rng = np.random.default_rng(11)
+    u0 = ttvi.flat().numpy()
+    us = (u0 + 0.5 * rng.standard_normal((3, u0.size))).astype(np.float32)
+    jv, jg = jax.jit(jax.vmap(
+        lambda u: jpotential_vg(jspec, u)))(jnp.asarray(us))
+    tv, tg = zip(*(potential_value_and_grad(tres.spec, torch.tensor(u))
+                   for u in us))
+    return (np.asarray(jv), np.asarray(jg), torch.stack(tv).numpy(),
+            torch.stack(tg).numpy())
+
+
+@pytest.mark.parametrize("name", ["eight_schools", "gauss_unknown",
+                                  "coupled"])
+def test_conditional_value_and_grad_equal_the_reference(name):
+    jv, jg, tv, tg = _cond_points(name)
+    np.testing.assert_allclose(tv, jv, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tg, jg, rtol=1e-4, atol=1e-4)
+
+
+def test_conditional_value_and_grad_batched_equal_one_chain_each():
+    """A chain batch runs under ``torch.func.vmap`` (as ``run_chains``
+    does); each chain's numbers are those of the state alone."""
+    jres, tres, _, ttvi = _compile_both("eight_schools")
+    rng = np.random.default_rng(12)
+    u = torch.tensor((ttvi.flat().numpy()
+                      + rng.standard_normal((4, ttvi.num_flat)))
+                     .astype(np.float32))
+    v, g = potential_value_and_grad(tres.spec, u)
+    assert v.shape == (4,) and g.shape == u.shape
+    for i in range(4):
+        vi, gi = potential_value_and_grad(tres.spec, u[i])
+        torch.testing.assert_close(v[i], vi, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(g[i], gi, rtol=1e-6, atol=1e-6)
+
+
+def test_allow_conditional_false_gives_the_coupled_reason():
+    """``allow_conditional=False`` stops at the graph's first coupling
+    edge in both packages, and ``cached_potential`` keys the two settings
+    apart and hands the setting to the compiler."""
+    from repro.core.program import cached_potential as jcached
+    from repro_torch.core.program import cached_potential, program_cache
+
+    jm, tm = _suite_pair("eight_schools")
+    jtvi = jm.typed_varinfo(jax.random.PRNGKey(0)).link()
+    ttvi = tm.typed_varinfo(torch.Generator().manual_seed(0)).link()
+    jr = jcached(jm, jtvi, allow_conditional=False)
+    tr = cached_potential(tm, ttvi, allow_conditional=False)
+    assert tr.spec is None and tr.reason == jr.reason
+    assert tr.reason == ("coupled parameters: site 'theta' depends on "
+                         "parameter 'mu'") and tr.site == "theta"
+    misses = program_cache().misses
+    assert cached_potential(tm, ttvi, allow_conditional=False) is tr
+    on = cached_potential(tm, ttvi)
+    assert program_cache().misses == misses + 1
+    assert on.kind == "conditional" and on is not tr
 
 
 def test_spec_from_reference_checks_lengths():
@@ -338,9 +464,10 @@ def test_spec_from_reference_checks_lengths():
 
 def test_fused_leapfrog_on_logreg_raises_with_the_compilers_reason():
     tm = tsuite.build("logreg", device="cpu", n=64, dim=4)
-    with pytest.raises(ValueError, match="mismatch at probe point") as info:
+    with pytest.raises(ValueError,
+                       match="only Normal observations attach") as info:
         run_chains(0, tm.model, HMC(leapfrog="fused"), 2, device="cpu")
-    assert "ROADMAP.md Queue 1 item 5" in str(info.value)
+    assert "requires a (conditionally-)separable model" in str(info.value)
     # auto falls back to autodiff and keeps the reason on the kernel
     ttvi = tm.model.typed_varinfo(torch.Generator().manual_seed(0)).link()
     res = compile_potential(tm.model, ttvi)
@@ -372,26 +499,29 @@ def _count_compiler_evaluations(tm, monkeypatch):
 
 @pytest.mark.parametrize("name", ["gaussian_10k", "logreg"])
 def test_compiler_always_makes_five_evaluations(name, monkeypatch):
-    """For a model whose every site has an opcode (here gaussian_10k and
-    logreg): the value at the recorded point, then a value and a gradient
-    at each of two probe points, whatever the verdict (gaussian_10k
-    compiles, logreg fails at probe point 1). A model with a simplex site
-    is rejected before any probe: see
+    """A compile that reaches the probes always makes five evaluations:
+    the value at the recorded point, then a value and a gradient at each
+    of two probe points, whatever the verdict (gaussian_10k, separable).
+    logreg made them too before the graph gate; now its graph's coupling
+    (y's logits on w and b, a BernoulliLogits likelihood no leaf can
+    attach) rejects it before any, as in ``repro``: see
     ``test_compiler_probe_evaluations_per_paper_model``."""
     kw = {"dim": 16} if name == "gaussian_10k" else {"n": 64, "dim": 4}
     tm = tsuite.build(name, device="cpu", **kw)
     res, calls = _count_compiler_evaluations(tm, monkeypatch)
     assert (res.spec is not None) == (name == "gaussian_10k")
-    assert calls == 5
+    assert calls == (5 if name == "gaussian_10k" else 0)
 
 
-@pytest.mark.parametrize("name,evals", [("hier_poisson", 5),
-                                        ("hmm_semisup", 0), ("lda", 0)])
+# hier_poisson's id keeps the 5 evaluations it made before the graph gate
+@pytest.mark.parametrize("name,evals", [("hier_poisson", 0),
+                                        ("hmm_semisup", 0), ("lda", 0)],
+                         ids=["hier_poisson-5", "hmm_semisup-0", "lda-0"])
 def test_compiler_probe_evaluations_per_paper_model(name, evals, monkeypatch):
-    """hier_poisson's sites all have opcodes, so the compiler makes its 5
-    evaluations and then finds the coupling; hmm_semisup's and lda's
-    simplex sites stop it before the first (so their runs launch no probe
-    kernels)."""
+    """The graph's coupling stops the compiler before any evaluation on
+    the three: hier_poisson's Poisson likelihood on its leaves (it made 5
+    before the graph gate), hmm_semisup's and lda's simplex sites in the
+    head (so their runs launch no probe kernels)."""
     kw = {"hier_poisson": dict(n=20, n_groups=4),
           "hmm_semisup": dict(K=3, V=6, T=30, T_sup=10),
           "lda": dict(V=12, K=3, D=4, avg_len=30)}[name]

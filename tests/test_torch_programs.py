@@ -18,6 +18,8 @@ tensors), so that the capture path's bookkeeping runs here too. The
 card's own check is in ``tests/test_torch_kernels_cuda.py`` (``-k
 graph``).
 """
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -150,8 +152,18 @@ def test_trace_and_kernel_fingerprints():
     assert kernel_fingerprint(HMC()) != kernel_fingerprint(HMC(n_leapfrog=8))
     assert kernel_fingerprint(HMC()) != kernel_fingerprint(NUTS())
     assert kernel_fingerprint(lambda q: q) is None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        model_graph(None, t1)
+    # the dependency graph is cached once a model, layout and context:
+    # the potential compiler (linked trace) and Model.analyze (unlinked)
+    # share the build, and another model misses
+    m = bounded(2.0)
+    misses = program_cache().misses
+    g = model_graph(m, t1)
+    assert g.node("u").dist == "Uniform" and not g.dynamic
+    hits = program_cache().hits
+    assert model_graph(m, t1.invlink()) is g
+    assert program_cache().hits == hits + 1
+    assert program_cache().misses == misses + 1
+    assert model_graph(bounded(3.0), t2) is not g
 
 
 def test_exports_match_the_reference_names():
@@ -378,3 +390,45 @@ def test_drive_chains_matches_a_loop_written_out(captured, monkeypatch):
     assert torch.equal(qs, torch.stack([w[0] for w in want], 1))
     for i, k in enumerate(("logp", "accept_prob", "diverging"), 1):
         assert torch.equal(stats[k], torch.stack([w[i] for w in want], 1))
+
+
+def test_transition_programs_keep_one_draw_count_and_one_pool(monkeypatch):
+    """A cached ``TransitionPrograms`` keeps the draw buffers of its last
+    draw count only: a run at another count frees the old buffers and the
+    step graph that wrote them, and the next run at the first count
+    captures again. Its three programs capture into one ``GraphPool``."""
+    emulate_capture(monkeypatch)
+
+    @model
+    def reg(X, y):  # a model of its own: one cached TransitionPrograms
+        w = sample("w", MvNormalDiag(torch.zeros(3), torch.ones(3)))
+        observe("y", Normal(X @ w, 1.0), y)
+
+    X, y = _data(16)
+    m = reg(X, y)
+    kernel = HMC(step_size=0.05, n_leapfrog=2)
+
+    def go(n):
+        return run_chains(0, m, kernel, num_samples=n, num_warmup=3,
+                          num_chains=2, device="cpu")
+
+    go(5)
+    (progs,) = [v for k, v in program_cache()._entries.items()
+                if k.kind == "transition" and k.model[2] == reg._uid]
+    (bufs,) = progs._buffers.values()
+    first = bufs["draws"]["q"]
+    assert first.shape == (2, 5, 3) and progs.step.captures == 1
+    graphs = [e for p in progs.programs[:3] for e in p._seen.values()
+              if isinstance(e, tprogram._Graph)]
+    assert graphs and {id(g.graph.pool) for g in graphs} == {id(progs.pool)}
+    old = weakref.ref(first)
+    del first, graphs
+    a = go(7)
+    assert bufs["draws"]["q"].shape == (2, 7, 3)
+    assert old() is None  # the 5-draw buffers are gone, graph and all
+    assert a["w"].shape == (2, 7, 3)
+    b = go(5)
+    assert progs.step.captures == 3 and bufs["draws"]["q"].shape[1] == 5
+    with disable_capture():
+        want = go(5)
+    assert np.array_equal(b["w"], want["w"])
