@@ -180,7 +180,9 @@ Phases, in order:
    dual-averaging warmup on the eleven models, both integrators on the
    separable and the conditional ones, gauss_unknown's switch route,
    NUTS on gaussian_10k and logreg, Table 1's chains, MAP, RWMH, ADVI
-   with and without ``minibatch=``, the subsampled SGLD step) against the
+   with and without ``minibatch=``, the subsampled SGLD step, phase 6e's
+   logreg posterior-predictive query and a server batch of it, phase
+   6f's segmented driver on gaussian_10k) against the
    same run under ``disable_capture()``: identical draws bit for bit and
    equal launch counts, or the run fails (the LM decode steps are held the
    same way, greedy and sampled, in the LM phase);
@@ -196,9 +198,39 @@ Phases, in order:
    the card, in a process of its own: exit status 0, a report that
    ``validate_analysis_report`` accepts, the verdicts (separable
    gaussian_10k, conditional gauss_unknown and eight_schools, the rest
-   none). ``torch.cuda.memory_reserved()``, ``memory_allocated()`` and
-   the peak since the previous line (``max_memory_allocated()``) are
-   printed after phases 6, 6b, 6c and 6d;
+   none);
+6e. probability queries and the query server (ROADMAP Queue 1 item 6):
+   on logreg (10,000 x 100) a prior, a likelihood and a joint on a
+   held-out data set, and a posterior predictive over M = 1,000 draws of a
+   4-chain ``run_chains`` (250 draws a chain), each through ``prob``:
+   equal to ``compiled=False`` and to the per-site evaluator's plain
+   torch (the per-array switch off) within 1e-5 relative, its three
+   compiled calls (eager, captured, replayed) equal to
+   ``disable_capture()`` bit for bit, ms a call replayed; a
+   ``QueryServer`` batch of 8 PPD requests over 8 held-out data sets
+   from seeds (bucket 8; lanes x draws as the rows of ONE
+   ``bernoulli_logit_sum`` launch, counted), each lane equal to its
+   single ``prob`` within 1e-6 relative, its stats equal to those
+   reckoned from the requests, captured equal to eager bit for bit; then
+   ``serve_queries()``'s demo workload (32 requests, batch 8), its stats
+   reckoned from the requests and each lane of a server over the same
+   requests equal to its single ``prob``;
+6f. the segmented, resumable, fault-tolerant driver (ROADMAP Queue 1
+   item 7), 4 chains each (``DRIVER_RUNS``): gaussian_10k on the fused
+   leapfrog (Table 1's HMC, 200 + 1,000 draws, ``checkpoint_every=250``),
+   logreg on the autodiff leapfrog (100 + 300, 100) and NUTS on
+   gaussian_10k (20 + 40, 15): segmented (with and without snapshots)
+   equal to unsegmented bit for bit; ``ScriptedPreemption(after_polls=2)``
+   then a resume into a cleared program cache equal to the uninterrupted
+   run bit for bit; a ``NaNInjector`` at one iteration rerun on the
+   reference twin (one fallback segment, finite draws) and, with
+   ``fallback=False``, recorded; a ``torn_save`` of the step after the
+   latest skipped on resume; snapshot bytes and seconds and ms a draw
+   segmented against unsegmented. The checkpoints go to a temporary
+   directory that the phase removes.
+   ``torch.cuda.memory_reserved()``, ``memory_allocated()`` and the peak
+   since the previous line (``max_memory_allocated()``) are printed after
+   phases 6, 6b, 6c, 6d, 6e and 6f;
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -2017,7 +2049,9 @@ def graphs_phase(torch, np):
     under the autodiff integrator) and gauss_unknown's switch route, NUTS
     on gaussian_10k (fused leaves) and logreg, Table 1's chains (typed and
     hand-written) on logreg and gaussian_10k, MAP, RWMH, ADVI (full and
-    minibatch) and the subsampled SGLD step. Draws are cut to
+    minibatch), the subsampled SGLD step, a logreg posterior-predictive
+    query (M = 1,000), a query-server batch of 4 of them, and the
+    segmented driver on gaussian_10k. Draws are cut to
     ``GRAPH_RUN``, ``GRAPH_NUTS`` and ``GRAPH_STEPS``: each run still
     takes the eager first call, the capture and replays of each program."""
     from repro_torch.infer import (ADVI, HMC, MAP, NUTS, RWMH, SGLD,
@@ -2112,6 +2146,42 @@ def graphs_phase(torch, np):
         return params, torch.stack(lps)
 
     out["sgld"] = captured_vs_eager(torch, np, "SGLD (subsampled)", sgld)
+
+    # the query programs (phase 6e's paths): three calls of a logreg
+    # posterior predictive (eager, captured, replayed) and three batches of
+    # the server, each on a cache of its own
+    from repro_torch.core.program import ProgramCache
+    from repro_torch.core.queries import prob
+    from repro_torch.launch.serve import QueryServer
+
+    pm = build_model("logreg")
+    rng = np.random.default_rng(0)
+    n, dim = pm.data["X"].shape
+    c = {"w": rng.normal(size=(1000, dim)).astype(np.float32) * 0.1,
+         "b": rng.normal(size=1000).astype(np.float32)}
+    reqs = [("X = Xn, y = yn | chain = c, model = m",
+             dict(zip(("Xn", "yn"), heldout_logreg(np, s, n, dim)), c=c,
+                  m=pm.model)) for s in range(4)]
+    out["query ppd"] = captured_vs_eager(
+        torch, np, "query (logreg PPD, M = 1,000)", lambda: (lambda cache: [
+            prob(reqs[0][0], cache=cache, device=DEVICE, **reqs[0][1])
+            for _ in range(3)])(ProgramCache()))
+    out["query server"] = captured_vs_eager(
+        torch, np, "query server (4 logreg PPD lanes)", lambda: (
+            lambda server: [server.serve(reqs) for _ in range(3)])(
+                QueryServer(cache=ProgramCache(), device=DEVICE)))
+    # the segmented driver (phase 6f's path) on gaussian_10k, fused
+    pm = build_model("gaussian_10k")
+    kernel = HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+                 adapt_step_size=True)
+
+    def segmented(n=draws, w=warm):
+        return run_chains(0, pm.model, kernel, n, num_warmup=w,
+                          num_chains=4, device=DEVICE, checkpoint_every=3)
+
+    out["segmented"] = captured_vs_eager(
+        torch, np, "segmented driver (gaussian_10k)", segmented,
+        warm=lambda: segmented(1, 0))
     log(f"graphs phase: {len(out)} paths identical captured and eager in "
         f"{time.perf_counter() - t_start:.1f} s")
     return out
@@ -2259,6 +2329,375 @@ def analyze_cli(torch):
     return {"seconds": secs, "returncode": proc.returncode, "kinds": kinds,
             "n_errors": sum(m["n_errors"] for m in report["models"]),
             "n_warnings": sum(m["n_warnings"] for m in report["models"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: probability queries and the query server (ROADMAP Queue 1 item
+# 6) on logreg at Table 1's width, and serve_queries()'s demo workload
+# ---------------------------------------------------------------------------
+QUERY_CHAIN = (4, 250)   # chains x draws of the logreg run the PPD averages
+QUERY_HELDOUT = 8        # held-out data sets, one a server request
+QUERY_RTOL = 1e-5        # compiled against compiled=False and plain torch
+QUERY_LANE_RTOL = 1e-6   # a server lane against its single prob call
+QUERY_TIMED = 20         # replayed calls of each kind timed
+DEMO_QUERIES = (32, 8)   # serve_queries(): requests, batch
+
+
+def heldout_logreg(np, seed, n, dim):
+    """A held-out logreg data set: fresh ``X`` from ``seed`` and labels
+    drawn from the same true weights as ``paper_suite.logreg``'s data
+    (its seed 2), as NumPy arrays."""
+    rng = np.random.default_rng(2)
+    rng.normal(size=(n, dim))
+    w_true = rng.normal(size=dim) * (rng.random(dim) < 0.3)
+    rng = np.random.default_rng(1000 + seed)
+    X = rng.normal(size=(n, dim)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-(X @ w_true)))
+    y = (rng.random(n) < p).astype(np.int32)
+    return X, y
+
+
+def _rel(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def queries_phase(torch, np):
+    """Phase 6e. logreg (10,000 x 100): a prior, a likelihood on a held-out
+    data set, a joint, and a posterior predictive over M = 1,000 draws of
+    a 4-chain ``run_chains`` (250 draws a chain), each through ``prob``:
+    compiled against ``compiled=False`` and against the per-site
+    evaluator's plain torch (the per-array switch off) at 1e-5 relative,
+    and three compiled calls (eager, captured, replayed) against
+    ``disable_capture()`` bit for bit; ms a call replayed. Then a
+    ``QueryServer`` batch of 8 PPD requests over 8 held-out data sets
+    (bucket 8: lanes x draws as the kernel's rows, one launch counted),
+    each lane against its single ``prob`` at 1e-6, the stats against the
+    requests, captured against eager; then ``serve_queries()``'s demo
+    workload (32 requests, batch 8) and a ``QueryServer`` over the same
+    requests, lane by lane."""
+    from repro_torch.core import queries
+    from repro_torch.core.program import (GRAPH_COUNTS, ProgramCache,
+                                          disable_capture)
+    from repro_torch.infer import HMC, run_chains
+    from repro_torch.launch.serve import (QueryServer, _demo_query_requests,
+                                          _next_pow2, serve_queries)
+
+    t_start = time.perf_counter()
+    pm = build_model("logreg")
+    chains, per = QUERY_CHAIN
+    counts_reset(torch)
+    chain = run_chains(0, pm.model, HMC(step_size=pm.step_size,
+                                        n_leapfrog=pm.n_leapfrog), per,
+                       num_chains=chains, device=DEVICE)
+    chain_launches, _ = counts_read(torch)
+    draws = {k: chain[k].reshape((chains * per,) + chain[k].shape[2:])
+             for k in ("w", "b")}
+    M = chains * per
+    w0 = draws["w"].mean(axis=0).astype(np.float32)
+    b0 = np.float32(draws["b"].mean())
+    sets = [heldout_logreg(np, s, *pm.data["X"].shape)
+            for s in range(QUERY_HELDOUT)]
+    X0, y0 = sets[0]
+    specs = {
+        "prior": ("w = w0, b = b0 | model = m", {}),
+        "likelihood": ("X = Xn, y = yn | w = w0, b = b0, model = m",
+                       {"Xn": X0, "yn": y0}),
+        "joint": ("X = Xn, y = yn, w = w0, b = b0 | model = m",
+                  {"Xn": X0, "yn": y0}),
+        "posterior_predictive": ("X = Xn, y = yn | chain = c, model = m",
+                                 {"Xn": X0, "yn": y0, "c": draws}),
+    }
+    cache = ProgramCache()
+    out = {"chain_launches": chain_launches, "num_draws": M, "kinds": {}}
+    launches = []
+    for kind, (spec, extra) in specs.items():
+        b = {"m": pm.model, "w0": w0, "b0": b0, **extra}
+        before = dict(GRAPH_COUNTS)
+        counts_reset(torch)
+        got = [queries.prob(spec, cache=cache, device=DEVICE, **b)
+               for _ in range(3)]
+        kind_launches, _ = counts_read(torch)
+        launches.append(kind_launches)
+        graphs = {k: GRAPH_COUNTS[k] - before[k] for k in before}
+        with disable_capture():
+            eager_prog = queries.prob(spec, cache=cache, device=DEVICE, **b)
+        uncompiled = queries.prob(spec, compiled=False, device=DEVICE, **b)
+        plain = queries._prob_eager(spec, b, device=DEVICE,
+                                    backend="reference")
+        value = float(got[-1])
+        check(math.isfinite(value), f"query {kind}: {value}")
+        check(all(same_results(np, g, eager_prog) for g in got),
+              f"query {kind}: captured {[float(g) for g in got]} differs "
+              f"from eager {float(eager_prog)}")
+        check(graphs["captures"] == 1 and graphs["replays"] == 2,
+              f"query {kind}: {graphs} (one capture, two replays expected)")
+        rel_c, rel_p = _rel(value, uncompiled), _rel(value, plain)
+        check(rel_c <= QUERY_RTOL and rel_p <= QUERY_RTOL,
+              f"query {kind}: {value} against compiled=False "
+              f"{float(uncompiled)} ({rel_c:.2e}) and plain torch "
+              f"{float(plain)} ({rel_p:.2e})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(QUERY_TIMED):
+            queries.prob(spec, cache=cache, device=DEVICE, **b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / QUERY_TIMED * 1e3
+        out["kinds"][kind] = {"value": value, "rel_vs_uncompiled": rel_c,
+                              "rel_vs_plain": rel_p, "ms_a_call": ms,
+                              "launches_3_calls": kind_launches, **graphs}
+        log(f"query logreg {kind}: {value:.6f} (compiled=False rel "
+            f"{rel_c:.2e}, plain torch rel {rel_p:.2e}); captured = eager; "
+            f"{graphs['captures']} capture, {graphs['replays']} replays; "
+            f"{ms:.3f} ms a call replayed ({1e3 / ms:.1f} queries/s); "
+            f"launches in 3 calls "
+            f"{ {k: v for k, v in kind_launches.items() if v} }")
+
+    # the server: 8 PPD requests over the 8 held-out data sets, one group
+    spec = specs["posterior_predictive"][0]
+    reqs = [(spec, {"Xn": X, "yn": y, "c": draws, "m": pm.model})
+            for X, y in sets]
+    singles = [queries.prob(s, cache=cache, device=DEVICE, **b)
+               for s, b in reqs]
+    server = QueryServer(cache=cache, device=DEVICE)
+    before = dict(GRAPH_COUNTS)
+    results = []
+    for _ in range(3):  # eager, captured, replayed
+        counts_reset(torch)
+        results.append(server.serve(reqs))
+        launches.append(counts_read(torch)[0])
+    graphs = {k: GRAPH_COUNTS[k] - before[k] for k in before}
+    with disable_capture():
+        eager = server.serve(reqs)
+    batch_launches = launches[-1]
+    want_launches = dict.fromkeys(batch_launches, 0)
+    want_launches["bernoulli_logit_sum"] = 1
+    check(batch_launches == want_launches,
+          f"query server: one batched PPD call launched {batch_launches}, "
+          f"expected {want_launches} (lanes x draws as one launch's rows)")
+    lane_rel = max(_rel(g, s) for g, s in zip(results[-1], singles))
+    check(lane_rel <= QUERY_LANE_RTOL,
+          f"query server: a lane is {lane_rel:.2e} from its single prob")
+    check(all(same_results(np, torch.stack(r), torch.stack(eager))
+              for r in results),
+          "query server: the captured batch differs from the eager one")
+    st = server.stats
+    want_st = (4, 1, 0, 4 * len(reqs))  # batches, groups, padding, requests
+    check((st.batches, st.groups, st.padded_lanes, st.requests) == want_st,
+          f"query server: stats {st.as_dict()}, expected (batches, groups, "
+          f"padded_lanes, requests) {want_st}")
+    ms = st.latency_s / st.batches * 1e3
+    out["server"] = {"lanes": len(reqs), "num_draws": M,
+                     "max_lane_rel": lane_rel, "launches": batch_launches,
+                     "stats": st.as_dict(), **graphs,
+                     "ms_a_batch_mean": ms}
+    log(f"query server logreg: {len(reqs)} PPD lanes x {M} draws x "
+        f"{len(y0):,} rows, bucket 8: lanes = single prob within {lane_rel:.2e}; "
+        f"captured = eager; launches a batch {batch_launches}; "
+        f"{graphs['captures']} captures, {graphs['replays']} replays; "
+        f"{ms:.3f} ms a batch mean over {st.batches} ({st.throughput_qps:.1f}"
+        f" queries/s, first call and capture included)")
+
+    # serve_queries()'s demo workload, and a server over its requests
+    n_req, batch = DEMO_QUERIES
+    demo = _demo_query_requests(n_req)
+    counts_reset(torch)
+    st = serve_queries(n_req, batch, device=DEVICE)
+    launches.append(counts_read(torch)[0])
+    groups, padded = set(), 0
+    for off in range(0, n_req, batch):
+        kinds = [spec for spec, _ in demo[off:off + batch]]
+        groups.update(kinds)
+        padded += sum(_next_pow2(kinds.count(k)) - kinds.count(k)
+                      for k in set(kinds))
+    want_st = (n_req, -(-n_req // batch), len(groups), padded)
+    got_st = (st.requests, st.batches, st.groups, st.padded_lanes)
+    check(got_st == want_st, f"serve_queries: (requests, batches, groups, "
+          f"padded_lanes) {got_st}, reckoned from the requests {want_st}")
+    demo_cache = ProgramCache()
+    server = QueryServer(cache=demo_cache, device=DEVICE)
+    lanes = []
+    for off in range(0, n_req, batch):
+        lanes += server.serve(demo[off:off + batch])
+    singles = [queries.prob(s, cache=demo_cache, device=DEVICE, **b)
+               for s, b in demo]
+    demo_rel = max(_rel(g, s) for g, s in zip(lanes, singles))
+    check(demo_rel <= QUERY_LANE_RTOL,
+          f"demo server: a lane is {demo_rel:.2e} from its single prob")
+    out["serve_queries"] = {"stats": st.as_dict(), "max_lane_rel": demo_rel}
+    log(f"serve_queries: {st.requests} queries in {st.batches} batches "
+        f"({st.groups} program groups, {st.padded_lanes} padded lanes) as "
+        f"reckoned; {st.latency_s / st.requests * 1e3:.3f} ms a request, "
+        f"{st.throughput_qps:.1f} queries/s (first calls and captures "
+        f"included); cache {st.cache_hits} hits, {st.cache_misses} misses; "
+        f"lanes = single prob within {demo_rel:.2e}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 6e done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: the segmented, resumable, fault-tolerant driver (ROADMAP Queue
+# 1 item 7) at Table 1's widths
+# ---------------------------------------------------------------------------
+# name -> (model, sampler, warmup, draws, checkpoint_every, NaN iteration)
+DRIVER_RUNS = {
+    "gaussian_10k": ("gaussian_10k", "hmc", 200, 1000, 250, 700),
+    "logreg_autodiff": ("logreg", "hmc_reference", 100, 300, 100, 250),
+    "nuts_gaussian_10k": ("gaussian_10k", "nuts", 20, 40, 15, 40),
+}
+
+
+def segment_ends(warm, n, every):
+    """Where the driver's segments end: ``every`` transitions, the warmup
+    cut at its end (``infer.driver.run_segmented``)."""
+    ends, it = [], 0
+    while it < warm + n:
+        it = min(it + every, warm if it < warm else warm + n)
+        ends.append(it)
+    return ends
+
+
+def _driver_sampler(pm, how):
+    from repro_torch.infer import HMC, NUTS
+    if how == "nuts":
+        return NUTS(step_size=pm.step_size, max_depth=NUTS_RUNS[pm.name][2])
+    return HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+               leapfrog="reference" if how == "hmc_reference" else "auto")
+
+
+def driver_phase(torch, np):
+    """Phase 6f. For each of ``DRIVER_RUNS`` (4 chains): the unsegmented
+    ``run_chains``; the same call segmented with snapshots (equal bit for
+    bit; snapshot bytes and seconds, ms a draw against unsegmented);
+    ``ScriptedPreemption(after_polls=2)`` then a resume after
+    ``clear_cache()`` (equal to the uninterrupted run bit for bit); a
+    ``NaNInjector`` at one iteration with the fallback (one segment rerun
+    on the reference twin, finite draws) and without it (the NaN
+    recorded); a ``torn_save`` of the step after the latest, skipped on
+    resume (equal again). Checkpoints go to a temporary directory that
+    the phase removes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import latest_step, restore
+    from repro_torch.core.program import clear_cache
+    from repro_torch.infer import run_chains
+    from repro_torch.runtime import NaNInjector, ScriptedPreemption, torn_save
+
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out, launches = {}, []
+    models = {}
+    try:
+        for label, (name, how, warm, n, every, nan_at) in DRIVER_RUNS.items():
+            pm = models.get(name) or models.setdefault(name, build_model(name))
+            kernel = _driver_sampler(pm, how)
+            common = dict(num_warmup=warm, num_chains=4, device=DEVICE)
+
+            def go(kern=kernel, **kw):
+                counts_reset(torch)
+                t0 = time.perf_counter()
+                chain = run_chains(0, pm.model, kern, n, **common, **kw)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches.append(counts_read(torch)[0])
+                return chain, secs
+
+            go()  # builds the programs: the timed runs below are warm
+            single, t_single = go()
+            d = f"{root}/{label}"
+            bare, t_bare = go(checkpoint_every=every)
+            seg, t_seg = go(checkpoint_dir=f"{d}/seg", checkpoint_every=every)
+            check(same_results(np, seg, single)
+                  and same_results(np, bare, single),
+                  f"driver {label}: the segmented run differs from the "
+                  "unsegmented one")
+            h = seg.health
+            check(h.ok and h.completed == warm + n,
+                  f"driver {label}: segmented health\n{h.report()}")
+            stop = segment_ends(warm, n, every)[2]  # the third poll
+            part, _ = go(checkpoint_dir=f"{d}/resume", checkpoint_every=every,
+                         preemption=ScriptedPreemption(after_polls=2))
+            check(part.health.preempted and latest_step(f"{d}/resume")
+                  == part.health.completed == stop,
+                  f"driver {label}: preempted at {part.health.completed}, "
+                  f"latest step {latest_step(f'{d}/resume')}, expected {stop}")
+            clear_cache()
+            resumed, t_resume = go(checkpoint_dir=f"{d}/resume",
+                                   checkpoint_every=every)
+            check(resumed.health.resumed_from == stop
+                  and same_results(np, resumed, single),
+                  f"driver {label}: the run resumed from "
+                  f"{resumed.health.resumed_from} differs from the "
+                  "uninterrupted one")
+            # a writer killed while committing the step after the latest
+            go(checkpoint_dir=f"{d}/torn", checkpoint_every=every,
+               preemption=ScriptedPreemption(after_polls=2))
+            good = latest_step(f"{d}/torn")
+            torn_save(f"{d}/torn", good + every,
+                      restore(f"{d}/torn", good)[1], kill_at="before_commit")
+            check(latest_step(f"{d}/torn") == good,
+                  f"driver {label}: the torn step is visible")
+            torn, _ = go(checkpoint_dir=f"{d}/torn", checkpoint_every=every)
+            check(torn.health.resumed_from == good
+                  and same_results(np, torn, single),
+                  f"driver {label}: the resume past a torn step differs")
+            nan = {}
+            for fallback in (True, False):
+                chain, _ = go(kern=NaNInjector(kernel, at_iterations=[nan_at]),
+                              checkpoint_every=every, fallback=fallback)
+                hh = chain.health
+                finite = all(np.isfinite(chain[k]).all()
+                             for k in chain.names())
+                if fallback:
+                    check(hh.fallback_segments == 1 and finite
+                          and int(hh.nonfinite.sum()) > 0,
+                          f"driver {label}: NaN at {nan_at} with the "
+                          f"fallback\n{hh.report()}")
+                else:
+                    check(hh.fallback_segments == 0 and not finite
+                          and int(hh.nonfinite.sum()) > 0,
+                          f"driver {label}: NaN at {nan_at} without the "
+                          f"fallback\n{hh.report()}")
+                nan[fallback] = {"nonfinite": hh.nonfinite.tolist(),
+                                 "fallback_segments": hh.fallback_segments,
+                                 "finite": finite}
+            ms_single = t_single / n * 1e3
+            ms_bare = t_bare / n * 1e3
+            ms_seg = t_seg / n * 1e3
+            out[label] = {
+                "model": name, "sampler": how, "num_warmup": warm,
+                "num_samples": n, "checkpoint_every": every,
+                "ms_a_draw_unsegmented": ms_single,
+                "ms_a_draw_segments_alone": ms_bare,
+                "ms_a_draw_segmented": ms_seg,
+                "ms_a_draw_added": ms_seg - ms_single,
+                "ms_a_draw_resumed_cold": t_resume / n * 1e3,
+                "snapshots": h.snapshots, "snapshot_bytes": h.snapshot_bytes,
+                "snapshot_s": h.snapshot_s,
+                "snapshot_write_s": h.snapshot_write_s,
+                "preempted_at": part.health.completed,
+                "nan": {str(k): v for k, v in nan.items()}}
+            log(f"driver {label}: {warm} + {n} draws, segments of {every}: "
+                f"segmented = unsegmented, resumed from {stop} (cleared "
+                f"cache) = uninterrupted, resumed past a torn step = "
+                f"uninterrupted, NaN at {nan_at} rerun on the reference "
+                f"twin ({nan[True]['fallback_segments']} segment) / "
+                f"recorded without it; {h.snapshots} snapshots of "
+                f"{h.snapshot_bytes / max(h.snapshots, 1) / 2**20:.1f} MiB, "
+                f"copied to the host in {h.snapshot_s:.3f} s and written in "
+                f"{h.snapshot_write_s:.3f} s in all; ms a draw {ms_seg:.3f} "
+                f"segmented "
+                f"with snapshots, {ms_bare:.3f} in segments alone, against "
+                f"{ms_single:.3f} unsegmented (+{ms_seg - ms_single:.3f})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 6f done in {out['seconds']:.1f} s")
+    return out
 
 
 def table1(torch, np):
@@ -4220,6 +4659,12 @@ def main() -> int:
     phase_6d_s = time.perf_counter() - t6d
     log(f"phase 6d done in {phase_6d_s:.1f} s")
     memory["6d"] = memory_line(torch, "phase 6d")
+    # phase 6e: probability queries and the query server
+    query_out = queries_phase(torch, np)
+    memory["6e"] = memory_line(torch, "phase 6e")
+    # phase 6f: the segmented, resumable, fault-tolerant driver
+    driver_out = driver_phase(torch, np)
+    memory["6f"] = memory_line(torch, "phase 6f")
     # the LM paths, each with every count zeroed just before its timed run
     # and read just after it
     lm_mods = (ops, lf_ops, fops, sops)
@@ -4285,7 +4730,9 @@ def main() -> int:
                + [r["launches"] for r in sampler_runs.values()]
                + list(table1_runs.values())
                + [r["launches"] for r in lm_runs.values()]
-               + [r.get("f32_launches", {}) for r in lm_runs.values()])
+               + [r.get("f32_launches", {}) for r in lm_runs.values()]
+               + [query_out["chain_launches"]] + query_out["launches"]
+               + driver_out["launches"])
     for name in SOURCES:
         # one row per call for the kernels this slice redesigned; for the
         # others the row of the main path's widest call
@@ -4324,7 +4771,8 @@ def main() -> int:
               "table1": table1_rows, "table1_profile": table1_prof,
               "phase_6b_s": phase_6b_s, "graphs": graphs,
               "phase_6c_s": phase_6c_s, "conditional": conditional,
-              "phase_6d_s": phase_6d_s, "memory": memory,
+              "phase_6d_s": phase_6d_s, "queries": query_out,
+              "driver": driver_out, "memory": memory,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}

@@ -9,13 +9,13 @@ from repro_torch.core import (DefaultContext, LikelihoodContext,
                               MiniBatchContext, Model, ModelGen, PriorContext,
                               TypedVarInfo, UntypedVarInfo, cache_stats,
                               deterministic, factor, missing, model, observe,
-                              prior_factor, program_cache, reject, reject_if,
-                              sample, submodel, tilde, typify)
+                              prior_factor, prob, program_cache, reject,
+                              reject_if, sample, submodel, tilde, typify)
 
 __all__ = [
     "model", "Model", "ModelGen", "sample", "observe", "tilde", "missing",
     "deterministic", "factor", "prior_factor", "submodel", "reject",
     "reject_if", "typify", "UntypedVarInfo", "TypedVarInfo",
     "DefaultContext", "LikelihoodContext", "PriorContext", "MiniBatchContext",
-    "program_cache", "cache_stats",
+    "prob", "program_cache", "cache_stats",
 ]

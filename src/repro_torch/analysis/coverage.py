@@ -171,10 +171,12 @@ def fusion_coverage(model: Model, graph: ModelGraph,
                 leapfrog_op=None, leapfrog_role=None,
                 leapfrog_reason="data terms fold into the spec const "
                                 "or attach/residual"))
-    # Per-query-kind lowering verdict: every `prob` query kind lowers to one
-    # cached jitted program over the flat buffer unless the model's trace
-    # structure is value-dependent, in which case queries fall back to the
-    # eager per-call trace.
+    # Per-query-kind lowering verdict, what core.queries builds: every
+    # `prob` query kind lowers to one cached "query/<kind>" program over
+    # the flat buffer, captured as a CUDA graph on the card, unless the
+    # model's trace structure is value-dependent: then the program runs
+    # eagerly at every call (jit=False), since a graph would bake one
+    # structure.
     if graph.dynamic:
         q_path, q_reason = "eager", graph.dynamic_reason
     else:

@@ -12,6 +12,7 @@ from repro_torch.core.primitives import (deterministic, factor, get_logp,
 from repro_torch.core.program import (CompiledProgram, ProgramCache,
                                       ProgramKey, cache_stats, clear_cache,
                                       program_cache)
+from repro_torch.core.queries import parse_query, prepare_query, prob
 from repro_torch.core.varinfo import (SiteMeta, TypedVarInfo, UntypedVarInfo,
                                       typify)
 from repro_torch.core.varname import VarName
@@ -27,4 +28,5 @@ __all__ = [
     "Sampler", "Evaluator", "LinkedEvaluator", "EarlyRejectError",
     "CompiledProgram", "ProgramCache", "ProgramKey",
     "program_cache", "cache_stats", "clear_cache",
+    "prob", "parse_query", "prepare_query",
 ]

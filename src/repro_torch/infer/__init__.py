@@ -8,7 +8,9 @@ device.
 from repro_torch.infer.advi import ADVI, ADVIResult
 from repro_torch.infer.chains import (Chain, TransitionKernel,
                                       effective_sample_size, package_draws,
-                                      run_chains, split_rhat)
+                                      run_chains, setup_chain_driver,
+                                      split_rhat)
+from repro_torch.infer.driver import ChainHealth, run_segmented
 from repro_torch.infer.hmc import HMC, DualAveraging
 from repro_torch.infer.map_estimate import MAP
 from repro_torch.infer.mh import RWMH
@@ -18,7 +20,7 @@ from repro_torch.infer.sgld import SGLD, make_sgld_step, make_subsampled_sgld_st
 __all__ = [
     "HMC", "NUTS", "RWMH", "SGLD", "make_sgld_step",
     "make_subsampled_sgld_step", "ADVI", "ADVIResult",
-    "MAP", "Chain", "TransitionKernel",
-    "effective_sample_size", "package_draws", "run_chains",
-    "split_rhat", "DualAveraging",
+    "MAP", "Chain", "ChainHealth", "TransitionKernel",
+    "effective_sample_size", "package_draws", "run_chains", "run_segmented",
+    "setup_chain_driver", "split_rhat", "DualAveraging",
 ]

@@ -26,6 +26,10 @@ Three layers:
   inside the programs, and each draw is written into preallocated
   ``(num_chains, num_samples, ...)`` buffers, so a replay needs no host
   work beyond its launch; the draws stay on the device until packaging.
+  ``start`` and ``advance`` run the loop in pieces (a :class:`ChainRun`),
+  which is how the segmented driver (``infer.driver``) runs it.
+* ``setup_chain_driver`` — the preamble both drivers share: the one
+  generator, the trace, the cached programs and the jittered inits.
 """
 from __future__ import annotations
 
@@ -43,9 +47,9 @@ from repro_torch.core.program import (CompiledProgram, GraphPool, ProgramKey,
                                       kernel_fingerprint, model_fingerprint,
                                       program_cache, trace_fingerprint)
 
-__all__ = ["Chain", "TransitionKernel", "TransitionPrograms", "drive_chains",
-           "effective_sample_size", "package_draws", "run_chains",
-           "split_rhat"]
+__all__ = ["Chain", "ChainRun", "TransitionKernel", "TransitionPrograms",
+           "drive_chains", "effective_sample_size", "package_draws",
+           "run_chains", "setup_chain_driver", "split_rhat"]
 
 
 def _fmt(v, width: int, prec: int) -> str:
@@ -62,12 +66,16 @@ class Chain:
     """Posterior draws: dict name -> (num_chains, num_samples, ...) arrays.
 
     Single-chain results are stored with a leading chain axis of 1.
+    ``health`` (optional) is the :class:`~repro_torch.infer.driver.
+    ChainHealth` report the driver produced; ``summary()`` appends it when
+    present.
     """
 
     def __init__(self, draws: Dict[str, Any],
-                 stats: Optional[Dict[str, Any]] = None):
+                 stats: Optional[Dict[str, Any]] = None, health=None):
         self.draws = {k: np.asarray(v) for k, v in draws.items()}
         self.stats = {k: np.asarray(v) for k, v in (stats or {}).items()}
+        self.health = health
         first = next(iter(self.draws.values()))
         self.num_chains, self.num_samples = first.shape[0], first.shape[1]
 
@@ -109,6 +117,8 @@ class Chain:
             if has_div:
                 row += f"{n_div:>6d}"
             lines.append(row)
+        if self.health is not None:
+            lines += ["", self.health.report()]
         return "\n".join(lines)
 
     def __repr__(self):
@@ -301,82 +311,25 @@ def package_draws(tvi_linked, qs: torch.Tensor,
                  stats={k: host(v) for k, v in (stats or {}).items()})
 
 
-_NOT_PORTED_OPTIONS = {
-    "mesh": "ROADMAP.md Queue 1 item 8 (sharding)",
-    "checkpoint_dir": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
-    "checkpoint_every": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
-    "preemption": "ROADMAP.md Queue 1 item 7 (segmented, resumable runs)",
-}
+def setup_chain_driver(seed: int, model, kernel, *, num_chains: int,
+                       init_varinfo=None, init_jitter: float = 1.0,
+                       backend: str = "fused", ctx=None, device=None):
+    """Shared preamble of the single-run and segmented drivers.
 
+    Seeds the run's ONE ``torch.Generator`` (on ``device``) with ``seed``,
+    draws the discovery trace from it (unless ``init_varinfo`` is given),
+    links it, takes the fused log-density (and, for a sampler that asks,
+    its (conditionally) separable spec) from the program cache, builds or
+    reuses the sampler's cached :class:`TransitionPrograms`, and draws the
+    per-chain init jitter. Everything after it draws from the generator in
+    a fixed order, transition by transition: this derivation is THE
+    contract both drivers share, and what makes a segmented run equal to
+    an unsegmented one bit for bit under the same seed.
 
-def run_chains(seed: int, model, kernel, num_samples: int, *,
-               num_warmup: int = 0, num_chains: int = 4, init_varinfo=None,
-               init_jitter: float = 1.0, backend: str = "fused", ctx=None,
-               device=None, mesh=None, checkpoint_dir: Optional[str] = None,
-               checkpoint_every: Optional[int] = None, preemption=None) -> Chain:
-    """Run ``num_chains`` MCMC chains in lockstep on one device.
-
-    The model's log-density is built once from the typed trace (fused
-    flat-buffer backend by default), kept in the program cache for later
-    calls, and shared by every chain. A kernel
-    with ``uses_potential_spec`` also gets the model's (conditionally)
-    separable spec (or the compiler's reason why there is none). Each
-    transition advances the whole ``(num_chains, dim)`` state: either the
-    density's value and gradient run under ``torch.func.vmap`` over the
-    chain axis, so each density family is one kernel launch for all
-    chains, or the whole n-step leapfrog is one ``fused_leapfrog`` launch.
-
-    Parameters
-    ----------
-    seed : int
-        Seeds the ONE ``torch.Generator`` (on ``device``) that draws the
-        discovery trace, the init jitter, and every momentum and accept
-        uniform. Same seed, same device: the same chains. The potential
-        compiler's probes draw from a generator of their own, so
-        ``leapfrog="auto"`` and ``"reference"`` consume the same draws.
-    model : repro_torch.core.model.Model
-        Bound model to sample from; its data must live on ``device``.
-    kernel : HMC
-        Any sampler exposing ``make_kernel(logdensity, dim)``; one whose
-        ``uses_potential_spec`` is true is called with ``spec=`` and
-        ``spec_reason=`` too.
-    num_samples, num_warmup : int
-        Post-warmup draws per chain, and discarded warmup iterations.
-    num_chains : int
-        Number of chains (the leading axis of every result).
-    init_varinfo : TypedVarInfo, optional
-        Typed trace to initialise from; discovered from the prior if absent.
-    init_jitter : float
-        Half-width of the per-chain Uniform jitter around the discovery
-        draw in UNCONSTRAINED space. ``0.0`` starts every chain at the same
-        point.
-    backend : {"fused", "reference"}
-        Log-density backend (see ``Model.make_logdensity_fn``).
-    ctx : Context, optional
-        Evaluation context for the log-density (default: the joint).
-    device : str or torch.device, optional
-        Where the chains run; ``None`` means ``"cuda"`` and raises when
-        CUDA is missing. Pass ``"cpu"`` to run on the CPU.
-    mesh, checkpoint_dir, checkpoint_every, preemption :
-        Not ported yet; anything but ``None`` raises
-        ``NotImplementedError`` naming the ROADMAP item.
-
-    Returns
-    -------
-    Chain
-        Draws of shape ``(num_chains, num_samples) + site.shape`` per site;
-        ``stats`` holds ``logp`` and the kernel's extras (accept_prob,
-        diverging).
+    Returns ``(tvi_linked, programs, dim, q0s, generator)``.
     """
     from repro_torch.core.varinfo import assert_continuous_supports
 
-    given = {"mesh": mesh, "checkpoint_dir": checkpoint_dir,
-             "checkpoint_every": checkpoint_every, "preemption": preemption}
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"run_chains({name}=...) is not ported yet: "
-                f"{_NOT_PORTED_OPTIONS[name]}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -416,9 +369,131 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     if init_jitter:
         u = torch.rand((num_chains, dim), generator=gen, device=dev)
         q0s = q0s + (2.0 * u - 1.0) * init_jitter
+    return tvi, progs, dim, q0s, gen
+
+
+def _mesh_refused(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_chains(mesh=...) is not ported yet: ROADMAP.md Queue 1 "
+            "item 8 (sharding)")
+
+
+def run_chains(seed: int, model, kernel, num_samples: int, *,
+               num_warmup: int = 0, num_chains: int = 4, init_varinfo=None,
+               init_jitter: float = 1.0, backend: str = "fused", ctx=None,
+               device=None, mesh=None, checkpoint_dir: Optional[str] = None,
+               checkpoint_every: Optional[int] = None,
+               checkpoint_keep: int = 3, preemption=None,
+               fallback: bool = True) -> Chain:
+    """Run ``num_chains`` MCMC chains in lockstep on one device.
+
+    The model's log-density is built once from the typed trace (fused
+    flat-buffer backend by default), kept in the program cache for later
+    calls, and shared by every chain. A kernel
+    with ``uses_potential_spec`` also gets the model's (conditionally)
+    separable spec (or the compiler's reason why there is none). Each
+    transition advances the whole ``(num_chains, dim)`` state: either the
+    density's value and gradient run under ``torch.func.vmap`` over the
+    chain axis, so each density family is one kernel launch for all
+    chains, or the whole n-step leapfrog is one ``fused_leapfrog`` launch.
+
+    Parameters
+    ----------
+    seed : int
+        Seeds the ONE ``torch.Generator`` (on ``device``) that draws the
+        discovery trace, the init jitter, and every momentum and accept
+        uniform. Same seed, same device: the same chains. The potential
+        compiler's probes draw from a generator of their own, so
+        ``leapfrog="auto"`` and ``"reference"`` consume the same draws.
+    model : repro_torch.core.model.Model
+        Bound model to sample from; its data must live on ``device``.
+    kernel : HMC | NUTS | RWMH
+        Any sampler exposing ``make_kernel(logdensity, dim)``; one whose
+        ``uses_potential_spec`` is true is called with ``spec=`` and
+        ``spec_reason=`` too.
+    num_samples, num_warmup : int
+        Post-warmup draws per chain, and discarded warmup iterations.
+    num_chains : int
+        Number of chains (the leading axis of every result).
+    init_varinfo : TypedVarInfo, optional
+        Typed trace to initialise from; discovered from the prior if absent.
+    init_jitter : float
+        Half-width of the per-chain Uniform jitter around the discovery
+        draw in UNCONSTRAINED space. ``0.0`` starts every chain at the same
+        point.
+    backend : {"fused", "reference"}
+        Log-density backend (see ``Model.make_logdensity_fn``).
+    ctx : Context, optional
+        Evaluation context for the log-density (default: the joint).
+    device : str or torch.device, optional
+        Where the chains run; ``None`` means ``"cuda"`` and raises when
+        CUDA is missing. Pass ``"cpu"`` to run on the CPU.
+    mesh :
+        Not ported yet; anything but ``None`` raises
+        ``NotImplementedError`` naming ROADMAP Queue 1 item 8.
+    checkpoint_dir : str, optional
+        Directory for atomic keep-N ``RunState`` snapshots. Setting it
+        (or ``checkpoint_every`` / ``preemption``) switches to the
+        SEGMENTED driver (``repro_torch.infer.driver``): the loop runs in
+        ``checkpoint_every``-sized segments, snapshots between them, and
+        RESUMES from the latest committed snapshot when one exists (same
+        seed required), bit for bit as the uninterrupted run.
+    checkpoint_every : int, optional
+        Segment length in transitions (warmup + sampling). Defaults to
+        a tenth of the total when only ``checkpoint_dir`` is given.
+    checkpoint_keep : int
+        Keep-N retention for committed snapshots.
+    preemption : PreemptionHandler, optional
+        Polled between segments; on preemption the driver writes a final
+        synchronous checkpoint and returns the partial chain cleanly.
+        When ``checkpoint_dir`` is set and this is ``None``, the driver
+        installs its own SIGTERM/SIGINT handler for the duration.
+    fallback : bool
+        Segmented driver only: rerun a segment whose state went NaN on the
+        sampler's reference twin (autodiff leapfrog, per-site densities),
+        recording the event in ``Chain.health``.
+
+    Returns
+    -------
+    Chain
+        Draws of shape ``(num_chains, num_samples) + site.shape`` per site;
+        ``stats`` holds ``logp`` and the kernel's extras (accept_prob,
+        diverging); ``health`` carries the ``ChainHealth`` report (with
+        the program cache's hits, misses and new signatures of this run).
+    """
+    _mesh_refused(mesh)
+    if (checkpoint_dir is not None or checkpoint_every is not None
+            or preemption is not None):
+        from repro_torch.infer.driver import run_segmented
+        return run_segmented(
+            seed, model, kernel, num_samples, num_warmup=num_warmup,
+            num_chains=num_chains, init_varinfo=init_varinfo,
+            init_jitter=init_jitter, backend=backend, ctx=ctx,
+            device=device, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
+            checkpoint_keep=checkpoint_keep, preemption=preemption,
+            fallback=fallback)
+
+    from repro_torch.infer.driver import health_from_stats
+
+    cache = program_cache()
+    stats0 = cache.stats()
+    tvi, progs, _, q0s, gen = setup_chain_driver(
+        seed, model, kernel, num_chains=num_chains,
+        init_varinfo=init_varinfo, init_jitter=init_jitter, backend=backend,
+        ctx=ctx, device=device)
     qs, stats = drive_chains(progs.kern, q0s, gen, num_warmup=num_warmup,
                              num_samples=num_samples, programs=progs)
-    return package_draws(tvi, qs, stats=stats)
+    chain = package_draws(tvi, qs, stats=stats)
+    chain.health = health_from_stats(chain.stats, num_warmup=num_warmup,
+                                     num_samples=num_samples,
+                                     num_chains=num_chains)
+    s1 = cache.stats()
+    chain.health.cache_hits = max(0, s1["hits"] - stats0["hits"])
+    chain.health.cache_misses = max(0, s1["misses"] - stats0["misses"])
+    chain.health.cache_retraces = max(0, s1["retraces"] - stats0["retraces"])
+    return chain
 
 
 def _assign(bufs, new) -> None:
@@ -494,19 +569,19 @@ class TransitionPrograms:
     def _step(self, state, draws, idx, generator):
         new, out = self.kern.step(state, generator)
         _assign(state, new)
-        _record(draws, out, idx, tree_flatten(state)[0][0].dim() - 1)
+        # the draws axis: after the chain axis of logp's (chains, draws)
+        _record(draws, out, idx, draws["logp"].dim() - 1)
         idx.add_(1)
 
-    def run(self, q0s: torch.Tensor, generator: torch.Generator, *,
-            num_warmup: int, num_samples: int):
-        """Warmup then sampling from ``q0s``; returns ``(state, draws)``:
-        the final state and each stat's ``(..., num_samples, ...)`` buffer
-        (the draws axis after the chain axis, first for a ``(dim,)``
-        state). Both are this object's buffers, which the next run on the
-        same shapes overwrites."""
+    def start(self, q0s: torch.Tensor, *, num_warmup: int,
+              num_samples: int) -> "ChainRun":
+        """Chain init from ``q0s`` into this object's buffers for the state
+        signature, with ``t`` and the draw index at 0: a run at iteration
+        0 of ``num_warmup + num_samples``. The draw buffers of another
+        draw count go, with the step graph that writes them; those of
+        this count are kept (and overwritten)."""
         if num_samples < 1:
             raise ValueError(f"num_samples must be >= 1, got {num_samples}")
-        kern = self.kern
         leaves, spec = tree_flatten(self.init(q0s))
         skey = (spec, tuple((tuple(x.shape), x.dtype, x.device)
                             for x in leaves))
@@ -519,40 +594,99 @@ class TransitionPrograms:
                 "idx": torch.zeros((1,), dtype=torch.int64, device=dev)}
         else:
             _assign(bufs["state"], leaves)
-        state = tree_unflatten(bufs["state"], spec)
-        t, idx = bufs["t"], bufs["idx"]
-        t.zero_()
-        for _ in range(num_warmup):
-            self.warm(state, t, generator)
-        if num_warmup > 0:
-            # freeze adapted quantities only when adaptation actually ran:
-            # dual averaging's smoothed iterate starts at exp(0) = 1.0
-            _assign(state, kern.finalize(state))
-        idx.zero_()
-        first = 0
-        draws = bufs["draws"]
+        bufs["t"].zero_()
+        bufs["idx"].zero_()
         axis = q0s.dim() - 1
+        draws = bufs["draws"]
         if draws is not None and \
                 next(iter(draws.values())).shape[axis] != num_samples:
             # another draw count: its buffers and the step graph that
             # writes them go before the new ones are made
-            draws = bufs["draws"] = None
+            bufs["draws"] = None
             self.step.forget()
-        if draws is None:
-            # the first draw of a new draw count runs eagerly and sizes
-            # its buffers
-            new, out = kern.step(state, generator)
-            _assign(state, new)
-            draws = bufs["draws"] = {
-                k: torch.empty(v.shape[:axis] + (num_samples,)
-                               + v.shape[axis:], dtype=v.dtype,
-                               device=v.device) for k, v in out.items()}
-            _record(draws, out, idx, axis)
-            idx.add_(1)
-            first = 1
-        for _ in range(first, num_samples):
-            self.step(state, draws, idx, generator)
-        return state, draws
+        return ChainRun(bufs, spec, axis, int(num_warmup), int(num_samples))
+
+    def advance(self, run: "ChainRun", generator: torch.Generator,
+                stop: int) -> None:
+        """Run transitions ``run.it`` up to ``stop`` (warmup, then
+        sampling) over ``run`` 's buffers, which may be another
+        ``TransitionPrograms`` ' (a sampler's reference twin reruns a
+        segment on them). The adapted quantities are frozen
+        (``finalize``) once, just before the first sampling transition,
+        whichever segment it starts. The first draw of a run whose draw
+        buffers do not exist yet runs eagerly and sizes them."""
+        kern, state = self.kern, run.state
+        t, idx, axis = run.t, run.idx, run.axis
+        for i in range(run.it, stop):
+            if i < run.num_warmup:
+                self.warm(state, t, generator)
+                continue
+            if i == run.num_warmup and run.num_warmup > 0:
+                # freeze adapted quantities only when adaptation actually
+                # ran: dual averaging's smoothed iterate starts at 1.0
+                _assign(state, kern.finalize(state))
+            draws = run.bufs["draws"]
+            if draws is None:
+                new, out = kern.step(state, generator)
+                _assign(state, new)
+                run.bufs["draws"] = {
+                    k: torch.empty(v.shape[:axis] + (run.num_samples,)
+                                   + v.shape[axis:], dtype=v.dtype,
+                                   device=v.device) for k, v in out.items()}
+                _record(run.bufs["draws"], out, idx, axis)
+                idx.add_(1)
+            else:
+                self.step(state, draws, idx, generator)
+        run.it = stop
+
+    def run(self, q0s: torch.Tensor, generator: torch.Generator, *,
+            num_warmup: int, num_samples: int):
+        """Warmup then sampling from ``q0s``; returns ``(state, draws)``:
+        the final state and each stat's ``(..., num_samples, ...)`` buffer
+        (the draws axis after the chain axis, first for a ``(dim,)``
+        state). Both are this object's buffers, which the next run on the
+        same shapes overwrites."""
+        run = self.start(q0s, num_warmup=num_warmup, num_samples=num_samples)
+        self.advance(run, generator, num_warmup + num_samples)
+        return run.state, run.draws
+
+
+class ChainRun:
+    """The buffers of one run of :class:`TransitionPrograms` and how far
+    it is: ``it`` transitions done of ``num_warmup + num_samples``.
+
+    ``state`` is the sampler state over the state buffers; ``t`` (float32,
+    0-d) the warmup iteration and ``idx`` (int64, ``(1,)``) the next draw,
+    both advanced on the device; ``draws`` each stat's buffer (``None``
+    until the run's first draw sizes them)."""
+
+    def __init__(self, bufs: dict, spec, axis: int, num_warmup: int,
+                 num_samples: int):
+        self.bufs = bufs
+        self.state = tree_unflatten(bufs["state"], spec)
+        self.axis = axis
+        self.num_warmup = num_warmup
+        self.num_samples = num_samples
+        self.it = 0
+
+    @property
+    def t(self) -> torch.Tensor:
+        return self.bufs["t"]
+
+    @property
+    def idx(self) -> torch.Tensor:
+        return self.bufs["idx"]
+
+    @property
+    def draws(self) -> Optional[Dict[str, torch.Tensor]]:
+        return self.bufs["draws"]
+
+    def seek(self, it: int) -> None:
+        """Set ``it``, ``t`` and ``idx`` to iteration ``it`` (a resume, or
+        a segment rerun from its start)."""
+        self.it = int(it)
+        self.t.fill_(float(min(it, self.num_warmup)))
+        self.idx.fill_(max(0, it - self.num_warmup))
 
 
 def drive_chains(kern: TransitionKernel, q0s: torch.Tensor,

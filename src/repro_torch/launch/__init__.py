@@ -1,1 +1,1 @@
-"""repro_torch.launch — entry points (LM serving)."""
+"""repro_torch.launch — entry points (LM and probability-query serving)."""

@@ -172,12 +172,16 @@ def test_make_chain_fn_on_the_handwritten_twin():
     assert qf.shape == (2, 9) and logps.shape == (2, 5)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     tm = tsuite.build("logreg", device="cpu", n=16, dim=2)
     with pytest.raises(ValueError, match="fused"):  # no spec given
         HMC(leapfrog="fused").make_kernel(lambda q: q.sum(), 3)
     with pytest.raises(ValueError):
         HMC(leapfrog="bogus").make_kernel(lambda q: q.sum(), 3)
-    for opt in ("mesh", "checkpoint_dir", "preemption"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_chains(0, tm.model, HMC(), 2, device="cpu", **{opt: "x"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        run_chains(0, tm.model, HMC(), 2, device="cpu", mesh="x")
+    # the checkpoint options are ported (item 7): they reach the segmented
+    # driver, which writes its snapshots where it is told
+    ch = run_chains(0, tm.model, HMC(), 2, device="cpu",
+                    checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=1)
+    assert ch.health.completed == 2 and ch.health.snapshots == 2

@@ -120,8 +120,8 @@ def _corr():
 def test_infer_exports_the_reference_names():
     import repro.infer as jinfer
     missing = set(jinfer.__all__) - set(tinfer.__all__)
-    # the fault-tolerant driver is ROADMAP.md Queue 1 item 7
-    assert missing == {"ChainHealth", "run_segmented"}
+    # the fault-tolerant driver (ROADMAP.md Queue 1 item 7) is ported too
+    assert missing == set()
     for name in tinfer.__all__:
         assert hasattr(tinfer, name)
 
