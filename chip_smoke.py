@@ -227,10 +227,34 @@ Phases, in order:
    ``fallback=False``, recorded; a ``torn_save`` of the step after the
    latest skipped on resume; snapshot bytes and seconds and ms a draw
    segmented against unsegmented. The checkpoints go to a temporary
-   directory that the phase removes.
+   directory that the phase removes;
+6g. sharding on ``torch.distributed`` (ROADMAP Queue 1 item 8), logreg
+   (10,000 x 100, ``shard_sites=("X", "y")``, 4 chains): the trivial plan
+   ``run_chains(mesh=ShardedRun.plan())`` in this process equal to
+   ``run_chains()`` bit for bit; then a world of 4 ranks spawned on the
+   one card (``sharding.spawn_world``: gloo over CUDA tensors, the
+   kernels this process built loaded from the build directory; a time
+   limit kills every rank and fails the phase), each rank: which gloo
+   collectives take CUDA tensors (the mesh layer hands gloo its CUDA
+   tensors as they are, so a refusal fails the phase; printed); the
+   sharded density and gradient against the unsharded ones at 4 points
+   for 2 and 4 data shards (1e-6 relative on the value, 1e-5 of max
+   |gradient|); a chains-only 4 x 1 run of 6 draws, no adaptation,
+   against the unsharded draws at 1e-4, its transitions replayed as
+   graphs (counted); an adaptive 2 x 2 chains x data run, 100 + 200
+   draws, with every count zeroed just before and read just after:
+   finite, one data-axis collective a gradient evaluation,
+   ``bernoulli_logit_sum`` and ``std_normal_sum`` once an evaluation,
+   the former at the shard's 5,000 rows; a chains-only segmented run
+   preempted and resumed equal to the uninterrupted one bit for bit; ms
+   a transition of each mesh (four processes time-sharing one card: not
+   a speed figure) with the gloo all-reduce's share, host seconds of
+   each part, memory a rank. Here: the two ranks of each data group end
+   bit for bit equal, and w's posterior mean within 5.5 Monte-Carlo
+   standard errors of the same run on one device.
    ``torch.cuda.memory_reserved()``, ``memory_allocated()`` and the peak
    since the previous line (``max_memory_allocated()``) are printed after
-   phases 6, 6b, 6c, 6d, 6e and 6f;
+   phases 6, 6b, 6c, 6d, 6e, 6f and 6g;
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -2700,6 +2724,372 @@ def driver_phase(torch, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: sharding on torch.distributed (ROADMAP Queue 1 item 8): logreg
+# at Table 1's width over a world of 4 ranks that share the one card
+# ---------------------------------------------------------------------------
+MESH_WORLD = 4             # ranks, all on cuda:0: gloo over CUDA tensors
+MESH_SITES = ("X", "y")    # logreg's observed rows
+MESH_CHAINS = 4
+MESH_POINTS = 4            # density and gradient checks a shard count
+MESH_VALUE_RTOL = 1e-6     # tests/test_sharded_chains.py's density gate
+MESH_GRAD_RTOL = 1e-5      # of max |gradient|
+MESH_DRAWS = 6             # chains-only against unsharded, no adaptation
+MESH_DRAW_TOL = 1e-4
+MESH_TIMED = 100           # draws of the timed chains-only run
+MESH_MIX = (100, 200)      # warmup, draws of the adaptive 2 x 2 run
+MESH_N_SE = 5.5
+MESH_SEGMENTED = (20, 40, 15)  # warmup, draws, checkpoint_every
+MESH_TIMEOUT_S = 300.0
+
+
+def _mesh_hmc(pm, adapt):
+    from repro_torch.infer import HMC
+    return HMC(step_size=pm.step_size, n_leapfrog=pm.n_leapfrog,
+               adapt_step_size=adapt)
+
+
+def _sync(torch):
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def mesh_gloo_ops(torch):
+    """Which gloo collectives take this rank's CUDA tensors: each op the
+    mesh layer makes, tried once on the card over the world. The mesh
+    layer stages nothing through the host, so a refusal fails the phase.
+    Returns {op: "device" or the refusal}."""
+    import torch.distributed as dist
+
+    dev = torch.device(DEVICE)
+    out = {}
+    ops = {"all_reduce": lambda t: dist.all_reduce(t),
+           "all_gather": lambda t: dist.all_gather(
+               [torch.empty_like(t) for _ in range(dist.get_world_size())],
+               t)}
+    for name, op in ops.items():
+        t = torch.full((3,), float(dist.get_rank() + 1), device=dev)
+        try:
+            op(t)
+            _sync(torch)
+            out[name] = "device"
+        except RuntimeError as exc:
+            out[name] = f"refused: {exc}"
+        check(out[name] == "device",
+              f"gloo {name} on {dev.type} tensors: {out[name]} (the mesh "
+              "layer hands gloo its tensors as they are)")
+    return out
+
+
+def mesh_densities(torch, np, pm):
+    """The sharded density and gradient against the unsharded ones at
+    ``MESH_POINTS`` points, for 2 and 4 data shards (every rank)."""
+    from repro_torch.infer.hmc import value_and_grad
+    from repro_torch.sharding import (ShardedRun, make_sharded_logdensity,
+                                      use_run)
+
+    tvi = pm.model.typed_varinfo(
+        torch.Generator(device=DEVICE).manual_seed(0)).link()
+    q0 = tvi.flat()
+    steps = torch.arange(1, q0.shape[0] + 1, dtype=q0.dtype, device=q0.device)
+    qs = torch.stack([q0, q0 + 0.3, q0 - 0.2, q0 + 0.005 * steps])
+    v0, g0 = value_and_grad(pm.model.make_logdensity_fn(tvi))(qs)
+    out = {}
+    for shards in (2, 4):
+        plan = ShardedRun.plan(data_shards=shards, shard_sites=MESH_SITES)
+        with use_run(plan):
+            ld = make_sharded_logdensity(pm.model, tvi, plan, device=DEVICE)
+            v1, g1 = ld.value_and_grad(qs)
+            single = torch.stack([ld(q) for q in qs])
+        v_err = (torch.maximum((v1 - v0).abs(), (single - v0).abs())
+                 / v0.abs().clamp(min=1.0)).max().item()
+        g_err = ((g1 - g0).abs().amax(dim=1)
+                 / g0.abs().amax(dim=1).clamp(min=1.0)).max().item()
+        rows = [tuple(x.shape) for x in ld.local]
+        check(v_err <= MESH_VALUE_RTOL and g_err <= MESH_GRAD_RTOL
+              and all(r[0] == pm.data["y"].shape[0] // shards for r in rows),
+              f"mesh density over {shards} shards: value rel err {v_err:.2e}"
+              f" (limit {MESH_VALUE_RTOL}), gradient {g_err:.2e} (limit "
+              f"{MESH_GRAD_RTOL}), rows {rows}")
+        out[shards] = {"value_rel_err": v_err, "grad_rel_err": g_err,
+                       "rows": rows, "plan": repr(plan)}
+    return out
+
+
+def mesh_rank(rank, world_size, ckpt_root):
+    """One rank of phase 6g's world (every rank runs all of it, the same
+    calls in the same order). Returns what the parent checks and prints."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.program import GRAPH_COUNTS, program_cache
+    from repro_torch.infer import run_chains
+    from repro_torch.kernels.fused_logpdf import ops
+    from repro_torch.runtime import ScriptedPreemption
+    from repro_torch.sharding import ShardedLogDensity, ShardedRun, world
+
+    entered = time.time()
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):  # host seconds of each part of this rank's work
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    pm = build_model("logreg")
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "entered": entered, "steps_s": steps,
+           "gloo_ops": mesh_gloo_ops(torch)}
+    step("model")
+    out["densities"] = mesh_densities(torch, np, pm)
+    step("densities")
+
+    # chains only, 4 x 1, no adaptation: the unsharded run's draws
+    kern = _mesh_hmc(pm, False)
+    chains_only = ShardedRun.plan()
+    base = run_chains(0, pm.model, kern, MESH_DRAWS, num_chains=MESH_CHAINS,
+                      device=DEVICE)
+    r0 = GRAPH_COUNTS["replays"]
+    sh = run_chains(0, pm.model, kern, MESH_DRAWS, num_chains=MESH_CHAINS,
+                    device=DEVICE, mesh=chains_only)
+    replays = GRAPH_COUNTS["replays"] - r0
+    err = max(float(np.abs(sh[k] - base[k]).max()) for k in base.names())
+    check(all(np.allclose(sh[k], base[k], atol=MESH_DRAW_TOL,
+                          rtol=MESH_DRAW_TOL) for k in base.names())
+          and replays > 0,
+          f"rank {rank}: chains-only draws max |d| {err:.2e} against the "
+          f"unsharded run (limit {MESH_DRAW_TOL}), {replays} replays")
+    _sync(torch)
+    t0 = time.perf_counter()
+    run_chains(0, pm.model, kern, MESH_TIMED, num_chains=MESH_CHAINS,
+               device=DEVICE, mesh=chains_only)
+    _sync(torch)
+    out["chains_only"] = {"max_abs_diff": err, "replays": replays,
+                          "ms_a_draw": (time.perf_counter() - t0)
+                          / MESH_TIMED * 1e3}
+    step("chains_only")
+
+    # chains x data, 2 x 2, adaptive: every count zeroed just before the
+    # run and read just after
+    plan = ShardedRun.plan(data_shards=2, shard_sites=MESH_SITES)
+    warm, n = MESH_MIX
+    rows_seen = []
+    plain_rows = ops.bernoulli_logit_sum_rows
+
+    def rows_counted(logits, y):
+        rows_seen.append(tuple(logits.shape))
+        return plain_rows(logits, y)
+
+    def evaluations():
+        return sum(p.evaluations for k in program_cache().keys()
+                   if isinstance(p := program_cache().get(k),
+                                 ShardedLogDensity))
+
+    ops.bernoulli_logit_sum_rows = rows_counted
+    try:
+        run_chains(1, pm.model, _mesh_hmc(pm, True), 2, num_warmup=1,
+                   num_chains=MESH_CHAINS, device=DEVICE, mesh=plan)
+        rows_seen.clear()
+        step("mix_warm")
+        e0 = evaluations()
+        _sync(torch)
+        ops.reset_launch_counts()
+        world.reset_collective_counts()
+        t0 = time.perf_counter()
+        mix = run_chains(1, pm.model, _mesh_hmc(pm, True), n,
+                         num_warmup=warm, num_chains=MESH_CHAINS,
+                         device=DEVICE, mesh=plan)
+        _sync(torch)
+        secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        ops.bernoulli_logit_sum_rows = plain_rows
+    evals = evaluations() - e0
+    collectives = dict(world.COLLECTIVES)
+    shard_rows = pm.data["y"].shape[0] // plan.num_data_shards
+    check(all(np.isfinite(mix[k]).all() for k in mix.names())
+          and np.isfinite(mix.stats["logp"]).all(),
+          f"rank {rank}: non-finite draws on the 2 x 2 mesh")
+    check(evals > 0 and collectives.get("data") == evals,
+          f"rank {rank}: {collectives} collectives for {evals} gradient "
+          "evaluations on the 2 x 2 mesh (one data-axis all-reduce each)")
+    check(launches["bernoulli_logit_sum"] == evals
+          and launches["std_normal_sum"] == evals
+          and rows_seen and all(r[-1] == shard_rows for r in rows_seen),
+          f"rank {rank}: launches {launches} for {evals} evaluations, "
+          f"bernoulli rows {sorted(set(rows_seen))} (expected n = "
+          f"{shard_rows})")
+    digest = hashlib.sha1(b"".join(
+        np.ascontiguousarray(mix[k]).tobytes() for k in mix.names())
+        + np.ascontiguousarray(mix.stats["logp"]).tobytes()).hexdigest()
+    out["mix"] = {
+        "seconds": secs, "transitions": warm + n,
+        "ms_a_transition": secs / (warm + n) * 1e3,
+        "evaluations": evals, "collectives": collectives,
+        "collective_s": dict(world.COLLECTIVE_S),
+        "collectives_per_evaluation": collectives["data"] / evals,
+        "launches": launches, "bernoulli_rows": sorted(set(rows_seen)),
+        "hash": digest, "w": mix["w"], "mean_accept":
+        float(mix.stats["accept_prob"].mean())}
+    step("mix")
+
+    # the chains-only segmented run, preempted and resumed
+    warm, n, every = MESH_SEGMENTED
+    kw = dict(num_warmup=warm, num_chains=MESH_CHAINS, device=DEVICE,
+              mesh=chains_only, checkpoint_every=every)
+    seg_kern = _mesh_hmc(pm, True)
+    full = run_chains(2, pm.model, seg_kern, n,
+                      checkpoint_dir=os.path.join(ckpt_root, "full"), **kw)
+    d = os.path.join(ckpt_root, "resume")
+    part = run_chains(2, pm.model, seg_kern, n, checkpoint_dir=d,
+                      preemption=ScriptedPreemption(after_polls=2), **kw)
+    resumed = run_chains(2, pm.model, seg_kern, n, checkpoint_dir=d, **kw)
+    check(part.health.preempted and resumed.health.resumed_from ==
+          part.health.completed and same_results(np, resumed, full),
+          f"rank {rank}: the mesh run resumed from "
+          f"{resumed.health.resumed_from} differs from the uninterrupted one")
+    out["segmented"] = {"preempted_at": part.health.completed,
+                        "snapshots": full.health.snapshots}
+    step("segmented")
+    if DEVICE != "cpu":
+        mib = 1 << 20
+        out["memory"] = {
+            "max_allocated_mib": torch.cuda.max_memory_allocated() / mib,
+            "reserved_mib": torch.cuda.memory_reserved() / mib}
+    return out
+
+
+def mesh_phase(torch, np):
+    """Phase 6g. (a) The trivial plan in this process equals no mesh bit
+    for bit. (b) A world of ``MESH_WORLD`` ranks spawned on the card
+    (gloo over CUDA tensors; the kernels this process built are loaded
+    from the build directory), with a time limit that kills every rank
+    and fails the phase, runs :func:`mesh_rank` on each. Then the 2 x 2
+    run's posterior mean of w is held to the single-device run's, here,
+    and the two ranks of each data group to each other."""
+    import shutil
+    import tempfile
+
+    from repro_torch.infer import effective_sample_size, run_chains
+    from repro_torch.sharding import ShardedRun, spawn_world
+
+    t_start = time.perf_counter()
+    pm = build_model("logreg")
+    kern = _mesh_hmc(pm, False)
+    counts_reset(torch)
+    trivial = run_chains(0, pm.model, kern, MESH_DRAWS,
+                         num_chains=MESH_CHAINS, device=DEVICE,
+                         mesh=ShardedRun.plan())
+    launches = [counts_read(torch)[0]]
+    alone = run_chains(0, pm.model, kern, MESH_DRAWS, num_chains=MESH_CHAINS,
+                       device=DEVICE)
+    check(same_results(np, trivial, alone),
+          "mesh: the trivial plan differs from no mesh")
+    log(f"mesh (a): run_chains(mesh=ShardedRun.plan()) in one process is "
+        f"{ShardedRun.plan()!r} and equals run_chains() bit for bit")
+
+    warm, n = MESH_MIX
+    single_kern = _mesh_hmc(pm, True)
+    run_chains(1, pm.model, single_kern, 2, num_warmup=1,
+               num_chains=MESH_CHAINS, device=DEVICE)
+    _sync(torch)
+    t0 = time.perf_counter()
+    single = run_chains(1, pm.model, single_kern, n, num_warmup=warm,
+                        num_chains=MESH_CHAINS, device=DEVICE)
+    _sync(torch)
+    single_ms = (time.perf_counter() - t0) / (warm + n) * 1e3
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0, spawned = time.perf_counter(), time.time()
+        ranks = spawn_world(mesh_rank, MESH_WORLD, args=(root,),
+                            device=DEVICE, timeout_s=MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"mesh (b): {MESH_WORLD} ranks on one card, backend "
+        f"{r0['backend']}, in {world_s:.1f} s; gloo on CUDA tensors: "
+        + ", ".join(f"{k} {v}" for k, v in r0["gloo_ops"].items()))
+    for shards, d in r0["densities"].items():
+        worst_v = max(r["densities"][shards]["value_rel_err"] for r in ranks)
+        worst_g = max(r["densities"][shards]["grad_rel_err"] for r in ranks)
+        log(f"mesh density, {d['plan']}: rows a rank {d['rows']}, value "
+            f"rel err {worst_v:.2e} (limit {MESH_VALUE_RTOL}), gradient "
+            f"{worst_g:.2e} of max |grad| (limit {MESH_GRAD_RTOL}) at "
+            f"{MESH_POINTS} points, worst of {MESH_WORLD} ranks")
+
+    # the 2 x 2 run: data groups identical, w's mean against the
+    # single-device run's
+    for a, b in ((0, 1), (2, 3)):
+        check(ranks[a]["mix"]["hash"] == ranks[b]["mix"]["hash"],
+              f"mesh: ranks {a} and {b} of one data group end apart")
+    w_mesh = r0["mix"]["w"].astype(np.float64)
+    w_one = single["w"].astype(np.float64)
+    worst = 0.0
+    for i in range(w_mesh.shape[-1]):
+        se = [x[..., i].std() / np.sqrt(effective_sample_size(x[..., i]))
+              for x in (w_mesh, w_one)]
+        z = (w_mesh[..., i].mean() - w_one[..., i].mean()) / np.hypot(*se)
+        check(np.isfinite(z) and abs(z) < MESH_N_SE,
+              f"mesh: mean of w[{i}] {w_mesh[..., i].mean():.5f} on the "
+              f"2 x 2 mesh vs {w_one[..., i].mean():.5f} on one device: "
+              f"{z:.2f} standard errors, limit {MESH_N_SE}")
+        worst = max(worst, abs(float(z)))
+    mix = [r["mix"] for r in ranks]
+    share = [m["collective_s"].get("data", 0.0) / m["seconds"] for m in mix]
+    log(f"mesh chains x data 2 x 2, {warm} + {n} draws of {MESH_CHAINS} "
+        f"chains: finite, w's mean within {worst:.2f} standard errors of "
+        f"the single-device run's (limit {MESH_N_SE}); data groups {{0, 1}}"
+        f" and {{2, 3}} identical (sha1 {r0['mix']['hash'][:12]}, "
+        f"{ranks[2]['mix']['hash'][:12]}); collectives a gradient "
+        f"evaluation {[m['collectives_per_evaluation'] for m in mix]}; "
+        f"bernoulli_logit_sum "
+        f"{[m['launches']['bernoulli_logit_sum'] for m in mix]} "
+        f"launches a rank at rows {r0['mix']['bernoulli_rows']}")
+    log(f"mesh ms a transition (four processes time-sharing one card, not "
+        f"a speed figure): chains x data 2 x 2 eager "
+        f"{[round(m['ms_a_transition'], 3) for m in mix]} (the data-axis "
+        f"gloo all-reduce {[round(s * 100, 1) for s in share]} % of it), "
+        f"chains only 4 x 1 replayed "
+        f"{[round(r['chains_only']['ms_a_draw'], 3) for r in ranks]} ms a "
+        f"draw; one device alone, replayed, {single_ms:.3f} ms a transition "
+        f"({warm} + {n})")
+    worst_d = max(r["chains_only"]["max_abs_diff"] for r in ranks)
+    log(f"mesh chains only 4 x 1: {MESH_DRAWS} draws against the unsharded "
+        f"run max |d| {worst_d:.2e}"
+        f" (limit {MESH_DRAW_TOL}), transitions replayed as graphs on every "
+        f"rank ({[r['chains_only']['replays'] for r in ranks]}); segmented "
+        f"{MESH_SEGMENTED[0]} + {MESH_SEGMENTED[1]} in segments of "
+        f"{MESH_SEGMENTED[2]}, preempted at "
+        f"{r0['segmented']['preempted_at']} and resumed = uninterrupted "
+        f"bit for bit")
+    log("mesh host seconds a rank: to enter the world "
+        + ", ".join(f"{r['entered'] - spawned:.1f}" for r in ranks) + "; "
+        + "; ".join(f"{k} " + ", ".join(f"{r['steps_s'][k]:.1f}"
+                                         for r in ranks)
+                    for k in r0["steps_s"]))
+    if "memory" in r0:
+        log("mesh memory a rank (max allocated / reserved, MiB): "
+            + ", ".join(f"{r['memory']['max_allocated_mib']:.1f} / "
+                        f"{r['memory']['reserved_mib']:.1f}" for r in ranks))
+    launches += [m["launches"] for m in mix]
+    out = {"world": MESH_WORLD, "backend": r0["backend"],
+           "gloo_ops": r0["gloo_ops"],
+           "world_s": world_s, "single_ms_a_transition": single_ms,
+           "w_worst_z": worst, "collective_share": share,
+           "ranks": [{k: v for k, v in r.items() if k != "mix"}
+                     | {"mix": {k: v for k, v in r["mix"].items()
+                                if k != "w"}} for r in ranks],
+           "launches": launches}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 6g done in {out['seconds']:.1f} s")
+    return out
+
+
 def table1(torch, np):
     """Table 1's three variants of one HMC chain (``benchmarks/table1.py``)
     for each paper model, on the card: ``make_chain_fn`` of the model's
@@ -4665,6 +5055,9 @@ def main() -> int:
     # phase 6f: the segmented, resumable, fault-tolerant driver
     driver_out = driver_phase(torch, np)
     memory["6f"] = memory_line(torch, "phase 6f")
+    # phase 6g: sharding over a world of ranks on the card
+    mesh_out = mesh_phase(torch, np)
+    memory["6g"] = memory_line(torch, "phase 6g")
     # the LM paths, each with every count zeroed just before its timed run
     # and read just after it
     lm_mods = (ops, lf_ops, fops, sops)
@@ -4732,7 +5125,7 @@ def main() -> int:
                + [r["launches"] for r in lm_runs.values()]
                + [r.get("f32_launches", {}) for r in lm_runs.values()]
                + [query_out["chain_launches"]] + query_out["launches"]
-               + driver_out["launches"])
+               + driver_out["launches"] + mesh_out["launches"])
     for name in SOURCES:
         # one row per call for the kernels this slice redesigned; for the
         # others the row of the main path's widest call
@@ -4772,7 +5165,7 @@ def main() -> int:
               "phase_6b_s": phase_6b_s, "graphs": graphs,
               "phase_6c_s": phase_6c_s, "conditional": conditional,
               "phase_6d_s": phase_6d_s, "queries": query_out,
-              "driver": driver_out, "memory": memory,
+              "driver": driver_out, "mesh": mesh_out, "memory": memory,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}

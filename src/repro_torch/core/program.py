@@ -200,8 +200,10 @@ class ProgramKey(NamedTuple):
         Kind-specific hashable tail (context, kernel fingerprint, data
         shape signature, ...).
     sharding : tuple
-        Device-placement fingerprint; ``()`` for the single-device path,
-        the only one the port has (ROADMAP.md Queue 1 item 8).
+        Placement fingerprint: ``()`` for the single-device path, the
+        plan's ``ShardedRun.fingerprint()`` for every program of a mesh
+        run (density, transition, init, warm, step), so a mesh program
+        never serves the single-device path or the reverse.
     """
 
     model: Tuple

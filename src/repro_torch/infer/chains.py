@@ -33,6 +33,7 @@ Three layers:
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -44,12 +45,14 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch._device import resolve_device
 from repro_torch.core.program import (CompiledProgram, GraphPool, ProgramKey,
                                       cached_potential, density_program,
-                                      kernel_fingerprint, model_fingerprint,
-                                      program_cache, trace_fingerprint)
+                                      disable_capture, kernel_fingerprint,
+                                      model_fingerprint, program_cache,
+                                      trace_fingerprint)
+from repro_torch.sharding.mesh import ShardedRun, active_run, use_run
 
 __all__ = ["Chain", "ChainRun", "TransitionKernel", "TransitionPrograms",
-           "drive_chains", "effective_sample_size", "package_draws",
-           "run_chains", "setup_chain_driver", "split_rhat"]
+           "chain_draw", "drive_chains", "effective_sample_size",
+           "package_draws", "run_chains", "setup_chain_driver", "split_rhat"]
 
 
 def _fmt(v, width: int, prec: int) -> str:
@@ -311,9 +314,26 @@ def package_draws(tvi_linked, qs: torch.Tensor,
                  stats={k: host(v) for k, v in (stats or {}).items()})
 
 
+def chain_draw(fn: Callable, shape, **kwargs) -> torch.Tensor:
+    """``fn(shape, **kwargs)`` (``torch.randn`` or ``torch.rand``, with the
+    run's generator in ``kwargs``) for the chains ``shape[0]`` of a run.
+
+    Under a chains mesh (an active ``ShardedRun`` with several chain
+    devices, ``sharding.use_run``) every rank draws the whole fleet's
+    ``(num_chains,) + shape[1:]`` and keeps its own rows, so a sharded run
+    draws what the unsharded one does, and every rank's generator stays in
+    the same state."""
+    run = active_run()
+    if run is None or run.num_chain_devices == 1:
+        return fn(shape, **kwargs)
+    fleet = (shape[0] * run.num_chain_devices,) + tuple(shape[1:])
+    return fn(fleet, **kwargs)[run.chain_rows(fleet[0])]
+
+
 def setup_chain_driver(seed: int, model, kernel, *, num_chains: int,
                        init_varinfo=None, init_jitter: float = 1.0,
-                       backend: str = "fused", ctx=None, device=None):
+                       backend: str = "fused", ctx=None, device=None,
+                       plan: Optional[ShardedRun] = None):
     """Shared preamble of the single-run and segmented drivers.
 
     Seeds the run's ONE ``torch.Generator`` (on ``device``) with ``seed``,
@@ -326,11 +346,18 @@ def setup_chain_driver(seed: int, model, kernel, *, num_chains: int,
     contract both drivers share, and what makes a segmented run equal to
     an unsegmented one bit for bit under the same seed.
 
+    With a mesh ``plan`` (called inside ``use_run(plan)``) the device is
+    this rank's, the chains this rank's block of the fleet (their jitter
+    its rows of the fleet's draw), and on a data mesh the density is
+    :func:`~repro_torch.sharding.make_sharded_logdensity`'s, with no
+    separable spec (its integrator cannot hold the collective). Every
+    program's key holds the plan's fingerprint.
+
     Returns ``(tvi_linked, programs, dim, q0s, generator)``.
     """
     from repro_torch.core.varinfo import assert_continuous_supports
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if plan is None else plan.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
 
@@ -338,18 +365,34 @@ def setup_chain_driver(seed: int, model, kernel, *, num_chains: int,
            else model.typed_varinfo(gen))
     assert_continuous_supports(tvi, type(kernel).__name__)
     tvi = tvi.link()
-    # density + potential spec come from the ProgramCache: repeated calls on
-    # the same (model, layout, ctx, backend) build neither again, and so
-    # pay no compiler probes
-    logdensity = density_program(model, tvi, ctx=ctx, backend=backend)
+    on_data = plan is not None and plan.num_data_shards > 1
+    if on_data:
+        from repro_torch.core.contexts import DefaultContext
+        from repro_torch.sharding.data_parallel import make_sharded_logdensity
+        if ctx is not None and ctx != DefaultContext():
+            raise ValueError(
+                "a data-sharded run splits the joint density into prior and "
+                f"likelihood; it takes no ctx (got {type(ctx).__name__})")
+        logdensity = make_sharded_logdensity(model, tvi, plan,
+                                             backend=backend, device=dev)
+    else:
+        # density + potential spec come from the ProgramCache: repeated
+        # calls on the same (model, layout, ctx, backend) build neither
+        # again, and so pay no compiler probes
+        logdensity = density_program(model, tvi, ctx=ctx, backend=backend)
     dim = int(tvi.num_flat)
 
     def make_kern():
-        if getattr(kernel, "uses_potential_spec", False):
-            res = cached_potential(model, tvi, ctx=ctx, backend=backend)
-            return kernel.make_kernel(logdensity, dim, spec=res.spec,
-                                      spec_reason=res.reason)
-        return kernel.make_kernel(logdensity, dim)
+        if not getattr(kernel, "uses_potential_spec", False):
+            return kernel.make_kernel(logdensity, dim)
+        if on_data:
+            return kernel.make_kernel(
+                logdensity, dim, spec=None,
+                spec_reason="the fused integrator is skipped on a "
+                "data-sharded mesh: its spec cannot hold the all-reduce")
+        res = cached_potential(model, tvi, ctx=ctx, backend=backend)
+        return kernel.make_kernel(logdensity, dim, spec=res.spec,
+                                  spec_reason=res.reason)
 
     kfp = kernel_fingerprint(kernel)
     if kfp is None:  # an opaque kernel: no key can tell two apart
@@ -357,26 +400,52 @@ def setup_chain_driver(seed: int, model, kernel, *, num_chains: int,
     else:
         from repro_torch.core.contexts import DefaultContext
         from repro_torch.kernels import fused_logpdf_enabled
-        # the transition does not depend on num_warmup or num_samples
+        # the transition does not depend on num_warmup or num_samples; on
+        # a mesh its draws and data are this rank's (coordinates in the
+        # tail)
+        extra = (ctx if ctx is not None else DefaultContext(), kfp,
+                 fused_logpdf_enabled())
+        if plan is not None:
+            extra += (("rank", plan.coords()),)
         key = ProgramKey(model_fingerprint(model), "transition", tvi.layout,
-                         (int(num_chains),), backend,
-                         (ctx if ctx is not None else DefaultContext(), kfp,
-                          fused_logpdf_enabled()))
+                         (int(num_chains),), backend, extra,
+                         plan.fingerprint() if plan is not None else ())
         progs = program_cache().get_or_build(
             key, lambda: TransitionPrograms(make_kern(), key))
 
-    q0s = tvi.flat().to(dev).expand(num_chains, dim)
+    local = num_chains // (plan.num_chain_devices if plan is not None else 1)
+    q0s = tvi.flat().to(dev).expand(local, dim)
     if init_jitter:
-        u = torch.rand((num_chains, dim), generator=gen, device=dev)
+        u = chain_draw(torch.rand, (local, dim), generator=gen, device=dev)
         q0s = q0s + (2.0 * u - 1.0) * init_jitter
     return tvi, progs, dim, q0s, gen
 
 
-def _mesh_refused(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_chains(mesh=...) is not ported yet: ROADMAP.md Queue 1 "
-            "item 8 (sharding)")
+def _mesh_plan(mesh, num_chains: int) -> Optional[ShardedRun]:
+    """``run_chains``' ``mesh=`` as a plan: ``None`` for no mesh or a
+    trivial (one-device) one, which keeps the single-device path; the
+    fleet must split evenly over the chain axis, and the mesh's process
+    groups are made (every rank of the mesh calls this together)."""
+    plan = ShardedRun.normalize(mesh)
+    if plan is not None and plan.is_trivial:
+        plan = None  # graceful degradation: one device == no mesh
+    if plan is not None:
+        plan.validate_chains(num_chains)
+        if not callable(getattr(plan.mesh, "group", None)):
+            raise TypeError(
+                "a mesh run lays the fleet over ranks: give it a "
+                "repro_torch.sharding.Mesh (or ShardedRun.plan()), not a "
+                f"{type(plan.mesh).__name__}")
+        plan.mesh.group()  # the world and this rank's groups, up front
+    return plan
+
+
+def _on_data_mesh(plan: Optional[ShardedRun]):
+    """Eager inside the block on a data mesh: a gloo collective goes
+    through the host, and a CUDA graph cannot hold it."""
+    if plan is not None and plan.num_data_shards > 1:
+        return disable_capture()
+    return contextlib.nullcontext()
 
 
 def run_chains(seed: int, model, kernel, num_samples: int, *,
@@ -386,7 +455,8 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
                checkpoint_every: Optional[int] = None,
                checkpoint_keep: int = 3, preemption=None,
                fallback: bool = True) -> Chain:
-    """Run ``num_chains`` MCMC chains in lockstep on one device.
+    """Run ``num_chains`` MCMC chains in lockstep on one device, or over a
+    mesh of ranks.
 
     The model's log-density is built once from the typed trace (fused
     flat-buffer backend by default), kept in the program cache for later
@@ -428,10 +498,25 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
         Evaluation context for the log-density (default: the joint).
     device : str or torch.device, optional
         Where the chains run; ``None`` means ``"cuda"`` and raises when
-        CUDA is missing. Pass ``"cpu"`` to run on the CPU.
-    mesh :
-        Not ported yet; anything but ``None`` raises
-        ``NotImplementedError`` naming ROADMAP Queue 1 item 8.
+        CUDA is missing. Pass ``"cpu"`` to run on the CPU. On a mesh, a
+        CUDA device without an index is the rank's card.
+    mesh : ShardedRun or Mesh, optional
+        Placement plan over a mesh of ranks
+        (``repro_torch.sharding.ShardedRun``), in a ``torch.distributed``
+        world of one process a rank: every rank of the mesh calls
+        ``run_chains`` with the same arguments. With a non-trivial chains
+        axis each rank runs its block of the fleet; every rank draws the
+        whole fleet's randomness from the one generator and keeps its
+        rows, so the draws are the unsharded run's. With ``data`` shards
+        > 1 the plan's ``shard_sites`` arrays are partitioned along their
+        leading axis, each rank evaluates its shard's likelihood, and one
+        all-reduce a gradient evaluation joins them (the separable spec
+        is skipped, and the transitions run eagerly: a gloo collective
+        goes through the host). Every rank returns the whole fleet's
+        ``Chain`` (one all-gather). A trivial (one-device) plan or
+        ``None`` keeps the single-device path bit for bit.
+        ``num_chains`` must be divisible by the chains-axis size.
+        Composes with checkpointing for chains-only plans.
     checkpoint_dir : str, optional
         Directory for atomic keep-N ``RunState`` snapshots. Setting it
         (or ``checkpoint_every`` / ``preemption``) switches to the
@@ -460,9 +545,10 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
         Draws of shape ``(num_chains, num_samples) + site.shape`` per site;
         ``stats`` holds ``logp`` and the kernel's extras (accept_prob,
         diverging); ``health`` carries the ``ChainHealth`` report (with
-        the program cache's hits, misses and new signatures of this run).
+        the program cache's hits, misses and new signatures of this run,
+        in this rank's cache).
     """
-    _mesh_refused(mesh)
+    plan = _mesh_plan(mesh, num_chains)
     if (checkpoint_dir is not None or checkpoint_every is not None
             or preemption is not None):
         from repro_torch.infer.driver import run_segmented
@@ -470,7 +556,7 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
             seed, model, kernel, num_samples, num_warmup=num_warmup,
             num_chains=num_chains, init_varinfo=init_varinfo,
             init_jitter=init_jitter, backend=backend, ctx=ctx,
-            device=device, checkpoint_dir=checkpoint_dir,
+            device=device, mesh=plan, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every,
             checkpoint_keep=checkpoint_keep, preemption=preemption,
             fallback=fallback)
@@ -479,12 +565,18 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
 
     cache = program_cache()
     stats0 = cache.stats()
-    tvi, progs, _, q0s, gen = setup_chain_driver(
-        seed, model, kernel, num_chains=num_chains,
-        init_varinfo=init_varinfo, init_jitter=init_jitter, backend=backend,
-        ctx=ctx, device=device)
-    qs, stats = drive_chains(progs.kern, q0s, gen, num_warmup=num_warmup,
-                             num_samples=num_samples, programs=progs)
+    with use_run(plan):
+        tvi, progs, _, q0s, gen = setup_chain_driver(
+            seed, model, kernel, num_chains=num_chains,
+            init_varinfo=init_varinfo, init_jitter=init_jitter,
+            backend=backend, ctx=ctx, device=device, plan=plan)
+        with _on_data_mesh(plan):
+            qs, stats = drive_chains(progs.kern, q0s, gen,
+                                     num_warmup=num_warmup,
+                                     num_samples=num_samples, programs=progs)
+        if plan is not None:
+            stats = plan.gather_chains({"q": qs, **stats})
+            qs = stats.pop("q")
     chain = package_draws(tvi, qs, stats=stats)
     chain.health = health_from_stats(chain.stats, num_warmup=num_warmup,
                                      num_samples=num_samples,

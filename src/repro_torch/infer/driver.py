@@ -37,6 +37,14 @@ generator's state — equals the uninterrupted one, even in a fresh process
 or after ``clear_cache()``. The adapted step size is frozen just before
 the first sampling transition, so a snapshot taken at the end of warmup
 holds the state before ``finalize``.
+
+On a chains mesh (``mesh=``, a chains-only ``ShardedRun``) each rank runs
+its block of the fleet through the same segments. Snapshots are
+placement-agnostic: the fleet's state and draws are gathered, the mesh's
+first rank writes them, and every rank restores its rows of the latest
+one, behind a barrier; the generator's state is the same on every rank
+(each draws the fleet's randomness). The segment summaries, and so the
+guard rails, the fallback and the preemption poll, are the fleet's.
 """
 from __future__ import annotations
 
@@ -47,14 +55,15 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.ckpt.checkpoint import (AsyncCheckpointer,
                                          _flatten_with_paths, latest_step,
                                          read_meta, restore, save)
-from repro_torch.infer.chains import (Chain, TransitionPrograms, _mesh_refused,
+from repro_torch.infer.chains import (Chain, TransitionPrograms, _mesh_plan,
                                       package_draws, setup_chain_driver)
 from repro_torch.runtime.preemption import PreemptionHandler
+from repro_torch.sharding.mesh import ShardedRun, use_run
 
 __all__ = ["ChainHealth", "RunState", "health_from_stats",
            "reference_variant", "run_segmented"]
@@ -259,11 +268,13 @@ def _nan_rows(x: torch.Tensor, num_chains: int) -> torch.Tensor:
     return nan.any().expand(num_chains)
 
 
-def _segment_summary(run, num_chains: int, d0: int, d1: int) -> Dict:
+def _segment_summary(run, num_chains: int, d0: int, d1: int,
+                     plan: Optional[ShardedRun] = None) -> Dict:
     """The segment's health summary, reduced on the device, as host arrays
     (one copy): per chain, NaN in the state or in the segment's draws, and
     for a sampling segment (``d1 > d0``) the mean log-density, the mean
-    acceptance and the divergences of draws ``d0:d1``."""
+    acceptance and the divergences of draws ``d0:d1``. ``num_chains`` are
+    this rank's; on a mesh the summary is gathered into the fleet's."""
     floats = [x for x in tree_flatten(run.state)[0]
               if torch.is_tensor(x) and x.is_floating_point()]
     dev = floats[0].device
@@ -284,7 +295,10 @@ def _segment_summary(run, num_chains: int, d0: int, d1: int) -> Dict:
         if "diverging" in seg:
             rows[3] = seg["diverging"].to(torch.float32).sum(dim=1)
     rows[0] = bad.to(torch.float32)
-    host = torch.stack(rows).cpu().numpy()
+    table = torch.stack(rows)
+    if plan is not None:
+        table = plan.gather_chains({"t": table.T.contiguous()})["t"].T
+    host = table.cpu().numpy()
     return {"bad": host[0] > 0, "logp_mean": host[1].astype(np.float64),
             "acc_mean": host[2].astype(np.float64),
             "div": host[3].astype(np.int64)}
@@ -304,11 +318,11 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
     See the module docstring for the contract. Normally reached through
     ``repro_torch.infer.run_chains(..., checkpoint_dir=...,
     checkpoint_every=...)`` rather than called directly; the arguments
-    are ``run_chains``'. ``mesh=`` is not ported yet (ROADMAP Queue 1
-    item 8). ``ChainHealth.snapshot_bytes`` and ``snapshot_s`` count this
-    process's snapshots and the host seconds their copies took.
+    are ``run_chains``'. ``mesh=`` shards chains only: a data-sharded plan
+    raises ``ValueError``. ``ChainHealth.snapshot_bytes`` and
+    ``snapshot_s`` count this process's snapshots and the host seconds
+    their copies took.
     """
-    _mesh_refused(mesh)
     if num_samples <= 0:
         raise ValueError("num_samples must be positive")
     total = num_warmup + num_samples
@@ -316,6 +330,48 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
     if seg <= 0:
         raise ValueError("checkpoint_every must be positive")
 
+    plan = ShardedRun.normalize(mesh)
+    if plan is not None and not plan.is_trivial and plan.num_data_shards > 1:
+        raise ValueError(
+            "the segmented driver shards chains only; data-parallel "
+            "plans (data shards > 1) require the single-scan "
+            "run_chains path (checkpointing disabled)")
+    plan = _mesh_plan(plan, num_chains)
+    with use_run(plan):
+        return _run_segmented(
+            seed, model, sampler, num_samples, num_warmup=num_warmup,
+            num_chains=num_chains, init_varinfo=init_varinfo,
+            init_jitter=init_jitter, backend=backend, ctx=ctx,
+            device=device, plan=plan, checkpoint_dir=checkpoint_dir,
+            seg=seg, checkpoint_keep=checkpoint_keep, preemption=preemption,
+            fallback=fallback, stuck_accept=stuck_accept,
+            outlier_scale=outlier_scale, patience=patience)
+
+
+def _fleet(run, plan: Optional[ShardedRun], with_draws: bool):
+    """The run's state leaves and (when ``with_draws``) its draw buffers,
+    as the fleet's: this rank's own without a mesh, gathered (one
+    all-gather) on one."""
+    leaves, spec = tree_flatten(run.state)
+    tensors = {f"s{i}": x for i, x in enumerate(leaves)
+               if torch.is_tensor(x) and x.dim() >= 1}
+    if with_draws:
+        tensors.update({f"d:{k}": v for k, v in run.draws.items()})
+    if plan is not None:
+        tensors = plan.gather_chains(tensors)
+    state = tree_unflatten([tensors.get(f"s{i}", x)
+                            for i, x in enumerate(leaves)], spec)
+    draws = ({k[2:]: v for k, v in tensors.items() if k.startswith("d:")}
+             if with_draws else None)
+    return state, draws
+
+
+def _run_segmented(seed, model, sampler, num_samples, *, num_warmup,
+                   num_chains, init_varinfo, init_jitter, backend, ctx,
+                   device, plan, checkpoint_dir, seg, checkpoint_keep,
+                   preemption, fallback, stuck_accept, outlier_scale,
+                   patience) -> Chain:
+    total = num_warmup + num_samples
     from repro_torch.core.program import program_cache
     cache = program_cache()
     cstats0 = cache.stats()
@@ -323,8 +379,12 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
     tvi, progs, dim, q0s, gen = setup_chain_driver(
         seed, model, sampler, num_chains=num_chains,
         init_varinfo=init_varinfo, init_jitter=init_jitter, backend=backend,
-        ctx=ctx, device=device)
+        ctx=ctx, device=device, plan=plan)
     run = progs.start(q0s, num_warmup=num_warmup, num_samples=num_samples)
+    local = q0s.shape[0]
+    rows = plan.chain_rows(num_chains) if plan is not None else None
+    # on a mesh, its first rank writes the fleet's snapshots
+    writes = plan is None or plan.coords() == (0, 0)
 
     counters = {"nonfinite": np.zeros(num_chains, np.int64),
                 "divergences": np.zeros(num_chains, np.int64),
@@ -352,12 +412,13 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
     taken = {"n": 0, "bytes": 0, "s": 0.0, "write_s": 0.0}
 
     def _snapshot(it):
-        # the live buffers: the checkpointer copies each leaf to the host
-        # before it returns, so the next segment may overwrite them
+        # the live buffers (or on a mesh the fleet's, gathered): the
+        # checkpointer copies each leaf to the host before it returns, so
+        # the next segment may overwrite them
         _sync_cache_counters()
-        draws = run.draws if it > num_warmup else None
+        state, draws = _fleet(run, plan, it > num_warmup)
         snap = RunState(
-            np.int64(it), run.state, None if draws is None else draws["q"],
+            np.int64(it), state, None if draws is None else draws["q"],
             None if draws is None else {k: v for k, v in draws.items()
                                         if k != "q"},
             {k: v.copy() for k, v in counters.items()}, gen.get_state())
@@ -376,16 +437,19 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
     resumed_from = None
     ckpt = None
     if checkpoint_dir:
-        ckpt = AsyncCheckpointer(checkpoint_dir, keep=checkpoint_keep)
+        if writes:
+            ckpt = AsyncCheckpointer(checkpoint_dir, keep=checkpoint_keep)
         last = latest_step(checkpoint_dir)
         if last is not None:
             _check_meta(read_meta(checkpoint_dir, last), meta, checkpoint_dir)
             _, flat = restore(checkpoint_dir, last)
             it = int(flat[".iteration"])
-            _load(flat, run, it, gen, counters)
+            _load(flat, run, it, gen, counters, rows)
             cache_base = {"misses": int(counters["cache_misses"]),
                           "retraces": int(counters["cache_retraces"])}
             resumed_from = it
+        if plan is not None:  # every rank has read it before a write
+            plan.barrier()
 
     own_handler = preemption is None and checkpoint_dir is not None
     if own_handler:
@@ -430,7 +494,7 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
                 pre = ([x.clone() for x in tree_flatten(run.state)[0]],
                        gen.get_state())
             progs.advance(run, gen, end)
-            summ = _segment_summary(run, num_chains, d0, d1)
+            summ = _segment_summary(run, local, d0, d1, plan)
             if summ["bad"].any():
                 counters["nonfinite"] += summ["bad"].astype(np.int64)
                 rp = _get_ref_progs() if fallback else False
@@ -440,36 +504,55 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
                     gen.set_state(pre[1])
                     run.seek(it)
                     rp.advance(run, gen, end)
-                    summ = _segment_summary(run, num_chains, d0, d1)
+                    summ = _segment_summary(run, local, d0, d1, plan)
                     counters["fallbacks"] = counters["fallbacks"] + 1
             if not in_warmup:
                 counters["divergences"] += summ["div"]
                 rails.record(summ["acc_mean"], summ["logp_mean"])
             it = end
-            if preemption is not None and preemption.preempted:
+            stop = preemption is not None and preemption.preempted
+            if plan is not None:  # one rank's preemption stops the mesh
+                stop = plan.any_chains(stop)
+            if stop:
                 preempted = True
-                if ckpt:
-                    ckpt.wait()
-                    _timed(save, checkpoint_dir, it, _snapshot(it),
-                           keep=checkpoint_keep, meta=meta, key="write_s")
+                if checkpoint_dir:
+                    snap = _snapshot(it)
+                    if ckpt:
+                        ckpt.wait()
+                        _timed(save, checkpoint_dir, it, snap,
+                               keep=checkpoint_keep, meta=meta,
+                               key="write_s")
                 break
+            if checkpoint_dir:
+                snap = _snapshot(it)
+                if ckpt:
+                    _timed(ckpt.save, it, snap, meta=meta)
+        if checkpoint_dir and not preempted:
             if ckpt:
-                _timed(ckpt.save, it, _snapshot(it), meta=meta)
-        if ckpt:
-            ckpt.wait()
-            if not preempted and latest_step(checkpoint_dir) != total:
-                _timed(save, checkpoint_dir, total, _snapshot(total),
-                       keep=checkpoint_keep, meta=meta, key="write_s")
+                ckpt.wait()
+            # the writer decides; on a mesh every rank gathers the snapshot
+            need = bool(ckpt) and latest_step(checkpoint_dir) != total
+            if plan is not None:
+                need = plan.any_chains(need)
+            if need:
+                snap = _snapshot(total)
+                if ckpt:
+                    _timed(save, checkpoint_dir, total, snap,
+                           keep=checkpoint_keep, meta=meta, key="write_s")
     finally:
         if ckpt:
             ckpt.wait()
         if own_handler:
             preemption.uninstall()
+    if plan is not None and checkpoint_dir:
+        plan.barrier()  # the snapshots are on disk for every rank
 
     _sync_cache_counters()
     completed_samples = max(0, it - num_warmup)
     if completed_samples:
         draws = {k: v[:, :completed_samples] for k, v in run.draws.items()}
+        if plan is not None:
+            draws = plan.gather_chains(draws)
         chain = package_draws(tvi, draws.pop("q"), stats=draws)
     else:
         proto = tvi.invlink().as_dict()
@@ -494,16 +577,22 @@ def run_segmented(seed: int, model, sampler, num_samples: int, *,
 
 
 def _load(flat: Dict[str, np.ndarray], run, it: int,
-          gen: torch.Generator, counters: Dict) -> None:
+          gen: torch.Generator, counters: Dict,
+          rows: Optional[slice] = None) -> None:
     """Restore a snapshot (``restore``'s {path: array}) into the run's
-    buffers, the generator and ``counters``."""
+    buffers, the generator and ``counters``; on a mesh, ``rows`` of the
+    fleet's (chain axis first) into this rank's."""
+    def mine(a):
+        a = np.array(a)
+        return a[rows] if rows is not None and a.ndim >= 1 else a
+
     for path, x in _flatten_with_paths(run.state, ".kernel_state"):
-        x.copy_(torch.from_numpy(np.array(flat[path])))
+        x.copy_(torch.from_numpy(mine(flat[path])))
     if it > run.num_warmup:
-        saved = {"q": flat[".q_buf"]}
+        saved = {"q": mine(flat[".q_buf"])}
         prefix = ".stat_bufs["
-        saved.update({p[len(prefix) + 1:-2]: a for p, a in flat.items()
-                      if p.startswith(prefix)})
+        saved.update({p[len(prefix) + 1:-2]: mine(a)
+                      for p, a in flat.items() if p.startswith(prefix)})
         dev = tree_flatten(run.state)[0][0].device
         draws = run.draws
         if draws is None or set(draws) != set(saved):

@@ -50,8 +50,8 @@ from repro_torch.kernels.fused_leapfrog.spec import (CondPotentialSpec,
                                                      PotentialSpec)
 from repro_torch.core.program import ProgramKey
 from repro_torch.infer.chains import (Chain, TransitionKernel,
-                                      TransitionPrograms, package_draws,
-                                      run_chains)
+                                      TransitionPrograms, chain_draw,
+                                      package_draws, run_chains)
 from repro_torch.kernels.fused_leapfrog.ops import (fused_leapfrog,
                                                     potential_value_and_grad)
 
@@ -61,7 +61,14 @@ __all__ = ["HMC", "DualAveraging", "hmc_transition", "make_chain_fn",
 
 def value_and_grad(logdensity: Callable) -> Callable:
     """``q -> (logp, grad)`` for ``q (dim,)`` or a chain batch
-    ``q (num_chains, dim)``; the batch runs under ``torch.func.vmap``."""
+    ``q (num_chains, dim)``; the batch runs under ``torch.func.vmap``.
+
+    A log-density that carries its own batched ``value_and_grad`` (a data
+    mesh's ``sharding.ShardedLogDensity``, whose collective cannot run
+    under a ``torch.func`` transform) is used as is."""
+    own = getattr(logdensity, "value_and_grad", None)
+    if own is not None:
+        return own
     g_and_v = torch.func.grad_and_value(logdensity)
 
     def single(q):
@@ -149,10 +156,11 @@ def hmc_transition(ld_and_grad: Callable, q, logp, grad, step_size,
     fused integrator (which must already close over the same
     ``inv_mass``); ``None`` runs :func:`_leapfrog`. The MH correction is
     the same either way. Draws: one normal ``q.shape`` momentum, then one
-    uniform per chain, both from ``generator``.
+    uniform per chain, both from ``generator`` (on a chains mesh the
+    fleet's, of which this rank keeps its rows: ``chain_draw``).
     """
-    noise = torch.randn(q.shape, generator=generator, dtype=q.dtype,
-                        device=q.device)
+    noise = chain_draw(torch.randn, q.shape, generator=generator,
+                       dtype=q.dtype, device=q.device)
     p0 = noise if inv_mass is None else noise / torch.sqrt(inv_mass)
     if leapfrog_fn is None:
         q_new, p_new, logp_new, grad_new = _leapfrog(
@@ -173,8 +181,8 @@ def hmc_transition(ld_and_grad: Callable, q, logp, grad, step_size,
     diverging = torch.isnan(delta) | (-delta > 1000.0)
     log_accept = torch.clamp(delta, max=0.0)
     log_accept = torch.where(torch.isnan(log_accept), -math.inf, log_accept)
-    u = torch.rand(logp.shape, generator=generator, dtype=q.dtype,
-                   device=q.device)
+    u = chain_draw(torch.rand, logp.shape, generator=generator,
+                   dtype=q.dtype, device=q.device)
     accept = torch.log(u) < log_accept
     q = torch.where(accept.unsqueeze(-1), q_new, q)
     logp = torch.where(accept, logp_new, logp)

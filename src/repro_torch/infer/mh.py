@@ -21,7 +21,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.contexts import DefaultContext
 from repro_torch.core.model import Model
 from repro_torch.core.varinfo import TypedVarInfo
-from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+from repro_torch.infer.chains import (Chain, TransitionKernel, chain_draw,
+                                      run_chains)
 from repro_torch.infer.hmc import HMC
 
 __all__ = ["RWMH"]
@@ -29,7 +30,10 @@ __all__ = ["RWMH"]
 
 def _batched(logdensity):
     """``q -> logp`` for ``q (dim,)`` or a chain batch ``(num_chains, dim)``
-    (under ``torch.func.vmap``)."""
+    (under ``torch.func.vmap``). A log-density that carries its own batched
+    ``value_and_grad`` (a data mesh's) batches itself."""
+    if getattr(logdensity, "value_and_grad", None) is not None:
+        return logdensity
     batched = torch.func.vmap(logdensity)
     return lambda q: logdensity(q) if q.dim() == 1 else batched(q)
 
@@ -61,13 +65,14 @@ class RWMH:
 
         def transition(state, generator):
             q, logp = state
-            q_new = q + self.proposal_scale * torch.randn(
-                q.shape, generator=generator, dtype=q.dtype, device=q.device)
+            q_new = q + self.proposal_scale * chain_draw(
+                torch.randn, q.shape, generator=generator, dtype=q.dtype,
+                device=q.device)
             logp_new = ld(q_new)
             diverging = torch.isnan(logp_new)
             log_acc = torch.where(diverging, -torch.inf, logp_new - logp)
-            u = torch.rand(logp.shape, generator=generator, dtype=q.dtype,
-                           device=q.device)
+            u = chain_draw(torch.rand, logp.shape, generator=generator,
+                           dtype=q.dtype, device=q.device)
             accept = torch.log(u) < log_acc
             q = torch.where(accept.unsqueeze(-1), q_new, q)
             logp = torch.where(accept, logp_new, logp)

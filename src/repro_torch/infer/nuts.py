@@ -31,7 +31,8 @@ all chains at once (frozen ones included), in this order per transition:
 the momentum ``randn (num_chains, dim)``; then for each doubling, one
 direction uniform ``(num_chains,)``, one uniform ``(num_chains,)`` per
 lockstep leaf iteration (the progressive-sampling draw), and one merge
-uniform ``(num_chains,)``.
+uniform ``(num_chains,)``. On a chains mesh each rank draws the fleet's
+and keeps its rows, and each loop test is the fleet's.
 """
 from __future__ import annotations
 
@@ -43,9 +44,11 @@ import torch
 from repro_torch.core.model import Model
 from repro_torch.core.program import CompiledProgram, ProgramKey
 from repro_torch.core.varinfo import TypedVarInfo
-from repro_torch.infer.chains import Chain, TransitionKernel, run_chains
+from repro_torch.infer.chains import (Chain, TransitionKernel, chain_draw,
+                                      run_chains)
 from repro_torch.infer.hmc import DualAveraging, value_and_grad
 from repro_torch.kernels.fused_leapfrog.ops import potential_value_and_grad
+from repro_torch.sharding.mesh import active_run
 
 __all__ = ["NUTS", "TREE_COUNTS", "reset_tree_counts"]
 
@@ -87,9 +90,15 @@ def _leaf_to_ckpt(n: int, max_depth: int):
 
 
 def _sync_any(mask: torch.Tensor) -> bool:
-    """A loop test read on the host: one sync, counted."""
+    """A loop test read on the host: one sync, counted. On a chains mesh
+    the test is the fleet's (one flag reduction along the chain axis), so
+    every rank loops as the unsharded run does."""
     TREE_COUNTS["host_syncs"] += 1
-    return bool(mask.any())
+    flag = bool(mask.any())
+    run = active_run()
+    if run is not None and run.num_chain_devices > 1:
+        flag = run.any_chains(flag)
+    return flag
 
 
 def _keep(live, new, old):
@@ -188,12 +197,12 @@ class NUTS:
             return b
 
         def uniform(b, generator):
-            return torch.rand(b["h0"].shape, generator=generator,
+            return chain_draw(torch.rand, b["h0"].shape, generator=generator,
                               dtype=b["h0"].dtype, device=b["h0"].device)
 
         def start(b, q0, logp0, grad0, eps, generator):
-            p0 = torch.randn(q0.shape, generator=generator, dtype=q0.dtype,
-                             device=q0.device)
+            p0 = chain_draw(torch.randn, q0.shape, generator=generator,
+                            dtype=q0.dtype, device=q0.device)
             b["h0"].copy_(-logp0 + 0.5 * torch.sum(p0 * p0, dim=-1))
             b["e_abs"].copy_(eps.reshape(-1, 1) if eps.dim() else eps)
             for side in ("l", "r"):

@@ -1,5 +1,5 @@
 from repro_torch.kernels.fused_logpdf.ops import (  # noqa: F401
-    LAUNCHES, SITE_BLOCK_FAMILIES,
+    LAUNCHES, SITE_BLOCK_FAMILIES, all_reduce_block_sum,
     bernoulli_logit_sum_rows, bernoulli_logits_logpmf_sum,
     beta_unnorm_logpdf_sum, beta_unnorm_sum_rows,
     categorical_logits_logpmf_sum, categorical_logits_sum_rows,

@@ -42,7 +42,8 @@ __all__ = ["SITE_BLOCK_FAMILIES", "LAUNCHES",
            "bernoulli_logits_logpmf_sum", "categorical_logits_logpmf_sum",
            "gamma_unnorm_logpdf_sum", "beta_unnorm_logpdf_sum",
            "student_t_unnorm_logpdf_sum", "mvnormal_prec_quadform_sum",
-           "site_block_sum", "kernel_source", "mvn_kernel_source",
+           "site_block_sum", "all_reduce_block_sum", "kernel_source",
+           "mvn_kernel_source",
            "categorical_group", "SMALL_C", "mvn_tiles", "mvn_smem_bytes",
            "MAX_SMEM_BYTES", "REDUCE_SHARE", "ReducePlan", "reduce_plan",
            "partials_needed", "CAT_ITEMS", "categorical_plan"]
@@ -1004,3 +1005,43 @@ def site_block_sum(family: str, segments: Sequence[Tuple], *,
         return categorical_logits_logpmf_sum(*cols, **kw)
     logits, y = cols
     return bernoulli_logits_logpmf_sum(logits, y, **kw)
+
+
+def all_reduce_block_sum(total: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """All-reduce seam between the fused block reductions and the mesh.
+
+    ``site_block_sum`` reduces each family's site blocks to one scalar per
+    rank; when those blocks were cut from data sharded over a mesh axis
+    (``repro_torch.sharding.data_parallel``), the rank-local partial sums
+    are combined here with ONE ``torch.distributed`` all-reduce over the
+    calling rank's process group along ``axis_name`` of the active
+    ``ShardedRun`` (``sharding.use_run``). With no axis name this is the
+    identity, so single-device callers pay nothing. Returns a new tensor.
+
+    A collective cannot run under a ``torch.func`` transform or autograd:
+    ``vmap`` has no batching rule for it, and a gradient through it would
+    leave out the other ranks' shares. Take the value and the gradient
+    first and reduce them together (``ShardedLogDensity.value_and_grad``).
+    """
+    if axis_name is None:
+        return total
+    from repro_torch.sharding import world
+    from repro_torch.sharding.mesh import active_run
+
+    if torch._C._functorch.peek_interpreter_stack() is not None \
+            or total.requires_grad:
+        raise RuntimeError(
+            "all_reduce_block_sum: a collective cannot run under a "
+            "torch.func transform or autograd (its gradient would leave out "
+            "the other ranks' shards); reduce the value and the gradient "
+            "together, as ShardedLogDensity.value_and_grad does")
+    run = active_run()
+    if run is None:
+        raise RuntimeError(
+            f"all_reduce_block_sum over '{axis_name}' needs an active "
+            "ShardedRun (repro_torch.sharding.use_run)")
+    out = total.detach().clone()
+    group = run.mesh.group(axis_name)
+    if group is not None:
+        world.all_reduce(out, group, axis_name)
+    return out

@@ -278,7 +278,8 @@ def test_meta_mismatch_refuses_resume(chain_model, tmp_path):
     for seed, chains in ((1, 2), (0, 3)):
         with pytest.raises(ValueError, match="different run configuration"):
             run_chains(seed, chain_model, kern, num_chains=chains, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is ported (ROADMAP item 8); what is not one is refused
+    with pytest.raises(TypeError, match="mesh must be a ShardedRun"):
         run_chains(0, chain_model, kern, 4, mesh=object(), device=DEV,
                    checkpoint_every=2)
 

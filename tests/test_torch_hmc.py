@@ -178,7 +178,8 @@ def test_unported_options_raise(tmp_path):
         HMC(leapfrog="fused").make_kernel(lambda q: q.sum(), 3)
     with pytest.raises(ValueError):
         HMC(leapfrog="bogus").make_kernel(lambda q: q.sum(), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+    # mesh= is ported (ROADMAP item 8): what is not a mesh is refused
+    with pytest.raises(TypeError, match="mesh must be a ShardedRun"):
         run_chains(0, tm.model, HMC(), 2, device="cpu", mesh="x")
     # the checkpoint options are ported (item 7): they reach the segmented
     # driver, which writes its snapshots where it is told
