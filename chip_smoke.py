@@ -254,7 +254,39 @@ Phases, in order:
    standard errors of the same run on one device.
    ``torch.cuda.memory_reserved()``, ``memory_allocated()`` and the peak
    since the previous line (``max_memory_allocated()``) are printed after
-   phases 6, 6b, 6c, 6d, 6e, 6f and 6g;
+   phases 6, 6b, 6c, 6d, 6e, 6f and 6g, the LM paths and phase 6h;
+6h. Bayesian-LM training (ROADMAP Queue 1 item 9, its training part),
+   after the LM paths, tokens from ``SyntheticTokens(seed=0)``, random
+   weights from seed 0, ``attn_impl="flash"``: smollm-360m at full width
+   and depth (32 layers, bf16, remat "nothing" as its config has it)
+   through ``launch.train.train()``, MAP-AdamW at lr 3e-4 on 8 x 1,024
+   tokens for 10 steps, counted (``flash_fwd_tc`` twice a layer, in the
+   forward and in remat's recompute, ``categorical_logits_sum`` once, a
+   step; the attention backward recomputes through the plain version),
+   the nll falling; a checkpoint of the last step's state written and
+   restored bit for bit (MB, seconds); ms a step replayed and eager,
+   tokens/s, the busy share of two replayed steps under the profiler,
+   peak memory; 3 SGLD steps through ``train()`` (counted, finite nll).
+   The float32 gate on a float32 copy at 2 x 1,024, all 32 layers: the
+   MAP step's scaled log-joint (prior plus likelihood, read apart) and
+   its gradient through ``flash_fwd_tf32`` and ``categorical_logits_sum``
+   (counted) against the plain route (``attn_impl="xla"``, the per-site
+   evaluator's plain categorical, no launch): nll and grad_norm within
+   rtol 1e-5, every gradient leaf within 5e-5 of its max |plain| (the
+   logjoint, which the prior's plain sum dominates, printed); then the
+   control, ``flash_fwd_tc`` on the inputs rounded to bf16, which must
+   break one of those limits. Remat: one bf16 gradient with remat off,
+   "nothing" and "dots": the logjoint equal, the gradients within 1e-6
+   of each leaf's max, each one's peak memory and launches. Three MAP
+   steps captured (a CUDA graph from the second) against the same steps
+   under ``disable_capture()``, run twice: bit for bit where two eager
+   runs agree, else within the two eager runs' spread (the leaves named).
+   mamba2-1.3b at full width and depth (48 layers, bf16): 3 MAP steps
+   on 4 x 2,048 through ``train()`` (``ssd_scan_tc`` twice a layer,
+   counted), finite nll; its float32 gate through ``ssd_scan_tf32`` at
+   depth cut from 48 to 4, as smollm's but with each gradient leaf
+   within 5e-4 (control ``ssd_scan_tc``). ``infer.make_sgld_step`` on smollm's Bayesian
+   LM: one step on the card, counted;
 7. the card's floor for one launch (a 4-float ``zero_()``, timed as the
    kernels are); times each kernel at the main paths' shapes (and a wide
    one) beside its bound, its plain version and, where one exists, one
@@ -4490,6 +4522,561 @@ def lm_score_path(torch, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 6h: Bayesian-LM training (ROADMAP Queue 1 item 9, its training part)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SHAPE = (8, 1024)      # smollm's batch x sequence
+TRAIN_MAP_STEPS = 10
+TRAIN_LR = 3e-4
+TRAIN_SGLD_STEPS = 3
+TRAIN_TIMED = 3              # steps timed eagerly and replayed
+TRAIN_PROFILED = 2           # replayed steps under the profiler
+TRAIN_F32_SHAPE = (2, 1024)  # the float32 gate's batch x sequence
+TRAIN_F32_RTOL = 1e-5        # nll, grad_norm: kernels against plain
+TRAIN_F32_GRAD = 5e-5        # each gradient leaf, of its max |plain|
+TRAIN_MAMBA_F32_GRAD = 5e-4  # the same, mamba2's (its scan's gradients)
+TRAIN_REMAT_GRAD = 1e-6      # remat policies against remat off
+TRAIN_GRAPH_STEPS = 3        # captured against eager
+TRAIN_MAMBA = ("mamba2-1.3b", 4, 2048, 3)  # arch, batch, sequence, steps
+TRAIN_MAMBA_F32_DEPTH = 4    # the float32 gate's depth (cut from 48)
+TRAIN_SGLD_LM = (2, 1024)    # make_sgld_step's batch on smollm
+
+
+def _attn_layers(cfg) -> int:
+    return sum(b in ("global", "local") for b in
+               (cfg.layer_pattern * cfg.n_layers)[:cfg.n_layers])
+
+
+def _train_cfg(arch, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), attn_impl="flash",
+                               **kw)
+
+
+def _forget_train_programs(torch):
+    """Drop every cached training step's graphs (their memory pools and
+    the states they hold), then the allocator's cache."""
+    from repro_torch.core.program import program_cache
+    cache = program_cache()
+    for key in list(cache.keys()):
+        if key.kind == "train_step":
+            cache.get(key).forget()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _leaves(torch, tree):
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def _grad_eval(torch, cfg, params, batch, total_tokens, backend="fused",
+               mods=None):
+    """The MAP step's log-joint and its gradient, once, eagerly: the scaled
+    log-joint ``make_train_step`` differentiates, taken as its two parts,
+    the weights' prior and the likelihood under ``MiniBatchContext(
+    LikelihoodContext(), scale)``, so that the nll is read from the
+    likelihood itself and not from a sum that the prior dominates, and its
+    gradient through ``torch.autograd.grad``. (metrics as floats: logjoint,
+    nll, grad_norm; gradient leaves as float32; launches; peak MiB.)"""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch import optim
+    from repro_torch.core.contexts import LikelihoodContext, MiniBatchContext
+    from repro_torch.models import bayes_lm
+
+    n_tokens = batch["tokens"].numel()
+    scale = total_tokens / n_tokens
+    leaves, spec = tree_flatten(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if mods is not None:
+        lm_reset(mods)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    tree = tree_unflatten(live, spec)
+    mdl = bayes_lm.make_lm_model(cfg)(params=tree, **batch)
+    loglik = mdl.logp_with_context(
+        {}, MiniBatchContext(LikelihoodContext(), scale), backend=backend)
+    logjoint = bayes_lm.tree_normal_logprior(tree) + loglik
+    grads = [g.float() for g in torch.autograd.grad(logjoint, live)]
+    torch.cuda.synchronize()
+    launches = lm_counts(mods) if mods is not None else None
+    peak = torch.cuda.max_memory_allocated() / (1 << 20)
+    metrics = {"logjoint": float(logjoint.detach()),
+               "nll": -float(loglik.detach()) / scale / n_tokens,
+               "grad_norm": float(optim.global_norm(grads))}
+    del live, tree, mdl, loglik, logjoint
+    torch.cuda.empty_cache()
+    return metrics, grads, launches, peak
+
+
+@contextlib.contextmanager
+def _bf16_kernel(kernel):
+    """The float32 gate's control: the kernel's float32 inputs rounded to
+    bfloat16 and given to the bf16 kernel (``flash_fwd_tc``,
+    ``ssd_scan_tc``), its output taken back to float32: a bf16-internal
+    kernel in the TF32 one's place, which the gate's limits must see."""
+    if kernel.startswith("flash"):
+        from repro_torch.kernels.flash_attention import ops as mod
+        name = "flash_attention_gqa"
+        real = mod.flash_attention_gqa
+
+        def low(q, k, v, **kw):
+            return real(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                        **kw).float()
+    else:
+        from repro_torch.kernels.ssd_scan import ops as mod
+        name = "ssd_scan"
+        real = mod.ssd_scan
+
+        def low(x, dt, A, B, C, **kw):
+            return real(x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(),
+                        **kw).float()
+    setattr(mod, name, low)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def _gate_readings(got, g_got, want, g_want):
+    """(relative error of each metric, the largest gradient leaf's error
+    over its max |plain|)."""
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    grad = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(g_got, g_want))
+    return rel, grad
+
+
+def _float32_gate(torch, label, cfg, params, batch, total_tokens, mods,
+                  kernel, grad_limit):
+    """One gradient evaluation of the MAP step through the kernels
+    (``kernel`` counted once a layer and again in remat's recompute;
+    categorical_logits_sum once) against the plain route (``attn_impl=
+    "xla"``, the per-site evaluator's plain categorical, no launch),
+    float32 on the same weights and batch: nll and grad_norm within
+    TRAIN_F32_RTOL, each gradient leaf within ``grad_limit`` of its max
+    |plain| (the logjoint, which the prior's plain sum dominates, is
+    printed). Then the control, the bf16 kernel in ``kernel``'s place,
+    which must break one of these limits."""
+    import dataclasses
+
+    from repro_torch.nn import lm
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = lm.tree_map(lambda t: t.float(), params)
+    got, g_got, launches, _ = _grad_eval(torch, c32, p32, batch,
+                                         total_tokens, mods=mods)
+    want, g_want, plain_launches, _ = _grad_eval(
+        torch, dataclasses.replace(c32, attn_impl="xla"), p32, batch,
+        total_tokens, backend="reference", mods=mods)
+    layers = cfg.n_layers if kernel.startswith("ssd") else _attn_layers(cfg)
+    expect = {**dict.fromkeys(launches, 0), kernel: 2 * layers,
+              "categorical_logits_sum": 1}
+    check(launches == expect, f"{label} float32 gradient: launches "
+          f"{launches}, expected {expect}")
+    check(not any(plain_launches.values()), f"{label} float32 plain "
+          f"gradient launched {plain_launches}")
+    rel, grad = _gate_readings(got, g_got, want, g_want)
+    del g_got
+    low_kernel = kernel.replace("_tf32", "_tc")
+    with _bf16_kernel(kernel):
+        low, g_low, low_launches, _ = _grad_eval(torch, c32, p32, batch,
+                                                 total_tokens, mods=mods)
+    del p32
+    check(low_launches[low_kernel] == 2 * layers and not low_launches[kernel],
+          f"{label} control: launches {low_launches}")
+    low_rel, low_grad = _gate_readings(low, g_low, want, g_want)
+    del g_low, g_want
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(v) for v in got.values()),
+          f"{label} float32 gradient: metrics {got}")
+    gated = ("nll", "grad_norm")
+    check(max(rel[k] for k in gated) <= TRAIN_F32_RTOL, f"{label} float32 "
+          f"gradient: kernels {got} vs plain {want} (rel {rel})")
+    check(grad <= grad_limit, f"{label} float32 gradient: a leaf differs by "
+          f"{grad:.3e} of its max |plain|")
+    check(max(low_rel[k] for k in gated) > TRAIN_F32_RTOL
+          or low_grad > grad_limit, f"{label} float32 gate: the bf16 "
+          f"control passes it (rel {low_rel}, gradient {low_grad:.3e})")
+    log(f"{label} float32 gate ({cfg.n_layers} layers, batch "
+        f"{tuple(batch['tokens'].shape)}): metrics rel {rel}, gradient "
+        f"{grad:.3e} of each leaf's max (limits: nll and grad_norm rtol "
+        f"{TRAIN_F32_RTOL}, gradient {grad_limit}); control {low_kernel}: "
+        f"rel {low_rel}, gradient {low_grad:.3e}; launches {launches}")
+    return {"metrics": got, "plain_metrics": want, "metrics_rel": rel,
+            "grad_rel_max": grad, "grad_limit": grad_limit,
+            "control": {"kernel": low_kernel, "metrics_rel": low_rel,
+                        "grad_rel_max": low_grad},
+            "launches": launches}
+
+
+def _timed_steps(torch, step_fn, state, gen, batch, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        _, metrics = step_fn(state, gen, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, metrics
+
+
+def _tree_bits_equal(torch, a, b) -> bool:
+    return all(same_bits(torch, x, y) for x, y in zip(_leaves(torch, a),
+                                                       _leaves(torch, b)))
+
+
+def train_smollm(torch, np, mods):
+    """smollm-360m at full width and depth through ``train()``: MAP-AdamW
+    for TRAIN_MAP_STEPS steps (counted; the nll must fall), a checkpoint of
+    the last step written and restored bit for bit, ms a step eager and
+    replayed, the busy share, then TRAIN_SGLD_STEPS SGLD steps (counted;
+    finite nll)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import restore, save
+    from repro_torch.core.program import disable_capture
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    cfg = _train_cfg(TRAIN_ARCH)
+    batch, seq = TRAIN_SHAPE
+    n_attn = _attn_layers(cfg)
+    check(cfg.remat and n_attn == cfg.n_layers == 32,
+          f"{TRAIN_ARCH}: config {cfg}")
+    out = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "remat": cfg.remat, "policy": cfg.remat_policy}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_reset(mods)
+    t0 = time.perf_counter()
+    state, hist = train(TRAIN_ARCH, smoke=False, cfg=cfg,
+                        steps=TRAIN_MAP_STEPS, batch=batch, seq=seq,
+                        lr=TRAIN_LR, log_every=1, device=DEVICE)
+    torch.cuda.synchronize()
+    out["map_s"] = time.perf_counter() - t0
+    out["launches"] = lm_counts(mods)
+    out["map_peak_mib"] = torch.cuda.max_memory_allocated() / (1 << 20)
+    out["nll"] = [h[1] for h in hist]
+    # remat: each attention layer's forward runs again in the backward,
+    # whose own attention gradient recomputes through the plain version
+    per_step = {"flash_fwd_tc": 2 * n_attn, "categorical_logits_sum": 1}
+    want = {**dict.fromkeys(out["launches"], 0),
+            **{k: v * TRAIN_MAP_STEPS for k, v in per_step.items()}}
+    check(out["launches"] == want, f"{TRAIN_ARCH} training: launches "
+          f"{out['launches']}, expected {want}")
+    check(len(hist) == TRAIN_MAP_STEPS and all(map(math.isfinite,
+                                                   out["nll"])),
+          f"{TRAIN_ARCH} training: nll {out['nll']}")
+    check(out["nll"][-1] < out["nll"][0], f"{TRAIN_ARCH} training: nll did "
+          f"not fall over {TRAIN_MAP_STEPS} steps: {out['nll']}")
+    check(int(state.step) == TRAIN_MAP_STEPS, f"step {int(state.step)}")
+
+    # the last step's checkpoint, written and restored bit for bit
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(root, TRAIN_MAP_STEPS, state)
+        out["ckpt_write_s"] = time.perf_counter() - t0
+        d = Path(root) / f"step_{TRAIN_MAP_STEPS:08d}"
+        out["ckpt_mb"] = sum(f.stat().st_size for f in d.iterdir()) / 1e6
+        t0 = time.perf_counter()
+        step, back = restore(root, target=state)
+        torch.cuda.synchronize()
+        out["ckpt_read_s"] = time.perf_counter() - t0
+        check(step == TRAIN_MAP_STEPS and _tree_bits_equal(torch, back,
+                                                           state),
+              f"{TRAIN_ARCH}: the restored checkpoint differs from the state")
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # ms a step: the same program (train()'s key) replayed on the trained
+    # state, then eagerly
+    _, step_fn = bayes_lm.make_train_step(
+        cfg, total_tokens=float(TRAIN_MAP_STEPS * batch * seq), mode="map",
+        learning_rate=TRAIN_LR)
+    data = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                           seed=0, device=DEVICE)
+    tokens = data.batch(TRAIN_MAP_STEPS)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    out["replayed_ms"], m = _timed_steps(torch, step_fn, state, gen, tokens,
+                                         TRAIN_TIMED)
+    with disable_capture():
+        out["eager_ms"], _ = _timed_steps(torch, step_fn, state, gen, tokens,
+                                          TRAIN_TIMED)
+    out["tokens_per_s"] = batch * seq / (out["replayed_ms"] / 1e3)
+    check(math.isfinite(float(m["nll"])), f"timed steps: nll {m}")
+    out["profile"] = profile_window(
+        torch, f"{TRAIN_ARCH} training step (replayed)",
+        lambda: step_fn(state, gen, tokens), TRAIN_PROFILED)
+    del state, step_fn, m
+    _forget_train_programs(torch)
+
+    # SGLD through train(), counted
+    lm_reset(mods)
+    t0 = time.perf_counter()
+    _, hist = train(TRAIN_ARCH, smoke=False, cfg=cfg, steps=TRAIN_SGLD_STEPS,
+                    batch=batch, seq=seq, mode="sgld", log_every=1,
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    out["sgld_s"] = time.perf_counter() - t0
+    out["sgld_launches"] = lm_counts(mods)
+    out["sgld_nll"] = [h[1] for h in hist]
+    want = {**dict.fromkeys(out["sgld_launches"], 0),
+            **{k: v * TRAIN_SGLD_STEPS for k, v in per_step.items()}}
+    check(out["sgld_launches"] == want, f"{TRAIN_ARCH} SGLD: launches "
+          f"{out['sgld_launches']}, expected {want}")
+    check(len(hist) == TRAIN_SGLD_STEPS
+          and all(map(math.isfinite, out["sgld_nll"])),
+          f"{TRAIN_ARCH} SGLD: nll {out['sgld_nll']}")
+    _forget_train_programs(torch)
+    log(f"{TRAIN_ARCH} training ({cfg.n_layers} layers, batch {batch} x "
+        f"{seq}, bf16, remat {cfg.remat_policy}): MAP nll "
+        f"{out['nll'][0]:.4f} -> {out['nll'][-1]:.4f} in "
+        f"{TRAIN_MAP_STEPS} steps ({out['map_s']:.2f} s with the capture); "
+        f"{out['replayed_ms']:.2f} ms a step replayed, {out['eager_ms']:.2f} "
+        f"eager, {out['tokens_per_s']:.0f} tokens/s; peak "
+        f"{out['map_peak_mib']:.1f} MiB; checkpoint {out['ckpt_mb']:.1f} MB "
+        f"written in {out['ckpt_write_s']:.2f} s, restored bit for bit in "
+        f"{out['ckpt_read_s']:.2f} s; launches {out['launches']}; SGLD nll "
+        f"{out['sgld_nll']}, launches {out['sgld_launches']}")
+    return out
+
+
+def train_gates(torch, np, mods):
+    """smollm's float32 gate, the remat policies against remat off, and
+    the captured step against the eager one."""
+    import dataclasses
+
+    from repro_torch.core.program import GRAPH_COUNTS, disable_capture
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    cfg = _train_cfg(TRAIN_ARCH)
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    out = {}
+    b32, s32 = TRAIN_F32_SHAPE
+    batch32 = SyntheticTokens(vocab=cfg.vocab, seq_len=s32,
+                              global_batch=b32, seed=0,
+                              device=DEVICE).batch(0)
+    out["float32"] = _float32_gate(torch, TRAIN_ARCH, cfg, params, batch32,
+                                   float(TRAIN_MAP_STEPS * b32 * s32), mods,
+                                   "flash_fwd_tf32", TRAIN_F32_GRAD)
+
+    # remat: off, "nothing" and "dots", one bf16 gradient each
+    batch, seq = TRAIN_SHAPE
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch, seed=0,
+                             device=DEVICE).batch(0)
+    total = float(TRAIN_MAP_STEPS * batch * seq)
+    runs = {}
+    for name, kw in (("off", dict(remat=False)),
+                     ("nothing", dict(remat_policy="nothing")),
+                     ("dots", dict(remat_policy="dots"))):
+        runs[name] = _grad_eval(torch, dataclasses.replace(cfg, **kw),
+                                params, tokens, total, mods=mods)
+    n_attn = _attn_layers(cfg)
+    base, g_base, _, _ = runs["off"]
+    out["remat"] = {}
+    for name, (metrics, grads, launches, peak) in runs.items():
+        want = {**dict.fromkeys(launches, 0), "categorical_logits_sum": 1,
+                "flash_fwd_tc": n_attn * (1 if name == "off" else 2)}
+        check(launches == want, f"remat {name}: launches {launches}, "
+              f"expected {want}")
+        grad = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(grads, g_base))
+        check(metrics["logjoint"] == base["logjoint"], f"remat {name}: "
+              f"logjoint {metrics['logjoint']!r} != {base['logjoint']!r}")
+        check(grad <= TRAIN_REMAT_GRAD, f"remat {name}: gradient {grad:.3e} "
+              f"of a leaf's max from remat off")
+        out["remat"][name] = {"peak_mib": peak, "grad_rel_max": grad,
+                              "logjoint": metrics["logjoint"],
+                              "launches": launches}
+    del runs, g_base
+    log(f"remat (one bf16 gradient, batch {batch} x {seq}): " + "; ".join(
+        f"{k} peak {v['peak_mib']:.1f} MiB, gradient {v['grad_rel_max']:.2e}"
+        f" of max" for k, v in out["remat"].items()) + "; logjoint equal")
+
+    # captured against eager: three MAP steps from one start state, twice
+    # eagerly (which ops reproduce) and once captured
+    def three(eager):
+        init_fn, step_fn = bayes_lm.make_train_step(
+            cfg, total_tokens=total, mode="map", learning_rate=TRAIN_LR)
+        state = init_fn(lm.tree_map(lambda t: t.clone(), params))
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        metrics = []
+        ctx = disable_capture() if eager else contextlib.nullcontext()
+        with ctx:
+            for _ in range(TRAIN_GRAPH_STEPS):
+                metrics.append(step_fn(state, gen, tokens)[1])
+        torch.cuda.synchronize()
+        return state, metrics
+
+    e1, m1 = three(True)
+    e2, m2 = three(True)
+    before = dict(GRAPH_COUNTS)
+    cap, mc = three(False)
+    graphs = {k: GRAPH_COUNTS[k] - before[k] for k in before}
+    check(graphs["captures"] == 1
+          and graphs["replays"] == TRAIN_GRAPH_STEPS - 1,
+          f"captured training: {graphs}")
+    names = [n for n, _ in _named_leaves(e1)]
+    rows = []
+    for (name, a), (_, b), (_, c) in zip(_named_leaves(e1), _named_leaves(e2),
+                                         _named_leaves(cap)):
+        spread = float((a.float() - b.float()).abs().max())
+        diff = float((a.float() - c.float()).abs().max())
+        rows.append((name, spread, diff))
+    metric_spread = max(abs(float(x[k]) - float(y[k])) for x, y in zip(m1, m2)
+                        for k in x)
+    metric_diff = max(abs(float(x[k]) - float(y[k])) for x, y in zip(m1, mc)
+                      for k in x)
+    unrepro = [r[0] for r in rows if r[1] > 0]
+    for name, spread, diff in rows:
+        if spread == 0:
+            check(diff == 0, f"captured training: leaf {name} differs from "
+                  f"the eager run ({diff:.3e}) where two eager runs agree")
+        else:  # within the eager runs' own spread
+            check(diff <= spread, f"captured training: leaf {name} differs "
+                  f"by {diff:.3e}, two eager runs by {spread:.3e}")
+    check(metric_diff <= metric_spread, f"captured training: metrics differ "
+          f"by {metric_diff:.3e}, two eager runs by {metric_spread:.3e}")
+    out["graphs"] = {"graph_counts": graphs, "eager_unreproducible": unrepro,
+                     "leaves": len(names), "metric_spread": metric_spread,
+                     "metric_diff": metric_diff,
+                     "worst": sorted(rows, key=lambda r: -r[1])[:5]}
+    log(f"graphs {TRAIN_ARCH} training ({TRAIN_GRAPH_STEPS} MAP steps): "
+        f"{graphs}; "
+        + ("identical to the eager run bit for bit, as two eager runs are"
+           if not unrepro else
+           f"{len(unrepro)} of {len(names)} leaves differ between two eager "
+           f"runs (largest spreads {out['graphs']['worst']}); the captured "
+           f"run is within each leaf's eager spread, bit for bit elsewhere")
+        + f"; metrics spread {metric_spread:.3e}, captured {metric_diff:.3e}")
+    del e1, e2, cap, params
+    _forget_train_programs(torch)
+    return out
+
+
+def _named_leaves(state):
+    from repro_torch.ckpt.checkpoint import _flatten_with_paths
+    return _flatten_with_paths(state)
+
+
+def train_mamba(torch, np, mods):
+    """mamba2-1.3b at full width and depth: TRAIN_MAMBA's MAP steps through
+    ``train()`` (ssd_scan_tc once a layer and again in remat's recompute,
+    counted; finite nll), then the float32 gate at depth cut to
+    TRAIN_MAMBA_F32_DEPTH through ssd_scan_tf32."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import train
+    from repro_torch.nn import lm
+
+    arch, batch, seq, steps = TRAIN_MAMBA
+    cfg = _train_cfg(arch)
+    check(cfg.remat and cfg.n_layers == 48, f"{arch}: config {cfg}")
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": batch, "seq": seq}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm_reset(mods)
+    t0 = time.perf_counter()
+    _, hist = train(arch, smoke=False, cfg=cfg, steps=steps, batch=batch,
+                    seq=seq, lr=TRAIN_LR, log_every=1, device=DEVICE)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / (1 << 20)
+    out["launches"] = lm_counts(mods)
+    out["nll"] = [h[1] for h in hist]
+    want = {**dict.fromkeys(out["launches"], 0),
+            "ssd_scan_tc": 2 * cfg.n_layers * steps,
+            "categorical_logits_sum": steps}
+    check(out["launches"] == want, f"{arch} training: launches "
+          f"{out['launches']}, expected {want}")
+    check(len(hist) == steps and all(map(math.isfinite, out["nll"])),
+          f"{arch} training: nll {out['nll']}")
+    _forget_train_programs(torch)
+    import dataclasses
+    c4 = dataclasses.replace(cfg, n_layers=TRAIN_MAMBA_F32_DEPTH)
+    params = lm.init_params(c4, seed=0, device=DEVICE)
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                             seed=0, device=DEVICE).batch(0)
+    out["float32"] = _float32_gate(torch, f"{arch} (depth "
+                                   f"{TRAIN_MAMBA_F32_DEPTH})", c4, params,
+                                   tokens, float(steps * batch * seq), mods,
+                                   "ssd_scan_tf32", TRAIN_MAMBA_F32_GRAD)
+    del params
+    torch.cuda.empty_cache()
+    log(f"{arch} training ({cfg.n_layers} layers, batch {batch} x {seq}, "
+        f"bf16): nll {out['nll']} over {steps} MAP steps in "
+        f"{out['seconds']:.2f} s; peak {out['peak_mib']:.1f} MiB; launches "
+        f"{out['launches']}")
+    return out
+
+
+def sgld_lm(torch, np, mods):
+    """``make_sgld_step`` on smollm's Bayesian LM (the weights bound as
+    data, as in ``repro``): one step on the card, counted, finite."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.infer.sgld import SGLD, make_sgld_step
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    cfg = _train_cfg(TRAIN_ARCH)
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    batch, seq = TRAIN_SGLD_LM
+    tokens = SyntheticTokens(vocab=cfg.vocab, seq_len=seq,
+                             global_batch=batch, seed=0,
+                             device=DEVICE).batch(0)
+    m = bayes_lm.make_lm_model(cfg)(params=params, **tokens)
+    sgld = SGLD()
+    step = make_sgld_step(m, 1e4, sgld=sgld)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    lm_reset(mods)
+    _, _, lp = step(gen, params, sgld.init(params), **tokens)
+    torch.cuda.synchronize()
+    launches = lm_counts(mods)
+    want = {**dict.fromkeys(launches, 0), "categorical_logits_sum": 1,
+            "flash_fwd_tc": _attn_layers(cfg)}
+    check(launches == want, f"make_sgld_step on {TRAIN_ARCH}: launches "
+          f"{launches}, expected {want}")
+    check(math.isfinite(float(lp)), f"make_sgld_step: logp {float(lp)}")
+    log(f"make_sgld_step on {TRAIN_ARCH}'s Bayesian LM (batch {batch} x "
+        f"{seq}): logp {float(lp):.6e}, launches {launches}")
+    del params, m
+    torch.cuda.empty_cache()
+    return {"logp": float(lp), "launches": launches}
+
+
+def train_phase(torch, np, mods):
+    """Phase 6h: the Bayesian-LM training path on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"smollm": train_smollm(torch, np, mods)}
+    out["gates"] = train_gates(torch, np, mods)
+    out["mamba2"] = train_mamba(torch, np, mods)
+    out["sgld_lm"] = sgld_lm(torch, np, mods)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = [out["smollm"]["launches"],
+                       out["smollm"]["sgld_launches"],
+                       out["mamba2"]["launches"], out["sgld_lm"]["launches"],
+                       out["gates"]["float32"]["launches"],
+                       out["mamba2"]["float32"]["launches"]]
+    log(f"phase 6h done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7 (continued): the LM kernels' times, profiles of the LM paths
 # ---------------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak (NVIDIA data sheet)
@@ -5067,6 +5654,10 @@ def main() -> int:
             torch, arch, lm_mods)
     lm_runs["mamba2-1.3b_scoring"], score_state = lm_score_path(torch,
                                                                 lm_mods)
+    memory["lm"] = memory_line(torch, "the LM paths")
+    # phase 6h: Bayesian-LM training
+    train_out = train_phase(torch, np, lm_mods)
+    memory["6h"] = memory_line(torch, "phase 6h")
     log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
@@ -5125,7 +5716,8 @@ def main() -> int:
                + [r["launches"] for r in lm_runs.values()]
                + [r.get("f32_launches", {}) for r in lm_runs.values()]
                + [query_out["chain_launches"]] + query_out["launches"]
-               + driver_out["launches"] + mesh_out["launches"])
+               + driver_out["launches"] + mesh_out["launches"]
+               + train_out["launches"])
     for name in SOURCES:
         # one row per call for the kernels this slice redesigned; for the
         # others the row of the main path's widest call
@@ -5165,7 +5757,8 @@ def main() -> int:
               "phase_6b_s": phase_6b_s, "graphs": graphs,
               "phase_6c_s": phase_6c_s, "conditional": conditional,
               "phase_6d_s": phase_6d_s, "queries": query_out,
-              "driver": driver_out, "mesh": mesh_out, "memory": memory,
+              "driver": driver_out, "mesh": mesh_out, "training": train_out,
+              "memory": memory,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,
               "profile": prof, "kernels": kernels, "seconds": total_s}

@@ -6,11 +6,15 @@ Layout:  <dir>/step_<N>/
             shard_<i>.npz       numpy arrays (possibly several leaves each)
             COMMITTED           zero-byte marker written LAST
 
-A tree is nested dicts, tuples, lists and named tuples whose leaves are
-tensors, NumPy arrays or numbers; ``None`` holds no leaf. Leaves are
-ordered and named as ``jax.tree_util`` names them (dict keys sorted;
-``['key']``, ``[i]`` and ``.field`` path steps), so a manifest reads the
-same as one ``repro`` wrote.
+A tree is nested dicts, tuples, lists, named tuples and other nodes
+registered with ``torch.utils._pytree`` (``bayes_lm.TrainState``) whose
+leaves are tensors, NumPy arrays or numbers; ``None`` holds no leaf.
+Leaves are ordered and named as ``jax.tree_util`` names them (dict keys
+sorted; ``['key']``, ``[i]`` and ``.field`` path steps, and ``[<flat index
+i>]`` for a registered node, which ``jax`` registers without keys), so a
+manifest reads the same as one ``repro`` wrote. A bfloat16 tensor is
+stored as its bits (int16) under the dtype name ``bfloat16`` and restored
+bit for bit.
 
 Guarantees:
 * **Atomicity** — everything is written into ``step_<N>.tmp`` and renamed;
@@ -23,7 +27,8 @@ Guarantees:
 * **keep-N retention** — older committed steps beyond ``keep`` are pruned
   after a successful commit (never before).
 * **Async** — ``AsyncCheckpointer`` copies every leaf to host memory
-  synchronously (one copy a leaf) and writes in a background thread,
+  synchronously (one copy a leaf, a CPU tensor's too, since a training
+  step rewrites its state in place) and writes in a background thread,
   overlapping the next step's compute; ``wait()`` joins before the next
   save or on preemption.
 """
@@ -38,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import SUPPORTED_NODES
 
 __all__ = ["save", "restore", "latest_step", "read_meta", "committed_steps",
            "AsyncCheckpointer"]
@@ -74,6 +80,12 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
         for i, v in enumerate(tree):
             out += _flatten_with_paths(v, f"{prefix}[{i}]")
         return out
+    node = SUPPORTED_NODES.get(type(tree))
+    if node is not None:
+        out = []
+        for i, v in enumerate(node.flatten_fn(tree)[0]):
+            out += _flatten_with_paths(v, f"{prefix}[<flat index {i}>]")
+        return out
     return [(prefix, tree)]
 
 
@@ -83,19 +95,47 @@ def _unflatten(proto, leaves):
     if proto is None:
         return None
     if isinstance(proto, dict):
-        return {k: _unflatten(proto[k], leaves) for k in sorted(proto)}
+        # leaves come in sorted key order; the dict keeps proto's order
+        got = {k: _unflatten(proto[k], leaves) for k in sorted(proto)}
+        return {k: got[k] for k in proto}
     if _is_namedtuple(proto):
         return type(proto)(*(_unflatten(v, leaves) for v in proto))
     if isinstance(proto, (tuple, list)):
         return type(proto)(_unflatten(v, leaves) for v in proto)
+    node = SUPPORTED_NODES.get(type(proto))
+    if node is not None:
+        children, context = node.flatten_fn(proto)
+        return node.unflatten_fn([_unflatten(v, leaves) for v in children],
+                                 context)
     return next(leaves)
 
 
-def _host(leaf) -> np.ndarray:
-    """One leaf as a host array (a device tensor: one synchronised copy)."""
+def _host(leaf):
+    """One leaf on the host, a copy of its own: a tensor as a CPU tensor
+    (a device tensor: one synchronised copy), anything else as an array."""
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        return leaf.detach().to("cpu", copy=True)
     return np.asarray(leaf)
+
+
+def _as_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array written, the dtype name the manifest records): NumPy has
+    no bfloat16, so a bfloat16 tensor is written as its int16 bits."""
+    if torch.is_tensor(leaf):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_entry(arr: np.ndarray, dtype: str):
+    """A stored array as it was saved: bfloat16 bits as a CPU tensor."""
+    if dtype == "bfloat16" and arr.dtype == np.int16:
+        return torch.from_numpy(np.array(arr)).view(torch.bfloat16)
+    return arr
 
 
 def save(directory: str, step: int, tree, keep: Optional[int] = None,
@@ -130,12 +170,12 @@ def save(directory: str, step: int, tree, keep: Optional[int] = None,
         fname = f"shard_{si // _LEAVES_PER_SHARD:05d}.npz"
         arrays = {}
         for j, (path, leaf) in enumerate(chunk):
-            arr = _host(leaf)
+            arr, dtype = _as_numpy(leaf)
             key = f"a{j}"
             arrays[key] = arr
             manifest["leaves"].append({
                 "path": path, "file": fname, "key": key,
-                "shape": list(arr.shape), "dtype": str(arr.dtype),
+                "shape": list(arr.shape), "dtype": dtype,
             })
         np.savez(os.path.join(tmp, fname), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -201,7 +241,8 @@ def restore(directory: str, step: Optional[int] = None,
     returned in target's structure and validated against its shapes; a
     tensor prototype gives a tensor of its dtype on its device, any other
     leaf a NumPy array (of the prototype's dtype where it has one).
-    Without ``target`` a flat {path: array} dict is returned."""
+    Without ``target`` a flat {path: array} dict is returned (a bfloat16
+    leaf as a CPU tensor)."""
     step, d = _committed_dir(directory, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -210,7 +251,8 @@ def restore(directory: str, step: Optional[int] = None,
     for entry in manifest["leaves"]:
         if entry["file"] not in files:
             files[entry["file"]] = np.load(os.path.join(d, entry["file"]))
-        by_path[entry["path"]] = files[entry["file"]][entry["key"]]
+        by_path[entry["path"]] = _from_entry(
+            files[entry["file"]][entry["key"]], entry["dtype"])
 
     if target is None:
         return step, by_path
@@ -225,9 +267,12 @@ def restore(directory: str, step: Optional[int] = None,
             raise ValueError(
                 f"leaf {key}: checkpoint shape {arr.shape} != {want_shape}")
         if torch.is_tensor(proto):
-            leaves.append(torch.from_numpy(np.array(arr)).to(
-                device=proto.device, dtype=proto.dtype))
+            t = arr if torch.is_tensor(arr) else torch.from_numpy(
+                np.array(arr))
+            leaves.append(t.to(device=proto.device, dtype=proto.dtype))
         else:
+            if torch.is_tensor(arr):
+                arr = arr.float().numpy()
             leaves.append(arr.astype(np.asarray(proto).dtype)
                           if hasattr(proto, "dtype") else arr)
     return step, _unflatten(target, iter(leaves))

@@ -55,4 +55,5 @@ SMOKE = ArchConfig(
     first_dense=1,
     dense_ff=128,
     dtype=torch.float32,
+    remat=False,
 )

@@ -43,4 +43,5 @@ SMOKE = ArchConfig(
     final_softcap=30.0,
     post_norm=True,
     dtype=torch.float32,
+    remat=False,
 )

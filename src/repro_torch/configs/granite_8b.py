@@ -29,4 +29,5 @@ SMOKE = ArchConfig(
     vocab=256,
     layer_pattern=("global",),
     dtype=torch.float32,
+    remat=False,
 )

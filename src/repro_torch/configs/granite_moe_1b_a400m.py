@@ -36,4 +36,5 @@ SMOKE = ArchConfig(
     n_experts=4,
     top_k=2,
     dtype=torch.float32,
+    remat=False,
 )

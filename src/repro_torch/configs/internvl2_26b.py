@@ -35,4 +35,5 @@ SMOKE = ArchConfig(
     layer_pattern=("global",),
     n_prefix=8,
     dtype=torch.float32,
+    remat=False,
 )

@@ -41,4 +41,5 @@ SMOKE = ArchConfig(
     chunk=32,
     n_groups=1,
     dtype=torch.float32,
+    remat=False,
 )

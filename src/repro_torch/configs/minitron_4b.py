@@ -33,4 +33,5 @@ SMOKE = ArchConfig(
     mlp_type="relu2",
     layer_pattern=("global",),
     dtype=torch.float32,
+    remat=False,
 )

@@ -40,4 +40,5 @@ SMOKE = ArchConfig(
     window=16,
     lru_width=64,
     dtype=torch.float32,
+    remat=False,
 )

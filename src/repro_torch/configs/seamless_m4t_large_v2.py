@@ -37,4 +37,5 @@ SMOKE = ArchConfig(
     enc_layers=2,
     n_prefix=16,
     dtype=torch.float32,
+    remat=False,
 )

@@ -268,7 +268,30 @@ def _capture_stream(index: int) -> torch.cuda.Stream:
     return stream
 
 
-_peek_transform = torch._C._functorch.peek_interpreter_stack
+def in_transform() -> bool:
+    """Whether the caller runs inside a ``torch.func`` transform (``vmap``,
+    ``grad``, ``vjp``), which runs no CUDA graph and no saved-tensor
+    hook."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def write_into(bufs, new) -> None:
+    """Write the tree ``new`` into the same-structured buffers ``bufs``,
+    leaf by leaf (a donated state updated in place); a leaf that is already
+    its buffer is left alone, and one that shares memory with another
+    buffer is copied first."""
+    b_leaves, _ = tree_flatten(bufs)
+    n_leaves, _ = tree_flatten(new)
+    owned = {b.untyped_storage().data_ptr() for b in b_leaves}
+    pairs = []
+    for b, n in zip(b_leaves, n_leaves):
+        if n is b:
+            continue
+        if n.untyped_storage().data_ptr() in owned:
+            n = n.clone()
+        pairs.append((b, n))
+    for b, n in pairs:
+        b.copy_(n)
 
 
 def _cuda_device(x):
@@ -309,6 +332,17 @@ def _recording(graph, dev: torch.device, pool: Optional[GraphPool] = None):
 
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
+    # a capture allocates into a pool of its own, which cannot take the
+    # blocks the eager call before it left cached: it needs about as much
+    # again. Where those blocks outweigh the free memory (a training step's
+    # are tens of GB), give them back first, as torch.cuda.graph always
+    # does; elsewhere keep them, since giving them back costs the eager
+    # calls that follow a cudaMalloc each
+    free, _ = torch.cuda.mem_get_info(index)
+    if (torch.cuda.memory_reserved(index)
+            - torch.cuda.memory_allocated(index)) > free:
+        torch.cuda.synchronize(index)
+        torch.cuda.empty_cache()
     stream = _capture_stream(index)
     stream.wait_stream(torch.cuda.current_stream(index))
     _scratch.reserve(index, stream.cuda_stream)
@@ -525,7 +559,7 @@ class CompiledProgram:
         dev = None
         # inline inside a torch.func transform (vmap, grad) and inside a
         # capture; eager with capture off
-        if self.jit and not _NO_CAPTURE[0] and _peek_transform() is None:
+        if self.jit and not _NO_CAPTURE[0] and not in_transform():
             for x in leaves:  # the first CUDA tensor or generator
                 if isinstance(x, (torch.Tensor, torch.Generator)):
                     dev = _cuda_device(x)

@@ -47,7 +47,7 @@ from repro_torch.core.program import (CompiledProgram, GraphPool, ProgramKey,
                                       cached_potential, density_program,
                                       disable_capture, kernel_fingerprint,
                                       model_fingerprint, program_cache,
-                                      trace_fingerprint)
+                                      trace_fingerprint, write_into)
 from repro_torch.sharding.mesh import ShardedRun, active_run, use_run
 
 __all__ = ["Chain", "ChainRun", "TransitionKernel", "TransitionPrograms",
@@ -588,24 +588,6 @@ def run_chains(seed: int, model, kernel, num_samples: int, *,
     return chain
 
 
-def _assign(bufs, new) -> None:
-    """Write the tree ``new`` into the same-structured buffers ``bufs``,
-    leaf by leaf; a leaf that is already its buffer is left alone, and one
-    that shares memory with another buffer is copied first."""
-    b_leaves, _ = tree_flatten(bufs)
-    n_leaves, _ = tree_flatten(new)
-    owned = {b.untyped_storage().data_ptr() for b in b_leaves}
-    pairs = []
-    for b, n in zip(b_leaves, n_leaves):
-        if n is b:
-            continue
-        if n.untyped_storage().data_ptr() in owned:
-            n = n.clone()
-        pairs.append((b, n))
-    for b, n in pairs:
-        b.copy_(n)
-
-
 def _record(draws: Dict[str, torch.Tensor], out, idx: torch.Tensor,
             axis: int) -> None:
     """Write one draw's stats into ``draws`` at the device index ``idx``
@@ -655,12 +637,12 @@ class TransitionPrograms:
         return (self.init, self.warm, self.step) + tuple(self.kern.programs)
 
     def _warm(self, state, t, generator):
-        _assign(state, self.kern.warm(state, t, generator))
+        write_into(state, self.kern.warm(state, t, generator))
         t.add_(1.0)
 
     def _step(self, state, draws, idx, generator):
         new, out = self.kern.step(state, generator)
-        _assign(state, new)
+        write_into(state, new)
         # the draws axis: after the chain axis of logp's (chains, draws)
         _record(draws, out, idx, draws["logp"].dim() - 1)
         idx.add_(1)
@@ -685,7 +667,7 @@ class TransitionPrograms:
                 "t": torch.zeros((), dtype=torch.float32, device=dev),
                 "idx": torch.zeros((1,), dtype=torch.int64, device=dev)}
         else:
-            _assign(bufs["state"], leaves)
+            write_into(bufs["state"], leaves)
         bufs["t"].zero_()
         bufs["idx"].zero_()
         axis = q0s.dim() - 1
@@ -716,11 +698,11 @@ class TransitionPrograms:
             if i == run.num_warmup and run.num_warmup > 0:
                 # freeze adapted quantities only when adaptation actually
                 # ran: dual averaging's smoothed iterate starts at 1.0
-                _assign(state, kern.finalize(state))
+                write_into(state, kern.finalize(state))
             draws = run.bufs["draws"]
             if draws is None:
                 new, out = kern.step(state, generator)
-                _assign(state, new)
+                write_into(state, new)
                 run.bufs["draws"] = {
                     k: torch.empty(v.shape[:axis] + (run.num_samples,)
                                    + v.shape[axis:], dtype=v.dtype,

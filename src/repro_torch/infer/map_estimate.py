@@ -10,9 +10,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.contexts import Context
 from repro_torch.core.model import Model
 from repro_torch.core.program import (CompiledProgram, ProgramKey,
-                                      model_fingerprint)
+                                      model_fingerprint, write_into)
 from repro_torch.core.varinfo import TypedVarInfo
-from repro_torch.infer.chains import _assign
 from repro_torch.optim import adam, apply_updates
 
 __all__ = ["MAP"]
@@ -47,7 +46,7 @@ class MAP:
         def raw_step(q, state, losses, idx):
             grad, loss = loss_and_grad(q)
             deltas, new_state = opt.update(grad, state, q)
-            _assign((q, state), (apply_updates(q, deltas), new_state))
+            write_into((q, state), (apply_updates(q, deltas), new_state))
             losses.index_copy_(0, idx, loss.reshape(1).to(torch.float32))
             idx.add_(1)
 

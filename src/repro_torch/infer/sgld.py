@@ -6,9 +6,12 @@ stochastic gradient is unbiased, and Langevin noise turns SGD into a
 posterior sampler.
 
 ``SGLD.step`` is a plain function over (generator, params tree, grads,
-state). The steps take a ``torch.Generator`` where ``repro``'s take a key
-and run on PPL models; SGLD over a Bayesian LM's weights is the LM
-training step, which waits for ROADMAP.md Queue 1 item 9.
+state). The steps take a ``torch.Generator`` where ``repro``'s take a key.
+They run on any model, the Bayesian LM included: its trunk's attention
+and SSD kernels are ``torch.func``-ready autograd Functions. SGLD over
+the LM's weights at scale is ``models.bayes_lm.make_train_step(mode=
+"sgld")``, whose gradient is taken with ``torch.autograd`` (remat applies
+there and not under ``torch.func``).
 """
 from __future__ import annotations
 
@@ -25,17 +28,6 @@ from repro_torch.core.program import (CompiledProgram, ProgramKey,
                                       model_fingerprint, program_cache)
 
 __all__ = ["SGLD", "make_sgld_step", "make_subsampled_sgld_step"]
-
-
-def _refuse_lm(m: Model) -> None:
-    """SGLD over a Bayesian LM's weights is the LM training step: its trunk
-    reaches the flash-attention and SSD kernels, whose autograd Functions
-    have no ``torch.func`` backward yet (ROADMAP.md Queue 1 item 9)."""
-    if getattr(m.gen, "lm_config", None) is not None:
-        raise NotImplementedError(
-            "SGLD over a Bayesian LM's parameters is the LM training step, "
-            "which is not ported yet: its attention and SSD kernels have no "
-            "torch.func backward (ROADMAP.md Queue 1 item 9)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +97,6 @@ def make_sgld_step(m: Model, scale: float, sgld: Optional[SGLD] = None,
     logp_hat)``. ``scale`` = N_total / batch_size (MiniBatchContext);
     ``backend`` selects the log-joint evaluation path (fused flat-block
     kernels by default, per-site reference otherwise)."""
-    _refuse_lm(m)
     sgld = sgld if sgld is not None else SGLD()
     ctx = MiniBatchContext(scale=scale)
     cache = program_cache()
@@ -155,7 +146,6 @@ def make_subsampled_sgld_step(m: Model, minibatch,
     if not isinstance(minibatch, Minibatch):
         raise TypeError("minibatch must be a repro_torch.sharding.Minibatch, "
                         f"got {type(minibatch).__name__}")
-    _refuse_lm(m)
     sgld = sgld if sgld is not None else SGLD()
     full, n_total = full_data(m, minibatch)
     device = next(iter(full.values())).device

@@ -291,12 +291,13 @@ def _launch(q, k, v, qp, kp, mask, causal, window, cap,
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through the kernel (the plain version on a CPU tensor);
-    backward by recomputing the plain version, as ``_flash_bwd`` does."""
+    backward by recomputing the plain version, as ``_flash_bwd`` does. In
+    ``torch.func``'s form (``setup_context``), so that ``torch.func.grad``
+    runs through it, and its backward is a ``torch.func.vjp`` of the plain
+    version, which nests under an outer transform."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qp, kp, mask, causal, window, cap):
-        ctx.save_for_backward(q, k, v, qp, kp, mask)
-        ctx.opts = (causal, window, cap)
+    def forward(q, k, v, qp, kp, mask, causal, window, cap):
         if q.device.type == "cpu":
             return attention_ref(q, k, v, q_positions=qp, kv_positions=kp,
                                  causal=causal, window=window, cap=cap,
@@ -307,19 +308,26 @@ class _FlashAttention(torch.autograd.Function):
         return _launch(q, k, v, qp, kp, mask, causal, window, cap)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, qp, kp, mask, causal, window, cap = inputs
+        ctx.save_for_backward(q, k, v, qp, kp, mask)
+        ctx.opts = (causal, window, cap)
+
+    @staticmethod
     def backward(ctx, g):
         q, k, v, qp, kp, mask = ctx.saved_tensors
         causal, window, cap = ctx.opts
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need) for t, need in
-                   zip((q, k, v), ctx.needs_input_grad[:3])]
-            out = attention_ref(*ins, q_positions=qp, kv_positions=kp,
-                                causal=causal, window=window, cap=cap,
-                                kv_mask=mask)
-            wrt = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
-        dq, dk, dv = (next(grads) if t.requires_grad else None for t in ins)
-        return dq, dk, dv, None, None, None, None, None, None
+
+        def plain(q, k, v):
+            return attention_ref(q, k, v, q_positions=qp, kv_positions=kp,
+                                 causal=causal, window=window, cap=cap,
+                                 kv_mask=mask)
+
+        _, vjp = torch.func.vjp(plain, q, k, v)
+        grads = vjp(g)
+        return (*(d if need else None for d, need in
+                  zip(grads, ctx.needs_input_grad[:3])),
+                None, None, None, None, None, None)
 
 
 def flash_attention_gqa(q, k, v, *, q_positions, kv_positions,

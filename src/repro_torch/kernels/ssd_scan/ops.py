@@ -225,12 +225,13 @@ def _launch(x, dt, A, B, C, chunk: int,
 
 class _SSDScan(torch.autograd.Function):
     """Forward through the kernel (the plain version on a CPU tensor);
-    backward by recomputing the plain version, as ``_ssd_bwd`` does."""
+    backward by recomputing the plain version, as ``_ssd_bwd`` does. In
+    ``torch.func``'s form (``setup_context``), so that ``torch.func.grad``
+    runs through it, and its backward is a ``torch.func.vjp`` of the plain
+    version, which nests under an outer transform."""
 
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
-        ctx.save_for_backward(x, dt, A, B, C)
-        ctx.chunk = chunk
+    def forward(x, dt, A, B, C, chunk):
         if x.device.type == "cpu":
             return ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
         if x.device.type != "cuda":
@@ -239,16 +240,18 @@ class _SSDScan(torch.autograd.Function):
         return _launch(x, dt, A, B, C, chunk)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
+        ctx.chunk = inputs[5]
+
+    @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(saved, ctx.needs_input_grad[:5])]
-            out = ssd_scan_ref(*ins, chunk=ctx.chunk)
-            wrt = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in ins) + (None,)
+        chunk = ctx.chunk
+        _, vjp = torch.func.vjp(
+            lambda *ins: ssd_scan_ref(*ins, chunk=chunk), *ctx.saved_tensors)
+        grads = vjp(g)
+        return tuple(d if need else None for d, need in
+                     zip(grads, ctx.needs_input_grad[:5])) + (None,)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128,

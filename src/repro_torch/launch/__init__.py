@@ -1,1 +1,2 @@
-"""repro_torch.launch — entry points (LM and probability-query serving)."""
+"""repro_torch.launch — entry points (LM training, LM and probability-query
+serving)."""

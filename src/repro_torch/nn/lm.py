@@ -12,7 +12,9 @@ Queue 1 item 9 ports them. Parameters are dicts of tensors with the JAX
 pytree's structure, stacked per segment (``params["segments"][si][pi]``
 holds a leading axis of ``count`` when a segment repeats), so a JAX
 pytree carries across key for key (``repro_torch.convert``). PyTorch runs
-eagerly, so the trunk is a plain loop over layers (no scan, no remat).
+eagerly, so the trunk is a plain loop over layers (``scan_layers`` is
+accepted and changes nothing); ``remat`` checkpoints each super-block in
+training, as the JAX package's ``jax.checkpoint`` of its scan body.
 
 Caches are updated IN PLACE, as the JAX serving loop donates its cache:
 ``prefill`` and ``decode_step`` return the cache they were given, with
@@ -69,6 +71,7 @@ class ArchConfig:
     first_dense: int = 0
     dense_ff: Optional[int] = None
     capacity_factor: float = 1.25
+    moe_impl: str = "gspmd"         # gspmd | ep (accepted; MoE is not ported)
     # MLA (not ported yet)
     mla: bool = False
     kv_lora: int = 512
@@ -88,7 +91,17 @@ class ArchConfig:
     # modality prefix stub (vlm: patches; audio: frames via encoder)
     n_prefix: int = 0
     dtype: Any = torch.bfloat16
+    # recompute each trunk super-block (and encoder layer) in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = True
+    # "nothing": recompute everything in the backward (least memory);
+    # "dots": keep the outputs of unbatched matrix products (aten.mm,
+    # aten.addmm) and recompute the rest, as jax's
+    # dots_with_no_batch_dims_saveable
+    remat_policy: str = "nothing"
     attn_impl: str = "xla"          # xla (dense) | flash (the kernels)
+    # accepted for the JAX package's configs: the trunk is a plain loop
+    scan_layers: bool = True
 
     @property
     def resolved_head_dim(self) -> int:
@@ -354,36 +367,90 @@ def _write_back(cache: Dict, new: Dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# remat: torch.utils.checkpoint around each super-block
+# ---------------------------------------------------------------------------
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep unbatched matrix products, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, policy: str):
+    """``run(fn, x)``: ``fn(x)`` under ``torch.utils.checkpoint`` with the
+    policy ``"nothing"`` or ``"dots"``, or None where remat does not apply:
+    ``cfg.remat`` off, gradients off (nothing to save), or inside a
+    ``torch.func`` transform, which switches saved-tensor hooks off: there
+    (``make_sgld_step``'s ``torch.func.grad``, say) every activation is
+    kept, where ``jax.checkpoint`` still applies under ``jax.grad``. The
+    values are the same; only the memory differs."""
+    from repro_torch.core.program import in_transform
+    if not (cfg.remat and torch.is_grad_enabled()) or in_transform():
+        return None
+    from torch.utils import checkpoint as ckpt
+    if policy == "dots":
+        def context_fn():
+            return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+    elif policy == "nothing":
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy '{policy}'; expected "
+                         "'nothing' or 'dots'")
+
+    def run(fn, x):
+        # no dropout in the blocks: no RNG state to stash (a stash reads
+        # the generator's state, which a CUDA graph capture refuses)
+        return ckpt.checkpoint(fn, x, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=context_fn)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # trunk runner (shared): a plain loop over segments and layers
 # ---------------------------------------------------------------------------
 def _run_trunk(cfg: ArchConfig, params, x, positions, caches=None,
                decode: bool = False, memory_kv=None):
+    """Every block in order. Without caches (training), each super-block
+    (one pass of the segment's pattern) runs under remat when it applies
+    (``_remat``), as the JAX package checkpoints its scan body."""
+    remat = _remat(cfg, cfg.remat_policy) if caches is None else None
     layer_idx = 0  # absolute layer counter for cross-attn param slicing
     for si, seg in enumerate(build_segments(cfg)):
         seg_p = params["segments"][si]
         seg_c = caches[si] if caches is not None else None
         for c in range(seg.count):
-            for pi, btype in enumerate(seg.pattern):
-                if seg.count == 1:
-                    blk_p = seg_p[pi]
-                    blk_c = seg_c[pi] if seg_c is not None else None
-                else:
-                    blk_p = tree_map(lambda a: a[c], seg_p[pi])
-                    blk_c = (tree_map(lambda a: a[c], seg_c[pi])
-                             if seg_c is not None else None)
-                cross_p = cross_ln = layer_kv = None
-                if memory_kv is not None:
-                    cross_p = tree_map(lambda a: a[layer_idx], params["cross"])
-                    cross_ln = params["cross_ln"][layer_idx]
-                    layer_kv = {"k": memory_kv["k"][layer_idx],
-                                "v": memory_kv["v"][layer_idx]}
-                x, nc = _apply_block(cfg, btype, blk_p, x,
-                                     positions=positions, cache=blk_c,
-                                     memory_kv=layer_kv, cross_p=cross_p,
-                                     cross_ln=cross_ln, decode=decode)
-                if blk_c is not None:
-                    _write_back(blk_c, nc)
-                layer_idx += 1
+            def body(x, c=c, seg=seg, seg_p=seg_p, seg_c=seg_c,
+                     first=layer_idx):
+                for pi, btype in enumerate(seg.pattern):
+                    if seg.count == 1:
+                        blk_p = seg_p[pi]
+                        blk_c = seg_c[pi] if seg_c is not None else None
+                    else:
+                        blk_p = tree_map(lambda a: a[c], seg_p[pi])
+                        blk_c = (tree_map(lambda a: a[c], seg_c[pi])
+                                 if seg_c is not None else None)
+                    cross_p = cross_ln = layer_kv = None
+                    if memory_kv is not None:
+                        li = first + pi
+                        cross_p = tree_map(lambda a: a[li], params["cross"])
+                        cross_ln = params["cross_ln"][li]
+                        layer_kv = {"k": memory_kv["k"][li],
+                                    "v": memory_kv["v"][li]}
+                    x, nc = _apply_block(cfg, btype, blk_p, x,
+                                         positions=positions, cache=blk_c,
+                                         memory_kv=layer_kv, cross_p=cross_p,
+                                         cross_ln=cross_ln, decode=decode)
+                    if blk_c is not None:
+                        _write_back(blk_c, nc)
+                return x
+
+            x = body(x) if remat is None else remat(body, x)
+            layer_idx += len(seg.pattern)
     return x, caches
 
 
@@ -397,16 +464,40 @@ def _embed(cfg: ArchConfig, params, tokens):
     return x
 
 
+class _LowPrecisionLogits(torch.autograd.Function):
+    """x2 (N, D) @ table (V, D)^T in bf16 with a float32 result (cuBLAS's
+    bf16 product, float32 accumulation and output: ``torch.mm``'s
+    ``out_dtype``, which autograd does not differentiate). Backward: the
+    float32 cotangent rounded to bf16 for the two products, each
+    accumulated in float32 and rounded once to its operand's type (the
+    bf16 passes a TPU's default precision runs; Queue 3 B5)."""
+
+    @staticmethod
+    def forward(x2, table):
+        return torch.mm(x2, table.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
+        dt = torch.mm(g.T, x2) if ctx.needs_input_grad[1] else None
+        return dx, dt
+
+
 def _logits_matmul(x, table):
     """x (B,S,D) @ table (V,D)^T with a float32 result, as the JAX
     package's ``preferred_element_type=float32``: float32 operands as they
     are; bf16 operands through cuBLAS's bf16 product with float32 output
-    on the card, or upcast on the CPU."""
+    on the card (``_LowPrecisionLogits``), or upcast on the CPU."""
     if x.dtype == torch.float32:
         return x @ table.T
     if x.is_cuda:
-        x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, table.T, out_dtype=torch.float32)
+        out = _LowPrecisionLogits.apply(x.reshape(-1, x.shape[-1]), table)
         return out.reshape(*x.shape[:-1], table.shape[0])
     return x.float() @ table.float().T
 
@@ -426,16 +517,22 @@ def encode(cfg: ArchConfig, params, frames):
     x = frames @ params["prefix_proj"] if "prefix_proj" in params else frames
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
+    # the JAX package checkpoints the encoder's body with jax.checkpoint's
+    # default policy: nothing saved
+    remat = _remat(cfg, "nothing")
     for li in range(cfg.enc_layers):
-        p = tree_map(lambda a: a[li], params["encoder"])
-        h = rms_norm(x, p["ln1"])
-        out, _ = attn.gqa_attention(p["attn"], h, positions=positions,
-                                    causal=False, rope_base=cfg.rope_base,
-                                    impl=cfg.attn_impl)
-        x = x + out
-        h2 = rms_norm(x, p["ln2"])
-        m = p["mlp"]
-        x = x + swiglu(h2, m["w_gate"], m["w_up"], m["w_down"])
+        def body(x, li=li):
+            p = tree_map(lambda a: a[li], params["encoder"])
+            h = rms_norm(x, p["ln1"])
+            out, _ = attn.gqa_attention(p["attn"], h, positions=positions,
+                                        causal=False, rope_base=cfg.rope_base,
+                                        impl=cfg.attn_impl)
+            x = x + out
+            h2 = rms_norm(x, p["ln2"])
+            m = p["mlp"]
+            return x + swiglu(h2, m["w_gate"], m["w_up"], m["w_down"])
+
+        x = body(x) if remat is None else remat(body, x)
     return rms_norm(x, params["enc_final_norm"])
 
 

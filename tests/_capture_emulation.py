@@ -64,6 +64,10 @@ class FakeGraph:
 
     def replay(self):
         self.replays += 1
+        with torch.no_grad():  # a graph replays kernels, not autograd
+            self._run()
+
+    def _run(self):
         for func, args, kwargs, out in self.ops:
             res = func(*args, **kwargs)
             outs, _ = tree_flatten(out)

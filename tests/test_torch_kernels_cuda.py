@@ -1391,6 +1391,90 @@ def test_cuda_ssd_scan_chunk_invariance_and_backward(cuda_device):
         assert _rel_err(a, b) < 2e-4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_and_ssd_functions_under_torch_func_grad(cuda_device,
+                                                            dtype):
+    """The flash-attention and SSD autograd Functions (torch.func's form)
+    under ``torch.func.grad`` of a fixed weighting of their outputs: the
+    forward launches the kernel once, the backward recomputes through the
+    plain version (no launch), and the gradients equal ``torch.autograd``
+    through the Function bit for bit (the same backward) and through the
+    plain version within the kernels' float32 tolerance (their backward is
+    the plain version's)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q = torch.randn(2, 256, 2, 3, 64, generator=gen, device=cuda_device)
+    k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    w = torch.randn(q.shape, generator=gen, device=cuda_device)
+    pos = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    kw = dict(q_positions=pos[None].expand(2, 256),
+              kv_positions=pos[None].expand(2, 256), causal=True,
+              window=None, cap=None)
+
+    def loss(fn):
+        return lambda q, k, v: (fn(q, k, v, **kw).float() * w).sum()
+
+    flash_ops.reset_launch_counts()
+    got = torch.func.grad(loss(flash_ops.flash_attention_gqa),
+                          argnums=(0, 1, 2))(q, k, v)
+    assert sum(flash_ops.LAUNCHES.values()) == 1
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    again = torch.autograd.grad(loss(flash_ops.flash_attention_gqa)(*ins),
+                                ins)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(loss(attention_ref)(*ins), ins)
+    for a, b, c in zip(got, again, plain):
+        assert torch.equal(a, b)
+        assert _rel_err(a, c) < 2e-5
+    ins = _ssd_inputs((2, 256, 4, 64, 1, 64, 64), dtype, cuda_device)
+    w = torch.randn(ins[0].shape, generator=gen, device=cuda_device)
+
+    def sloss(fn):
+        return lambda *a: (fn(*a, chunk=64).float() * w).sum()
+
+    ssd_ops.reset_launch_counts()
+    got = torch.func.grad(sloss(ssd_ops.ssd_scan),
+                          argnums=(0, 1, 2, 3, 4))(*ins)
+    assert sum(ssd_ops.LAUNCHES.values()) == 1
+    xs = [t.clone().requires_grad_(True) for t in ins]
+    again = torch.autograd.grad(sloss(ssd_ops.ssd_scan)(*xs), xs)
+    xs = [t.clone().requires_grad_(True) for t in ins]
+    plain = torch.autograd.grad(sloss(ssd_scan_ref)(*xs), xs)
+    for a, b, c in zip(got, again, plain):
+        assert torch.equal(a, b)
+        assert _rel_err(a, c) < 2e-4
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_logits_product_and_its_backward(cuda_device):
+    """The LM's bf16 logits on the card (``nn.lm._LowPrecisionLogits``): a
+    float32 result equal to the float32 product of the bf16 operands
+    within float32 summation order, and a backward (the cotangent rounded
+    to bf16, float32 accumulation, one rounding to bf16) within bf16's
+    2^-8 of the float32 gradients' max, under autograd and torch.func."""
+    from repro_torch.nn import lm
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x = torch.randn(2, 64, 96, generator=gen, device=cuda_device)
+    table = torch.randn(1000, 96, generator=gen, device=cuda_device)
+    xb, tb = x.bfloat16(), table.bfloat16()
+    w = torch.randn(2, 64, 1000, generator=gen, device=cuda_device)
+    out = lm._logits_matmul(xb, tb)
+    assert out.dtype == torch.float32
+    assert _rel_err(out, xb.float() @ tb.float().T) < 1e-5
+    ins = [t.clone().requires_grad_(True) for t in (xb, tb)]
+    got = torch.autograd.grad((lm._logits_matmul(*ins) * w).sum(), ins)
+    ins = [t.float().requires_grad_(True) for t in (xb, tb)]
+    want = torch.autograd.grad(((ins[0] @ ins[1].T) * w).sum(), ins)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _rel_err(a, b) < 2 ** -8
+    fgot = torch.func.grad(lambda a, b: (lm._logits_matmul(a, b) * w).sum(),
+                           argnums=(0, 1))(xb, tb)
+    for a, b in zip(fgot, got):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the float32 tensor-core kernels: flash_fwd_tf32 and ssd_scan_tf32 (3xTF32)
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ run is too short to estimate one. Draw counts are cut from
 ``tests/test_infer.py``'s to keep the CPU suite's time, and the bounds
 widened with them: each stays at >= 4.5 se.
 """
+import dataclasses
 import sys
 import itertools
 
@@ -564,9 +565,10 @@ def test_subsampled_sgld_moves_toward_posterior():
 def test_sgld_step_on_a_bound_batch_and_the_lm_refusal():
     """``make_sgld_step`` takes its batch as bound data, one cached
     program a structural signature; plain SGLD (no preconditioning) at
-    temperature 1 stays near the posterior; a Bayesian LM's weights are
-    the training step (ROADMAP.md Queue 1 item 9)."""
-    from repro_torch.configs import get_config
+    temperature 1 stays near the posterior; the LM refusal is gone: the
+    step builds and runs on a Bayesian LM (its attention and SSD
+    Functions run under ``torch.func``), as ``repro``'s does."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.core.program import cache_stats
     from repro_torch.models.bayes_lm import make_lm_model
 
@@ -592,9 +594,17 @@ def test_sgld_step_on_a_bound_batch_and_the_lm_refusal():
         draws.append(float(params))
     # the posterior of mu: mean ybar, sd 1/16; 200 correlated draws
     assert abs(np.mean(draws[50:]) - float(y.mean())) < 0.3
-    lm = make_lm_model(get_config("smollm-360m"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_sgld_step(lm(tokens=None, labels=None, params=None), 1.0)
+    from repro_torch.nn import lm as tlm
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"),
+                              attn_impl="flash")
+    lm_params = tlm.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    lm = make_lm_model(cfg)(tokens=toks, labels=toks, params=lm_params)
+    sgld0 = SGLD(temperature=0.0)
+    _, _, lp = make_sgld_step(lm, 1.0, sgld=sgld0)(
+        gen, lm_params, sgld0.init(lm_params), tokens=toks, labels=toks)
+    assert torch.isfinite(lp)
 
 
 # ---- untyped HMC against the JAX package ----------------------------------------
