@@ -328,6 +328,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -482,8 +483,12 @@ MAIN_SHAPES = {"std_normal_sum": [(4, 11), (4, 101), (4, 400), (4, 40000)],
                # (chains, items, classes): hmm_semisup's two blocks, lda's
                "categorical_logits_sum_small": [(4, 99, 5), (4, 100, 20),
                                                 (4, 10176, 100)],
-               # mamba2-1.3b scoring's tokens, and the other LM vocabulary
-               "categorical_logits_sum": [(1, 8192, 50280), (1, 8192, 49152)],
+               # mamba2-1.3b scoring's tokens, and the other LM
+               # vocabularies: smollm's, granite-moe's, deepseek's (its
+               # scoring's tokens)
+               "categorical_logits_sum": [(1, 8192, 50280), (1, 8192, 49152),
+                                          (1, 8192, 49155),
+                                          (1, 8192, 102400)],
                # hier_poisson's block, and a wide one for the timing phase
                "gamma_unnorm_sum": [(4, 1), (4, 40000)],
                # gauss_unknown's per-array route (shared x, one mu and one
@@ -3843,6 +3848,12 @@ LM_FLASH = {
                                 T=4096),
     "gemma2_decode_global": dict(B=2, KV=16, G=2, hd=128, window=None,
                                  cap=50.0, kind="decode", pos=4190, T=4192),
+    # granite-moe-1b-a400m: 8 requests, prompt 1,024, 64 new tokens, GQA
+    # of 8 x 2 heads of 64
+    "granite_moe_prefill": dict(B=8, KV=8, G=2, hd=64, window=None,
+                                cap=None, kind="prefill", S=1024, T=1088),
+    "granite_moe_decode": dict(B=8, KV=8, G=2, hd=64, window=None,
+                               cap=None, kind="decode", pos=1086, T=1088),
 }
 # (b, s, h, p, g, n, chunk): tests/test_kernels.py's SSD_CASES, a ragged
 # grouped one, and mamba2-1.3b's scoring call (4 x 2,048 tokens)
@@ -3853,7 +3864,9 @@ SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 128)
 # ssd_scan_tc's other shapes: p 128, n 64, chunk 64, ragged lengths
 SSD_TC_CASES = [(1, 77, 2, 128, 1, 64, 128), (2, 300, 4, 128, 2, 128, 64),
                 (1, 130, 4, 64, 2, 64, 64)]
-LM_VOCABS = (49_152, 50_280)  # smollm-360m's and mamba2-1.3b's
+# smollm-360m's, mamba2-1.3b's, granite-moe-1b-a400m's (odd: 4-byte loads)
+# and deepseek-v2-lite-16b's
+LM_VOCABS = (49_152, 50_280, 49_155, 102_400)
 
 
 def flash_call(torch, spec, dtype, gen):
@@ -4201,8 +4214,8 @@ def check_ssd_kernel(torch, sops, sref):
 
 def check_categorical_lm(torch, ops, ref):
     """categorical_logits_sum at the LM vocabularies, N = 8,192 items (the
-    scoring path's 4 x 2,048 tokens), one launch a call, at rtol 1e-6 with
-    a bit-identical rerun. Returns the abs error at mamba2's."""
+    scoring paths' 4 x 2,048 tokens), one launch a call, at rtol 1e-6 with
+    a bit-identical rerun. Returns the worst abs error."""
     gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(13)
     err = {}
     for c in LM_VOCABS:
@@ -4225,7 +4238,7 @@ def check_categorical_lm(torch, ops, ref):
         del logits
     log(f"categorical_logits_sum at C = {LM_VOCABS}, N = 8,192: rtol 1e-6, "
         f"bit-identical reruns: ok (abs err {err})")
-    return err[LM_VOCABS[-1]]
+    return max(err.values())
 
 
 # ---------------------------------------------------------------------------
@@ -4288,41 +4301,41 @@ def close_within(torch, a, b, tol=LM_GATE) -> float:
     return float(((a - b).abs() - tol * b.abs()).max())
 
 
-def lm_serve_path(torch, arch, mods):
-    """One serving path at full width: the float32 gates (the flash route
-    against the dense route over every step on the same tokens; prefill(S -
-    1) plus decode(1) against forward_train's last logits), then the timed
-    bf16 serve_batch with the kernels' counts zeroed just before and read
-    just after, then the dense route's bf16 tokens for agreement."""
+def _attn_layer_count(cfg) -> int:
+    """Layers that run flash attention (global and local blocks)."""
+    return sum(b in ("global", "local") for b in
+               (cfg.layer_pattern * cfg.n_layers)[:cfg.n_layers])
+
+
+def serve_gates(torch, arch, cfg, params, prompts, max_new, mods):
+    """The float32 gates of a serving path, on ``params`` upcast: the
+    flash route against the dense route over every step on the same
+    tokens (attention layers only), and prefill(S - 1) plus decode(1)
+    against forward_train's last logits, the latter at capacity E / k in
+    a MoE config, as tests/test_archs.py gives it (the default capacity
+    drops most pairs at decode).
+
+    Each logit within LM_GATE (rtol and atol, ``close_within``), except
+    in a MoE config: there within LM_GATE of the step's largest logit
+    (``rel_err``, the kernels' measure), each logit's reading reported. With random
+    weights the experts' init (std 1/sqrt(E), ROADMAP Queue 3 C) gives
+    logits up to 150-250, and float32's own error at full depth is
+    already 3-5e-3 in a logit: the dense route against a float64 run of
+    the same model and tokens, which granite's gate runs too (reported);
+    near-ties route some tokens to other experts in either route."""
     import dataclasses
 
-    from repro_torch import configs
-    from repro_torch.launch.serve import serve_batch
     from repro_torch.models import bayes_lm
     from repro_torch.nn import lm
 
-    batch, prompt_len, max_new, depth = LM_SERVE[arch]
-    cfg = dataclasses.replace(configs.get_config(arch), attn_impl="flash")
-    if depth is not None:
-        cfg = dataclasses.replace(cfg, n_layers=depth)
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device=DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
-                            device=DEVICE)
-    torch.cuda.synchronize()
-    out = {"arch": arch, "layers": cfg.n_layers, "requests": batch,
-           "prompt": prompt_len, "new_tokens": max_new,
-           "params": lm.count_params(params),
-           "init_s": time.perf_counter() - t0}
-    n_attn = sum(b in ("global", "local") for b in
-                 (cfg.layer_pattern * cfg.n_layers)[:cfg.n_layers])
-
-    # float32 gates, on the same weights upcast
-    out["f32_launches"] = {}
+    batch, prompt_len = prompts.shape
+    n_attn = _attn_layer_count(cfg)
+    within = rel_err if cfg.moe else functools.partial(close_within, torch)
+    out = {"gate_layers": cfg.n_layers, "f32_launches": {},
+           "gate_measure": "rel_err" if cfg.moe else "close_within"}
+    p32 = lm.tree_map(lambda t: t.float(), params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
     if n_attn:
-        p32 = lm.tree_map(lambda t: t.float(), params)
-        c32 = dataclasses.replace(cfg, dtype=torch.float32)
         # the float32 serving run is counted too: its prefill is
         # flash_fwd_tf32's main-path call, its decode steps flash_decode's
         torch.cuda.synchronize()
@@ -4339,37 +4352,102 @@ def lm_serve_path(torch, arch, mods):
               f"expected {want32}")
         dense, _ = greedy_run(torch, lm, bayes_lm, dataclasses.replace(
             c32, attn_impl="xla"), p32, prompts, max_new, feed=ftok)
-        out["flash_vs_dense"] = max(close_within(torch, a, b)
-                                    for a, b in zip(flash, dense))
+        pairs = list(zip(flash, dense))
+        out["flash_vs_dense"] = max(within(a, b) for a, b in pairs)
+        if cfg.moe:
+            out["flash_vs_dense_elementwise"] = max(
+                close_within(torch, a, b) for a, b in pairs)
+            # float32's own error: both routes against a float64 run
+            p64 = lm.tree_map(lambda t: t.double(), params)
+            exact, _ = greedy_run(torch, lm, bayes_lm, dataclasses.replace(
+                c32, dtype=torch.float64, attn_impl="xla"), p64, prompts,
+                max_new, feed=ftok)
+            del p64
+            out["flash_vs_float64_max_abs"] = max(
+                float((a - e).abs().max()) for a, e in zip(flash, exact))
+            out["dense_vs_float64_max_abs"] = max(
+                float((b - e).abs().max()) for b, e in zip(dense, exact))
+            del exact
         check(out["flash_vs_dense"] <= LM_GATE,
               f"{arch}: flash and dense routes differ beyond {LM_GATE} "
-              f"({out['flash_vs_dense']:.3e})")
-        del flash, dense
-        with torch.no_grad():
-            full = lm.forward_train(c32, p32, prompts)[:, -1]
-            cache = lm.init_cache(c32, batch, prompt_len, device=DEVICE)
-            _, cache = lm.prefill(c32, p32, prompts[:, :-1], cache)
-            dec, _ = lm.decode_step(c32, p32, prompts[:, -1:], cache,
-                                    torch.full((batch,), prompt_len - 1,
-                                               dtype=torch.int32,
-                                               device=DEVICE))
-        out["decode_vs_forward"] = close_within(torch, dec[:, 0], full)
-        check(out["decode_vs_forward"] <= LM_GATE,
-              f"{arch}: prefill(S-1) + decode(1) differs from forward_train "
-              f"beyond {LM_GATE} ({out['decode_vs_forward']:.3e})")
-        del p32, full, cache, dec
-        torch.cuda.empty_cache()
+              f"({out['gate_measure']} {out['flash_vs_dense']:.3e})")
+        del flash, dense, pairs
+    if cfg.moe:
+        c32 = dataclasses.replace(c32, capacity_factor=float(
+            cfg.n_experts / cfg.top_k))
+    with torch.no_grad():
+        full = lm.forward_train(c32, p32, prompts)[:, -1]
+        cache = lm.init_cache(c32, batch, prompt_len, device=DEVICE)
+        _, cache = lm.prefill(c32, p32, prompts[:, :-1], cache)
+        dec, _ = lm.decode_step(c32, p32, prompts[:, -1:], cache,
+                                torch.full((batch,), prompt_len - 1,
+                                           dtype=torch.int32, device=DEVICE))
+    out["decode_vs_forward"] = within(dec[:, 0], full)
+    out["decode_vs_forward_elementwise"] = close_within(torch, dec[:, 0],
+                                                        full)
+    out["decode_vs_forward_max_abs"] = float((dec[:, 0] - full).abs().max())
+    out["forward_max_abs_logit"] = float(full.abs().max())
+    check(out["decode_vs_forward"] <= LM_GATE,
+          f"{arch}: prefill(S-1) + decode(1) differs from forward_train "
+          f"beyond {LM_GATE} ({out['gate_measure']} "
+          f"{out['decode_vs_forward']:.3e})")
+    del p32, full, cache, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_path(torch, arch, mods, shape=None, gate_depth=None):
+    """One serving path at full width: the float32 gates
+    (:func:`serve_gates`; at ``gate_depth`` layers, on the first layers
+    of the same weights, run before the full model is made), then the
+    timed bf16 serve_batch with the kernels' counts zeroed just before and
+    read just after, the decode step's graph against eager, then the
+    dense route's bf16 tokens for agreement. ``shape`` is (requests,
+    prompt, new tokens, depth), ``LM_SERVE[arch]`` by default."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.nn import lm
+
+    batch, prompt_len, max_new, depth = shape or LM_SERVE[arch]
+    cfg = dataclasses.replace(configs.get_config(arch), attn_impl="flash")
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                            device=DEVICE)
+    n_attn = _attn_layer_count(cfg)
+    gates = {}
+    if gate_depth is not None:  # before the full model: room for both
+        gcfg = dataclasses.replace(cfg, n_layers=gate_depth)
+        gates = serve_gates(torch, arch, gcfg,
+                            lm.init_params(gcfg, seed=0, device=DEVICE),
+                            prompts, max_new, mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    out = {"arch": arch, "layers": cfg.n_layers, "requests": batch,
+           "prompt": prompt_len, "new_tokens": max_new,
+           "params": lm.count_params(params),
+           "init_s": time.perf_counter() - t0}
+    if gate_depth is None and (n_attn or cfg.moe):
+        gates = serve_gates(torch, arch, cfg, params, prompts, max_new, mods)
+    out.update(gates)
 
     # the timed bf16 run, counted
     serve_batch(arch, cfg=cfg, params=params, prompts=prompts[:, :16],
                 max_new=2, device=DEVICE)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     lm_reset(mods)
     gen_tokens, stats = serve_batch(arch, cfg=cfg, params=params,
                                     prompts=prompts, max_new=max_new,
                                     device=DEVICE)
     torch.cuda.synchronize()
     out["launches"] = lm_counts(mods)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / (1 << 20)
     # bf16: the prefill on the tensor cores, each decode step's call on
     # flash_decode, once per attention layer; nothing else
     want = {**dict.fromkeys(out["launches"], 0), "flash_fwd_tc": n_attn,
@@ -4404,12 +4482,24 @@ def lm_serve_path(torch, arch, mods):
         f"parameters, {batch} requests x prompt {prompt_len} + {max_new} "
         f"new, bf16): prefill {out['prefill_ms']:.2f} ms, decode "
         f"{out['decode_ms_per_token']:.3f} ms/token, "
-        f"{out['tokens_per_s']:.1f} tokens/s; launches {out['launches']}"
-        + (f"; float32 gates: flash vs dense {out['flash_vs_dense']:.2e}, "
-           f"decode vs forward {out['decode_vs_forward']:.2e} (<= 0 within "
-           f"{LM_GATE}); bf16 greedy agreement with dense "
-           f"{out['bf16_greedy_agreement']:.3f}" if n_attn else
-           " (prefill: the plain scan; decode: the O(1) update)"))
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_mib']:.0f} "
+        f"MiB; launches {out['launches']}"
+        + (f"; float32 gates at {out['gate_layers']} layers "
+           f"({out['gate_measure']} <= {LM_GATE}): "
+           + (f"flash vs dense {out['flash_vs_dense']:.2e}, "
+              if n_attn else "")
+           + (f"(each logit {out['flash_vs_dense_elementwise']:.2e}; max |d| "
+              f"to float64: flash {out['flash_vs_float64_max_abs']:.2e}, "
+              f"dense {out['dense_vs_float64_max_abs']:.2e}), "
+              if "flash_vs_float64_max_abs" in out else "")
+           + f"decode vs forward {out['decode_vs_forward']:.2e} (each logit "
+           f"{out['decode_vs_forward_elementwise']:.2e}; max |d| "
+           f"{out['decode_vs_forward_max_abs']:.2e}, max |logit| "
+           f"{out['forward_max_abs_logit']:.1f})"
+           if "decode_vs_forward" in out else
+           " (prefill: the plain scan; decode: the O(1) update)")
+        + (f"; bf16 greedy agreement with dense "
+           f"{out['bf16_greedy_agreement']:.3f}" if n_attn else ""))
     return out, (cfg, params, prompts)
 
 
@@ -5077,6 +5167,267 @@ def train_phase(torch, np, mods):
 
 
 # ---------------------------------------------------------------------------
+# phase 6i: MoE and MLA (ROADMAP Queue 1 item 9a): deepseek-v2-lite-16b and
+# granite-moe-1b-a400m served at full width and depth, deepseek scored,
+# expert parallelism over a world of ranks on the card
+# ---------------------------------------------------------------------------
+# (requests, prompt, new tokens, depth: None for the config's own)
+MOE_SERVE = {"deepseek-v2-lite-16b": (8, 1024, 64, None),
+             "granite-moe-1b-a400m": (8, 1024, 64, None)}
+# the float32 gates' depth (None: the config's own). deepseek's float32
+# copy (62 GB) does not fit beside its bf16 weights (31 GB): its gates run
+# on the dense layer and 3 MoE layers (about 9 GB), before the full model
+MOE_GATE_DEPTH = {"deepseek-v2-lite-16b": 4, "granite-moe-1b-a400m": None}
+MOE_SCORE = ("deepseek-v2-lite-16b", 4, 2048)  # (arch, sequences, tokens)
+# bf16 scoring: the log-likelihood through categorical_logits_sum against
+# the per-site evaluator's plain categorical, on the same bf16 forward:
+# both read the same float32 logits (8,192 x 102,400), so they differ
+# only in the order of the float32 sum over 838.9 M terms: 7.67e-8 on an
+# H100 at this seed (one float32 ulp of the -1.63e6 total); 1e-6 leaves
+# 13 ulps
+MOE_SCORE_BF16_TOL = 1e-6
+# expert parallelism: (arch, depth, sequences, tokens) in float32, and the
+# (data, model) meshes of the 4-rank world with their capacity factors
+EP_RUN = ("granite-moe-1b-a400m", 2, 2, 256)
+EP_MESHES = (((1, 4), None), ((2, 2), "E/k"))
+EP_WORLD = 4
+EP_TOL = 1e-5
+EP_TIMEOUT_S = 300.0
+
+
+def moe_score_path(torch, mods, cfg, params):
+    """deepseek-v2-lite-16b scoring at full width and depth on the served
+    bf16 weights: the Bayesian LM's log-likelihood and log-joint of 4 x
+    2,048 tokens. Float32 gates on a model cut to ``MOE_GATE_DEPTH``
+    layers from the same seed (the served model's first layers:
+    ``Initializer`` keys each leaf by its path, and the cut model's paths
+    are the full one's first), upcast: the kernel route's log-likelihood
+    (``categorical_logits_sum``, counted) against the per-site
+    evaluator's plain categorical (rtol 1e-4), logjoint = logprior +
+    loglikelihood (rtol 1e-5). The bf16 gate: the same two routes at full
+    depth (``MOE_SCORE_BF16_TOL``). Then the timed bf16 evaluations,
+    counted: one ``categorical_logits_sum`` a log-likelihood evaluation,
+    and the prior's launches apart."""
+    import dataclasses
+
+    from repro_torch.core.contexts import LikelihoodContext, PriorContext
+    from repro_torch.models import bayes_lm
+    from repro_torch.nn import lm
+
+    arch, nseq, ntok = MOE_SCORE
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (nseq, ntok), generator=gen,
+                           device=DEVICE)
+    labels = torch.randint(0, cfg.vocab, (nseq, ntok), generator=gen,
+                           device=DEVICE)
+    lik = LikelihoodContext()
+    out = {"arch": arch, "layers": cfg.n_layers, "tokens": [nseq, ntok],
+           "params": lm.count_params(params)}
+    with torch.no_grad():
+        cut = dataclasses.replace(cfg, n_layers=MOE_GATE_DEPTH[arch])
+        p32 = lm.tree_map(lambda t: t.float(),
+                          lm.init_params(cut, seed=0, device=DEVICE))
+        c32 = dataclasses.replace(cut, dtype=torch.float32)
+        m = bayes_lm.make_lm_model(c32)(tokens=tokens, labels=labels,
+                                        params=p32)
+        lm_reset(mods)
+        ll = float(m.logp_with_context({}, lik))
+        out["f32_launches"] = lm_counts(mods)
+        ll_plain = float(m.logp_with_context({}, lik, backend="reference"))
+        out["f32_plain_launches"] = lm_counts(mods)
+        lp = float(m.logp_with_context({}, PriorContext()))
+        lj = float(m.logjoint({}))
+        del m, p32
+        torch.cuda.empty_cache()
+    out.update(gate_layers=cut.n_layers, loglik_f32=ll,
+               loglik_plain_f32=ll_plain, logprior_f32=lp, logjoint_f32=lj,
+               kernel_vs_plain_rel=abs(ll - ll_plain) / abs(ll_plain),
+               joint_vs_parts_rel=abs(lj - (lp + ll)) / abs(lj))
+    check(all(math.isfinite(x) for x in (ll, lp, lj, ll_plain)),
+          f"{arch}: non-finite densities {out}")
+    check(out["kernel_vs_plain_rel"] <= 1e-4,
+          f"{arch}: log-likelihood with the kernel {ll} vs the plain "
+          f"categorical {ll_plain} (rel {out['kernel_vs_plain_rel']:.2e} > "
+          "1e-4)")
+    check(out["joint_vs_parts_rel"] <= 1e-5,
+          f"{arch}: logjoint {lj} != logprior + loglikelihood {lp + ll}")
+    want32 = {**dict.fromkeys(out["f32_launches"], 0),
+              "categorical_logits_sum": 1}
+    check(out["f32_launches"] == want32 and out["f32_plain_launches"]
+          == want32, f"{arch} float32 scoring: launches "
+          f"{out['f32_launches']}, then {out['f32_plain_launches']} after "
+          f"the plain route, expected {want32} for both")
+
+    with torch.no_grad():
+        m = bayes_lm.make_lm_model(cfg)(tokens=tokens, labels=labels,
+                                        params=params)
+        ll_k16 = float(m.logp_with_context({}, lik))
+        ll_p16 = float(m.logp_with_context({}, lik, backend="reference"))
+        out.update(loglik_bf16_kernel=ll_k16, loglik_bf16_plain=ll_p16,
+                   bf16_kernel_vs_plain_rel=abs(ll_k16 - ll_p16)
+                   / abs(ll_p16))
+        check(math.isfinite(ll_k16) and math.isfinite(ll_p16)
+              and out["bf16_kernel_vs_plain_rel"] <= MOE_SCORE_BF16_TOL,
+              f"{arch}: bf16 log-likelihood through categorical_logits_sum "
+              f"{ll_k16} vs the plain categorical {ll_p16} (rel "
+              f"{out['bf16_kernel_vs_plain_rel']:.2e} > "
+              f"{MOE_SCORE_BF16_TOL})")
+        torch.cuda.synchronize()
+        lm_reset(mods)
+        lp16 = m.logp_with_context({}, PriorContext())
+        torch.cuda.synchronize()
+        out["prior_launches"] = lm_counts(mods)
+        torch.cuda.reset_peak_memory_stats()
+        lm_reset(mods)
+        t0 = time.perf_counter()
+        ll16 = m.logp_with_context({}, lik)
+        lj16 = m.logjoint({})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["launches"] = lm_counts(mods)
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / (1 << 20)
+    want = {**dict.fromkeys(out["launches"], 0),
+            "categorical_logits_sum": 2}
+    check(out["launches"] == want, f"{arch} scoring: launches "
+          f"{out['launches']}, expected {want} (one a log-likelihood "
+          "evaluation, of 8,192 x 102,400 logits)")
+    out.update(logprior_bf16=float(lp16), loglik_bf16=float(ll16),
+               logjoint_bf16=float(lj16), ms_per_evaluation=secs * 1e3 / 2,
+               tokens_per_s=2 * nseq * ntok / secs)
+    check(all(math.isfinite(out[k]) for k in ("logprior_bf16", "loglik_bf16",
+                                              "logjoint_bf16")),
+          f"{arch}: non-finite bf16 densities")
+    log(f"{arch} scoring ({cfg.n_layers} layers, {out['params'] / 1e9:.3f} B "
+        f"parameters, {nseq} x {ntok} tokens, vocabulary {cfg.vocab}): "
+        f"float32 at {cut.n_layers} layers, log-likelihood {ll:.3f} with "
+        f"the kernel, {ll_plain:.3f} plain (rel "
+        f"{out['kernel_vs_plain_rel']:.2e}), logjoint - (logprior + "
+        f"loglikelihood) rel {out['joint_vs_parts_rel']:.2e}; bf16 "
+        f"{ll_k16:.3f} with the kernel, {ll_p16:.3f} plain (rel "
+        f"{out['bf16_kernel_vs_plain_rel']:.2e}, limit "
+        f"{MOE_SCORE_BF16_TOL}); {out['ms_per_evaluation']:.2f} ms per "
+        f"evaluation ({out['tokens_per_s']:.0f} tokens/s), peak "
+        f"{out['peak_mib']:.0f} MiB; launches {out['launches']}, the "
+        f"prior's {out['prior_launches']}")
+    return out
+
+
+def ep_rank(rank, world_size):
+    """One rank of phase 6i's expert-parallel world: granite-moe at full
+    width, cut depth, float32; ``forward_train`` with ``moe_impl="ep"`` on
+    each of ``EP_MESHES`` against the one-process ``moe_ffn`` forward at the
+    same capacity, with the collectives counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.nn import lm
+    from repro_torch.sharding import DEFAULT_RULES, Mesh, use_rules, world
+
+    arch, depth, nseq, ntok = EP_RUN
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=depth,
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (nseq, ntok), device=DEVICE,
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(3))
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "moe_layers": depth - (cfg.first_dense if cfg.moe else 0)}
+    for (data, model), factor in EP_MESHES:
+        c = cfg if factor is None else dataclasses.replace(
+            cfg, capacity_factor=float(cfg.n_experts / cfg.top_k))
+        rules = DEFAULT_RULES.with_mesh(Mesh(
+            np.arange(world_size).reshape(data, model), ("data", "model")))
+        with torch.no_grad():
+            want = lm.forward_train(c, params, tokens)
+            _sync(torch)
+            world.reset_collective_counts()
+            t0 = time.perf_counter()
+            with use_rules(rules):
+                got = lm.forward_train(dataclasses.replace(c, moe_impl="ep"),
+                                       params, tokens)
+            _sync(torch)
+        out[f"{data}x{model}"] = {
+            "capacity_factor": c.capacity_factor,
+            "err": rel_err(got, want),
+            "err_elementwise": float(((got - want).abs()
+                                      - EP_TOL * want.abs()).max()),
+            "finite": bool(torch.isfinite(got).all()),
+            "shape": tuple(got.shape), "collectives": dict(world.COLLECTIVES),
+            "seconds": time.perf_counter() - t0}
+    return out
+
+
+def ep_phase(torch):
+    """Expert parallelism over ``EP_WORLD`` ranks spawned on the one card
+    (gloo over CUDA tensors; a time limit kills every rank and fails the
+    phase): each mesh's forward equal to moe_ffn's within ``EP_TOL`` of
+    the largest logit (``rel_err``: the ranks' partial sums add a
+    token's k pairs in another order, and float32's error in a logit
+    scales with the largest, up to about 150 here; each logit's reading
+    at rtol and atol ``EP_TOL`` reported), on every rank, with exactly
+    one all-reduce over the expert axis a MoE layer (and one all-gather
+    over the data axis a MoE layer where it has two ranks). A correctness
+    check, not a speed figure: four processes time-share one card."""
+    from repro_torch.sharding import spawn_world
+
+    t0 = time.perf_counter()
+    ranks = spawn_world(ep_rank, EP_WORLD, device=DEVICE,
+                        timeout_s=EP_TIMEOUT_S)
+    out = {"world_s": time.perf_counter() - t0, "ranks": ranks}
+    arch, depth, nseq, ntok = EP_RUN
+    for (data, model), factor in EP_MESHES:
+        key = f"{data}x{model}"
+        layers = ranks[0]["moe_layers"]
+        want = {"model": layers, **({"data": layers} if data > 1 else {})}
+        for r in ranks:
+            case = r[key]
+            check(case["finite"] and case["err"] <= EP_TOL,
+                  f"EP {key} rank {r['rank']}: forward differs from moe_ffn "
+                  f"beyond {EP_TOL} ({case['err']:.3e})")
+            check(case["collectives"] == want,
+                  f"EP {key} rank {r['rank']}: collectives "
+                  f"{case['collectives']}, expected {want}")
+        log(f"EP {arch} ({depth} layers, float32, {nseq} x {ntok} tokens) on "
+            f"a data {data} x model {model} mesh of {EP_WORLD} ranks "
+            f"({r['backend']}), capacity factor {case['capacity_factor']:g}: "
+            f"forward within {EP_TOL} of moe_ffn's largest logit on every "
+            f"rank (worst {max(r[key]['err'] for r in ranks):.2e}; each "
+            f"logit at rtol and atol {EP_TOL}: "
+            f"{max(r[key]['err_elementwise'] for r in ranks):.2e}), "
+            f"collectives a rank {want}")
+    return out
+
+
+def moe_phase(torch, np, mods):
+    """Phase 6i: the two MoE architectures' serving paths (deepseek's MLA
+    launches no flash kernel: zero launches), deepseek's scoring on the
+    served weights, then expert parallelism."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    for arch, shape in MOE_SERVE.items():
+        out[f"{arch}_serving"], (cfg, params, _) = lm_serve_path(
+            torch, arch, mods, shape, MOE_GATE_DEPTH[arch])
+        if arch == MOE_SCORE[0]:
+            out[f"{arch}_scoring"] = moe_score_path(torch, mods, cfg,
+                                                    params)
+        del params
+        torch.cuda.empty_cache()
+    out["ep"] = ep_phase(torch)
+    out["seconds"] = time.perf_counter() - t0
+    runs = [v for k, v in out.items() if k.endswith(("_serving",
+                                                     "_scoring"))]
+    out["launches"] = ([r["launches"] for r in runs]
+                       + [r.get("f32_launches", {}) for r in runs])
+    log(f"phase 6i done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7 (continued): the LM kernels' times, profiles of the LM paths
 # ---------------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak (NVIDIA data sheet)
@@ -5182,7 +5533,10 @@ PER_CALL_ROWS = ("flash_fwd", "flash_fwd_tc", "flash_decode",
 FLASH_TIMED = (("smollm_prefill", "bfloat16"), ("smollm_decode", "bfloat16"),
                ("gemma2_prefill_local", "bfloat16"),
                ("gemma2_decode_local", "bfloat16"),
-               ("smollm_prefill", "float32"))
+               ("smollm_prefill", "float32"),
+               ("granite_moe_prefill", "bfloat16"),
+               ("granite_moe_decode", "bfloat16"),
+               ("granite_moe_prefill", "float32"))
 
 
 def read_bytes(t) -> int:
@@ -5658,6 +6012,9 @@ def main() -> int:
     # phase 6h: Bayesian-LM training
     train_out = train_phase(torch, np, lm_mods)
     memory["6h"] = memory_line(torch, "phase 6h")
+    # phase 6i: MoE and MLA
+    moe_out = moe_phase(torch, np, lm_mods)
+    memory["6i"] = memory_line(torch, "phase 6i")
     log(f"phases 4-6 done at {time.perf_counter() - t_start:.1f} s")
 
     # phase 7
@@ -5717,7 +6074,7 @@ def main() -> int:
                + [r.get("f32_launches", {}) for r in lm_runs.values()]
                + [query_out["chain_launches"]] + query_out["launches"]
                + driver_out["launches"] + mesh_out["launches"]
-               + train_out["launches"])
+               + train_out["launches"] + moe_out["launches"])
     for name in SOURCES:
         # one row per call for the kernels this slice redesigned; for the
         # others the row of the main path's widest call
@@ -5758,6 +6115,7 @@ def main() -> int:
               "phase_6c_s": phase_6c_s, "conditional": conditional,
               "phase_6d_s": phase_6d_s, "queries": query_out,
               "driver": driver_out, "mesh": mesh_out, "training": train_out,
+              "moe": moe_out,
               "memory": memory,
               "lm_runs": lm_runs, "checks": checks,
               "timings": timings, "launch_floor": floor,

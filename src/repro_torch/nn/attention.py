@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA (+ sliding window, softcap) and cross attention.
+"""Attention: GQA/MQA (+ sliding window, softcap), DeepSeek-V2's
+multi-head latent attention (MLA) and cross attention.
 
 All functions are pure in their parameters: ``params`` is a dict of
 tensors and shapes are (batch, seq, ...). Causal masking is position-based
@@ -12,7 +13,11 @@ donates its cache: the dict returned as the new cache holds the same
 ``k`` and ``v`` tensors as the one passed in. The write offset
 ``cache["pos"]`` stays on the device: no call reads it back to the host.
 
-MLA (DeepSeek-V2's latent attention) waits for ROADMAP Queue 1 item 9.
+MLA caches the compressed latent ``c_kv`` and the rotary key ``k_rope``
+and decompresses every head's keys and values from the whole cache at each
+call, as the JAX package does; its scores and softmax are plain PyTorch in
+float32 on either route (the JAX package's ``impl`` is accepted and
+unused there too, so no flash kernel runs on an MLA layer).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from repro_torch.nn.common import Initializer, apply_rope, rope, softcap
 
 __all__ = ["init_gqa_params", "gqa_attention", "init_cross_params",
            "cross_attention", "encode_memory_kv", "make_kv_cache",
-           "attention_core"]
+           "attention_core", "init_mla_params", "make_mla_cache",
+           "mla_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +179,101 @@ def gqa_attention(params, x, *, positions, cache: Optional[Dict] = None,
                          window=window, cap=cap, impl=impl, kv_mask=kv_mask)
     out = out.reshape(B, S, n_heads * head_dim)
     y = out @ params["wo"].reshape(n_heads * head_dim, -1)
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention (compressed KV cache)
+# ---------------------------------------------------------------------------
+def init_mla_params(init: Initializer, path: str, d_model: int, n_heads: int,
+                    kv_lora: int, qk_nope: int, qk_rope: int,
+                    v_head: int) -> Dict[str, Any]:
+    return {
+        "wq": init.dense(f"{path}/wq", (d_model, n_heads, qk_nope + qk_rope)),
+        "w_dkv": init.dense(f"{path}/w_dkv", (d_model, kv_lora)),
+        "w_krope": init.dense(f"{path}/w_krope", (d_model, qk_rope)),
+        "w_uk": init.dense(f"{path}/w_uk", (kv_lora, n_heads, qk_nope),
+                           fan_in=kv_lora),
+        "w_uv": init.dense(f"{path}/w_uv", (kv_lora, n_heads, v_head),
+                           fan_in=kv_lora),
+        "wo": init.dense(f"{path}/wo", (n_heads, v_head, d_model),
+                         fan_in=n_heads * v_head),
+    }
+
+
+def make_mla_cache(batch: int, max_len: int, kv_lora: int, qk_rope: int,
+                   dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """MLA caches the COMPRESSED latent and the rotary key: kv_lora +
+    qk_rope values a token (576 at deepseek) where GQA keeps heads x
+    head_dim x 2."""
+    return {
+        "c_kv": torch.zeros((batch, max_len, kv_lora), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, qk_rope), dtype=dtype,
+                              device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_attention(params, x, *, positions, cache: Optional[Dict] = None,
+                  rope_base: float = 10000.0,
+                  impl: str = "xla") -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B,S,D). With a cache, writes the S new latents and rotary keys
+    at ``cache["pos"][0]`` (one offset for every row, clamped so that the
+    S rows fit, as ``dynamic_update_slice`` clamps it) and attends over the
+    cache. ``impl`` is accepted and unused, as in the JAX package."""
+    B, S, _ = x.shape
+    n_heads = params["wq"].shape[1]
+    qk_rope = params["w_krope"].shape[1]
+    qk_nope = params["wq"].shape[2] - qk_rope
+    v_head = params["w_uv"].shape[2]
+
+    q = _proj(x, params["wq"])
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    c_kv = x @ params["w_dkv"]
+    k_rope_new = x @ params["w_krope"]
+
+    cos, sin = rope(positions, qk_rope, rope_base)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope_new = apply_rope(k_rope_new[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is not None:
+        c_full, r_full = cache["c_kv"], cache["k_rope"]
+        T = c_full.shape[1]
+        start = torch.clamp(cache["pos"][0], 0, T - S)  # on the device
+        new_idx = start + torch.arange(S, dtype=torch.int64, device=x.device)
+        c_full.index_copy_(1, new_idx, c_kv)
+        r_full.index_copy_(1, new_idx, k_rope_new)
+        new_cache = {"c_kv": c_full, "k_rope": r_full,
+                     "pos": cache["pos"] + S}
+        kv_positions = torch.arange(T, dtype=torch.int32,
+                                    device=x.device)[None].expand(B, T)
+        kv_mask = kv_positions < (cache["pos"][:, None] + S)
+    else:
+        new_cache = None
+        c_full, r_full = c_kv, k_rope_new
+        kv_positions = positions
+        kv_mask = None
+
+    # decompress every head's K and V from the latent
+    k_nope = _proj(c_full, params["w_uk"])
+    v = _proj(c_full, params["w_uv"])
+
+    # float32 scores, as preferred_element_type=float32 gives them
+    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             r_full.float())) * scale
+    dq = positions[:, None, :, None]
+    dk = kv_positions[:, None, None, :]
+    mask = dk <= dq
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :]
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", probs, v)
+    y = out.reshape(B, S, n_heads * v_head) @ params["wo"].reshape(
+        n_heads * v_head, -1)
     return y, new_cache
 
 

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm", "rope", "apply_rope", "softcap", "swiglu", "geglu",
-           "relu2_mlp", "Initializer"]
+           "relu2_mlp", "Initializer", "f32_product"]
 
 
 class Initializer:
@@ -137,3 +137,42 @@ def relu2_mlp(x, w_up, w_down):
     """Squared-ReLU MLP (Nemotron/Minitron style, non-gated)."""
     h = torch.relu((x @ w_up).float())
     return (h * h).to(x.dtype) @ w_down
+
+
+class _LowPrecisionProduct(torch.autograd.Function):
+    """x2 (N, D) @ table (V, D)^T in bf16 with a float32 result (cuBLAS's
+    bf16 product, float32 accumulation and output: ``torch.mm``'s
+    ``out_dtype``, which autograd does not differentiate). Backward: the
+    float32 cotangent rounded to bf16 for the two products, each
+    accumulated in float32 and rounded once to its operand's type (the
+    bf16 passes a TPU's default precision runs; Queue 3 B5)."""
+
+    @staticmethod
+    def forward(x2, table):
+        return torch.mm(x2, table.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
+        dt = torch.mm(g.T, x2) if ctx.needs_input_grad[1] else None
+        return dx, dt
+
+
+def f32_product(x, table):
+    """x (B,S,D) @ table (V,D)^T with a float32 result, as the JAX
+    package's ``preferred_element_type=float32``: float32 (and float64)
+    operands as they are; bf16 operands through cuBLAS's bf16 product with
+    float32 output on the card (``_LowPrecisionProduct``), or upcast on
+    the CPU."""
+    if x.dtype in (torch.float32, torch.float64):
+        return x @ table.T
+    if x.is_cuda:
+        out = _LowPrecisionProduct.apply(x.reshape(-1, x.shape[-1]), table)
+        return out.reshape(*x.shape[:-1], table.shape[0])
+    return x.float() @ table.float().T

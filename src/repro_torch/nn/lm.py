@@ -5,10 +5,13 @@ PATTERN of typed blocks, as in ``repro.nn.lm``:
 
   "global" — full-attention block (+MLP)
   "local"  — sliding-window attention (+MLP), a ring-buffer cache
+  "mla"    — DeepSeek-V2 multi-head latent attention (+MLP or MoE)
   "ssd"    — Mamba-2 SSD mixer (mixer-only block)
 
-"mla", "rglru" and MoE blocks raise ``NotImplementedError`` until ROADMAP
-Queue 1 item 9 ports them. Parameters are dicts of tensors with the JAX
+Layers from ``first_dense`` on take a Mixture-of-Experts FFN in MoE
+configs (``repro_torch.nn.moe``; ``moe_impl`` picks the dispatch).
+"rglru" blocks (RG-LRU) raise ``NotImplementedError`` until ROADMAP Queue
+1 item 9b ports them. Parameters are dicts of tensors with the JAX
 pytree's structure, stacked per segment (``params["segments"][si][pi]``
 holds a leading axis of ``count`` when a segment repeats), so a JAX
 pytree carries across key for key (``repro_torch.convert``). PyTorch runs
@@ -33,15 +36,16 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.nn import attention as attn
 from repro_torch.nn import ssm as ssm_lib
-from repro_torch.nn.common import (Initializer, geglu, relu2_mlp, rms_norm,
-                                   softcap, swiglu)
+from repro_torch.nn import moe as moe_lib
+from repro_torch.nn.common import (Initializer, f32_product, geglu,
+                                   relu2_mlp, rms_norm, softcap, swiglu)
 
 __all__ = ["ArchConfig", "init_params", "forward_train", "init_cache",
            "prefill", "decode_step", "lm_loss", "build_segments",
            "encode", "count_params", "make_cross_kv", "tree_map",
            "tree_leaves"]
 
-_LATER = "ROADMAP Queue 1 item 9"
+_LATER = "ROADMAP Queue 1 item 9b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +66,7 @@ class ArchConfig:
     final_softcap: Optional[float] = None
     post_norm: bool = False         # gemma2-style post-block norms
     rope_base: float = 10000.0
-    # MoE (not ported yet)
+    # MoE
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
@@ -71,8 +75,8 @@ class ArchConfig:
     first_dense: int = 0
     dense_ff: Optional[int] = None
     capacity_factor: float = 1.25
-    moe_impl: str = "gspmd"         # gspmd | ep (accepted; MoE is not ported)
-    # MLA (not ported yet)
+    moe_impl: str = "gspmd"         # gspmd (moe_ffn) | ep (moe_ffn_ep)
+    # MLA
     mla: bool = False
     kv_lora: int = 512
     qk_nope: int = 128
@@ -190,7 +194,11 @@ def _init_block(init: Initializer, path: str, cfg: ArchConfig, btype: str,
             init, f"{path}/ssd", d, cfg.d_inner, cfg.d_state,
             cfg.ssm_head_dim, n_groups=cfg.n_groups)
         return p  # mamba2 block has no separate MLP
-    elif btype in ("mla", "rglru"):
+    elif btype == "mla":
+        p["attn"] = attn.init_mla_params(init, f"{path}/mla", d, cfg.n_heads,
+                                         cfg.kv_lora, cfg.qk_nope,
+                                         cfg.qk_rope, cfg.v_head)
+    elif btype == "rglru":
         raise NotImplementedError(f"'{btype}' blocks are not ported yet "
                                   f"({_LATER})")
     else:
@@ -200,9 +208,12 @@ def _init_block(init: Initializer, path: str, cfg: ArchConfig, btype: str,
     if cfg.post_norm:
         p["post_ln2"] = init.zeros(f"{path}/post_ln2", (d,))
     if cfg.layer_uses_moe(layer_idx):
-        raise NotImplementedError(f"MoE layers are not ported yet ({_LATER})")
-    d_ff = cfg.dense_ff if (cfg.moe and cfg.dense_ff) else cfg.d_ff
-    p["mlp"] = _init_mlp(init, f"{path}/mlp", cfg, d_ff)
+        p["moe"] = moe_lib.init_moe_params(
+            init, f"{path}/moe", d, cfg.d_ff, cfg.n_experts,
+            n_shared=cfg.n_shared, d_shared=cfg.d_shared)
+    else:
+        d_ff = cfg.dense_ff if (cfg.moe and cfg.dense_ff) else cfg.d_ff
+        p["mlp"] = _init_mlp(init, f"{path}/mlp", cfg, d_ff)
     return p
 
 
@@ -227,13 +238,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
                     init, f"seg{si}/p{pi}", cfg, btype,
                     seg.start_layer + pi))
             else:
-                stacked = [
-                    _init_block(init, f"seg{si}/b{c}/p{pi}", cfg, btype,
-                                seg.start_layer + c * len(seg.pattern) + pi)
-                    for c in range(seg.count)
-                ]
-                pos_params.append(tree_map(lambda *xs: torch.stack(xs),
-                                           *stacked))
+                # each block written into its slice of the stacked leaves
+                # as it is made: the peak is the stack and one block
+                stacked = None
+                for c in range(seg.count):
+                    blk = _init_block(
+                        init, f"seg{si}/b{c}/p{pi}", cfg, btype,
+                        seg.start_layer + c * len(seg.pattern) + pi)
+                    if stacked is None:
+                        stacked = tree_map(lambda x: x.new_empty(
+                            (seg.count,) + tuple(x.shape)), blk)
+                    tree_map(lambda dst, x, c=c: dst[c].copy_(x), stacked,
+                             blk)
+                pos_params.append(stacked)
         seg_params.append(pos_params)
     params["segments"] = seg_params
 
@@ -259,6 +276,10 @@ def count_params(params) -> int:
 # block application (shared by train / prefill / decode paths)
 # ---------------------------------------------------------------------------
 def _mlp_apply(cfg: ArchConfig, p: Dict, x):
+    if "moe" in p:
+        fn = moe_lib.moe_ffn_ep if cfg.moe_impl == "ep" else moe_lib.moe_ffn
+        return fn(p["moe"], x, top_k=cfg.top_k,
+                  capacity_factor=cfg.capacity_factor)
     m = p["mlp"]
     if cfg.mlp_type == "relu2":
         return relu2_mlp(x, m["w_up"], m["w_down"])
@@ -282,6 +303,10 @@ def _apply_block(cfg: ArchConfig, btype: str, p: Dict, x, *, positions,
             p["attn"], h, positions=positions, cache=cache, causal=True,
             window=window, cap=cfg.attn_softcap, rope_base=cfg.rope_base,
             ring=ring, impl=cfg.attn_impl)
+    elif btype == "mla":
+        out, new_cache = attn.mla_attention(
+            p["attn"], h, positions=positions, cache=cache,
+            rope_base=cfg.rope_base, impl=cfg.attn_impl)
     elif btype == "ssd":
         kw = dict(d_inner=cfg.d_inner, d_state=cfg.d_state,
                   head_dim=cfg.ssm_head_dim, n_groups=cfg.n_groups)
@@ -336,7 +361,10 @@ def _block_cache(cfg: ArchConfig, btype: str, batch: int, max_len: int,
         return ssm_lib.make_mamba2_cache(batch, cfg.d_inner, cfg.d_state,
                                          cfg.ssm_head_dim, cfg.n_groups,
                                          dtype=cfg.dtype, device=device)
-    if btype in ("mla", "rglru"):
+    if btype == "mla":
+        return attn.make_mla_cache(batch, max_len, cfg.kv_lora, cfg.qk_rope,
+                                   cfg.dtype, device)
+    if btype == "rglru":
         raise NotImplementedError(f"'{btype}' caches are not ported yet "
                                   f"({_LATER})")
     raise ValueError(btype)
@@ -464,47 +492,9 @@ def _embed(cfg: ArchConfig, params, tokens):
     return x
 
 
-class _LowPrecisionLogits(torch.autograd.Function):
-    """x2 (N, D) @ table (V, D)^T in bf16 with a float32 result (cuBLAS's
-    bf16 product, float32 accumulation and output: ``torch.mm``'s
-    ``out_dtype``, which autograd does not differentiate). Backward: the
-    float32 cotangent rounded to bf16 for the two products, each
-    accumulated in float32 and rounded once to its operand's type (the
-    bf16 passes a TPU's default precision runs; Queue 3 B5)."""
-
-    @staticmethod
-    def forward(x2, table):
-        return torch.mm(x2, table.T, out_dtype=torch.float32)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, table = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        dx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
-        dt = torch.mm(g.T, x2) if ctx.needs_input_grad[1] else None
-        return dx, dt
-
-
-def _logits_matmul(x, table):
-    """x (B,S,D) @ table (V,D)^T with a float32 result, as the JAX
-    package's ``preferred_element_type=float32``: float32 operands as they
-    are; bf16 operands through cuBLAS's bf16 product with float32 output
-    on the card (``_LowPrecisionLogits``), or upcast on the CPU."""
-    if x.dtype == torch.float32:
-        return x @ table.T
-    if x.is_cuda:
-        out = _LowPrecisionLogits.apply(x.reshape(-1, x.shape[-1]), table)
-        return out.reshape(*x.shape[:-1], table.shape[0])
-    return x.float() @ table.float().T
-
-
 def _logits(cfg: ArchConfig, params, x):
     x = rms_norm(x, params["final_norm"])
-    logits = _logits_matmul(x, params["embed_table"])
+    logits = f32_product(x, params["embed_table"])
     return softcap(logits, cfg.final_softcap)
 
 

@@ -107,32 +107,43 @@ class Mesh:
                              f"{self.devices.tolist()}")
         return tuple(int(i) for i in hits[0])
 
-    def axis_ranks(self, axis: Optional[str],
-                   rank: Optional[int] = None) -> Tuple[int, ...]:
-        """The ranks along ``axis`` through ``rank``, in axis order (every
-        rank of the mesh for ``axis=None``)."""
+    def axis_ranks(self, axis, rank: Optional[int] = None
+                   ) -> Tuple[int, ...]:
+        """The ranks along ``axis`` through ``rank``, in axis order: one
+        axis name, or a tuple of names for the sub-grid they span, numbered
+        as ``jax.lax.axis_index`` numbers it (the first name's axis the
+        slowest); every rank of the mesh for ``axis=None``."""
         if axis is None:
             return tuple(int(r) for r in self.devices.reshape(-1))
-        pos = list(self.coords(rank))
-        i = self.axis_names.index(axis)
-        pos[i] = slice(None)
-        return tuple(int(r) for r in self.devices[tuple(pos)])
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        pos = self.coords(rank)
+        rest = [i for i, n in enumerate(self.axis_names) if n not in names]
+        grid = np.transpose(self.devices, rest + [
+            self.axis_names.index(n) for n in names])
+        return tuple(int(r) for r in
+                     grid[tuple(pos[i] for i in rest)].reshape(-1))
 
-    def group(self, axis: Optional[str] = None):
-        """This rank's process group along ``axis`` (the whole mesh for
-        ``None``); ``None`` for a single rank, which needs no collective."""
+    def group(self, axis=None):
+        """This rank's process group along ``axis`` (a name, a tuple of
+        names, or the whole mesh for ``None``); ``None`` for a single rank,
+        which needs no collective. The groups of every single axis and of
+        the whole mesh are made at the first call; a tuple's at its own."""
         if self._groups is None:
             if not _dist().is_initialized():
                 raise RuntimeError(
                     "a mesh of several ranks runs in a torch.distributed "
                     "world: call repro_torch.sharding.init_world (or "
                     "torch.distributed.init_process_group) on every rank")
-            groups = {}
+            self._groups = {}
             for name in self.axis_names + (None,):
-                ranks = self.axis_ranks(name)
-                groups[name] = _group_of(ranks) if len(ranks) > 1 else None
-            self._groups = groups
+                self._groups[name] = self._group_over(name)
+        if axis not in self._groups:
+            self._groups[axis] = self._group_over(axis)
         return self._groups[axis]
+
+    def _group_over(self, axis):
+        ranks = self.axis_ranks(axis)
+        return _group_of(ranks) if len(ranks) > 1 else None
 
     def __repr__(self):
         return f"Mesh({self.shape}, ranks={self.devices.tolist()})"

@@ -42,12 +42,9 @@ class _Recorder(TorchDispatchMode):
                     and torch.is_tensor(val) and id(val) not in self.saved):
                 self.saved[id(val)] = (val, val.clone())
         out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
+        outs = (out,) if torch.is_tensor(out) else tree_flatten(out)[0]
+        self.ops.append((func, args, kwargs, outs))
         return out
-
-
-def _storage(t):
-    return t.untyped_storage().data_ptr()
 
 
 class FakeGraph:
@@ -68,13 +65,14 @@ class FakeGraph:
             self._run()
 
     def _run(self):
-        for func, args, kwargs, out in self.ops:
+        for func, args, kwargs, outs in self.ops:
             res = func(*args, **kwargs)
-            outs, _ = tree_flatten(out)
-            ress, _ = tree_flatten(res)
+            ress = (res,) if torch.is_tensor(res) else tree_flatten(res)[0]
             for o, r in zip(outs, ress):
+                # a result the op wrote in place, or a view of a recorded
+                # tensor, starts where the recorded one does: no copy
                 if torch.is_tensor(o) and torch.is_tensor(r) \
-                        and _storage(o) != _storage(r):
+                        and o.data_ptr() != r.data_ptr():
                     o.copy_(r)
 
 

@@ -6,7 +6,10 @@ torch and the port.
 
 The mesh is the world's 4 ranks: ``ShardedRun.plan()`` lays them out 4 x 1
 (chains only); ``plan(data_shards=2)`` 2 x 2, whose data groups are ranks
-{0, 1} and {2, 3}; ``plan(data_shards=4)`` 1 x 4.
+{0, 1} and {2, 3}; ``plan(data_shards=4)`` 1 x 4. NUTS and the
+expert-parallel cases (``moe_ep``: ``tests/test_moe_ep.py``'s contracts
+for ``moe_ffn_ep``) run on meshes of half the world: ranks {0, 1} and
+{2, 3} each run one.
 """
 import os
 
@@ -246,6 +249,123 @@ def nuts(rank):
             "collectives": world.COLLECTIVES.get("data", 0) - c0}
 
 
+# the expert-parallel cases: x (2, 16, 32), 8 experts of 64, top-2, one
+# shared expert of 64
+MOE = dict(d_model=32, n_experts=8, top_k=2, d_expert=64, d_shared=64)
+
+
+def moe_case():
+    """``moe_ffn``'s weights (seeded by path, float32), x and the cotangent
+    w of ``sum(y * w)``, as NumPy: the same on every rank and in the test
+    that holds them against the JAX package."""
+    from repro_torch.nn import moe
+    from repro_torch.nn.common import Initializer
+
+    init = Initializer(0, torch.float32, "cpu")
+    params = moe.init_moe_params(init, "m", MOE["d_model"], MOE["d_expert"],
+                                 MOE["n_experts"], n_shared=1,
+                                 d_shared=MOE["d_shared"])
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 16, MOE["d_model"])).astype(np.float32)
+    w = rng.standard_normal((2, 16, MOE["d_model"])).astype(np.float32)
+    return as_numpy(params), x, w
+
+
+def moe_drops(params, x, factor):
+    """(Token, choice) pairs the capacity drops in ``moe_case``, counted in
+    NumPy."""
+    k, n_experts = MOE["top_k"], MOE["n_experts"]
+    logits = x.reshape(-1, x.shape[-1]) @ params["router"]
+    top = np.argsort(-logits, axis=-1, kind="stable")[:, :k].reshape(-1)
+    cap = int(np.ceil(top.size / n_experts * factor))
+    counts = np.bincount(top, minlength=n_experts)
+    return int(np.maximum(counts - cap, 0).sum())
+
+
+def as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: as_numpy(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def as_leaf_tensors(tree):
+    """Each NumPy leaf as a new tensor that requires grad."""
+    if isinstance(tree, dict):
+        return {k: as_leaf_tensors(v) for k, v in tree.items()}
+    return torch.as_tensor(tree).clone().requires_grad_(True)
+
+
+def moe_leaves(tree):
+    """Leaves in sorted-key order, as ``jax.tree_util`` flattens a dict."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in moe_leaves(tree[k])]
+    return [tree]
+
+
+def _value_and_grads(fn, rules, **kw):
+    from repro_torch.sharding import use_rules
+
+    params_np, x_np, w_np = moe_case()
+    params, x = as_leaf_tensors(params_np), as_leaf_tensors(x_np)
+    with use_rules(rules):
+        y = fn(params, x, **kw)
+    grads = torch.autograd.grad((y * torch.as_tensor(w_np)).sum(),
+                                moe_leaves(params) + [x])
+    return y.detach().numpy(), [g.numpy() for g in grads]
+
+
+def moe_ep(rank):
+    """``moe_ffn_ep`` on a data 1 x model 2 mesh (the default capacity,
+    drops included) and a data 2 x model 1 mesh (capacity E / k), each
+    beside the one-process ``moe_ffn`` on the same inputs, with the
+    gradients of ``sum(y * w)`` and the collectives counted; then
+    deepseek's smoke config with ``moe_impl="ep"`` on the 1 x 2 mesh
+    beside its gspmd dispatch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.nn import lm, moe
+    from repro_torch.sharding import DEFAULT_RULES, Mesh, use_rules, world
+
+    pair = np.array([0, 1] if rank < 2 else [2, 3])
+    meshes = {"1x2": (pair.reshape(1, 2), 1.25),
+              "2x1": (pair.reshape(2, 1), MOE["n_experts"] / MOE["top_k"])}
+
+    def counted(fn):
+        c0 = dict(world.COLLECTIVES)
+        out = fn()
+        return out, {k: v - c0.get(k, 0) for k, v in world.COLLECTIVES.items()
+                     if v != c0.get(k, 0)}
+
+    out = {"pair": pair.tolist()}
+    for label, (grid, factor) in meshes.items():
+        rules = DEFAULT_RULES.with_mesh(Mesh(grid, ("data", "model")))
+        kw = dict(top_k=MOE["top_k"], capacity_factor=factor)
+        (y_ep, g_ep), counts = counted(
+            lambda: _value_and_grads(moe.moe_ffn_ep, rules, **kw))
+        y, g = _value_and_grads(moe.moe_ffn, None, **kw)
+        out[label] = {"y_ep": y_ep, "grads_ep": g_ep, "y": y, "grads": g,
+                      "collectives": counts}
+
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("deepseek-v2-lite-16b"), moe_impl="ep")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    rules = DEFAULT_RULES.with_mesh(Mesh(meshes["1x2"][0],
+                                         ("data", "model")))
+    with torch.no_grad():
+        with use_rules(rules):
+            ep, counts = counted(
+                lambda: lm.forward_train(cfg, params, tokens))
+        gspmd = lm.forward_train(dataclasses.replace(cfg, moe_impl="gspmd"),
+                                 params, tokens)
+    out["deepseek"] = {"ep": ep.numpy(), "gspmd": gspmd.numpy(),
+                       "collectives": counts,
+                       "moe_layers": cfg.n_layers - cfg.first_dense}
+    return out
+
+
 def run_world(rank, world_size, root, points):
     """Every case in turn, on every rank."""
     torch.set_num_threads(1)
@@ -259,4 +379,5 @@ def run_world(rank, world_size, root, points):
     out["errors"] = errors()
     out["dtensor"] = dtensor()
     out["nuts"] = nuts(rank)
+    out["moe_ep"] = moe_ep(rank)
     return out

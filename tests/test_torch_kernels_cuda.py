@@ -1449,27 +1449,27 @@ def test_cuda_flash_and_ssd_functions_under_torch_func_grad(cuda_device,
 
 @pytest.mark.cuda
 def test_cuda_bf16_logits_product_and_its_backward(cuda_device):
-    """The LM's bf16 logits on the card (``nn.lm._LowPrecisionLogits``): a
+    """The LM's bf16 logits on the card (``nn.common.f32_product``): a
     float32 result equal to the float32 product of the bf16 operands
     within float32 summation order, and a backward (the cotangent rounded
     to bf16, float32 accumulation, one rounding to bf16) within bf16's
     2^-8 of the float32 gradients' max, under autograd and torch.func."""
-    from repro_torch.nn import lm
+    from repro_torch.nn.common import f32_product
     gen = torch.Generator(device=cuda_device).manual_seed(22)
     x = torch.randn(2, 64, 96, generator=gen, device=cuda_device)
     table = torch.randn(1000, 96, generator=gen, device=cuda_device)
     xb, tb = x.bfloat16(), table.bfloat16()
     w = torch.randn(2, 64, 1000, generator=gen, device=cuda_device)
-    out = lm._logits_matmul(xb, tb)
+    out = f32_product(xb, tb)
     assert out.dtype == torch.float32
     assert _rel_err(out, xb.float() @ tb.float().T) < 1e-5
     ins = [t.clone().requires_grad_(True) for t in (xb, tb)]
-    got = torch.autograd.grad((lm._logits_matmul(*ins) * w).sum(), ins)
+    got = torch.autograd.grad((f32_product(*ins) * w).sum(), ins)
     ins = [t.float().requires_grad_(True) for t in (xb, tb)]
     want = torch.autograd.grad(((ins[0] @ ins[1].T) * w).sum(), ins)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and _rel_err(a, b) < 2 ** -8
-    fgot = torch.func.grad(lambda a, b: (lm._logits_matmul(a, b) * w).sum(),
+    fgot = torch.func.grad(lambda a, b: (f32_product(a, b) * w).sum(),
                            argnums=(0, 1))(xb, tb)
     for a, b in zip(fgot, got):
         assert torch.equal(a, b)

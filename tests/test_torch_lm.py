@@ -50,8 +50,10 @@ from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
 
 
 PORTED = ["smollm-360m", "minitron-4b", "granite-8b", "gemma2-27b",
-          "internvl2-26b", "seamless-m4t-large-v2", "mamba2-1.3b"]
-LATER = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m", "recurrentgemma-9b"]
+          "internvl2-26b", "seamless-m4t-large-v2", "mamba2-1.3b",
+          "deepseek-v2-lite-16b", "granite-moe-1b-a400m"]
+LATER = ["recurrentgemma-9b"]
+MOE = ["deepseek-v2-lite-16b", "granite-moe-1b-a400m"]
 
 
 def _close(got, want, rtol=1e-4, atol=1e-4):
@@ -226,7 +228,8 @@ def test_params_from_reference_takes_the_reference_init_tree(arch):
 # forward, prefill and decode against the JAX package
 # ---------------------------------------------------------------------------
 CASES = [(a, "xla") for a in PORTED] + [("gemma2-27b", "flash"),
-                                        ("mamba2-1.3b", "flash")]
+                                        ("mamba2-1.3b", "flash"),
+                                        ("granite-moe-1b-a400m", "flash")]
 
 
 @pytest.mark.parametrize("arch,impl", CASES)
@@ -253,7 +256,16 @@ def test_forward_prefill_decode_match_reference(arch, impl):
                             torch.as_tensor(pos), memory_kv=tm)
     _close(td, jd)
     # and the port's own prefill + decode against its forward (2e-3, as
-    # test_archs.py holds the JAX package)
+    # test_archs.py holds the JAX package); a MoE config at capacity E / k,
+    # as there: the default capacity drops most pairs at decode
+    if tcfg.moe:
+        tcfg = dataclasses.replace(tcfg, capacity_factor=float(
+            tcfg.n_experts / tcfg.top_k))
+        got = tlm.forward_train(tcfg, tp, torch.as_tensor(tokens))
+        tc = tlm.init_cache(tcfg, B, S, device="cpu")
+        _, tc = tlm.prefill(tcfg, tp, torch.as_tensor(tokens[:, :-1]), tc)
+        td, _ = tlm.decode_step(tcfg, tp, torch.as_tensor(tokens[:, -1:]),
+                                tc, torch.as_tensor(pos))
     _close(td[:, 0], got[:, -1], rtol=2e-3, atol=2e-3)
 
 
@@ -265,6 +277,37 @@ def test_lm_loss_matches_reference():
     got = float(tlm.lm_loss(tcfg, tp, torch.as_tensor(tokens),
                             torch.as_tensor(labels)))
     _close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_lm_loss_and_gradient_match_reference(arch):
+    """``lm_loss`` and its gradient in every leaf (router, experts, shared
+    experts, MLA's projections, the dense layer) against ``jax.grad``: the
+    value at rtol 1e-5, each leaf at 1e-5 of its largest entry."""
+    jcfg, jp, tcfg, tp = _pair(arch)
+    tokens, labels, _ = _inputs(jcfg, 2, 8)
+    want, jg = jax.jit(jax.value_and_grad(functools.partial(
+        jlm.lm_loss, jcfg)))(jp, jnp.asarray(tokens), jnp.asarray(labels))
+    leaves = [t.clone().requires_grad_(True) for t in tlm.tree_leaves(tp)]
+    it = iter(leaves)
+    params = tlm.tree_map(lambda _: next(it), tp)
+    got = tlm.lm_loss(tcfg, params, torch.as_tensor(tokens),
+                      torch.as_tensor(labels))
+    _close(float(got.detach()), float(want), rtol=1e-5, atol=0)
+    grads = torch.autograd.grad(got, leaves)
+    # the same leaves in the JAX package's order (dict keys sorted)
+    order = jax.tree_util.tree_leaves(_keyed(tp, grads))
+    for a, b in zip(order, jax.tree_util.tree_leaves(jg)):
+        b = np.asarray(b)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def _keyed(tree, grads):
+    """``tree``'s structure with ``grads`` (in ``tree_leaves`` order) at
+    its leaves, as NumPy."""
+    it = iter(grads)
+    return tlm.tree_map(lambda _: next(it).numpy(), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,13 @@
 contracts.
 
 One gloo world of 4 CPU ranks, spawned once for the module
-(``repro_torch.sharding.spawn_world``: a ``FileStore`` under pytest's
-temporary path, a time limit that kills every rank and fails), runs every mesh
+(``repro_torch.sharding.spawn_world``: a ``FileStore`` in a temporary
+directory, a time limit that kills every rank and fails), runs every mesh
 case of ``tests/_torch_dist.py`` (no JAX there); the tests below hold what
-each rank returned against the JAX package on the same NumPy data:
+each rank returned against the JAX package on the same NumPy data. The
+world is spawned from a thread when the module is imported, so its ranks
+run on other cores while pytest collects and runs the modules before this
+one; the ``ranks`` fixture waits for it.
 
 * the sharded density (2 and 4 data shards) against ``repro``'s UNSHARDED
   ``make_logdensity_fn`` at 1e-6 relative, and its gradient against
@@ -20,8 +23,19 @@ each rank returned against the JAX package on the same NumPy data:
   ``ProgramKey`` sharding component; a 2 x 2 run that mixes (that file's
   5-sigma gate); the mesh resume bit for bit; the data-plus-segments and
   indivisible-chains errors (``repro``'s messages); NUTS on 1 x 2 meshes
-  (finite, ranks identical).
+  (finite, ranks identical);
+* ``tests/test_moe_ep.py``'s contracts for ``moe_ffn_ep`` on meshes of
+  half the world (``_torch_dist.moe_ep``): equal to ``moe_ffn`` at 1e-6
+  on a data 1 x model 2 mesh at the default capacity (pairs dropped) and
+  on data 2 x model 1 at capacity E / k, gradients included, with one
+  all-reduce over the expert axis a layer; deepseek's smoke config with
+  ``moe_impl="ep"`` finite and equal to the gspmd dispatch.
 """
+import atexit
+import shutil
+import tempfile
+import threading
+
 import jax
 import numpy as np
 import pytest
@@ -31,6 +45,7 @@ from repro.sharding import ShardedRun as JShardedRun
 from repro_torch.sharding import spawn_world
 import _torch_dist
 from _jax_reference import _reference_compiled_unoptimised  # noqa: F401
+from _jax_reference import moe_ffn_reference
 
 WORLD = 4
 DATA_GROUPS = ((0, 1), (2, 3))  # plan(data_shards=2): [[0, 1], [2, 3]]
@@ -54,12 +69,37 @@ def _points():
 POINTS = _points()
 
 
+def _spawn_in_background():
+    """Start the module's world in a daemon thread: (thread, result box).
+    Its temporary directory goes at exit, whether the tests ran or not."""
+    root = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    box = {}
+
+    def run():
+        try:
+            box["ranks"] = spawn_world(
+                _torch_dist.run_world, WORLD,
+                args=(root, POINTS), device="cpu",
+                timeout_s=240.0, store_dir=root)
+        except BaseException as exc:  # noqa: BLE001 - raised by the fixture
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, name="mesh-world", daemon=True)
+    thread.start()
+    return thread, box
+
+
+_WORLD = _spawn_in_background()
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("mesh_ckpt"))
-    out = spawn_world(_torch_dist.run_world, WORLD, args=(root, POINTS),
-                      device="cpu", timeout_s=240.0,
-                      store_dir=str(tmp_path_factory.mktemp("store")))
+def ranks():
+    thread, box = _WORLD
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    out = box["ranks"]
     assert [r["rank"] for r in out] == list(range(WORLD))
     assert all(r["backend"] == "gloo" for r in out)
     return out
@@ -312,3 +352,46 @@ def test_nuts_on_a_data_mesh(ranks):
         _same(na["chain"], nb["chain"])
         assert na["collectives"] == nb["collectives"] > 0
     _same(ranks[0]["nuts"]["chain"], ranks[2]["nuts"]["chain"])
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism (tests/test_moe_ep.py's contracts) on 2-rank meshes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mesh,collectives", [
+    ("1x2", {"model": 1, "model+data": 1}),
+    ("2x1", {"data": 1, "model+data": 1})])
+def test_moe_ep_matches_moe_ffn_on_two_ranks(ranks, mesh, collectives):
+    """Every rank returns the whole output and the whole gradient, equal
+    to ``moe_ffn``'s at 1e-6 (each gradient at 1e-6 of its leaf's largest
+    entry, as its sums run over the ranks in another order): forward, one
+    all-reduce over the expert axis (none where it has one rank) and one
+    all-gather over the batch axis (none where it has one rank); backward,
+    one all-reduce of the packed gradients over both axes. The two pairs
+    of ranks, each on its own mesh, agree bit for bit."""
+    params, x, _ = _torch_dist.moe_case()
+    factor = 1.25 if mesh == "1x2" else (_torch_dist.MOE["n_experts"]
+                                         / _torch_dist.MOE["top_k"])
+    assert (_torch_dist.moe_drops(params, x, factor) > 0) == (mesh == "1x2")
+    want_y, _ = moe_ffn_reference(factor)
+    for r in ranks:
+        case = r["moe_ep"][mesh]
+        assert case["collectives"] == collectives
+        np.testing.assert_allclose(case["y"], want_y, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(case["y_ep"], case["y"], rtol=1e-6,
+                                   atol=1e-6)
+        for a, b in zip(case["grads_ep"], case["grads"]):
+            assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max()
+    for r in ranks[1:]:
+        for a, b in zip(r["moe_ep"][mesh]["grads_ep"],
+                        ranks[0]["moe_ep"][mesh]["grads_ep"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_moe_ep_deepseek_smoke_forward(ranks):
+    for r in ranks:
+        d = r["moe_ep"]["deepseek"]
+        assert d["ep"].shape == (2, 16, 256)
+        assert np.isfinite(d["ep"]).all()
+        np.testing.assert_allclose(d["ep"], d["gspmd"], rtol=1e-5,
+                                   atol=1e-5)
+        assert d["collectives"] == {"model": d["moe_layers"]}

@@ -2,21 +2,24 @@
 ``models.bayes_lm.make_train_step``/``TrainState``, remat in ``nn.lm``,
 ``launch.train``, SGLD over an LM's weights) held against the JAX package.
 
-The same weights go through both packages: the JAX package's own
-``init_params`` carried into the port by ``convert.params_from_reference``,
-and one NumPy batch. Each JAX computation is one ``jax.jit`` program that
-returns the step's metrics, new state and the gradient it clipped (read at
-``optim.clip_by_global_norm``, stubbed for the trace), so one compile an
-architecture serves every comparison. Smoke configs in float32.
-Tolerances: metrics at rtol 1e-5; the gradient (``jax.value_and_grad`` of
-the scaled log-joint) at 1e-5 of each leaf's max |g|; after one AdamW
-step the params at atol 1e-6 + rtol 1e-5 (Adam's first step moves an entry
-by about lr·sign(g), so entries whose reference gradient is within 1e-4
-of its leaf's max of 0 — float32 noise for the sign — are masked); after
-one SGLD step at temperature 0 (plain, step_size * g) the moves at 1e-5
-of each leaf's max move plus two float32 ulps of the parameter.
-The port's own contracts (``train()``, microbatching, remat, resume) are
-port against port, on the CPU.
+The same weights go through both packages: the port's seeded
+``init_params`` carried into the JAX package's tree (``_jax_params``: the
+JAX package's own init keys on Python's salted ``hash``, ROADMAP Queue 3 C,
+so its weights change from one process to the next and a tolerance met in
+one run could be missed in another), carried back into the port by
+``convert.params_from_reference``, and one NumPy batch. Each JAX
+computation is one ``jax.jit`` program that returns the step's metrics, new
+state and the gradient it clipped (read at ``optim.clip_by_global_norm``,
+stubbed for the trace), so one compile an architecture serves every
+comparison. Smoke configs in float32. Tolerances: metrics at rtol 1e-5; the
+gradient (``jax.value_and_grad`` of the scaled log-joint) at 1e-5 of each
+leaf's max |g|; after one AdamW step the params at atol 1e-6 + rtol 1e-5
+(Adam's first step moves an entry by about lr·sign(g), so entries whose
+reference gradient is within 1e-4 of its leaf's max of 0 — float32 noise
+for the sign — are masked); after one SGLD step at temperature 0 (plain,
+step_size * g) the moves at 1e-5 of each leaf's max move plus two float32
+ulps of the parameter. The port's own contracts (``train()``,
+microbatching, remat, resume) are port against port, on the CPU.
 """
 import dataclasses
 import functools
@@ -35,7 +38,6 @@ from repro import optim as joptim
 from repro.infer.sgld import SGLD as JSGLD
 from repro.infer.sgld import make_sgld_step as jmake_sgld_step
 from repro.models import bayes_lm as jbayes
-from repro.nn import lm as jlm
 from repro_torch import ckpt as tckpt
 from repro_torch import configs as tconfigs
 from repro_torch import optim as toptim
@@ -139,12 +141,23 @@ def _stub_clip(monkeypatch, module, seen):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_params(arch):
+    """The port's seeded init as the JAX package's tree of arrays (the
+    port keeps its structure key for key)."""
+    tp = tlm.init_params(tconfigs.get_smoke_config(arch), seed=0,
+                         device="cpu")
+    dtype = jconfigs.get_smoke_config(arch).dtype
+    return jax.tree_util.tree_map(
+        lambda t: jnp.asarray(t.to(torch.float32).numpy(), dtype), tp)
+
+
+@functools.lru_cache(maxsize=None)
 def _reference(arch):
-    """repro's one MAP and one SGLD step from its own init, as NumPy:
+    """repro's one MAP and one SGLD step from ``_jax_params``, as NumPy:
     {mode: (params, batch, new params, metrics, clipped tree)}, both from
     one jitted program."""
     cfg = jconfigs.get_smoke_config(arch)
-    params = jlm.init_params(cfg, seed=0)
+    params = _jax_params(arch)
     batch = _np_batch(cfg.vocab)
     steps = {mode: jbayes.make_train_step(
         cfg, total_tokens=TOTAL_TOKENS, mode=mode,
@@ -393,7 +406,7 @@ def test_train_state_checkpoint_paths_equal_the_reference(tmp_path):
     restores bit for bit (bfloat16 too)."""
     jcfg = jconfigs.get_smoke_config("smollm-360m")
     tcfg = tconfigs.get_smoke_config("smollm-360m")
-    jparams = jlm.init_params(jcfg, seed=0)
+    jparams = _jax_params("smollm-360m")
     for mode in ("map", "sgld"):
         jstate = jbayes.make_train_step(jcfg, total_tokens=1e4,
                                         mode=mode)[0](jparams)
@@ -430,7 +443,7 @@ def test_make_sgld_step_runs_on_a_bayesian_lm_as_the_reference():
     differentiates is unread and the step leaves it where it was."""
     jcfg = jconfigs.get_smoke_config("smollm-360m")
     tcfg = tconfigs.get_smoke_config("smollm-360m")
-    jparams = jlm.init_params(jcfg, seed=0)
+    jparams = _jax_params("smollm-360m")
     batch = _np_batch(jcfg.vocab, rows=2, seq=8)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jm = jbayes.make_lm_model(jcfg)(params=jparams, **jb)
